@@ -13,6 +13,9 @@ Pallas kernel ``pallas_kernels.pallas_block_best``; the CUDA source is
 - ``block_best`` is the wrapper: it checks devices, dtypes, shapes and
   contiguity, and for CUDA tensors launches the kernel on the current
   stream (or raises). Each launch adds one to ``LAUNCHES["block_best"]``.
+- ``plan_grid`` chooses the launch from the window: rows per CTA and the
+  thread block cluster that splits each pool block's slots. It is plain
+  Python so that the CPU tests reach it; the SM count comes from the card.
 - The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
   ``build/torch_kernels/<hash of source and flags>/`` under the repository
   root (``MM_KERNEL_BUILD_DIR`` overrides), and loaded with ``ctypes``.
@@ -25,12 +28,16 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import threading
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -65,6 +72,74 @@ OPS_PER_PAIR_GLICKO2 = 6
 def ops_per_pair(*, glicko2: bool, filters: bool) -> int:
     return (OPS_PER_PAIR_BASE + (OPS_PER_PAIR_FILTERS if filters else 0)
             + (OPS_PER_PAIR_GLICKO2 if glicko2 else 0))
+
+
+#: The kernel's CTA (csrc/block_best.cu) is 8 warps of 8 request rows each;
+#: a CTA holds one of ROWS_PER_CTA rows, and the warps that hold no rows of
+#: their own split the candidates.
+ROWS_PER_CTA = (8, 16, 32, 64)
+#: Each pool block's records start on a multiple of this many slots in the
+#: scratch (the bulk copies need 16-B aligned addresses); kAlign in the .cu.
+RECORD_ALIGN = 16
+
+
+class GridPlan(NamedTuple):
+    rows_per_cta: int       # request rows per CTA
+    cluster: int            # CTAs that split one pool block's slots
+    grid: tuple[int, int]   # (n_blocks * cluster, row groups)
+
+
+def record_stride(pool_block: int) -> int:
+    """Slots per pool block in the record scratch."""
+    return -(-pool_block // RECORD_ALIGN) * RECORD_ALIGN
+
+
+def _can_split(pool_block: int, cluster: int) -> bool:
+    return (pool_block % cluster == 0
+            and (pool_block // cluster) % RECORD_ALIGN == 0)
+
+
+#: plan_grid's moves, in order: one cluster split first (it keeps 64 rows
+#: of reuse per staged record), then fewer rows per CTA down to 16, then
+#: larger clusters (8 CTAs is the portable limit), then 8 rows. The order
+#: comes from timing every plan of every variant on the card
+#: (``chip_smoke.py --plan-sweep``).
+PLAN_MOVES = (("cluster", 2), ("rows", 32), ("rows", 16), ("cluster", 4),
+              ("cluster", 8), ("rows", 8))
+
+
+@lru_cache(maxsize=None)
+def plan_grid(n_rows: int, n_blocks: int, pool_block: int,
+              sm_count: int) -> GridPlan:
+    """The launch for one window. Start from the fewest rows per CTA that
+    hold the window (no more than 64) and no cluster; while the grid has
+    fewer than two CTAs per SM, take the next of ``PLAN_MOVES`` that
+    applies (a cluster split only while every slice stays a multiple of
+    ``RECORD_ALIGN`` slots). Below two CTAs per SM, where they land on
+    the SMs decides the time: on the H100 a 256-CTA grid ran up to 1.9x
+    slower than a 512-CTA one at B = 1,024."""
+    rows = ROWS_PER_CTA[0]
+    while rows < ROWS_PER_CTA[-1] and rows < n_rows:
+        rows *= 2
+    cluster = 1
+
+    def groups() -> int:
+        return -(-n_rows // rows)
+
+    for kind, value in PLAN_MOVES:
+        if n_blocks * cluster * groups() >= 2 * sm_count:
+            break
+        if kind == "rows":
+            rows = min(rows, value)
+        elif _can_split(pool_block, value):
+            cluster = max(cluster, value)
+    return GridPlan(rows, cluster, (n_blocks * cluster, groups()))
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build_dir() -> Path:
@@ -116,8 +191,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.block_best_launch
-            fn.argtypes = ([ctypes.c_void_p] * 16
-                           + [ctypes.c_int] * 4 + [ctypes.c_float]
+            fn.argtypes = ([ctypes.c_void_p] * 18
+                           + [ctypes.c_int] * 6 + [ctypes.c_float]
                            + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -125,9 +200,16 @@ def _load():
     return _lib
 
 
+_F32 = struct.Struct("f")
+
+
 def _f32(x: float) -> float:
-    """Round a Python float to the nearest f32 (what the kernel receives)."""
-    return float(torch.tensor(x, dtype=torch.float32))
+    """Round a Python float to the nearest f32 (what the kernel receives),
+    as a cast to torch.float32 does, without making a tensor."""
+    try:
+        return _F32.unpack(_F32.pack(x))[0]
+    except OverflowError:  # rounds past the largest finite f32
+        return math.copysign(math.inf, x)
 
 
 def effective_threshold(thr, enqueue_t, now: float, widen_per_sec: float,
@@ -213,9 +295,10 @@ def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
     """Best candidate per pool block: (vals f32[B, n_blocks], idx
     i32[B, n_blocks]); -inf / ``capacity`` where a block has none.
 
-    CUDA tensors launch the ``csrc/block_best.cu`` kernel on the current
-    stream; CPU tensors take ``block_best_reference``. Nothing falls back:
-    a kernel that cannot build or launch raises."""
+    CUDA tensors launch the ``csrc/block_best.cu`` kernels (record prep,
+    then the scorer, planned by ``plan_grid``) on the current stream; CPU
+    tensors take ``block_best_reference``. Nothing falls back: a kernel that
+    cannot build or launch raises."""
     device, capacity, n_rows = _check(pool, batch, q_thr_eff, pool_block)
     kw = dict(pool_block=pool_block, glicko2=glicko2, filters=filters,
               widen_per_sec=widen_per_sec, max_threshold=max_threshold,
@@ -224,10 +307,33 @@ def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
         return block_best_reference(pool, batch, q_thr_eff, now, **kw)
     if device.type != "cuda":
         raise ValueError(f"block_best runs on cuda or cpu tensors, not {device}")
+    n_blocks = capacity // pool_block
+    plan = plan_grid(n_rows, n_blocks, pool_block,
+                     sm_count(device.index if device.index is not None
+                              else torch.cuda.current_device()))
+    return _launch(plan, pool, batch, q_thr_eff, now, **kw)
+
+
+def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
+            *, pool_block: int, glicko2: bool, filters: bool,
+            widen_per_sec: float, max_threshold: float, g_coeff: float):
+    """Launch the kernels with the given plan on inputs that ``_check``
+    passed, all on one CUDA device (``block_best``'s launch; ``chip_smoke.py
+    --plan-sweep`` times every plan through it)."""
     lib = _load()
+    device = pool["rating"].device
+    capacity, n_rows = pool["rating"].shape[0], batch["rating"].shape[0]
     n_blocks = capacity // pool_block
     out_v = torch.empty((n_rows, n_blocks), dtype=torch.float32, device=device)
     out_i = torch.empty((n_rows, n_blocks), dtype=torch.int32, device=device)
+    # Per-slot records, in one scratch: (rating, threshold) as 8 B a slot,
+    # then, for the Glicko-2 and filter instances, 16 B of (rd², region,
+    # mode). n_rec is a multiple of RECORD_ALIGN, so the second part starts
+    # 128-B aligned.
+    n_rec = n_blocks * record_stride(pool_block)
+    extra = glicko2 or filters
+    rec = torch.empty(n_rec * (24 if extra else 8), dtype=torch.uint8,
+                      device=device)
     with torch.cuda.device(device):  # the launch targets the current device
         rc = lib.block_best_launch(
             pool["rating"].data_ptr(), pool["rd"].data_ptr(),
@@ -238,8 +344,10 @@ def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
             batch["rd"].data_ptr(), q_thr_eff.data_ptr(),
             batch["region"].data_ptr(), batch["mode"].data_ptr(),
             batch["valid"].data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(),
-            n_rows, n_blocks, pool_block, capacity, _f32(now),
+            out_v.data_ptr(), out_i.data_ptr(), rec.data_ptr(),
+            rec.data_ptr() + 8 * n_rec if extra else None,
+            n_rows, n_blocks, pool_block, capacity, plan.rows_per_cta,
+            plan.cluster, _f32(now),
             int(glicko2), int(filters), _f32(widen_per_sec),
             _f32(max_threshold), _f32(g_coeff),
             torch.cuda.current_stream(device).cuda_stream)

@@ -138,14 +138,18 @@ class GpuEngine(Engine):
 
     def warmup(self) -> None:
         """Build the kernel (CUDA) and run every bucket's all-padding
-        window through both step variants: nothing is admitted, matched or
-        evicted, so the pool is unchanged."""
+        window through both step variants, reading each result back as a
+        window does: nothing is admitted, matched or evicted, so the pool
+        is unchanged, and no first-of-its-kind window pays a first use."""
         for bucket in self.buckets:
             packed = self._to_device(
                 pack_batch(self.pool.batch_arrays([], [], bucket), 0.0))
             for skip in (False, True):
-                self.kernels.search_step_packed(self.dev_pool, packed, 0.0,
-                                                skip_filters=skip)
+                self.kernels.search_step_packed(
+                    self.dev_pool, packed, 0.0, skip_filters=skip).cpu()
+        # _finalize's first release: np.unique imports numpy.ma on first use
+        # (numpy 2.3), ~50 ms where no bytecode is cached. Nothing is freed.
+        self.pool.release(np.empty(0, np.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

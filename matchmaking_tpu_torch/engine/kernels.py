@@ -9,9 +9,9 @@ One call processes a whole request window against the whole pool:
     → eviction of both sides of every formed pair
 
 Port of ``matchmaking_tpu/engine/kernels.py``'s dense ``KernelSet`` path.
-Plain functions on tensors with an explicit device: the pool is a dict of
-1-D tensors (``core.pool.POOL_FIELDS``) updated IN PLACE where the JAX code
-donated its buffers. Admission, pairing and eviction are plain PyTorch in
+Plain functions on tensors with an explicit device: the pool is a
+``DevicePool``, a dict of 1-D tensors (``core.pool.POOL_FIELDS``) updated IN
+PLACE where the JAX code donated its buffers. Admission, pairing and eviction are plain PyTorch in
 this slice; the JAX code's scatter-free forms (equality matmuls, compare
 masks) were TPU workarounds, so the port writes them as the indexed
 updates they stand for, with the same results.
@@ -55,19 +55,35 @@ def effective_pool_block(capacity: int, pool_block: int, top_k: int) -> int:
     return pool_block
 
 
-def fresh_pool(capacity: int, device) -> dict[str, torch.Tensor]:
+class DevicePool(dict):
+    """The device pool: a dict of the ``POOL_FIELDS`` columns, each the
+    first ``capacity`` elements of the tensor of the same name in ``full``,
+    which has one spare element more. ``admit`` writes padding lanes into
+    the spare (index ``capacity``), which no column shows."""
+
+    def __init__(self, full: dict[str, torch.Tensor]):
+        super().__init__((name, t[:-1]) for name, t in full.items())
+        self.full = full
+
+
+def fresh_pool(capacity: int, device) -> DevicePool:
     """Empty device pool: every slot inactive."""
-    return {name: torch.zeros(capacity, dtype=_TORCH_DTYPE[np.dtype(dt)],
-                              device=device)
-            for name, dt in POOL_FIELDS}
+    return DevicePool({name: torch.zeros(capacity + 1,
+                                         dtype=_TORCH_DTYPE[np.dtype(dt)],
+                                         device=device)
+                       for name, dt in POOL_FIELDS})
 
 
-def pool_from_reference(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+def pool_from_reference(arrays: dict[str, np.ndarray], device) -> DevicePool:
     """The JAX package's pool dict (``PlayerPool.empty_device_arrays``
     layout, fetched with ``np.asarray``) → the port's device pool."""
-    return {name: torch.tensor(np.asarray(arrays[name], dtype=dt),
-                               device=device)
-            for name, dt in POOL_FIELDS}
+    full = {}
+    for name, dt in POOL_FIELDS:
+        a = np.asarray(arrays[name], dtype=dt)
+        full[name] = torch.zeros(a.shape[0] + 1,
+                                 dtype=_TORCH_DTYPE[np.dtype(dt)], device=device)
+        full[name][:-1] = torch.from_numpy(a)
+    return DevicePool(full)
 
 
 def pool_to_numpy(pool: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
@@ -89,25 +105,33 @@ def unpack_batch(packed: torch.Tensor) -> dict[str, torch.Tensor]:
     }
 
 
-def admit(pool: dict[str, torch.Tensor], batch: dict[str, torch.Tensor]) -> None:
+def admit(pool: DevicePool, batch: dict[str, torch.Tensor]) -> None:
     """Write every lane with a real slot (< capacity) into the pool, in
     place, and mark it active. Like the JAX admission, this goes by slot,
-    not by ``valid``: padding lanes carry the sentinel slot ``capacity``."""
+    not by ``valid``: padding lanes carry the sentinel slot ``capacity``.
+
+    No host sync: every lane is written, the padding lanes into the spare
+    element past the pool (index ``capacity``), which no view shows. Real
+    slots of a window are distinct, so only the spare sees duplicate
+    indices, whose last writer does not matter."""
+    if not isinstance(pool, DevicePool):
+        raise ValueError("admit needs a DevicePool, whose columns have the "
+                         "spare element (fresh_pool / pool_from_reference)")
     capacity = pool["rating"].shape[0]
-    lanes = batch["slot"] < capacity
-    slots = batch["slot"][lanes].long()
+    idx = torch.where(batch["slot"] < capacity, batch["slot"], capacity).long()
     for f in ADMIT_FIELDS:
-        pool[f][slots] = batch[f][lanes].to(pool[f].dtype)
-    pool["active"][slots] = True
+        pool.full[f].index_put_((idx,), batch[f].to(pool[f].dtype))
+    pool.full["active"].index_fill_(0, idx, True)
 
 
 def evict(pool: dict[str, torch.Tensor], slots: torch.Tensor) -> None:
     """Mark ``slots`` inactive, in place; entries ≥ capacity are padding.
     The sentinel lands in a spare last element of a scratch mask, so no
-    host round trip is needed to drop it."""
+    host round trip is needed to drop it. (``index_fill_`` with a Python
+    scalar, where ``t[idx] = True`` would copy the scalar from the host.)"""
     capacity = pool["active"].shape[0]
     hit = torch.zeros(capacity + 1, dtype=torch.bool, device=slots.device)
-    hit[slots.long().clamp(0, capacity)] = True
+    hit.index_fill_(0, slots.long().clamp(0, capacity), True)
     pool["active"] &= ~hit[:capacity]
 
 
@@ -131,8 +155,9 @@ def greedy_pair(vals, idxs, self_slot, capacity: int, rounds: int = 8,
     hold ``capacity`` / +inf."""
     b, _ = vals.shape
     dev = vals.device
-    neg_inf = torch.tensor(float("-inf"), dtype=vals.dtype, device=dev)
-    cap = torch.tensor(capacity, dtype=torch.int32, device=dev)
+    # Device scalars made by a fill, not copied from the host (no sync).
+    neg_inf = torch.full((), float("-inf"), dtype=vals.dtype, device=dev)
+    cap = torch.full((), capacity, dtype=torch.int32, device=dev)
     if rid is None:
         rid = torch.arange(b, dtype=torch.int32, device=dev)
     s = self_slot
@@ -160,8 +185,10 @@ def greedy_pair(vals, idxs, self_slot, capacity: int, rounds: int = 8,
         out_c = torch.where(win, bc, out_c)
         out_d = torch.where(win, -bv, out_d)
         retired = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
-        retired[torch.where(win, s, cap).long().clamp(0, capacity)] = True
-        retired[torch.where(win, bc, cap).long().clamp(0, capacity)] = True
+        retired.index_fill_(0, torch.where(win, s, cap).long()
+                            .clamp(0, capacity), True)
+        retired.index_fill_(0, torch.where(win, bc, cap).long()
+                            .clamp(0, capacity), True)
         cand_dead = cand_dead | retired[idxs.long().clamp(0, capacity)]
         row_dead = row_dead | retired[s.long().clamp(0, capacity)]
     return out_q, out_c, out_d

@@ -211,3 +211,115 @@ def test_wrapper_rejects_bad_inputs():
     before = cuda_kernels.LAUNCHES["block_best"]
     cuda_kernels.block_best(pool, batch, thr, 0.0, **kw)
     assert cuda_kernels.LAUNCHES["block_best"] == before  # CPU: no launch
+
+
+PLAN_SHAPES = ([(b, 16, 8192) for b in (16, 64, 256, 1024)]
+               + [(1, 16, 8192), (33, 16, 8192), (16, 4, 64), (1, 8, 128),
+                  (33, 2, 1536), (5, 8, 125), (100, 4, 4096)])
+
+
+@pytest.mark.parametrize("sm_count", [132, 16])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_grid_covers_each_pair_once(shape, sm_count):
+    """Every CTA (x, y) of the plan scores rows of group y against the
+    slots of cluster rank x % S of block x // S; together they must cover
+    every (row, block, slot) exactly once."""
+    n_rows, n_blocks, pool_block = shape
+    plan = cuda_kernels.plan_grid(n_rows, n_blocks, pool_block, sm_count)
+    # One plan per window shape, computed once (the wrapper's host cost).
+    assert cuda_kernels.plan_grid(n_rows, n_blocks, pool_block, sm_count) is plan
+    rows, s = plan.rows_per_cta, plan.cluster
+    assert rows in cuda_kernels.ROWS_PER_CTA
+    assert s in (1, 2, 4, 8) and pool_block % s == 0
+    assert s == 1 or (pool_block // s) % cuda_kernels.RECORD_ALIGN == 0
+    gx, gy = plan.grid
+    assert gx == n_blocks * s
+    row_hits = np.zeros(n_rows, int)
+    slot_hits = np.zeros(n_blocks * pool_block, int)
+    slice_ = pool_block // s
+    for y in range(gy):
+        row_hits[y * rows:min(n_rows, (y + 1) * rows)] += 1
+    assert (gy - 1) * rows < n_rows  # no CTA row group is wholly empty
+    for x in range(gx):
+        blk, rank = divmod(x, s)
+        lo = blk * pool_block + rank * slice_
+        slot_hits[lo:lo + slice_] += 1
+    assert (row_hits == 1).all() and (slot_hits == 1).all()
+    if gx * gy < 2 * sm_count:  # short of two CTAs per SM: split no further
+        assert rows == 8
+        assert s == 8 or not (pool_block % (2 * s) == 0
+                              and (pool_block // (2 * s)) % 16 == 0)
+
+
+def split_merge(pool, batch, q_thr, now, kw, cluster):
+    """The kernel's decomposition in plain PyTorch: each cluster rank's
+    slice of every block alone, then the merge of the partials (larger
+    value, or on equal values the lower slot)."""
+    capacity = pool["rating"].shape[0]
+    slice_ = kw["pool_block"] // cluster
+    rank = (torch.arange(capacity) % kw["pool_block"]) // slice_
+    best = None
+    for q in range(cluster):
+        part = dict(pool, active=pool["active"] & (rank == q))
+        v, i = cuda_kernels.block_best_reference(part, batch, q_thr, now, **kw)
+        if best is None:
+            best = (v, i)
+            continue
+        bv, bi = best
+        take = (v > bv) | ((v == bv) & (i < bi))
+        best = (torch.where(take, v, bv), torch.where(take, i, bi))
+    return best
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("case", list(CASES) + ["tie"])
+def test_cluster_split_and_merge_equals_whole_block(case, cluster):
+    rng = np.random.default_rng(17)
+    P, B, blk = 1024, 48, 256
+    if case == "tie":
+        # 1510 and 1490 around 1500 in every quarter of each block, so the
+        # tie spans the cluster's slices: the lowest slot must win.
+        c = dict(glicko2=False, widen=0.0, filters=False)
+        pool_np = JaxPlayerPool.empty_device_arrays(P)
+        firsts = []
+        for b in range(P // blk):
+            for j, r in enumerate((1510.0, 1490.0, 1490.0, 1510.0)):
+                s = b * blk + j * (blk // 4) + 3 + b
+                pool_np["rating"][s] = r
+                pool_np["active"][s] = True
+            firsts.append(b * blk + 3 + b)
+        pool_np["threshold"][:] = 100.0
+        batch_np = make_batch(rng, B, P, filters=False)
+        batch_np["slot"][:] = P
+        batch_np["rating"][:] = 1500.0
+    else:
+        c = CASES[case]
+        pool_np = make_pool(rng, P, 700, c["filters"])
+        batch_np = make_batch(rng, B, 680, c["filters"])
+    pool = pool_from_reference(pool_np, "cpu")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in batch_np.items()}
+    q_thr = batch["threshold"]
+    kw = dict(pool_block=blk, glicko2=c["glicko2"], filters=True,
+              widen_per_sec=c["widen"], max_threshold=300.0,
+              g_coeff=scoring.G_COEFF_F32)
+    whole = cuda_kernels.block_best_reference(pool, batch, q_thr, 6.0, **kw)
+    merged = split_merge(pool, batch, q_thr, 6.0, kw, cluster)
+    assert torch.equal(merged[1], whole[1])
+    assert torch.equal(merged[0].view(torch.int32), whole[0].view(torch.int32))
+    if case == "tie":
+        assert torch.equal(whole[1], torch.tensor(firsts, dtype=torch.int32)
+                           .expand(B, P // blk))
+    else:
+        assert torch.isfinite(whole[0]).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("x", [0.1, -0.0, 1500.123456789, 1e-46, 3.4028235e38,
+                               3.4028235677973366e38, 1e39, -1e39,
+                               float("inf"), float("nan")])
+def test_f32_rounds_like_a_torch_cast(x):
+    """The wrapper's host-side f32 rounding (the kernel's scalar arguments)
+    equals a cast to torch.float32, bit for bit."""
+    want = torch.tensor(x, dtype=torch.float32)
+    got = torch.tensor(cuda_kernels._f32(x), dtype=torch.float32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

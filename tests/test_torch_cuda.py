@@ -18,6 +18,7 @@ import torch
 from matchmaking_tpu_torch.config import Config, EngineConfig, QueueConfig
 from matchmaking_tpu_torch.engine import cuda_kernels, scoring
 from matchmaking_tpu_torch.engine.gpu import GpuEngine
+from matchmaking_tpu_torch.engine.kernels import KernelSet, fresh_pool
 from matchmaking_tpu_torch.service.contract import SearchRequest
 
 pytestmark = pytest.mark.gpu
@@ -65,18 +66,28 @@ def assert_bit_equal(kernel, plain):
     assert torch.equal(kv.view(torch.int32), rv.view(torch.int32))
 
 
+# The four kernel instances (glicko2 x filters), each with widening off and
+# on. A case without filter data also runs the no-filter instance.
 CASES = {
     "elo": dict(glicko2=False, widen=0.0, filters=False),
-    "glicko2": dict(glicko2=True, widen=0.0, filters=False),
     "widen": dict(glicko2=False, widen=7.0, filters=False),
+    "glicko2": dict(glicko2=True, widen=0.0, filters=False),
+    "glicko2_widen": dict(glicko2=True, widen=5.0, filters=False),
     "filters": dict(glicko2=False, widen=0.0, filters=True),
+    "filters_widen": dict(glicko2=False, widen=7.0, filters=True),
+    "glicko2_filters": dict(glicko2=True, widen=0.0, filters=True),
     "all": dict(glicko2=True, widen=5.0, filters=True),
 }
 
+#: (capacity, pool_block, rows): ragged shapes, then the main path's pool
+#: (P = 131,072 in blocks of 8,192) at every window bucket and two odd B.
+GEOMETRIES = ([(16384, 4096, 100), (256, 64, 16), (1024, 128, 1),
+               (3072, 1536, 33), (1000, 125, 20)]
+              + [(131072, 8192, b) for b in (1, 16, 33, 64, 256, 1024)])
+
 
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("geometry", [(16384, 4096, 100), (256, 64, 16),
-                                      (1024, 128, 1), (3072, 1536, 33)])
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 def test_kernel_bit_equal_to_plain(cuda, case, geometry):
     capacity, pool_block, rows = geometry
     c = CASES[case]
@@ -158,3 +169,36 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
         assert ([r.id for r in outs[0].queued]
                 == [r.id for r in outs[1].queued])
         assert engines[0].pool_size() == engines[1].pool_size()
+
+
+@pytest.mark.parametrize("skip_filters", [False, True])
+def test_search_step_packed_does_not_sync(cuda, skip_filters):
+    """Admission, block_best, pairing and eviction of one window run
+    without a device→host synchronisation."""
+    P, B = 16384, 256
+    ks = KernelSet(capacity=P, top_k=8, pool_block=4096, glicko2=True,
+                   widen_per_sec=5.0, max_threshold=250.0)
+    pool = fresh_pool(P, cuda)
+    rng = np.random.default_rng(4)
+
+    def window(start, n_valid):
+        packed = np.zeros((9, B), np.float32)
+        packed[0] = P
+        packed[0, :n_valid] = np.arange(start, start + n_valid)
+        packed[1, :n_valid] = rng.normal(1500, 300, n_valid)
+        packed[2, :n_valid] = rng.uniform(0, 350, n_valid)
+        packed[5, :n_valid] = 100.0
+        packed[6, :n_valid] = rng.uniform(0, 5, n_valid)
+        packed[7, :n_valid] = 1.0
+        return torch.from_numpy(packed).to(cuda)
+
+    ks.admit_packed(pool, window(0, B))
+    step = window(B, 200)  # padding lanes too
+    ks.search_step_packed(pool, window(2 * B, 10), 6.0, skip_filters)  # build
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ks.search_step_packed(pool, step, 6.0, skip_filters)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (out[0] < P).sum() > 0  # it formed matches

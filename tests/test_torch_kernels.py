@@ -16,10 +16,14 @@ import jax.numpy as jnp
 
 from matchmaking_tpu.core.pool import PlayerPool as JaxPlayerPool
 from matchmaking_tpu.engine.kernels import KernelSet as JaxKernelSet
+from matchmaking_tpu.engine.kernels import _admit_block as jax_admit_block
 from matchmaking_tpu.engine.kernels import greedy_pair as jax_greedy_pair
 from matchmaking_tpu_torch.core.pool import POOL_FIELDS
 from matchmaking_tpu_torch.engine.kernels import (
+    DevicePool,
     KernelSet,
+    admit,
+    fresh_pool,
     greedy_pair,
     pool_from_reference,
     pool_to_numpy,
@@ -210,3 +214,53 @@ def test_greedy_pair_matches_jax(seed):
         assert formed.sum() >= 5
         ends = np.concatenate([tq.numpy()[formed], tc.numpy()[formed]])
         assert len(set(ends.tolist())) == ends.size  # conflict-free
+
+
+@pytest.mark.parametrize("n_valid", [64, 40, 0])
+def test_admit_with_padding_matches_jax(n_valid):
+    """Sync-free admission: padding lanes (slot = capacity) write into the
+    pool's spare element, and the pool's visible slots equal the JAX
+    ``_admit_block`` on the same numpy inputs."""
+    rng = np.random.default_rng(5)
+    P, B = 1024, 64
+    pool_np = seeded_pool(rng, P, 300, filters=True)
+    packed = seeded_window(rng, B, n_valid, 300, P, filters=True)
+    packed[1, n_valid:] = 7777.0  # padding lanes carry values of their own
+    jpool = jax_admit_block({k: jnp.asarray(v) for k, v in pool_np.items()},
+                            0, P, jax_batch(packed))
+    tpool = pool_from_reference(pool_np, "cpu")
+    admit(tpool, unpack_batch(torch.from_numpy(packed)))
+    port_np = pool_to_numpy(tpool)
+    for name, _ in POOL_FIELDS:
+        assert port_np[name].shape == (P,)
+        np.testing.assert_array_equal(port_np[name], np.asarray(jpool[name]),
+                                      err_msg=name)
+    assert int(port_np["active"].sum()) == 300 + n_valid
+
+
+def test_admit_refuses_a_pool_without_its_spare():
+    pool = {k: v.clone() for k, v in fresh_pool(256, "cpu").items()}
+    packed = torch.from_numpy(seeded_window(np.random.default_rng(0), 16, 8,
+                                            0, 256, False))
+    with pytest.raises(ValueError, match="spare"):
+        admit(pool, unpack_batch(packed))
+
+
+@pytest.mark.parametrize("make", ["fresh_pool", "pool_from_reference"])
+def test_device_pool_columns_view_the_spare_tensors(make):
+    """Each column is the first ``capacity`` elements of ``pool.full``,
+    and a write to the spare element shows in no column."""
+    P = 256
+    pool = (fresh_pool(P, "cpu") if make == "fresh_pool" else
+            pool_from_reference(seeded_pool(np.random.default_rng(3), P, 100,
+                                            True), "cpu"))
+    assert isinstance(pool, DevicePool) and set(pool) == set(pool.full)
+    for name, _ in POOL_FIELDS:
+        full = pool.full[name]
+        assert full.shape == (P + 1,) and pool[name].shape == (P,)
+        assert pool[name].data_ptr() == full.data_ptr()
+        before = pool[name].clone()
+        full[P] = 1
+        assert torch.equal(pool[name], before)
+        full[0] = 1
+        assert bool(pool[name][0] == 1)
