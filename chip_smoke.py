@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (matchmaking_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--out results.json] [--profile]
-                          [--baseline-tree DIR] [--plan-sweep]
+    python3 chip_smoke.py [--out results.json] [--baseline-tree DIR]
+                          [--plan-sweep]
 
 Phases, each of which raises (exit code != 0) when it fails:
 
-1. build: compile csrc/block_best.cu with nvcc for sm_90a; print the card
-   and its max SM clock; report each kernel instance's registers, shared
-   memory and spills (ptxas) and the ELO scorer's inner-loop instructions
-   per pair (cuobjdump -sass, where the toolkit has it).
+1. build: compile csrc/block_best.cu with nvcc for sm_90a and, beside it,
+   the wire codec csrc/codec.cc with g++; print the card and its max SM
+   clock; report each kernel instance's registers, shared memory and
+   spills (ptxas) and the ELO scorer's inner-loop instructions per pair
+   (cuobjdump -sass, where the toolkit has it).
 2. kernel: the block_best kernel against its plain PyTorch version on the
    same CUDA tensors, at full pool width (P = 131,072 slots in blocks of
    8,192, 100k active) and every window bucket (B = 16, 64, 256, 1,024),
@@ -24,38 +25,46 @@ Phases, each of which raises (exit code != 0) when it fails:
    tree's kernel source; it is checked the same way and timed in turns
    with this one (old, new, new, old) on the same inputs.
 3. engine: the main path. GpuEngine with configs/elo_1v1.json (backend
-   overridden to "gpu"), filled to 100k waiting players with restore(),
-   then 24 windows of 1,024 requests through search(). Checks that no
-   player is in two matches, every pair fits both effective thresholds,
-   pool_size accounting holds and block_best launched once per window;
-   re-runs the first 3 windows on a CPU engine fed the same inputs (same
-   pairs). Then configs #2 (filters) and #4 (Glicko-2 + widening) briefly.
-4. service: the in-process service demo on the card (10 players answered).
+   overridden to "gpu"): 100k waiting players through restore_columns(),
+   then 48 windows of 1,024 through search_columns_async() at the config's
+   pipeline depth (2): window N+1 is dispatched before window N is
+   collected with collect_ready(), and flush() ends the run. Restores and
+   dispatches run under torch.cuda.set_sync_debug_mode("error"). Checks:
+   no player in two matches, every pair within both effective thresholds
+   (and filters), every request matched, queued or rejected, pool
+   accounting, one block_best launch per window chunk, the first 3
+   windows' pairs equal a CPU columnar engine's, and an object-path
+   engine on the card (8 windows, the old path's timing and GC) forms the
+   first window's pairs too. Then an expire_deadlines() sweep over the
+   5 % of waiting players stamped with a deadline, and 8 more windows
+   under torch.profiler for the device's busy share. Configs #2 (filters,
+   6 windows) and #4 (Glicko-2 + widening, 24 windows) run the same way,
+   and config #4 runs a two-chunk rescan tick between two windows in
+   flight, which must form matches, the same as on the CPU.
+4. service: the in-process service on the card: the 10-player demo; a
+   soak with 100k restored players and 16,384 requests published in
+   bursts (every request answered once from its window, partners agree,
+   one publish_batch per window; request latency publish → first answer);
+   and config #4's service, whose rescan loop must publish matches.
 
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
 
-``--profile`` splits the first config #1 window into host phases
-(allocate, batch_arrays, the synchronized device step, finalize, GC
-pauses), and adds 8 config #1 windows after the main path's count is
-read: 4 split the same way and 4 under torch.profiler for the device's
-busy share and its kernels.
-
-The last lines of standard output are the max SM clock, the card
-(nvidia-smi name and power limit), one JSON line with the kernel's numbers, and one JSON line
-``{"ok": true, "device": {...}}``. Without CUDA, or without the package
-beside this file, it exits non-zero and prints no result.
+The last lines of standard output are a JSON summary of phases 3-4, the
+max SM clock, the card (nvidia-smi name and power limit), one JSON line
+with the kernel's numbers, and one JSON line ``{"ok": true, "device":
+{...}}``. Without CUDA, or without the package beside this file, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
-import cProfile
 import io
 import json
 import os
-import pstats
 import re
 import statistics
 import subprocess
@@ -459,55 +468,7 @@ def plan_sweep(torch, ck, scoring, device, variants=("elo", "elo_widen",
     return sweep
 
 
-# ---- phase 3: the engine main path -----------------------------------------
-
-
-def make_requests(np, SearchRequest, rng, n, start, now, filters, glicko2):
-    regions = np.array(["eu", "na", "apac", "*"])
-    modes = np.array(["ranked", "casual", "*"])
-    rating = rng.normal(1500.0, 300.0, n)
-    rd = rng.uniform(30.0, 350.0, n) if glicko2 else np.full(n, 350.0)
-    waited = rng.uniform(0.0, 20.0, n)
-    reg = regions[rng.integers(0, 4, n)] if filters else np.full(n, "*")
-    mode = modes[rng.integers(0, 3, n)] if filters else np.full(n, "*")
-    return [SearchRequest(id=f"p{start + i}", rating=float(rating[i]),
-                          rating_deviation=float(rd[i]), region=str(reg[i]),
-                          game_mode=str(mode[i]),
-                          enqueued_at=now - float(waited[i]))
-            for i in range(n)]
-
-
-def check_window(scoring, eng, reqs, out, now, before, seen, glicko2):
-    """The invariants of one window; returns the number of matches."""
-    q = eng.queue
-    for m in out.matches:
-        a, b = m.requests()
-        for r in (a, b):
-            if r.id in seen:
-                raise AssertionError(f"{r.id} is in two matches")
-            seen.add(r.id)
-        d = scoring.distance(a.rating, b.rating, a.rating_deviation,
-                             b.rating_deviation, glicko2=glicko2)
-        limit = min(eng.effective_threshold(a, now), eng.effective_threshold(b, now))
-        if d > limit + 1e-3:
-            raise AssertionError(f"pair {a.id}-{b.id}: d={d} > limit {limit}")
-        if not scoring.region_mode_compatible(a.region, a.game_mode,
-                                              b.region, b.game_mode):
-            raise AssertionError(f"pair {a.id}-{b.id} breaks the filters")
-    matched = {r.id for m in out.matches for r in m.requests()}
-    admitted = len(reqs) - len(out.rejected)
-    if any(r.id not in matched and r.id not in {x.id for x in out.queued}
-           for r in reqs):
-        raise AssertionError("a request was neither matched nor queued")
-    if eng.pool_size() != before + admitted - 2 * len(out.matches):
-        raise AssertionError(
-            f"pool_size {eng.pool_size()} != {before} + {admitted} - "
-            f"2 x {len(out.matches)}")
-    return len(out.matches)
-
-
-def pairs_of(out):
-    return {frozenset(r.id for r in m.requests()) for m in out.matches}
+# ---- phase 3: the engine main path (columnar, pipelined) -------------------
 
 
 class GcClock:
@@ -535,67 +496,108 @@ class GcClock:
 
 
 @contextlib.contextmanager
-def split_phases(torch, eng):
-    """Seconds spent in each host phase of ``eng.search`` while inside:
-    allocate, batch_arrays, the step (with a device sync after it, so it
-    holds the device's work), finalize, and GC pauses."""
-    per = {"allocate": 0.0, "batch_arrays": 0.0, "step": 0.0,
-           "finalize": 0.0, "gc": 0.0}
-
-    def timed(name, fn, sync=False):
-        def call(*a, **k):
-            t = time.perf_counter()
-            r = fn(*a, **k)
-            if sync:
-                torch.cuda.synchronize()
-            per[name] += time.perf_counter() - t
-            return r
-        return call
-
-    eng.pool.allocate = timed("allocate", eng.pool.allocate)
-    eng.pool.batch_arrays = timed("batch_arrays", eng.pool.batch_arrays)
-    eng.kernels.search_step_packed = timed(
-        "step", eng.kernels.search_step_packed, sync=True)
-    eng._finalize = timed("finalize", eng._finalize)
+def no_sync(torch):
+    """Any device→host synchronisation inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        with GcClock() as gc_clock:
-            yield per
-        per["gc"] = gc_clock.total
+        yield
     finally:
-        for name in ("allocate", "batch_arrays"):
-            del eng.pool.__dict__[name]
-        del eng.kernels.__dict__["search_step_packed"]
-        del eng.__dict__["_finalize"]
+        torch.cuda.set_sync_debug_mode(0)
 
 
-def split_ms(per, search_s, windows):
-    split = {k: v / windows * 1e3 for k, v in per.items()}
-    split["search"] = search_s / windows * 1e3
-    split["other"] = split["search"] - sum(
-        split[k] for k in ("allocate", "batch_arrays", "step", "finalize"))
-    return split
+class Population:
+    """Seeded players, row k = player ``p<k>``: the columns the engines
+    get, and the host copy the checks read."""
+
+    REGIONS = ("eu", "na", "apac", "*")
+    MODES = ("ranked", "casual", "*")
+
+    def __init__(self, np, rng, n, t0, *, filters, glicko2, deadline_frac=0.0):
+        self.np = np
+        self.rating = rng.normal(1500.0, 300.0, n).astype(np.float32)
+        self.rd = (rng.uniform(30.0, 350.0, n) if glicko2
+                   else np.full(n, 350.0)).astype(np.float32)
+        self.waited = rng.uniform(0.0, 20.0, n)
+        pick = lambda names: (np.array(names, object)[rng.integers(0, len(names), n)]
+                              if filters else np.full(n, "*", object))
+        self.region, self.mode = pick(self.REGIONS), pick(self.MODES)
+        self.deadline = np.where(rng.random(n) < deadline_frac, t0 + 50.0, 0.0)
+        self.ids = np.char.add("p", np.arange(n).astype(str)).astype(object)
+
+    def columns(self, RequestColumns, eng, lo, hi, now, reply="replies"):
+        """Rows [lo, hi) enqueued at ``now`` minus their wait, interned by
+        ``eng``."""
+        np = self.np
+        sl = slice(lo, hi)
+        region, mode = eng.intern_columns(self.region[sl].tolist(),
+                                          self.mode[sl].tolist())
+        return RequestColumns(
+            ids=self.ids[sl].copy(), rating=self.rating[sl], rd=self.rd[sl],
+            region=region, mode=mode,
+            threshold=np.full(hi - lo, np.nan, np.float32),
+            enqueued_at=now - self.waited[sl],
+            reply_to=np.full(hi - lo, reply, object),
+            correlation_id=self.ids[sl].copy(), deadline=self.deadline[sl])
+
+    def rows(self, ids):
+        return self.np.array([int(p[1:]) for p in ids.tolist()], self.np.int64)
 
 
-def profile_windows(torch, eng, windows, t_first):
-    """Split the step of ``windows`` into host phases (``split_phases``),
-    then run the same count of further windows under torch.profiler for
-    the device's busy share."""
+def check_columnar(np, scoring, eng, pop, out, now, enq, seen, glicko2,
+                   window_ids=None):
+    """The invariants of one collected ColumnarOutcome: nobody in two
+    matches, every pair within both effective thresholds and filters, the
+    reported distance the pair's, and (traffic windows) every request
+    matched, queued or rejected. ``enq`` maps a row to its enqueue time."""
+    q = eng.queue
+    a, b = pop.rows(out.m_id_a), pop.rows(out.m_id_b)
+    for pid in out.m_id_a.tolist() + out.m_id_b.tolist():
+        if pid in seen:
+            raise AssertionError(f"{pid} is in two matches")
+        seen.add(pid)
+    for j in range(out.n_matches):
+        ra, rb = a[j], b[j]
+        d = scoring.distance(float(pop.rating[ra]), float(pop.rating[rb]),
+                             float(pop.rd[ra]), float(pop.rd[rb]),
+                             glicko2=glicko2)
+        eff = [min(q.max_threshold, q.rating_threshold + q.widen_per_sec
+                   * max(0.0, now - enq[r])) if q.widen_per_sec > 0
+               else q.rating_threshold for r in (ra, rb)]
+        if d > min(eff) + 1e-3:
+            raise AssertionError(f"pair p{ra}-p{rb}: d={d} > limit {min(eff)}")
+        if abs(d - float(out.m_dist[j])) > 1e-3 * max(1.0, d):
+            raise AssertionError(f"pair p{ra}-p{rb}: reported {out.m_dist[j]}, "
+                                 f"recomputed {d}")
+        if not scoring.region_mode_compatible(pop.region[ra], pop.mode[ra],
+                                              pop.region[rb], pop.mode[rb]):
+            raise AssertionError(f"pair p{ra}-p{rb} breaks the filters")
+    if window_ids is not None:
+        done = set(out.q_ids.tolist()) | seen | {p for p, _ in out.rejected}
+        if any(p not in done for p in window_ids.tolist()):
+            raise AssertionError("a request was neither matched, queued "
+                                 "nor rejected")
+    return out.n_matches
+
+
+def pair_set(out):
+    return {frozenset(p) for p in zip(out.m_id_a.tolist(), out.m_id_b.tolist())}
+
+
+def pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def device_busy(torch, run):
+    """torch.profiler over ``run()``: the device's busy share of the wall
+    time and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    half = len(windows) // 2
-    search_s = 0.0
-    with split_phases(torch, eng) as per:
-        for w, reqs in enumerate(windows[:half]):
-            t = time.perf_counter()
-            eng.search(reqs, t_first + w)
-            search_s += time.perf_counter() - t
-    split = split_ms(per, search_s, half)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for w, reqs in enumerate(windows[half:]):
-            eng.search(reqs, t_first + half + w)
+        n = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     kernels = []
@@ -606,108 +608,478 @@ def profile_windows(torch, eng, windows, t_first):
             kernels.append((dev, e.count, e.key))
     kernels.sort(reverse=True)
     device_us = sum(k[0] for k in kernels)
-    n = len(windows) - half
-    return {
-        "windows_split": half, "windows_profiled": n,
-        "split_ms_per_window": split,
-        "profiled_wall_ms_per_window": wall / n * 1e3,
-        "device_ms_per_window": device_us / n / 1e3,
-        "device_busy_share": device_us / 1e6 / wall if wall else 0.0,
-        "top_kernels": [{"name": k[2][:90], "count": k[1],
-                         "device_ms_per_window": k[0] / n / 1e3}
-                        for k in kernels[:12]],
-    }
+    return {"windows": n, "wall_ms_per_window": wall / n * 1e3,
+            "kernels_per_window": sum(k[1] for k in kernels) / n,
+            "device_ms_per_window": device_us / n / 1e3,
+            "device_busy_share": device_us / 1e6 / wall,
+            "device_idle_share": 1.0 - device_us / 1e6 / wall,
+            "top_kernels": [{"name": k[2][:90], "count": k[1],
+                             "device_ms_per_window": k[0] / n / 1e3}
+                            for k in kernels[:10]]}
 
 
-def run_engine(torch, np, ck, scoring, mods, path, *, waiting, windows,
-               cpu_windows, filters, glicko2, seed, profile=0):
-    Config, GpuEngine, SearchRequest = mods
+def greedy_pair_kernels(torch, kernels, capacity, rows, n_blocks, rounds):
+    """Device kernels one ``greedy_pair`` call launches (torch.profiler
+    over one call on window-shaped inputs, after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    vals = -torch.rand(rows, n_blocks, generator=g).cuda() * 100.0
+    idxs = torch.randint(0, capacity, (rows, n_blocks), generator=g,
+                         dtype=torch.int32).cuda()
+    slot = torch.arange(rows, dtype=torch.int32).cuda()
+    kernels.greedy_pair(vals, idxs, slot, capacity, rounds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernels.greedy_pair(vals, idxs, slot, capacity, rounds)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA"))
+
+
+def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
+                 glicko2, filters, seed, cpu_windows, object_windows,
+                 profile_windows):
+    """The main path: ``restore_columns`` fills the pool, then ``windows``
+    windows of 1,024 go through ``search_columns_async`` at the config's
+    pipeline depth, each collected with ``collect_ready`` only after the
+    next is dispatched, and ``flush`` ends the run."""
+    Config, GpuEngine, RequestColumns, SearchRequest = mods
     cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
-    queue = cfg.queues[0]
+    queue, depth = cfg.queues[0], cfg.engine.pipeline_depth
     rng = np.random.default_rng(seed)
     t0 = 1_700_000_000.0
-    fill = make_requests(np, SearchRequest, rng, waiting, 0, t0, filters, glicko2)
-    stream = [make_requests(np, SearchRequest, rng, FULL_B,
-                            waiting + w * FULL_B, t0 + 1.0 + w, filters, glicko2)
-              for w in range(windows)]
+    n_all = waiting + (windows + profile_windows) * FULL_B
+    pop = Population(np, rng, n_all, t0, filters=filters, glicko2=glicko2,
+                     deadline_frac=0.05)
+    enq = np.empty(n_all)
+    now_of = [t0 + 1.0 + 0.05 * w for w in range(windows + profile_windows)]
+    enq[:waiting] = t0 - pop.waited[:waiting]
+    for w, now in enumerate(now_of):
+        lo = waiting + w * FULL_B
+        enq[lo:lo + FULL_B] = now - pop.waited[lo:lo + FULL_B]
     eng = GpuEngine(cfg, queue, device="cuda")
     eng.warmup()
+    fill = pop.columns(RequestColumns, eng, 0, waiting, t0)
+    stream = [pop.columns(RequestColumns, eng, waiting + w * FULL_B,
+                          waiting + (w + 1) * FULL_B, now_of[w])
+              for w in range(windows + profile_windows)]
+    torch.cuda.synchronize()
     t = time.perf_counter()
-    eng.restore(fill, t0)
+    with no_sync(torch):
+        eng.restore_columns(fill, t0)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t
     if eng.pool_size() != waiting:
         raise AssertionError(f"restore left {eng.pool_size()} != {waiting}")
+    deadlines_waiting = eng.deadline_count()
+    util0 = eng.util_report()
+    spans0 = dict(eng.spans)
     ck.LAUNCHES["block_best"] = 0  # count the main path's launches only
-    seen, outs, step_ms, gc_ms, matches = set(), [], [], [], 0
-    first_split = None
-    for w, reqs in enumerate(stream):
-        now = t0 + 1.0 + w
-        before = eng.pool_size()
-        # With --profile, the first window is split into its phases too,
-        # and its Python calls are counted (cProfile) to find what a first
-        # window of the process pays that later ones do not.
-        first = profile and w == 0
-        phases = split_phases(torch, eng) if first else contextlib.nullcontext()
-        calls = cProfile.Profile() if first else None
-        with phases as per, GcClock() as gc_clock:
+    dispatch_ms, turnaround_ms, gc_ms = [], [], []
+    outs, t_disp, token_window = {}, {}, {}
+    with GcClock() as gc_clock:
+        t_run = time.perf_counter()
+        for w in range(windows):
+            gc_before = gc_clock.total
             t = time.perf_counter()
-            if calls is not None:
-                calls.enable()
-            out = eng.search(reqs, now)
-            if calls is not None:
-                calls.disable()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-        gc_ms.append(gc_clock.total * 1e3)
-        if first:
-            first_split = split_ms(per, step_ms[-1] / 1e3, 1)
-            stats = pstats.Stats(calls).stats
-            first_split["top_calls"] = [
-                {"fn": f"{fn[0].rsplit('/', 2)[-1]}:{fn[1]}:{fn[2]}",
-                 "calls": st[1], "tottime_ms": st[2] * 1e3,
-                 "cumtime_ms": st[3] * 1e3}
-                for fn, st in sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]]
-            log(f"first window {path} (under cProfile): {first_split}")
-        matches += check_window(scoring, eng, reqs, out, now, before, seen,
-                                glicko2)
-        outs.append(out)
+            with no_sync(torch):
+                tok = eng.search_columns_async(stream[w], now_of[w])
+            dispatch_ms.append((time.perf_counter() - t) * 1e3)
+            t_disp[tok], token_window[tok] = t, w
+            if w == 1:
+                # Collect windows 0 and 1 together, so the CPU replay of the
+                # first three windows sees the same pool at each dispatch.
+                torch.cuda.synchronize()
+            while eng.inflight() >= depth:
+                for tok_c, out in eng.collect_ready():
+                    turnaround_ms.append((time.perf_counter() - t_disp[tok_c]) * 1e3)
+                    outs[token_window[tok_c]] = out
+            gc_ms.append((gc_clock.total - gc_before) * 1e3)
+        for tok_c, out in eng.flush():
+            turnaround_ms.append((time.perf_counter() - t_disp[tok_c]) * 1e3)
+            outs[token_window[tok_c]] = out
+        run_s = time.perf_counter() - t_run
     launches = ck.LAUNCHES["block_best"]
-    torch.cuda.synchronize()
-    if launches != windows:  # one launch per <= 1024-lane window chunk
+    util = eng.util_report()
+    spans = {k: (v - spans0[k]) for k, v in eng.spans.items()}
+    split = {k[:-2] + "_ms": v / windows * 1e3 for k, v in spans.items()
+             if k.endswith("_s")}
+    idle = util["device_idle_s"] - util0["device_idle_s"]
+    busy = util["device_busy_s"] - util0["device_busy_s"]
+    # -- checks, after the timed loop (they build Python objects) --
+    if launches != windows:  # one launch per <= 1,024-lane window chunk
         raise AssertionError(f"block_best launched {launches} times for "
-                             f"{windows} windows")
+                             f"{windows} window chunks")
+    seen, matches, admitted = set(), 0, 0
+    for w in range(windows):
+        out = outs[w]
+        matches += check_columnar(np, scoring, eng, pop, out, now_of[w], enq,
+                                  seen, glicko2, window_ids=stream[w].ids)
+        admitted += len(stream[w]) - len(out.rejected)
+    if eng.pool_size() != waiting + admitted - 2 * matches:
+        raise AssertionError(f"pool_size {eng.pool_size()} != {waiting} + "
+                             f"{admitted} - 2 x {matches}")
+    # The deadline sweep: every stamped player still waiting expires (5 %
+    # of the rows carry a deadline, arrivals included).
+    n_in = waiting + windows * FULL_B
+    stamped = pop.deadline[:n_in] != 0.0
+    left = sum(1 for p in pop.ids[:n_in][stamped].tolist() if p not in seen)
+    if eng.deadline_count() != left or left == 0:
+        raise AssertionError(f"deadline_count {eng.deadline_count()} != {left}")
+    t = time.perf_counter()
+    expired = eng.expire_deadlines(t0 + 50.0)
+    sweep_ms = (time.perf_counter() - t) * 1e3
+    if len(expired) != left or eng.deadline_count() != 0:
+        raise AssertionError(f"expire_deadlines took {len(expired)} of {left}")
+    if any(r.id in eng.pool for r in expired):
+        raise AssertionError("an expired player is still waiting")
+    log(f"columnar {path}: {matches} matches in {windows} windows, "
+        f"dispatch p50 {statistics.median(dispatch_ms):.3f} ms, turnaround "
+        f"p50 {statistics.median(turnaround_ms):.2f} ms, "
+        f"{windows * FULL_B / run_s:.0f} requests/s, launches {launches}, "
+        f"deadline sweep {len(expired)} players in {sweep_ms:.2f} ms")
+    # The device's busy share over further windows, under torch.profiler.
     prof = None
-    if profile:
-        extra = [make_requests(np, SearchRequest, rng, FULL_B,
-                               waiting + (windows + w) * FULL_B,
-                               t0 + 1.0 + windows + w, filters, glicko2)
-                 for w in range(profile)]
-        prof = profile_windows(torch, eng, extra, t0 + 1.0 + windows)
-        log(f"profile {path}: {prof['split_ms_per_window']}, device busy "
-            f"{prof['device_busy_share']:.3f}")
+    if profile_windows:
+        def run():
+            for w in range(windows, windows + profile_windows):
+                eng.search_columns_async(stream[w], now_of[w])
+                while eng.inflight() >= depth:
+                    eng.collect_ready()
+            eng.flush()
+            return profile_windows
+        prof = device_busy(torch, run)
+        from matchmaking_tpu_torch.engine import kernels
+        prof["greedy_pair_kernels_per_call"] = greedy_pair_kernels(
+            torch, kernels, eng.kernels.capacity, FULL_B, eng.kernels.n_blocks,
+            eng.kernels.pair_rounds)
+        log(f"profile {path}: device busy {prof['device_busy_share']:.3f}, "
+            f"{prof['device_ms_per_window']:.3f} device ms and "
+            f"{prof['kernels_per_window']:.0f} kernels per window, "
+            f"{prof['greedy_pair_kernels_per_call']} in greedy_pair")
+    # The same first windows on a CPU columnar engine (windows 0 and 1
+    # dispatched before any collection, as on the card).
     cpu = GpuEngine(cfg, queue, device="cpu")
-    cpu.restore(fill, t0)
+    cpu.restore_columns(pop.columns(RequestColumns, cpu, 0, waiting, t0), t0)
+    cpu_outs = []
     for w in range(cpu_windows):
-        if pairs_of(cpu.search(stream[w], t0 + 1.0 + w)) != pairs_of(outs[w]):
+        cpu.search_columns_async(pop.columns(
+            RequestColumns, cpu, waiting + w * FULL_B,
+            waiting + (w + 1) * FULL_B, now_of[w]), now_of[w])
+        if w >= 1 or w == cpu_windows - 1:
+            cpu_outs += [o for _, o in cpu.flush()]
+    for w in range(cpu_windows):
+        if pair_set(cpu_outs[w]) != pair_set(outs[w]):
             raise AssertionError(f"{path} window {w}: the CPU engine formed "
                                  f"other pairs")
-    step_ms_sorted = sorted(step_ms)
-    res = {
+    # The object path on the card, from the same pool: the same first
+    # window, then its own windows (its slot layout parts from the
+    # columnar one after a window: see PERF.md).
+    obj = None
+    if object_windows:
+        o_eng = GpuEngine(cfg, queue, device="cuda")
+        o_eng.warmup()
+        o_eng.restore_columns(pop.columns(RequestColumns, o_eng, 0, waiting, t0), t0)
+        torch.cuda.synchronize()
+        ck.LAUNCHES["block_best"] = 0
+        step_ms, o_gc, o_seen, o_matches = [], [], set(), 0
+        for w in range(object_windows):
+            c = stream[w]
+            reqs = [SearchRequest(id=c.ids[i], rating=float(c.rating[i]),
+                           rating_deviation=float(c.rd[i]),
+                           region=pop.region[waiting + w * FULL_B + i],
+                           game_mode=pop.mode[waiting + w * FULL_B + i],
+                           enqueued_at=float(c.enqueued_at[i]))
+                    for i in range(len(c))]
+            with GcClock() as g:
+                t = time.perf_counter()
+                out = o_eng.search(reqs, now_of[w])
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            o_gc.append(g.total * 1e3)
+            ids = {r.id for m in out.matches for r in m.requests()}
+            if ids & o_seen:
+                raise AssertionError("object path: a player in two matches")
+            o_seen |= ids
+            o_matches += len(out.matches)
+            if w == 0 and ({frozenset(r.id for r in m.requests())
+                            for m in out.matches} != pair_set(outs[0])):
+                raise AssertionError("object path: window 0 pairs differ "
+                                     "from the columnar path's")
+        o_launches = ck.LAUNCHES["block_best"]
+        if o_launches != object_windows:
+            raise AssertionError(f"object path: {o_launches} launches")
+        obj = {"windows": object_windows, "matches": o_matches,
+               "launches": o_launches, "step_ms": step_ms, "gc_ms": o_gc,
+               "step_ms_p50": statistics.median(step_ms),
+               "step_ms_max": max(step_ms)}
+        log(f"object {path}: step p50 {obj['step_ms_p50']:.2f} ms, max "
+            f"{obj['step_ms_max']:.2f} ms, GC max {max(o_gc):.2f} ms")
+    return {
         "config": path, "waiting": waiting, "windows": windows,
-        "window": FULL_B, "matches": matches, "launches": launches,
-        "pool_size_end": eng.pool_size(), "restore_s": restore_s,
-        "step_ms": step_ms, "gc_ms": gc_ms,
-        "step_ms_p50": statistics.median(step_ms),
-        "step_ms_p99": step_ms_sorted[min(len(step_ms) - 1,
-                                          int(0.99 * len(step_ms)))],
-        "cpu_windows_equal": cpu_windows,
-        "first_window_split_ms": first_split,
-        "profile": prof,
+        "window": FULL_B, "pipeline_depth": depth, "matches": matches,
+        "launches": launches, "pool_size_end": eng.pool_size(),
+        "restore_s": restore_s,
+        "dispatch_ms": dispatch_ms, "turnaround_ms": turnaround_ms,
+        "dispatch_ms_p50": statistics.median(dispatch_ms),
+        "dispatch_ms_p99": pct(dispatch_ms, 0.99),
+        "turnaround_ms_p50": statistics.median(turnaround_ms),
+        "turnaround_ms_p99": pct(turnaround_ms, 0.99),
+        "requests_per_s": windows * FULL_B / run_s, "run_s": run_s,
+        "gc_ms": gc_ms, "gc_ms_total": sum(gc_ms), "gc_ms_max": max(gc_ms),
+        "idle_fraction": idle / max(1e-9, idle + busy),
+        "util_report": util, "split_ms_per_window": split,
+        "deadlines_waiting_at_start": deadlines_waiting,
+        "deadline_sweep": {"expired": len(expired), "ms": sweep_ms},
+        "cpu_windows_equal": cpu_windows, "profile": prof, "object": obj,
     }
-    log(f"engine {path}: {matches} matches in {windows} windows, step p50 "
-        f"{res['step_ms_p50']:.2f} ms p99 {res['step_ms_p99']:.2f} ms, "
-        f"pool {eng.pool_size()}, launches {launches}")
+
+
+def run_rescan(torch, np, ck, scoring, mods, path, *, waiting, seed):
+    """Config #4 (Glicko-2, widening 5/s): a rescan tick dispatched between
+    two traffic windows in flight (windows and tick are collected
+    together at the end). The tick must form matches the arrivals did
+    not, and a CPU engine driven the same way must form the same pairs."""
+    Config, GpuEngine, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    queue = cfg.queues[0]
+    chunks = 2  # a tick of two chunks of the largest bucket (the depth-2 cap)
+    tick = chunks * max(cfg.engine.batch_buckets)
+    rng = np.random.default_rng(seed)
+    t0 = 1_700_000_000.0
+    pop = Population(np, rng, waiting + 2 * FULL_B, t0, filters=False,
+                     glicko2=True)
+    nows = (t0 + 1.0, t0 + 30.0, t0 + 30.5)
+    enq = np.concatenate([t0 - pop.waited[:waiting],
+                          nows[0] - pop.waited[waiting:waiting + FULL_B],
+                          nows[2] - pop.waited[waiting + FULL_B:]])
+
+    def drive(device):
+        eng = GpuEngine(cfg, queue, device=device)
+        eng.warmup()
+        eng.restore_columns(pop.columns(RequestColumns, eng, 0, waiting, t0), t0)
+        a = pop.columns(RequestColumns, eng, waiting, waiting + FULL_B, nows[0])
+        b = pop.columns(RequestColumns, eng, waiting + FULL_B,
+                        waiting + 2 * FULL_B, nows[2])
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ck.LAUNCHES["block_best"] = 0
+        with (no_sync(torch) if device != "cpu" else contextlib.nullcontext()):
+            ta = eng.search_columns_async(a, nows[0])
+            before = ck.LAUNCHES["block_best"]
+            tr = eng.rescan_async(tick, nows[1])
+            tick_launches = ck.LAUNCHES["block_best"] - before
+            tb = eng.search_columns_async(b, nows[2])
+        outs = dict(eng.flush())
+        return eng, (outs[ta], outs[tr], outs[tb]), tick_launches
+
+    eng, outs, tick_launches = drive("cuda")
+    launches = ck.LAUNCHES["block_best"]
+    if tick_launches != chunks or launches != 2 + chunks:
+        raise AssertionError(f"rescan run: {tick_launches} launches for the "
+                             f"tick's {chunks} chunks, {launches} in all for "
+                             f"{2 + chunks} chunks")
+    seen = set()
+    for out, now in zip(outs, nows):
+        check_columnar(np, scoring, eng, pop, out, now, enq, seen, True)
+    if outs[1].n_matches == 0:
+        raise AssertionError("the rescan tick formed no match")
+    _, cpu_outs, _ = drive("cpu")
+    for k, (got, want) in enumerate(zip(outs, cpu_outs)):
+        if pair_set(got) != pair_set(want):
+            raise AssertionError(f"rescan run, outcome {k}: the CPU engine "
+                                 f"formed other pairs")
+    log(f"rescan {path}: tick of {chunks} chunks formed "
+        f"{outs[1].n_matches} matches between waiting players "
+        f"(arrivals {outs[0].n_matches} + {outs[2].n_matches}); same pairs "
+        f"on the CPU; launches {tick_launches} in the tick, "
+        f"{launches - tick_launches} in the arrival windows")
+    return {"config": path, "waiting": waiting, "rescan_chunks": chunks,
+            "rescan_matches": outs[1].n_matches,
+            "arrival_matches": outs[0].n_matches + outs[2].n_matches,
+            "launches": launches, "tick_launches": tick_launches,
+            "arrival_launches": launches - tick_launches}
+
+
+def check_faults(app, what):
+    """The service nacks and revives after a failed window, and retries a
+    failed tick, so its answers can all be right after a failure on the
+    card: a service run passes only if it caught none."""
+    if app.faults():
+        raise AssertionError(f"{what}: the service caught failures: "
+                             f"{app.faults()}")
+
+
+# ---- phase 4: the service ---------------------------------------------------
+
+
+async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
+                       seed):
+    """The service at full width: ``waiting`` players restored, then
+    ``requests`` published in bursts of ``burst``. Every request is
+    answered from its window once (queued or matched) and matched at most
+    once, partners agree, one publish_batch per answered window, one
+    block_best launch per window (each fits one chunk), and the service
+    caught no failure."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, warm_start=True))
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=cfg.queues[0].glicko2)
+    if cfg.batcher.max_batch > max(cfg.engine.batch_buckets):
+        raise AssertionError("soak: a window would take several chunks")
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()  # warm_start: all-padding launches of every variant
+    try:
+        reply = "soak.replies"
+        app.broker.declare_queue(reply)
+        fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply)
+        app.restore_columns(fill, pop.region[:waiting],
+                                  pop.mode[:waiting], t0)
+        ck.LAUNCHES["block_best"] = 0  # count the soak's own windows only
+        # Latency is publish → the service's response publish (the time a
+        # reply is handed to the broker), recorded in the broker's
+        # publish_batch, so reading the replies does not time the reader.
+        calls, t_pub, first = [], {}, {}
+        real = app.broker.publish_batch
+
+        def publish_batch(items):
+            calls.append(len(items))
+            t = time.perf_counter()
+            for _, _, props in items:
+                cid = props.correlation_id
+                if cid in t_pub and cid not in first:
+                    first[cid] = t - t_pub[cid]
+            real(items)
+
+        app.broker.publish_batch = publish_batch
+        bodies = [json.dumps({"id": pop.ids[k], "rating": float(pop.rating[k]),
+                              "rating_deviation": float(pop.rd[k])}).encode()
+                  for k in range(waiting, waiting + requests)]
+        t_soak = time.perf_counter()
+        for b in range(0, requests, burst):
+            for k in range(b, min(b + burst, requests)):
+                pid = pop.ids[waiting + k]
+                t_pub[pid] = time.perf_counter()
+                app.broker.publish(app.queue_cfg.name, bodies[k],
+                                   Properties(reply_to=reply,
+                                              correlation_id=pid))
+            await asyncio.sleep(0.005)
+        deadline = time.monotonic() + 120.0
+        while len(first) < requests and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        soak_s = time.perf_counter() - t_soak
+        while app.engine.inflight() and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        if len(first) != requests:
+            raise AssertionError(f"soak: {requests - len(first)} requests "
+                                 f"never answered")
+        spans, util = app.engine.span_report(), app.engine.util_report()
+    finally:
+        await app.stop()
+    launches = ck.LAUNCHES["block_best"]
+    check_faults(app, "soak")
+    windows = app.counters["windows"]
+    if launches != windows:
+        raise AssertionError(f"soak: block_best launched {launches} times "
+                             f"for {windows} windows")
+    from matchmaking_tpu_torch.service.contract import decode_response
+    seqs, matched = {}, {}
+    while True:
+        d = await app.broker.get(reply, timeout=0.2)
+        if d is None:
+            break
+        pid = d.properties.correlation_id
+        r = decode_response(d.body)
+        if r.player_id != pid:
+            raise AssertionError(f"soak: answer for {r.player_id} on {pid}")
+        seqs.setdefault(pid, []).append(r.status)
+        if r.status == "matched":
+            if pid in matched:
+                raise AssertionError(f"soak: {pid} matched twice")
+            matched[pid] = r.match
+    for pid in t_pub:
+        if seqs.get(pid) not in (["matched"], ["queued"],
+                                 ["queued", "matched"]):
+            raise AssertionError(f"soak: {pid} answered {seqs.get(pid)}")
+    for pid, m in matched.items():
+        other = next(p for p in m.players if p != pid)
+        if other not in matched or matched[other].match_id != m.match_id:
+            raise AssertionError(f"soak: {pid}'s partner disagrees")
+    if len(calls) != windows:
+        raise AssertionError(f"soak: {len(calls)} publish_batch calls for "
+                             f"{windows} windows")
+    lat = [v * 1e3 for v in first.values()]
+    res = {"config": path, "waiting": waiting, "requests": requests,
+           "burst": burst, "windows": windows, "launches": launches,
+           "soak_s": soak_s,
+           "requests_per_s": requests / soak_s,
+           "players_matched": len(matched), "publish_batches": len(calls),
+           "latency_ms_p50": statistics.median(lat),
+           "latency_ms_p99": pct(lat, 0.99), "latency_ms_max": max(lat),
+           "counters": dict(app.counters), "span_report": spans,
+           "util_report": util}
+    log(f"service soak {path}: {requests} requests over {waiting} waiting, "
+        f"{windows} windows, {res['requests_per_s']:.0f} requests/s, "
+        f"latency p50 {res['latency_ms_p50']:.2f} ms p99 "
+        f"{res['latency_ms_p99']:.2f} ms")
     return res
+
+
+async def service_rescan(np, ck, mods, path, *, waiting, seed):
+    """Config #4's service: its rescan loop (the file's interval) must
+    publish matches between players restored into the pool, every match
+    must reach both players, and the service must catch no failure."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, warm_start=True))
+    interval = cfg.queues[0].rescan_interval_s
+    if interval <= 0:
+        raise AssertionError(f"{path} configures no rescan")
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting, t0, filters=False, glicko2=True)
+    app = MatchmakingApp(cfg, device="cuda")
+    reply = "rescan.replies"
+    await app.start()
+    try:
+        app.broker.declare_queue(reply)
+        app.restore_columns(
+            pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply),
+            pop.region, pop.mode, t0)
+        ck.LAUNCHES["block_best"] = 0  # the rescan ticks' chunks only
+        deadline = time.monotonic() + 3 * interval + 10.0
+        while (app.counters["rescan_matches"] == 0
+               and time.monotonic() < deadline):
+            await asyncio.sleep(0.05)
+    finally:
+        await app.stop()
+    launches = ck.LAUNCHES["block_best"]
+    check_faults(app, "service rescan")
+    n = 0
+    while await app.broker.get(reply, timeout=0.2) is not None:
+        n += 1
+    m = app.counters["rescan_matches"]
+    if m == 0 or n != 2 * m or launches == 0:
+        raise AssertionError(f"service rescan: {m} matches, {n} answers, "
+                             f"{launches} launches")
+    log(f"service rescan {path}: {m} matches published by the rescan loop, "
+        f"{launches} block_best launches")
+    return {"config": path, "waiting": waiting, "rescan_interval_s": interval,
+            "rescan_matches": m, "answers": n, "launches": launches}
 
 
 def main(argv) -> int:
@@ -723,8 +1095,12 @@ def main(argv) -> int:
         from matchmaking_tpu_torch.engine import cuda_kernels as ck
         from matchmaking_tpu_torch.engine import scoring
         from matchmaking_tpu_torch.engine.gpu import GpuEngine
+        from matchmaking_tpu_torch.native import codec
         from matchmaking_tpu_torch.service.app import run_demo
-        from matchmaking_tpu_torch.service.contract import SearchRequest
+        from matchmaking_tpu_torch.service.contract import (
+            RequestColumns,
+            SearchRequest,
+        )
     except ImportError as e:
         log(f"the matchmaking_tpu_torch package is not beside this file: {e}")
         return 3
@@ -732,18 +1108,22 @@ def main(argv) -> int:
     out_dir = os.path.dirname(os.path.abspath(out_path)) if out_path else None
     baseline_tree = (argv[argv.index("--baseline-tree") + 1]
                      if "--baseline-tree" in argv else None)
-    profile = 8 if "--profile" in argv else 0
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    # 1. build and identify
+    # 1. build and identify: nvcc (the kernel) and g++ (the wire codec)
+    # run side by side
     t = time.perf_counter()
     ptxas = io.StringIO()
-    with contextlib.redirect_stdout(ptxas):
-        so = ck.build(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        codec_build = pool.submit(codec.build)
+        with contextlib.redirect_stdout(ptxas):
+            so = ck.build(verbose=True)
+        codec_so = codec_build.result()
     build_s = time.perf_counter() - t
+    log(f"built the wire codec: {codec_so}")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     max_sm_clock = card_line("clocks.max.sm")
@@ -763,23 +1143,34 @@ def main(argv) -> int:
     sweep = (plan_sweep(torch, ck, scoring, device) if "--plan-sweep" in argv
              else None)
 
-    # 3. the engine main path, then configs #2 and #4 briefly
-    mods = (Config, GpuEngine, SearchRequest)
-    engine = [run_engine(torch, np, ck, scoring, mods, "configs/elo_1v1.json",
-                         waiting=100_000, windows=24, cpu_windows=3,
-                         filters=False, glicko2=False, seed=1,
-                         profile=profile)]
-    main_launches = engine[0]["launches"]
-    engine.append(run_engine(torch, np, ck, scoring, mods,
-                             "configs/multiqueue_filters.json",
-                             waiting=50_000, windows=5, cpu_windows=1,
-                             filters=True, glicko2=False, seed=2))
-    engine.append(run_engine(torch, np, ck, scoring, mods,
-                             "configs/glicko2.json", waiting=50_000,
-                             windows=5, cpu_windows=1, filters=False,
-                             glicko2=True, seed=4))
+    # 3. the engine main path: columnar, pipelined, at full width
+    mods = (Config, GpuEngine, RequestColumns, SearchRequest)
+    launches = {}
+    main_run = run_columnar(torch, np, ck, scoring, mods, "configs/elo_1v1.json",
+                            waiting=100_000, windows=48, glicko2=False,
+                            filters=False, seed=1, cpu_windows=3,
+                            object_windows=8, profile_windows=8)
+    launches["columnar_elo_1v1"] = main_run["launches"]
+    launches["object_elo_1v1"] = main_run["object"]["launches"]
+    filters_run = run_columnar(torch, np, ck, scoring, mods,
+                               "configs/multiqueue_filters.json",
+                               waiting=50_000, windows=6, glicko2=False,
+                               filters=True, seed=2, cpu_windows=1,
+                               object_windows=0, profile_windows=0)
+    launches["columnar_multiqueue_filters"] = filters_run["launches"]
+    glicko_run = run_columnar(torch, np, ck, scoring, mods,
+                              "configs/glicko2.json", waiting=100_000,
+                              windows=24, glicko2=True, filters=False, seed=4,
+                              cpu_windows=1, object_windows=0,
+                              profile_windows=0)
+    launches["columnar_glicko2"] = glicko_run["launches"]
+    rescan = run_rescan(torch, np, ck, scoring, mods, "configs/glicko2.json",
+                        waiting=50_000, seed=5)
+    launches["rescan_tick_glicko2"] = rescan["tick_launches"]
+    launches["rescan_arrivals_glicko2"] = rescan["arrival_launches"]
 
-    # 4. service round trip on the card
+    # 4. the service on the card: the demo, the full-width soak, and
+    #    config #4's rescan loop
     answers = asyncio.run(run_demo(device="cuda"))
     by_id = {r.player_id: r for r in answers}
     for r in answers:
@@ -789,6 +1180,13 @@ def main(argv) -> int:
         if by_id[partner].status != "matched":
             raise AssertionError(f"demo: partner {partner} not matched")
     log(f"service demo: {len(answers)} players answered, all matched")
+    soak = asyncio.run(service_soak(np, ck, mods, "configs/elo_1v1.json",
+                                    waiting=100_000, requests=16_384,
+                                    burst=512, seed=6))
+    launches["service_soak"] = soak["launches"]
+    service_rescan_run = asyncio.run(service_rescan(
+        np, ck, mods, "configs/glicko2.json", waiting=20_000, seed=7))
+    launches["service_rescan_glicko2"] = service_rescan_run["launches"]
     torch.cuda.synchronize()
 
     main_k = kernel["elo"]
@@ -797,27 +1195,57 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "matchmaking_tpu_torch/csrc/block_best.cu",
         "replaces": "matchmaking_tpu/engine/pallas_kernels.py:153",
-        "launches": main_launches,
+        # The main path: config #1's columnar windows and the rescan
+        # tick's own chunks (each path's count is in launches_by_path).
+        "launches": (launches["columnar_elo_1v1"]
+                     + launches["rescan_tick_glicko2"]),
         "max_abs_err": max_err,
         "ms": main_k["ms"],
         "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"],
         "bound_by": main_k["bound_by"],
         "library_ms": None,
+        "launches_by_path": launches,
         "ms_by_bucket": main_k["ms_by_bucket"],
         "host_us": main_k["host_us_by_bucket"][FULL_B],
     }]}
+    columnar = {}
+    for name, run in (("elo_1v1", main_run), ("multiqueue_filters", filters_run),
+                      ("glicko2", glicko_run)):
+        columnar[name] = {k: run[k] for k in (
+            "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
+            "turnaround_ms_p99", "requests_per_s", "idle_fraction",
+            "gc_ms_total", "gc_ms_max", "matches", "launches")}
+    summary = {
+        "card": card, "columnar": columnar,
+        "split_ms_per_window": main_run["split_ms_per_window"],
+        "device_busy_share": main_run["profile"]["device_busy_share"],
+        "kernels_per_window": main_run["profile"]["kernels_per_window"],
+        "greedy_pair_kernels_per_call":
+            main_run["profile"]["greedy_pair_kernels_per_call"],
+        "object_step_ms_p50": main_run["object"]["step_ms_p50"],
+        "object_step_ms_max": main_run["object"]["step_ms_max"],
+        "object_gc_ms_max": max(main_run["object"]["gc_ms"]),
+        "rescan": rescan, "service_rescan": service_rescan_run,
+        "soak": {k: soak[k] for k in ("latency_ms_p50", "latency_ms_p99",
+                                      "latency_ms_max", "requests_per_s",
+                                      "windows", "publish_batches",
+                                      "players_matched")},
+    }
     total_s = time.perf_counter() - t_start
     if out_path:
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
             json.dump({"card": card, "kind": kind, "build_s": build_s,
                        "max_sm_clock": max_sm_clock, "ptxas": resources,
                        "sass_elo_inner_loop": sass, "plan_sweep": sweep,
                        "kernel": kernel, "max_abs_err": max_err,
-                       "engine": engine, "demo_players": len(answers),
-                       "total_s": total_s, "kernels_line": line}, f, indent=1)
+                       "columnar": [main_run, filters_run, glicko_run],
+                       "rescan": rescan, "demo_players": len(answers),
+                       "soak": soak, "service_rescan": service_rescan_run,
+                       "total_s": total_s, "summary": summary,
+                       "kernels_line": line}, f, indent=1)
     print(f"total {total_s:.1f} s")
+    print(json.dumps(summary))
     print(f"max SM clock: {max_sm_clock}")
     print(card)
     print(json.dumps(line))

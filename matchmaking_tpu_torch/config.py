@@ -1,13 +1,13 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 The port's own copy of the configuration tree, trimmed to what the 1v1
-window engine and the minimal service read. ``Config.from_json`` reads the
-repository's ``configs/*.json`` files; those name the JAX package's
-``"tpu"`` backend, so the loader takes the port's backend as an explicit
-override (``Config.from_json(path, backend="gpu")``) instead of
-reinterpreting the JAX name. Sections and keys this slice does not
-carry (chaos, overload, the queue's rescan settings, ...) are ignored with
-a warning.
+window engine and the columnar service read, under the JAX package's names
+and defaults. ``Config.from_json`` reads the repository's
+``configs/*.json`` files; those name the JAX package's ``"tpu"`` backend,
+so the loader takes the port's backend as an explicit override
+(``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
+JAX name. Sections and keys the port does not carry yet (chaos, durability,
+most of overload, ...) are ignored with a warning.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ class QueueConfig:
 
     #: Broker queue this engine consumes.
     name: str = "matchmaking.search"
+    #: Game mode this queue serves (carried from the JSON files; like the
+    #: JAX package, nothing reads it: the mode comes with each request).
+    game_mode: str | None = None
     #: Players per team (1 → 1v1; the only size this slice serves).
     team_size: int = 1
     #: Default max rating distance for a valid match.
@@ -37,11 +40,22 @@ class QueueConfig:
     glicko2: bool = False
     #: Role coverage for team formation (not served by this slice).
     role_slots: tuple[str, ...] = ()
+    #: Evict waiting players after this many seconds and answer
+    #: ``timeout`` (None: wait forever).
+    request_timeout_s: float | None = None
     #: Publish a ``queued`` ack when a request enters the pool.
     send_queued_ack: bool = True
     #: Terminal-replay horizon: a redelivered request whose player was
     #: matched within this many seconds gets the cached response again.
     dedup_ttl_s: float = 30.0
+    #: Periodic rescan of the longest-waiting players (seconds; 0 = off).
+    #: Matching is otherwise arrival-triggered, so two waiting players
+    #: whose thresholds widened into range would never match without it.
+    rescan_interval_s: float = 0.0
+    #: Players covered per rescan tick (0: the batcher's ``max_batch``). A
+    #: tick dispatches at most ``EngineConfig.pipeline_depth`` chunks of
+    #: the largest bucket; the oldest-first pick rolls the rest over.
+    rescan_window: int = 0
 
 
 @dataclass(frozen=True)
@@ -63,6 +77,18 @@ class EngineConfig:
     pool_block: int = 8192
     #: Proposal rounds of the parallel greedy pairing.
     pair_rounds: int = 8
+    #: Dispatched-but-uncollected windows the service keeps in flight on
+    #: the columnar path (1: dispatch, then wait, per window).
+    pipeline_depth: int = 2
+    #: Result readbacks per device→host copy: this many windows' results
+    #: are stacked on the device and copied to the host at once (1: one
+    #: copy per window chunk).
+    readback_group: int = 1
+    #: Age (ms) after which a partial readback group is copied anyway.
+    readback_group_wait_ms: float = 8.0
+    #: Run every step variant once at service start (``Engine.warmup``),
+    #: so no first-of-its-kind window pays a first use while serving.
+    warm_start: bool = False
 
 
 @dataclass(frozen=True)
@@ -91,8 +117,19 @@ class AuthConfig:
     mode: str = "none"
 
 
+@dataclass(frozen=True)
+class OverloadConfig:
+    """The one overload knob the port carries: the pool-resident deadline
+    sweep (admission control, shedding and EDF are not ported yet)."""
+
+    #: Sweep the waiting pool's per-player ``x-deadline`` column this often
+    #: (ms; 0 = off) and answer ``timeout`` exactly at each deadline.
+    deadline_sweep_ms: float = 0.0
+
+
 _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
-             "batcher": BatcherConfig, "auth": AuthConfig}
+             "batcher": BatcherConfig, "auth": AuthConfig,
+             "overload": OverloadConfig}
 
 
 def _known(cls, section: str, d: Mapping[str, Any]) -> dict[str, Any]:
@@ -116,6 +153,7 @@ class Config:
     broker: BrokerConfig = field(default_factory=BrokerConfig)
     batcher: BatcherConfig = field(default_factory=BatcherConfig)
     auth: AuthConfig = field(default_factory=AuthConfig)
+    overload: OverloadConfig = field(default_factory=OverloadConfig)
 
     @staticmethod
     def from_dict(d: Mapping[str, Any], *, backend: str | None = None) -> "Config":

@@ -66,6 +66,10 @@ class Interner:
     def name(self, code: int) -> str:
         return self._names[code]
 
+    def names(self) -> np.ndarray:
+        """Every interned name as object[codes], indexable by code."""
+        return np.array(self._names, dtype=object)
+
 
 class PoolFullError(RuntimeError):
     pass
@@ -86,9 +90,12 @@ class BatchArrays:
     valid: np.ndarray     # bool[B]
 
 
-def pack_batch(batch: BatchArrays, now: float = 0.0) -> np.ndarray:
-    """BatchArrays (+ rebased now) → one f32[9, B] array."""
-    out = np.empty((len(PACKED_ROWS) + 1, batch.slot.shape[0]), np.float32)
+def pack_batch(batch: BatchArrays, now: float = 0.0,
+               out: np.ndarray | None = None) -> np.ndarray:
+    """BatchArrays (+ rebased now) → one f32[9, B] array (written into
+    ``out`` when given, e.g. a pinned staging buffer's numpy view)."""
+    if out is None:
+        out = np.empty((len(PACKED_ROWS) + 1, batch.slot.shape[0]), np.float32)
     for i, name in enumerate(PACKED_ROWS):
         out[i] = getattr(batch, name)
     out[8] = now
@@ -117,6 +124,11 @@ class PlayerPool:
         self.m_corr = np.full(self.capacity, "", dtype=object)
         self.m_tier = np.zeros(self.capacity, np.int32)
         self.m_deadline = np.zeros(self.capacity, np.float64)
+        #: Waiting players per QoS tier, and waiting players with a nonzero
+        #: deadline: kept up to date by allocate/release, so reading them
+        #: never scans the pool.
+        self._tier_n: dict[int, int] = {}
+        self._deadline_n = 0
         self.m_roles = np.full(self.capacity, None, dtype=object)
         self.regions = Interner()
         self.modes = Interner()
@@ -160,25 +172,55 @@ class PlayerPool:
     def waiting_slots(self) -> np.ndarray:
         return np.fromiter(self._slot_of.values(), np.int32, len(self._slot_of))
 
+    def waiting_columns(self) -> tuple[RequestColumns, np.ndarray, np.ndarray]:
+        """Checkpoint payload as columns, in ``waiting()`` order: every
+        waiting row (NaN threshold where the queue default applies), plus
+        its region and mode names (the codes belong to this pool's
+        interners; a new pool interns the names again)."""
+        slots = self.waiting_slots()
+        cols = RequestColumns(
+            ids=self.m_id[slots], rating=self.m_rating[slots],
+            rd=self.m_rd[slots], region=self.m_region[slots],
+            mode=self.m_mode[slots],
+            threshold=np.where(self.m_thr_override[slots],
+                               self.m_threshold[slots],
+                               np.float32(np.nan)).astype(np.float32),
+            enqueued_at=self.m_enqueued[slots], reply_to=self.m_reply[slots],
+            correlation_id=self.m_corr[slots], tier=self.m_tier[slots],
+            deadline=self.m_deadline[slots])
+        return (cols, self.regions.names()[cols.region],
+                self.modes.names()[cols.mode])
+
+    def deadline_count(self) -> int:
+        """Waiting players with a stamped deadline (O(1))."""
+        return self._deadline_n
+
+    def tier_counts(self, n_tiers: int) -> list[int]:
+        """Waiting players per QoS tier (``n_tiers`` buckets; out-of-range
+        tiers are clamped into the last). O(n_tiers)."""
+        out = [0] * max(1, n_tiers)
+        for t, n in self._tier_n.items():
+            out[min(max(t, 0), len(out) - 1)] += n
+        return out
+
     # ---- mutation (single writer) -----------------------------------------
 
-    def allocate(self, requests: Sequence[SearchRequest]) -> list[int]:
-        """Assign slots to a window and record it in the mirror. Ids must be
-        unique and absent from the pool (engines dedupe first); violations
-        raise before any mutation."""
-        n = len(requests)
+    def allocate_columns(self, cols: RequestColumns) -> np.ndarray:
+        """Assign slots to a columnar window and record it in the mirror.
+        Stores are vectorized; the id checks and the id→slot dict update are
+        the only per-row work. Ids must be unique within the window and
+        absent from the pool (engines dedupe first); violations raise before
+        any mutation."""
+        n = len(cols)
         if n > self._head:
             raise PoolFullError(
                 f"pool exhausted: {n} requested, {self._head} free "
                 f"(capacity {self.capacity})")
-        ids = [r.id for r in requests]
+        ids = cols.ids.tolist()
         if len(set(ids)) != n:
             raise ValueError("duplicate player id in window")
-        for pid in ids:
-            if pid in self._slot_of:
-                raise ValueError(f"player {pid!r} already in pool")
-        cols = RequestColumns.from_requests(
-            requests, self.regions.code, self.modes.code)
+        if any(pid in self._slot_of for pid in ids):
+            raise ValueError("player already in pool")
         slots = self._free[self._head - n:self._head][::-1].copy()
         self._head -= n
         self.m_id[slots] = cols.ids
@@ -191,14 +233,41 @@ class PlayerPool:
         self.m_threshold[slots] = np.where(override, cols.threshold,
                                            self.default_threshold)
         self.m_enqueued[slots] = cols.enqueued_at
-        self.m_reply[slots] = cols.reply_to
-        self.m_corr[slots] = cols.correlation_id
-        self.m_tier[slots] = cols.tier
-        self.m_deadline[slots] = np.nan_to_num(cols.deadline, nan=0.0)
-        for s, req in zip(slots.tolist(), requests):
-            self.m_roles[s] = req.roles or None
+        # Missing columns clear the slots: a recycled slot must not leak
+        # its previous occupant's reply queue, tier or deadline.
+        self.m_reply[slots] = "" if cols.reply_to is None else cols.reply_to
+        self.m_corr[slots] = ("" if cols.correlation_id is None
+                              else cols.correlation_id)
+        if cols.tier is None:
+            self.m_tier[slots] = 0
+            self._tier_n[0] = self._tier_n.get(0, 0) + n
+        else:
+            self.m_tier[slots] = cols.tier
+            for t, c in zip(*np.unique(np.asarray(cols.tier, np.int64),
+                                       return_counts=True)):
+                self._tier_n[int(t)] = self._tier_n.get(int(t), 0) + int(c)
+        if cols.deadline is None:
+            self.m_deadline[slots] = 0.0
+        else:
+            dl = np.nan_to_num(np.asarray(cols.deadline, np.float64), nan=0.0)
+            self.m_deadline[slots] = dl
+            self._deadline_n += int((dl != 0.0).sum())
         self._slot_of.update(zip(ids, slots.tolist()))
-        return slots.tolist()
+        return slots
+
+    def allocate(self, requests: Sequence[SearchRequest]) -> list[int]:
+        """Object-path wrapper around ``allocate_columns`` (also records
+        each request's roles)."""
+        for req in requests:
+            if req.id in self._slot_of:
+                raise ValueError(f"player {req.id!r} already in pool")
+        cols = RequestColumns.from_requests(
+            requests, self.regions.code, self.modes.code)
+        slots = self.allocate_columns(cols).tolist()
+        for s, req in zip(slots, requests):
+            if req.roles:
+                self.m_roles[s] = req.roles
+        return slots
 
     def release(self, slots: Sequence[int] | np.ndarray) -> None:
         """Free slots (matched / cancelled / timed out). Idempotent."""
@@ -206,12 +275,16 @@ class PlayerPool:
         if arr.size == 0:
             return
         ids = self.m_id[arr]
-        occupied = np.fromiter((i is not None for i in ids), bool, arr.size)
+        occupied = ids != None  # noqa: E711 (elementwise over object ids)
         arr = arr[occupied]
         if arr.size == 0:
             return
         for pid in ids[occupied].tolist():
             del self._slot_of[pid]
+        # Tier/deadline occupancy before the slots are cleared.
+        for t, c in zip(*np.unique(self.m_tier[arr], return_counts=True)):
+            self._tier_n[int(t)] = self._tier_n.get(int(t), 0) - int(c)
+        self._deadline_n -= int((self.m_deadline[arr] != 0.0).sum())
         self.m_deadline[arr] = 0.0
         self.m_id[arr] = None
         self.m_roles[arr] = None
@@ -220,15 +293,15 @@ class PlayerPool:
 
     # ---- array building ---------------------------------------------------
 
-    def batch_arrays(self, requests: Sequence[SearchRequest],
-                     slots: Sequence[int], bucket: int,
-                     t_offset: float = 0.0) -> BatchArrays:
-        """Pack a window into padded arrays of size ``bucket``.
+    def batch_arrays_cols(self, cols: RequestColumns, slots: np.ndarray,
+                          bucket: int, t_offset: float = 0.0) -> BatchArrays:
+        """Pack a columnar window into padded arrays of size ``bucket``;
+        padding lanes get slot = capacity, the never-matching sentinel.
 
         ``t_offset`` rebases wall-clock timestamps: device times are f32,
         whose spacing at epoch magnitude is 128 s, so the engine subtracts
         its start time (in f64, before the f32 store)."""
-        b = len(requests)
+        b = len(cols)
         assert b <= bucket
         arr = BatchArrays(
             slot=np.full(bucket, self.capacity, np.int32),
@@ -241,9 +314,7 @@ class PlayerPool:
             valid=np.zeros(bucket, np.bool_),
         )
         if b:
-            cols = RequestColumns.from_requests(
-                requests, self.regions.code, self.modes.code)
-            arr.slot[:b] = np.asarray(slots, np.int32)
+            arr.slot[:b] = slots
             arr.rating[:b] = cols.rating
             arr.rd[:b] = cols.rd
             arr.region[:b] = cols.region
@@ -254,6 +325,15 @@ class PlayerPool:
             arr.enqueue_t[:b] = cols.enqueued_at - t_offset
             arr.valid[:b] = True
         return arr
+
+    def batch_arrays(self, requests: Sequence[SearchRequest],
+                     slots: Sequence[int], bucket: int,
+                     t_offset: float = 0.0) -> BatchArrays:
+        """Object-path wrapper around ``batch_arrays_cols``."""
+        cols = RequestColumns.from_requests(
+            requests, self.regions.code, self.modes.code)
+        return self.batch_arrays_cols(cols, np.asarray(slots, np.int32),
+                                      bucket, t_offset)
 
     @staticmethod
     def empty_device_arrays(capacity: int) -> dict[str, np.ndarray]:

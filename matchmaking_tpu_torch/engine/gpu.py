@@ -1,39 +1,79 @@
 """The GPU engine: batched window matching over a device-resident pool.
 
-Port of the object path of ``matchmaking_tpu/engine/tpu.py``'s 1v1
-``TpuEngine``. A window of requests is admitted into the device pool and
-matched by one window step (engine/kernels.py, whose candidate stage is
-the hand-written ``block_best`` kernel on the card).
+Port of ``matchmaking_tpu/engine/tpu.py``'s 1v1 ``TpuEngine``: the
+pipelined window API (object and columnar), the rescan tick, the expiry
+sweeps and the mirror restores. A window of requests is admitted into the
+device pool and matched by one window step (engine/kernels.py, whose
+candidate stage is the hand-written ``block_best`` kernel on the card).
 
 Host/device split:
 
 - Host (this class): slot allocation and the request mirror (= the
   checkpoint), padding windows to batch buckets, mapping matched slot pairs
-  back to requests. Single writer — callers serialize windows per queue, so
-  a matched player leaves the pool before the next window is dispatched.
-- Device: the pool tensors (updated in place) and the window step.
+  back to requests. No internal locks: one caller at a time drives every
+  public method (the service calls them from its event loop only).
+- Device: the pool tensors, updated in place, and the window step.
 
-Synchronous: each window chunk (≤ the largest bucket) runs its step and
-reads its f32[3, B] result back once. All chunks of a window are
-dispatched before any is finalized, as the JAX engine does, so slot
-allocation — and with it every candidate list — is the same on both.
+Pipelining. ``search_async`` / ``search_columns_async`` / ``rescan_async``
+queue a window's work and return a token without waiting; the results come
+back through ``collect_ready`` (non-blocking, FIFO) or ``flush``
+(blocking), under the same token. Windows chain on the device in stream
+order, because every step updates the one pool in place on the current
+stream, so a later window never sees a player an earlier one matched. The
+host mirror lags: slots are released at finalize, and never reallocated in
+between (the free list only shrinks until then).
+
+The asynchrony is PyTorch's, kept free of implicit host syncs:
+
+- each window chunk is packed into a pinned host buffer and copied to the
+  card with ``non_blocking=True`` (a pageable copy would wait for the
+  stream, and so for the previous window's step);
+- each result is copied into a pinned host buffer with ``non_blocking=True``
+  and a CUDA event is recorded behind the copy; ``collect_ready`` asks the
+  event (``query``, which never blocks) and reads the buffer only after
+  ``synchronize`` on it — before that the buffer holds stale bytes;
+- device errors surface at that ``synchronize`` (or at a later launch):
+  the window is then reported as queued (the mirror still holds its
+  players), its token lands in ``failed_tokens`` and the error in
+  ``device_error``.
 
 Runs on ``device`` (default ``"cuda"``, which must exist); ``device="cpu"``
-runs the plain PyTorch versions of the kernels instead.
+runs the plain PyTorch versions of the kernels synchronously: every result
+is ready as soon as it is dispatched, and no pinned memory is used.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import collections
+import functools
+import time
+from dataclasses import dataclass, field
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from matchmaking_tpu_torch.config import Config, QueueConfig
-from matchmaking_tpu_torch.core.pool import PlayerPool, pack_batch
+from matchmaking_tpu_torch.core.pool import (
+    PACKED_ROWS,
+    BatchArrays,
+    PlayerPool,
+    pack_batch,
+)
 from matchmaking_tpu_torch.engine import kernels, scoring
-from matchmaking_tpu_torch.engine.interface import Engine, Match, SearchOutcome
-from matchmaking_tpu_torch.service.contract import SearchRequest, new_match_id
+from matchmaking_tpu_torch.engine.interface import (
+    ColumnarOutcome,
+    Engine,
+    Match,
+    SearchOutcome,
+    empty_columnar_outcome,
+)
+from matchmaking_tpu_torch.service.contract import (
+    RequestColumns,
+    SearchRequest,
+    new_match_id,
+    new_match_ids,
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,6 +87,61 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class _Readback:
+    """One result on its way to the host. For a CUDA tensor: a pinned host
+    buffer filled by a non-blocking copy, and the event recorded on the
+    stream behind it. For a CPU tensor (everything ran synchronously): the
+    tensor itself."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, out: torch.Tensor):
+        if out.device.type == "cuda":
+            self.host = torch.empty(out.shape, dtype=out.dtype,
+                                    pin_memory=True)
+            self.host.copy_(out, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(out.device))
+        else:
+            self.host, self.event = out, None
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()  # raises a device error, if any
+        return self.host.numpy()
+
+
+@dataclass
+class _Pending:
+    """One dispatched-but-uncollected window."""
+
+    token: int
+    #: Per device chunk: (payload, result, now). The payload is the request
+    #: list (object path) or (RequestColumns, slots) (columnar path); the
+    #: result is the step's device tensor until ``_submit`` replaces it by
+    #: its ``_Readback``.
+    chunks: list[tuple[Any, Any, float]] = field(default_factory=list)
+    #: perf_counter at dispatch, for the turnaround span.
+    created: float = 0.0
+    #: Object path: the outcome, with dispatch-time rejections.
+    outcome: SearchOutcome = field(default_factory=SearchOutcome)
+    #: Columnar path: the outcome (set instead of ``outcome``).
+    columnar: ColumnarOutcome | None = None
+    #: Host results per chunk, filled by ``_fetch``.
+    raw: list[np.ndarray] | None = None
+    #: A device failure met by ``_fetch``, parked for ``_finalize``.
+    error: Exception | None = None
+    #: perf_counter when the result copies were queued (the readback span
+    #: runs from here to the collection).
+    queued_readback: float = 0.0
+    #: Pinned staging buffers of the window's host→device copies, held
+    #: until its results are read (the copies have run by then).
+    staging: list[torch.Tensor] = field(default_factory=list)
+
+
 class GpuEngine(Engine):
     def __init__(self, cfg: Config, queue: QueueConfig, device=None):
         super().__init__(cfg, queue)
@@ -54,6 +149,8 @@ class GpuEngine(Engine):
             raise ValueError("GpuEngine serves 1v1 queues; team and role "
                              "queues are not ported yet")
         self.device = resolve_device(device)
+        #: Host buffers are pinned for the card only (pinning needs CUDA).
+        self._pinned = self.device.type == "cuda"
         ec = cfg.engine
         self.kernels = kernels.KernelSet(
             capacity=ec.pool_capacity,
@@ -70,32 +167,63 @@ class GpuEngine(Engine):
         # Device times are f32, so every device-visible time is relative to
         # the first timestamp this engine sees.
         self._t0: float | None = None
+        # The pipeline: dispatched, not yet finalized windows (FIFO).
+        self._open = 0
+        self._pending: collections.deque[_Pending] = collections.deque()
+        self._next_token = 0
+        if ec.readback_group > 1:
+            # The JAX package stacks k windows' results into one transfer to
+            # save a per-copy cost of its device link; a copy here is one
+            # non-blocking pinned f32[3, B] copy, and no measurement shows a
+            # per-copy cost that grouping would remove.
+            raise ValueError("readback_group > 1 is not supported by "
+                             "GpuEngine: each window is read back by itself")
+        #: First device failure since the last check; pipelined callers
+        #: read it after collect_ready()/flush(), sync search() raises it.
+        self.device_error: Exception | None = None
+        #: Tokens whose window failed on the device (reported as queued:
+        #: the mirror still holds them). Callers discard what they consume.
+        self.failed_tokens: set[int] = set()
+        #: Tokens of in-flight rescan windows, so a shared collector can
+        #: route them apart from delivery-backed windows. Callers discard.
+        self.rescan_tokens: set[int] = set()
+        #: Chunks one rescan tick may queue ahead of traffic windows.
+        self._rescan_chunk_cap = max(1, ec.pipeline_depth)
+        #: Host stage spans: cumulative seconds and counts (span_report).
+        self.spans = {
+            "windows": 0, "requests": 0, "matches": 0,
+            "dispatch_s": 0.0,   # search_*_async host time
+            "turnaround_s": 0.0, # dispatch → finalized
+            "dedupe_s": 0.0, "alloc_s": 0.0, "pack_s": 0.0,
+            "h2d_s": 0.0, "step_s": 0.0, "finalize_s": 0.0,
+        }
+        #: Device-utilization counters: busy while >= 1 window is
+        #: dispatched but not finalized, idle otherwise, accrued at the
+        #: 0 ↔ 1 transitions of the open count.
+        self.util = {"busy_s": 0.0, "idle_s": 0.0, "readback_s": 0.0,
+                     "lanes_valid": 0, "lanes_padded": 0}
+        self._util_mark = time.perf_counter()
 
     # ---- Engine API -------------------------------------------------------
 
     def search(self, requests: Sequence[SearchRequest], now: float) -> SearchOutcome:
+        """Synchronous window: ``search_async`` + ``flush``."""
+        self._require_idle("search()")
+        self.search_async(requests, now)
         out = SearchOutcome()
-        fresh: list[SearchRequest] = []
-        seen: set[str] = set()
-        for req in requests:
-            if req.party_size > 1:
-                out.rejected.append((req, "party_not_supported"))
-            elif req.id in self.pool or req.id in seen:
-                continue  # idempotent redelivery (waiting, or twice here)
-            else:
-                seen.add(req.id)
-                fresh.append(req)
-        done = []
-        top = self.buckets[-1]
-        for start in range(0, len(fresh), top):
-            chunk = self._dispatch(fresh[start:start + top], now, out)
-            if chunk is not None:
-                done.append(chunk)
-        for window, result in done:
-            self._finalize(window, result, now, out)
+        # flush() returns the full outcome (dispatch-time rejections too).
+        for tok, o in self.flush():
+            self.failed_tokens.discard(tok)
+            out.matches.extend(o.matches)
+            out.queued.extend(o.queued)
+            out.rejected.extend(o.rejected)
+        if self.device_error is not None:
+            err, self.device_error = self.device_error, None
+            raise err
         return out
 
     def remove(self, player_id: str) -> SearchRequest | None:
+        self._require_idle("remove()")
         slot = self.pool.slot_of(player_id)
         if slot is None:
             return None
@@ -104,24 +232,41 @@ class GpuEngine(Engine):
         return req
 
     def expire(self, now: float, timeout: float) -> list[SearchRequest]:
-        """Vectorized timeout sweep over the mirror (enqueue time 0.0 means
-        unstamped and never expires); one device eviction."""
+        """Timeout sweep over the mirror (enqueue time 0.0 means unstamped
+        and never expires): O(expired) request objects, one eviction."""
+        self._require_idle("expire()")
         slots = self.pool.waiting_slots()
         if slots.size == 0:
             return []
         enq = self.pool.m_enqueued[slots]
-        expired = slots[(enq != 0.0) & (now - enq > timeout)]
-        if expired.size == 0:
+        return self._expire_slots(slots[(enq != 0.0) & (now - enq > timeout)])
+
+    def expire_deadlines(self, now: float) -> list[SearchRequest]:
+        """Deadline sweep over the mirror's per-player ``x-deadline``
+        column (0.0 = none): every waiter whose deadline has passed, exact
+        to its own deadline. No matching work is spent on them: a host
+        scan of the mirror, then one eviction."""
+        self._require_idle("expire_deadlines()")
+        slots = self.pool.waiting_slots()
+        if slots.size == 0:
             return []
-        reqs = [self.pool.request_at(int(s)) for s in expired]
-        self._release_and_evict(expired)
-        return reqs
+        dl = self.pool.m_deadline[slots]
+        return self._expire_slots(slots[(dl != 0.0) & (now >= dl)])
 
     def pool_size(self) -> int:
         return len(self.pool)
 
+    def deadline_count(self) -> int:
+        return self.pool.deadline_count()
+
     def waiting(self) -> list[SearchRequest]:
         return self.pool.waiting()
+
+    def waiting_columns(self) -> tuple[RequestColumns, np.ndarray, np.ndarray]:
+        """The mirror as columns, with region and mode names (see
+        ``PlayerPool.waiting_columns``): the revive payload that builds no
+        request objects."""
+        return self.pool.waiting_columns()
 
     def restore(self, requests: Sequence[SearchRequest], now: float) -> None:
         """Re-admit a checkpoint without matching (device state is a pure
@@ -131,37 +276,241 @@ class GpuEngine(Engine):
         for start in range(0, len(fresh), top):
             chunk = fresh[start:start + top]
             slots = self.pool.allocate(chunk)
-            batch = self.pool.batch_arrays(chunk, slots, top,
-                                           self._rel_base(now))
-            self.kernels.admit_packed(self.dev_pool,
-                                      self._to_device(pack_batch(batch, 0.0)))
+            self._admit(self.pool.batch_arrays(chunk, slots, top,
+                                               self._rel_base(now)))
+
+    def restore_columns(self, cols: RequestColumns, now: float) -> None:
+        """Columnar restore: re-admit without matching. Dedupes against the
+        pool and within the columns (a checkpoint replayed at least once
+        may repeat a player). Queues the admissions with no host sync."""
+        waiting = self.pool._slot_of
+        seen: set[str] = set()
+        keep = np.empty(len(cols), bool)
+        for j, pid in enumerate(cols.ids.tolist()):
+            keep[j] = pid not in waiting and pid not in seen
+            if keep[j]:
+                seen.add(pid)
+        if not keep.all():
+            cols = cols.take(keep)
+        top = self.buckets[-1]
+        t0 = self._rel_base(now)
+        for start in range(0, len(cols), top):
+            chunk = cols.slice(start, start + top)
+            slots = self.pool.allocate_columns(chunk)
+            self._admit(self.pool.batch_arrays_cols(chunk, slots, top, t0))
+
+    def intern_columns(self, regions, modes) -> tuple[np.ndarray, np.ndarray]:
+        """str sequences → int32 codes in this pool's interners."""
+        rc, mc = self.pool.regions.code, self.pool.modes.code
+        n = len(regions)
+        return (np.fromiter((rc(r) for r in regions), np.int32, n),
+                np.fromiter((mc(m) for m in modes), np.int32, n))
+
+    def heartbeat(self, now: float) -> bool:
+        """Health-timer tick. The dense 1v1 engine has no idle
+        housekeeping (no delegated queue to re-promote, no bucket index to
+        re-tighten), so nothing changes."""
+        return False
 
     def warmup(self) -> None:
         """Build the kernel (CUDA) and run every bucket's all-padding
-        window through both step variants, reading each result back as a
-        window does: nothing is admitted, matched or evicted, so the pool
-        is unchanged, and no first-of-its-kind window pays a first use."""
+        window through every step variant, read back as a window is:
+        nothing is admitted, matched or evicted, so the pool is unchanged
+        and no first-of-its-kind window pays a first use."""
+        self._require_idle("warmup()")
+        steps = [functools.partial(self.kernels.search_step_packed,
+                                   skip_filters=skip) for skip in (False, True)]
+        steps.append(self.kernels.search_step_packed_rescan)
         for bucket in self.buckets:
-            packed = self._to_device(
-                pack_batch(self.pool.batch_arrays([], [], bucket), 0.0))
-            for skip in (False, True):
-                self.kernels.search_step_packed(
-                    self.dev_pool, packed, 0.0, skip_filters=skip).cpu()
-        # _finalize's first release: np.unique imports numpy.ma on first use
-        # (numpy 2.3), ~50 ms where no bytecode is cached. Nothing is freed.
+            batch = self.pool.batch_arrays([], [], bucket)
+            for step in steps:
+                _Readback(step(self.dev_pool, self._h2d(batch, 0.0)[0],
+                               0.0)).numpy()
+            self._admit(batch)
+        self._evict(np.empty(0, np.int32))
+        # Finalize's numpy calls pay their first-use imports here (numpy
+        # 2.3 imports numpy.ma on the first np.unique: ~50 ms where no
+        # bytecode is cached). Nothing is freed.
         self.pool.release(np.empty(0, np.int32))
+        np.isin(np.empty(0, np.int32), np.empty(0, np.int32))
+        new_match_ids(1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # ---- internals --------------------------------------------------------
+    # ---- pipelined window API ---------------------------------------------
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def inflight(self) -> int:
+        """Windows dispatched but not yet finalized."""
+        return self._open
 
-    def _release_and_evict(self, slots: np.ndarray) -> None:
-        self.pool.release(slots)
-        kernels.evict(self.dev_pool,
-                      self._to_device(np.asarray(slots, np.int32)))
+    def search_async(self, requests: Sequence[SearchRequest],
+                     now: float) -> tuple[int, SearchOutcome]:
+        """Dispatch an object window without waiting. Returns (token,
+        dispatch-time rejections); the full outcome arrives through
+        collect_ready()/flush() under the same token."""
+        t_start = time.perf_counter()
+        pending = _Pending(token=self._next_token, created=t_start)
+        self._next_token += 1
+        fresh: list[SearchRequest] = []
+        seen: set[str] = set()
+        for req in requests:
+            if req.party_size > 1:
+                pending.outcome.rejected.append((req, "party_not_supported"))
+            elif req.id in self.pool or req.id in seen:
+                continue  # idempotent redelivery (waiting, or twice here)
+            else:
+                seen.add(req.id)
+                fresh.append(req)
+        top = self.buckets[-1]
+        for start in range(0, len(fresh), top):
+            self._dispatch(fresh[start:start + top], now, pending)
+        self._submit(pending)
+        self.spans["requests"] += len(fresh)
+        self.spans["dispatch_s"] += time.perf_counter() - t_start
+        return pending.token, SearchOutcome(
+            rejected=list(pending.outcome.rejected))
+
+    def search_columns_async(self, cols: RequestColumns, now: float) -> int:
+        """Dispatch a columnar 1v1 window (region/mode already interned
+        with ``intern_columns``) without waiting; returns its token. The
+        ColumnarOutcome, dispatch-time rejections included, arrives through
+        collect_ready()/flush(). The only per-row Python is the id
+        membership probe (redelivery dedupe)."""
+        t_start = time.perf_counter()
+        pending = _Pending(token=self._next_token, created=t_start)
+        pending.columnar = empty_columnar_outcome()
+        self._next_token += 1
+        ids = cols.ids.tolist()
+        waiting = self.pool._slot_of
+        _t = time.perf_counter()
+        if len(set(ids)) == len(ids):  # common case: no duplicate in window
+            keep = np.fromiter((i not in waiting for i in ids), bool, len(ids))
+        else:
+            local: set[str] = set()
+            keep = np.empty(len(ids), bool)
+            for j, pid in enumerate(ids):
+                keep[j] = pid not in waiting and pid not in local
+                if keep[j]:
+                    local.add(pid)
+        if not keep.all():
+            cols = cols.take(keep)
+        self.spans["dedupe_s"] += time.perf_counter() - _t
+        top = self.buckets[-1]
+        for start in range(0, len(cols), top):
+            self._dispatch_cols(cols.slice(start, start + top), now, pending)
+        self._submit(pending)
+        self.spans["requests"] += len(cols)
+        self.spans["dispatch_s"] += time.perf_counter() - t_start
+        return pending.token
+
+    def rescan_async(self, max_window: int, now: float) -> int | None:
+        """Re-submit the longest-waiting players as a window, so threshold
+        widening can resolve between players already in the pool (matching
+        is otherwise arrival-triggered). Returns a token, or None for an
+        empty pool.
+
+        Safe with windows in flight: the rescan step admits nothing and
+        gates every lane on its slot's device-side ``active`` flag. A tick
+        covers at most ``max_window`` players in at most ``pipeline_depth``
+        chunks of the largest bucket, lowest (tier, deadline, enqueue time)
+        first; the rest roll over to later ticks. The outcome's ``q_ids``
+        are the unmatched rescanned players, not new arrivals: callers must
+        not ack them as queued. The token lands in ``rescan_tokens``."""
+        top = self.buckets[-1]
+        max_window = min(max_window, self._rescan_chunk_cap * top)
+        pool = self.pool
+        if len(pool) == 0:
+            return None
+        t_start = time.perf_counter()
+        slots_all = pool.waiting_slots()
+        if slots_all.size > max_window:
+            enq = pool.m_enqueued[slots_all]
+            dl = pool.m_deadline[slots_all]
+            order = np.lexsort((enq, np.where(dl > 0.0, dl, np.inf),
+                                pool.m_tier[slots_all]))[:max_window]
+            chosen = np.sort(slots_all[order]).astype(np.int32)
+        else:
+            chosen = np.sort(slots_all).astype(np.int32)
+        pending = _Pending(token=self._next_token, created=t_start)
+        pending.columnar = empty_columnar_outcome()
+        self._next_token += 1
+        t0 = self._rel_base(now)
+        for start in range(0, chosen.size, top):
+            slots = chosen[start:start + top]
+            cols = RequestColumns(
+                ids=pool.m_id[slots], rating=pool.m_rating[slots],
+                rd=pool.m_rd[slots], region=pool.m_region[slots],
+                mode=pool.m_mode[slots], threshold=pool.m_threshold[slots],
+                enqueued_at=pool.m_enqueued[slots],
+                reply_to=pool.m_reply[slots],
+                correlation_id=pool.m_corr[slots])
+            bucket = self._bucket_for(slots.size)
+            batch = pool.batch_arrays_cols(cols, slots, bucket, t0)
+            out = self._launch(self.kernels.search_step_packed_rescan, batch,
+                               now, pending)
+            self.util["lanes_valid"] += int(slots.size)
+            self.util["lanes_padded"] += bucket
+            pending.chunks.append(((cols, slots), out, now))
+        self._submit(pending)
+        self.rescan_tokens.add(pending.token)
+        return pending.token
+
+    def collect_ready(self) -> list[tuple[int, SearchOutcome | ColumnarOutcome]]:
+        """Finalize every window whose results have landed, without
+        blocking, in dispatch order (a ready window behind an unfinished
+        one waits its turn)."""
+        done = []
+        while self._pending and self._is_ready(self._pending[0]):
+            done.append(self._collect(self._pending.popleft()))
+        return done
+
+    def flush(self) -> list[tuple[int, SearchOutcome | ColumnarOutcome]]:
+        """Block until every in-flight window is collected and finalized."""
+        done = []
+        while self._pending:
+            done.append(self._collect(self._pending.popleft()))
+        return done
+
+    def span_report(self) -> dict[str, float]:
+        """Per-window averages of the host stage spans (ms)."""
+        w = max(1, self.spans["windows"])
+        return {
+            "windows": self.spans["windows"],
+            "requests": self.spans["requests"],
+            "matches": self.spans["matches"],
+            **{k[:-2] + "_ms_avg": v / w * 1e3
+               for k, v in self.spans.items() if k.endswith("_s")},
+        }
+
+    def util_report(self) -> dict[str, float]:
+        """Device-utilization counters: monotone busy/idle seconds (the
+        open span added read-only, so two reads delta cleanly), the idle
+        fraction, the host's h2d / step-launch / readback split, and the
+        batch fill. Busy means a window is dispatched and not finalized:
+        an upper bound on the device's own busy time."""
+        open_span = max(0.0, time.perf_counter() - self._util_mark)
+        busy = self.util["busy_s"] + (open_span if self._open else 0.0)
+        idle = self.util["idle_s"] + (0.0 if self._open else open_span)
+        valid, padded = self.util["lanes_valid"], self.util["lanes_padded"]
+        return {
+            "device_busy_s": round(busy, 6),
+            "device_idle_s": round(idle, 6),
+            "idle_fraction": round(idle / max(1e-9, busy + idle), 6),
+            "h2d_s": round(self.spans["h2d_s"], 6),
+            "device_step_s": round(self.spans["step_s"], 6),
+            "readback_s": round(self.util["readback_s"], 6),
+            "windows": self.spans["windows"],
+            "lanes_valid": valid,
+            "lanes_padded": padded,
+            "effective_occupancy": round(valid / max(1, padded), 6),
+        }
+
+    # ---- internals: dispatch ----------------------------------------------
+
+    def _require_idle(self, what: str) -> None:
+        if self._open:
+            raise RuntimeError(f"{what} with windows in flight — collect "
+                               f"with flush() first")
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -174,56 +523,266 @@ class GpuEngine(Engine):
             self._t0 = now
         return self._t0
 
+    def _h2d(self, batch: BatchArrays,
+             now_rel: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pack a window into a host staging buffer (pinned for the card)
+        and queue its copy to the device: (device tensor f32[9, B], the
+        staging buffer, which must outlive the copy)."""
+        staging = torch.empty((len(PACKED_ROWS) + 1, batch.slot.shape[0]),
+                              dtype=torch.float32, pin_memory=self._pinned)
+        pack_batch(batch, now_rel, out=staging.numpy())
+        return staging.to(self.device, non_blocking=True), staging
+
+    def _admit(self, batch: BatchArrays) -> None:
+        """Queue the admission of a padded window (restore paths). The
+        pinned allocator keeps the staging block until the copy has run."""
+        self.kernels.admit_packed(self.dev_pool, self._h2d(batch, 0.0)[0])
+
+    def _launch(self, step, batch: BatchArrays, now: float,
+                pending: _Pending) -> torch.Tensor:
+        """Copy one window chunk to the device and queue ``step`` on it;
+        returns the step's device result f32[3, B] (q_slot, c_slot, dist)."""
+        t0 = self._rel_base(now)
+        now_rel = float(np.float32(now - t0))  # the packed row-8 value
+        _t = time.perf_counter()
+        packed, staging = self._h2d(batch, now_rel)
+        pending.staging.append(staging)
+        self.spans["h2d_s"] += time.perf_counter() - _t
+        _t = time.perf_counter()
+        out = step(self.dev_pool, packed, now_rel)
+        self.spans["step_s"] += time.perf_counter() - _t
+        return out
+
+    def _step_for(self, batch: BatchArrays):
+        """The all-ANY variant drops the region/mode tests: exact when no
+        lane carries a filter (padding lanes hold code 0)."""
+        skip = not batch.region.any() and not batch.mode.any()
+        return functools.partial(self.kernels.search_step_packed,
+                                 skip_filters=skip)
+
     def _dispatch(self, window: list[SearchRequest], now: float,
-                  out: SearchOutcome):
-        """Admit + run the step for one chunk; returns (window, f32[3, B]
-        host result) or None when nothing was admitted."""
+                  pending: _Pending) -> None:
+        """Admit + queue the step for one object chunk; no waiting."""
         if not window:
-            return None
-        # Admit what fits and reject the overflow.
+            return
         free = self.pool.free_count()
-        if len(window) > free:
+        if len(window) > free:  # admit what fits, reject the overflow
             for req in window[free:]:
-                out.rejected.append((req, "pool_full"))
+                pending.outcome.rejected.append((req, "pool_full"))
             window = window[:free]
             if not window:
-                return None
+                return
+        _t = time.perf_counter()
         slots = self.pool.allocate(window)
+        self.spans["alloc_s"] += time.perf_counter() - _t
         bucket = self._bucket_for(len(window))
-        t0 = self._rel_base(now)
-        batch = self.pool.batch_arrays(window, slots, bucket, t0)
-        now_rel = float(np.float32(now - t0))
-        # The all-ANY variant drops the region/mode tests (exact when no
-        # lane carries a filter; padding lanes hold code 0).
-        skip = not batch.region.any() and not batch.mode.any()
-        result = self.kernels.search_step_packed(
-            self.dev_pool, self._to_device(pack_batch(batch, now_rel)),
-            now_rel, skip_filters=skip)
-        return window, result.cpu().numpy()
+        _t = time.perf_counter()
+        batch = self.pool.batch_arrays(window, slots, bucket,
+                                       self._rel_base(now))
+        self.spans["pack_s"] += time.perf_counter() - _t
+        out = self._launch(self._step_for(batch), batch, now, pending)
+        self.util["lanes_valid"] += len(window)
+        self.util["lanes_padded"] += bucket
+        pending.chunks.append((list(window), out, now))
 
-    def _finalize(self, window: list[SearchRequest], result: np.ndarray,
-                  now: float, out: SearchOutcome) -> None:
-        """Map one chunk's (q_slot, c_slot, dist) back to requests."""
-        q_slot = result[0].astype(np.int32)
-        c_slot = result[1].astype(np.int32)
-        hit = q_slot < self.kernels.capacity
-        matched_ids: set[str] = set()
-        if hit.any():
-            qs_l = q_slot[hit].tolist()
-            cs_l = c_slot[hit].tolist()
-            for qs, cs, d in zip(qs_l, cs_l, result[2][hit].tolist()):
-                req_q = self.pool.request_at(qs)
-                req_c = self.pool.request_at(cs)
-                matched_ids.add(req_q.id)
-                matched_ids.add(req_c.id)
-                qual = scoring.quality(d, self.effective_threshold(req_q, now),
-                                       self.effective_threshold(req_c, now))
-                out.matches.append(Match(match_id=new_match_id(),
-                                         teams=((req_q,), (req_c,)),
-                                         quality=qual))
-            self.pool.release(qs_l)
-            self.pool.release(cs_l)
-        for req in window:
-            if req.id not in matched_ids:
-                out.queued.append(req)
+    def _dispatch_cols(self, cols: RequestColumns, now: float,
+                       pending: _Pending) -> None:
+        """Columnar twin of ``_dispatch``."""
+        if not len(cols):
+            return
+        free = self.pool.free_count()
+        if len(cols) > free:
+            assert pending.columnar is not None
+            pending.columnar.rejected.extend(
+                (pid, "pool_full") for pid in cols.ids[free:].tolist())
+            cols = cols.slice(0, free)
+            if not len(cols):
+                return
+        _t = time.perf_counter()
+        slots = self.pool.allocate_columns(cols)
+        self.spans["alloc_s"] += time.perf_counter() - _t
+        bucket = self._bucket_for(len(cols))
+        _t = time.perf_counter()
+        batch = self.pool.batch_arrays_cols(cols, slots, bucket,
+                                            self._rel_base(now))
+        self.spans["pack_s"] += time.perf_counter() - _t
+        out = self._launch(self._step_for(batch), batch, now, pending)
+        self.util["lanes_valid"] += len(cols)
+        self.util["lanes_padded"] += bucket
+        pending.chunks.append(((cols, slots), out, now))
 
+    def _submit(self, pending: _Pending) -> None:
+        """Queue each chunk's result copy behind its step, and track the
+        window FIFO."""
+        pending.chunks = [(payload, _Readback(out), now)
+                          for payload, out, now in pending.chunks]
+        pending.queued_readback = time.perf_counter()
+        if self._open == 0:
+            now_pc = time.perf_counter()
+            self.util["idle_s"] += max(0.0, now_pc - self._util_mark)
+            self._util_mark = now_pc
+        self._open += 1
+        self._pending.append(pending)
+
+    # ---- internals: collection --------------------------------------------
+
+    @staticmethod
+    def _is_ready(pending: _Pending) -> bool:
+        return all(h.ready() for _, h, _ in pending.chunks)
+
+    def _fetch(self, pending: _Pending) -> None:
+        """Read the window's results on the host (already copied in the
+        common case); a device failure is parked on the window."""
+        if pending.raw is not None:
+            return
+        try:
+            pending.raw = [h.numpy() for _, h, _ in pending.chunks]
+        except RuntimeError as e:  # CUDA errors surface as RuntimeError
+            pending.error = e
+        pending.staging.clear()
+
+    def _collect(self, pending: _Pending):
+        self._fetch(pending)
+        self._finalize(pending)
+        return pending.token, (pending.columnar if pending.columnar is not None
+                               else pending.outcome)
+
+    def _finalize(self, pending: _Pending) -> None:
+        """Map one window's results back to requests. A device failure does
+        not raise here (that would drop outcomes already finalized in the
+        same collect): the window's requests are reported as queued — true,
+        the mirror still holds them, and a revive restores from the mirror —
+        its token goes to ``failed_tokens`` and the error to
+        ``device_error``."""
+        _t = time.perf_counter()
+        self._open -= 1
+        if self._open == 0:
+            now_pc = time.perf_counter()
+            self.util["busy_s"] += max(0.0, now_pc - self._util_mark)
+            self._util_mark = now_pc
+        if pending.created:
+            self.spans["windows"] += 1
+            self.spans["turnaround_s"] += time.perf_counter() - pending.created
+        if pending.chunks:
+            self.util["readback_s"] += _t - pending.queued_readback
+        if pending.error is not None:
+            self.device_error = pending.error
+            self.failed_tokens.add(pending.token)
+            for payload, _, _ in pending.chunks:
+                if pending.columnar is not None:
+                    pending.columnar.q_ids = np.concatenate(
+                        [pending.columnar.q_ids, payload[0].ids])
+                else:
+                    pending.outcome.queued.extend(payload)
+        elif pending.columnar is not None:
+            self._finalize_columnar(pending)
+        else:
+            self._finalize_objects(pending)
+        self.spans["finalize_s"] += time.perf_counter() - _t
+
+    def _finalize_objects(self, pending: _Pending) -> None:
+        out = pending.outcome
+        for (window, _, now), result in zip(pending.chunks, pending.raw or ()):
+            q_slot = result[0].astype(np.int32)
+            c_slot = result[1].astype(np.int32)
+            hit = q_slot < self.kernels.capacity
+            matched_ids: set[str] = set()
+            if hit.any():
+                qs_l = q_slot[hit].tolist()
+                cs_l = c_slot[hit].tolist()
+                for qs, cs, d in zip(qs_l, cs_l, result[2][hit].tolist()):
+                    req_q = self.pool.request_at(qs)
+                    req_c = self.pool.request_at(cs)
+                    matched_ids.add(req_q.id)
+                    matched_ids.add(req_c.id)
+                    qual = scoring.quality(
+                        d, self.effective_threshold(req_q, now),
+                        self.effective_threshold(req_c, now))
+                    out.matches.append(Match(match_id=new_match_id(),
+                                             teams=((req_q,), (req_c,)),
+                                             quality=qual))
+                self.pool.release(qs_l)
+                self.pool.release(cs_l)
+            for req in window:
+                if req.id not in matched_ids:
+                    out.queued.append(req)
+        self.spans["matches"] += len(out.matches)
+
+    def _eff_vec(self, thr: np.ndarray, enqueued: np.ndarray,
+                 now: float) -> np.ndarray:
+        """``effective_threshold`` over mirror columns."""
+        if self.queue.widen_per_sec <= 0.0:
+            return thr
+        waited = np.maximum(0.0, now - enqueued)
+        return np.minimum(self.queue.max_threshold,
+                          thr + self.queue.widen_per_sec * waited
+                          ).astype(np.float32)
+
+    def _finalize_columnar(self, pending: _Pending) -> None:
+        """Columnar finalize: vectorized over the window, with the object
+        path's formulas (quality from both sides' effective thresholds at
+        the chunk's dispatch time)."""
+        out = pending.columnar
+        assert out is not None
+        pool = self.pool
+        for (payload, _, now), result in zip(pending.chunks, pending.raw or ()):
+            cols, slots = payload
+            q_slot = result[0].astype(np.int32)
+            c_slot = result[1].astype(np.int32)
+            hit = q_slot < self.kernels.capacity
+            qs, cs, d = q_slot[hit], c_slot[hit], result[2][hit]
+            if qs.size:
+                eff_a = self._eff_vec(pool.m_threshold[qs], pool.m_enqueued[qs], now)
+                eff_b = self._eff_vec(pool.m_threshold[cs], pool.m_enqueued[cs], now)
+                limit = np.minimum(eff_a, eff_b)
+                quality = np.where(
+                    limit > 0.0,
+                    np.clip(1.0 - d / np.maximum(limit, 1e-30), 0.0, 1.0),
+                    0.0,
+                ).astype(np.float32)
+                enq_a, enq_b = pool.m_enqueued[qs], pool.m_enqueued[cs]
+                # Wait at match: this chunk's dispatch time minus the
+                # enqueue stamp (0 where unstamped).
+                wait_a = np.where(enq_a != 0.0, np.maximum(0.0, now - enq_a), 0.0)
+                wait_b = np.where(enq_b != 0.0, np.maximum(0.0, now - enq_b), 0.0)
+                for name, col in (
+                        ("m_id_a", pool.m_id[qs]), ("m_id_b", pool.m_id[cs]),
+                        ("m_match_id", new_match_ids(qs.size)),
+                        ("m_dist", d), ("m_quality", quality),
+                        ("m_reply_a", pool.m_reply[qs]),
+                        ("m_reply_b", pool.m_reply[cs]),
+                        ("m_corr_a", pool.m_corr[qs]),
+                        ("m_corr_b", pool.m_corr[cs]),
+                        ("m_enq_a", enq_a), ("m_enq_b", enq_b),
+                        ("m_wait_a", wait_a), ("m_wait_b", wait_b),
+                        ("m_tier_a", pool.m_tier[qs]),
+                        ("m_tier_b", pool.m_tier[cs])):
+                    setattr(out, name, np.concatenate([getattr(out, name), col]))
+                matched = np.concatenate([qs, cs])
+                pool.release(matched)
+                queued_ids = cols.ids[~np.isin(slots, matched)]
+            else:
+                queued_ids = cols.ids
+            out.q_ids = np.concatenate([out.q_ids, queued_ids])
+        self.spans["matches"] += out.n_matches
+
+    # ---- internals: eviction ------------------------------------------------
+
+    def _expire_slots(self, slots: np.ndarray) -> list[SearchRequest]:
+        if slots.size == 0:
+            return []
+        reqs = [self.pool.request_at(int(s)) for s in slots]
+        self._release_and_evict(slots)
+        return reqs
+
+    def _release_and_evict(self, slots: np.ndarray) -> None:
+        self.pool.release(slots)
+        self._evict(slots)
+
+    def _evict(self, slots: np.ndarray) -> None:
+        """One device eviction of exactly ``slots``. (The JAX package evicts
+        in chunks of ``evict_bucket`` padded with the sentinel ``capacity``,
+        for a fixed compiled shape; ``kernels.evict`` takes any length, so
+        one call over the slots marks the same ones.)"""
+        kernels.evict(self.dev_pool, torch.from_numpy(
+            np.ascontiguousarray(slots, np.int32)).to(self.device))

@@ -20,6 +20,8 @@ import abc
 from dataclasses import dataclass, field
 from typing import Sequence
 
+import numpy as np
+
 from matchmaking_tpu_torch.config import Config, QueueConfig
 from matchmaking_tpu_torch.service.contract import MatchResult, SearchRequest
 
@@ -53,6 +55,55 @@ class SearchOutcome:
     queued: list[SearchRequest] = field(default_factory=list)
     #: Requests the engine cannot serve (reason code, e.g. "pool_full").
     rejected: list[tuple[SearchRequest, str]] = field(default_factory=list)
+
+
+@dataclass
+class ColumnarOutcome:
+    """A 1v1 window's outcome as parallel numpy arrays (the columnar path's
+    twin of ``SearchOutcome``). Matched pairs are row-aligned across the
+    ``m_*`` arrays; every string column is dtype=object."""
+
+    m_id_a: "np.ndarray"      # object[M] player ids, side A
+    m_id_b: "np.ndarray"      # object[M] player ids, side B
+    m_match_id: "np.ndarray"  # object[M]
+    m_dist: "np.ndarray"      # f32[M] rating distance
+    m_quality: "np.ndarray"   # f32[M]
+    m_reply_a: "np.ndarray"   # object[M] reply queues (may be "")
+    m_reply_b: "np.ndarray"
+    m_corr_a: "np.ndarray"    # object[M] correlation ids
+    m_corr_b: "np.ndarray"
+    m_enq_a: "np.ndarray"     # f64[M] enqueue wall-clock
+    m_enq_b: "np.ndarray"
+    q_ids: "np.ndarray"       # object[Q] newly queued player ids
+    #: (player_id, reason_code) pairs the engine refused.
+    rejected: list[tuple[str, str]] = field(default_factory=list)
+    #: Wait-at-match per side (seconds): the window's dispatch time minus
+    #: the enqueue time (0 where unstamped) — the ``waited_ms`` field.
+    m_wait_a: "np.ndarray" = field(
+        default_factory=lambda: np.empty(0, np.float64))
+    m_wait_b: "np.ndarray" = field(
+        default_factory=lambda: np.empty(0, np.float64))
+    #: QoS tier per matched side (pool mirror column; zeros untiered).
+    m_tier_a: "np.ndarray" = field(
+        default_factory=lambda: np.empty(0, np.int32))
+    m_tier_b: "np.ndarray" = field(
+        default_factory=lambda: np.empty(0, np.int32))
+
+    @property
+    def n_matches(self) -> int:
+        return len(self.m_id_a)
+
+
+def empty_columnar_outcome() -> ColumnarOutcome:
+    e = np.empty(0, object)
+    z = np.empty(0, np.float32)
+    t = np.empty(0, np.float64)
+    i = np.empty(0, np.int32)
+    return ColumnarOutcome(m_id_a=e, m_id_b=e, m_match_id=e, m_dist=z,
+                           m_quality=z, m_reply_a=e, m_reply_b=e, m_corr_a=e,
+                           m_corr_b=e, m_enq_a=t, m_enq_b=t, q_ids=e,
+                           m_wait_a=t.copy(), m_wait_b=t.copy(),
+                           m_tier_a=i.copy(), m_tier_b=i.copy())
 
 
 class Engine(abc.ABC):

@@ -8,6 +8,10 @@ One call processes a whole request window against the whole pool:
     → parallel greedy conflict-free pairing (``greedy_pair``)
     → eviction of both sides of every formed pair
 
+The rescan step (``search_step_rescan``) is the same step without the
+admission, with each lane's validity gated by its slot's device-side
+``active`` flag.
+
 Port of ``matchmaking_tpu/engine/kernels.py``'s dense ``KernelSet`` path.
 Plain functions on tensors with an explicit device: the pool is a
 ``DevicePool``, a dict of 1-D tensors (``core.pool.POOL_FIELDS``) updated IN
@@ -245,6 +249,37 @@ class KernelSet:
         (q_slot, c_slot, dist) out — slot ids ≪ 2^24 are f32-exact."""
         out_q, out_c, out_d = self.search_step(pool, unpack_batch(packed),
                                                now, skip_filters)
+        return torch.stack([out_q.to(torch.float32),
+                            out_c.to(torch.float32), out_d])
+
+    def search_step_rescan(self, pool: dict[str, Any],
+                           batch: dict[str, Any], now: float):
+        """No-admission window step for rescans: nothing is admitted, and
+        each lane's validity is ANDed with the device-side ``active`` flag
+        of its own slot (a gather, no host read). A lane built from a host
+        mirror that lags the device — a player an in-flight window already
+        matched and evicted — is then a no-op, which is what makes a rescan
+        safe to dispatch with windows in flight, and to split into chunks
+        (a later chunk cannot re-match players an earlier one retired).
+        Scoring, pairing and eviction are the full-filter step's."""
+        q_thr_eff = effective_threshold(batch["threshold"], batch["enqueue_t"],
+                                        now, self.widen_per_sec,
+                                        self.max_threshold)
+        lane_act = pool["active"].index_select(
+            0, batch["slot"].long().clamp(0, self.capacity - 1))
+        batch = dict(batch, valid=batch["valid"] & lane_act)
+        vals, idxs = self.candidates(batch, q_thr_eff, pool, now)
+        out_q, out_c, out_d = greedy_pair(vals, idxs, batch["slot"],
+                                          self.capacity, self.pair_rounds)
+        evict(pool, torch.cat([out_q, out_c]))
+        return out_q, out_c, out_d
+
+    def search_step_packed_rescan(self, pool: dict[str, Any],
+                                  packed: torch.Tensor, now: float):
+        """Packed-I/O twin of ``search_step_rescan`` (the layout of
+        ``search_step_packed``)."""
+        out_q, out_c, out_d = self.search_step_rescan(
+            pool, unpack_batch(packed), now)
         return torch.stack([out_q.to(torch.float32),
                             out_c.to(torch.float32), out_d])
 

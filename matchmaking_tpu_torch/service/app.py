@@ -1,15 +1,37 @@
-"""A minimal matchmaking service for one queue, on the port's engine.
+"""The matchmaking service for one 1v1 queue: the columnar pipelined loop.
 
-broker consume → middleware (stamp + decode) → batcher window →
-``engine.search`` (in a worker thread) → encode responses → publish → ack.
+    broker consume → stamp middleware → batcher window → ``_flush``:
+    native batch decode (rows the codec flags NEEDS_PYTHON decode through
+    the contract module) → terminal-replay probe → column assembly →
+    ``engine.search_columns_async`` …
+    collected window: native batch encode → one ``publish_batch`` → acks
 
-Responses follow the JAX app's object path: every admitted request gets a
-``queued`` ack (``QueueConfig.send_queued_ack``), each matched player a
-``matched`` response carrying the match, ``latency_ms`` and ``waited_ms``,
-and engine rejections an ``error``. A redelivered request whose player was
-already matched within ``dedup_ttl_s`` is answered with the cached response
-instead of re-entering the pool. Supervision, durability, overload
-control, replication and observability are not carried by this slice.
+Up to ``EngineConfig.pipeline_depth`` windows are in flight: a window is
+answered when it is collected — by a later flush or by the collector loop
+— and the batcher waits while the pipeline is full. With depth 1 each
+window is dispatched and collected in one step. Beside the batcher run the
+rescan loop (``QueueConfig.rescan_interval_s``: re-matches the
+longest-waiting players so widened thresholds resolve inside the pool) and
+the sweep loop (``request_timeout_s`` timeouts and the per-player
+``x-deadline`` expiry of ``OverloadConfig.deadline_sweep_ms``).
+
+Every request gets a ``queued`` ack when it enters the pool
+(``send_queued_ack``), each matched player a ``matched`` response with
+``latency_ms`` and ``waited_ms``, engine rejections an ``error``, and
+expired players ``timeout``. A redelivered request whose player reached a
+terminal answer within ``dedup_ttl_s`` is answered with the cached body.
+A window that fails on the device is nacked (the broker redelivers it) and
+the engine is rebuilt from the old engine's mirror.
+
+Everything runs on the event loop's thread: a dispatch or a collection
+runs to its end without yielding, so no lock is needed around the engine,
+and no second thread contends with the loop for the interpreter lock
+(every PyTorch call of the window step releases and retakes it).
+
+This is the JAX package's ``_QueueRuntime`` columnar path for one queue,
+without admission control, durability, replication, tracing, the
+dispatch arbiter, speculation, the health/probe loop and consume-time
+burst decode.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
 
@@ -20,27 +42,42 @@ says otherwise) and prints their answers.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import time
 from typing import Sequence
 
+import numpy as np
+
 from matchmaking_tpu_torch.config import Config, EngineConfig
-from matchmaking_tpu_torch.engine.interface import make_engine
+from matchmaking_tpu_torch.engine.interface import ColumnarOutcome, make_engine
+from matchmaking_tpu_torch.native import codec
 from matchmaking_tpu_torch.service.batcher import Batcher
 from matchmaking_tpu_torch.service.broker import Delivery, InProcBroker, Properties
-from matchmaking_tpu_torch.service.client import MatchmakingClient
+from matchmaking_tpu_torch.service.client import DEADLINE_HEADER, MatchmakingClient
 from matchmaking_tpu_torch.service.contract import (
+    ContractError,
+    MatchResult,
+    RequestColumns,
     SearchRequest,
     SearchResponse,
+    decode_request,
     encode_response,
 )
 from matchmaking_tpu_torch.service.middleware import (
     MessageContext,
-    MiddlewareReject,
-    default_pipeline,
+    columnar_pipeline,
 )
 
 log = logging.getLogger(__name__)
+
+#: A response row: (reply_to, correlation_id, body).
+Row = tuple[str, str, bytes]
+
+#: Counters of failures the service catches and recovers from (a failed
+#: window is nacked and the engine revived, a failed tick retried).
+FAULT_COUNTERS = ("engine_failures", "revives", "outcome_errors",
+                  "collector_errors", "rescan_skipped")
 
 
 class MatchmakingApp:
@@ -53,131 +90,626 @@ class MatchmakingApp:
         self.queue_cfg = cfg.queues[0]
         self.broker = broker or InProcBroker(cfg.broker)
         self.device = device
-        self.pipeline = default_pipeline(cfg.auth)
+        self.pipeline = columnar_pipeline(cfg.auth)
+        self.pipeline_depth = max(1, cfg.engine.pipeline_depth)
         self.engine = None
-        self.counters = {"windows": 0, "requests": 0, "players_matched": 0,
-                         "queued": 0, "rejected": 0, "deduped_replays": 0,
-                         "flush_errors": 0}
+        self.counters = {
+            "windows": 0, "requests": 0, "players_matched": 0, "queued": 0,
+            "rejected": 0, "deduped_replays": 0, "publish_batches": 0,
+            "engine_failures": 0, "revives": 0, "outcome_errors": 0,
+            "collector_errors": 0, "rescan_matches": 0, "rescan_skipped": 0,
+            "timeouts": 0}
         #: Terminal-replay cache: player id → (response body, expiry).
         self._recent: dict[str, tuple[bytes, float]] = {}
+        self._next_prune = 0.0
+        #: Token → (player id → delivery, deliveries) of every dispatched,
+        #: not yet answered window.
+        self._inflight_meta: dict[int, tuple[dict[str, Delivery],
+                                             list[Delivery]]] = {}
+        #: A collected window failed on the device: rebuild the engine once
+        #: the pipeline is empty.
+        self._needs_revive = False
         self._batcher: Batcher | None = None
         self._tag: str | None = None
+        self._collector: asyncio.Task | None = None
+        self._loops: list[asyncio.Task] = []
 
     async def start(self) -> None:
-        self.engine = make_engine(self.cfg, self.queue_cfg, device=self.device)
-        await asyncio.to_thread(self.engine.warmup)
+        codec.load()  # a codec that cannot build raises here
+        self.engine = self._make_engine()
+        if self.cfg.engine.warm_start:
+            self.engine.warmup()
         self.broker.declare_queue(self.queue_cfg.name)
         self._batcher = Batcher(self.cfg.batcher, self._flush)
         self._tag = self.broker.basic_consume(self.queue_cfg.name,
                                               self._on_delivery)
+        if self.pipeline_depth > 1:
+            self._collector = asyncio.create_task(self._collector_loop())
+        if self.queue_cfg.rescan_interval_s > 0:
+            self._loops.append(asyncio.create_task(self._rescan_loop()))
+        if (self.queue_cfg.request_timeout_s is not None
+                or self.cfg.overload.deadline_sweep_ms > 0):
+            self._loops.append(asyncio.create_task(self._sweep_loop()))
 
     async def stop(self) -> None:
-        if self._tag is not None:
-            self.broker.basic_cancel(self._tag)
-            self._tag = None
+        for task in self._loops:
+            task.cancel()
+        await asyncio.gather(*self._loops, return_exceptions=True)
+        self._loops = []
         if self._batcher is not None:
             await self._batcher.close()
             self._batcher = None
+        if self._collector is not None:
+            self._collector.cancel()
+            await asyncio.gather(self._collector, return_exceptions=True)
+            self._collector = None
+        self._drain_engine(time.time())
+        if self._tag is not None:
+            self.broker.basic_cancel(self._tag)
+            self._tag = None
+
+    def faults(self) -> dict[str, object]:
+        """The failures this app caught and recovered from: the nonzero
+        fault counters, and the engine's parked device error. Empty when
+        every window, collection and tick ran clean."""
+        out: dict[str, object] = {k: self.counters[k] for k in FAULT_COUNTERS
+                                  if self.counters[k]}
+        if self.engine is not None and self.engine.device_error is not None:
+            out["device_error"] = repr(self.engine.device_error)
+        return out
+
+    def _make_engine(self):
+        return make_engine(self.cfg, self.queue_cfg, device=self.device)
+
+    def restore_columns(self, cols: RequestColumns, regions, modes,
+                        now: float) -> None:
+        """Re-admit waiting players without matching — a checkpoint such as
+        an engine's ``waiting_columns()``: ``cols`` with each row's region
+        and mode given by name in ``regions`` / ``modes`` (the codes in
+        ``cols`` are ignored)."""
+        self._restore_into(self.engine, cols, regions, modes, now)
+
+    @staticmethod
+    def _restore_into(engine, cols: RequestColumns, regions, modes,
+                      now: float) -> None:
+        reg, mode = engine.intern_columns(list(regions), list(modes))
+        engine.restore_columns(dataclasses.replace(cols, region=reg, mode=mode),
+                               now)
 
     # ---- ingress ----------------------------------------------------------
 
     async def _on_delivery(self, delivery: Delivery) -> None:
-        ctx = MessageContext(delivery=delivery, queue=self.queue_cfg.name)
+        await self.pipeline.run(MessageContext(delivery=delivery,
+                                               queue=self.queue_cfg.name))
+        self._batcher.submit(delivery)
+
+    def _first_received(self, delivery: Delivery, now: float) -> float:
+        if delivery.first_received >= 0.0:
+            return delivery.first_received
         try:
-            await self.pipeline.run(ctx)
-        except MiddlewareReject as e:
-            self.counters["rejected"] += 1
-            self._publish(delivery.properties.reply_to,
-                          delivery.properties.correlation_id,
-                          encode_response(SearchResponse(
-                              status="error", player_id="", error_code=e.code,
-                              error_reason=e.reason)))
-            self._ack(delivery)
-            return
-        self._batcher.submit((ctx.request, delivery))
+            first = float(delivery.properties.headers.get("x-first-received",
+                                                          now))
+        except (TypeError, ValueError):
+            first = now
+        delivery.first_received = first
+        return first
+
+    @staticmethod
+    def _deadline_of(delivery: Delivery) -> float:
+        """The delivery's absolute ``x-deadline`` (0.0: none or garbled)."""
+        try:
+            return float(delivery.properties.headers.get(DEADLINE_HEADER, 0.0))
+        except (TypeError, ValueError):
+            return 0.0
+
+    def _decode_or_reject(self, delivery: Delivery,
+                          now: float) -> SearchRequest | None:
+        """The contract module's decode, for the rows the codec leaves to
+        Python; a malformed payload is answered and acked here."""
+        try:
+            return decode_request(
+                delivery.body, reply_to=delivery.properties.reply_to,
+                correlation_id=delivery.properties.correlation_id,
+                queue=self.queue_cfg.name,
+                enqueued_at=self._first_received(delivery, now))
+        except ContractError as e:
+            self._reject(delivery, e.code, e.reason)
+            return None
 
     # ---- one window -------------------------------------------------------
 
-    async def _flush(self, window: list[tuple[SearchRequest, Delivery]]) -> None:
+    async def _flush(self, deliveries: list[Delivery]) -> None:
+        """Decode a window natively, answer terminal replays, assemble the
+        rest as columns and dispatch them. Per-row Python is the replay
+        probe and the rows the codec leaves to the contract module."""
         now = time.time()
-        fresh = []
-        for req, delivery in window:
-            cached = self._recent.get(req.id)
-            if cached is not None and cached[1] > now:
-                # A redelivered copy of a matched player replays "matched".
-                self.counters["deduped_replays"] += 1
-                self._publish(req.reply_to, req.correlation_id, cached[0])
-                self._ack(delivery)
+        self._prune_recent(now)
+        ids_n, rating_n, rd_n, thr_n, regions_n, modes_n, status_n = (
+            codec.decode_batch([bytes(d.body) for d in deliveries]))
+        # (delivery index, player id, request decoded in Python or None)
+        rows: list[tuple[int, str, SearchRequest | None]] = []
+        for i, (delivery, st) in enumerate(zip(deliveries, status_n.tolist())):
+            if st == codec.OK:
+                rows.append((i, ids_n[i], None))
+            elif st != codec.NEEDS_PYTHON:
+                self._reject(delivery, codec.error_code(st), "malformed payload")
             else:
-                fresh.append((req, delivery))
-        if not fresh:
+                req = self._decode_or_reject(delivery, now)
+                if req is None:
+                    continue
+                if req.party_size > 1:  # a 1v1 queue serves no parties
+                    self._reject(delivery, "party_not_supported",
+                                 "engine rejected request: party_not_supported")
+                    continue
+                rows.append((i, req.id, req))
+        keep = []
+        for src, pid, req in rows:
+            cached = self._recent.get(pid)
+            if cached is not None and cached[1] <= now:
+                del self._recent[pid]  # expired: a genuine re-queue
+                cached = None
+            if cached is not None:
+                self._replay(deliveries[src], cached[0])
+            else:
+                keep.append((src, pid, req))
+        if not keep:
             return
-        requests = [r for r, _ in fresh]
+        k = len(keep)
+        picked = [deliveries[s] for s, _, _ in keep]
+        if all(req is None for _, _, req in keep):
+            sel = np.fromiter((s for s, _, _ in keep), np.int64, k)
+            ids, rating, rd, thr = ids_n[sel], rating_n[sel], rd_n[sel], thr_n[sel]
+            region_names, mode_names = regions_n[sel], modes_n[sel]
+        else:
+            ids = np.fromiter((pid for _, pid, _ in keep), object, k)
+            rating, rd, thr = (np.empty(k, np.float32) for _ in range(3))
+            region_names, mode_names = np.empty(k, object), np.empty(k, object)
+            for j, (s, _, req) in enumerate(keep):
+                if req is None:
+                    rating[j], rd[j], thr[j] = rating_n[s], rd_n[s], thr_n[s]
+                    region_names[j], mode_names[j] = regions_n[s], modes_n[s]
+                else:
+                    rating[j], rd[j] = req.rating, req.rating_deviation
+                    thr[j] = (np.nan if req.rating_threshold is None
+                              else req.rating_threshold)
+                    region_names[j], mode_names[j] = req.region, req.game_mode
+        cols = RequestColumns(
+            ids=ids, rating=rating, rd=rd,
+            region=region_names, mode=mode_names,  # names until dispatch
+            threshold=thr,
+            enqueued_at=np.fromiter((self._first_received(d, now)
+                                     for d in picked), np.float64, k),
+            reply_to=np.fromiter((d.properties.reply_to for d in picked),
+                                 object, k),
+            correlation_id=np.fromiter(
+                (d.properties.correlation_id for d in picked), object, k),
+            deadline=(np.fromiter((self._deadline_of(d) for d in picked),
+                                  np.float64, k)
+                      if self.cfg.overload.deadline_sweep_ms > 0 else None))
+
+        def dispatch(drop: set[str]) -> int:
+            # Region/mode are interned here, into the current engine's
+            # interners (a revive between the flush and this dispatch
+            # rebuilds them).
+            c = cols
+            if drop:
+                c = c.take(np.fromiter((i not in drop for i in c.ids.tolist()),
+                                       bool, len(c)))
+            reg, mode = self.engine.intern_columns(
+                ["*" if r == "" else r for r in c.region.tolist()],
+                ["*" if m == "" else m for m in c.mode.tolist()])
+            return self.engine.search_columns_async(
+                dataclasses.replace(c, region=reg, mode=mode), now)
+
+        await self._dispatch_window(
+            dispatch, [(pid, deliveries[s]) for s, pid, _ in keep], now)
+
+    async def _dispatch_window(self, dispatch,
+                               pairs: list[tuple[str, Delivery]],
+                               now: float) -> None:
+        """Dispatch one window (``dispatch(drop)`` returns its token), then
+        collect what has landed; with a full pipeline, hold this flush (and
+        so the batcher) until a slot frees. A dispatch that raises rebuilds
+        the engine; the window's deliveries are nacked."""
+        recorded = False
+        deliveries_in = [d for _, d in pairs]
         try:
-            outcome = await asyncio.to_thread(self.engine.search, requests, now)
+            self._collect_ready(time.time())
+            if self._needs_revive:
+                # A collected window failed: the device pool diverged from
+                # the mirror. Revive before dispatching into it.
+                self._drain_engine(now)
+            stale = self._settle_terminal(pairs, now)
+            if stale:
+                pairs = [(p, d) for p, d in pairs if p not in stale]
+                deliveries_in = [d for _, d in pairs]
+                if not pairs:
+                    return
+            tok = dispatch(stale)
+            self._inflight_meta[tok] = (dict(pairs), deliveries_in)
+            recorded = True
+            if self.pipeline_depth > 1:
+                self._collect_ready(time.time())
+            else:
+                self._drain_engine(now)
         except Exception:
-            log.exception("window step failed; nacking its deliveries")
-            self.counters["flush_errors"] += 1
-            for _, delivery in fresh:
-                self.broker.nack(self._tag, delivery.delivery_tag)
+            log.exception("window dispatch failed; reviving the engine "
+                          "from its mirror")
+            self.counters["engine_failures"] += 1
+            self._revive_after_failure(
+                now, extra_nack=None if recorded else deliveries_in)
             return
-        done = time.time()
-        for match in outcome.matches:
-            result = match.result()
-            for req in match.requests():
-                self._publish_matched(req, result, done)
-        if self.queue_cfg.send_queued_ack:
-            for req in outcome.queued:
-                self._publish(req.reply_to, req.correlation_id,
-                              encode_response(SearchResponse(
-                                  status="queued", player_id=req.id)))
-        for req, code in outcome.rejected:
-            self.counters["rejected"] += 1
-            self._publish(req.reply_to, req.correlation_id,
-                          encode_response(SearchResponse(
-                              status="error", player_id=req.id,
-                              error_code=code,
-                              error_reason=f"engine rejected request: {code}")))
-        for _, delivery in fresh:
-            self._ack(delivery)
+        while self.engine.inflight() >= self.pipeline_depth:
+            await asyncio.sleep(0.001)
+            self._collect_ready(time.time())
+
+    def _settle_terminal(self, pairs: list[tuple[str, Delivery]],
+                                now: float) -> set[str]:
+        """Second terminal-replay probe, right before the dispatch: the
+        flush's probe ran before the collection of earlier windows, and a
+        player those windows just matched is out of the pool (so the
+        engine's dedupe no longer sees it) but in ``_recent``.
+        Replays and acks such rows; returns their ids."""
+        stale: set[str] = set()
+        for pid, delivery in pairs:
+            cached = self._recent.get(pid)
+            if cached is None or cached[1] <= now:
+                continue
+            stale.add(pid)
+            self._replay(delivery, cached[0])
+        return stale
+
+    # ---- collection -------------------------------------------------------
+
+    def _collect_ready(self, now: float) -> None:
+        """Answer every landed window. The results were copied to the host
+        behind each step, so this is numpy and publishing."""
+        for tok, out in self.engine.collect_ready():
+            self._finish_token(tok, out, now)
+
+    def _finish_token(self, tok: int, out: ColumnarOutcome, now: float) -> None:
+        meta = self._inflight_meta.pop(tok, None)
+        if meta is None:  # a rescan tick (or a window already settled)
+            if tok in self.engine.rescan_tokens:
+                self.engine.rescan_tokens.discard(tok)
+                if tok in self.engine.failed_tokens:
+                    self.engine.failed_tokens.discard(tok)
+                    log.error("rescan window %d failed on the device; "
+                              "revive scheduled", tok)
+                    self.counters["engine_failures"] += 1
+                    self._needs_revive = True
+                    return
+                self._publish_rescan_outcome(out, now)
+            return
+        by_id, deliveries = meta
+        if tok in self.engine.failed_tokens:
+            self.engine.failed_tokens.discard(tok)
+            log.error("window %d failed on the device; nack + revive "
+                      "scheduled", tok)
+            self.counters["engine_failures"] += 1
+            for d in deliveries:
+                self._nack(d)
+            self._needs_revive = True
+            return
+        try:
+            self._handle_columnar_out(out, by_id, deliveries, now)
+        except Exception:
+            # A failure mid-publish must still settle the deliveries: nack
+            # (at-least-once; redeliveries are deduped against the pool and
+            # the replay cache).
+            log.exception("window %d outcome handling failed; nacking", tok)
+            self.counters["outcome_errors"] += 1
+            for d in deliveries:
+                self._nack(d)
+
+    def _handle_columnar_out(self, out: ColumnarOutcome,
+                             by_id: dict[str, Delivery],
+                             deliveries: list[Delivery], now: float) -> None:
+        """Publish one collected window's answers in one ``publish_batch``
+        (matched bodies and queued acks, both batch-encoded natively), then
+        the engine's rejections, then ack the window."""
+        # Queued acks first: in a window of several chunks, a player queued
+        # by one chunk can be matched by a later chunk of the same window,
+        # and its ack must not arrive after its match.
+        rows: list[Row] = []
+        metas = ([(pid, by_id[pid]) for pid in out.q_ids.tolist() if pid in by_id]
+                 if self.queue_cfg.send_queued_ack else [])
+        if metas:
+            nq = len(metas)
+            bodies = codec.encode_simple_batch(
+                np.full(nq, codec.KIND_QUEUED, np.int32),
+                [pid for pid, _ in metas], np.zeros(nq, np.float64))
+            for (pid, d), body in zip(metas, bodies):
+                if body is None:  # a row the C encoder cannot express
+                    body = encode_response(SearchResponse(status="queued",
+                                                          player_id=pid))
+                rows.append((d.properties.reply_to,
+                             d.properties.correlation_id, body))
+        rows += self._build_columnar_rows(out, now)
+        self._publish_batch(rows)
+        for pid, code in out.rejected:
+            d = by_id.get(pid)
+            if d is not None:
+                self._respond_error(d, code, f"engine rejected request: {code}")
+        for d in deliveries:
+            self._ack(d)
         self.counters["windows"] += 1
-        self.counters["requests"] += len(fresh)
-        self.counters["queued"] += len(outcome.queued)
+        self.counters["requests"] += len(deliveries)
+        self.counters["queued"] += len(out.q_ids)
+
+    def _build_columnar_rows(self, out: ColumnarOutcome, now: float) -> list[Row]:
+        """Matched bodies for a ColumnarOutcome, batch-encoded natively
+        (byte-identical to ``encode_response``; rows the encoder flags
+        re-encode in Python), remembered for terminal replay."""
+        n = out.n_matches
+        if n == 0:
+            return []
+        lat_a = np.where(out.m_enq_a != 0.0, (now - out.m_enq_a) * 1e3, 0.0)
+        lat_b = np.where(out.m_enq_b != 0.0, (now - out.m_enq_b) * 1e3, 0.0)
+        wa_ms, wb_ms = out.m_wait_a * 1e3, out.m_wait_b * 1e3
+        ids_a, ids_b = out.m_id_a.tolist(), out.m_id_b.tolist()
+        mids = out.m_match_id.tolist()
+        qual = out.m_quality.astype(np.float64)
+        bodies = codec.encode_matched_batch(ids_a, ids_b, mids, lat_a, lat_b,
+                                            qual, wa_ms, wb_ms)
+        reply_a, reply_b = out.m_reply_a.tolist(), out.m_reply_b.tolist()
+        corr_a, corr_b = out.m_corr_a.tolist(), out.m_corr_b.tolist()
+        rows: list[Row] = []
+        terminals: list[tuple[str, bytes]] = []
+        for j in range(n):
+            body_a, body_b = bodies[2 * j], bodies[2 * j + 1]
+            if body_a is None or body_b is None:
+                result = MatchResult(
+                    match_id=mids[j], players=(ids_a[j], ids_b[j]),
+                    teams=((ids_a[j],), (ids_b[j],)), quality=float(qual[j]))
+                if body_a is None:
+                    body_a = encode_response(SearchResponse(
+                        status="matched", player_id=ids_a[j], match=result,
+                        latency_ms=float(lat_a[j]), waited_ms=float(wa_ms[j])))
+                if body_b is None:
+                    body_b = encode_response(SearchResponse(
+                        status="matched", player_id=ids_b[j], match=result,
+                        latency_ms=float(lat_b[j]), waited_ms=float(wb_ms[j])))
+            terminals.append((ids_a[j], body_a))
+            terminals.append((ids_b[j], body_b))
+            rows.append((reply_a[j], corr_a[j], body_a))
+            rows.append((reply_b[j], corr_b[j], body_b))
+        self._remember_window(terminals, now)
+        self.counters["players_matched"] += 2 * n
+        return rows
+
+    def _publish_rescan_outcome(self, out: ColumnarOutcome, now: float) -> None:
+        """Publish a rescan tick's matches. Its ``q_ids`` are players that
+        were already waiting, never acked again."""
+        self._publish_batch(self._build_columnar_rows(out, now))
+        self.counters["rescan_matches"] += out.n_matches
+
+    # ---- engine lifecycle -------------------------------------------------
+
+    def _drain_engine(self, now: float) -> None:
+        """Collect and answer every in-flight window (blocking); then
+        revive, if a window failed."""
+        if self.engine.inflight() > 0:
+            for tok, out in self.engine.flush():
+                self._finish_token(tok, out, now)
+        if self._needs_revive:
+            self._revive(now)
+
+    def _revive_after_failure(self, now: float,
+                              extra_nack: list[Delivery] | None = None) -> None:
+        """After a failed dispatch: answer what landed, nack the rest and
+        rebuild the engine from its mirror."""
+        try:
+            outs = self.engine.flush()
+        except Exception:
+            log.exception("flush during revive failed; every in-flight "
+                          "window is nacked")
+            outs = []
+        for tok, out in outs:
+            self._finish_token(tok, out, now)
+        for d in extra_nack or ():
+            self._nack(d)
+        self._revive(now)
+
+    def _revive(self, now: float) -> None:
+        """Rebuild the engine and re-admit the old engine's mirror, as
+        columns (nothing is in flight on the old engine, or what is will
+        never be collected). Every window still tracked is nacked: the new
+        engine numbers its tokens from 0."""
+        self._needs_revive = False
+        for tok, (_, deliveries) in list(self._inflight_meta.items()):
+            for d in deliveries:
+                self._nack(d)
+            del self._inflight_meta[tok]
+        cols, region_names, mode_names = self.engine.waiting_columns()
+        engine = self._make_engine()
+        self._restore_into(engine, cols, region_names, mode_names, now)
+        self.engine = engine
+        self.counters["revives"] += 1
+        log.warning("engine revived: %d waiting players restored", len(cols))
+
+    async def _collector_loop(self) -> None:
+        """Collect landed windows when no flush is running (traffic stops:
+        the windows in flight must still be answered). One failed tick must
+        not end the loop."""
+        while True:
+            try:
+                if self.engine.inflight() > 0 or self._needs_revive:
+                    now = time.time()
+                    self._collect_ready(now)
+                    if self._needs_revive and self.engine.inflight() == 0:
+                        self._revive(now)
+                    await asyncio.sleep(0.001)
+                else:
+                    await asyncio.sleep(0.01)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("collector tick failed; retrying")
+                self.counters["collector_errors"] += 1
+                await asyncio.sleep(0.05)
+
+    async def _rescan_loop(self) -> None:
+        """Every ``rescan_interval_s``, dispatch a rescan tick into the
+        pipeline (it may overlap windows in flight) and wait, without
+        draining, for the shared collection to publish it. A tick still
+        outstanding after 30 s makes the next ticks skip until it lands."""
+        interval = self.queue_cfg.rescan_interval_s
+        window = self.queue_cfg.rescan_window or self.cfg.batcher.max_batch
+        outstanding: int | None = None
+        while True:
+            await asyncio.sleep(interval)
+            now = time.time()
+            if (outstanding is not None
+                    and outstanding in self.engine.rescan_tokens):
+                log.warning("rescan token %d still outstanding; skipping "
+                            "this tick", outstanding)
+                self.counters["rescan_skipped"] += 1
+                continue
+            outstanding = None
+            try:
+                tok = self.engine.rescan_async(window, now)
+                if tok is None:
+                    continue
+                deadline = time.monotonic() + 30.0
+                done = False
+                while not done and time.monotonic() < deadline:
+                    self._collect_ready(time.time())
+                    done = tok not in self.engine.rescan_tokens
+                    if self._needs_revive and self.engine.inflight() == 0:
+                        self._revive(time.time())
+                    if not done:
+                        await asyncio.sleep(0.01)
+                if not done:
+                    outstanding = tok
+                    log.warning("rescan token %d exceeded its 30 s "
+                                "collection deadline", tok)
+            except Exception:
+                log.exception("rescan failed; reviving the engine from its "
+                              "mirror")
+                self.counters["engine_failures"] += 1
+                self._revive(now)
+
+    async def _sweep_loop(self) -> None:
+        """Timeouts (``request_timeout_s``, on a quarter of it) and
+        per-player deadline expiry (``deadline_sweep_ms``), on a drained
+        pipeline. A deadline tick with no deadline in the pool does not
+        drain it."""
+        timeout = self.queue_cfg.request_timeout_s
+        sweep_ms = self.cfg.overload.deadline_sweep_ms
+        timeout_interval = (max(0.05, timeout / 4.0)
+                            if timeout is not None else None)
+        dl_interval = max(0.01, sweep_ms / 1e3) if sweep_ms > 0 else None
+        interval = min(x for x in (timeout_interval, dl_interval) if x)
+        next_timeout = (time.monotonic() + timeout_interval
+                        if timeout_interval else None)
+        while True:
+            await asyncio.sleep(interval)
+            now = time.time()
+            run_timeout = (next_timeout is not None
+                           and time.monotonic() >= next_timeout)
+            if run_timeout:
+                next_timeout = time.monotonic() + timeout_interval
+            run_dl = dl_interval is not None and self.engine.deadline_count() != 0
+            if not run_timeout and not run_dl:
+                continue
+            try:
+                self._drain_engine(now)
+                expired = self.engine.expire(now, timeout) if run_timeout else []
+                if run_dl:
+                    expired += self.engine.expire_deadlines(now)
+            except Exception:
+                log.exception("expiry sweep failed; reviving the engine from "
+                              "its mirror")
+                self.counters["engine_failures"] += 1
+                self._revive(now)
+                continue
+            for removed in expired:
+                self.counters["timeouts"] += 1
+                body = encode_response(SearchResponse(
+                    status="timeout", player_id=removed.id,
+                    latency_ms=((now - removed.enqueued_at) * 1e3
+                                if removed.enqueued_at else 0.0)))
+                self._remember(removed.id, body, now)
+                self._publish(removed.reply_to, removed.correlation_id, body)
 
     # ---- egress -----------------------------------------------------------
 
-    def _publish_matched(self, req: SearchRequest, result, now: float) -> None:
-        self.counters["players_matched"] += 1
-        latency = (now - req.enqueued_at) * 1e3 if req.enqueued_at else 0.0
-        body = encode_response(SearchResponse(
-            status="matched", player_id=req.id, match=result,
-            latency_ms=latency, waited_ms=latency))
-        self._recent[req.id] = (body, now + self.queue_cfg.dedup_ttl_s)
-        self._publish(req.reply_to, req.correlation_id, body)
+    def _publish_batch(self, rows: list[Row]) -> None:
+        """One broker ``publish_batch`` call for a window's responses
+        (rows without a reply queue are dropped)."""
+        items = [(reply_to, body, Properties(correlation_id=corr))
+                 for reply_to, corr, body in rows if reply_to]
+        if items:
+            self.broker.publish_batch(items)
+            self.counters["publish_batches"] += 1
 
     def _publish(self, reply_to: str, correlation_id: str, body: bytes) -> None:
         if reply_to:
             self.broker.publish(reply_to, body,
                                 Properties(correlation_id=correlation_id))
 
+    def _replay(self, delivery: Delivery, body: bytes) -> None:
+        """Answer a redelivered request with its cached terminal body."""
+        self.counters["deduped_replays"] += 1
+        self._publish(delivery.properties.reply_to,
+                      delivery.properties.correlation_id, body)
+        self._ack(delivery)
+
+    def _respond_error(self, delivery: Delivery, code: str, reason: str) -> None:
+        self.counters["rejected"] += 1
+        self._publish(delivery.properties.reply_to,
+                      delivery.properties.correlation_id,
+                      encode_response(SearchResponse(
+                          status="error", player_id="", error_code=code,
+                          error_reason=reason)))
+
+    def _reject(self, delivery: Delivery, code: str, reason: str) -> None:
+        self._respond_error(delivery, code, reason)
+        self._ack(delivery)
+
+    def _remember(self, player_id: str, body: bytes, now: float) -> None:
+        self._recent[player_id] = (body, now + self.queue_cfg.dedup_ttl_s)
+
+    def _remember_window(self, terminals: list[tuple[str, bytes]],
+                         now: float) -> None:
+        expiry = now + self.queue_cfg.dedup_ttl_s
+        for pid, body in terminals:
+            self._recent[pid] = (body, expiry)
+
+    def _prune_recent(self, now: float) -> None:
+        """Drop expired replay entries, at most every ``dedup_ttl_s / 2``."""
+        if len(self._recent) > 4096 and now >= self._next_prune:
+            self._recent = {k: v for k, v in self._recent.items() if v[1] > now}
+            self._next_prune = now + self.queue_cfg.dedup_ttl_s / 2.0
+
     def _ack(self, delivery: Delivery) -> None:
         self.broker.ack(self._tag, delivery.delivery_tag)
 
+    def _nack(self, delivery: Delivery) -> None:
+        self.broker.nack(self._tag, delivery.delivery_tag, requeue=True)
+
 
 async def run_demo(device=None, players: int = 10) -> list[SearchResponse]:
-    """Spin the app, submit ``players`` players, return their answers."""
+    """Spin the app, submit ``players`` players, return their answers.
+    Raises if the app caught a failure on the way (``faults()``)."""
     cfg = Config(engine=EngineConfig(backend="gpu", pool_capacity=1024,
-                                     pool_block=256, batch_buckets=(16, 64)))
+                                     pool_block=256, batch_buckets=(16, 64),
+                                     warm_start=True))
     app = MatchmakingApp(cfg, device=device)
     await app.start()
     try:
         client = MatchmakingClient(app.broker, cfg.broker.request_queue)
-        return list(await asyncio.gather(*[
+        answers = list(await asyncio.gather(*[
             client.search_until_matched(
                 {"id": f"p{i}", "rating": 1500 + (i % 7) * 12}, timeout=10.0)
             for i in range(players)]))
     finally:
         await app.stop()
+    if app.faults():
+        raise RuntimeError(f"the demo's service caught failures: "
+                           f"{app.faults()}")
+    return answers
 
 
 def _main(argv: Sequence[str]) -> int:

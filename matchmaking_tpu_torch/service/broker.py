@@ -36,6 +36,9 @@ class Delivery:
     delivery_tag: int
     redelivered: bool = False
     redelivery_count: int = 0
+    #: The ``x-first-received`` stamp as a float, cached by the ingress
+    #: middleware (< 0: not read yet).
+    first_received: float = -1.0
 
 
 class _Queue:
@@ -139,6 +142,13 @@ class InProcBroker:
         q.messages.put_nowait(Delivery(
             body=bytes(body), properties=properties or Properties(),
             queue=queue, delivery_tag=next(self._tags)))
+
+    def publish_batch(self, items) -> None:
+        """Publish a window of messages in one call (the service's one
+        response publish per window). ``items``: (queue, body,
+        Properties or None); each is routed exactly as ``publish`` would."""
+        for queue, body, properties in items:
+            self.publish(queue, body, properties)
 
     def basic_consume(self, queue: str,
                       callback: Callable[[Delivery], Awaitable[None]],

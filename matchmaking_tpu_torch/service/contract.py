@@ -303,7 +303,8 @@ def decode_response(body: bytes | str) -> SearchResponse:
 @dataclass
 class RequestColumns:
     """A window of 1v1 search requests as a structure-of-arrays (host numpy;
-    region/mode pre-interned to int32 codes, 0 = wildcard)."""
+    region/mode pre-interned to int32 codes, 0 = wildcard). The columnar
+    path hands these to the engine instead of one object per request."""
 
     ids: "np.ndarray"          # object[N] str
     rating: "np.ndarray"       # f32[N]
@@ -312,13 +313,34 @@ class RequestColumns:
     mode: "np.ndarray"         # i32[N] interned
     threshold: "np.ndarray"    # f32[N]; NaN = queue default
     enqueued_at: "np.ndarray"  # f64[N] wall-clock seconds
-    reply_to: "np.ndarray"     # object[N] str
-    correlation_id: "np.ndarray"
-    tier: "np.ndarray"         # i32[N]
-    deadline: "np.ndarray"     # f64[N]; 0.0 = none
+    reply_to: "np.ndarray | None" = None  # object[N] str, or None (all "")
+    correlation_id: "np.ndarray | None" = None
+    #: QoS tier (i32; None = all 0) and absolute x-deadline (f64; 0.0 or
+    #: None = none) per row, mirrored into the pool.
+    tier: "np.ndarray | None" = None
+    deadline: "np.ndarray | None" = None
 
     def __len__(self) -> int:
         return len(self.ids)
+
+    def slice(self, start: int, stop: int) -> "RequestColumns":
+        return self._apply(lambda a: a[start:stop])
+
+    def take(self, mask_or_idx: "np.ndarray") -> "RequestColumns":
+        """Row subset by boolean mask or index array."""
+        return self._apply(lambda a: a[mask_or_idx])
+
+    def _apply(self, f) -> "RequestColumns":
+        return RequestColumns(
+            ids=f(self.ids), rating=f(self.rating), rd=f(self.rd),
+            region=f(self.region), mode=f(self.mode),
+            threshold=f(self.threshold), enqueued_at=f(self.enqueued_at),
+            reply_to=None if self.reply_to is None else f(self.reply_to),
+            correlation_id=(None if self.correlation_id is None
+                            else f(self.correlation_id)),
+            tier=None if self.tier is None else f(self.tier),
+            deadline=None if self.deadline is None else f(self.deadline),
+        )
 
     @staticmethod
     def from_requests(requests: Sequence[SearchRequest],
@@ -349,11 +371,26 @@ _match_id_lock = threading.Lock()
 _match_id_next = 1
 
 
-def new_match_id() -> str:
-    """Unique match id: random per-process prefix + counter (the lock keeps
-    concurrent finalizers from minting duplicates)."""
+def _claim_match_ids(n: int) -> int:
+    """Atomically claim a contiguous range of match numbers; returns its
+    start (the lock keeps concurrent finalizers from minting duplicates)."""
     global _match_id_next
     with _match_id_lock:
-        n = _match_id_next
-        _match_id_next += 1
-    return f"{_match_id_prefix}{n:012x}"
+        start = _match_id_next
+        _match_id_next += n
+    return start
+
+
+def new_match_id() -> str:
+    """Unique match id: random per-process prefix + counter."""
+    return f"{_match_id_prefix}{_claim_match_ids(1):012x}"
+
+
+def new_match_ids(n: int) -> "np.ndarray":
+    """``n`` match ids as object[n] from one range claim: the ids
+    ``new_match_id`` would give one by one."""
+    out = np.empty(n, object)
+    if n:
+        start = _claim_match_ids(n)
+        out[:] = [f"{_match_id_prefix}{k:012x}" for k in range(start, start + n)]
+    return out

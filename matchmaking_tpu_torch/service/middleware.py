@@ -1,10 +1,10 @@
 """The middleware pipeline: each delivery runs through an ordered chain
-before the engine sees it. A middleware gets the message context and a
-``next`` thunk; it short-circuits by raising ``MiddlewareReject``, which the
-app maps to an error response on the request's reply queue.
+before the batcher sees it. A middleware gets the message context and a
+``next`` thunk.
 
-This slice carries decoding (``DecodeMiddleware``), the first-receive clock
-stamp (``StampMiddleware``) and auth mode ``"none"`` only.
+The port's chain is ``columnar_pipeline``: the first-receive clock stamp
+only. The service decodes a whole window at once, natively, at flush time.
+The port carries auth mode ``"none"`` only and refuses any other.
 """
 
 from __future__ import annotations
@@ -15,20 +15,6 @@ from typing import Awaitable, Callable, Sequence
 
 from matchmaking_tpu_torch.config import AuthConfig
 from matchmaking_tpu_torch.service.broker import Delivery
-from matchmaking_tpu_torch.service.contract import (
-    ContractError,
-    SearchRequest,
-    decode_request,
-)
-
-
-class MiddlewareReject(Exception):
-    """Stop the pipeline and answer with an error response."""
-
-    def __init__(self, code: str, reason: str):
-        super().__init__(reason)
-        self.code = code
-        self.reason = reason
 
 
 @dataclass
@@ -36,7 +22,6 @@ class MessageContext:
     delivery: Delivery
     queue: str
     received_at: float = field(default_factory=time.time)
-    request: SearchRequest | None = None  # set by DecodeMiddleware
 
 
 Next = Callable[[], Awaitable[None]]
@@ -64,39 +49,22 @@ class Pipeline:
 
 class StampMiddleware(Middleware):
     """Stamp the first receive time into the headers once, so a redelivered
-    copy (same Properties object) keeps its wait clock."""
+    copy (same Properties object) keeps its wait clock, and cache it on the
+    delivery (the flush reads it per row)."""
 
     async def call(self, ctx: MessageContext, next: Next) -> None:  # noqa: A002
-        ctx.delivery.properties.headers.setdefault("x-first-received",
-                                                   ctx.received_at)
-        await next()
-
-
-class DecodeMiddleware(Middleware):
-    """Payload → validated SearchRequest, enqueued at the first receive
-    time (rejects malformed payloads before they reach the engine)."""
-
-    async def call(self, ctx: MessageContext, next: Next) -> None:  # noqa: A002
-        headers = ctx.delivery.properties.headers
+        first = ctx.delivery.properties.headers.setdefault(
+            "x-first-received", ctx.received_at)
         try:
-            first = float(headers.get("x-first-received", ctx.received_at))
+            ctx.delivery.first_received = float(first)
         except (TypeError, ValueError):
-            first = ctx.received_at
-        try:
-            ctx.request = decode_request(
-                ctx.delivery.body,
-                reply_to=ctx.delivery.properties.reply_to,
-                correlation_id=ctx.delivery.properties.correlation_id,
-                queue=ctx.queue,
-                enqueued_at=first,
-            )
-        except ContractError as e:
-            raise MiddlewareReject(e.code, e.reason) from e
+            ctx.delivery.first_received = ctx.received_at
         await next()
 
 
-def default_pipeline(auth_cfg: AuthConfig) -> Pipeline:
+def columnar_pipeline(auth_cfg: AuthConfig) -> Pipeline:
+    """Stamp only; decoding is deferred to the window flush."""
     if auth_cfg.mode != "none":
         raise ValueError(f"auth mode {auth_cfg.mode!r} is not carried by the "
                          f"port yet (only 'none')")
-    return Pipeline([StampMiddleware(), DecodeMiddleware()])
+    return Pipeline([StampMiddleware()])

@@ -1,0 +1,62 @@
+"""The port's configuration: the repository's JSON files load with no key
+dropped, and every field the port carries has the JAX package's name and
+default."""
+
+import dataclasses
+import json
+import logging
+import os
+
+import pytest
+
+from matchmaking_tpu import config as jax_config
+from matchmaking_tpu_torch import config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: Configs #1, #2 and #4, and the latency preset.
+FILES = ("elo_1v1.json", "multiqueue_filters.json", "glicko2.json",
+         "latency.json")
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_config_file_loads_without_dropping_a_key(name, caplog):
+    path = os.path.join(ROOT, "configs", name)
+    with caplog.at_level(logging.WARNING, logger=config.__name__):
+        cfg = config.Config.from_json(path, backend="gpu")
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    with open(path) as f:
+        raw = json.load(f)
+    for i, q in enumerate(raw["queues"]):
+        for key, value in q.items():
+            assert getattr(cfg.queues[i], key) == value, key
+    for section, keys in raw.items():
+        if section in ("queues", "_comment"):
+            continue
+        for key, value in keys.items():
+            want = tuple(value) if isinstance(value, list) else value
+            if (section, key) == ("engine", "backend"):
+                want = "gpu"  # the port's backend, given at load time
+            assert getattr(getattr(cfg, section), key) == want, (section, key)
+
+
+@pytest.mark.parametrize("section", ["QueueConfig", "EngineConfig",
+                                     "BrokerConfig", "BatcherConfig",
+                                     "AuthConfig", "OverloadConfig"])
+def test_port_fields_have_the_jax_names_and_defaults(section):
+    port, jax = getattr(config, section)(), getattr(jax_config, section)()
+    for f in dataclasses.fields(port):
+        if (section, f.name) == ("EngineConfig", "backend"):
+            assert (port.backend, jax.backend) == ("gpu", "cpu")
+            continue
+        assert getattr(port, f.name) == getattr(jax, f.name), f.name
+
+
+def test_the_loops_read_their_knobs():
+    cfg = config.Config.from_json(os.path.join(ROOT, "configs", "glicko2.json"),
+                                  backend="gpu")
+    assert cfg.queues[0].rescan_interval_s == 1.0
+    lat = config.Config.from_json(os.path.join(ROOT, "configs", "latency.json"),
+                                  backend="gpu")
+    assert (lat.engine.pipeline_depth, lat.engine.readback_group,
+            lat.engine.warm_start) == (1, 1, True)
+    assert lat.batcher.max_batch == 512

@@ -17,9 +17,9 @@ import torch
 
 from matchmaking_tpu_torch.config import Config, EngineConfig, QueueConfig
 from matchmaking_tpu_torch.engine import cuda_kernels, scoring
-from matchmaking_tpu_torch.engine.gpu import GpuEngine
+from matchmaking_tpu_torch.engine.gpu import GpuEngine, _Readback
 from matchmaking_tpu_torch.engine.kernels import KernelSet, fresh_pool
-from matchmaking_tpu_torch.service.contract import SearchRequest
+from matchmaking_tpu_torch.service.contract import RequestColumns, SearchRequest
 
 pytestmark = pytest.mark.gpu
 
@@ -202,3 +202,118 @@ def test_search_step_packed_does_not_sync(cuda, skip_filters):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (out[0] < P).sum() > 0  # it formed matches
+
+
+def widening_cfg(capacity=16384, pool_block=4096):
+    return Config(engine=EngineConfig(pool_capacity=capacity,
+                                      pool_block=pool_block),
+                  queues=(QueueConfig(glicko2=True, widen_per_sec=5.0,
+                                      max_threshold=250.0),))
+
+
+def columns(rng, eng, n, start, now):
+    """A seeded columnar window (all-wildcard region/mode)."""
+    region, mode = eng.intern_columns(["*"] * n, ["*"] * n)
+    ids = np.array([f"p{start + i}" for i in range(n)], object)
+    return RequestColumns(
+        ids=ids, rating=rng.normal(1500, 300, n).astype(np.float32),
+        rd=rng.uniform(0, 350, n).astype(np.float32), region=region,
+        mode=mode, threshold=np.full(n, np.nan, np.float32),
+        enqueued_at=now - rng.uniform(0, 10, n),
+        reply_to=np.array([f"rq.{i}" for i in ids], object),
+        correlation_id=ids.copy())
+
+
+def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda):
+    """restore_columns, search_columns_async and rescan_async queue their
+    device work (pinned staging, non-blocking copies, events) with no
+    device→host synchronisation; the results then collect as usual."""
+    eng = GpuEngine(widening_cfg(), widening_cfg().queues[0], device=cuda)
+    eng.warmup()
+    rng = np.random.default_rng(5)
+    fill = columns(rng, eng, 4000, 0, 100.0)
+    w1 = columns(rng, eng, 1024, 10_000, 101.0)
+    w2 = columns(rng, eng, 300, 20_000, 102.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.restore_columns(fill, 100.0)
+        t1 = eng.search_columns_async(w1, 101.0)
+        t2 = eng.search_columns_async(w2, 102.0)
+        t3 = eng.rescan_async(2048, 104.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.inflight() == 3
+    outs = dict(eng.flush())
+    assert list(outs) == [t1, t2, t3]
+    assert outs[t1].n_matches > 0 and outs[t3].n_matches > 0
+    assert not eng.failed_tokens and eng.device_error is None
+
+
+def test_pinned_readback_waits_for_its_event(cuda):
+    """The result copy is queued behind the device's work: before its
+    event completes the pinned buffer is not the result; ``numpy()`` waits
+    on the event and then equals a synchronous ``.cpu()`` of the same
+    tensor."""
+    out = torch.arange(3 * 1024, dtype=torch.float32,
+                       device=cuda).reshape(3, 1024)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead of the copy
+    rb = _Readback(out)
+    assert not rb.ready()
+    got = rb.numpy()
+    assert rb.ready()
+    np.testing.assert_array_equal(got, out.cpu().numpy())
+    # A window's own result: the step's output read back both ways.
+    eng = GpuEngine(widening_cfg(), widening_cfg().queues[0], device=cuda)
+    rng = np.random.default_rng(6)
+    eng.restore_columns(columns(rng, eng, 3000, 0, 50.0), 50.0)
+    batch = eng.pool.batch_arrays_cols(columns(rng, eng, 256, 5000, 51.0),
+                                       np.arange(3000, 3256, dtype=np.int32),
+                                       256, eng._rel_base(51.0))
+    eng.pool.allocate_columns(columns(rng, eng, 256, 5000, 51.0))
+    packed, _ = eng._h2d(batch, 1.0)
+    step = eng.kernels.search_step_packed(eng.dev_pool, packed, 1.0)
+    np.testing.assert_array_equal(_Readback(step).numpy(), step.cpu().numpy())
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_columnar_pairs_equal_object_pairs_on_card(cuda, depth):
+    """The same stream through the columnar path on the card (``depth``
+    windows dispatched before each collection) and on the CPU: the same
+    pairs and pool. The object path on the card forms the first window's
+    pairs too."""
+    cfg = widening_cfg()
+    obj, col, cpu = (GpuEngine(cfg, cfg.queues[0], device=d)
+                     for d in (cuda, cuda, "cpu"))
+    rng = np.random.default_rng(9)
+    windows = []
+    for w in range(6):
+        n = int(rng.integers(20, 1500))  # 1,500 lanes span two chunks
+        windows.append((columns(rng, col, n, w * 10_000, 200.0 + w),
+                        200.0 + w))
+    pairs = {"obj": [], "col": [], "cpu": []}
+    for w, (cols, now) in enumerate(windows):
+        reqs = [SearchRequest(id=cols.ids[i], rating=float(cols.rating[i]),
+                              rating_deviation=float(cols.rd[i]),
+                              enqueued_at=float(cols.enqueued_at[i]),
+                              reply_to=cols.reply_to[i],
+                              correlation_id=cols.correlation_id[i])
+                for i in range(len(cols))]
+        out = obj.search(reqs, now)
+        pairs["obj"].append({frozenset(r.id for r in m.requests())
+                             for m in out.matches})
+        for name, eng in (("col", col), ("cpu", cpu)):
+            eng.search_columns_async(cols, now)
+            if (w + 1) % depth == 0 or w == len(windows) - 1:
+                for _, o in eng.flush():
+                    pairs[name].append({frozenset(p) for p in zip(
+                        o.m_id_a.tolist(), o.m_id_b.tolist())})
+    assert pairs["col"] == pairs["cpu"]
+    assert sum(len(p) for p in pairs["col"]) > 500
+    # From the same pool, the object and columnar windows form the same
+    # pairs. After that their slot layouts part (as the JAX package's do:
+    # the object finalize frees a window's matched slots in two calls, the
+    # columnar one in one), and with the layout the best-per-block lists.
+    assert pairs["col"][0] == pairs["obj"][0]
+    assert set(col.pool._slot_of) == set(cpu.pool._slot_of)

@@ -37,9 +37,18 @@ def _forbidden(name: str) -> bool:
 
 def test_every_submodule_is_listed():
     mods = _modules()
-    for must in ("matchmaking_tpu_torch.engine.gpu",
+    for must in ("matchmaking_tpu_torch.config",
+                 "matchmaking_tpu_torch.core.pool",
+                 "matchmaking_tpu_torch.engine.gpu",
+                 "matchmaking_tpu_torch.engine.interface",
+                 "matchmaking_tpu_torch.engine.kernels",
                  "matchmaking_tpu_torch.engine.cuda_kernels",
-                 "matchmaking_tpu_torch.service.app"):
+                 "matchmaking_tpu_torch.native",
+                 "matchmaking_tpu_torch.native.codec",
+                 "matchmaking_tpu_torch.service.app",
+                 "matchmaking_tpu_torch.service.broker",
+                 "matchmaking_tpu_torch.service.contract",
+                 "matchmaking_tpu_torch.service.middleware"):
         assert must in mods
 
 

@@ -1,15 +1,23 @@
-"""The port's minimal service, on the CPU, and its wire contract against
-the JAX package's contract module (byte-identical encodings)."""
+"""The port's columnar pipelined service, on the CPU, and its wire contract
+against the JAX package's contract module (byte-identical encodings)."""
 
+import asyncio
 import dataclasses
 import json
+import os
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from matchmaking_tpu.service import contract as jax_contract
-from matchmaking_tpu_torch.config import Config, EngineConfig
+from matchmaking_tpu_torch.config import (
+    Config,
+    EngineConfig,
+    OverloadConfig,
+    QueueConfig,
+)
 from matchmaking_tpu_torch.service import contract
 from matchmaking_tpu_torch.service.app import MatchmakingApp, run_demo
 from matchmaking_tpu_torch.service.broker import Properties
@@ -20,9 +28,44 @@ from matchmaking_tpu_torch.service.client import MatchmakingClient
 torch.set_num_threads(1)
 
 
-def small_cfg():
-    return Config(engine=EngineConfig(pool_capacity=1024, pool_block=256,
-                                      batch_buckets=(16, 64)))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def small_cfg(queue=None, **engine_kw):
+    kw = dict(pool_capacity=1024, pool_block=256, batch_buckets=(16, 64))
+    kw.update(engine_kw)
+    return Config(engine=EngineConfig(**kw),
+                  queues=(queue or QueueConfig(),))
+
+
+def publish(app, reply_to, player, first_received=None, deadline=None):
+    """Publish one request with correlation id = the player id."""
+    headers = {}
+    if first_received is not None:
+        headers["x-first-received"] = first_received
+    if deadline is not None:
+        headers["x-deadline"] = repr(deadline)
+    app.broker.declare_queue(reply_to)
+    app.broker.publish(app.queue_cfg.name, json.dumps(player).encode(),
+                       Properties(reply_to=reply_to,
+                                  correlation_id=player["id"],
+                                  headers=headers))
+
+
+async def answers(app, reply_to, until, timeout=10.0):
+    """(correlation id, response) from ``reply_to`` until ``until(got)``
+    holds and 0.2 s pass with nothing more, or the timeout."""
+    got = []
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        d = await app.broker.get(reply_to, timeout=0.2)
+        if d is None:
+            if until(got):
+                return got
+            continue
+        got.append((d.properties.correlation_id,
+                    contract.decode_response(d.body)))
+    raise AssertionError(f"timed out with {len(got)} answers")
 
 
 async def test_demo_answers_ten_players_on_cpu():
@@ -66,6 +109,174 @@ async def test_errors_queued_acks_and_terminal_replay():
         assert again.match.match_id == got.match.match_id
         assert app.counters["deduped_replays"] == 1
         assert app.engine.pool_size() == 0
+    finally:
+        await app.stop()
+
+
+async def test_every_request_answered_once_in_one_batch_per_window():
+    """Windows at pipeline depth 2: every request gets exactly one answer
+    from its own window (``matched`` or ``queued``), a queued one at most
+    one later ``matched``; partners agree; one publish_batch per window."""
+    app = MatchmakingApp(small_cfg(pipeline_depth=2), device="cpu")
+    await app.start()
+    calls = []
+    real = app.broker.publish_batch
+    app.broker.publish_batch = lambda items: (calls.append(len(items)),
+                                              real(items))
+    try:
+        rng = np.random.default_rng(11)
+        n = 300
+        for i in range(n):
+            publish(app, "rq.all", {"id": f"p{i}",
+                                    "rating": float(rng.normal(1500, 400))})
+            if i % 37 == 0:
+                await asyncio.sleep(0.002)  # several windows
+        got = await answers(
+            app, "rq.all", lambda g: len({cid for cid, _ in g}) == n)
+        seq = {}
+        for cid, resp in got:
+            assert resp.player_id == cid
+            seq.setdefault(cid, []).append(resp)
+        matched = {}
+        for cid, resps in seq.items():
+            kinds = [r.status for r in resps]
+            assert kinds in (["matched"], ["queued"], ["queued", "matched"]), kinds
+            if kinds[-1] == "matched":
+                matched[cid] = resps[-1].match
+        for cid, m in matched.items():
+            partner = next(p for p in m.players if p != cid)
+            assert matched[partner].match_id == m.match_id
+        assert len(matched) >= 100
+        assert app.engine.pool_size() == n - len(matched)
+        assert app.counters["windows"] >= 2
+        assert len(calls) == app.counters["publish_batches"]
+        assert len(calls) == app.counters["windows"]
+        assert sum(calls) == len(got)
+        assert app.faults() == {}
+    finally:
+        await app.stop()
+
+
+async def test_rescan_tick_publishes_a_widening_match():
+    """Config #4 (Glicko-2, widening 5/s): two players 95 apart (rd 0)
+    cannot match on arrival (the newcomer's threshold is ~83, and reaches
+    95 only 2.5 s after it is published); a rescan tick matches them once
+    both thresholds have widened past 95."""
+    cfg = Config.from_json(os.path.join(ROOT, "configs/glicko2.json"),
+                           backend="gpu")
+    queue = dataclasses.replace(cfg.queues[0], rescan_interval_s=0.1)
+    assert cfg.queues[0].rescan_interval_s == 1.0  # read from the file
+    app = MatchmakingApp(small_cfg(queue), device="cpu")
+    await app.start()
+    try:
+        now = time.time()
+        publish(app, "rq.old", {"id": "old", "rating": 1500,
+                                "rating_deviation": 0}, first_received=now - 60)
+        publish(app, "rq.new", {"id": "new", "rating": 1595,
+                                "rating_deviation": 0}, first_received=now - 0.5)
+        old = await answers(app, "rq.old", lambda g: len(g) == 2)
+        new = await answers(app, "rq.new", lambda g: len(g) == 2)
+        assert [r.status for _, r in old] == ["queued", "matched"]
+        assert [r.status for _, r in new] == ["queued", "matched"]
+        assert old[1][1].match.match_id == new[1][1].match.match_id
+        assert app.counters["rescan_matches"] == 1
+        assert app.engine.pool_size() == 0
+        assert app.faults() == {}
+    finally:
+        await app.stop()
+
+
+@pytest.mark.parametrize("sweep", ["request_timeout", "deadline"])
+async def test_expiry_sweep_answers_timeout(sweep):
+    """The sweep loop answers ``timeout``: for a player waiting past
+    ``request_timeout_s``, or past its own ``x-deadline`` (with
+    ``deadline_sweep_ms``); a redelivered copy replays the timeout."""
+    if sweep == "request_timeout":
+        cfg = small_cfg(QueueConfig(request_timeout_s=0.3))
+        deadline = None
+    else:
+        cfg = dataclasses.replace(small_cfg(), overload=OverloadConfig(
+            deadline_sweep_ms=20.0))
+        deadline = time.time() + 0.3
+    app = MatchmakingApp(cfg, device="cpu")
+    await app.start()
+    try:
+        publish(app, "rq.lone", {"id": "lone", "rating": 1500},
+                deadline=deadline)
+        got = await answers(app, "rq.lone", lambda g: len(g) == 2)
+        assert [r.status for _, r in got] == ["queued", "timeout"]
+        if deadline is None:  # waited past the timeout, from its stamp
+            assert got[1][1].latency_ms > 300.0
+        else:
+            assert time.time() >= deadline
+        assert app.counters["timeouts"] == 1 and app.engine.pool_size() == 0
+        assert app.engine.deadline_count() == 0
+        # A redelivered copy replays the timeout.
+        publish(app, "rq.lone", {"id": "lone", "rating": 1500})
+        again = await answers(app, "rq.lone", lambda g: len(g) == 1)
+        assert again[0][1].status == "timeout"
+    finally:
+        await app.stop()
+
+
+async def test_device_failure_nacks_its_window_and_revives_from_the_mirror():
+    app = MatchmakingApp(small_cfg(), device="cpu")
+    await app.start()
+    try:
+        for i in range(3):  # far apart: they wait
+            publish(app, "rq.a", {"id": f"a{i}", "rating": 1000.0 * i})
+        await answers(app, "rq.a", lambda g: len(g) == 3)
+        old = app.engine
+        real = old._fetch
+
+        def failing(pending):  # the next window fails on "the device"
+            pending.error = RuntimeError("CUDA error: injected")
+            old._fetch = real
+
+        old._fetch = failing
+        nacked = []
+        real_nack = app.broker.nack
+        app.broker.nack = lambda tag, dtag, requeue=True: (
+            nacked.append(dtag), real_nack(tag, dtag, requeue))
+        publish(app, "rq.b", {"id": "b0", "rating": 5000.0})
+        publish(app, "rq.b", {"id": "b1", "rating": 7000.0})
+        for _ in range(500):
+            if app.counters["revives"]:
+                break
+            await asyncio.sleep(0.01)
+        assert app.counters["engine_failures"] == 1
+        assert app.counters["revives"] == 1 and app.engine is not old
+        # The caught failure is reported (the new engine parked none).
+        assert app.faults() == {"engine_failures": 1, "revives": 1}
+        assert isinstance(old.device_error, RuntimeError)
+        assert len(nacked) == 2  # exactly the failed window's deliveries
+        # The mirror carried every waiting player, b0/b1 included.
+        waiting = {r.id for r in app.engine.waiting()}
+        assert waiting == {"a0", "a1", "a2", "b0", "b1"}
+        # The revived engine serves: a partner for b1 matches it, and the
+        # answer reaches b1's reply queue from the restored mirror.
+        publish(app, "rq.c", {"id": "c", "rating": 7001.0})
+        got = await answers(app, "rq.c", lambda g: len(g) == 1)
+        assert got[0][1].status == "matched"
+        assert set(got[0][1].match.players) == {"c", "b1"}
+        b = await answers(app, "rq.b", lambda g: any(
+            r.status == "matched" for _, r in g))
+        assert [r.player_id for _, r in b if r.status == "matched"] == ["b1"]
+    finally:
+        await app.stop()
+
+
+async def test_depth_one_dispatches_and_collects_each_window():
+    app = MatchmakingApp(small_cfg(pipeline_depth=1), device="cpu")
+    await app.start()
+    try:
+        assert app._collector is None
+        client = MatchmakingClient(app.broker, app.queue_cfg.name)
+        a, b = await asyncio.gather(
+            client.search_until_matched({"id": "x", "rating": 1500}),
+            client.search_until_matched({"id": "y", "rating": 1520}))
+        assert a.status == b.status == "matched"
+        assert app.engine.inflight() == 0
     finally:
         await app.stop()
 
