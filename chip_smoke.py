@@ -46,14 +46,33 @@ Phases, each of which raises (exit code != 0) when it fails:
    bursts (every request answered once from its window, partners agree,
    one publish_batch per window; request latency publish → first answer);
    and config #4's service, whose rescan loop must publish matches.
+5. teams and roles: config #3 (team_5v5.json, P = 65,536) with 50k
+   restored solo players and 24 object windows of 1,024 at depth 2, and
+   config #5 (role_party.json, P = 16,384) with 12k players (declared
+   roles) and 8 windows; every request pins its region and mode, so
+   ``team_delegated`` must stay 0. Every match is checked (nobody twice,
+   two teams of five, one region and mode, spread within every member's
+   effective threshold, team sums within the spread, a perfect role
+   assignment per team by brute force), pool accounting is exact, and the
+   first 3 windows' raw step results are bit-equal to the same engine's on
+   the CPU. Config #3 then runs a rescan tick 30 s later (widened
+   thresholds), which must form matches. Each queue profiles 8 more
+   windows (device ms and kernels per window) and its step alone (kernels,
+   device ms, CUDA-event ms, host ms per call: the ``steps`` line; the team
+   step must stay within 300 kernels, the role step within 60 more). On a
+   200-player role pool a 3-player party hands the queue to the host
+   oracle, expires, and after the 5 s quiet period the queue is back on
+   the card. Config #3's service: 50k restored through the app, 8,192
+   requests in bursts of 512, every request answered, every match two
+   teams of five, no fault caught.
 
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
 
-The last lines of standard output are a JSON summary of phases 3-4, the
-max SM clock, the card (nvidia-smi name and power limit), one JSON line
-with the kernel's numbers, and one JSON line ``{"ok": true, "device":
-{...}}``. Without CUDA, or without the package beside this file, it exits
+The last lines of standard output are a JSON summary of phases 3-5, the
+max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
+the card (nvidia-smi name and power limit), one JSON line with the
+kernel's numbers, and one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or without the package beside this file, it exits
 non-zero and prints no result.
 """
 
@@ -1082,6 +1101,489 @@ async def service_rescan(np, ck, mods, path, *, waiting, seed):
             "rescan_matches": m, "answers": n, "launches": launches}
 
 
+# ---- phase 5: team and role queues (configs #3 and #5) ------------------------
+
+
+#: Region and mode values of the team phases: every request pins both (a
+#: wildcard would hand the queue to the host oracle).
+TEAM_REGIONS = ("eu", "na", "apac")
+TEAM_MODES = ("ranked", "casual")
+ROLE_NAMES = ("tank", "healer", "dps")
+
+
+class TeamPopulation:
+    """Seeded solo players, row k = player ``t<k>``: ratings N(1500, 300),
+    waits U(0, 20) s, region from 3 values and mode from 2, all pinned;
+    with ``roles``, 70 % one role (tank 20 %, healer 20 %, dps 60 %), 20 %
+    two roles, 10 % none (eligible for every slot)."""
+
+    def __init__(self, np, rng, n, *, roles, prefix="t"):
+        self.rating = rng.normal(1500.0, 300.0, n).astype(np.float32)
+        self.waited = rng.uniform(0.0, 20.0, n)
+        self.region = np.array(TEAM_REGIONS, object)[rng.integers(0, 3, n)]
+        self.mode = np.array(TEAM_MODES, object)[rng.integers(0, 2, n)]
+        self.roles = [()] * n
+        if roles:
+            kind = rng.random(n)
+            one = rng.choice(3, n, p=[0.2, 0.2, 0.6])
+            two = rng.integers(0, 3, n)
+            for k in range(n):
+                if kind[k] < 0.7:
+                    self.roles[k] = (ROLE_NAMES[one[k]],)
+                elif kind[k] < 0.9:
+                    self.roles[k] = tuple(r for j, r in enumerate(ROLE_NAMES)
+                                          if j != two[k])
+        self.ids = [f"{prefix}{k}" for k in range(n)]
+        self.row = {pid: k for k, pid in enumerate(self.ids)}
+
+    def requests(self, SearchRequest, lo, hi, now, reply=""):
+        return [SearchRequest(id=self.ids[k], rating=float(self.rating[k]),
+                              region=self.region[k], game_mode=self.mode[k],
+                              roles=self.roles[k], reply_to=reply,
+                              correlation_id=self.ids[k],
+                              enqueued_at=now - float(self.waited[k]))
+                for k in range(lo, hi)]
+
+
+def _perfect_assignment(itertools, team, slots):
+    """Brute force: some member → slot bijection where every member may
+    play its slot (no declared roles: any slot)."""
+    return any(all(not m.roles or slots[s] in m.roles
+                   for m, s in zip(team, perm))
+               for perm in itertools.permutations(range(len(slots))))
+
+
+def check_team_outcome(np, queue, out, now, seen, window=None):
+    """The invariants of one collected team/role SearchOutcome: nobody in
+    two matches, two teams of ``team_size``, one (region, mode) per match,
+    spread ≤ every member's effective threshold, |sum_A − sum_B| ≤ spread,
+    quality in [0, 1], a perfect role assignment per team (role queues),
+    and (traffic windows) every request matched, queued or rejected."""
+    import itertools
+
+    k = queue.team_size
+    for m in out.matches:
+        members = m.requests()
+        ids = [r.id for r in members]
+        if len(set(ids)) != 2 * k or any(p in seen for p in ids):
+            raise AssertionError(f"match {m.match_id}: a player twice")
+        seen.update(ids)
+        if [len(t) for t in m.teams] != [k, k]:
+            raise AssertionError(f"match {m.match_id}: teams {m.teams}")
+        if len({(r.region, r.game_mode) for r in members}) != 1:
+            raise AssertionError(f"match {m.match_id}: mixed region/mode")
+        ratings = [np.float32(r.rating) for r in members]
+        spread = float(max(ratings) - min(ratings))
+        for r in members:
+            base = (r.rating_threshold if r.rating_threshold is not None
+                    else queue.rating_threshold)
+            eff = (min(queue.max_threshold, base + queue.widen_per_sec
+                       * max(0.0, now - r.enqueued_at))
+                   if queue.widen_per_sec > 0 else base)
+            if spread > eff + 1e-3:
+                raise AssertionError(f"match {m.match_id}: spread {spread} "
+                                     f"> {r.id}'s threshold {eff}")
+        diff = abs(sum(r.rating for r in m.teams[0])
+                   - sum(r.rating for r in m.teams[1]))
+        if not queue.role_slots and diff > spread + 1e-3:
+            raise AssertionError(f"match {m.match_id}: team sums differ by "
+                                 f"{diff} > spread {spread}")
+        if not 0.0 <= m.quality <= 1.0:
+            raise AssertionError(f"match {m.match_id}: quality {m.quality}")
+        if queue.role_slots:
+            for team in m.teams:
+                if not _perfect_assignment(itertools, team, queue.role_slots):
+                    raise AssertionError(f"match {m.match_id}: a team "
+                                         f"cannot fill its role slots")
+    if window is not None:
+        done = ({r.id for r in out.queued} | seen
+                | {r.id for r, _ in out.rejected})
+        if any(r.id not in done for r in window):
+            raise AssertionError("a request was neither matched, queued "
+                                 "nor rejected")
+    return len(out.matches)
+
+
+def record_raw(eng):
+    """Keep a copy of each finalized window's raw step results (slots,
+    spread, limit, split) on the engine instance: the CPU comparison reads
+    them. No device work."""
+    raws = []
+    finalize = eng._finalize_team
+
+    def recording(pending):
+        raws.append([r.copy() for r in pending.raw or ()])
+        finalize(pending)
+
+    eng._finalize_team = recording
+    return raws
+
+
+def step_profile(torch, np, ks, src_pool, batch, now, reps=10):
+    """The team/role step alone at full width, on fresh copies of
+    ``src_pool`` and one window of ``batch`` arrivals into free slots:
+    kernels and device ms per call (torch.profiler), CUDA-event ms (median
+    of ``reps``) and host ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matchmaking_tpu_torch.engine.kernels import DevicePool
+
+    active = src_pool["active"].cpu().numpy()
+    free = np.nonzero(~active)[0]
+    rng = np.random.default_rng(0)
+    n = min(batch, free.size)
+    packed = np.zeros((ks.pack_rows, batch), np.float32)
+    packed[0] = ks.capacity
+    packed[0, :n] = free[:n]
+    packed[1, :n] = rng.normal(1500.0, 300.0, n)
+    packed[3, :n] = rng.integers(1, 4, n)
+    packed[4, :n] = rng.integers(1, 3, n)
+    packed[5, :n] = 120.0
+    packed[6, :n] = now
+    packed[7, :n] = 1.0
+    if ks.is_role:
+        packed[8, :n] = rng.integers(1, 8, n)
+    packed[-1] = now
+    packed = torch.from_numpy(packed).cuda()
+    copies = [DevicePool({k: t.clone() for k, t in src_pool.full.items()})
+              for _ in range(3 * reps + 6)]
+    torch.cuda.synchronize()
+    step = lambda: ks.search_step_packed(copies.pop(), packed, now)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    kernels = device_us = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels += e.count
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    ms = time_ms(torch, step, reps=reps - 3)
+    t = time.perf_counter()
+    for _ in range(3):
+        step()
+    host_ms = (time.perf_counter() - t) / 3 * 1e3
+    torch.cuda.synchronize()
+    return {"launches": kernels / reps, "device_ms": device_us / reps / 1e3,
+            "ms": ms, "host_ms": host_ms, "pool": int(active.sum()),
+            "batch": batch}
+
+
+def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
+             cpu_windows, seed, roles):
+    """A team (config #3) or role (config #5) queue at full width on the
+    card: ``waiting`` solo players restored, then ``windows`` object windows
+    of 1,024 through ``search_async`` at the config's pipeline depth
+    (dispatches under set_sync_debug_mode("error")), collected with
+    ``collect_ready`` and ``flush``; every match checked; the first
+    ``cpu_windows`` windows' raw step results (slots, spread, limit, split)
+    bit-equal to the same engine's on the CPU; ``profile_windows`` more
+    under torch.profiler; the step alone profiled and timed."""
+    Config, GpuEngine, _, SearchRequest = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    queue, depth = cfg.queues[0], cfg.engine.pipeline_depth
+    n_all = waiting + (windows + profile_windows) * FULL_B
+    pop = TeamPopulation(np, np.random.default_rng(seed), n_all, roles=roles)
+    t0 = 1_700_000_000.0
+    now_of = [t0 + 1.0 + 0.05 * w for w in range(windows + profile_windows)]
+    stream = [pop.requests(SearchRequest, waiting + w * FULL_B,
+                           waiting + (w + 1) * FULL_B, now_of[w])
+              for w in range(windows + profile_windows)]
+    fill = pop.requests(SearchRequest, 0, waiting, t0)
+    eng = GpuEngine(cfg, queue, device="cuda")
+    eng.warmup()
+    raws = record_raw(eng)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with no_sync(torch):
+        eng.restore(fill, t0)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    if eng.pool_size() != waiting:
+        raise AssertionError(f"restore left {eng.pool_size()} != {waiting}")
+    steps = step_profile(torch, np, eng.kernels, eng.dev_pool, FULL_B, 1.0)
+    spans0 = dict(eng.spans)
+    dispatch_ms, turnaround_ms, matches_per_window = [], [], []
+    outs, t_disp, token_window = {}, {}, {}
+    t_run = time.perf_counter()
+    for w in range(windows):
+        t = time.perf_counter()
+        with no_sync(torch):
+            tok, _ = eng.search_async(stream[w], now_of[w])
+        dispatch_ms.append((time.perf_counter() - t) * 1e3)
+        t_disp[tok], token_window[tok] = t, w
+        if w == 1:
+            # Windows 0 and 1 are collected together, so the CPU engine
+            # below sees the same pool (and free list) at each dispatch.
+            torch.cuda.synchronize()
+        while eng.inflight() >= depth:
+            for tok_c, out in eng.collect_ready():
+                turnaround_ms.append((time.perf_counter() - t_disp[tok_c]) * 1e3)
+                outs[token_window[tok_c]] = out
+    for tok_c, out in eng.flush():
+        turnaround_ms.append((time.perf_counter() - t_disp[tok_c]) * 1e3)
+        outs[token_window[tok_c]] = out
+    run_s = time.perf_counter() - t_run
+    spans = {k: (v - spans0[k]) for k, v in eng.spans.items()}
+    seen, matches, admitted = set(), 0, 0
+    for w in range(windows):
+        n = check_team_outcome(np, queue, outs[w], now_of[w], seen,
+                               window=stream[w])
+        matches_per_window.append(n)
+        matches += n
+        admitted += len(stream[w]) - len(outs[w].rejected)
+    if eng.pool_size() != waiting + admitted - 2 * queue.team_size * matches:
+        raise AssertionError(f"pool_size {eng.pool_size()} != {waiting} + "
+                             f"{admitted} - {2 * queue.team_size} x {matches}")
+    if eng.counters.get("team_delegated", 0) != 0:
+        raise AssertionError(f"a device phase delegated: {eng.counters}")
+    # The rescan tick after widening (config #3 widens 2/s): formation
+    # over the waiting pool alone, with thresholds 30 s wider.
+    rescan = None
+    if queue.widen_per_sec > 0:
+        left = eng.pool_size()
+        now_r = now_of[windows - 1] + 30.0
+        tok = eng.rescan_async(FULL_B, now_r)
+        (tok_r, out_r), = eng.flush()
+        if tok_r != tok or tok not in eng.rescan_tokens:
+            raise AssertionError("rescan: token mismatch")
+        eng.rescan_tokens.discard(tok)
+        n_r = check_team_outcome(np, queue, out_r, now_r, seen)
+        if n_r == 0:
+            raise AssertionError("the team rescan tick formed no match")
+        if eng.pool_size() != left - 2 * queue.team_size * n_r:
+            raise AssertionError("rescan: pool accounting")
+        rescan = {"waiting_before": left, "matches": n_r,
+                  "waiting_after": eng.pool_size()}
+    # The same first windows on the CPU (windows 0 and 1 dispatched before
+    # any collection, as on the card): raw results bit-equal.
+    cpu = GpuEngine(cfg, queue, device="cpu")
+    cpu_raws = record_raw(cpu)
+    cpu.restore(pop.requests(SearchRequest, 0, waiting, t0), t0)
+    for w in range(cpu_windows):
+        cpu.search_async(pop.requests(SearchRequest, waiting + w * FULL_B,
+                                      waiting + (w + 1) * FULL_B, now_of[w]),
+                         now_of[w])
+        if w >= 1:
+            cpu.flush()
+    for w in range(cpu_windows):
+        for got, want in zip(raws[w], cpu_raws[w]):
+            if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+                raise AssertionError(f"{path} window {w}: the CPU step's "
+                                     f"slots/spread/limit differ")
+    # Device time and kernels per window over further windows.
+    def run():
+        for w in range(windows, windows + profile_windows):
+            eng.search_async(stream[w], now_of[w])
+            while eng.inflight() >= depth:
+                eng.collect_ready()
+        eng.flush()
+        return profile_windows
+    prof = device_busy(torch, run)
+    res = {
+        "config": path, "waiting": waiting, "windows": windows,
+        "window": FULL_B, "pipeline_depth": depth, "matches": matches,
+        "matches_per_window": matches_per_window,
+        "team_delegated": eng.counters.get("team_delegated", 0),
+        "pool_size_end": eng.pool_size(), "restore_s": restore_s,
+        "dispatch_ms_p50": statistics.median(dispatch_ms),
+        "dispatch_ms_p99": pct(dispatch_ms, 0.99),
+        "turnaround_ms_p50": statistics.median(turnaround_ms),
+        "turnaround_ms_p99": pct(turnaround_ms, 0.99),
+        "requests_per_s": windows * FULL_B / run_s, "run_s": run_s,
+        "finalize_ms_per_window": spans["finalize_s"] / windows * 1e3,
+        "step_queue_ms_per_window": spans["step_s"] / windows * 1e3,
+        "split_ms_per_window": {k[:-2] + "_ms": v / windows * 1e3
+                                for k, v in spans.items() if k.endswith("_s")},
+        "cpu_windows_equal": cpu_windows, "rescan": rescan,
+        "profile": prof, "step": steps,
+    }
+    log(f"team {path}: {matches} matches in {windows} windows "
+        f"(per window {matches_per_window}), dispatch p50/p99 "
+        f"{res['dispatch_ms_p50']:.2f}/{res['dispatch_ms_p99']:.2f} ms, "
+        f"turnaround p50/p99 {res['turnaround_ms_p50']:.2f}/"
+        f"{res['turnaround_ms_p99']:.2f} ms, {res['requests_per_s']:.0f} "
+        f"requests/s, finalize {res['finalize_ms_per_window']:.2f} ms a "
+        f"window, team_delegated 0; profile: {prof['kernels_per_window']:.0f} "
+        f"kernels and {prof['device_ms_per_window']:.3f} device ms a window, "
+        f"busy {prof['device_busy_share']:.3f}; step alone: {steps}; rescan "
+        f"{rescan}")
+    return res
+
+
+def role_delegation(torch, np, mods, path, *, waiting, seed):
+    """Config #5's hand-over on a small pool: ``waiting`` solo players on
+    the card, then a 3-player party arrives: the queue moves to the host
+    oracle, which serves the party; the party expires (its deadline), the
+    5 s quiet period passes, and the queue moves back onto the card, whose
+    next window runs the device step."""
+    Config, GpuEngine, _, SearchRequest = mods
+    from matchmaking_tpu_torch.service.contract import PartyMember
+
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    queue = cfg.queues[0]
+    pop = TeamPopulation(np, np.random.default_rng(seed), waiting + 64,
+                         roles=True, prefix="d")
+    t0 = 1_700_000_000.0
+    eng = GpuEngine(cfg, queue, device="cuda")
+    eng.warmup()
+    eng.restore(pop.requests(SearchRequest, 0, waiting, t0), t0)
+    party = SearchRequest(
+        id="party", rating=-4000.0, region="eu", game_mode="ranked",
+        roles=("tank",), enqueued_at=t0 + 1.0, deadline_at=t0 + 3.0,
+        party=(PartyMember("party2", -4000.0, roles=("healer",)),
+               PartyMember("party3", -4000.0, roles=("dps",))))
+    t = time.perf_counter()
+    out = eng.search([party], t0 + 1.0)
+    oracle_ms = (time.perf_counter() - t) * 1e3
+    if eng.counters != {"team_delegated": 1} or eng.dev_pool is not None:
+        raise AssertionError(f"the party did not hand the queue over: "
+                             f"{eng.counters}")
+    if [r.id for r in out.queued] != ["party"]:
+        raise AssertionError("the oracle did not serve the party")
+    # After a restore the oracle scans the whole pool: it may match
+    # restored players in the same window.
+    check_team_outcome(np, queue, out, t0 + 1.0, set())
+    oracle_matches = len(out.matches)
+    if eng.pool_size() != waiting + 1 - 2 * queue.team_size * oracle_matches:
+        raise AssertionError("delegation lost waiting players")
+    left = eng.pool_size() - 1
+    expired = eng.expire_deadlines(t0 + 7.0)  # past the deadline and quiet
+    if [r.id for r in expired] != ["party"]:
+        raise AssertionError(f"the party did not expire: {expired}")
+    if eng.counters != {"team_delegated": 1, "team_repromoted": 1}:
+        raise AssertionError(f"not back on the card: {eng.counters}")
+    if eng.dev_pool is None or eng.pool_size() != left:
+        raise AssertionError("re-promotion lost waiting players")
+    torch.cuda.synchronize()
+    with no_sync(torch):
+        tok, _ = eng.search_async(pop.requests(
+            SearchRequest, waiting, waiting + 64, t0 + 8.0), t0 + 8.0)
+    (tok_o, out), = eng.flush()
+    check_team_outcome(np, queue, out, t0 + 8.0, set())
+    res = {"waiting": waiting, "counters": dict(eng.counters),
+           "oracle_window_ms": oracle_ms, "oracle_matches": oracle_matches,
+           "device_window_after": {"matches": len(out.matches),
+                                   "queued": len(out.queued)}}
+    log(f"role delegation {path}: {res}")
+    return res
+
+
+async def service_team(np, mods, path, *, waiting, requests, burst, seed):
+    """Config #3's service on the card: ``waiting`` players restored
+    through the app, then ``requests`` published in bursts of ``burst``.
+    Every request is answered from its window (queued, then at most one
+    matched; or matched), every matched answer carries two teams of five
+    whose members agree on the match, and the service caught no failure."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.contract import decode_response
+
+    Config, _, _, SearchRequest = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, warm_start=True))
+    k = cfg.queues[0].team_size
+    pop = TeamPopulation(np, np.random.default_rng(seed), waiting + requests,
+                         roles=False, prefix="s")
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()
+    reply = "team.replies"
+    try:
+        app.broker.declare_queue(reply)
+        t0 = time.time()
+        app.restore(pop.requests(SearchRequest, 0, waiting, t0, reply), t0)
+        calls, t_pub, first = [], {}, {}
+        real = app.broker.publish_batch
+
+        def publish_batch(items):
+            calls.append(len(items))
+            t = time.perf_counter()
+            for _, _, props in items:
+                cid = props.correlation_id
+                if cid in t_pub and cid not in first:
+                    first[cid] = t - t_pub[cid]
+            real(items)
+
+        app.broker.publish_batch = publish_batch
+        bodies = [json.dumps({"id": pop.ids[j], "rating": float(pop.rating[j]),
+                              "region": pop.region[j],
+                              "game_mode": pop.mode[j]}).encode()
+                  for j in range(waiting, waiting + requests)]
+        t_soak = time.perf_counter()
+        for b in range(0, requests, burst):
+            for j in range(b, min(b + burst, requests)):
+                pid = pop.ids[waiting + j]
+                t_pub[pid] = time.perf_counter()
+                app.broker.publish(app.queue_cfg.name, bodies[j],
+                                   Properties(reply_to=reply,
+                                              correlation_id=pid))
+            await asyncio.sleep(0.005)
+        deadline = time.monotonic() + 120.0
+        while len(first) < requests and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        soak_s = time.perf_counter() - t_soak
+        while app.engine.inflight() and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        if len(first) != requests:
+            raise AssertionError(f"team service: {requests - len(first)} "
+                                 f"requests never answered")
+        counters = dict(app.engine.counters)
+        spans = app.engine.span_report()
+    finally:
+        await app.stop()
+    check_faults(app, "team service")
+    if counters.get("team_delegated", 0):
+        raise AssertionError(f"team service delegated: {counters}")
+    seqs, matched = {}, {}
+    while True:
+        d = await app.broker.get(reply, timeout=0.2)
+        if d is None:
+            break
+        pid = d.properties.correlation_id
+        r = decode_response(d.body)
+        if r.player_id != pid:
+            raise AssertionError(f"team service: answer for {r.player_id} "
+                                 f"on {pid}")
+        seqs.setdefault(pid, []).append(r.status)
+        if r.status == "matched":
+            if pid in matched:
+                raise AssertionError(f"team service: {pid} matched twice")
+            if [len(t) for t in r.match.teams] != [k, k]:
+                raise AssertionError(f"team service: teams {r.match.teams}")
+            matched[pid] = r.match
+    for pid in t_pub:
+        if seqs.get(pid) not in (["matched"], ["queued"],
+                                 ["queued", "matched"]):
+            raise AssertionError(f"team service: {pid} answered "
+                                 f"{seqs.get(pid)}")
+    for pid, m in matched.items():
+        for other in m.players:
+            if other in matched and matched[other].match_id != m.match_id:
+                raise AssertionError(f"team service: {pid} and {other} "
+                                     f"disagree on their match")
+    lat = [v * 1e3 for v in first.values()]
+    res = {"config": path, "waiting": waiting, "requests": requests,
+           "burst": burst, "windows": app.counters["windows"],
+           "publish_batches": len(calls), "soak_s": soak_s,
+           "requests_per_s": requests / soak_s,
+           "players_matched": app.counters["players_matched"],
+           "latency_ms_p50": statistics.median(lat),
+           "latency_ms_p99": pct(lat, 0.99), "latency_ms_max": max(lat),
+           "span_report": spans}
+    log(f"team service {path}: {requests} requests over {waiting} waiting, "
+        f"{res['windows']} windows, {res['requests_per_s']:.0f} requests/s, "
+        f"latency p50 {res['latency_ms_p50']:.2f} ms p99 "
+        f"{res['latency_ms_p99']:.2f} ms, {res['players_matched']} players "
+        f"matched")
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -1187,6 +1689,30 @@ def main(argv) -> int:
     service_rescan_run = asyncio.run(service_rescan(
         np, ck, mods, "configs/glicko2.json", waiting=20_000, seed=7))
     launches["service_rescan_glicko2"] = service_rescan_run["launches"]
+
+    # 5. team and role queues at full width: configs #3 and #5 on the card
+    #    (their steps score no 1v1 blocks: block_best must stay at 0), the
+    #    role queue's hand-over to the host oracle, config #3's service
+    ck.LAUNCHES["block_best"] = 0
+    team_run = run_team(torch, np, mods, "configs/team_5v5.json",
+                        waiting=50_000, windows=24, profile_windows=8,
+                        cpu_windows=3, seed=8, roles=False)
+    role_run = run_team(torch, np, mods, "configs/role_party.json",
+                        waiting=12_000, windows=8, profile_windows=8,
+                        cpu_windows=3, seed=9, roles=True)
+    delegation = role_delegation(torch, np, mods, "configs/role_party.json",
+                                 waiting=200, seed=10)
+    team_service = asyncio.run(service_team(
+        np, mods, "configs/team_5v5.json", waiting=50_000, requests=8_192,
+        burst=512, seed=11))
+    launches["team_and_role_paths"] = ck.LAUNCHES["block_best"]
+    if launches["team_and_role_paths"]:
+        raise AssertionError("block_best ran on a team/role path")
+    team_launches = team_run["step"]["launches"]
+    role_launches = role_run["step"]["launches"]
+    if team_launches > 300 or role_launches > team_launches + 60:
+        raise AssertionError(f"step launch budget: team {team_launches} "
+                             f"(<= 300), role {role_launches} (<= team + 60)")
     torch.cuda.synchronize()
 
     main_k = kernel["elo"]
@@ -1231,7 +1757,30 @@ def main(argv) -> int:
                                       "latency_ms_max", "requests_per_s",
                                       "windows", "publish_batches",
                                       "players_matched")},
+        "team": {name: {k: run[k] for k in (
+            "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
+            "turnaround_ms_p99", "requests_per_s", "matches",
+            "matches_per_window", "finalize_ms_per_window",
+            "team_delegated", "rescan")}
+            | {"kernels_per_window": run["profile"]["kernels_per_window"],
+               "device_ms_per_window": run["profile"]["device_ms_per_window"],
+               "device_busy_share": run["profile"]["device_busy_share"]}
+            for name, run in (("team_5v5", team_run),
+                              ("role_party", role_run))},
+        "role_delegation": delegation,
+        "team_service": {k: team_service[k] for k in (
+            "latency_ms_p50", "latency_ms_p99", "latency_ms_max",
+            "requests_per_s", "windows", "publish_batches",
+            "players_matched")},
     }
+    steps_line = {"steps": [
+        dict(name=name, config=run["config"], replaces=src,
+             **{k: run["step"][k] for k in ("launches", "device_ms", "ms",
+                                            "host_ms", "pool", "batch")})
+        for name, run, src in (
+            ("team_step", team_run, "matchmaking_tpu/engine/teams.py:317"),
+            ("role_step", role_run,
+             "matchmaking_tpu/engine/role_kernels.py:224"))]}
     total_s = time.perf_counter() - t_start
     if out_path:
         with open(out_path, "w") as f:
@@ -1242,11 +1791,16 @@ def main(argv) -> int:
                        "columnar": [main_run, filters_run, glicko_run],
                        "rescan": rescan, "demo_players": len(answers),
                        "soak": soak, "service_rescan": service_rescan_run,
+                       "team": [team_run, role_run],
+                       "role_delegation": delegation,
+                       "team_service": team_service,
                        "total_s": total_s, "summary": summary,
+                       "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)
     print(f"total {total_s:.1f} s")
     print(json.dumps(summary))
     print(f"max SM clock: {max_sm_clock}")
+    print(json.dumps(steps_line))
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Typed configuration for the PyTorch/CUDA port.
 
-The port's own copy of the configuration tree, trimmed to what the 1v1
-window engine and the columnar service read, under the JAX package's names
-and defaults. ``Config.from_json`` reads the repository's
+The port's own copy of the configuration tree, trimmed to what the window
+engines (1v1, team and role queues) and the service read, under the JAX
+package's names and defaults. ``Config.from_json`` reads the repository's
 ``configs/*.json`` files; those name the JAX package's ``"tpu"`` backend,
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
@@ -28,7 +28,7 @@ class QueueConfig:
     #: Game mode this queue serves (carried from the JSON files; like the
     #: JAX package, nothing reads it: the mode comes with each request).
     game_mode: str | None = None
-    #: Players per team (1 → 1v1; the only size this slice serves).
+    #: Players per team (1 → 1v1; > 1 → team queues, config #3).
     team_size: int = 1
     #: Default max rating distance for a valid match.
     rating_threshold: float = 100.0
@@ -38,7 +38,9 @@ class QueueConfig:
     max_threshold: float = 400.0
     #: Glicko-2 rating-deviation-weighted distance.
     glicko2: bool = False
-    #: Role coverage for team formation (not served by this slice).
+    #: Role slots each team must fill, one per member (config #5). Parties
+    #: and region/mode wildcards hand the queue to the host oracle until
+    #: they drain (engine/gpu.py ``_maybe_delegate_team``).
     role_slots: tuple[str, ...] = ()
     #: Evict waiting players after this many seconds and answer
     #: ``timeout`` (None: wait forever).
@@ -77,6 +79,11 @@ class EngineConfig:
     pool_block: int = 8192
     #: Proposal rounds of the parallel greedy pairing.
     pair_rounds: int = 8
+    #: Team/role queues: most matches one window step can form (clamped to
+    #: ``pool_capacity // (2 * team_size)``).
+    team_max_matches: int = 1024
+    #: Team/role queues: rounds of the parallel greedy window selection.
+    team_rounds: int = 16
     #: Dispatched-but-uncollected windows the service keeps in flight on
     #: the columnar path (1: dispatch, then wait, per window).
     pipeline_depth: int = 2

@@ -1,10 +1,21 @@
 """The GPU engine: batched window matching over a device-resident pool.
 
-Port of ``matchmaking_tpu/engine/tpu.py``'s 1v1 ``TpuEngine``: the
+Port of ``matchmaking_tpu/engine/tpu.py``'s single-card ``TpuEngine``: the
 pipelined window API (object and columnar), the rescan tick, the expiry
 sweeps and the mirror restores. A window of requests is admitted into the
-device pool and matched by one window step (engine/kernels.py, whose
-candidate stage is the hand-written ``block_best`` kernel on the card).
+device pool and matched by one window step: for 1v1 queues
+engine/kernels.py, whose candidate stage is the hand-written
+``block_best`` kernel on the card; for team queues (config #3)
+engine/teams.py, for role queues (config #5) engine/role_kernels.py.
+
+Team and role queues speak the object API only (``search_async`` /
+``search``). Their device steps group players by exact region/mode code
+and pack solo players only, so the first request with a wildcard region
+or mode (or, on a role queue, a party) hands the whole queue to the host
+oracle (engine/cpu.py ``CpuEngine``) with every waiting player; once no
+such request has arrived for ``TEAM_REPROMOTE_QUIET_S`` and none waits,
+the queue moves back onto the card (``team_delegated`` /
+``team_repromoted`` in ``counters``).
 
 Host/device split:
 
@@ -46,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Sequence
@@ -61,6 +73,7 @@ from matchmaking_tpu_torch.core.pool import (
     pack_batch,
 )
 from matchmaking_tpu_torch.engine import kernels, scoring
+from matchmaking_tpu_torch.engine.cpu import CpuEngine
 from matchmaking_tpu_torch.engine.interface import (
     ColumnarOutcome,
     Engine,
@@ -68,12 +81,17 @@ from matchmaking_tpu_torch.engine.interface import (
     SearchOutcome,
     empty_columnar_outcome,
 )
+from matchmaking_tpu_torch.engine.role_kernels import role_kernel_set
+from matchmaking_tpu_torch.engine.teams import team_kernel_set
 from matchmaking_tpu_torch.service.contract import (
     RequestColumns,
     SearchRequest,
+    is_wildcard,
     new_match_id,
     new_match_ids,
 )
+
+log = logging.getLogger(__name__)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -143,26 +161,58 @@ class _Pending:
 
 
 class GpuEngine(Engine):
+    #: Seconds (in the callers' ``now``) a delegated team/role queue must
+    #: go without a device-blocking arrival, with none left waiting,
+    #: before it moves back onto the card: bounds the promote/demote thrash
+    #: of alternating traffic (each move rebuilds the pool).
+    TEAM_REPROMOTE_QUIET_S = 5.0
+
     def __init__(self, cfg: Config, queue: QueueConfig, device=None):
         super().__init__(cfg, queue)
-        if queue.team_size > 1 or queue.role_slots:
-            raise ValueError("GpuEngine serves 1v1 queues; team and role "
-                             "queues are not ported yet")
         self.device = resolve_device(device)
         #: Host buffers are pinned for the card only (pinning needs CUDA).
         self._pinned = self.device.type == "cuda"
         ec = cfg.engine
-        self.kernels = kernels.KernelSet(
-            capacity=ec.pool_capacity,
-            top_k=ec.top_k,
-            pool_block=min(ec.pool_block, ec.pool_capacity),
-            glicko2=queue.glicko2,
-            widen_per_sec=queue.widen_per_sec,
-            max_threshold=queue.max_threshold,
-            pair_rounds=ec.pair_rounds,
-        )
+        #: Team-family queues: role queues (config #5) run the solo role
+        #: step, plain team queues (config #3) the team step.
+        self._role_device = queue.team_size > 1 and bool(queue.role_slots)
+        self._team_device = queue.team_size > 1
+        if self._role_device:
+            self.kernels = role_kernel_set(
+                capacity=ec.pool_capacity, team_size=queue.team_size,
+                role_slots=tuple(queue.role_slots),
+                widen_per_sec=queue.widen_per_sec,
+                max_threshold=queue.max_threshold,
+                max_matches=ec.team_max_matches, rounds=ec.team_rounds)
+        elif self._team_device:
+            self.kernels = team_kernel_set(
+                capacity=ec.pool_capacity, team_size=queue.team_size,
+                widen_per_sec=queue.widen_per_sec,
+                max_threshold=queue.max_threshold,
+                max_matches=ec.team_max_matches, rounds=ec.team_rounds)
+        elif queue.role_slots:
+            raise ValueError("role_slots need team_size > 1")
+        else:
+            self.kernels = kernels.KernelSet(
+                capacity=ec.pool_capacity,
+                top_k=ec.top_k,
+                pool_block=min(ec.pool_block, ec.pool_capacity),
+                glicko2=queue.glicko2,
+                widen_per_sec=queue.widen_per_sec,
+                max_threshold=queue.max_threshold,
+                pair_rounds=ec.pair_rounds,
+            )
         self.pool = PlayerPool(ec.pool_capacity, queue.rating_threshold)
-        self.dev_pool = kernels.fresh_pool(ec.pool_capacity, self.device)
+        self.dev_pool = self._fresh_device_pool()
+        #: The host oracle while a team/role queue is delegated (else None).
+        self._team_delegate: CpuEngine | None = None
+        #: ``now`` of the last device-blocking arrival while delegated.
+        self._delegate_last_wc = float("-inf")
+        #: Windows finalized out of turn (in flight when the queue was
+        #: delegated), returned first by the next collect_ready()/flush().
+        self._done_early: list[tuple[int, SearchOutcome]] = []
+        #: Lifecycle counters: team_delegated / team_repromoted.
+        self.counters: dict[str, int] = {}
         self.buckets = tuple(sorted(ec.batch_buckets))
         # Device times are f32, so every device-visible time is relative to
         # the first timestamp this engine sees.
@@ -207,7 +257,12 @@ class GpuEngine(Engine):
     # ---- Engine API -------------------------------------------------------
 
     def search(self, requests: Sequence[SearchRequest], now: float) -> SearchOutcome:
-        """Synchronous window: ``search_async`` + ``flush``."""
+        """Synchronous window: ``search_async`` + ``flush`` (a delegated
+        team/role queue: the host oracle's ``search``)."""
+        if self._team_delegate is not None:
+            self._note_wildcards(requests, now)
+            if not self._maybe_repromote_team(now):
+                return self._team_delegate.search(requests, now)
         self._require_idle("search()")
         self.search_async(requests, now)
         out = SearchOutcome()
@@ -223,6 +278,8 @@ class GpuEngine(Engine):
         return out
 
     def remove(self, player_id: str) -> SearchRequest | None:
+        if self._team_delegate is not None:
+            return self._team_delegate.remove(player_id)
         self._require_idle("remove()")
         slot = self.pool.slot_of(player_id)
         if slot is None:
@@ -234,6 +291,10 @@ class GpuEngine(Engine):
     def expire(self, now: float, timeout: float) -> list[SearchRequest]:
         """Timeout sweep over the mirror (enqueue time 0.0 means unstamped
         and never expires): O(expired) request objects, one eviction."""
+        if self._team_delegate is not None:
+            out = self._team_delegate.expire(now, timeout)
+            self._maybe_repromote_team(now)  # it may drain the last blocker
+            return out
         self._require_idle("expire()")
         slots = self.pool.waiting_slots()
         if slots.size == 0:
@@ -246,6 +307,10 @@ class GpuEngine(Engine):
         column (0.0 = none): every waiter whose deadline has passed, exact
         to its own deadline. No matching work is spent on them: a host
         scan of the mirror, then one eviction."""
+        if self._team_delegate is not None:
+            out = self._team_delegate.expire_deadlines(now)
+            self._maybe_repromote_team(now)
+            return out
         self._require_idle("expire_deadlines()")
         slots = self.pool.waiting_slots()
         if slots.size == 0:
@@ -254,35 +319,53 @@ class GpuEngine(Engine):
         return self._expire_slots(slots[(dl != 0.0) & (now >= dl)])
 
     def pool_size(self) -> int:
+        if self._team_delegate is not None:
+            return self._team_delegate.pool_size()
         return len(self.pool)
 
     def deadline_count(self) -> int:
+        if self._team_delegate is not None:
+            return self._team_delegate.deadline_count()
         return self.pool.deadline_count()
 
     def waiting(self) -> list[SearchRequest]:
+        if self._team_delegate is not None:
+            return self._team_delegate.waiting()
         return self.pool.waiting()
 
     def waiting_columns(self) -> tuple[RequestColumns, np.ndarray, np.ndarray]:
         """The mirror as columns, with region and mode names (see
         ``PlayerPool.waiting_columns``): the revive payload that builds no
-        request objects."""
+        request objects. 1v1 queues only (team and role queues carry roles
+        and parties: use ``waiting()``)."""
+        self._require_columnar("waiting_columns()")
         return self.pool.waiting_columns()
 
     def restore(self, requests: Sequence[SearchRequest], now: float) -> None:
         """Re-admit a checkpoint without matching (device state is a pure
-        function of the mirror)."""
+        function of the mirror). A checkpoint with wildcards (or parties,
+        on a role queue) hands a team/role queue to the host oracle."""
+        if self._team_delegate is not None:
+            self._note_wildcards(requests, now)
+            self._team_delegate.restore(requests, now)
+            return
+        if self._maybe_delegate_team(requests, now):
+            self._team_delegate.restore(requests, now)
+            return
         fresh = [r for r in requests if r.id not in self.pool]
         top = self.buckets[-1]
         for start in range(0, len(fresh), top):
             chunk = fresh[start:start + top]
             slots = self.pool.allocate(chunk)
             self._admit(self.pool.batch_arrays(chunk, slots, top,
-                                               self._rel_base(now)))
+                                               self._rel_base(now)), chunk)
 
     def restore_columns(self, cols: RequestColumns, now: float) -> None:
         """Columnar restore: re-admit without matching. Dedupes against the
         pool and within the columns (a checkpoint replayed at least once
-        may repeat a player). Queues the admissions with no host sync."""
+        may repeat a player). Queues the admissions with no host sync.
+        1v1 queues only."""
+        self._require_columnar("restore_columns()")
         waiting = self.pool._slot_of
         seen: set[str] = set()
         keep = np.empty(len(cols), bool)
@@ -307,27 +390,44 @@ class GpuEngine(Engine):
                 np.fromiter((mc(m) for m in modes), np.int32, n))
 
     def heartbeat(self, now: float) -> bool:
-        """Health-timer tick. The dense 1v1 engine has no idle
-        housekeeping (no delegated queue to re-promote, no bucket index to
-        re-tighten), so nothing changes."""
+        """Health-timer tick: moves an idle delegated team/role queue back
+        onto the card once its blockers drained (nothing else would notice
+        under zero traffic). True when it did."""
+        if self._team_delegate is not None:
+            return self._maybe_repromote_team(now)
         return False
 
     def warmup(self) -> None:
         """Build the kernel (CUDA) and run every bucket's all-padding
-        window through every step variant, read back as a window is:
-        nothing is admitted, matched or evicted, so the pool is unchanged
-        and no first-of-its-kind window pays a first use."""
+        window through every step variant, read back as a window is, so no
+        first-of-its-kind window pays a first use. 1v1 steps run on the
+        pool itself (nothing is admitted, matched or evicted); the team
+        and role steps form matches pool-wide, so they run on a scratch
+        pool. A delegated queue has nothing to warm."""
+        if self._team_delegate is not None:
+            return
         self._require_idle("warmup()")
-        steps = [functools.partial(self.kernels.search_step_packed,
-                                   skip_filters=skip) for skip in (False, True)]
-        steps.append(self.kernels.search_step_packed_rescan)
-        for bucket in self.buckets:
-            batch = self.pool.batch_arrays([], [], bucket)
-            for step in steps:
-                _Readback(step(self.dev_pool, self._h2d(batch, 0.0)[0],
-                               0.0)).numpy()
-            self._admit(batch)
-        self._evict(np.empty(0, np.int32))
+        if self._team_device:
+            scratch = self._fresh_device_pool()
+            for bucket in self.buckets:
+                batch = self.pool.batch_arrays([], [], bucket)
+                _Readback(self.kernels.search_step_packed(
+                    scratch, self._h2d(batch, 0.0)[0], 0.0)).numpy()
+                self.kernels.admit_packed(scratch, self._h2d(batch, 0.0)[0])
+            kernels.evict(scratch, torch.empty(0, dtype=torch.int32,
+                                               device=self.device))
+        else:
+            steps = [functools.partial(self.kernels.search_step_packed,
+                                       skip_filters=skip)
+                     for skip in (False, True)]
+            steps.append(self.kernels.search_step_packed_rescan)
+            for bucket in self.buckets:
+                batch = self.pool.batch_arrays([], [], bucket)
+                for step in steps:
+                    _Readback(step(self.dev_pool, self._h2d(batch, 0.0)[0],
+                                   0.0)).numpy()
+                self._admit(batch)
+            self._evict(np.empty(0, np.int32))
         # Finalize's numpy calls pay their first-use imports here (numpy
         # 2.3 imports numpy.ma on the first np.unique: ~50 ms where no
         # bytecode is cached). Nothing is freed.
@@ -347,7 +447,23 @@ class GpuEngine(Engine):
                      now: float) -> tuple[int, SearchOutcome]:
         """Dispatch an object window without waiting. Returns (token,
         dispatch-time rejections); the full outcome arrives through
-        collect_ready()/flush() under the same token."""
+        collect_ready()/flush() under the same token.
+
+        A delegated team/role queue answers the window on the host oracle
+        at once (its outcome still arrives under the token). A window
+        with a device-blocking request (``_device_blocker``) first hands
+        the queue to the oracle."""
+        if self._team_delegate is not None:
+            self._note_wildcards(requests, now)
+            if not self._maybe_repromote_team(now):
+                out = self._team_delegate.search(requests, now)
+                pending = _Pending(token=self._next_token, outcome=out,
+                                   raw=[])
+                self._next_token += 1
+                self._submit(pending)
+                return pending.token, SearchOutcome()
+        if self._maybe_delegate_team(requests, now):
+            return self.search_async(requests, now)  # through the oracle
         t_start = time.perf_counter()
         pending = _Pending(token=self._next_token, created=t_start)
         self._next_token += 1
@@ -375,7 +491,8 @@ class GpuEngine(Engine):
         with ``intern_columns``) without waiting; returns its token. The
         ColumnarOutcome, dispatch-time rejections included, arrives through
         collect_ready()/flush(). The only per-row Python is the id
-        membership probe (redelivery dedupe)."""
+        membership probe (redelivery dedupe). 1v1 queues only."""
+        self._require_columnar("search_columns_async()")
         t_start = time.perf_counter()
         pending = _Pending(token=self._next_token, created=t_start)
         pending.columnar = empty_columnar_outcome()
@@ -415,7 +532,20 @@ class GpuEngine(Engine):
         chunks of the largest bucket, lowest (tier, deadline, enqueue time)
         first; the rest roll over to later ticks. The outcome's ``q_ids``
         are the unmatched rescanned players, not new arrivals: callers must
-        not ack them as queued. The token lands in ``rescan_tokens``."""
+        not ack them as queued. The token lands in ``rescan_tokens``.
+
+        Team/role queues rescan with ``_rescan_team``; a delegated one
+        checks whether it can move back onto the card (the tick is also
+        the idle queue's re-promotion heartbeat) and otherwise returns
+        None: the oracle re-forms on arrival."""
+        if self._team_delegate is not None:
+            if not self._maybe_repromote_team(now):
+                return None
+        if self._team_device:
+            tok = self._rescan_team(now)
+            if tok is not None:
+                self.rescan_tokens.add(tok)
+            return tok
         top = self.buckets[-1]
         max_window = min(max_window, self._rescan_chunk_cap * top)
         pool = self.pool
@@ -455,18 +585,36 @@ class GpuEngine(Engine):
         self.rescan_tokens.add(pending.token)
         return pending.token
 
+    def _rescan_team(self, now: float) -> int | None:
+        """Team/role rescan: the step's window formation is pool-wide (the
+        batch only admits), so an all-padding window of the smallest bucket
+        re-runs it with current effective thresholds; without it, waiting
+        players whose thresholds widened into range would never match
+        under zero traffic. Safe with windows in flight: it admits nothing,
+        and formation reads only the device pool, in stream order."""
+        if len(self.pool) < self.kernels.need:
+            return None
+        pending = _Pending(token=self._next_token, created=time.perf_counter())
+        self._next_token += 1
+        batch = self.pool.batch_arrays([], [], self.buckets[0])
+        out = self._launch(self.kernels.search_step_packed, batch, now,
+                           pending)
+        pending.chunks.append(([], out, now))
+        self._submit(pending)
+        return pending.token
+
     def collect_ready(self) -> list[tuple[int, SearchOutcome | ColumnarOutcome]]:
         """Finalize every window whose results have landed, without
         blocking, in dispatch order (a ready window behind an unfinished
-        one waits its turn)."""
-        done = []
+        one waits its turn); windows finalized out of turn come first."""
+        done, self._done_early = self._done_early, []
         while self._pending and self._is_ready(self._pending[0]):
             done.append(self._collect(self._pending.popleft()))
         return done
 
     def flush(self) -> list[tuple[int, SearchOutcome | ColumnarOutcome]]:
         """Block until every in-flight window is collected and finalized."""
-        done = []
+        done, self._done_early = self._done_early, []
         while self._pending:
             done.append(self._collect(self._pending.popleft()))
         return done
@@ -512,6 +660,11 @@ class GpuEngine(Engine):
             raise RuntimeError(f"{what} with windows in flight — collect "
                                f"with flush() first")
 
+    def _require_columnar(self, what: str) -> None:
+        if self._team_device:
+            raise ValueError(f"{what}: the columnar API serves 1v1 queues; "
+                             f"team and role queues use the object API")
+
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
@@ -523,29 +676,42 @@ class GpuEngine(Engine):
             self._t0 = now
         return self._t0
 
-    def _h2d(self, batch: BatchArrays,
-             now_rel: float) -> tuple[torch.Tensor, torch.Tensor]:
+    def _h2d(self, batch: BatchArrays, now_rel: float,
+             requests: Sequence[SearchRequest] = ()
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         """Pack a window into a host staging buffer (pinned for the card)
-        and queue its copy to the device: (device tensor f32[9, B], the
-        staging buffer, which must outlive the copy)."""
-        staging = torch.empty((len(PACKED_ROWS) + 1, batch.slot.shape[0]),
+        and queue its copy to the device: (device tensor f32[pack_rows, B],
+        the staging buffer, which must outlive the copy). Role steps get
+        the ``role_mask`` row of ``requests`` (lane order) before the
+        trailing ``now`` row; padding lanes carry mask 0."""
+        staging = torch.empty((self.kernels.pack_rows, batch.slot.shape[0]),
                               dtype=torch.float32, pin_memory=self._pinned)
-        pack_batch(batch, now_rel, out=staging.numpy())
+        rows = staging.numpy()
+        pack_batch(batch, now_rel, out=rows[:len(PACKED_ROWS) + 1])
+        if self.kernels.is_role:
+            rows[-1] = now_rel
+            rows[len(PACKED_ROWS)] = 0.0
+            rows[len(PACKED_ROWS), :len(requests)] = [
+                self.kernels.mask_of(r.roles) for r in requests]
         return staging.to(self.device, non_blocking=True), staging
 
-    def _admit(self, batch: BatchArrays) -> None:
+    def _admit(self, batch: BatchArrays,
+               requests: Sequence[SearchRequest] = ()) -> None:
         """Queue the admission of a padded window (restore paths). The
         pinned allocator keeps the staging block until the copy has run."""
-        self.kernels.admit_packed(self.dev_pool, self._h2d(batch, 0.0)[0])
+        self.kernels.admit_packed(self.dev_pool,
+                                  self._h2d(batch, 0.0, requests)[0])
 
     def _launch(self, step, batch: BatchArrays, now: float,
-                pending: _Pending) -> torch.Tensor:
+                pending: _Pending,
+                requests: Sequence[SearchRequest] = ()) -> torch.Tensor:
         """Copy one window chunk to the device and queue ``step`` on it;
-        returns the step's device result f32[3, B] (q_slot, c_slot, dist)."""
+        returns the step's device result (1v1: f32[3, B] q_slot, c_slot,
+        dist; team/role: f32[need + 2 (+1), M])."""
         t0 = self._rel_base(now)
-        now_rel = float(np.float32(now - t0))  # the packed row-8 value
+        now_rel = float(np.float32(now - t0))  # the packed now row's value
         _t = time.perf_counter()
-        packed, staging = self._h2d(batch, now_rel)
+        packed, staging = self._h2d(batch, now_rel, requests)
         pending.staging.append(staging)
         self.spans["h2d_s"] += time.perf_counter() - _t
         _t = time.perf_counter()
@@ -555,7 +721,10 @@ class GpuEngine(Engine):
 
     def _step_for(self, batch: BatchArrays):
         """The all-ANY variant drops the region/mode tests: exact when no
-        lane carries a filter (padding lanes hold code 0)."""
+        lane carries a filter (padding lanes hold code 0). Team and role
+        steps have one variant."""
+        if self._team_device:
+            return self.kernels.search_step_packed
         skip = not batch.region.any() and not batch.mode.any()
         return functools.partial(self.kernels.search_step_packed,
                                  skip_filters=skip)
@@ -580,7 +749,7 @@ class GpuEngine(Engine):
         batch = self.pool.batch_arrays(window, slots, bucket,
                                        self._rel_base(now))
         self.spans["pack_s"] += time.perf_counter() - _t
-        out = self._launch(self._step_for(batch), batch, now, pending)
+        out = self._launch(self._step_for(batch), batch, now, pending, window)
         self.util["lanes_valid"] += len(window)
         self.util["lanes_padded"] += bucket
         pending.chunks.append((list(window), out, now))
@@ -676,6 +845,8 @@ class GpuEngine(Engine):
                     pending.outcome.queued.extend(payload)
         elif pending.columnar is not None:
             self._finalize_columnar(pending)
+        elif self._team_device:
+            self._finalize_team(pending)
         else:
             self._finalize_objects(pending)
         self.spans["finalize_s"] += time.perf_counter() - _t
@@ -765,6 +936,137 @@ class GpuEngine(Engine):
                 queued_ids = cols.ids
             out.q_ids = np.concatenate([out.q_ids, queued_ids])
         self.spans["matches"] += out.n_matches
+
+    def _finalize_team(self, pending: _Pending) -> None:
+        """Team/role results (member slots M×need, spread, limit; role
+        steps a split-bits row too) → matches of two teams: the snake split
+        for team queues (``scoring.snake_split``), the step's own split for
+        role queues (bit i set ⇔ rating-ordered member i on team A).
+        Quality = 1 − spread/limit. Each match's slots are released by
+        themselves, in match order, as the JAX engine does: the free list,
+        and so the next window's slot layout and tie order, stay equal."""
+        out = pending.outcome
+        need = self.kernels.need
+        is_role = self.kernels.is_role
+        capacity = self.kernels.capacity
+        for (window, _, now), result in zip(pending.chunks, pending.raw or ()):
+            slots = result[:need].T.astype(np.int32)
+            spread = result[need]
+            limit = result[need + 1]
+            split = result[need + 2].astype(np.int32) if is_role else None
+            matched_ids: set[str] = set()
+            for m in np.nonzero(slots[:, 0] < capacity)[0].tolist():
+                row = slots[m].tolist()
+                members = [self.pool.request_at(s) for s in row]
+                matched_ids.update(r.id for r in members)
+                if is_role:
+                    bits = int(split[m])
+                    team_a = tuple(members[i] for i in range(need)
+                                   if bits >> i & 1)
+                    team_b = tuple(members[i] for i in range(need)
+                                   if not bits >> i & 1)
+                else:
+                    team_a, team_b = scoring.snake_split(members)
+                thr = float(limit[m])
+                qual = (max(0.0, 1.0 - float(spread[m]) / thr) if thr > 0
+                        else 0.0)
+                out.matches.append(Match(match_id=new_match_id(),
+                                         teams=(team_a, team_b),
+                                         quality=qual))
+                self.pool.release(row)
+            for req in window:
+                if req.id not in matched_ids:
+                    out.queued.append(req)
+        self.spans["matches"] += len(out.matches)
+
+    # ---- internals: delegation to the host oracle (team/role queues) -----
+
+    def _fresh_device_pool(self) -> kernels.DevicePool:
+        """An empty device pool for the kernel set (with its extra columns,
+        the role step's ``role_mask``): at start and at re-promotion."""
+        return kernels.fresh_pool(self.kernels.capacity, self.device,
+                                  self.kernels.extra_pool_fields)
+
+    def _device_blocker(self, req: SearchRequest) -> bool:
+        """True if the device step cannot serve ``req``: a wildcard region
+        or mode (the steps group by exact code) on any team-family queue,
+        or a party on a role queue (the role step packs solo units)."""
+        return is_wildcard(req) or (self._role_device and req.party_size > 1)
+
+    def _note_wildcards(self, requests: Sequence[SearchRequest],
+                        now: float) -> None:
+        """While delegated: a device-blocking arrival restarts the quiet
+        period that gates re-promotion."""
+        if any(self._device_blocker(r) for r in requests):
+            self._delegate_last_wc = now
+
+    def _maybe_delegate_team(self, requests: Sequence[SearchRequest],
+                             now: float) -> bool:
+        """Hand a team/role queue to the host oracle when ``requests`` hold
+        a device-blocking request. Windows in flight are finalized first
+        (the mirror must be post-match), their outcomes kept for the next
+        collect_ready()/flush() under their tokens; every waiting player
+        moves to a ``CpuEngine`` with its enqueue time; the device pool is
+        dropped. True when the queue was handed over."""
+        if not self._team_device or self._team_delegate is not None:
+            return False
+        if not any(self._device_blocker(r) for r in requests):
+            return False
+        log.warning(
+            "team queue %r: a wildcard region/mode%s request arrived; the "
+            "device step groups by exact codes%s, so the queue is served by "
+            "the host oracle until none waits", self.queue.name,
+            " or party" if self._role_device else "",
+            " and packs solo players" if self._role_device else "")
+        if self._open:
+            # flush() takes (and rebinds) _done_early: read it after.
+            finished = self.flush()
+            self._done_early.extend(finished)
+        delegate = CpuEngine(self.cfg, self.queue)
+        waiting = self.pool.waiting()
+        if waiting:
+            delegate.restore(waiting, now)
+        self._team_delegate = delegate
+        self._delegate_last_wc = now
+        self.counters["team_delegated"] = (
+            self.counters.get("team_delegated", 0) + 1)
+        self.dev_pool = None
+        self.pool = PlayerPool(self.kernels.capacity,
+                               self.queue.rating_threshold)
+        return True
+
+    def _maybe_repromote_team(self, now: float) -> bool:
+        """Move a delegated team/role queue back onto the card once no
+        device-blocking request arrived for ``TEAM_REPROMOTE_QUIET_S`` and
+        none waits, and the waiting players fit the device pool with one
+        arrival batch of headroom (else it stays delegated, rechecked a
+        quiet period later). The players move with their enqueue times.
+        True if the queue is now on the card."""
+        d = self._team_delegate
+        if d is None:
+            return False
+        if now - self._delegate_last_wc < self.TEAM_REPROMOTE_QUIET_S:
+            return False
+        headroom = min(self.buckets[-1], self.kernels.capacity // 4)
+        if d.pool_size() > self.kernels.capacity - headroom:
+            self._delegate_last_wc = now
+            return False
+        if d.has_wildcards() or (self._role_device and d.has_parties()):
+            self._delegate_last_wc = now  # scan again a quiet period later
+            return False
+        waiting = d.waiting()
+        self._team_delegate = None
+        self._delegate_last_wc = float("-inf")
+        self.pool = PlayerPool(self.kernels.capacity,
+                               self.queue.rating_threshold)
+        self.dev_pool = self._fresh_device_pool()
+        if waiting:
+            self.restore(waiting, now)
+        self.counters["team_repromoted"] = (
+            self.counters.get("team_repromoted", 0) + 1)
+        log.info("team queue %r: back on the device (%d waiting players "
+                 "moved)", self.queue.name, len(waiting))
+        return True
 
     # ---- internals: eviction ------------------------------------------------
 

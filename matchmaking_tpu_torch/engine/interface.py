@@ -10,8 +10,10 @@ One engine serves one matchmaking queue. Semantics contract:
 - unmatched requests join the pool and may match in any later window.
 
 ``make_engine`` is the backend selection point. This package has one
-backend, ``"gpu"`` (engine/gpu.py), which runs on the card unless the
-caller asks for the CPU with ``device="cpu"``.
+backend, ``"gpu"`` (engine/gpu.py), for 1v1, team and role queues, which
+runs on the card unless the caller asks for the CPU with ``device="cpu"``.
+The host oracle (engine/cpu.py) is no backend of its own: a team or role
+queue hands itself to it while wildcards or parties wait.
 """
 
 from __future__ import annotations
@@ -133,13 +135,32 @@ class Engine(abc.ABC):
     def restore(self, requests: Sequence[SearchRequest], now: float) -> None:
         """Rebuild pool state from a checkpoint: re-admit WITHOUT matching."""
 
-    @abc.abstractmethod
     def warmup(self) -> None:
-        """Prepare every device path the serving path can reach."""
+        """Prepare every device path the serving path can reach (nothing
+        for a host engine)."""
 
-    @abc.abstractmethod
     def expire(self, now: float, timeout: float) -> list[SearchRequest]:
-        """Evict every waiting request older than ``timeout``."""
+        """Evict every waiting request older than ``timeout`` (enqueue time
+        0.0 means unstamped and never expires) and return them. Default:
+        a scan of ``waiting()``, fine for the host oracle's small pools;
+        ``GpuEngine`` sweeps its mirror's columns instead."""
+        return self._remove_all([r for r in self.waiting()
+                                 if r.enqueued_at
+                                 and now - r.enqueued_at > timeout])
+
+    def expire_deadlines(self, now: float) -> list[SearchRequest]:
+        """Evict every waiting request whose ``deadline_at`` (0.0 = none)
+        has passed and return them. Default: a scan of ``waiting()``."""
+        return self._remove_all([r for r in self.waiting()
+                                 if r.deadline_at and now >= r.deadline_at])
+
+    def _remove_all(self, expired: list[SearchRequest]) -> list[SearchRequest]:
+        out: list[SearchRequest] = []
+        for req in expired:
+            removed = self.remove(req.id)
+            if removed is not None:
+                out.append(removed)
+        return out
 
     def effective_threshold(self, req: SearchRequest, now: float) -> float:
         """The request's ``rating_threshold`` (or the queue default) plus

@@ -28,7 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from matchmaking_tpu_torch.core.pool import POOL_FIELDS
+from matchmaking_tpu_torch.core.pool import PACKED_ROWS, POOL_FIELDS
 from matchmaking_tpu_torch.engine import cuda_kernels, scoring
 from matchmaking_tpu_torch.engine.cuda_kernels import effective_threshold
 
@@ -60,9 +60,10 @@ def effective_pool_block(capacity: int, pool_block: int, top_k: int) -> int:
 
 
 class DevicePool(dict):
-    """The device pool: a dict of the ``POOL_FIELDS`` columns, each the
-    first ``capacity`` elements of the tensor of the same name in ``full``,
-    which has one spare element more. ``admit`` writes padding lanes into
+    """The device pool: a dict of the ``POOL_FIELDS`` columns (and a kernel
+    set's ``extra_pool_fields``), each the first ``capacity`` elements of
+    the tensor of the same name in ``full``, which has one spare element
+    more. ``admit`` writes padding lanes into
     the spare (index ``capacity``), which no column shows."""
 
     def __init__(self, full: dict[str, torch.Tensor]):
@@ -70,19 +71,29 @@ class DevicePool(dict):
         self.full = full
 
 
-def fresh_pool(capacity: int, device) -> DevicePool:
-    """Empty device pool: every slot inactive."""
+def _pool_fields(extra: dict[str, Any] | None) -> list[tuple[str, Any]]:
+    return list(POOL_FIELDS) + list((extra or {}).items())
+
+
+def fresh_pool(capacity: int, device,
+               extra_fields: dict[str, Any] | None = None) -> DevicePool:
+    """Empty device pool: every slot inactive. ``extra_fields`` (name →
+    numpy dtype) adds columns beyond ``POOL_FIELDS``, e.g. the role step's
+    ``role_mask``; each has the spare element too."""
     return DevicePool({name: torch.zeros(capacity + 1,
                                          dtype=_TORCH_DTYPE[np.dtype(dt)],
                                          device=device)
-                       for name, dt in POOL_FIELDS})
+                       for name, dt in _pool_fields(extra_fields)})
 
 
-def pool_from_reference(arrays: dict[str, np.ndarray], device) -> DevicePool:
+def pool_from_reference(arrays: dict[str, np.ndarray], device,
+                        extra_fields: dict[str, Any] | None = None
+                        ) -> DevicePool:
     """The JAX package's pool dict (``PlayerPool.empty_device_arrays``
-    layout, fetched with ``np.asarray``) → the port's device pool."""
+    layout plus a kernel set's ``extra_pool_fields``, fetched with
+    ``np.asarray``) → the port's device pool."""
     full = {}
-    for name, dt in POOL_FIELDS:
+    for name, dt in _pool_fields(extra_fields):
         a = np.asarray(arrays[name], dtype=dt)
         full[name] = torch.zeros(a.shape[0] + 1,
                                  dtype=_TORCH_DTYPE[np.dtype(dt)], device=device)
@@ -92,7 +103,7 @@ def pool_from_reference(arrays: dict[str, np.ndarray], device) -> DevicePool:
 
 def pool_to_numpy(pool: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Inverse of ``pool_from_reference`` (host numpy, for comparisons)."""
-    return {name: pool[name].cpu().numpy() for name, _ in POOL_FIELDS}
+    return {name: t.cpu().numpy() for name, t in pool.items()}
 
 
 def unpack_batch(packed: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -109,10 +120,13 @@ def unpack_batch(packed: torch.Tensor) -> dict[str, torch.Tensor]:
     }
 
 
-def admit(pool: DevicePool, batch: dict[str, torch.Tensor]) -> None:
-    """Write every lane with a real slot (< capacity) into the pool, in
-    place, and mark it active. Like the JAX admission, this goes by slot,
-    not by ``valid``: padding lanes carry the sentinel slot ``capacity``.
+def admit(pool: DevicePool, batch: dict[str, torch.Tensor],
+          fields: tuple[str, ...] = ADMIT_FIELDS) -> None:
+    """Write ``fields`` of every lane with a real slot (< capacity) into the
+    pool, in place, and mark it active (the role step adds ``role_mask``,
+    as the JAX ``_admit_block`` takes ``(*_ADMIT_FIELDS, "role_mask")``).
+    Like the JAX admission, this goes by slot, not by ``valid``: padding
+    lanes carry the sentinel slot ``capacity``.
 
     No host sync: every lane is written, the padding lanes into the spare
     element past the pool (index ``capacity``), which no view shows. Real
@@ -123,7 +137,7 @@ def admit(pool: DevicePool, batch: dict[str, torch.Tensor]) -> None:
                          "spare element (fresh_pool / pool_from_reference)")
     capacity = pool["rating"].shape[0]
     idx = torch.where(batch["slot"] < capacity, batch["slot"], capacity).long()
-    for f in ADMIT_FIELDS:
+    for f in fields:
         pool.full[f].index_put_((idx,), batch[f].to(pool[f].dtype))
     pool.full["active"].index_fill_(0, idx, True)
 
@@ -200,6 +214,12 @@ def greedy_pair(vals, idxs, self_slot, capacity: int, rounds: int = 8,
 
 class KernelSet:
     """The window step for one (pool geometry × queue config)."""
+
+    is_role = False
+    #: Device pool columns beyond ``POOL_FIELDS``.
+    extra_pool_fields: dict[str, Any] = {}
+    #: Rows of the packed window: ``PACKED_ROWS`` + now.
+    pack_rows = len(PACKED_ROWS) + 1
 
     def __init__(self, *, capacity: int, top_k: int, pool_block: int,
                  glicko2: bool, widen_per_sec: float, max_threshold: float,

@@ -52,6 +52,34 @@ def quality(dist, thr_a, thr_b):
     return max(0.0, 1.0 - dist / limit)
 
 
+def snake_signs(need: int) -> list[float]:
+    """Sign of each ascending-sorted window position in the team-sum
+    difference (team A minus team B) under the snake split of team queues
+    (config #3).
+
+    The split deals players in descending rating order: position j goes to
+    team A iff j % 4 ∈ {0, 3} (A B B A A B B A ...); ascending position i
+    is descending position need-1-i. Over the descending window the signed
+    sum telescopes into an alternating series of disjoint consecutive gaps,
+    (r0−r1) − (r2−r3) + …, each ≥ 0 and together ≤ the spread, so
+    |sum_A − sum_B| ≤ spread ≤ every member's threshold whenever the window
+    is valid: engines check only the spread."""
+    return [1.0 if (need - 1 - i) % 4 in (0, 3) else -1.0 for i in range(need)]
+
+
+def snake_split(members):
+    """Split a full team window into (team_a, team_b) by the snake pattern:
+    the one implementation of the split (the host oracle and the device
+    finalize both call it). Sorts by descending rating (stable: ties keep
+    the caller's order); descending position j goes to team A iff
+    j % 4 ∈ {0, 3}, the pattern ``snake_signs`` bounds."""
+    ordered = sorted(members, key=lambda r: -r.rating)
+    team_a, team_b = [], []
+    for j, p in enumerate(ordered):
+        (team_a if j % 4 in (0, 3) else team_b).append(p)
+    return tuple(team_a), tuple(team_b)
+
+
 def region_mode_compatible(region_a: str, mode_a: str, region_b: str,
                            mode_b: str, *, any_token: str = "*") -> bool:
     """Hard filters: wildcard-or-equal on both axes."""

@@ -1,10 +1,20 @@
-"""The matchmaking service for one 1v1 queue: the columnar pipelined loop.
+"""The matchmaking service for one queue: the pipelined window loop.
+
+A 1v1 queue takes the columnar path:
 
     broker consume → stamp middleware → batcher window → ``_flush``:
     native batch decode (rows the codec flags NEEDS_PYTHON decode through
     the contract module) → terminal-replay probe → column assembly →
     ``engine.search_columns_async`` …
     collected window: native batch encode → one ``publish_batch`` → acks
+
+A team or role queue (configs #3 and #5) takes the object path:
+
+    broker consume → stamp + decode middleware (a ``SearchRequest`` with
+    its party and roles) → batcher window → ``_flush``: terminal-replay
+    probe → ``engine.search_async`` …
+    collected window: one ``publish_batch`` of the ``SearchOutcome``'s
+    answers (``contract.encode_response``) → acks
 
 Up to ``EngineConfig.pipeline_depth`` windows are in flight: a window is
 answered when it is collected — by a later flush or by the collector loop
@@ -28,10 +38,10 @@ runs to its end without yielding, so no lock is needed around the engine,
 and no second thread contends with the loop for the interpreter lock
 (every PyTorch call of the window step releases and retakes it).
 
-This is the JAX package's ``_QueueRuntime`` columnar path for one queue,
-without admission control, durability, replication, tracing, the
-dispatch arbiter, speculation, the health/probe loop and consume-time
-burst decode.
+This is the JAX package's ``_QueueRuntime`` for one queue (its columnar
+path, and the pipelined branch of its object flush), without admission
+control, durability, replication, tracing, the dispatch arbiter,
+speculation, the health/probe loop and consume-time burst decode.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
 
@@ -50,7 +60,11 @@ from typing import Sequence
 import numpy as np
 
 from matchmaking_tpu_torch.config import Config, EngineConfig
-from matchmaking_tpu_torch.engine.interface import ColumnarOutcome, make_engine
+from matchmaking_tpu_torch.engine.interface import (
+    ColumnarOutcome,
+    SearchOutcome,
+    make_engine,
+)
 from matchmaking_tpu_torch.native import codec
 from matchmaking_tpu_torch.service.batcher import Batcher
 from matchmaking_tpu_torch.service.broker import Delivery, InProcBroker, Properties
@@ -66,7 +80,9 @@ from matchmaking_tpu_torch.service.contract import (
 )
 from matchmaking_tpu_torch.service.middleware import (
     MessageContext,
+    MiddlewareReject,
     columnar_pipeline,
+    default_pipeline,
 )
 
 log = logging.getLogger(__name__)
@@ -90,7 +106,11 @@ class MatchmakingApp:
         self.queue_cfg = cfg.queues[0]
         self.broker = broker or InProcBroker(cfg.broker)
         self.device = device
-        self.pipeline = columnar_pipeline(cfg.auth)
+        #: Team and role queues speak the engine's object API (decoded
+        #: requests, ``SearchOutcome``s); 1v1 queues the columnar one.
+        self._objects = self.queue_cfg.team_size > 1
+        self.pipeline = (default_pipeline(cfg.auth) if self._objects
+                         else columnar_pipeline(cfg.auth))
         self.pipeline_depth = max(1, cfg.engine.pipeline_depth)
         self.engine = None
         self.counters = {
@@ -161,6 +181,11 @@ class MatchmakingApp:
     def _make_engine(self):
         return make_engine(self.cfg, self.queue_cfg, device=self.device)
 
+    def restore(self, requests: Sequence[SearchRequest], now: float) -> None:
+        """Re-admit waiting players without matching (the object path's
+        checkpoint, an engine's ``waiting()``)."""
+        self.engine.restore(requests, now)
+
     def restore_columns(self, cols: RequestColumns, regions, modes,
                         now: float) -> None:
         """Re-admit waiting players without matching — a checkpoint such as
@@ -179,9 +204,14 @@ class MatchmakingApp:
     # ---- ingress ----------------------------------------------------------
 
     async def _on_delivery(self, delivery: Delivery) -> None:
-        await self.pipeline.run(MessageContext(delivery=delivery,
-                                               queue=self.queue_cfg.name))
-        self._batcher.submit(delivery)
+        ctx = MessageContext(delivery=delivery, queue=self.queue_cfg.name)
+        try:
+            await self.pipeline.run(ctx)
+        except MiddlewareReject as e:
+            self._reject(delivery, e.code, e.reason)
+            return
+        self._batcher.submit((ctx.request, delivery) if self._objects
+                             else delivery)
 
     def _first_received(self, delivery: Delivery, now: float) -> float:
         if delivery.first_received >= 0.0:
@@ -218,7 +248,45 @@ class MatchmakingApp:
 
     # ---- one window -------------------------------------------------------
 
-    async def _flush(self, deliveries: list[Delivery]) -> None:
+    async def _flush(self, window: list) -> None:
+        if self._objects:
+            await self._flush_objects(window)
+        else:
+            await self._flush_columnar(window)
+
+    async def _flush_objects(
+            self, window: list[tuple[SearchRequest, Delivery]]) -> None:
+        """Answer terminal replays, then dispatch the decoded requests as
+        one object window (``engine.search_async``)."""
+        now = time.time()
+        self._prune_recent(now)
+        stamp_deadline = self.cfg.overload.deadline_sweep_ms > 0
+        fresh: list[tuple[SearchRequest, Delivery]] = []
+        for req, delivery in window:
+            cached = self._recent.get(req.id)
+            if cached is not None and cached[1] <= now:
+                del self._recent[req.id]  # expired: a genuine re-queue
+                cached = None
+            if cached is not None:
+                self._replay(delivery, cached[0])
+                continue
+            if stamp_deadline:
+                req = dataclasses.replace(
+                    req, deadline_at=self._deadline_of(delivery))
+            fresh.append((req, delivery))
+        if not fresh:
+            return
+        requests = [r for r, _ in fresh]
+
+        def dispatch(drop: set[str]) -> int:
+            reqs = ([r for r in requests if r.id not in drop] if drop
+                    else requests)
+            return self.engine.search_async(reqs, now)[0]
+
+        await self._dispatch_window(
+            dispatch, [(r.id, d) for r, d in fresh], now)
+
+    async def _flush_columnar(self, deliveries: list[Delivery]) -> None:
         """Decode a window natively, answer terminal replays, assemble the
         rest as columns and dispatch them. Per-row Python is the replay
         probe and the rows the codec leaves to the contract module."""
@@ -367,7 +435,8 @@ class MatchmakingApp:
         for tok, out in self.engine.collect_ready():
             self._finish_token(tok, out, now)
 
-    def _finish_token(self, tok: int, out: ColumnarOutcome, now: float) -> None:
+    def _finish_token(self, tok: int, out: ColumnarOutcome | SearchOutcome,
+                      now: float) -> None:
         meta = self._inflight_meta.pop(tok, None)
         if meta is None:  # a rescan tick (or a window already settled)
             if tok in self.engine.rescan_tokens:
@@ -392,7 +461,10 @@ class MatchmakingApp:
             self._needs_revive = True
             return
         try:
-            self._handle_columnar_out(out, by_id, deliveries, now)
+            if isinstance(out, SearchOutcome):
+                self._handle_object_out(out, deliveries, now)
+            else:
+                self._handle_columnar_out(out, by_id, deliveries, now)
         except Exception:
             # A failure mid-publish must still settle the deliveries: nack
             # (at-least-once; redeliveries are deduped against the pool and
@@ -478,9 +550,61 @@ class MatchmakingApp:
         self.counters["players_matched"] += 2 * n
         return rows
 
-    def _publish_rescan_outcome(self, out: ColumnarOutcome, now: float) -> None:
-        """Publish a rescan tick's matches. Its ``q_ids`` are players that
-        were already waiting, never acked again."""
+    def _handle_object_out(self, out: SearchOutcome,
+                           deliveries: list[Delivery], now: float) -> None:
+        """Publish one collected object window's answers in one
+        ``publish_batch`` (queued acks, then every matched player's
+        answer), then the engine's rejections, then ack the window. Queued
+        acks go first for the reason the columnar path gives: a player
+        queued by one chunk (or, on the host oracle, at its own arrival)
+        can be matched later in the same window."""
+        rows: list[Row] = []
+        if self.queue_cfg.send_queued_ack:
+            rows += [(r.reply_to, r.correlation_id, encode_response(
+                SearchResponse(status="queued", player_id=r.id)))
+                for r in out.queued]
+        rows += self._build_object_rows(out, now)
+        self._publish_batch(rows)
+        for req, code in out.rejected:
+            self.counters["rejected"] += 1
+            self._publish(req.reply_to, req.correlation_id, encode_response(
+                SearchResponse(status="error", player_id=req.id,
+                               error_code=code,
+                               error_reason=f"engine rejected request: {code}")))
+        for d in deliveries:
+            self._ack(d)
+        self.counters["windows"] += 1
+        self.counters["requests"] += len(deliveries)
+        self.counters["queued"] += len(out.queued)
+
+    def _build_object_rows(self, out: SearchOutcome, now: float) -> list[Row]:
+        """Matched answers of a ``SearchOutcome``, one per player with the
+        whole match (both teams), remembered for terminal replay. The
+        object path has no dispatch stamp: ``waited_ms`` is the latency,
+        as in the JAX service."""
+        rows: list[Row] = []
+        terminals: list[tuple[str, bytes]] = []
+        for match in out.matches:
+            result = match.result()
+            for req in match.requests():
+                lat = (now - req.enqueued_at) * 1e3 if req.enqueued_at else 0.0
+                body = encode_response(SearchResponse(
+                    status="matched", player_id=req.id, match=result,
+                    latency_ms=lat, waited_ms=lat))
+                terminals.append((req.id, body))
+                rows.append((req.reply_to, req.correlation_id, body))
+        self._remember_window(terminals, now)
+        self.counters["players_matched"] += len(terminals)
+        return rows
+
+    def _publish_rescan_outcome(self, out: ColumnarOutcome | SearchOutcome,
+                                now: float) -> None:
+        """Publish a rescan tick's matches. Its unmatched players were
+        already waiting, and are never acked again."""
+        if isinstance(out, SearchOutcome):
+            self._publish_batch(self._build_object_rows(out, now))
+            self.counters["rescan_matches"] += len(out.matches)
+            return
         self._publish_batch(self._build_columnar_rows(out, now))
         self.counters["rescan_matches"] += out.n_matches
 
@@ -512,21 +636,28 @@ class MatchmakingApp:
         self._revive(now)
 
     def _revive(self, now: float) -> None:
-        """Rebuild the engine and re-admit the old engine's mirror, as
-        columns (nothing is in flight on the old engine, or what is will
-        never be collected). Every window still tracked is nacked: the new
-        engine numbers its tokens from 0."""
+        """Rebuild the engine and re-admit the old engine's mirror (nothing
+        is in flight on the old engine, or what is will never be
+        collected): as columns for 1v1 queues, as ``waiting()`` requests,
+        the host oracle's included, for team and role queues. Every window
+        still tracked is nacked: the new engine numbers its tokens from 0."""
         self._needs_revive = False
         for tok, (_, deliveries) in list(self._inflight_meta.items()):
             for d in deliveries:
                 self._nack(d)
             del self._inflight_meta[tok]
-        cols, region_names, mode_names = self.engine.waiting_columns()
         engine = self._make_engine()
-        self._restore_into(engine, cols, region_names, mode_names, now)
+        if self._objects:
+            waiting = self.engine.waiting()
+            engine.restore(waiting, now)
+            n = len(waiting)
+        else:
+            cols, region_names, mode_names = self.engine.waiting_columns()
+            self._restore_into(engine, cols, region_names, mode_names, now)
+            n = len(cols)
         self.engine = engine
         self.counters["revives"] += 1
-        log.warning("engine revived: %d waiting players restored", len(cols))
+        log.warning("engine revived: %d waiting players restored", n)
 
     async def _collector_loop(self) -> None:
         """Collect landed windows when no flush is running (traffic stops:

@@ -1,9 +1,16 @@
 """The middleware pipeline: each delivery runs through an ordered chain
 before the batcher sees it. A middleware gets the message context and a
-``next`` thunk.
+``next`` thunk; it stops the chain by raising ``MiddlewareReject``, which
+the service answers with an error response.
 
-The port's chain is ``columnar_pipeline``: the first-receive clock stamp
-only. The service decodes a whole window at once, natively, at flush time.
+Two chains, by queue kind (as the JAX service binds them):
+
+- ``columnar_pipeline`` (1v1 queues): the first-receive clock stamp only;
+  the service decodes a whole window at once, natively, at flush time;
+- ``default_pipeline`` (team and role queues, served by the object API):
+  each delivery is stamped and decoded into a ``SearchRequest``, with its
+  party and roles, on ``ctx.request``.
+
 The port carries auth mode ``"none"`` only and refuses any other.
 """
 
@@ -15,6 +22,20 @@ from typing import Awaitable, Callable, Sequence
 
 from matchmaking_tpu_torch.config import AuthConfig
 from matchmaking_tpu_torch.service.broker import Delivery
+from matchmaking_tpu_torch.service.contract import (
+    ContractError,
+    SearchRequest,
+    decode_request,
+)
+
+
+class MiddlewareReject(Exception):
+    """Stop the chain and answer with an error response."""
+
+    def __init__(self, code: str, reason: str):
+        super().__init__(reason)
+        self.code = code
+        self.reason = reason
 
 
 @dataclass
@@ -22,6 +43,7 @@ class MessageContext:
     delivery: Delivery
     queue: str
     received_at: float = field(default_factory=time.time)
+    request: SearchRequest | None = None  # set by DecodeMiddleware
 
 
 Next = Callable[[], Awaitable[None]]
@@ -47,24 +69,57 @@ class Pipeline:
         await invoke(0)
 
 
-class StampMiddleware(Middleware):
+def _stamp(ctx: MessageContext) -> None:
     """Stamp the first receive time into the headers once, so a redelivered
     copy (same Properties object) keeps its wait clock, and cache it on the
     delivery (the flush reads it per row)."""
+    first = ctx.delivery.properties.headers.setdefault(
+        "x-first-received", ctx.received_at)
+    try:
+        ctx.delivery.first_received = float(first)
+    except (TypeError, ValueError):
+        ctx.delivery.first_received = ctx.received_at
+
+
+class StampMiddleware(Middleware):
+    """The first-receive stamp only (decoding waits for the flush)."""
 
     async def call(self, ctx: MessageContext, next: Next) -> None:  # noqa: A002
-        first = ctx.delivery.properties.headers.setdefault(
-            "x-first-received", ctx.received_at)
-        try:
-            ctx.delivery.first_received = float(first)
-        except (TypeError, ValueError):
-            ctx.delivery.first_received = ctx.received_at
+        _stamp(ctx)
         await next()
+
+
+class DecodeMiddleware(Middleware):
+    """The stamp, then the payload → a validated ``SearchRequest`` on
+    ``ctx.request``, enqueued at the first receive; a malformed payload is
+    rejected here, before the engine."""
+
+    async def call(self, ctx: MessageContext, next: Next) -> None:  # noqa: A002
+        _stamp(ctx)
+        props = ctx.delivery.properties
+        try:
+            ctx.request = decode_request(
+                ctx.delivery.body, reply_to=props.reply_to,
+                correlation_id=props.correlation_id, queue=ctx.queue,
+                enqueued_at=ctx.delivery.first_received)
+        except ContractError as e:
+            raise MiddlewareReject(e.code, e.reason) from e
+        await next()
+
+
+def _require_no_auth(auth_cfg: AuthConfig) -> None:
+    if auth_cfg.mode != "none":
+        raise ValueError(f"auth mode {auth_cfg.mode!r} is not carried by the "
+                         f"port yet (only 'none')")
 
 
 def columnar_pipeline(auth_cfg: AuthConfig) -> Pipeline:
     """Stamp only; decoding is deferred to the window flush."""
-    if auth_cfg.mode != "none":
-        raise ValueError(f"auth mode {auth_cfg.mode!r} is not carried by the "
-                         f"port yet (only 'none')")
+    _require_no_auth(auth_cfg)
     return Pipeline([StampMiddleware()])
+
+
+def default_pipeline(auth_cfg: AuthConfig) -> Pipeline:
+    """Stamp and decode each delivery (the object path)."""
+    _require_no_auth(auth_cfg)
+    return Pipeline([DecodeMiddleware()])

@@ -51,6 +51,26 @@ def test_port_fields_have_the_jax_names_and_defaults(section):
         assert getattr(port, f.name) == getattr(jax, f.name), f.name
 
 
+@pytest.mark.parametrize("name", ["team_5v5.json", "role_party.json"])
+def test_team_and_role_files_load(name, caplog):
+    """Configs #3 and #5: every key is carried (role slots as a tuple),
+    the team knobs with the JAX package's names and defaults."""
+    path = os.path.join(ROOT, "configs", name)
+    with caplog.at_level(logging.WARNING, logger=config.__name__):
+        cfg = config.Config.from_json(path, backend="gpu")
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    want = jax_config.Config.from_json(path)
+    q, jq = cfg.queues[0], want.queues[0]
+    assert q.team_size == jq.team_size == 5
+    assert q.role_slots == tuple(jq.role_slots)
+    for f in dataclasses.fields(q):
+        assert getattr(q, f.name) == getattr(jq, f.name) or (
+            f.name == "role_slots"), f.name
+    for key in ("pool_capacity", "team_max_matches", "team_rounds"):
+        assert getattr(cfg.engine, key) == getattr(want.engine, key), key
+    assert cfg.engine.backend == "gpu"
+
+
 def test_the_loops_read_their_knobs():
     cfg = config.Config.from_json(os.path.join(ROOT, "configs", "glicko2.json"),
                                   backend="gpu")

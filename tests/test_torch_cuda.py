@@ -1,5 +1,7 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, on the
-card. Every test here is marked ``gpu`` and skips without one.
+"""The hand-written CUDA kernel against its plain PyTorch version, and the
+engine paths on CUDA tensors (the 1v1, team and role steps) against the
+same code on the CPU, on the card. Every test here is marked ``gpu`` and
+skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed:
@@ -8,7 +10,8 @@ only the port is installed:
 
 Tolerance: none. The kernel rounds every f32 op on its own (explicit
 ``__f*_rn`` intrinsics, built with ``--fmad=false``) exactly as the eager
-plain version does, so values are compared bit for bit and slots exactly.
+plain version does, so values are compared bit for bit and slots exactly;
+the team and role steps are sorts, minima and ORs, exact on both devices.
 """
 
 import numpy as np
@@ -317,3 +320,162 @@ def test_columnar_pairs_equal_object_pairs_on_card(cuda, depth):
     # columnar one in one), and with the layout the best-per-block lists.
     assert pairs["col"][0] == pairs["obj"][0]
     assert set(col.pool._slot_of) == set(cpu.pool._slot_of)
+
+
+# ---- team and role steps (configs #3 and #5) --------------------------------
+
+SLOTS5 = ("tank", "healer", "dps", "dps", "dps")
+
+
+def team_step(kind, capacity, max_matches):
+    from matchmaking_tpu_torch.engine.role_kernels import RoleKernelSet
+    from matchmaking_tpu_torch.engine.teams import TeamKernelSet
+
+    if kind == "team":  # config #3's queue
+        return TeamKernelSet(capacity=capacity, team_size=5,
+                             widen_per_sec=2.0, max_threshold=300.0,
+                             max_matches=max_matches)
+    return RoleKernelSet(capacity=capacity, team_size=5, role_slots=SLOTS5,
+                         widen_per_sec=0.0, max_threshold=400.0,
+                         max_matches=max_matches)
+
+
+def team_inputs(ks, seed, batch, device):
+    """A seeded pool ~70 % full (3 regions × 2 modes, ratings N(1500,
+    300)) and a packed window of ``batch`` arrivals into free slots."""
+    rng = np.random.default_rng(seed)
+    P = ks.capacity
+    pool = {
+        "rating": rng.normal(1500, 300, P).astype(np.float32),
+        "rd": np.zeros(P, np.float32),
+        "region": rng.integers(1, 4, P).astype(np.int32),
+        "mode": rng.integers(1, 3, P).astype(np.int32),
+        "threshold": np.full(P, 120.0, np.float32),
+        "enqueue_t": rng.uniform(0, 30, P).astype(np.float32),
+        "active": rng.random(P) < 0.7,
+    }
+    if ks.is_role:
+        pool["role_mask"] = rng.integers(1, 8, P).astype(np.int32)
+    free = np.nonzero(~pool["active"])[0]
+    packed = np.zeros((ks.pack_rows, batch), np.float32)
+    packed[0] = P
+    n = min(batch - 3, free.size)
+    packed[0, :n] = free[:n]
+    packed[1, :n] = rng.normal(1500, 300, n)
+    packed[3, :n] = rng.integers(1, 4, n)
+    packed[4, :n] = rng.integers(1, 3, n)
+    packed[5, :n] = 120.0
+    packed[6, :n] = 30.0
+    packed[7, :n] = 1.0
+    if ks.is_role:
+        packed[8, :n] = rng.integers(1, 8, n)
+    packed[-1] = 35.0
+    return (kernels_pool(pool, ks, device),
+            torch.from_numpy(packed).to(device))
+
+
+def kernels_pool(arrays, ks, device):
+    from matchmaking_tpu_torch.engine.kernels import pool_from_reference
+
+    return pool_from_reference(arrays, device, ks.extra_pool_fields)
+
+
+@pytest.mark.parametrize("kind", ["team", "role"])
+def test_team_and_role_steps_do_not_sync(cuda, kind):
+    """Admission, the sort, window formation, the Hall check (role), the
+    selection rounds, extraction and eviction of one window, then a
+    window dispatched by the engine, without a device→host sync."""
+    ks = team_step(kind, 16384, 1024)
+    pool, packed = team_inputs(ks, 1, 1024, cuda)
+    ks.search_step_packed(pool, team_inputs(ks, 2, 256, cuda)[1], 35.0)
+    torch.cuda.synchronize()  # built: the role tables are on the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ks.search_step_packed(pool, packed, 35.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (out[0] < ks.capacity).sum() > 0
+    queue = (QueueConfig(team_size=5, rating_threshold=120.0,
+                         widen_per_sec=2.0, max_threshold=300.0)
+             if kind == "team" else
+             QueueConfig(team_size=5, rating_threshold=150.0,
+                         role_slots=SLOTS5))
+    cfg = Config(engine=EngineConfig(pool_capacity=16384), queues=(queue,))
+    eng = GpuEngine(cfg, queue, device=cuda)
+    eng.warmup()
+    rng = np.random.default_rng(3)
+    reqs = [SearchRequest(id=f"p{i}", rating=float(rng.normal(1500, 100)),
+                          region="eu", game_mode="ranked",
+                          roles=(("tank",), ("healer",), ("dps",))[i % 3],
+                          enqueued_at=100.0) for i in range(1000)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, _ = eng.search_async(reqs, 101.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    (got, out), = eng.flush()
+    assert got == tok and out.matches and eng.counters == {}
+
+
+@pytest.mark.parametrize("kind,capacity,max_matches",
+                         [("team", 65536, 512), ("role", 16384, 1024)])
+def test_team_and_role_steps_on_card_equal_cpu_at_full_width(
+        cuda, kind, capacity, max_matches):
+    """Configs #3 (P = 65,536, 512 matches a step) and #5 (P = 16,384): two
+    windows of 1,024 in a row on the card and on the CPU; outputs and the
+    pool bit-equal."""
+    from matchmaking_tpu_torch.engine.kernels import pool_to_numpy
+
+    ks = team_step(kind, capacity, max_matches)
+    pools, outs = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        pool, packed = team_inputs(ks, 7, 1024, dev)
+        first = ks.search_step_packed(pool, packed, 35.0)
+        second = ks.search_step_packed(pool, team_inputs(ks, 8, 1024, dev)[1],
+                                       40.0)
+        outs[dev.type] = [first.cpu().numpy(), second.cpu().numpy()]
+        pools[dev.type] = pool_to_numpy(pool)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    for name, col in pools["cpu"].items():
+        np.testing.assert_array_equal(pools["cuda"][name], col, err_msg=name)
+    assert (outs["cuda"][0][0] < capacity).sum() > (
+        100 if kind == "team" else 10)
+
+
+def test_delegated_window_never_touches_the_device_pool(cuda):
+    """A wildcard hands a 5v5 queue to the host oracle: the device pool is
+    dropped and no step runs while delegated (the steps are made to raise);
+    after the quiet period the queue is back on a fresh device pool."""
+    queue = QueueConfig(team_size=5, rating_threshold=120.0)
+    cfg = Config(engine=EngineConfig(pool_capacity=4096), queues=(queue,))
+    eng = GpuEngine(cfg, queue, device=cuda)
+    pinned = [SearchRequest(id=f"p{i}", rating=1000.0 * i, region="eu",
+                            game_mode="ranked", enqueued_at=1.0)
+              for i in range(8)]
+    eng.search(pinned, 1.0)
+    ks = eng.kernels
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a device step ran while delegated")
+
+    real = ks.search_step_packed, ks.admit_packed
+    ks.search_step_packed = ks.admit_packed = refuse
+    try:
+        out = eng.search([SearchRequest(id="w", rating=0.0, region="*",
+                                        enqueued_at=2.0)], 2.0)
+        assert eng.counters == {"team_delegated": 1} and eng.dev_pool is None
+        assert [r.id for r in out.queued] == ["w"]
+        tok, _ = eng.search_async([SearchRequest(
+            id="x", rating=1.0, region="eu", game_mode="ranked",
+            enqueued_at=3.0)], 3.0)
+        assert [t for t, _ in eng.flush()] == [tok]
+        assert eng.rescan_async(1024, 4.0) is None
+        assert eng.remove("w").id == "w"
+    finally:
+        ks.search_step_packed, ks.admit_packed = real
+    assert eng.heartbeat(20.0)  # quiet, no wildcard left: back on the card
+    assert eng.counters == {"team_delegated": 1, "team_repromoted": 1}
+    assert eng.dev_pool is not None and eng.pool_size() == 9
+    assert int(eng.dev_pool["active"].sum()) == 9

@@ -223,5 +223,13 @@ def test_backend_selection():
     assert tpu_cfg.engine.backend == "tpu"  # the JAX name is not reinterpreted
     with pytest.raises(ValueError, match="backend"):
         make_engine(tpu_cfg, tpu_cfg.queues[0], device="cpu")
-    with pytest.raises(ValueError, match="1v1"):
-        GpuEngine(cfg, QueueConfig(team_size=5), device="cpu")
+    # Team and role queues (configs #3 and #5) build a GpuEngine too, with
+    # their own steps; role slots without teams are refused.
+    for path, step in (("configs/team_5v5.json", "TeamKernelSet"),
+                       ("configs/role_party.json", "RoleKernelSet")):
+        team_cfg = Config.from_json(os.path.join(ROOT, path), backend="gpu")
+        eng = make_engine(team_cfg, team_cfg.queues[0], device="cpu")
+        assert isinstance(eng, GpuEngine)
+        assert type(eng.kernels).__name__ == step
+    with pytest.raises(ValueError, match="team_size"):
+        GpuEngine(cfg, QueueConfig(role_slots=("tank",)), device="cpu")

@@ -43,6 +43,11 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.engine.interface",
                  "matchmaking_tpu_torch.engine.kernels",
                  "matchmaking_tpu_torch.engine.cuda_kernels",
+                 "matchmaking_tpu_torch.engine.cpu",
+                 "matchmaking_tpu_torch.engine.roles",
+                 "matchmaking_tpu_torch.engine.role_kernels",
+                 "matchmaking_tpu_torch.engine.scoring",
+                 "matchmaking_tpu_torch.engine.teams",
                  "matchmaking_tpu_torch.native",
                  "matchmaking_tpu_torch.native.codec",
                  "matchmaking_tpu_torch.service.app",

@@ -348,3 +348,124 @@ def test_encode_response_bytes_match_jax_contract(pair):
     assert body == jax_contract.encode_response(jax)
     assert (dataclasses.asdict(contract.decode_response(body))
             == dataclasses.asdict(jax_contract.decode_response(body)))
+
+
+async def test_team_queue_serves_5v5_matches_on_the_object_path():
+    """A 5v5 queue (``configs/team_5v5.json``, a 256-slot pool) through the
+    object path: decode middleware → ``search_async`` → one
+    ``publish_batch`` per window. Forty pinned players all match, in
+    teams of five; each matched body is byte-equal to the JAX contract's
+    ``encode_response`` of the same response; a malformed payload and a
+    party (no roles on this queue) get errors; a wildcard hands the queue
+    to the host oracle, which still answers it."""
+    cfg = Config.from_json(os.path.join(ROOT, "configs/team_5v5.json"),
+                           backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, pool_capacity=256, batch_buckets=(16, 64),
+        team_max_matches=32))
+    app = MatchmakingApp(cfg, device="cpu")
+    await app.start()
+    calls = []
+    real = app.broker.publish_batch
+    app.broker.publish_batch = lambda items: (calls.append(len(items)),
+                                              real(items))
+    try:
+        app.broker.declare_queue("rq.team")
+        app.broker.publish(app.queue_cfg.name, b"{not json",
+                           Properties(reply_to="rq.team", correlation_id="bad"))
+        publish(app, "rq.team", {"id": "duo", "rating": 1500, "region": "eu",
+                                 "game_mode": "ranked",
+                                 "party": [{"id": "duo2", "rating": 1500}]})
+        for i in range(40):
+            publish(app, "rq.team", {"id": f"t{i}", "rating": 1500 + 3 * i,
+                                     "region": "eu", "game_mode": "ranked"})
+        bodies: dict[str, list[bytes]] = {}
+        end = time.monotonic() + 10.0
+        while time.monotonic() < end:  # until 40 matched and 0.2 s quiet
+            d = await app.broker.get("rq.team", timeout=0.2)
+            if d is not None:
+                bodies.setdefault(d.properties.correlation_id, []).append(
+                    d.body)
+            elif sum(b"matched" in v[-1] for v in bodies.values()) >= 40:
+                break
+        assert contract.decode_response(bodies["bad"][0]).error_code == "bad_json"
+        assert (contract.decode_response(bodies["duo"][0]).error_code
+                == "party_not_supported")
+        matches = {}
+        for i in range(40):
+            resp = contract.decode_response(bodies[f"t{i}"][-1])
+            assert resp.status == "matched", (i, resp.status)
+            assert [r.status for r in map(contract.decode_response,
+                                          bodies[f"t{i}"][:-1])] in ([], ["queued"])
+            m = resp.match
+            assert [len(t) for t in m.teams] == [5, 5]
+            assert resp.player_id in m.players and len(m.players) == 10
+            matches.setdefault(m.match_id, set()).add(resp.player_id)
+            jm = jax_contract.MatchResult(match_id=m.match_id,
+                                          players=m.players, teams=m.teams,
+                                          quality=m.quality)
+            assert bodies[f"t{i}"][-1] == jax_contract.encode_response(
+                jax_contract.SearchResponse(
+                    status="matched", player_id=resp.player_id, match=jm,
+                    latency_ms=resp.latency_ms, waited_ms=resp.waited_ms))
+        assert sorted(len(v) for v in matches.values()) == [10] * 4
+        assert len(calls) == app.counters["windows"]
+        assert app.engine.pool_size() == 0
+        # A wildcard: the queue moves to the host oracle, which queues it.
+        publish(app, "rq.wild", {"id": "wild", "rating": 1500, "region": "*"})
+        got = await answers(app, "rq.wild", lambda g: len(g) == 1)
+        assert got[0][1].status == "queued"
+        assert app.engine.counters == {"team_delegated": 1}
+        assert [r.id for r in app.engine.waiting()] == ["wild"]
+        assert app.faults() == {}
+    finally:
+        await app.stop()
+
+
+async def test_team_queue_revives_from_waiting_requests():
+    """A team window that fails on "the device" is nacked and the engine
+    rebuilt from the old engine's ``waiting()`` requests (roles and
+    region/mode included: team queues have no columnar mirror); the
+    redelivered window then queues normally."""
+    q = QueueConfig(team_size=2, rating_threshold=50.0,
+                    role_slots=("tank", "dps"))
+    app = MatchmakingApp(small_cfg(q, team_max_matches=16), device="cpu")
+    await app.start()
+    try:
+        for i in range(3):  # far apart: they wait
+            publish(app, "rq.r", {"id": f"r{i}", "rating": 1000.0 * i,
+                                  "region": "eu", "game_mode": "ranked",
+                                  "roles": ["tank"]})
+        await answers(app, "rq.r", lambda g: len(g) == 3)
+        old = app.engine
+        real = old._fetch
+
+        def failing(pending):
+            pending.error = RuntimeError("CUDA error: injected")
+            old._fetch = real
+
+        old._fetch = failing
+        publish(app, "rq.f", {"id": "f0", "rating": 9000.0, "region": "eu",
+                              "game_mode": "ranked", "roles": ["dps"]})
+        for _ in range(500):
+            if app.counters["revives"]:
+                break
+            await asyncio.sleep(0.01)
+        assert app.counters["revives"] == 1 and app.engine is not old
+        waiting = {r.id: r for r in app.engine.waiting()}
+        assert set(waiting) == {"r0", "r1", "r2", "f0"}
+        assert waiting["r1"].roles == ("tank",)
+        assert waiting["r1"].region == "eu"
+        # The revived engine serves: a team of three completes r2's 2v2,
+        # and r2's answer reaches its reply queue from the restored mirror.
+        for pid, rating, role in (("d1", 2005, "dps"), ("t2", 2010, "tank"),
+                                  ("d2", 2015, "dps")):
+            publish(app, "rq.m", {"id": pid, "rating": rating, "region": "eu",
+                                  "game_mode": "ranked", "roles": [role]})
+        got = await answers(app, "rq.r", lambda g: len(g) == 1)
+        assert got[0][1].status == "matched"
+        assert sorted(len(t) for t in got[0][1].match.teams) == [2, 2]
+        assert set(got[0][1].match.players) == {"r2", "d1", "t2", "d2"}
+        assert app.faults() == {"engine_failures": 1, "revives": 1}
+    finally:
+        await app.stop()
