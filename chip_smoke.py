@@ -6,12 +6,13 @@
 
 Phases, each of which raises (exit code != 0) when it fails:
 
-1. build: compile csrc/block_best.cu with nvcc for sm_90a and, beside it,
-   the wire codec csrc/codec.cc with g++; print the card and its max SM
-   clock; report each kernel instance's registers, shared memory and
-   spills (ptxas) and the ELO scorer's inner-loop instructions per pair
+1. build: compile csrc/block_best.cu and csrc/quality_accum.cu with nvcc
+   for sm_90a (one nvcc each) and, beside them, the wire codec
+   csrc/codec.cc with g++, all started together; print the card and its
+   max SM clock; report each kernel instance's registers, shared memory
+   and spills (ptxas) and the ELO scorer's inner-loop instructions per pair
    (cuobjdump -sass, where the toolkit has it).
-2. kernel: the block_best kernel against its plain PyTorch version on the
+2. kernels: the block_best kernel against its plain PyTorch version on the
    same CUDA tensors, at full pool width (P = 131,072 slots in blocks of
    8,192, 100k active) and every window bucket (B = 16, 64, 256, 1,024),
    for all four instances (Glicko-2 x filters) with widening off and on;
@@ -23,7 +24,16 @@ Phases, each of which raises (exit code != 0) when it fails:
    another checkout of the port (e.g. the parent commit, unpacked with
    ``git archive`` under a git-ignored directory), which builds that
    tree's kernel source; it is checked the same way and timed in turns
-   with this one (old, new, new, old) on the same inputs.
+   with this one (old, new, new, old) on the same inputs. Then block_best's
+   span launch (the pruned step's) at full width on a pool laid out by the
+   gaussian:1500:300 banded allocator, all four instances, on a window
+   whose spans fit W = 6 blocks and on config #1's window, whose do not:
+   bit-equal to its plain version with the step's own flag and with the
+   flag flipped, and a feasible launch equal to the dense one; span,
+   fallback and dense ms at B = 1,024. Then quality_accum against its
+   plain version at every bucket on step results with real matches
+   (histograms and counts equal, sums within 1e-5 relative; every addend
+   is >= 0), timed with its host µs per call and its bound.
 3. engine: the main path. GpuEngine with configs/elo_1v1.json (backend
    overridden to "gpu"): 100k waiting players through restore_columns(),
    then 48 windows of 1,024 through search_columns_async() at the config's
@@ -32,20 +42,30 @@ Phases, each of which raises (exit code != 0) when it fails:
    dispatches run under torch.cuda.set_sync_debug_mode("error"). Checks:
    no player in two matches, every pair within both effective thresholds
    (and filters), every request matched, queued or rejected, pool
-   accounting, one block_best launch per window chunk, the first 3
-   windows' pairs equal a CPU columnar engine's, and an object-path
+   accounting, one block_best and one quality_accum launch per window
+   chunk, the engine's quality_report() after flush() equal to a host
+   recomputation from the outcomes in every rating bucket's count, the
+   first 3 windows' pairs equal a CPU columnar engine's, and an object-path
    engine on the card (8 windows, the old path's timing and GC) forms the
    first window's pairs too. Then an expire_deadlines() sweep over the
    5 % of waiting players stamped with a deadline, and 8 more windows
-   under torch.profiler for the device's busy share. Configs #2 (filters,
+   under torch.profiler for the device's busy share and kernels per window
+   (at most 401 + 1, the quality state's copies aside). 3b: the same
+   config with BENCH_SWEEP.md §5's pruning (band_spec gaussian:1500:300,
+   prune_window_blocks 6, prune_chunk 128): the same 48 windows, checks and
+   CPU comparison, and the windows that took the span path rather than the
+   dense fallback, counted on the device and read once. Configs #2 (filters,
    6 windows) and #4 (Glicko-2 + widening, 24 windows) run the same way,
    and config #4 runs a two-chunk rescan tick between two windows in
-   flight, which must form matches, the same as on the CPU.
+   flight, which must form matches, the same as on the CPU (and reconcile
+   its quality samples).
 4. service: the in-process service on the card: the 10-player demo; a
    soak with 100k restored players and 16,384 requests published in
    bursts (every request answered once from its window, partners agree,
-   one publish_batch per window; request latency publish → first answer);
-   and config #4's service, whose rescan loop must publish matches.
+   one publish_batch per window; request latency publish → first answer;
+   the quality ledger and the engine's quality state both hold every
+   matched player); and config #4's service, whose rescan loop must
+   publish matches.
 5. teams and roles: config #3 (team_5v5.json, P = 65,536) with 50k
    restored solo players and 24 object windows of 1,024 at depth 2, and
    config #5 (role_party.json, P = 16,384) with 12k players (declared
@@ -56,7 +76,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    assignment per team by brute force), pool accounting is exact, and the
    first 3 windows' raw step results are bit-equal to the same engine's on
    the CPU. Config #3 then runs a rescan tick 30 s later (widened
-   thresholds), which must form matches. Each queue profiles 8 more
+   thresholds), which must form matches. The engine's quality_report()
+   holds one sample per member of every match. Each queue profiles 8 more
    windows (device ms and kernels per window) and its step alone (kernels,
    device ms, CUDA-event ms, host ms per call: the ``steps`` line; the team
    step must stay within 300 kernels, the role step within 60 more). On a
@@ -72,8 +93,10 @@ Phases, each of which raises (exit code != 0) when it fails:
 The last lines of standard output are a JSON summary of phases 3-5, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
-kernel's numbers, and one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or without the package beside this file, it exits
-non-zero and prints no result.
+kernels' numbers (block_best, its span launch inside its entry, and
+quality_accum), and one JSON line ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the package beside this file, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -81,7 +104,6 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
-import io
 import json
 import os
 import re
@@ -115,7 +137,8 @@ def card_line(fields="name,power.limit") -> str:
 
 def ptxas_report(text):
     """{kernel instance: {registers, smem_bytes, spill_bytes}} from the
-    ``-Xptxas -v`` output (one instance per (glicko2, filters) pair)."""
+    ``-Xptxas -v`` output (block_best: one instance per (glicko2, filters)
+    pair; quality_accum: one)."""
     report, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -125,9 +148,13 @@ def ptxas_report(text):
         if fn is None:
             continue
         inst = re.search(r"(prep_kernel|block_best_kernel)ILb(\d)ELb(\d)E", fn)
-        if inst is None:
+        if inst is not None:
+            key = (f"{inst.group(1)}<glicko2={inst.group(2)},"
+                   f"filters={inst.group(3)}>")
+        elif "quality_accum_kernel" in fn:
+            key = "quality_accum_kernel"
+        else:
             continue
-        key = f"{inst.group(1)}<glicko2={inst.group(2)},filters={inst.group(3)}>"
         entry = report.setdefault(key, {})
         m = re.search(r"Used (\d+) registers", line)
         if m:
@@ -324,17 +351,23 @@ VARIANTS = {
 BUCKETS = (16, 64, 256, 1024)
 
 
-def bound(ck, rows, glicko2, filters):
+def bound(ck, rows, glicko2, filters, *, pairs=None, pool_slots=FULL_P):
     """Least time for one full-width call: the pairs' operations over the
     FP32 peak, or the bytes (each input read once, each output written
-    once) over the memory rate, whichever is larger."""
-    ops = rows * FULL_P * ck.ops_per_pair(glicko2=glicko2, filters=filters)
+    once) over the memory rate, whichever is larger. The span launch
+    passes the pairs its spans hold and the pool slots they cover."""
+    pairs = rows * FULL_P if pairs is None else pairs
+    ops = pairs * ck.ops_per_pair(glicko2=glicko2, filters=filters)
     n_blocks = FULL_P // FULL_BLOCK
-    nbytes = (FULL_P * (6 * 4 + 1) + rows * (6 * 4 + 1) + rows * n_blocks * 8)
+    nbytes = (pool_slots * (6 * 4 + 1) + rows * (6 * 4 + 1)
+              + rows * n_blocks * 8)
+    return roofline({"pairs": pairs}, ops, nbytes)
+
+
+def roofline(res, ops, nbytes):
     ops_ms, bytes_ms = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"pairs": rows * FULL_P, "ops": ops, "bytes": nbytes,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    return dict(res, ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def kernel_split(torch, fn, reps=20):
@@ -487,6 +520,246 @@ def plan_sweep(torch, ck, scoring, device, variants=("elo", "elo_widen",
     return sweep
 
 
+#: Float operations per quality sample in the plain formulas: the widened
+#: threshold (5), the pair's limit, quality (division, subtraction, two
+#: clips, the bucket's multiply: 5), the wait (2), three sums, and a binary
+#: search over each axis's edges (3 + 5 compares at the default edges).
+QUALITY_OPS_PER_SAMPLE = 24
+
+
+def step_windows(torch, np, kernels, device, buckets=BUCKETS):
+    """Config #1-like step results that form real matches, one per bucket:
+    a seeded pool (P = 131,072, 100k active, thresholds 100, widening 5/s
+    to 250), a window of arrivals, and config #1's dense step on a copy of
+    the pool. Returns {B: (pool after the step, f32[3, B] result, now)}."""
+    rng = np.random.default_rng(12)
+    active = np.zeros(FULL_P, bool)
+    active[rng.permutation(FULL_P)[:FULL_ACTIVE]] = True
+    arrays = {"rating": rng.normal(1500, 300, FULL_P).astype(np.float32),
+              "rd": np.full(FULL_P, 350.0, np.float32),
+              "region": np.zeros(FULL_P, np.int32),
+              "mode": np.zeros(FULL_P, np.int32),
+              "threshold": np.full(FULL_P, 100.0, np.float32),
+              "enqueue_t": rng.uniform(0, 30, FULL_P).astype(np.float32),
+              "active": active}
+    ks = kernels.KernelSet(capacity=FULL_P, top_k=8, pool_block=FULL_BLOCK,
+                           glicko2=False, widen_per_sec=5.0,
+                           max_threshold=250.0)
+    free = np.nonzero(~active)[0]
+    out = {}
+    for b in buckets:
+        packed = np.zeros((9, b), np.float32)
+        packed[0] = free[:b]
+        packed[1] = rng.normal(1500, 300, b)
+        packed[2] = 350.0
+        packed[5] = 100.0
+        packed[6] = rng.uniform(10, 30, b)
+        packed[7] = 1.0
+        packed[8] = 30.0
+        pool = kernels.pool_from_reference(arrays, device)
+        res = ks.search_step_packed(pool, torch.from_numpy(packed).to(device),
+                                    30.0, skip_filters=True)
+        out[b] = (pool, res, 30.0)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_quality(torch, np, ck, kernels, spec, device):
+    """``quality_accum`` against its plain version on the same CUDA
+    tensors, at every bucket, on step results with real matches: histograms
+    and counts equal, sums within 1e-5 of the sum of their addends (all
+    >= 0, so of the sums themselves). Times the kernel at every bucket
+    (device ms, host µs per call), the plain version at B = 1,024, and the
+    bound from the bytes the call must move."""
+    acc = kernels.QualityAccumKernel(
+        capacity=FULL_P, widen_per_sec=5.0, max_threshold=250.0,
+        rating_edges=spec.rating_edges, n_quality=spec.n_quality,
+        wait_edges=spec.wait_edges)
+    kw = dict(widen_per_sec=5.0, max_threshold=250.0,
+              rating_edges=acc.rating_edges, n_quality=acc.n_quality,
+              wait_edges=acc.wait_edges)
+    res = {"ms_by_bucket": {}, "host_us_by_bucket": {},
+           "matches_by_bucket": {}}
+    max_err = 0.0
+    for b, (pool, out, now) in step_windows(torch, np, kernels, device).items():
+        plain = lambda state: ck.quality_accum_reference(
+            state, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
+            now, **kw)
+        got, want = acc.init_state(device), acc.init_state(device)
+        acc.accum(got, pool, out, now)
+        plain(want)
+        torch.cuda.synchronize()
+        matches = int((out[0] < FULL_P).sum())
+        for name in ("q_hist", "w_hist", "count"):
+            if not torch.equal(got[name], want[name]):
+                raise AssertionError(f"quality_accum B={b}: {name} differs")
+        if int(got["count"].sum()) != 2 * matches or matches == 0:
+            raise AssertionError(f"quality_accum B={b}: {got['count'].sum()} "
+                                 f"samples for {matches} matches")
+        for name in ("q_sum", "w_sum", "d_sum"):
+            err = (got[name] - want[name]).abs()
+            if bool((err > 1e-5 * want[name].abs()).any()):
+                raise AssertionError(f"quality_accum B={b}: {name} off by "
+                                     f"{float(err.max())}")
+            max_err = max(max_err, float(err.max()))
+        scratch = acc.init_state(device)
+        call = lambda: acc.accum(scratch, pool, out, now)
+        res["ms_by_bucket"][b] = time_ms(torch, call)
+        res["host_us_by_bucket"][b] = host_us(torch, call)
+        res["matches_by_bucket"][b] = matches
+        if b == FULL_B:
+            res["plain_ms"] = time_ms(torch, lambda: plain(scratch), reps=20)
+            # Bytes: the result read once, three gathered columns at both
+            # sides' slots of every match, the state read and written.
+            nbytes = 3 * b * 4 + 2 * matches * 3 * 4 + 2 * acc.size * 4
+            res.update(roofline({"samples": 2 * matches},
+                                2 * matches * QUALITY_OPS_PER_SAMPLE, nbytes))
+    res["ms"] = res["ms_by_bucket"][FULL_B]
+    res["host_us"] = res["host_us_by_bucket"][FULL_B]
+    log(f"quality_accum: ms by bucket {res['ms_by_bucket']}; host µs per call "
+        f"{res['host_us_by_bucket']} (plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.5f} ms by {res['bound_by']} at B={FULL_B}); "
+        f"matches {res['matches_by_bucket']}; max sum error {max_err}")
+    return res, max_err
+
+
+#: The pruned main path's setting (the JAX package's BENCH_SWEEP.md §5):
+#: W = 6 of 16 blocks, chunks of 128, gaussian:1500:300 bands.
+PRUNE = {"prune_window_blocks": 6, "prune_chunk": 128,
+         "band_spec": "gaussian:1500:300"}
+
+
+def span_inputs(torch, np, kernels, device, *, glicko2, filters, thr,
+                window_std, seed):
+    """A pool laid out by the banded allocator (gaussian:1500:300, one band
+    per block; 100k players of N(1500, 300)), a window of 1,024 arrivals
+    placed by it too and sorted by rating as the pruned step sorts it, and
+    the step's own span starts and feasibility for it."""
+    from matchmaking_tpu_torch.core.pool import PlayerPool, band_edges_from_spec
+    from matchmaking_tpu_torch.engine.cuda_kernels import effective_threshold
+    from matchmaking_tpu_torch.service.contract import RequestColumns
+
+    rng = np.random.default_rng(seed)
+    n_blocks = FULL_P // FULL_BLOCK
+    pp = PlayerPool(FULL_P, thr, band_edges=band_edges_from_spec(
+        PRUNE["band_spec"], n_blocks))
+
+    def cols(prefix, ratings):
+        n = ratings.size
+        z = np.zeros(n, np.int32)
+        return RequestColumns(
+            ids=np.char.add(prefix, np.arange(n).astype(str)).astype(object),
+            rating=ratings, rd=np.zeros(n, np.float32), region=z, mode=z,
+            threshold=np.full(n, np.nan, np.float32),
+            enqueued_at=np.zeros(n))
+
+    pp.allocate_columns(cols("p", rng.normal(1500, 300, FULL_ACTIVE)
+                             .astype(np.float32)))
+    w_rating = np.sort(rng.normal(1500, window_std, FULL_B)).astype(np.float32)
+    w_slots = pp.allocate_columns(cols("w", w_rating))
+    active = np.zeros(FULL_P, bool)
+    active[pp.waiting_slots()] = True
+    active[w_slots] = False  # the window's own slots: admitted by the step
+    codes = lambda n, k: (rng.integers(0, k, n) if filters
+                          else np.zeros(n)).astype(np.int32)
+    pool = kernels.pool_from_reference({
+        "rating": pp.m_rating.copy(),
+        "rd": rng.uniform(0, 350, FULL_P).astype(np.float32),
+        "region": codes(FULL_P, 4), "mode": codes(FULL_P, 3),
+        "threshold": np.full(FULL_P, thr, np.float32),
+        "enqueue_t": rng.uniform(0, 20, FULL_P).astype(np.float32),
+        "active": active}, device)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    batch = {"slot": to(w_slots.astype(np.int32)), "rating": to(w_rating),
+             "rd": to(rng.uniform(0, 350, FULL_B).astype(np.float32)),
+             "region": to(codes(FULL_B, 4)), "mode": to(codes(FULL_B, 3)),
+             "threshold": to(np.full(FULL_B, thr, np.float32)),
+             "enqueue_t": to(rng.uniform(0, 20, FULL_B).astype(np.float32)),
+             "valid": to(np.ones(FULL_B, bool))}
+    ks = kernels.KernelSet(capacity=FULL_P, top_k=8, pool_block=FULL_BLOCK,
+                           glicko2=glicko2, widen_per_sec=2.0,
+                           max_threshold=250.0,
+                           prune_window_blocks=PRUNE["prune_window_blocks"],
+                           prune_chunk=PRUNE["prune_chunk"])
+    kernels.admit(pool, batch)
+    q_thr = effective_threshold(batch["threshold"], batch["enqueue_t"], 20.0,
+                                2.0, 250.0)
+    start, feasible = ks._chunk_windows(batch, q_thr, *ks._live_stats(pool))
+    return ks, pool, batch, q_thr, start, feasible
+
+
+def phase_span(torch, np, ck, kernels, scoring, device):
+    """The span launch of block_best at full width on a banded pool, for
+    all four instances: a narrow window (thresholds 30, ratings N(1500,
+    60)) whose spans fit W = 6 blocks, and config #1's window (thresholds
+    100, N(1500, 300)) whose tail chunks do not. Each is bit-equal to the
+    plain version with the step's own flag and with the flag flipped, and
+    a feasible launch equals the dense launch (its spans hold every
+    candidate). At B = 1,024, ELO, on the feasible window: span, fallback
+    (the flag unset) and dense device ms on the same inputs, and the span
+    launch's bound over its spans' pairs."""
+    w = PRUNE["prune_window_blocks"]
+    chunk = PRUNE["prune_chunk"]
+    res, feasible_seen = {}, set()
+    for vi, (glicko2, filters) in enumerate(((False, False), (False, True),
+                                             (True, False), (True, True))):
+        for thr, std in ((30.0, 60.0), (100.0, 300.0)):
+            ks, pool, batch, q_thr, start, feasible = span_inputs(
+                torch, np, kernels, device, glicko2=glicko2, filters=filters,
+                thr=thr, window_std=std, seed=20 + vi)
+            kw = dict(pool_block=FULL_BLOCK, glicko2=glicko2, filters=filters,
+                      widen_per_sec=2.0, max_threshold=250.0,
+                      g_coeff=scoring.G_COEFF_F32)
+            dense = ck.block_best(pool, batch, q_thr, 20.0, **kw)
+            feasible_seen.add(bool(feasible))
+            what = f"span glicko2={glicko2} filters={filters} thr={thr}"
+            spans = {}
+            for flag in (feasible, ~feasible):
+                span = ck.Span(start, chunk, w, flag.reshape(1))
+                got = ck.block_best(pool, batch, q_thr, 20.0, span=span, **kw)
+                compare(torch, got, ck.block_best_span_reference(
+                    pool, batch, q_thr, 20.0, span, **kw), what)
+                spans[bool(flag)] = span
+            if bool(feasible):
+                compare(torch, ck.block_best(pool, batch, q_thr, 20.0,
+                                             span=spans[True], **kw),
+                        dense, f"{what}: span against dense")
+            if (glicko2, filters) == (False, False):
+                res[f"span_starts_thr{thr:g}"] = start.tolist()
+            if (glicko2, filters) == (False, False) and bool(feasible):
+                r = res
+                for name, fn in (
+                        ("span_ms", lambda: ck.block_best(
+                            pool, batch, q_thr, 20.0, span=spans[True], **kw)),
+                        ("fallback_ms", lambda: ck.block_best(
+                            pool, batch, q_thr, 20.0, span=spans[False], **kw)),
+                        ("dense_ms", lambda: ck.block_best(
+                            pool, batch, q_thr, 20.0, **kw))):
+                    r[name] = time_ms(torch, fn)
+                starts = start.tolist()
+                blocks = {s_ + j for s_ in starts for j in range(w)}
+                rows = int(batch["valid"].sum())
+                r["span_starts"] = starts
+                r["blocks_with_candidate"] = float(
+                    torch.isfinite(dense[0]).float().mean())
+                r.update(bound(ck, rows, False, False,
+                               pairs=rows * w * FULL_BLOCK,
+                               pool_slots=len(blocks) * FULL_BLOCK))
+                r["plain_ms"] = time_ms(torch, lambda: (
+                    ck.block_best_span_reference(pool, batch, q_thr, 20.0,
+                                                 spans[True], **kw)), reps=10)
+                log(f"span launch, feasible window (thr {thr}): span "
+                    f"{r['span_ms']:.4f} ms, fallback {r['fallback_ms']:.4f} "
+                    f"ms, dense {r['dense_ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"(span starts {starts})")
+    if feasible_seen != {True, False}:
+        raise AssertionError(f"span phase: feasibility {feasible_seen}, "
+                             f"wanted both")
+    torch.cuda.synchronize()
+    return res
+
+
 # ---- phase 3: the engine main path (columnar, pipelined) -------------------
 
 
@@ -609,7 +882,8 @@ def pct(xs, p):
 
 def device_busy(torch, run):
     """torch.profiler over ``run()``: the device's busy share of the wall
-    time and its top kernels."""
+    time, its top kernels, and the host operators that took the most host
+    time of their own (queueing the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -619,13 +893,16 @@ def device_busy(torch, run):
         n = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    kernels = []
+    kernels, host_ops = [], []
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             dev = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0.0))
             kernels.append((dev, e.count, e.key))
+        elif e.key.startswith("aten::") or e.key.startswith("cuda"):
+            host_ops.append((e.self_cpu_time_total, e.count, e.key))
     kernels.sort(reverse=True)
+    host_ops.sort(reverse=True)
     device_us = sum(k[0] for k in kernels)
     return {"windows": n, "wall_ms_per_window": wall / n * 1e3,
             "kernels_per_window": sum(k[1] for k in kernels) / n,
@@ -634,7 +911,10 @@ def device_busy(torch, run):
             "device_idle_share": 1.0 - device_us / 1e6 / wall,
             "top_kernels": [{"name": k[2][:90], "count": k[1],
                              "device_ms_per_window": k[0] / n / 1e3}
-                            for k in kernels[:10]]}
+                            for k in kernels[:10]],
+            "top_host_ops": [{"name": k[2], "count": k[1],
+                              "host_ms_per_window": k[0] / n / 1e3}
+                             for k in host_ops[:12]]}
 
 
 def greedy_pair_kernels(torch, kernels, capacity, rows, n_blocks, rounds):
@@ -656,15 +936,53 @@ def greedy_pair_kernels(torch, kernels, capacity, rows, n_blocks, rounds):
                if str(e.device_type).endswith("CUDA"))
 
 
+def reset_counts(ck):
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for name in ck.LAUNCHES:
+        ck.LAUNCHES[name] = 0
+
+
+def quality_reconciles(np, eng, pop, outs, what):
+    """The engine's quality report, read after ``flush()``, against a host
+    recomputation from the returned outcomes (engine/quality's host
+    accumulator over both sides of every match): the same samples, per
+    rating bucket. Returns the report's sample count."""
+    from matchmaking_tpu_torch.engine.quality import HostQualityAccum
+
+    host = HostQualityAccum(eng._q_spec)
+    for out in outs:
+        if out.n_matches:
+            host.observe(
+                rating=np.concatenate([pop.rating[pop.rows(out.m_id_a)],
+                                       pop.rating[pop.rows(out.m_id_b)]]),
+                quality=np.concatenate([out.m_quality, out.m_quality]),
+                wait_s=np.concatenate([out.m_wait_a, out.m_wait_b]),
+                spread=np.concatenate([out.m_dist, out.m_dist]))
+    rep = eng.quality_report()
+    got = [b["count"] for b in rep["buckets"]]
+    want = host.arrays["count"].tolist()
+    if got != want:
+        raise AssertionError(f"{what}: quality report counts {got} != the "
+                             f"outcomes' {want}")
+    return rep["samples"]
+
+
 def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
                  glicko2, filters, seed, cpu_windows, object_windows,
-                 profile_windows):
+                 profile_windows, engine_over=None):
     """The main path: ``restore_columns`` fills the pool, then ``windows``
     windows of 1,024 go through ``search_columns_async`` at the config's
     pipeline depth, each collected with ``collect_ready`` only after the
-    next is dispatched, and ``flush`` ends the run."""
+    next is dispatched, and ``flush`` ends the run. ``engine_over``
+    replaces engine keys of the file (the pruned path's knobs)."""
+    import dataclasses
+
     Config, GpuEngine, RequestColumns, SearchRequest = mods
     cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    if engine_over:
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, **engine_over))
+    label = path + (" (pruned)" if engine_over else "")
     queue, depth = cfg.queues[0], cfg.engine.pipeline_depth
     rng = np.random.default_rng(seed)
     t0 = 1_700_000_000.0
@@ -694,7 +1012,9 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
     deadlines_waiting = eng.deadline_count()
     util0 = eng.util_report()
     spans0 = dict(eng.spans)
-    ck.LAUNCHES["block_best"] = 0  # count the main path's launches only
+    prune0 = eng.prune_report()  # one read of the span counter, before
+    samples0 = eng.quality_report()["samples"]
+    reset_counts(ck)  # count the main path's launches only
     dispatch_ms, turnaround_ms, gc_ms = [], [], []
     outs, t_disp, token_window = {}, {}, {}
     with GcClock() as gc_clock:
@@ -720,6 +1040,10 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
             outs[token_window[tok_c]] = out
         run_s = time.perf_counter() - t_run
     launches = ck.LAUNCHES["block_best"]
+    q_launches = ck.LAUNCHES["quality_accum"]
+    prune = eng.prune_report()  # and once after flush()
+    if prune is not None:
+        prune = {k: prune[k] - prune0[k] for k in prune}
     util = eng.util_report()
     spans = {k: (v - spans0[k]) for k, v in eng.spans.items()}
     split = {k[:-2] + "_ms": v / windows * 1e3 for k, v in spans.items()
@@ -727,9 +1051,13 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
     idle = util["device_idle_s"] - util0["device_idle_s"]
     busy = util["device_busy_s"] - util0["device_busy_s"]
     # -- checks, after the timed loop (they build Python objects) --
-    if launches != windows:  # one launch per <= 1,024-lane window chunk
-        raise AssertionError(f"block_best launched {launches} times for "
-                             f"{windows} window chunks")
+    if launches != windows or q_launches != windows:
+        # one launch of each per <= 1,024-lane window chunk
+        raise AssertionError(f"block_best launched {launches} times and "
+                             f"quality_accum {q_launches} for {windows} "
+                             f"window chunks")
+    if prune is not None and prune["windows"] != windows:
+        raise AssertionError(f"pruned steps {prune} for {windows} windows")
     seen, matches, admitted = set(), 0, 0
     for w in range(windows):
         out = outs[w]
@@ -739,6 +1067,11 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
     if eng.pool_size() != waiting + admitted - 2 * matches:
         raise AssertionError(f"pool_size {eng.pool_size()} != {waiting} + "
                              f"{admitted} - 2 x {matches}")
+    samples = quality_reconciles(np, eng, pop, [outs[w] for w in range(windows)],
+                                 label)
+    if samples - samples0 != 2 * matches or samples0:
+        raise AssertionError(f"{label}: {samples} quality samples for "
+                             f"{matches} matches")
     # The deadline sweep: every stamped player still waiting expires (5 %
     # of the rows carry a deadline, arrivals included).
     n_in = waiting + windows * FULL_B
@@ -753,10 +1086,12 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         raise AssertionError(f"expire_deadlines took {len(expired)} of {left}")
     if any(r.id in eng.pool for r in expired):
         raise AssertionError("an expired player is still waiting")
-    log(f"columnar {path}: {matches} matches in {windows} windows, "
+    log(f"columnar {label}: {matches} matches in {windows} windows, "
         f"dispatch p50 {statistics.median(dispatch_ms):.3f} ms, turnaround "
         f"p50 {statistics.median(turnaround_ms):.2f} ms, "
-        f"{windows * FULL_B / run_s:.0f} requests/s, launches {launches}, "
+        f"{windows * FULL_B / run_s:.0f} requests/s, launches {launches} "
+        f"block_best + {q_launches} quality_accum, {samples} quality samples "
+        f"reconciled, pruned {prune}, "
         f"deadline sweep {len(expired)} players in {sweep_ms:.2f} ms")
     # The device's busy share over further windows, under torch.profiler.
     prof = None
@@ -773,10 +1108,20 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         prof["greedy_pair_kernels_per_call"] = greedy_pair_kernels(
             torch, kernels, eng.kernels.capacity, FULL_B, eng.kernels.n_blocks,
             eng.kernels.pair_rounds)
-        log(f"profile {path}: device busy {prof['device_busy_share']:.3f}, "
+        # The quality state's copies to the host in the profiled run (the
+        # flush's, and every quality_report_every windows): memcpys, not
+        # step kernels.
+        prof["quality_copies"] = 1 + profile_windows // max(
+            1, cfg.observability.quality_report_every)
+        prof["step_kernels_per_window"] = (prof["kernels_per_window"]
+                                           - prof["quality_copies"]
+                                           / profile_windows)
+        log(f"profile {label}: device busy {prof['device_busy_share']:.3f}, "
             f"{prof['device_ms_per_window']:.3f} device ms and "
-            f"{prof['kernels_per_window']:.0f} kernels per window, "
-            f"{prof['greedy_pair_kernels_per_call']} in greedy_pair")
+            f"{prof['kernels_per_window']:.2f} kernels per window "
+            f"({prof['step_kernels_per_window']:.2f} without the quality "
+            f"state's copies), {prof['greedy_pair_kernels_per_call']} in "
+            f"greedy_pair; top {prof['top_kernels'][:4]}")
     # The same first windows on a CPU columnar engine (windows 0 and 1
     # dispatched before any collection, as on the card).
     cpu = GpuEngine(cfg, queue, device="cpu")
@@ -790,7 +1135,7 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
             cpu_outs += [o for _, o in cpu.flush()]
     for w in range(cpu_windows):
         if pair_set(cpu_outs[w]) != pair_set(outs[w]):
-            raise AssertionError(f"{path} window {w}: the CPU engine formed "
+            raise AssertionError(f"{label} window {w}: the CPU engine formed "
                                  f"other pairs")
     # The object path on the card, from the same pool: the same first
     # window, then its own windows (its slot layout parts from the
@@ -801,7 +1146,7 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         o_eng.warmup()
         o_eng.restore_columns(pop.columns(RequestColumns, o_eng, 0, waiting, t0), t0)
         torch.cuda.synchronize()
-        ck.LAUNCHES["block_best"] = 0
+        reset_counts(ck)
         step_ms, o_gc, o_seen, o_matches = [], [], set(), 0
         for w in range(object_windows):
             c = stream[w]
@@ -826,8 +1171,14 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
                 raise AssertionError("object path: window 0 pairs differ "
                                      "from the columnar path's")
         o_launches = ck.LAUNCHES["block_best"]
-        if o_launches != object_windows:
-            raise AssertionError(f"object path: {o_launches} launches")
+        if (o_launches != object_windows
+                or ck.LAUNCHES["quality_accum"] != object_windows):
+            raise AssertionError(f"object path: {ck.LAUNCHES} launches for "
+                                 f"{object_windows} windows")
+        o_eng.flush()
+        if o_eng.quality_report()["samples"] != 2 * o_matches:
+            raise AssertionError("object path: quality samples != 2 x "
+                                 "matches")
         obj = {"windows": object_windows, "matches": o_matches,
                "launches": o_launches, "step_ms": step_ms, "gc_ms": o_gc,
                "step_ms_p50": statistics.median(step_ms),
@@ -835,9 +1186,11 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         log(f"object {path}: step p50 {obj['step_ms_p50']:.2f} ms, max "
             f"{obj['step_ms_max']:.2f} ms, GC max {max(o_gc):.2f} ms")
     return {
-        "config": path, "waiting": waiting, "windows": windows,
-        "window": FULL_B, "pipeline_depth": depth, "matches": matches,
-        "launches": launches, "pool_size_end": eng.pool_size(),
+        "config": path, "engine_over": engine_over, "waiting": waiting,
+        "windows": windows, "window": FULL_B, "pipeline_depth": depth,
+        "matches": matches, "launches": launches,
+        "quality_launches": q_launches, "quality_samples": samples,
+        "prune": prune, "pool_size_end": eng.pool_size(),
         "restore_s": restore_s,
         "dispatch_ms": dispatch_ms, "turnaround_ms": turnaround_ms,
         "dispatch_ms_p50": statistics.median(dispatch_ms),
@@ -882,27 +1235,34 @@ def run_rescan(torch, np, ck, scoring, mods, path, *, waiting, seed):
                         waiting + 2 * FULL_B, nows[2])
         if device != "cpu":
             torch.cuda.synchronize()
-            ck.LAUNCHES["block_best"] = 0
+            reset_counts(ck)
         with (no_sync(torch) if device != "cpu" else contextlib.nullcontext()):
             ta = eng.search_columns_async(a, nows[0])
-            before = ck.LAUNCHES["block_best"]
+            before = dict(ck.LAUNCHES)
             tr = eng.rescan_async(tick, nows[1])
-            tick_launches = ck.LAUNCHES["block_best"] - before
+            tick_launches = {k: v - before[k] for k, v in ck.LAUNCHES.items()}
             tb = eng.search_columns_async(b, nows[2])
         outs = dict(eng.flush())
         return eng, (outs[ta], outs[tr], outs[tb]), tick_launches
 
-    eng, outs, tick_launches = drive("cuda")
-    launches = ck.LAUNCHES["block_best"]
-    if tick_launches != chunks or launches != 2 + chunks:
-        raise AssertionError(f"rescan run: {tick_launches} launches for the "
+    eng, outs, tick_counts = drive("cuda")
+    launches = dict(ck.LAUNCHES)
+    tick_launches = tick_counts["block_best"]
+    if (tick_counts != {"block_best": chunks, "quality_accum": chunks}
+            or launches != {"block_best": 2 + chunks,
+                            "quality_accum": 2 + chunks}):
+        raise AssertionError(f"rescan run: {tick_counts} launches for the "
                              f"tick's {chunks} chunks, {launches} in all for "
                              f"{2 + chunks} chunks")
+    launches = launches["block_best"]
     seen = set()
     for out, now in zip(outs, nows):
         check_columnar(np, scoring, eng, pop, out, now, enq, seen, True)
     if outs[1].n_matches == 0:
         raise AssertionError("the rescan tick formed no match")
+    samples = quality_reconciles(np, eng, pop, outs, "rescan run")
+    if samples != 2 * sum(o.n_matches for o in outs):
+        raise AssertionError("rescan run: quality samples != 2 x matches")
     _, cpu_outs, _ = drive("cpu")
     for k, (got, want) in enumerate(zip(outs, cpu_outs)):
         if pair_set(got) != pair_set(want):
@@ -963,7 +1323,7 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
         fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply)
         app.restore_columns(fill, pop.region[:waiting],
                                   pop.mode[:waiting], t0)
-        ck.LAUNCHES["block_best"] = 0  # count the soak's own windows only
+        reset_counts(ck)  # count the soak's own windows only
         # Latency is publish → the service's response publish (the time a
         # reply is handed to the broker), recorded in the broker's
         # publish_batch, so reading the replies does not time the reader.
@@ -1007,9 +1367,9 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     launches = ck.LAUNCHES["block_best"]
     check_faults(app, "soak")
     windows = app.counters["windows"]
-    if launches != windows:
-        raise AssertionError(f"soak: block_best launched {launches} times "
-                             f"for {windows} windows")
+    if launches != windows or ck.LAUNCHES["quality_accum"] != windows:
+        raise AssertionError(f"soak: {ck.LAUNCHES} launches for {windows} "
+                             f"windows")
     from matchmaking_tpu_torch.service.contract import decode_response
     seqs, matched = {}, {}
     while True:
@@ -1036,6 +1396,15 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     if len(calls) != windows:
         raise AssertionError(f"soak: {len(calls)} publish_batch calls for "
                              f"{windows} windows")
+    # The quality ledger got both players of every published match, and
+    # the engine's device accumulator (read back at once) agrees.
+    ledger = app.quality.snapshot()["queues"][app.queue_cfg.name]
+    engine_samples = int(app.engine.quality_checkpoint()["count"].sum())
+    if not (ledger["matched_players"] == len(matched) == engine_samples
+            == app.counters["players_matched"]) or not matched:
+        raise AssertionError(f"soak: ledger {ledger['matched_players']}, "
+                             f"engine {engine_samples} quality samples for "
+                             f"{len(matched)} matched players")
     lat = [v * 1e3 for v in first.values()]
     res = {"config": path, "waiting": waiting, "requests": requests,
            "burst": burst, "windows": windows, "launches": launches,
@@ -1045,7 +1414,8 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
            "latency_ms_p50": statistics.median(lat),
            "latency_ms_p99": pct(lat, 0.99), "latency_ms_max": max(lat),
            "counters": dict(app.counters), "span_report": spans,
-           "util_report": util}
+           "util_report": util, "quality_samples": engine_samples,
+           "ledger": {k: ledger[k] for k in ("matched_players",)}}
     log(f"service soak {path}: {requests} requests over {waiting} waiting, "
         f"{windows} windows, {res['requests_per_s']:.0f} requests/s, "
         f"latency p50 {res['latency_ms_p50']:.2f} ms p99 "
@@ -1079,7 +1449,7 @@ async def service_rescan(np, ck, mods, path, *, waiting, seed):
         app.restore_columns(
             pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply),
             pop.region, pop.mode, t0)
-        ck.LAUNCHES["block_best"] = 0  # the rescan ticks' chunks only
+        reset_counts(ck)  # the rescan ticks' chunks only
         deadline = time.monotonic() + 3 * interval + 10.0
         while (app.counters["rescan_matches"] == 0
                and time.monotonic() < deadline):
@@ -1092,7 +1462,8 @@ async def service_rescan(np, ck, mods, path, *, waiting, seed):
     while await app.broker.get(reply, timeout=0.2) is not None:
         n += 1
     m = app.counters["rescan_matches"]
-    if m == 0 or n != 2 * m or launches == 0:
+    if (m == 0 or n != 2 * m or launches == 0
+            or ck.LAUNCHES["quality_accum"] != launches):
         raise AssertionError(f"service rescan: {m} matches, {n} answers, "
                              f"{launches} launches")
     log(f"service rescan {path}: {m} matches published by the rescan loop, "
@@ -1219,11 +1590,27 @@ def record_raw(eng):
     return raws
 
 
+def step_bound(np, ks, batch, out_elems):
+    """Least time for one team/role step call: the bytes it must move (the
+    pool's columns read once, the packed window read once, the admitted
+    lanes' columns and the matched slots' ``active`` written once, the
+    result f32[rows, max_matches] written once) over the memory rate, or
+    its operations (the two stable sorts' P·log2(P) compares each and one
+    compare-select per slot per selection round) over the FP32 peak."""
+    slot_bytes = 25 + 4 * len(ks.extra_pool_fields)  # 6 x 4-byte + bool
+    nbytes = (ks.capacity * slot_bytes + ks.pack_rows * batch * 4
+              + batch * slot_bytes + ks.need * ks.max_matches
+              + out_elems * 4)
+    p = ks.capacity
+    ops = 2 * p * int(np.log2(p)) + ks.rounds * p
+    return roofline({}, ops, nbytes)
+
+
 def step_profile(torch, np, ks, src_pool, batch, now, reps=10):
     """The team/role step alone at full width, on fresh copies of
     ``src_pool`` and one window of ``batch`` arrivals into free slots:
     kernels and device ms per call (torch.profiler), CUDA-event ms (median
-    of ``reps``) and host ms per call."""
+    of ``reps``), host ms per call, and the bound (``step_bound``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from matchmaking_tpu_torch.engine.kernels import DevicePool
@@ -1249,7 +1636,7 @@ def step_profile(torch, np, ks, src_pool, batch, now, reps=10):
               for _ in range(3 * reps + 6)]
     torch.cuda.synchronize()
     step = lambda: ks.search_step_packed(copies.pop(), packed, now)
-    step()
+    out_elems = step().numel()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1269,7 +1656,7 @@ def step_profile(torch, np, ks, src_pool, batch, now, reps=10):
     torch.cuda.synchronize()
     return {"launches": kernels / reps, "device_ms": device_us / reps / 1e3,
             "ms": ms, "host_ms": host_ms, "pool": int(active.sum()),
-            "batch": batch}
+            "batch": batch, **step_bound(np, ks, batch, out_elems)}
 
 
 def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
@@ -1358,6 +1745,14 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
             raise AssertionError("rescan: pool accounting")
         rescan = {"waiting_before": left, "matches": n_r,
                   "waiting_after": eng.pool_size()}
+    # Quality: no device accumulator on the team steps; each finalized match
+    # adds one host sample per member.
+    need = 2 * queue.team_size
+    formed = matches + (rescan["matches"] if rescan else 0)
+    samples = eng.quality_report()["samples"]
+    if samples != need * formed or eng._quality is not None:
+        raise AssertionError(f"{path}: {samples} quality samples for "
+                             f"{formed} matches of {need}")
     # The same first windows on the CPU (windows 0 and 1 dispatched before
     # any collection, as on the card): raw results bit-equal.
     cpu = GpuEngine(cfg, queue, device="cpu")
@@ -1399,7 +1794,7 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
         "split_ms_per_window": {k[:-2] + "_ms": v / windows * 1e3
                                 for k, v in spans.items() if k.endswith("_s")},
         "cpu_windows_equal": cpu_windows, "rescan": rescan,
-        "profile": prof, "step": steps,
+        "profile": prof, "step": steps, "quality_samples": samples,
     }
     log(f"team {path}: {matches} matches in {windows} windows "
         f"(per window {matches_per_window}), dispatch p50/p99 "
@@ -1410,7 +1805,7 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
         f"window, team_delegated 0; profile: {prof['kernels_per_window']:.0f} "
         f"kernels and {prof['device_ms_per_window']:.3f} device ms a window, "
         f"busy {prof['device_busy_share']:.3f}; step alone: {steps}; rescan "
-        f"{rescan}")
+        f"{rescan}; {samples} quality samples")
     return res
 
 
@@ -1595,8 +1990,9 @@ def main(argv) -> int:
     try:
         from matchmaking_tpu_torch.config import Config
         from matchmaking_tpu_torch.engine import cuda_kernels as ck
-        from matchmaking_tpu_torch.engine import scoring
+        from matchmaking_tpu_torch.engine import kernels, scoring
         from matchmaking_tpu_torch.engine.gpu import GpuEngine
+        from matchmaking_tpu_torch.engine.quality import QualitySpec
         from matchmaking_tpu_torch.native import codec
         from matchmaking_tpu_torch.service.app import run_demo
         from matchmaking_tpu_torch.service.contract import (
@@ -1615,23 +2011,24 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    # 1. build and identify: nvcc (the kernel) and g++ (the wire codec)
-    # run side by side
+    # 1. build and identify: one nvcc per kernel source and g++ (the wire
+    # codec), all started together
     t = time.perf_counter()
-    ptxas = io.StringIO()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(ck.SOURCES) + 1) as pool:
         codec_build = pool.submit(codec.build)
-        with contextlib.redirect_stdout(ptxas):
-            so = ck.build(verbose=True)
+        builds = {name: pool.submit(ck.compile_report, name)
+                  for name in ck.SOURCES}
+        built = {name: f.result() for name, f in builds.items()}
         codec_so = codec_build.result()
     build_s = time.perf_counter() - t
+    so = built["block_best"][0]
     log(f"built the wire codec: {codec_so}")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     max_sm_clock = card_line("clocks.max.sm")
-    resources = ptxas_report(ptxas.getvalue())
-    log(f"built block_best in {build_s:.1f} s on {kind} ({card}, max SM "
-        f"clock {max_sm_clock})")
+    resources = ptxas_report("".join(text for _, text in built.values()))
+    log(f"built {', '.join(built)} in {build_s:.1f} s on {kind} ({card}, max "
+        f"SM clock {max_sm_clock})")
     for inst, res in resources.items():
         log(f"ptxas {inst}: {res}")
     if out_dir:
@@ -1640,10 +2037,14 @@ def main(argv) -> int:
     log(f"SASS, ELO scorer's inner loop: {sass}")
     baseline = load_baseline(baseline_tree) if baseline_tree else None
 
-    # 2. kernel vs plain
+    # 2. kernels vs plain: block_best (dense, then the span launch) and
+    #    quality_accum
     kernel, max_err = phase_kernel(torch, ck, scoring, device, baseline)
     sweep = (plan_sweep(torch, ck, scoring, device) if "--plan-sweep" in argv
              else None)
+    span = phase_span(torch, np, ck, kernels, scoring, device)
+    quality, q_err = phase_quality(torch, np, ck, kernels, QualitySpec(),
+                                   device)
 
     # 3. the engine main path: columnar, pipelined, at full width
     mods = (Config, GpuEngine, RequestColumns, SearchRequest)
@@ -1654,6 +2055,17 @@ def main(argv) -> int:
                             object_windows=8, profile_windows=8)
     launches["columnar_elo_1v1"] = main_run["launches"]
     launches["object_elo_1v1"] = main_run["object"]["launches"]
+    if main_run["profile"]["step_kernels_per_window"] > 402:
+        raise AssertionError(f"the main path's window runs "
+                             f"{main_run['profile']['step_kernels_per_window']}"
+                             f" kernels, over 401 + the quality_accum launch")
+    # 3b. the pruned main path: config #1 with BENCH_SWEEP.md §5's pruning
+    pruned_run = run_columnar(torch, np, ck, scoring, mods,
+                              "configs/elo_1v1.json", waiting=100_000,
+                              windows=48, glicko2=False, filters=False, seed=1,
+                              cpu_windows=3, object_windows=0,
+                              profile_windows=8, engine_over=PRUNE)
+    launches["columnar_elo_1v1_pruned"] = pruned_run["launches"]
     filters_run = run_columnar(torch, np, ck, scoring, mods,
                                "configs/multiqueue_filters.json",
                                waiting=50_000, windows=6, glicko2=False,
@@ -1716,15 +2128,21 @@ def main(argv) -> int:
     torch.cuda.synchronize()
 
     main_k = kernel["elo"]
+    # The main paths: config #1's columnar windows, dense and pruned, and
+    # the rescan tick's own chunks (each path's count is in
+    # launches_by_path; quality_accum runs once behind each of those steps).
+    main_launches = (launches["columnar_elo_1v1"]
+                     + launches["columnar_elo_1v1_pruned"]
+                     + launches["rescan_tick_glicko2"])
+    q_launches = (main_run["quality_launches"]
+                  + pruned_run["quality_launches"]
+                  + rescan["tick_launches"])
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
         "source": "matchmaking_tpu_torch/csrc/block_best.cu",
         "replaces": "matchmaking_tpu/engine/pallas_kernels.py:153",
-        # The main path: config #1's columnar windows and the rescan
-        # tick's own chunks (each path's count is in launches_by_path).
-        "launches": (launches["columnar_elo_1v1"]
-                     + launches["rescan_tick_glicko2"]),
+        "launches": main_launches,
         "max_abs_err": max_err,
         "ms": main_k["ms"],
         "plain_ms": main_k["plain_ms"],
@@ -1734,14 +2152,45 @@ def main(argv) -> int:
         "launches_by_path": launches,
         "ms_by_bucket": main_k["ms_by_bucket"],
         "host_us": main_k["host_us_by_bucket"][FULL_B],
+        "span_launch": span,
+    }, {
+        "name": "quality_accum",
+        "route": "cuda",
+        "source": "matchmaking_tpu_torch/csrc/quality_accum.cu",
+        "replaces": "matchmaking_tpu/engine/kernels.py:1239",
+        "launches": q_launches,
+        "max_abs_err": q_err,
+        "ms": quality["ms"],
+        "plain_ms": quality["plain_ms"],
+        "bound_ms": quality["bound_ms"],
+        "bound_by": quality["bound_by"],
+        "library_ms": None,
+        "launches_by_path": {
+            "columnar_elo_1v1": main_run["quality_launches"],
+            "columnar_elo_1v1_pruned": pruned_run["quality_launches"],
+            "rescan_tick_glicko2": rescan["tick_launches"]},
+        "ms_by_bucket": quality["ms_by_bucket"],
+        "host_us": quality["host_us"],
     }]}
+    for k in line["kernels"]:
+        for path, n in k["launches_by_path"].items():
+            if n == 0 and path != "team_and_role_paths":
+                raise AssertionError(f"{k['name']} never ran on {path}")
     columnar = {}
-    for name, run in (("elo_1v1", main_run), ("multiqueue_filters", filters_run),
+    for name, run in (("elo_1v1", main_run), ("elo_1v1_pruned", pruned_run),
+                      ("multiqueue_filters", filters_run),
                       ("glicko2", glicko_run)):
         columnar[name] = {k: run[k] for k in (
             "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
             "turnaround_ms_p99", "requests_per_s", "idle_fraction",
-            "gc_ms_total", "gc_ms_max", "matches", "launches")}
+            "gc_ms_total", "gc_ms_max", "matches", "launches",
+            "quality_samples", "prune")}
+        if run["profile"]:
+            columnar[name]["kernels_per_window"] = (
+                run["profile"]["step_kernels_per_window"])
+            columnar[name]["block_best_device_ms_per_window"] = sum(
+                k["device_ms_per_window"] for k in run["profile"]["top_kernels"]
+                if "block_best_kernel" in k["name"])
     summary = {
         "card": card, "columnar": columnar,
         "split_ms_per_window": main_run["split_ms_per_window"],
@@ -1756,12 +2205,12 @@ def main(argv) -> int:
         "soak": {k: soak[k] for k in ("latency_ms_p50", "latency_ms_p99",
                                       "latency_ms_max", "requests_per_s",
                                       "windows", "publish_batches",
-                                      "players_matched")},
+                                      "players_matched", "quality_samples")},
         "team": {name: {k: run[k] for k in (
             "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
             "turnaround_ms_p99", "requests_per_s", "matches",
             "matches_per_window", "finalize_ms_per_window",
-            "team_delegated", "rescan")}
+            "team_delegated", "rescan", "quality_samples")}
             | {"kernels_per_window": run["profile"]["kernels_per_window"],
                "device_ms_per_window": run["profile"]["device_ms_per_window"],
                "device_busy_share": run["profile"]["device_busy_share"]}
@@ -1776,7 +2225,8 @@ def main(argv) -> int:
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
              **{k: run["step"][k] for k in ("launches", "device_ms", "ms",
-                                            "host_ms", "pool", "batch")})
+                                            "host_ms", "pool", "batch",
+                                            "bound_ms", "bound_by")})
         for name, run, src in (
             ("team_step", team_run, "matchmaking_tpu/engine/teams.py:317"),
             ("role_step", role_run,
@@ -1788,7 +2238,9 @@ def main(argv) -> int:
                        "max_sm_clock": max_sm_clock, "ptxas": resources,
                        "sass_elo_inner_loop": sass, "plan_sweep": sweep,
                        "kernel": kernel, "max_abs_err": max_err,
-                       "columnar": [main_run, filters_run, glicko_run],
+                       "span": span, "quality": quality,
+                       "columnar": [main_run, pruned_run, filters_run,
+                                    glicko_run],
                        "rescan": rescan, "demo_players": len(answers),
                        "soak": soak, "service_rescan": service_rescan_run,
                        "team": [team_run, role_run],

@@ -96,6 +96,24 @@ class EngineConfig:
     #: Run every step variant once at service start (``Engine.warmup``),
     #: so no first-of-its-kind window pays a first use while serving.
     warm_start: bool = False
+    #: Rating-banded candidate pruning of the 1v1 step (0: every pool
+    #: block is scored). N > 0: each rating-sorted chunk of a window scores
+    #: only an N-block span of the pool, chosen from the blocks' live
+    #: rating bounds, with a whole-window dense fallback where a span does
+    #: not fit (``kernels.KernelSet``); exact either way. It narrows the
+    #: spans only with ``band_spec`` set.
+    prune_window_blocks: int = 0
+    #: Rows per rating-sorted window chunk of the pruned step.
+    prune_chunk: int = 128
+    #: Rating bands of the host slot allocator (``core.pool.
+    #: band_edges_from_spec``), one band per pool block: "" (off),
+    #: "uniform:LO:HI" or "gaussian:MEAN:STD" (equal-mass bands).
+    band_spec: str = ""
+    #: The JAX package's bucket-indexed formation and its sharded frontier
+    #: exchange: carried so that a file naming them loads, and refused by
+    #: ``GpuEngine`` (not ported).
+    bucketed: bool = False
+    bucket_frontier_k: int = 0
 
 
 @dataclass(frozen=True)
@@ -134,9 +152,35 @@ class OverloadConfig:
     deadline_sweep_ms: float = 0.0
 
 
+@dataclass(frozen=True)
+class ObservabilityConfig:
+    """The match-quality keys of the JAX package's observability section
+    (engine/quality.py, service/quality.py); its tracing, SLO and
+    telemetry keys are not carried."""
+
+    #: Rating-bucket edges of the quality accounting (() → the default
+    #: eight buckets around N(1500, 300)).
+    quality_rating_edges: tuple[float, ...] = ()
+    #: Linear quality-histogram buckets over [0, 1].
+    quality_buckets: int = 20
+    #: Wait-at-match bucket upper bounds in seconds (() → 1 ms · 2^k, 22
+    #: buckets, plus an overflow bucket).
+    quality_wait_buckets: tuple[float, ...] = ()
+    #: The engine reads its device-resident quality state back every this
+    #: many finalized windows (without blocking); ``flush()`` reads it at
+    #: once.
+    quality_report_every: int = 16
+    #: A matched player is good when the match quality is at least this
+    #: (0 disables the service ledger's good/total counters).
+    quality_slo_target: float = 0.0
+    #: Fraction of matched players that must be good.
+    quality_slo_objective: float = 0.9
+
+
 _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "batcher": BatcherConfig, "auth": AuthConfig,
-             "overload": OverloadConfig}
+             "overload": OverloadConfig,
+             "observability": ObservabilityConfig}
 
 
 def _known(cls, section: str, d: Mapping[str, Any]) -> dict[str, Any]:
@@ -161,6 +205,8 @@ class Config:
     batcher: BatcherConfig = field(default_factory=BatcherConfig)
     auth: AuthConfig = field(default_factory=AuthConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig)
 
     @staticmethod
     def from_dict(d: Mapping[str, Any], *, backend: str | None = None) -> "Config":

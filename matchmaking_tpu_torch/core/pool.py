@@ -9,6 +9,12 @@ means which player:
   numpy stack with a head cursor, so initial pops yield slot 0, 1, 2, ...
   The JAX package's allocator behaves the same, which is what lets the
   parity tests expect the same player in the same slot on both engines.
+- **Rating bands** (``band_edges``, from ``band_edges_from_spec``): the
+  slots split into contiguous bands, one free stack each, and a player's
+  slot comes from the band of its rating, spilling to the nearest band
+  with room. Each pool block then holds a narrow rating interval, which
+  is what lets the pruned window step skip blocks. The slot sequence is
+  the JAX allocator's, spills included.
 - **Columnar mirror.** Waiting requests are kept as slot-indexed numpy
   columns; ``SearchRequest`` objects are built lazily for matched slots.
   Device state is a pure function of the mirror, so the mirror is the
@@ -105,12 +111,31 @@ def pack_batch(batch: BatchArrays, now: float = 0.0,
 class PlayerPool:
     """Host-side owner of the pool: slot allocator + columnar mirror."""
 
-    def __init__(self, capacity: int, default_threshold: float):
+    def __init__(self, capacity: int, default_threshold: float,
+                 band_edges: Sequence[float] | None = None):
         self.capacity = int(capacity)
         self.default_threshold = float(default_threshold)
         # Free list popped from the END: initial pops yield 0, 1, 2, ...
         self._free = np.arange(self.capacity - 1, -1, -1, dtype=np.int32)
         self._head = self.capacity  # number of free slots
+        # Rating bands: ``band_edges`` are the R - 1 ascending boundaries;
+        # band b owns slots [b·P/R, (b+1)·P/R) and a free stack of its own
+        # (stored descending, so pops yield ascending slots).
+        self._band_edges: np.ndarray | None = None
+        if band_edges is not None and len(band_edges) > 0:
+            edges = np.asarray(band_edges, np.float64)
+            if not np.all(np.diff(edges) > 0):
+                raise ValueError("band_edges must be strictly ascending")
+            r = edges.size + 1
+            self._band_edges = edges
+            self._band_start = np.array(
+                [b * self.capacity // r for b in range(r + 1)], np.int64)
+            self._band_free = [
+                np.arange(self._band_start[b + 1] - 1,
+                          self._band_start[b] - 1, -1, dtype=np.int32)
+                for b in range(r)]
+            self._band_head = np.array([f.size for f in self._band_free],
+                                       np.int64)
         self._slot_of: dict[str, int] = {}
         self.m_id = np.full(self.capacity, None, dtype=object)
         self.m_rating = np.zeros(self.capacity, np.float32)
@@ -195,6 +220,19 @@ class PlayerPool:
         """Waiting players with a stamped deadline (O(1))."""
         return self._deadline_n
 
+    def band_report(self) -> dict | None:
+        """The rating bands' free stacks: per band its free-slot count
+        (head) and size, and the edges. None without bands."""
+        if self._band_edges is None:
+            return None
+        return {
+            "bands": len(self._band_free),
+            "free_heads": [int(h) for h in self._band_head],
+            "band_sizes": [int(self._band_start[b + 1] - self._band_start[b])
+                           for b in range(len(self._band_free))],
+            "edges": [float(e) for e in self._band_edges],
+        }
+
     def tier_counts(self, n_tiers: int) -> list[int]:
         """Waiting players per QoS tier (``n_tiers`` buckets; out-of-range
         tiers are clamped into the last). O(n_tiers)."""
@@ -221,7 +259,10 @@ class PlayerPool:
             raise ValueError("duplicate player id in window")
         if any(pid in self._slot_of for pid in ids):
             raise ValueError("player already in pool")
-        slots = self._free[self._head - n:self._head][::-1].copy()
+        if self._band_edges is not None:
+            slots = self._take_banded(np.asarray(cols.rating, np.float64), n)
+        else:
+            slots = self._free[self._head - n:self._head][::-1].copy()
         self._head -= n
         self.m_id[slots] = cols.ids
         self.m_rating[slots] = cols.rating
@@ -288,8 +329,48 @@ class PlayerPool:
         self.m_deadline[arr] = 0.0
         self.m_id[arr] = None
         self.m_roles[arr] = None
-        self._free[self._head:self._head + arr.size] = arr
+        if self._band_edges is not None:
+            # Back to the HOME band (slot ranges are static), so band
+            # occupancy heals as spilled players match out.
+            bands = np.searchsorted(self._band_start, arr, side="right") - 1
+            for b in np.unique(bands):
+                sel = arr[bands == b][::-1]
+                h = self._band_head[b]
+                self._band_free[b][h:h + sel.size] = sel
+                self._band_head[b] += sel.size
+        else:
+            self._free[self._head:self._head + arr.size] = arr
         self._head += arr.size
+
+    def _take_banded(self, ratings: np.ndarray, n: int) -> np.ndarray:
+        """Pop ``n`` slots by rating band, spilling to the nearest band with
+        room when a band is full: vectorized per band present in the
+        window; only spilled rows take the per-row loop."""
+        band = np.digitize(ratings, self._band_edges)
+        slots = np.empty(n, np.int32)
+        for b in np.unique(band):
+            idx = np.nonzero(band == b)[0]
+            h = int(self._band_head[b])
+            take = min(idx.size, h)
+            if take:
+                slots[idx[:take]] = self._band_free[b][h - take:h][::-1]
+                self._band_head[b] = h - take
+            for j in idx[take:]:
+                bb = self._nearest_free_band(int(b))
+                hh = int(self._band_head[bb])
+                slots[j] = self._band_free[bb][hh - 1]
+                self._band_head[bb] = hh - 1
+        return slots
+
+    def _nearest_free_band(self, b: int) -> int:
+        """The band nearest to ``b`` with a free slot (lower side first on
+        equal distance). The caller checked that the pool has room."""
+        r = len(self._band_free)
+        for off in range(1, r):
+            for cand in (b - off, b + off):
+                if 0 <= cand < r and self._band_head[cand] > 0:
+                    return cand
+        raise PoolFullError("no free slot in any band")
 
     # ---- array building ---------------------------------------------------
 
@@ -339,3 +420,28 @@ class PlayerPool:
     def empty_device_arrays(capacity: int) -> dict[str, np.ndarray]:
         """Initial pool state (all slots inactive), as host numpy."""
         return {name: np.zeros(capacity, dtype) for name, dtype in POOL_FIELDS}
+
+
+def band_edges_from_spec(spec: str, n_bands: int) -> list[float] | None:
+    """An ``EngineConfig.band_spec`` → ``n_bands - 1`` rating edges (None:
+    no banding, for "" or fewer than two bands).
+
+    - ``"uniform:LO:HI"``: equal-width bands over [LO, HI];
+    - ``"gaussian:MEAN:STD"``: equal-mass bands under N(MEAN, STD)
+      (``statistics.NormalDist`` quantiles), which a normal rating
+      distribution fills evenly."""
+    if not spec or n_bands < 2:
+        return None
+    kind, *params = spec.split(":")
+    if kind == "uniform":
+        lo, hi = float(params[0]), float(params[1])
+        if not hi > lo:
+            raise ValueError(f"uniform band_spec needs hi > lo: {spec!r}")
+        step = (hi - lo) / n_bands
+        return [lo + i * step for i in range(1, n_bands)]
+    if kind == "gaussian":
+        from statistics import NormalDist
+
+        nd = NormalDist(float(params[0]), float(params[1]))
+        return [nd.inv_cdf(i / n_bands) for i in range(1, n_bands)]
+    raise ValueError(f"unknown band_spec kind: {spec!r}")

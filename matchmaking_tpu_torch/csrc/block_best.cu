@@ -73,6 +73,18 @@
 //   * No tensor cores, TMA tensor maps or wgmma: the pair math is compares
 //     and a few FP32 ops, which the tensor cores do not serve.
 //
+// The span launch, for the pruned step (kernels.KernelSet's rating-banded
+// path; the JAX package's _candidates_pruned): with span_start set and the
+// device flag *feasible nonzero, the rows of chunk c (rows [c * chunk_rows,
+// (c + 1) * chunk_rows) of a rating-sorted window) score only the blocks
+// [span_start[c], span_start[c] + span_blocks); every other (row, block)
+// cell gets -inf / capacity. A CTA whose block lies outside the span of
+// every chunk its rows belong to writes that and returns before any
+// barrier (the planner makes rows_per_cta divide chunk_rows, so a CTA's
+// rows share one chunk); a row outside its chunk's span is not live. With
+// *feasible zero every CTA scores: the whole-window dense fallback, decided
+// on the device, with no host read. The dense launch passes no span.
+//
 // Rounding: every float op the plain PyTorch version also performs is done
 // with an explicitly rounded intrinsic (__fadd_rn, __fmul_rn, __fsqrt_rn,
 // __frcp_rn: the correctly rounded 1/x, the same value as an IEEE 1.0f / x),
@@ -195,10 +207,18 @@ struct Params {
   const uint8_t* q_valid;
   float* out_v;
   int32_t* out_i;
+  const int32_t* span_start;  // null: the dense launch
+  const uint8_t* feasible;
   int n_rows, n_blocks, pool_block, stride, capacity;
   int rows_per_cta, cluster, slice;
+  int chunk_rows, span_blocks;
   float g_coeff;
 };
+
+__device__ __forceinline__ bool in_span(const Params& p, int row, int blk) {
+  const int s = p.span_start[row / p.chunk_rows];
+  return blk >= s && blk < s + p.span_blocks;
+}
 
 __device__ __forceinline__ bool better(float od, int oi, float d, int i) {
   return od < d || (od == d && oi < i);
@@ -229,6 +249,28 @@ block_best_kernel(const __grid_constant__ Params p) {
   const int slot_warps = kWarps / row_warps;
   const int row0 = blockIdx.y * p.rows_per_cta + rw * kRowsPerWarp;
 
+  // The span launch of a feasible window: a block outside every span of
+  // this CTA's rows has no candidate for them (uniform over the cluster,
+  // whose CTAs share blk and blockIdx.y).
+  const bool span = p.span_start != nullptr && *p.feasible != 0;
+  if (span) {
+    const int first = blockIdx.y * p.rows_per_cta;
+    const int last = min(first + p.rows_per_cta, p.n_rows) - 1;
+    bool any = false;
+    for (int r = first; r <= last && !any; r += p.chunk_rows) {
+      any = in_span(p, r, blk);
+    }
+    any = any || in_span(p, last, blk);
+    if (!any) {
+      const int row = first + tid;
+      if (rank == 0 && tid < p.rows_per_cta && row < p.n_rows) {
+        p.out_v[static_cast<size_t>(row) * p.n_blocks + blk] = -CUDART_INF_F;
+        p.out_i[static_cast<size_t>(row) * p.n_blocks + blk] = p.capacity;
+      }
+      return;
+    }
+  }
+
   // This warp's rows, in registers. The row's own threshold is folded into
   // its running best: best_d starts at the next float above it, so
   // `d < best_d` alone also tests `d <= q_thr_eff` (for every d, NaN
@@ -242,7 +284,8 @@ block_best_kernel(const __grid_constant__ Params p) {
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = row0 + r;
-    const bool live = row < p.n_rows && p.q_valid[row] != 0;
+    const bool live = row < p.n_rows && p.q_valid[row] != 0 &&
+                      (!span || in_span(p, row, blk));
     const int src = row < p.n_rows ? row : 0;
     r_rating[r] = p.q_rating[src];
     r_slot[r] = p.q_slot[src];
@@ -490,7 +533,9 @@ extern "C" int block_best_launch(
     const void* q_mode, const void* q_valid, void* out_v, void* out_i,
     void* rec_a, void* rec_b, int n_rows, int n_blocks, int pool_block,
     int capacity, int rows_per_cta, int cluster, float now, int glicko2,
-    int filters, float widen, float max_thr, float g_coeff, void* stream) {
+    int filters, float widen, float max_thr, float g_coeff,
+    const void* span_start, const void* feasible, int chunk_rows,
+    int span_blocks, void* stream) {
   if (n_rows <= 0 || n_blocks <= 0) return 0;
   const bool rows_ok = rows_per_cta == 8 || rows_per_cta == 16 ||
                        rows_per_cta == 32 || rows_per_cta == 64;
@@ -499,6 +544,11 @@ extern "C" int block_best_launch(
                           (cluster == 1 || (pool_block / cluster) % kAlign == 0);
   if (!rows_ok || !cluster_ok || capacity != n_blocks * pool_block ||
       rec_a == nullptr || ((glicko2 || filters) && rec_b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (span_start != nullptr &&
+      (feasible == nullptr || chunk_rows <= 0 || n_rows % chunk_rows != 0 ||
+       span_blocks < 1 || span_blocks > n_blocks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -513,6 +563,10 @@ extern "C" int block_best_launch(
   p.q_valid = static_cast<const uint8_t*>(q_valid);
   p.out_v = static_cast<float*>(out_v);
   p.out_i = static_cast<int32_t*>(out_i);
+  p.span_start = static_cast<const int32_t*>(span_start);
+  p.feasible = static_cast<const uint8_t*>(feasible);
+  p.chunk_rows = chunk_rows;
+  p.span_blocks = span_blocks;
   p.n_rows = n_rows;
   p.n_blocks = n_blocks;
   p.pool_block = pool_block;

@@ -9,8 +9,9 @@ own here: ``GpuEngine`` hands a team or role queue to it while wildcard
 requests (or, on a role queue, parties) wait, since the device steps group
 by exact region/mode code and pack solo players only.
 
-Left out: the quality accounting (``quality_*``), which comes with the
-quality accumulation; ``_observe_match`` is the seam it will fill.
+Every formed match lands in ``quality_accum`` (engine/quality.py's host
+accumulator), one sample per member request, so the matches a delegated
+queue formed stay in its engine's ``quality_report`` after re-promotion.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ import numpy as np
 from matchmaking_tpu_torch.config import Config, QueueConfig
 from matchmaking_tpu_torch.engine import scoring
 from matchmaking_tpu_torch.engine.interface import Engine, Match, SearchOutcome
+from matchmaking_tpu_torch.engine.quality import (
+    HostQualityAccum,
+    QualitySpec,
+    add_arrays,
+    build_report,
+)
 from matchmaking_tpu_torch.engine.roles import try_party_match
 from matchmaking_tpu_torch.service.contract import (
     ANY,
@@ -39,6 +46,9 @@ class CpuEngine(Engine):
         self._entries: list[SearchRequest] = []
         self._by_id: dict[str, int] = {}  # player id -> index in _entries
         self._deadline_n = 0
+        #: Match-quality accounting of every match formed here.
+        self.quality_accum = HostQualityAccum(
+            QualitySpec.from_config(cfg.observability))
         # Role/party fast path (try_party_match's focus): sound only under
         # the greedy invariant; a restore or a removal breaks it, so scans
         # run unfocused until a scan finds nothing.
@@ -119,10 +129,31 @@ class CpuEngine(Engine):
 
     # ---- internals --------------------------------------------------------
 
+    def quality_report(self) -> dict:
+        """Per-rating-bucket quality/wait report over every match this
+        engine formed (engine/quality.build_report)."""
+        return build_report(self.quality_accum.arrays,
+                            self.quality_accum.spec)
+
+    def quality_checkpoint(self) -> dict:
+        """A copy of the accumulator arrays, for a successor engine."""
+        return {k: v.copy() for k, v in self.quality_accum.arrays.items()}
+
+    def quality_restore(self, arrays: dict | None) -> None:
+        if arrays is not None:
+            add_arrays(self.quality_accum.arrays, arrays)
+
     def _observe_match(self, members, quality: float, spread: float,
                        now: float) -> None:
-        """Where a formed match enters the quality accounting (not ported
-        yet: nothing is recorded)."""
+        """Fold one formed match into the quality accumulator: one sample
+        per member request unit (its leader's rating; a party counts
+        once), with its wait at ``now``."""
+        self.quality_accum.observe(
+            rating=[m.rating for m in members],
+            quality=quality,
+            wait_s=[(max(0.0, now - m.enqueued_at) if m.enqueued_at else 0.0)
+                    for m in members],
+            spread=spread)
 
     def _insert(self, req: SearchRequest) -> None:
         self._by_id[req.id] = len(self._entries)

@@ -1,24 +1,36 @@
-"""The hand-written Hopper kernel of the window step, and its plain twin.
+"""The hand-written Hopper kernels of the port, and their plain twins.
 
 ``block_best`` is the candidate stage of the 1v1 window step: for every
 request row and every ``pool_block``-wide pool block, the best valid
 candidate's score (``-distance``) and slot. It replaces the JAX package's
 Pallas kernel ``pallas_kernels.pallas_block_best``; the CUDA source is
 ``csrc/block_best.cu`` (see its header for the design and what bounds it).
+Its span launch serves the rating-banded pruned step: each chunk of
+``chunk_rows`` rating-sorted rows scores only its chunk's span of
+``span_blocks`` blocks while the window is feasible (a device flag), and
+every block otherwise.
 
-- ``block_best_reference`` is the plain PyTorch version: the same
-  arithmetic, one op at a time, then ``max``/``argmax`` per block. The CPU
-  tests use it, ``chip_smoke.py`` holds the kernel bit-equal to it on the
-  card, and the wrapper takes it only for tensors that lie on the CPU.
-- ``block_best`` is the wrapper: it checks devices, dtypes, shapes and
-  contiguity, and for CUDA tensors launches the kernel on the current
-  stream (or raises). Each launch adds one to ``LAUNCHES["block_best"]``.
-- ``plan_grid`` chooses the launch from the window: rows per CTA and the
-  thread block cluster that splits each pool block's slots. It is plain
-  Python so that the CPU tests reach it; the SM count comes from the card.
-- The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``quality_accum`` folds one window's matches into the engine's
+device-resident quality state (``csrc/quality_accum.cu``); it replaces the
+XLA step ``kernels.QualityAccumKernel._accum`` of the JAX package.
+
+- ``block_best_reference``, ``block_best_span_reference`` and
+  ``quality_accum_reference`` are the plain PyTorch versions: the same
+  arithmetic, one op at a time. The CPU tests use them, ``chip_smoke.py``
+  holds the kernels to them on the card, and the wrappers take them only
+  for tensors that lie on the CPU.
+- ``block_best`` and ``quality_accum`` are the wrappers: they check
+  devices, dtypes, shapes and contiguity, and for CUDA tensors launch the
+  kernel on the current stream (or raise). Each launch adds one to
+  ``LAUNCHES[name]``.
+- ``plan_grid`` chooses ``block_best``'s launch from the window: rows per
+  CTA and the thread block cluster that splits each pool block's slots. It
+  is plain Python so that the CPU tests reach it; the SM count comes from
+  the card.
+- Each kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
   ``build/torch_kernels/<hash of source and flags>/`` under the repository
-  root (``MM_KERNEL_BUILD_DIR`` overrides), and loaded with ``ctypes``.
+  root (``MM_KERNEL_BUILD_DIR`` overrides), one library per source, and
+  loaded with ``ctypes``.
 
 The pool is passed as its SoA columns (``POOL_FIELDS``, active as bool);
 the window as its own columns plus the pre-widened request thresholds.
@@ -42,13 +54,16 @@ from typing import NamedTuple
 import torch
 
 #: Kernel launches by kernel name (only real launches count: the plain
-#: version and CPU calls never touch this).
-LAUNCHES: dict[str, int] = {"block_best": 0}
+#: versions and CPU calls never touch this).
+LAUNCHES: dict[str, int] = {"block_best": 0, "quality_accum": 0}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "block_best.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: The kernel sources: name → file under csrc/ (one library each).
+SOURCES = {"block_best": "block_best.cu", "quality_accum": "quality_accum.cu"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-_lib = None
+#: Each kernel's launch function, loaded at first use.
+_launchers: dict[str, ctypes._CFuncPtr] = {}
 _lib_lock = threading.Lock()
 
 _POOL_COLS = (("rating", torch.float32), ("rd", torch.float32),
@@ -110,9 +125,11 @@ PLAN_MOVES = (("cluster", 2), ("rows", 32), ("rows", 16), ("cluster", 4),
 
 @lru_cache(maxsize=None)
 def plan_grid(n_rows: int, n_blocks: int, pool_block: int,
-              sm_count: int) -> GridPlan:
+              sm_count: int, chunk_rows: int = 0) -> GridPlan:
     """The launch for one window. Start from the fewest rows per CTA that
-    hold the window (no more than 64) and no cluster; while the grid has
+    hold the window (no more than 64, and for a span launch dividing its
+    ``chunk_rows`` where it can, so that a CTA's rows share one span) and
+    no cluster; while the grid has
     fewer than two CTAs per SM, take the next of ``PLAN_MOVES`` that
     applies (a cluster split only while every slice stays a multiple of
     ``RECORD_ALIGN`` slots). Below two CTAs per SM, where they land on
@@ -121,6 +138,8 @@ def plan_grid(n_rows: int, n_blocks: int, pool_block: int,
     rows = ROWS_PER_CTA[0]
     while rows < ROWS_PER_CTA[-1] and rows < n_rows:
         rows *= 2
+    while chunk_rows and rows > ROWS_PER_CTA[0] and chunk_rows % rows:
+        rows //= 2
     cluster = 1
 
     def groups() -> int:
@@ -155,49 +174,71 @@ def _nvcc() -> str:
             return os.path.join(cand, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the block_best kernel is built "
-                           "from csrc/ at first use and needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "csrc/ at first use and need the CUDA toolkit")
     return found
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/block_best.cu`` (once per source/flags hash) and
-    return the shared library's path. ``verbose`` adds ``-Xptxas -v`` and
-    returns after printing the compiler's register/shared-memory report."""
-    src = _SRC.read_bytes()
-    flags = _NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+def build(name: str = "block_best") -> Path:
+    """Compile ``csrc/<SOURCES[name]>`` (once per source/flags hash) and
+    return the shared library's path."""
+    return _compile(name, False)[0]
+
+
+def compile_report(name: str) -> tuple[Path, str]:
+    """Compile kernel ``name`` with ``-Xptxas -v`` into its usual library
+    path: (the library, the compiler's register/shared-memory report).
+    Safe to run for several kernels side by side (one nvcc each)."""
+    return _compile(name, True)
+
+
+def _compile(name: str, report: bool) -> tuple[Path, str]:
+    src_path = _CSRC / SOURCES[name]
+    src = src_path.read_bytes()
+    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_dir() / key
-    so = out_dir / "libblock_best.so"
-    if so.exists() and not verbose:
-        return so
+    so = out_dir / f"lib{name}.so"
+    if so.exists() and not report:
+        return so, ""
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, str(_SRC)]
+    flags = _NVCC_FLAGS + (("-Xptxas", "-v") if report else ())
+    cmd = [_nvcc(), *flags, "-o", tmp, str(src_path)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+        raise RuntimeError(f"nvcc failed on {src_path.name} "
+                           f"({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)
-    return so
+    return so, proc.stderr
 
 
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.block_best_launch
-            fn.argtypes = ([ctypes.c_void_p] * 18
-                           + [ctypes.c_int] * 6 + [ctypes.c_float]
-                           + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+#: ctypes argument types of each library's launch function.
+_ARGTYPES = {
+    "block_best": ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "quality_accum": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_int]
+                      + [ctypes.POINTER(ctypes.c_float), ctypes.c_int] * 2
+                      + [ctypes.c_void_p] * 7),
+}
+
+
+def _load(name: str):
+    """The launch function of kernel ``name``, built at first use."""
+    fn = _launchers.get(name)
+    if fn is None:
+        with _lib_lock:
+            if name not in _launchers:
+                fn = getattr(ctypes.CDLL(str(build(name))), f"{name}_launch")
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                _launchers[name] = fn
+            fn = _launchers[name]
+    return fn
 
 
 _F32 = struct.Struct("f")
@@ -222,47 +263,98 @@ def effective_threshold(thr, enqueue_t, now: float, widen_per_sec: float,
     return (thr + _f32(widen_per_sec) * waited).clamp_max(_f32(max_threshold))
 
 
+def _block_scores(pool: dict, c_thr, batch: dict, q_thr_eff, j: int, *,
+                  pool_block: int, glicko2: bool, filters: bool,
+                  g_coeff: float):
+    """The best candidate of ``batch``'s rows in pool block ``j``: (vals
+    f32[rows], idx i32[rows]), -inf / ``capacity`` where none is valid —
+    one (rows, pool_block) score tile, one f32 op at a time."""
+    capacity = pool["rating"].shape[0]
+    g = _f32(g_coeff)
+    sl = slice(j * pool_block, (j + 1) * pool_block)
+    d = (batch["rating"][:, None] - pool["rating"][None, sl]).abs()
+    if glicko2:
+        c_rd = pool["rd"][sl]
+        rd2 = (batch["rd"] * batch["rd"])[:, None] + (c_rd * c_rd)[None, :]
+        d = d * (1.0 / torch.sqrt(1.0 + g * rd2))
+    gidx = torch.arange(j * pool_block, (j + 1) * pool_block,
+                        dtype=torch.int32, device=d.device)
+    valid = (pool["active"][None, sl] & batch["valid"][:, None]
+             & (batch["slot"][:, None] != gidx[None, :])
+             & (d <= torch.minimum(q_thr_eff[:, None], c_thr[None, sl])))
+    if filters:
+        q_reg, q_mode = batch["region"][:, None], batch["mode"][:, None]
+        c_reg, c_mode = pool["region"][None, sl], pool["mode"][None, sl]
+        valid = (valid & ((q_reg == 0) | (c_reg == 0) | (q_reg == c_reg))
+                 & ((q_mode == 0) | (c_mode == 0) | (q_mode == c_mode)))
+    scores = torch.where(valid, -d, torch.full_like(d, float("-inf")))
+    a = scores.argmax(dim=1)
+    v = scores.gather(1, a[:, None])[:, 0]
+    return v, torch.where(v > float("-inf"),
+                          (a + j * pool_block).to(torch.int32),
+                          torch.full_like(a, capacity, dtype=torch.int32))
+
+
 def block_best_reference(pool: dict, batch: dict, q_thr_eff, now: float, *,
                          pool_block: int, glicko2: bool, filters: bool,
                          widen_per_sec: float, max_threshold: float,
                          g_coeff: float):
     """Plain PyTorch version of the kernel: (vals f32[B, n_blocks],
     idx i32[B, n_blocks]), one (B, pool_block) score tile per block."""
-    capacity = pool["rating"].shape[0]
-    n_blocks = capacity // pool_block
+    n_blocks = pool["rating"].shape[0] // pool_block
     c_thr = effective_threshold(pool["threshold"], pool["enqueue_t"], now,
                                 widen_per_sec, max_threshold)
-    g = _f32(g_coeff)
-    q_rating = batch["rating"][:, None]
-    q_rd2 = (batch["rd"] * batch["rd"])[:, None]
-    q_thr = q_thr_eff[:, None]
-    q_ok = batch["valid"][:, None]
-    q_slot = batch["slot"][:, None]
-    q_reg, q_mode = batch["region"][:, None], batch["mode"][:, None]
-    vals, idxs = [], []
-    for j in range(n_blocks):
-        sl = slice(j * pool_block, (j + 1) * pool_block)
-        d = (q_rating - pool["rating"][None, sl]).abs()
-        if glicko2:
-            c_rd = pool["rd"][sl]
-            rd2 = q_rd2 + (c_rd * c_rd)[None, :]
-            d = d * (1.0 / torch.sqrt(1.0 + g * rd2))
-        gidx = torch.arange(j * pool_block, (j + 1) * pool_block,
-                            dtype=torch.int32, device=d.device)
-        valid = (pool["active"][None, sl] & q_ok & (q_slot != gidx[None, :])
-                 & (d <= torch.minimum(q_thr, c_thr[None, sl])))
-        if filters:
-            c_reg, c_mode = pool["region"][None, sl], pool["mode"][None, sl]
-            valid = (valid & ((q_reg == 0) | (c_reg == 0) | (q_reg == c_reg))
-                     & ((q_mode == 0) | (c_mode == 0) | (q_mode == c_mode)))
-        scores = torch.where(valid, -d, torch.full_like(d, float("-inf")))
-        a = scores.argmax(dim=1)
-        v = scores.gather(1, a[:, None])[:, 0]
-        vals.append(v)
-        idxs.append(torch.where(v > float("-inf"),
-                                (a + j * pool_block).to(torch.int32),
-                                torch.full_like(a, capacity, dtype=torch.int32)))
-    return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
+    kw = dict(pool_block=pool_block, glicko2=glicko2, filters=filters,
+              g_coeff=g_coeff)
+    best = [_block_scores(pool, c_thr, batch, q_thr_eff, j, **kw)
+            for j in range(n_blocks)]
+    return (torch.stack([v for v, _ in best], dim=1),
+            torch.stack([i for _, i in best], dim=1))
+
+
+class Span(NamedTuple):
+    """The span launch's arguments (the pruned step's candidate stage):
+    rows ``[c·chunk_rows, (c+1)·chunk_rows)`` of the window score only
+    blocks ``[span_start[c], span_start[c] + span_blocks)`` while
+    ``feasible`` (a one-element bool tensor on the device) is set, and
+    every block otherwise."""
+
+    span_start: torch.Tensor  # i32[n_rows // chunk_rows]
+    chunk_rows: int
+    span_blocks: int
+    feasible: torch.Tensor    # bool[1]
+
+
+def block_best_span_reference(pool: dict, batch: dict, q_thr_eff,
+                              now: float, span: Span, **kw):
+    """Plain version of the span launch: ``block_best_reference``'s tiles
+    for each chunk's span of blocks, -inf / ``capacity`` elsewhere; the
+    dense result when ``span.feasible`` is unset (a host read: CPU
+    tensors, or a comparison on the card)."""
+    if not bool(span.feasible.reshape(())):
+        return block_best_reference(pool, batch, q_thr_eff, now, **kw)
+    capacity = pool["rating"].shape[0]
+    pool_block = kw["pool_block"]
+    n_rows = batch["rating"].shape[0]
+    vals = torch.full((n_rows, capacity // pool_block), float("-inf"),
+                      dtype=torch.float32, device=q_thr_eff.device)
+    idxs = torch.full(vals.shape, capacity, dtype=torch.int32,
+                      device=q_thr_eff.device)
+    c_thr = effective_threshold(pool["threshold"], pool["enqueue_t"], now,
+                                kw["widen_per_sec"], kw["max_threshold"])
+    tile_kw = {k: kw[k] for k in ("pool_block", "glicko2", "filters",
+                                  "g_coeff")}
+    c = span.chunk_rows
+    for ci, start in enumerate(span.span_start.tolist()):
+        rows = slice(ci * c, (ci + 1) * c)
+        chunk = {k: batch[k][rows] for k in _BATCH_NAMES}
+        for j in range(start, start + span.span_blocks):
+            vals[rows, j], idxs[rows, j] = _block_scores(
+                pool, c_thr, chunk, q_thr_eff[rows], j, **tile_kw)
+    return vals, idxs
+
+
+_BATCH_NAMES = tuple(name for name, _ in _BATCH_COLS)
 
 
 def _check(pool: dict, batch: dict, q_thr_eff, pool_block: int):
@@ -275,52 +367,75 @@ def _check(pool: dict, batch: dict, q_thr_eff, pool_block: int):
     for what, src, cols, n in (("pool", pool, _POOL_COLS, capacity),
                                ("batch", batch, _BATCH_COLS, n_rows)):
         for name, dtype in cols:
-            t = src[name]
-            if t.device != device or t.dtype != dtype or t.shape != (n,) \
-                    or not t.is_contiguous():
-                raise ValueError(
-                    f"{what}[{name!r}] must be a contiguous {dtype} tensor of "
-                    f"shape ({n},) on {device}; got {t.dtype} "
-                    f"{tuple(t.shape)} on {t.device}")
-    if q_thr_eff.device != device or q_thr_eff.dtype != torch.float32 \
-            or q_thr_eff.shape != (n_rows,) or not q_thr_eff.is_contiguous():
-        raise ValueError("q_thr_eff must be a contiguous f32 tensor shaped "
-                         "like the batch, on the pool's device")
+            _check_tensor(f"{what}[{name!r}]", src[name], dtype, (n,), device)
+    _check_tensor("q_thr_eff", q_thr_eff, torch.float32, (n_rows,), device)
     return device, capacity, n_rows
+
+
+def _check_tensor(what: str, t, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype or t.shape != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{what} must be a contiguous {dtype} tensor of shape {shape} on "
+            f"{device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_span(span: Span, n_rows: int, n_blocks: int, device) -> None:
+    if span.chunk_rows <= 0 or n_rows % span.chunk_rows:
+        raise ValueError(f"chunk_rows {span.chunk_rows} must divide the "
+                         f"window's {n_rows} rows")
+    if not 1 <= span.span_blocks <= n_blocks:
+        raise ValueError(f"span_blocks {span.span_blocks} must lie in "
+                         f"[1, {n_blocks}]")
+    _check_tensor("span_start", span.span_start, torch.int32,
+                  (n_rows // span.chunk_rows,), device)
+    _check_tensor("feasible", span.feasible, torch.bool, (1,), device)
 
 
 def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
                pool_block: int, glicko2: bool, filters: bool,
-               widen_per_sec: float, max_threshold: float, g_coeff: float):
+               widen_per_sec: float, max_threshold: float, g_coeff: float,
+               span: Span | None = None):
     """Best candidate per pool block: (vals f32[B, n_blocks], idx
-    i32[B, n_blocks]); -inf / ``capacity`` where a block has none.
+    i32[B, n_blocks]); -inf / ``capacity`` where a block has none (or,
+    with ``span``, lies outside the row's chunk span of a feasible
+    window).
 
     CUDA tensors launch the ``csrc/block_best.cu`` kernels (record prep,
     then the scorer, planned by ``plan_grid``) on the current stream; CPU
-    tensors take ``block_best_reference``. Nothing falls back: a kernel that
-    cannot build or launch raises."""
+    tensors take ``block_best_reference`` (``block_best_span_reference``
+    with ``span``). Nothing falls back: a kernel that cannot build or
+    launch raises. The span launch reads ``span.feasible`` on the device:
+    no host sync."""
     device, capacity, n_rows = _check(pool, batch, q_thr_eff, pool_block)
+    n_blocks = capacity // pool_block
+    if span is not None:
+        _check_span(span, n_rows, n_blocks, device)
     kw = dict(pool_block=pool_block, glicko2=glicko2, filters=filters,
               widen_per_sec=widen_per_sec, max_threshold=max_threshold,
               g_coeff=g_coeff)
     if device.type == "cpu":
+        if span is not None:
+            return block_best_span_reference(pool, batch, q_thr_eff, now,
+                                             span, **kw)
         return block_best_reference(pool, batch, q_thr_eff, now, **kw)
     if device.type != "cuda":
         raise ValueError(f"block_best runs on cuda or cpu tensors, not {device}")
-    n_blocks = capacity // pool_block
     plan = plan_grid(n_rows, n_blocks, pool_block,
                      sm_count(device.index if device.index is not None
-                              else torch.cuda.current_device()))
-    return _launch(plan, pool, batch, q_thr_eff, now, **kw)
+                              else torch.cuda.current_device()),
+                     span.chunk_rows if span is not None else 0)
+    return _launch(plan, pool, batch, q_thr_eff, now, span=span, **kw)
 
 
 def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
             *, pool_block: int, glicko2: bool, filters: bool,
-            widen_per_sec: float, max_threshold: float, g_coeff: float):
+            widen_per_sec: float, max_threshold: float, g_coeff: float,
+            span: Span | None = None):
     """Launch the kernels with the given plan on inputs that ``_check``
     passed, all on one CUDA device (``block_best``'s launch; ``chip_smoke.py
     --plan-sweep`` times every plan through it)."""
-    lib = _load()
+    launch = _load("block_best")
     device = pool["rating"].device
     capacity, n_rows = pool["rating"].shape[0], batch["rating"].shape[0]
     n_blocks = capacity // pool_block
@@ -335,7 +450,7 @@ def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
     rec = torch.empty(n_rec * (24 if extra else 8), dtype=torch.uint8,
                       device=device)
     with torch.cuda.device(device):  # the launch targets the current device
-        rc = lib.block_best_launch(
+        rc = launch(
             pool["rating"].data_ptr(), pool["rd"].data_ptr(),
             pool["region"].data_ptr(), pool["mode"].data_ptr(),
             pool["threshold"].data_ptr(), pool["enqueue_t"].data_ptr(),
@@ -350,8 +465,126 @@ def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
             plan.cluster, _f32(now),
             int(glicko2), int(filters), _f32(widen_per_sec),
             _f32(max_threshold), _f32(g_coeff),
+            span.span_start.data_ptr() if span is not None else None,
+            span.feasible.data_ptr() if span is not None else None,
+            span.chunk_rows if span is not None else 0,
+            span.span_blocks if span is not None else 0,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_best launch failed: CUDA error {rc}")
     LAUNCHES["block_best"] += 1
     return out_v, out_i
+
+
+# ---- quality_accum ----------------------------------------------------------
+
+#: The state's arrays, in the JAX package's layout: i32 histograms and
+#: counts, f32 sums (engine/quality.empty_arrays names).
+QUALITY_FIELDS = (("q_hist", torch.int32), ("w_hist", torch.int32),
+                  ("count", torch.int32), ("q_sum", torch.float32),
+                  ("w_sum", torch.float32), ("d_sum", torch.float32))
+#: Most edges the kernel takes per axis (kernel arguments).
+MAX_QUALITY_EDGES = 32
+
+
+def quality_accum_reference(state: dict, rating, enqueue_t, threshold, out,
+                            now: float, *, widen_per_sec: float,
+                            max_threshold: float, rating_edges, n_quality: int,
+                            wait_edges) -> None:
+    """Plain PyTorch version of ``quality_accum``: the JAX step's formulas
+    one f32 op at a time; each window's sums per bucket are added to the
+    state's sums once (as the JAX step adds its window sum)."""
+    capacity = rating.shape[0]
+    b = out.shape[1]
+    q_slot, c_slot, dist = out[0].to(torch.int32), out[1].to(torch.int32), out[2]
+    hit = q_slot < capacity
+    idx = torch.cat([q_slot.clamp(0, capacity - 1),
+                     c_slot.clamp(0, capacity - 1)]).long()
+    valid = torch.cat([hit, hit])
+    r, enq = rating[idx], enqueue_t[idx]
+    eff = effective_threshold(threshold[idx], enq, now, widen_per_sec,
+                              max_threshold)
+    limit = torch.minimum(eff[:b], eff[b:])
+    limit2 = torch.cat([limit, limit])
+    zero = torch.zeros((), dtype=torch.float32, device=out.device)
+    d2 = torch.where(valid, torch.cat([dist, dist]), zero)
+    quality = torch.where(
+        valid & (limit2 > 0.0),
+        (1.0 - d2 / limit2.clamp_min(_f32(1e-30))).clamp(0.0, 1.0), zero)
+    now32 = _f32(now)
+    wait = torch.where(valid, (now32 - enq).clamp_min(0.0), zero)
+    r_edges = torch.tensor(rating_edges, dtype=torch.float32, device=out.device)
+    w_edges = torch.tensor(wait_edges, dtype=torch.float32, device=out.device)
+    rb = torch.searchsorted(r_edges, r, right=True)
+    qb = (quality * float(n_quality)).to(torch.int32).clamp(0, n_quality - 1)
+    wb = torch.searchsorted(w_edges, wait, right=True)
+    ones = valid.to(torch.int32)
+    n_wait = len(wait_edges) + 1
+    state["q_hist"].view(-1).index_add_(0, rb * n_quality + qb, ones)
+    state["w_hist"].view(-1).index_add_(0, rb * n_wait + wb, ones)
+    state["count"].index_add_(0, rb, ones)
+    n_rating = len(rating_edges) + 1
+    for name, x in (("q_sum", quality), ("w_sum", wait), ("d_sum", d2)):
+        window = torch.zeros(n_rating, dtype=torch.float32, device=out.device)
+        state[name] += window.index_add_(0, rb, x)
+
+
+@lru_cache(maxsize=None)
+def _c_floats(values: tuple[float, ...]):
+    """A C float array of ``values`` (at least one element), built once."""
+    return (ctypes.c_float * max(1, len(values)))(*values)
+
+
+def quality_accum(state: dict, rating, enqueue_t, threshold, out, now: float,
+                  *, widen_per_sec: float, max_threshold: float, rating_edges,
+                  n_quality: int, wait_edges) -> None:
+    """Fold one window result ``out`` (f32[3, B]: q_slot, c_slot, dist) into
+    ``state`` (``QUALITY_FIELDS``, shaped by the edges), in place: two
+    samples per matched lane, read from the pool columns ``rating`` /
+    ``enqueue_t`` / ``threshold`` at both sides' slots.
+
+    CUDA tensors launch ``csrc/quality_accum.cu`` on the current stream
+    (one launch, no host sync); CPU tensors take
+    ``quality_accum_reference``. A kernel that cannot build or launch
+    raises."""
+    n_rating, n_wait = len(rating_edges) + 1, len(wait_edges) + 1
+    device = rating.device
+    capacity = rating.shape[0]
+    if out.dim() != 2 or out.shape[0] != 3:
+        raise ValueError(f"out must be f32[3, B]; got {tuple(out.shape)}")
+    b = out.shape[1]
+    _check_tensor("out", out, torch.float32, (3, b), device)
+    for name, t in (("rating", rating), ("enqueue_t", enqueue_t),
+                    ("threshold", threshold)):
+        _check_tensor(name, t, torch.float32, (capacity,), device)
+    shapes = {"q_hist": (n_rating, n_quality), "w_hist": (n_rating, n_wait)}
+    for name, dtype in QUALITY_FIELDS:
+        _check_tensor(f"state[{name!r}]", state[name], dtype,
+                      shapes.get(name, (n_rating,)), device)
+    kw = dict(widen_per_sec=widen_per_sec, max_threshold=max_threshold,
+              rating_edges=rating_edges, n_quality=n_quality,
+              wait_edges=wait_edges)
+    if device.type == "cpu":
+        quality_accum_reference(state, rating, enqueue_t, threshold, out, now,
+                                **kw)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"quality_accum runs on cuda or cpu tensors, not "
+                         f"{device}")
+    if max(len(rating_edges), len(wait_edges)) > MAX_QUALITY_EDGES:
+        raise ValueError(f"quality_accum takes at most {MAX_QUALITY_EDGES} "
+                         f"rating and wait edges")
+    launch = _load("quality_accum")
+    r_edges, w_edges = _c_floats(tuple(rating_edges)), _c_floats(
+        tuple(wait_edges))
+    with torch.cuda.device(device):
+        rc = launch(
+            out.data_ptr(), b, rating.data_ptr(), enqueue_t.data_ptr(),
+            threshold.data_ptr(), capacity, _f32(now), _f32(widen_per_sec),
+            _f32(max_threshold), n_quality, r_edges, len(rating_edges),
+            w_edges, len(wait_edges),
+            *(state[name].data_ptr() for name, _ in QUALITY_FIELDS),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quality_accum launch failed: CUDA error {rc}")
+    LAUNCHES["quality_accum"] += 1

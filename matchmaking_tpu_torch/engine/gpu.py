@@ -48,6 +48,16 @@ The asynchrony is PyTorch's, kept free of implicit host syncs:
   players), its token lands in ``failed_tokens`` and the error in
   ``device_error``.
 
+Match quality. A 1v1 queue folds every window step's matches into a
+device-resident quality state (``kernels.QualityAccumKernel``: one
+``quality_accum`` launch behind each step, on the same stream). Every
+``quality_report_every`` finalized windows ``_finalize`` queues one copy of
+that state into pinned memory behind a CUDA event and a later finalize
+takes it once the event has fired, so the report never blocks; ``flush()``
+reads it at once. Team and role matches, and the host oracle's while a
+queue is delegated, go to a ``HostQualityAccum``. ``quality_report()``
+merges them.
+
 Runs on ``device`` (default ``"cuda"``, which must exist); ``device="cpu"``
 runs the plain PyTorch versions of the kernels synchronously: every result
 is ready as soon as it is dispatched, and no pinned memory is used.
@@ -70,6 +80,7 @@ from matchmaking_tpu_torch.core.pool import (
     PACKED_ROWS,
     BatchArrays,
     PlayerPool,
+    band_edges_from_spec,
     pack_batch,
 )
 from matchmaking_tpu_torch.engine import kernels, scoring
@@ -80,6 +91,13 @@ from matchmaking_tpu_torch.engine.interface import (
     Match,
     SearchOutcome,
     empty_columnar_outcome,
+)
+from matchmaking_tpu_torch.engine.quality import (
+    HostQualityAccum,
+    QualitySpec,
+    add_arrays,
+    build_report,
+    empty_arrays,
 )
 from matchmaking_tpu_torch.engine.role_kernels import role_kernel_set
 from matchmaking_tpu_torch.engine.teams import team_kernel_set
@@ -173,6 +191,11 @@ class GpuEngine(Engine):
         #: Host buffers are pinned for the card only (pinning needs CUDA).
         self._pinned = self.device.type == "cuda"
         ec = cfg.engine
+        if ec.bucketed or ec.bucket_frontier_k > 0:
+            raise ValueError("bucketed formation (bucketed, "
+                             "bucket_frontier_k) is not supported by "
+                             "GpuEngine; the pruned step (prune_window_blocks "
+                             "with band_spec) is")
         #: Team-family queues: role queues (config #5) run the solo role
         #: step, plain team queues (config #3) the team step.
         self._role_device = queue.team_size > 1 and bool(queue.role_slots)
@@ -201,8 +224,16 @@ class GpuEngine(Engine):
                 widen_per_sec=queue.widen_per_sec,
                 max_threshold=queue.max_threshold,
                 pair_rounds=ec.pair_rounds,
+                prune_window_blocks=ec.prune_window_blocks,
+                prune_chunk=ec.prune_chunk,
             )
-        self.pool = PlayerPool(ec.pool_capacity, queue.rating_threshold)
+        #: Rating bands of the slot allocator, one per pool block of a 1v1
+        #: queue (``band_spec``; None: off). They keep each block's live
+        #: rating interval narrow, which the pruned step needs.
+        self._band_edges = band_edges_from_spec(
+            ec.band_spec, 0 if self._team_device else self.kernels.n_blocks)
+        self.pool = PlayerPool(ec.pool_capacity, queue.rating_threshold,
+                               band_edges=self._band_edges)
         self.dev_pool = self._fresh_device_pool()
         #: The host oracle while a team/role queue is delegated (else None).
         self._team_delegate: CpuEngine | None = None
@@ -253,6 +284,28 @@ class GpuEngine(Engine):
         self.util = {"busy_s": 0.0, "idle_s": 0.0, "readback_s": 0.0,
                      "lanes_valid": 0, "lanes_padded": 0}
         self._util_mark = time.perf_counter()
+        #: Match-quality accounting: the device accumulator of 1v1 queues
+        #: (None for team and role queues, whose matches go to the host
+        #: accumulator at finalize) and its state on the card.
+        self._q_spec = QualitySpec.from_config(cfg.observability)
+        self._quality: kernels.QualityAccumKernel | None = None
+        self._q_dev: kernels.QualityState | None = None
+        if not self._team_device:
+            self._quality = kernels.QualityAccumKernel(
+                capacity=self.kernels.capacity,
+                widen_per_sec=queue.widen_per_sec,
+                max_threshold=queue.max_threshold,
+                rating_edges=self._q_spec.rating_edges,
+                n_quality=self._q_spec.n_quality,
+                wait_edges=self._q_spec.wait_edges)
+            self._q_dev = self._quality.init_state(self.device)
+        self._q_host_accum = HostQualityAccum(self._q_spec)
+        #: The last device state read back (numpy; what quality_report
+        #: merges), and the copy in flight, if any.
+        self._q_host: dict[str, np.ndarray] | None = None
+        self._q_sync: _Readback | None = None
+        self._q_sync_every = max(1, cfg.observability.quality_report_every)
+        self._q_windows = 0
 
     # ---- Engine API -------------------------------------------------------
 
@@ -424,8 +477,10 @@ class GpuEngine(Engine):
             for bucket in self.buckets:
                 batch = self.pool.batch_arrays([], [], bucket)
                 for step in steps:
-                    _Readback(step(self.dev_pool, self._h2d(batch, 0.0)[0],
-                                   0.0)).numpy()
+                    out = step(self.dev_pool, self._h2d(batch, 0.0)[0], 0.0)
+                    # An all-padding result: the accumulator adds nothing.
+                    self._quality_accum_dispatch(out, 0.0)
+                    _Readback(out).numpy()
                 self._admit(batch)
             self._evict(np.empty(0, np.int32))
         # Finalize's numpy calls pay their first-use imports here (numpy
@@ -613,10 +668,13 @@ class GpuEngine(Engine):
         return done
 
     def flush(self) -> list[tuple[int, SearchOutcome | ColumnarOutcome]]:
-        """Block until every in-flight window is collected and finalized."""
+        """Block until every in-flight window is collected and finalized;
+        then read the quality state back (it blocks anyway), so the
+        report is exact."""
         done, self._done_early = self._done_early, []
         while self._pending:
             done.append(self._collect(self._pending.popleft()))
+        self._quality_force_sync()
         return done
 
     def span_report(self) -> dict[str, float]:
@@ -652,6 +710,81 @@ class GpuEngine(Engine):
             "lanes_padded": padded,
             "effective_occupancy": round(valid / max(1, padded), 6),
         }
+
+    def quality_report(self) -> dict:
+        """Per-rating-bucket quality/wait report over every match this
+        engine formed (engine/quality.build_report): the last device state
+        read back, the host accumulator, and a delegated queue's oracle.
+        Syncs nothing: at most ``quality_report_every`` windows stale,
+        exact after ``flush()``."""
+        return build_report(self._quality_arrays(), self._q_spec)
+
+    def quality_checkpoint(self) -> dict[str, np.ndarray]:
+        """The merged accumulator arrays, for a successor engine's
+        ``quality_restore`` (a revive): after a blocking read of the device
+        state, or, if that read fails (a broken card: what a revive is
+        for), with the last state read back."""
+        try:
+            self._quality_force_sync()
+        except RuntimeError:  # CUDA errors surface as RuntimeError
+            log.warning("quality checkpoint: the device state could not be "
+                        "read; using the last state read back")
+        return self._quality_arrays()
+
+    def quality_restore(self, arrays: dict[str, np.ndarray] | None) -> None:
+        """Fold a predecessor engine's ``quality_checkpoint`` into this
+        engine's host accumulator (merged into every report)."""
+        if arrays is not None:
+            add_arrays(self._q_host_accum.arrays, arrays)
+
+    def prune_report(self) -> dict[str, int] | None:
+        """The pruned step's windows and how many took the span path
+        rather than the dense fallback: one host read of a device counter
+        (call it after ``flush()``). None without pruning."""
+        ks = self.kernels
+        if not getattr(ks, "prune_window_blocks", 0):
+            return None
+        span = 0 if ks.span_steps is None else int(ks.span_steps.item())
+        return {"windows": ks.pruned_steps, "span_windows": span}
+
+    def _quality_arrays(self) -> dict[str, np.ndarray]:
+        arrays = empty_arrays(self._q_spec)
+        add_arrays(arrays, self._q_host_accum.arrays)
+        add_arrays(arrays, self._q_host)
+        if self._team_delegate is not None:
+            add_arrays(arrays, self._team_delegate.quality_accum.arrays)
+        return arrays
+
+    def _quality_accum_dispatch(self, out: torch.Tensor, now_rel: float) -> None:
+        """Queue the fold of one window step's result into the device
+        quality state, behind the step on the same stream: one launch, no
+        host read."""
+        if self._quality is not None:
+            self._quality.accum(self._q_dev, self.dev_pool, out, now_rel)
+
+    def _quality_sync_finalize(self) -> None:
+        """At each finalize: take the state copy in flight if its event has
+        fired (never waiting for it), and every ``quality_report_every``
+        windows queue a new one (the state as of the last window queued)."""
+        if self._quality is None:
+            return
+        if self._q_sync is not None and self._q_sync.ready():
+            self._q_host = self._quality.arrays(self._q_sync.numpy())
+            self._q_sync = None
+        self._q_windows += 1
+        if self._q_windows >= self._q_sync_every and self._q_sync is None:
+            self._q_windows = 0
+            flat = self._q_dev.flat
+            # A CPU state is updated in place: read back a copy of it.
+            self._q_sync = _Readback(flat if flat.is_cuda else flat.clone())
+
+    def _quality_force_sync(self) -> None:
+        """Blocking read of the device state (flush and checkpoint)."""
+        if self._quality is None:
+            return
+        self._q_host = self._quality.arrays(self._q_dev.flat.cpu().numpy())
+        self._q_sync = None
+        self._q_windows = 0
 
     # ---- internals: dispatch ----------------------------------------------
 
@@ -716,6 +849,7 @@ class GpuEngine(Engine):
         self.spans["h2d_s"] += time.perf_counter() - _t
         _t = time.perf_counter()
         out = step(self.dev_pool, packed, now_rel)
+        self._quality_accum_dispatch(out, now_rel)
         self.spans["step_s"] += time.perf_counter() - _t
         return out
 
@@ -829,6 +963,7 @@ class GpuEngine(Engine):
             now_pc = time.perf_counter()
             self.util["busy_s"] += max(0.0, now_pc - self._util_mark)
             self._util_mark = now_pc
+        self._quality_sync_finalize()
         if pending.created:
             self.spans["windows"] += 1
             self.spans["turnaround_s"] += time.perf_counter() - pending.created
@@ -951,28 +1086,38 @@ class GpuEngine(Engine):
         capacity = self.kernels.capacity
         for (window, _, now), result in zip(pending.chunks, pending.raw or ()):
             slots = result[:need].T.astype(np.int32)
-            spread = result[need]
-            limit = result[need + 1]
-            split = result[need + 2].astype(np.int32) if is_role else None
+            hit = np.nonzero(slots[:, 0] < capacity)[0]
+            spread = result[need][hit].astype(np.float64)
+            limit = result[need + 1][hit].astype(np.float64)
+            quality = np.where(limit > 0, np.maximum(
+                0.0, 1.0 - spread / np.where(limit > 0, limit, 1.0)), 0.0)
+            split = result[need + 2][hit].astype(np.int32) if is_role else None
+            # No device accumulator on the team steps: one host sample per
+            # member (match order, then slot order), its wait at the
+            # chunk's dispatch time, read from the mirror before release.
+            members_at = slots[hit]
+            enq = self.pool.m_enqueued[members_at].ravel()
+            self._q_host_accum.observe(
+                rating=self.pool.m_rating[members_at].ravel(),
+                quality=np.repeat(quality, need),
+                wait_s=np.where(enq != 0.0, np.maximum(0.0, now - enq), 0.0),
+                spread=np.repeat(spread, need))
             matched_ids: set[str] = set()
-            for m in np.nonzero(slots[:, 0] < capacity)[0].tolist():
+            for k, m in enumerate(hit.tolist()):
                 row = slots[m].tolist()
                 members = [self.pool.request_at(s) for s in row]
                 matched_ids.update(r.id for r in members)
                 if is_role:
-                    bits = int(split[m])
+                    bits = int(split[k])
                     team_a = tuple(members[i] for i in range(need)
                                    if bits >> i & 1)
                     team_b = tuple(members[i] for i in range(need)
                                    if not bits >> i & 1)
                 else:
                     team_a, team_b = scoring.snake_split(members)
-                thr = float(limit[m])
-                qual = (max(0.0, 1.0 - float(spread[m]) / thr) if thr > 0
-                        else 0.0)
                 out.matches.append(Match(match_id=new_match_id(),
                                          teams=(team_a, team_b),
-                                         quality=qual))
+                                         quality=float(quality[k])))
                 self.pool.release(row)
             for req in window:
                 if req.id not in matched_ids:
@@ -1032,7 +1177,8 @@ class GpuEngine(Engine):
             self.counters.get("team_delegated", 0) + 1)
         self.dev_pool = None
         self.pool = PlayerPool(self.kernels.capacity,
-                               self.queue.rating_threshold)
+                               self.queue.rating_threshold,
+                               band_edges=self._band_edges)
         return True
 
     def _maybe_repromote_team(self, now: float) -> bool:
@@ -1055,10 +1201,13 @@ class GpuEngine(Engine):
             self._delegate_last_wc = now  # scan again a quiet period later
             return False
         waiting = d.waiting()
+        # The oracle's matches were this queue's: its quality samples stay.
+        add_arrays(self._q_host_accum.arrays, d.quality_accum.arrays)
         self._team_delegate = None
         self._delegate_last_wc = float("-inf")
         self.pool = PlayerPool(self.kernels.capacity,
-                               self.queue.rating_threshold)
+                               self.queue.rating_threshold,
+                               band_edges=self._band_edges)
         self.dev_pool = self._fresh_device_pool()
         if waiting:
             self.restore(waiting, now)

@@ -162,6 +162,23 @@ class Engine(abc.ABC):
                 out.append(removed)
         return out
 
+    def quality_report(self) -> dict | None:
+        """Match-quality and fairness accounting (engine/quality.
+        build_report): per-rating-bucket quality/wait histograms, means and
+        disparity gaps over every match this engine formed; None when the
+        engine tracks none. A read of host counters, with no device sync."""
+        return None
+
+    def quality_checkpoint(self) -> dict | None:
+        """The quality accumulator's arrays, to hand to a successor engine
+        (a revive), so the counters stay monotone; None when none is
+        tracked."""
+        return None
+
+    def quality_restore(self, arrays: dict | None) -> None:
+        """Fold a predecessor engine's ``quality_checkpoint`` into this
+        engine's accounting. Default: nothing tracked."""
+
     def effective_threshold(self, req: SearchRequest, now: float) -> float:
         """The request's ``rating_threshold`` (or the queue default) plus
         config-gated widening by wait time."""

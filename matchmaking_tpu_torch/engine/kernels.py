@@ -1,4 +1,4 @@
-"""The dense 1v1 window step in PyTorch: admit → block-best → pair → evict.
+"""The 1v1 window step in PyTorch: admit → block-best → pair → evict.
 
 One call processes a whole request window against the whole pool:
 
@@ -12,13 +12,29 @@ The rescan step (``search_step_rescan``) is the same step without the
 admission, with each lane's validity gated by its slot's device-side
 ``active`` flag.
 
-Port of ``matchmaking_tpu/engine/kernels.py``'s dense ``KernelSet`` path.
-Plain functions on tensors with an explicit device: the pool is a
-``DevicePool``, a dict of 1-D tensors (``core.pool.POOL_FIELDS``) updated IN
-PLACE where the JAX code donated its buffers. Admission, pairing and eviction are plain PyTorch in
-this slice; the JAX code's scatter-free forms (equality matmuls, compare
-masks) were TPU workarounds, so the port writes them as the indexed
-updates they stand for, with the same results.
+The rating-banded pruned step (``prune_window_blocks`` > 0) sorts the
+window by rating, cuts it into chunks, and lets each chunk score only a
+span of pool blocks that can hold its candidates, chosen from every
+block's live rating bounds; a window whose spans do not fit scores every
+block. Both branches are one launch of ``block_best``'s span form, which
+reads the choice from the device, so the step never reads it on the host.
+The outputs equal the dense step's bit for bit (see ``KernelSet``).
+
+``QualityAccumKernel`` folds each window's matches into a device-resident
+quality state (cuda_kernels.quality_accum: a hand-written kernel on the
+card).
+
+Port of ``matchmaking_tpu/engine/kernels.py``'s single-device
+``KernelSet`` and ``QualityAccumKernel``. Plain functions on tensors with
+an explicit device: the pool is a ``DevicePool``, a dict of 1-D tensors
+(``core.pool.POOL_FIELDS``) updated IN PLACE where the JAX code donated its
+buffers. Admission, pairing and eviction are plain PyTorch; the JAX code's
+scatter-free forms (equality matmuls, compare masks, the pruned step's
+one-hot unsort) were TPU workarounds, so the port writes them as the
+indexed updates they stand for, with the same results. For the same
+reason the JAX pruned step's chunk-local admission (``_admit_chunked``)
+has no counterpart: the port's admission writes B lanes by slot, which is
+already O(B), and leaves the same pool.
 """
 
 from __future__ import annotations
@@ -30,7 +46,7 @@ import torch
 
 from matchmaking_tpu_torch.core.pool import PACKED_ROWS, POOL_FIELDS
 from matchmaking_tpu_torch.engine import cuda_kernels, scoring
-from matchmaking_tpu_torch.engine.cuda_kernels import effective_threshold
+from matchmaking_tpu_torch.engine.cuda_kernels import Span, effective_threshold
 
 #: Numeric pool fields admitted from a window (active is set separately).
 ADMIT_FIELDS = ("rating", "rd", "region", "mode", "threshold", "enqueue_t")
@@ -213,7 +229,20 @@ def greedy_pair(vals, idxs, self_slot, capacity: int, rounds: int = 8,
 
 
 class KernelSet:
-    """The window step for one (pool geometry × queue config)."""
+    """The window step for one (pool geometry × queue config).
+
+    With ``prune_window_blocks`` W > 0 (clamped to the block count) the
+    traffic steps take the pruned form (``_search_step_pruned``): the
+    window is sorted by rating (padding last, original lanes kept for the
+    pairing's tie-break and the unsort), cut into chunks of
+    ``prune_chunk`` rows, and each chunk scores only the W-block span of
+    the pool whose live rating bounds, widened by the chunk's largest
+    reach, meet the chunk's rating interval. A block outside that span
+    holds no admissible candidate for the chunk (the reach is inflated
+    past f32 rounding), so the dense scan would find -inf there too: the
+    candidate lists are the dense step's, and so are the pairs. Where a
+    chunk's span is wider than W, the whole window scores every block.
+    Rescans stay dense."""
 
     is_role = False
     #: Device pool columns beyond ``POOL_FIELDS``.
@@ -223,7 +252,8 @@ class KernelSet:
 
     def __init__(self, *, capacity: int, top_k: int, pool_block: int,
                  glicko2: bool, widen_per_sec: float, max_threshold: float,
-                 pair_rounds: int = 8):
+                 pair_rounds: int = 8, prune_window_blocks: int = 0,
+                 prune_chunk: int = 128):
         pool_block = effective_pool_block(capacity, pool_block, top_k)
         self.capacity = capacity
         self.pool_block = pool_block
@@ -232,25 +262,42 @@ class KernelSet:
         self.widen_per_sec = widen_per_sec
         self.max_threshold = max_threshold
         self.pair_rounds = pair_rounds
+        self.prune_window_blocks = min(max(0, prune_window_blocks),
+                                       self.n_blocks)
+        self.prune_chunk = max(1, prune_chunk)
+        #: Pruned steps run, and (a device i32[1] counter, made on the
+        #: first pruned step) how many of them took the span path: the
+        #: step adds its feasibility flag on the device, so reading the
+        #: count is one host sync, at the caller's choice.
+        self.pruned_steps = 0
+        self.span_steps: torch.Tensor | None = None
 
     def candidates(self, batch: dict[str, Any], q_thr_eff,
-                   pool: dict[str, Any], now: float, skip_filters: bool = False):
+                   pool: dict[str, Any], now: float, skip_filters: bool = False,
+                   span: Span | None = None):
         """Best-per-block candidate lists (vals f32[B, n_blocks], idx
         i32[B, n_blocks]) — the hand-written kernel on CUDA tensors.
         ``skip_filters`` drops the region/mode tests, which is exact when
-        every window lane carries the ANY wildcard (code 0)."""
+        every window lane carries the ANY wildcard (code 0); ``span`` is
+        the pruned step's span launch."""
         return cuda_kernels.block_best(
             pool, batch, q_thr_eff, now, pool_block=self.pool_block,
             glicko2=self.glicko2, filters=not skip_filters,
             widen_per_sec=self.widen_per_sec,
             max_threshold=self.max_threshold,
-            g_coeff=scoring.G_COEFF_F32)
+            g_coeff=scoring.G_COEFF_F32, span=span)
 
     def search_step(self, pool: dict[str, Any], batch: dict[str, Any],
                     now: float, skip_filters: bool = False):
         """One window: admit → block-best → pair → evict matched, with
         the pool updated in place. Returns (q_slot[B], c_slot[B], dist[B])
         with sentinel ``capacity`` / +inf in unmatched lanes."""
+        if self.prune_window_blocks:
+            order = _rating_order(batch["valid"], batch["rating"])
+            sb = {k: v.index_select(0, order) for k, v in batch.items()}
+            outs = self._search_step_pruned(pool, sb, order, now, skip_filters)
+            return tuple(torch.empty_like(o).index_copy_(0, order, o)
+                         for o in outs)
         q_thr_eff = effective_threshold(batch["threshold"], batch["enqueue_t"],
                                         now, self.widen_per_sec,
                                         self.max_threshold)
@@ -266,11 +313,18 @@ class KernelSet:
                            now: float, skip_filters: bool = False):
         """Packed window step: f32[9, B] in (``now`` is row 8's value, also
         passed as a host float so no device read is needed), f32[3, B]
-        (q_slot, c_slot, dist) out — slot ids ≪ 2^24 are f32-exact."""
-        out_q, out_c, out_d = self.search_step(pool, unpack_batch(packed),
-                                               now, skip_filters)
-        return torch.stack([out_q.to(torch.float32),
-                            out_c.to(torch.float32), out_d])
+        (q_slot, c_slot, dist) out — slot ids ≪ 2^24 are f32-exact. The
+        pruned form sorts the packed window with one gather and unsorts the
+        packed result with one indexed copy."""
+        if self.prune_window_blocks:
+            order = _rating_order(packed[7] > 0, packed[1])
+            outs = self._search_step_pruned(
+                pool, unpack_batch(packed.index_select(1, order)), order,
+                now, skip_filters)
+            return torch.empty_like(packed[:3]).index_copy_(
+                1, order, _stack_out(*outs))
+        return _stack_out(*self.search_step(pool, unpack_batch(packed), now,
+                                            skip_filters))
 
     def search_step_rescan(self, pool: dict[str, Any],
                            batch: dict[str, Any], now: float):
@@ -281,7 +335,7 @@ class KernelSet:
         matched and evicted — is then a no-op, which is what makes a rescan
         safe to dispatch with windows in flight, and to split into chunks
         (a later chunk cannot re-match players an earlier one retired).
-        Scoring, pairing and eviction are the full-filter step's."""
+        Scoring, pairing and eviction are the full-filter dense step's."""
         q_thr_eff = effective_threshold(batch["threshold"], batch["enqueue_t"],
                                         now, self.widen_per_sec,
                                         self.max_threshold)
@@ -298,10 +352,197 @@ class KernelSet:
                                   packed: torch.Tensor, now: float):
         """Packed-I/O twin of ``search_step_rescan`` (the layout of
         ``search_step_packed``)."""
-        out_q, out_c, out_d = self.search_step_rescan(
-            pool, unpack_batch(packed), now)
-        return torch.stack([out_q.to(torch.float32),
-                            out_c.to(torch.float32), out_d])
+        return _stack_out(*self.search_step_rescan(pool, unpack_batch(packed),
+                                                   now))
 
     def admit_packed(self, pool: dict[str, Any], packed: torch.Tensor) -> None:
         admit(pool, unpack_batch(packed))
+
+    # ---- the rating-banded pruned step ----------------------------------
+
+    def _search_step_pruned(self, pool: dict[str, Any], sb: dict[str, Any],
+                            order: torch.Tensor, now: float,
+                            skip_filters: bool = False):
+        """The pruned step on a window sorted by ``_rating_order``
+        (``order[k]`` is sorted lane k's original lane): admit, the blocks'
+        bounds, the chunks' spans, the span launch, pairing with the
+        original lanes as tie-break, eviction. Returns the sorted lanes'
+        (q_slot, c_slot, dist). Nothing is read on the host: the dense
+        fallback is the span launch's own device flag."""
+        q_thr_eff = effective_threshold(sb["threshold"], sb["enqueue_t"], now,
+                                        self.widen_per_sec, self.max_threshold)
+        admit(pool, sb)
+        bmin, bmax, brd = self._live_stats(pool)
+        dstart, feasible = self._chunk_windows(sb, q_thr_eff, bmin, bmax, brd)
+        if self.span_steps is None:
+            self.span_steps = torch.zeros(1, dtype=torch.int32,
+                                          device=feasible.device)
+        self.span_steps += feasible
+        self.pruned_steps += 1
+        span = Span(dstart, self._chunk_size(sb["rating"].shape[0]),
+                    self.prune_window_blocks, feasible.reshape(1))
+        vals, idxs = self.candidates(sb, q_thr_eff, pool, now, skip_filters,
+                                     span)
+        s_q, s_c, s_d = greedy_pair(vals, idxs, sb["slot"], self.capacity,
+                                    self.pair_rounds,
+                                    rid=order.to(torch.int32))
+        evict(pool, torch.cat([s_q, s_c]))
+        return s_q, s_c, s_d
+
+    def _live_stats(self, pool: dict[str, Any]):
+        """Per-block rating bounds of the pool: (min_r, max_r, max_rd)
+        f32[n_blocks] over active slots (max_rd for Glicko-2 only, else
+        None); an empty block has (+inf, -inf), which no overlap test
+        selects. One masked reduction over a (n_blocks, pool_block) view
+        per bound.
+
+        The pruned step takes them AFTER admission, where the JAX step
+        merges the pre-admission pool's bounds with the window's own per
+        block (``_incoming_stats``): admitted slots were inactive and hold
+        exactly the window's valid lanes, so the two are equal."""
+        shape = (self.n_blocks, self.pool_block)
+        act = pool["active"].view(shape)
+        r = pool["rating"].view(shape)
+        inf = float("inf")
+        maxrd = (torch.where(act, pool["rd"].view(shape), 0.0).amax(1)
+                 if self.glicko2 else None)
+        return (torch.where(act, r, inf).amin(1),
+                torch.where(act, r, -inf).amax(1), maxrd)
+
+    def _chunk_size(self, b: int) -> int:
+        c = max(1, min(self.prune_chunk, b))
+        while b % c:
+            c //= 2
+        return c
+
+    def _chunk_windows(self, sb: dict[str, Any], q_thr_eff, bmin, bmax, brd):
+        """Per-chunk span starts i32[n_chunks] and the window's
+        feasibility (a 0-dim bool tensor), on the device.
+
+        A (chunk, block) pair can hold an admissible edge only if the
+        block's live rating interval, widened by the chunk's reach E,
+        meets the chunk's rating interval: E = the chunk's largest
+        effective threshold (ELO), or that over g(max rd of the chunk, max
+        rd of the block) (Glicko-2: g ≤ 1 falls with rd, so it bounds
+        every pair's g). The 0.1 % + 0.5 inflation swamps f32 rounding in
+        the kernel's distance. Chunks with no valid lane park on the first
+        busy chunk's span (their rows score -inf wherever they point)."""
+        b = sb["rating"].shape[0]
+        c = self._chunk_size(b)
+        n_chunks = b // c
+        nb, w = self.n_blocks, self.prune_window_blocks
+        inf = float("inf")
+        v = sb["valid"].view(n_chunks, c)
+        r = sb["rating"].view(n_chunks, c)
+        cmin = torch.where(v, r, inf).amin(1)
+        cmax = torch.where(v, r, -inf).amax(1)
+        cthr = torch.where(v, q_thr_eff.view(n_chunks, c), 0.0).amax(1)
+        if self.glicko2:
+            crd = torch.where(v, sb["rd"].view(n_chunks, c), 0.0).amax(1)
+            rd2 = (crd * crd)[:, None] + (brd * brd)[None, :]
+            g = 1.0 / torch.sqrt(1.0 + scoring.G_COEFF_F32 * rd2)
+            reach = cthr[:, None] / g.clamp_min(cuda_kernels._f32(1e-6))
+        else:
+            reach = cthr[:, None]
+        reach = (reach * cuda_kernels._f32(1.001) + 0.5).expand(n_chunks, nb)
+        ov = ((bmin[None, :] - reach <= cmax[:, None])
+              & (bmax[None, :] + reach >= cmin[:, None]))
+        idx = torch.arange(nb, dtype=torch.int32, device=ov.device)
+        first = torch.where(ov, idx, nb).amin(1)
+        last = torch.where(ov, idx, -1).amax(1)
+        width = (last - first + 1).clamp_min(0)
+        feasible = (width <= w).all()
+        dstart = first.clamp(0, nb - w)
+        busy = width > 0
+        common = dstart.gather(0, busy.to(torch.int32).argmax().reshape(1))
+        dstart = torch.where(busy, dstart,
+                             torch.where(busy.any(), common, 0))
+        return dstart.to(torch.int32), feasible
+
+
+def _rating_order(valid, rating) -> torch.Tensor:
+    """The pruned step's window order: a stable sort by rating, padding
+    lanes (rating key +inf) last. Stable, as the JAX ``lax.sort`` is (CUDA's
+    default sort is not)."""
+    key = torch.where(valid, rating, float("inf"))
+    return torch.sort(key, stable=True).indices
+
+
+def _stack_out(out_q, out_c, out_d) -> torch.Tensor:
+    return torch.stack([out_q.to(torch.float32), out_c.to(torch.float32),
+                        out_d])
+
+
+class QualityState(dict):
+    """The device quality state: ``cuda_kernels.QUALITY_FIELDS`` shaped by
+    the edges, each a view into one flat i32 buffer ``flat`` (the sums as
+    f32 views of theirs), so that one copy reads it all back."""
+
+    def __init__(self, flat: torch.Tensor, shapes: dict[str, tuple[int, ...]]):
+        views, at = {}, 0
+        for name, dtype in cuda_kernels.QUALITY_FIELDS:
+            n = int(np.prod(shapes[name]))
+            views[name] = flat[at:at + n].view(dtype).view(shapes[name])
+            at += n
+        super().__init__(views)
+        self.flat = flat
+
+
+class QualityAccumKernel:
+    """Device-resident match-quality/wait accumulator of a 1v1 queue.
+
+    One ``accum`` per window step folds the step's own result ``(q_slot,
+    c_slot, dist)`` into per-rating-bucket histograms, counts and sums,
+    in place on the device: one launch of the ``quality_accum`` kernel,
+    no host read. The matched slots' rating/enqueue/threshold come from
+    the POST-step pool: eviction clears only ``active``, so the columns
+    still hold the matched players' values.
+
+    The bucket rules are engine/quality.QualitySpec's, on the f32 edges
+    (``rating_edges`` / ``wait_edges`` rounded to f32, as the JAX step
+    takes them)."""
+
+    def __init__(self, *, capacity: int, widen_per_sec: float,
+                 max_threshold: float, rating_edges, n_quality: int,
+                 wait_edges):
+        self.capacity = capacity
+        self.widen_per_sec = widen_per_sec
+        self.max_threshold = max_threshold
+        self.rating_edges = tuple(float(e) for e in
+                                  np.asarray(rating_edges, np.float32))
+        self.wait_edges = tuple(float(e) for e in
+                                np.asarray(wait_edges, np.float32))
+        self.n_rating = len(self.rating_edges) + 1
+        self.n_quality = n_quality
+        self.n_wait = len(self.wait_edges) + 1  # + overflow
+        r = self.n_rating
+        self.shapes = {"q_hist": (r, n_quality), "w_hist": (r, self.n_wait),
+                       "count": (r,), "q_sum": (r,), "w_sum": (r,),
+                       "d_sum": (r,)}
+        self.size = sum(int(np.prod(v)) for v in self.shapes.values())
+
+    def init_state(self, device) -> QualityState:
+        return QualityState(torch.zeros(self.size, dtype=torch.int32,
+                                        device=device), self.shapes)
+
+    def accum(self, state: QualityState, pool: dict[str, torch.Tensor],
+              out: torch.Tensor, now: float) -> None:
+        """Fold one window result (f32[3, B]) into ``state``, in place;
+        ``now`` is the window's device time (the packed ``now`` row)."""
+        cuda_kernels.quality_accum(
+            state, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
+            now, widen_per_sec=self.widen_per_sec,
+            max_threshold=self.max_threshold, rating_edges=self.rating_edges,
+            n_quality=self.n_quality, wait_edges=self.wait_edges)
+
+    def arrays(self, flat: np.ndarray) -> dict[str, np.ndarray]:
+        """A host copy of ``state.flat`` → the state's numpy arrays."""
+        out, at = {}, 0
+        for name, dtype in cuda_kernels.QUALITY_FIELDS:
+            n = int(np.prod(self.shapes[name]))
+            part = flat[at:at + n]
+            if dtype == torch.float32:
+                part = part.view(np.float32)
+            out[name] = part.reshape(self.shapes[name]).copy()
+            at += n
+        return out

@@ -31,7 +31,10 @@ Every request gets a ``queued`` ack when it enters the pool
 expired players ``timeout``. A redelivered request whose player reached a
 terminal answer within ``dedup_ttl_s`` is answered with the cached body.
 A window that fails on the device is nacked (the broker redelivers it) and
-the engine is rebuilt from the old engine's mirror.
+the engine is rebuilt from the old engine's mirror, its quality counters
+carried across (``quality_checkpoint`` / ``quality_restore``). Every
+published match also lands in ``app.quality`` (service/quality.py), the
+per-tier ledger of matched players' quality and wait.
 
 Everything runs on the event loop's thread: a dispatch or a collection
 runs to its end without yielding, so no lock is needed around the engine,
@@ -65,6 +68,7 @@ from matchmaking_tpu_torch.engine.interface import (
     SearchOutcome,
     make_engine,
 )
+from matchmaking_tpu_torch.engine.quality import QualitySpec
 from matchmaking_tpu_torch.native import codec
 from matchmaking_tpu_torch.service.batcher import Batcher
 from matchmaking_tpu_torch.service.broker import Delivery, InProcBroker, Properties
@@ -84,6 +88,7 @@ from matchmaking_tpu_torch.service.middleware import (
     columnar_pipeline,
     default_pipeline,
 )
+from matchmaking_tpu_torch.service.quality import QualityLedger
 
 log = logging.getLogger(__name__)
 
@@ -113,6 +118,11 @@ class MatchmakingApp:
                          else columnar_pipeline(cfg.auth))
         self.pipeline_depth = max(1, cfg.engine.pipeline_depth)
         self.engine = None
+        #: Per-queue, per-tier quality and wait of matched players, fed
+        #: when their answers are published.
+        self.quality = QualityLedger(
+            QualitySpec.from_config(cfg.observability),
+            quality_target=cfg.observability.quality_slo_target)
         self.counters = {
             "windows": 0, "requests": 0, "players_matched": 0, "queued": 0,
             "rejected": 0, "deduped_replays": 0, "publish_batches": 0,
@@ -516,6 +526,12 @@ class MatchmakingApp:
         n = out.n_matches
         if n == 0:
             return []
+        # One vectorized ledger observe per window: both sides' samples.
+        self.quality.observe(
+            self.queue_cfg.name,
+            np.concatenate([out.m_quality, out.m_quality]),
+            np.concatenate([out.m_wait_a, out.m_wait_b]),
+            np.concatenate([out.m_tier_a, out.m_tier_b]))
         lat_a = np.where(out.m_enq_a != 0.0, (now - out.m_enq_a) * 1e3, 0.0)
         lat_b = np.where(out.m_enq_b != 0.0, (now - out.m_enq_b) * 1e3, 0.0)
         wa_ms, wb_ms = out.m_wait_a * 1e3, out.m_wait_b * 1e3
@@ -584,15 +600,26 @@ class MatchmakingApp:
         as in the JAX service."""
         rows: list[Row] = []
         terminals: list[tuple[str, bytes]] = []
+        # The ledger's samples, one per member, observed once per window.
+        qualities: list[float] = []
+        lats_ms: list[float] = []
+        tiers: list[int] = []
         for match in out.matches:
             result = match.result()
-            for req in match.requests():
-                lat = (now - req.enqueued_at) * 1e3 if req.enqueued_at else 0.0
+            members = match.requests()
+            lats = [(now - r.enqueued_at) * 1e3 if r.enqueued_at else 0.0
+                    for r in members]
+            qualities += [result.quality] * len(members)
+            lats_ms += lats
+            tiers += [r.tier for r in members]
+            for req, lat in zip(members, lats):
                 body = encode_response(SearchResponse(
                     status="matched", player_id=req.id, match=result,
                     latency_ms=lat, waited_ms=lat))
                 terminals.append((req.id, body))
                 rows.append((req.reply_to, req.correlation_id, body))
+        self.quality.observe(self.queue_cfg.name, qualities,
+                             np.asarray(lats_ms) / 1e3, tiers)
         self._remember_window(terminals, now)
         self.counters["players_matched"] += len(terminals)
         return rows
@@ -655,6 +682,8 @@ class MatchmakingApp:
             cols, region_names, mode_names = self.engine.waiting_columns()
             self._restore_into(engine, cols, region_names, mode_names, now)
             n = len(cols)
+        # The quality counters stay monotone across the rebuild.
+        engine.quality_restore(self.engine.quality_checkpoint())
         self.engine = engine
         self.counters["revives"] += 1
         log.warning("engine revived: %d waiting players restored", n)

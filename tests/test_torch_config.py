@@ -41,7 +41,8 @@ def test_config_file_loads_without_dropping_a_key(name, caplog):
 
 @pytest.mark.parametrize("section", ["QueueConfig", "EngineConfig",
                                      "BrokerConfig", "BatcherConfig",
-                                     "AuthConfig", "OverloadConfig"])
+                                     "AuthConfig", "OverloadConfig",
+                                     "ObservabilityConfig"])
 def test_port_fields_have_the_jax_names_and_defaults(section):
     port, jax = getattr(config, section)(), getattr(jax_config, section)()
     for f in dataclasses.fields(port):
@@ -80,3 +81,43 @@ def test_the_loops_read_their_knobs():
     assert (lat.engine.pipeline_depth, lat.engine.readback_group,
             lat.engine.warm_start) == (1, 1, True)
     assert lat.batcher.max_batch == 512
+
+
+def test_observability_and_pruning_keys_load(caplog):
+    """The quality keys and the pruning knobs load with their JAX names;
+    the observability section's other keys warn and are dropped."""
+    raw = {"queues": [{}],
+           "engine": {"prune_window_blocks": 6, "prune_chunk": 128,
+                      "band_spec": "gaussian:1500:300"},
+           "observability": {"quality_rating_edges": [1200.0, 1800.0],
+                             "quality_buckets": 10,
+                             "quality_report_every": 4,
+                             "quality_slo_target": 0.5,
+                             "slo_target_ms": 50.0}}
+    with caplog.at_level(logging.WARNING, logger=config.__name__):
+        cfg = config.Config.from_dict(raw, backend="gpu")
+    assert [r.getMessage() for r in caplog.records] == [
+        "config: ignoring observability.slo_target_ms (not carried by the "
+        "port)"]
+    want = jax_config.Config.from_dict(raw)
+    for key in ("prune_window_blocks", "prune_chunk", "band_spec"):
+        assert getattr(cfg.engine, key) == getattr(want.engine, key), key
+    for key in ("quality_rating_edges", "quality_buckets",
+                "quality_report_every", "quality_slo_target",
+                "quality_slo_objective", "quality_wait_buckets"):
+        assert (getattr(cfg.observability, key)
+                == getattr(want.observability, key)), key
+    assert cfg.observability.quality_rating_edges == (1200.0, 1800.0)
+
+
+@pytest.mark.parametrize("knob", [{"bucketed": True},
+                                  {"bucket_frontier_k": 4}])
+def test_gpu_engine_refuses_the_bucketed_step(knob):
+    """The bucket-indexed formation is not ported: a config that asks for
+    it is refused, not run dense."""
+    from matchmaking_tpu_torch.engine.gpu import GpuEngine
+
+    cfg = config.Config(engine=config.EngineConfig(pool_capacity=1024,
+                                                   pool_block=256, **knob))
+    with pytest.raises(ValueError, match="bucketed"):
+        GpuEngine(cfg, cfg.queues[0], device="cpu")

@@ -1,27 +1,43 @@
-"""The hand-written CUDA kernel against its plain PyTorch version, and the
-engine paths on CUDA tensors (the 1v1, team and role steps) against the
-same code on the CPU, on the card. Every test here is marked ``gpu`` and
-skips without one.
+"""The hand-written CUDA kernels against their plain PyTorch versions, and
+the engine paths on CUDA tensors (the 1v1 step, dense and pruned, the team
+and role steps, the quality accumulator) against the same code on the CPU,
+on the card. Every test here is marked ``gpu`` and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: none. The kernel rounds every f32 op on its own (explicit
-``__f*_rn`` intrinsics, built with ``--fmad=false``) exactly as the eager
-plain version does, so values are compared bit for bit and slots exactly;
-the team and role steps are sorts, minima and ORs, exact on both devices.
+Tolerance: none, but for the quality state's float sums. The kernels
+round every f32 op on their own (explicit ``__f*_rn`` intrinsics, built
+with ``--fmad=false``) exactly as the eager plain versions do, so values
+are compared bit for bit and slots exactly; the team and role steps are
+sorts, minima and ORs, exact on both devices. ``quality_accum`` sums its
+samples in another order than the plain version's ``index_add_``: its
+histograms and counts are exact, its sums within 1e-5 of the sum of their
+addends' magnitudes (every addend is >= 0, so of the sum itself).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from matchmaking_tpu_torch.config import Config, EngineConfig, QueueConfig
+from matchmaking_tpu_torch.config import (
+    Config,
+    EngineConfig,
+    ObservabilityConfig,
+    QueueConfig,
+)
 from matchmaking_tpu_torch.engine import cuda_kernels, scoring
 from matchmaking_tpu_torch.engine.gpu import GpuEngine, _Readback
-from matchmaking_tpu_torch.engine.kernels import KernelSet, fresh_pool
+from matchmaking_tpu_torch.engine.kernels import (
+    KernelSet,
+    QualityAccumKernel,
+    admit,
+    fresh_pool,
+    unpack_batch,
+)
+from matchmaking_tpu_torch.engine.quality import QualitySpec
 from matchmaking_tpu_torch.service.contract import RequestColumns, SearchRequest
 
 pytestmark = pytest.mark.gpu
@@ -174,13 +190,24 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
         assert engines[0].pool_size() == engines[1].pool_size()
 
 
+@pytest.mark.parametrize("prune", [0, 2])
 @pytest.mark.parametrize("skip_filters", [False, True])
-def test_search_step_packed_does_not_sync(cuda, skip_filters):
-    """Admission, block_best, pairing and eviction of one window run
-    without a device→host synchronisation."""
+def test_search_step_packed_does_not_sync(cuda, skip_filters, prune):
+    """Admission, block_best (the dense launch, or the pruned step's sort,
+    bounds, spans and span launch), pairing and eviction of one window,
+    and the quality accumulator behind it, run without a device→host
+    synchronisation."""
     P, B = 16384, 256
     ks = KernelSet(capacity=P, top_k=8, pool_block=4096, glicko2=True,
-                   widen_per_sec=5.0, max_threshold=250.0)
+                   widen_per_sec=5.0, max_threshold=250.0,
+                   prune_window_blocks=prune, prune_chunk=64)
+    spec = QualitySpec()
+    acc = QualityAccumKernel(capacity=P, widen_per_sec=5.0,
+                             max_threshold=250.0,
+                             rating_edges=spec.rating_edges,
+                             n_quality=spec.n_quality,
+                             wait_edges=spec.wait_edges)
+    state = acc.init_state(cuda)
     pool = fresh_pool(P, cuda)
     rng = np.random.default_rng(4)
 
@@ -202,14 +229,18 @@ def test_search_step_packed_does_not_sync(cuda, skip_filters):
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = ks.search_step_packed(pool, step, 6.0, skip_filters)
+        acc.accum(state, pool, out, 6.0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (out[0] < P).sum() > 0  # it formed matches
+    assert int(state["count"].sum()) == 2 * int((out[0] < P).sum())
+    if prune:
+        assert ks.pruned_steps == 2 and ks.span_steps is not None
 
 
-def widening_cfg(capacity=16384, pool_block=4096):
+def widening_cfg(capacity=16384, pool_block=4096, **engine):
     return Config(engine=EngineConfig(pool_capacity=capacity,
-                                      pool_block=pool_block),
+                                      pool_block=pool_block, **engine),
                   queues=(QueueConfig(glicko2=True, widen_per_sec=5.0,
                                       max_threshold=250.0),))
 
@@ -227,11 +258,19 @@ def columns(rng, eng, n, start, now):
         correlation_id=ids.copy())
 
 
-def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda):
+PRUNED = dict(prune_window_blocks=2, prune_chunk=128,
+              band_spec="gaussian:1500:300")
+
+
+@pytest.mark.parametrize("engine", [{}, PRUNED], ids=["dense", "pruned"])
+def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda, engine):
     """restore_columns, search_columns_async and rescan_async queue their
-    device work (pinned staging, non-blocking copies, events) with no
-    device→host synchronisation; the results then collect as usual."""
-    eng = GpuEngine(widening_cfg(), widening_cfg().queues[0], device=cuda)
+    device work (pinned staging, non-blocking copies, events, the quality
+    accumulator behind each step; the pruned step with ``engine``) with no
+    device→host synchronisation; the results then collect as usual, and
+    the quality report counts every matched player."""
+    cfg = widening_cfg(**engine)
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
     eng.warmup()
     rng = np.random.default_rng(5)
     fill = columns(rng, eng, 4000, 0, 100.0)
@@ -251,6 +290,8 @@ def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda):
     assert list(outs) == [t1, t2, t3]
     assert outs[t1].n_matches > 0 and outs[t3].n_matches > 0
     assert not eng.failed_tokens and eng.device_error is None
+    assert eng.quality_report()["samples"] == 2 * sum(
+        o.n_matches for o in outs.values())
 
 
 def test_pinned_readback_waits_for_its_event(cuda):
@@ -278,6 +319,216 @@ def test_pinned_readback_waits_for_its_event(cuda):
     packed, _ = eng._h2d(batch, 1.0)
     step = eng.kernels.search_step_packed(eng.dev_pool, packed, 1.0)
     np.testing.assert_array_equal(_Readback(step).numpy(), step.cpu().numpy())
+
+
+def test_quality_readback_is_never_read_before_its_event(cuda):
+    """The periodic copy of the quality state is queued at a finalize and
+    taken at a later one only once its event has fired: while it is in
+    flight, finalize keeps the last state read back and the report does
+    not move; ``flush()`` then reads the state at once."""
+    cfg = Config(engine=EngineConfig(pool_capacity=16384, pool_block=4096),
+                 queues=(QueueConfig(),),
+                 observability=ObservabilityConfig(quality_report_every=1))
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    eng.warmup()
+    rng = np.random.default_rng(10)
+    eng.restore_columns(columns(rng, eng, 3000, 0, 10.0), 10.0)
+    eng.search_columns_async(columns(rng, eng, 512, 5000, 11.0), 11.0)
+    eng.flush()
+    first = eng.quality_report()["samples"]
+    assert first > 0
+    eng.search_columns_async(columns(rng, eng, 512, 6000, 12.0), 12.0)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s ahead of the state's copy
+    (_, out), = eng.collect_ready()  # its finalize queues the copy
+    pending = eng._q_sync
+    assert pending is not None and not pending.ready()
+
+    class Guard:
+        """The copy in flight, refusing a read before its event."""
+
+        taken = 0
+
+        def ready(self):
+            return pending.ready()
+
+        def numpy(self):
+            assert pending.event.query(), "read before its event"
+            Guard.taken += 1
+            return pending.numpy()
+
+    eng._q_sync = Guard()
+    eng._quality_sync_finalize()  # in flight: nothing is taken
+    assert isinstance(eng._q_sync, Guard) and Guard.taken == 0
+    assert eng.quality_report()["samples"] == first
+    torch.cuda.synchronize()
+    eng._quality_sync_finalize()  # landed: taken, and a new copy queued
+    assert Guard.taken == 1
+    assert eng.quality_report()["samples"] == first + 2 * out.n_matches
+    eng.flush()
+    assert eng.quality_report()["samples"] == first + 2 * out.n_matches
+
+
+def quality_window(rng, capacity, b, matched, device):
+    """Pool columns and a window result f32[3, b]: ``matched`` lanes pair
+    distinct slots at their true distance, the rest hold the sentinels."""
+    rating = rng.normal(1500, 300, capacity).astype(np.float32)
+    enq = rng.uniform(0, 30, capacity).astype(np.float32)
+    thr = rng.choice([0.0, 50.0, 100.0, 150.0], capacity).astype(np.float32)
+    slots = rng.permutation(capacity)[:2 * b]
+    q, c = slots[:b], slots[b:]
+    hit = np.arange(b) < matched
+    out = np.empty((3, b), np.float32)
+    out[0] = np.where(hit, q, capacity)
+    out[1] = np.where(hit, c, capacity)
+    out[2] = np.where(hit, np.abs(rating[q] - rating[c]), np.inf)
+    to = lambda a: torch.from_numpy(a).to(device)
+    return {"rating": to(rating), "enqueue_t": to(enq),
+            "threshold": to(thr)}, to(rng.permuted(out, axis=1))
+
+
+def assert_quality_state(got, want):
+    for name in ("q_hist", "w_hist", "count"):
+        assert torch.equal(got[name], want[name]), name
+    for name in ("q_sum", "w_sum", "d_sum"):
+        np.testing.assert_allclose(got[name].cpu().numpy(),
+                                   want[name].cpu().numpy(), rtol=1e-5,
+                                   atol=0.0, err_msg=name)
+
+
+@pytest.mark.parametrize("widen", [0.0, 2.0])
+@pytest.mark.parametrize("capacity,b", [(4096, 16), (4096, 256),
+                                        (131072, 1024), (131072, 1000)])
+def test_quality_accum_equals_plain(cuda, capacity, b, widen):
+    """Windows of real-looking matches (zero thresholds among them), a
+    window with none, and an all-padding one, folded into one state by
+    the kernel and by the plain version on the same CUDA tensors."""
+    spec = QualitySpec()
+    acc = QualityAccumKernel(capacity=capacity, widen_per_sec=widen,
+                             max_threshold=250.0,
+                             rating_edges=spec.rating_edges,
+                             n_quality=spec.n_quality,
+                             wait_edges=spec.wait_edges)
+    got, want = acc.init_state(cuda), acc.init_state(cuda)
+    rng = np.random.default_rng(capacity + b)
+    kw = dict(widen_per_sec=widen, max_threshold=250.0,
+              rating_edges=acc.rating_edges, n_quality=spec.n_quality,
+              wait_edges=acc.wait_edges)
+    before = cuda_kernels.LAUNCHES["quality_accum"]
+    for matched in (b // 2, b // 3, 0):
+        pool, out = quality_window(rng, capacity, b, matched, cuda)
+        acc.accum(got, pool, out, 30.0)
+        cuda_kernels.quality_accum_reference(
+            want, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
+            30.0, **kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["quality_accum"] == before + 3
+    assert int(got["count"].sum()) == 2 * (b // 2 + b // 3)
+    assert_quality_state(got, want)
+
+
+def span_inputs(seed, glicko2, filters, device, *, capacity=131072,
+                block=8192, rows=1024, chunk=128, w=6):
+    """A band-coherent pool at full width (ratings ascending by slot, as
+    the gaussian bands lay them out), a rating-sorted window admitted into
+    free slots, its effective thresholds, and the pruned step's own spans
+    and feasibility for it."""
+    from matchmaking_tpu_torch.engine.kernels import pool_from_reference
+
+    rng = np.random.default_rng(seed)
+    ks = KernelSet(capacity=capacity, top_k=8, pool_block=block,
+                   glicko2=glicko2, widen_per_sec=2.0, max_threshold=250.0,
+                   prune_window_blocks=w, prune_chunk=chunk)
+    codes = lambda n, k: (rng.integers(0, k, n) if filters
+                          else np.zeros(n)).astype(np.int32)
+    active = rng.random(capacity) < 0.76
+    pool = pool_from_reference({
+        "rating": np.sort(rng.normal(1500, 300, capacity)).astype(np.float32),
+        "rd": rng.uniform(0, 100, capacity).astype(np.float32),
+        "region": codes(capacity, 3), "mode": codes(capacity, 2),
+        "threshold": np.full(capacity, 30.0, np.float32),
+        "enqueue_t": rng.uniform(0, 5, capacity).astype(np.float32),
+        "active": active}, device)
+    valid = np.arange(rows) < rows - 5  # padding sorts last
+    ratings = np.sort(rng.normal(1500, 60, rows)).astype(np.float32)
+    # Each arrival takes a free slot at its rating's place in the pool, as
+    # the banded allocator would (distinct, in rating order).
+    free = np.nonzero(~active)[0]
+    at = np.searchsorted(free, np.searchsorted(pool["rating"].cpu().numpy()
+                                               [:capacity], ratings))
+    at = np.maximum.accumulate(at - np.arange(rows)) + np.arange(rows)
+    batch = {
+        "slot": np.where(valid, free[np.minimum(at, free.size - 1)], capacity),
+        "rating": ratings,
+        "rd": rng.uniform(0, 100, rows), "region": codes(rows, 3),
+        "mode": codes(rows, 2), "threshold": np.full(rows, 30.0),
+        "enqueue_t": rng.uniform(0, 5, rows), "valid": valid}
+    batch = {k: torch.from_numpy(v.astype(
+        np.bool_ if k == "valid" else np.int32 if k in ("slot", "region",
+                                                         "mode")
+        else np.float32)).to(device) for k, v in batch.items()}
+    admit(pool, batch)
+    q_thr = cuda_kernels.effective_threshold(
+        batch["threshold"], batch["enqueue_t"], 9.0, 2.0, 250.0)
+    start, feasible = ks._chunk_windows(batch, q_thr, *ks._live_stats(pool))
+    return ks, pool, batch, q_thr, start, feasible
+
+
+@pytest.mark.parametrize("glicko2,filters", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+def test_span_launch_equals_plain_at_full_width(cuda, glicko2, filters):
+    """The span launch of all four instances at P = 131,072, B = 1,024,
+    chunks of 128 and W = 6, feasible and infeasible, against its plain
+    version on the same CUDA tensors; feasible, it equals the dense
+    launch too (the spans hold every candidate)."""
+    ks, pool, batch, q_thr, start, feasible = span_inputs(
+        40 + 2 * glicko2 + filters, glicko2, filters, cuda)
+    assert bool(feasible)
+    kw = dict(pool_block=ks.pool_block, glicko2=glicko2, filters=filters,
+              widen_per_sec=2.0, max_threshold=250.0,
+              g_coeff=scoring.G_COEFF_F32)
+    dense = cuda_kernels.block_best(pool, batch, q_thr, 9.0, **kw)
+    for flag in (True, False):
+        span = cuda_kernels.Span(start, 128, 6,
+                                 torch.tensor([flag], device=cuda))
+        got = cuda_kernels.block_best(pool, batch, q_thr, 9.0, span=span, **kw)
+        want = cuda_kernels.block_best_span_reference(pool, batch, q_thr, 9.0,
+                                                      span, **kw)
+        assert_bit_equal(got, want)
+        assert_bit_equal(got, dense)
+    # Spans that miss candidates: only the span's blocks are scored.
+    span = cuda_kernels.Span(torch.zeros_like(start), 128, 3,
+                             torch.tensor([True], device=cuda))
+    got = cuda_kernels.block_best(pool, batch, q_thr, 9.0, span=span, **kw)
+    assert_bit_equal(got, cuda_kernels.block_best_span_reference(
+        pool, batch, q_thr, 9.0, span, **kw))
+    assert (got[1][:, 3:] == ks.capacity).all()
+
+
+def test_pruned_engine_on_card_equals_cpu(cuda):
+    """A banded, pruned engine on the card and on the CPU: the same pairs
+    and pool over windows of 1,024 (the span path and the fallback), and
+    the span counter read once at the end."""
+    cfg = widening_cfg(capacity=65536, pool_block=4096,
+                       **dict(PRUNED, prune_window_blocks=6))
+    engines = [GpuEngine(cfg, cfg.queues[0], device=d) for d in (cuda, "cpu")]
+    rng = np.random.default_rng(11)
+    fill = columns(rng, engines[0], 40_000, 0, 50.0)
+    for e in engines:
+        e.restore_columns(fill, 50.0)
+    for w in range(4):
+        cols = columns(rng, engines[0], 1024, 100_000 + 2000 * w, 51.0 + w)
+        pairs = []
+        for e in engines:
+            e.search_columns_async(cols, 51.0 + w)
+            (_, o), = e.flush()
+            pairs.append({frozenset(p) for p in zip(o.m_id_a.tolist(),
+                                                    o.m_id_b.tolist())})
+        assert pairs[0] == pairs[1] and pairs[0]
+        assert engines[0].pool._slot_of == engines[1].pool._slot_of
+    assert engines[0].prune_report() == engines[1].prune_report()
+    assert (engines[0].quality_report()["samples"]
+            == engines[1].quality_report()["samples"])
 
 
 @pytest.mark.parametrize("depth", [1, 2])

@@ -42,6 +42,7 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.engine.gpu",
                  "matchmaking_tpu_torch.engine.interface",
                  "matchmaking_tpu_torch.engine.kernels",
+                 "matchmaking_tpu_torch.engine.quality",
                  "matchmaking_tpu_torch.engine.cuda_kernels",
                  "matchmaking_tpu_torch.engine.cpu",
                  "matchmaking_tpu_torch.engine.roles",
@@ -53,7 +54,8 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.service.app",
                  "matchmaking_tpu_torch.service.broker",
                  "matchmaking_tpu_torch.service.contract",
-                 "matchmaking_tpu_torch.service.middleware"):
+                 "matchmaking_tpu_torch.service.middleware",
+                 "matchmaking_tpu_torch.service.quality"):
         assert must in mods
 
 
