@@ -33,7 +33,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    fallback and dense ms at B = 1,024. Then quality_accum against its
    plain version at every bucket on step results with real matches
    (histograms and counts equal, sums within 1e-5 relative; every addend
-   is >= 0), timed with its host µs per call and its bound.
+   is >= 0; two launches on the same inputs bit-equal), reading ``now``
+   from the packed window's row on the card; timed with its host µs per
+   call beside an empty kernel launched the same way (the launch floor),
+   at 32 rating and wait edges, and its bound; with ``--baseline-tree``,
+   the other tree's quality_accum is checked and timed in turns too.
 3. engine: the main path. GpuEngine with configs/elo_1v1.json (backend
    overridden to "gpu"): 100k waiting players through restore_columns(),
    then 48 windows of 1,024 through search_columns_async() at the config's
@@ -64,8 +68,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    bursts (every request answered once from its window, partners agree,
    one publish_batch per window; request latency publish → first answer;
    the quality ledger and the engine's quality state both hold every
-   matched player); and config #4's service, whose rescan loop must
-   publish matches.
+   matched player); config #4's service, whose rescan loop must
+   publish matches; and config #2's service, both of its queues in one
+   app (20k restored and 2,048 requests each): every answer within its
+   queue's threshold and filters and from its own queue, one
+   publish_batch per window per queue, and a probe pair 100 apart matched
+   at casual's threshold 150 and left waiting at ranked's 75.
 5. teams and roles: config #3 (team_5v5.json, P = 65,536) with 50k
    restored solo players and 24 object windows of 1,024 at depth 2, and
    config #5 (role_party.json, P = 16,384) with 12k players (declared
@@ -83,7 +91,11 @@ Phases, each of which raises (exit code != 0) when it fails:
    step must stay within 300 kernels, the role step within 60 more). On a
    200-player role pool a 3-player party hands the queue to the host
    oracle, expires, and after the 5 s quiet period the queue is back on
-   the card. Config #3's service: 50k restored through the app, 8,192
+   the card. The same hand-over through the service: a party with a
+   deadline hands the queue to the oracle, the deadline sweep expires it,
+   no traffic follows, and the health timer alone brings the queue back
+   onto the card within one ``health_interval_s`` of the quiet period's
+   end. Config #3's service: 50k restored through the app, 8,192
    requests in bursts of 512, every request answered, every match two
    teams of five, no fault caught.
 
@@ -138,7 +150,7 @@ def card_line(fields="name,power.limit") -> str:
 def ptxas_report(text):
     """{kernel instance: {registers, smem_bytes, spill_bytes}} from the
     ``-Xptxas -v`` output (block_best: one instance per (glicko2, filters)
-    pair; quality_accum: one)."""
+    pair; quality_accum: one CTA and a cluster of 8)."""
     report, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -151,8 +163,8 @@ def ptxas_report(text):
         if inst is not None:
             key = (f"{inst.group(1)}<glicko2={inst.group(2)},"
                    f"filters={inst.group(3)}>")
-        elif "quality_accum_kernel" in fn:
-            key = "quality_accum_kernel"
+        elif (m := re.search(r"quality_accum_kernelILi(\d)E", fn)):
+            key = f"quality_accum_kernel<cluster={m.group(1)}>"
         else:
             continue
         entry = report.setdefault(key, {})
@@ -531,7 +543,8 @@ def step_windows(torch, np, kernels, device, buckets=BUCKETS):
     """Config #1-like step results that form real matches, one per bucket:
     a seeded pool (P = 131,072, 100k active, thresholds 100, widening 5/s
     to 250), a window of arrivals, and config #1's dense step on a copy of
-    the pool. Returns {B: (pool after the step, f32[3, B] result, now)}."""
+    the pool. Returns {B: (pool after the step, f32[3, B] result, now, the
+    packed window on the card)}."""
     rng = np.random.default_rng(12)
     active = np.zeros(FULL_P, bool)
     active[rng.permutation(FULL_P)[:FULL_ACTIVE]] = True
@@ -557,20 +570,41 @@ def step_windows(torch, np, kernels, device, buckets=BUCKETS):
         packed[7] = 1.0
         packed[8] = 30.0
         pool = kernels.pool_from_reference(arrays, device)
-        res = ks.search_step_packed(pool, torch.from_numpy(packed).to(device),
-                                    30.0, skip_filters=True)
-        out[b] = (pool, res, 30.0)
+        packed_dev = torch.from_numpy(packed).to(device)
+        res = ks.search_step_packed(pool, packed_dev, 30.0, skip_filters=True)
+        out[b] = (pool, res, 30.0, packed_dev)
     torch.cuda.synchronize()
     return out
 
 
-def phase_quality(torch, np, ck, kernels, spec, device):
+def quality_state_check(torch, got, want, what):
+    """Histograms and counts equal, sums within 1e-5 of the plain
+    version's (every addend is >= 0, so of the sum of their magnitudes);
+    returns the largest sum error."""
+    for name in ("q_hist", "w_hist", "count"):
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(f"{what}: {name} differs")
+    max_err = 0.0
+    for name in ("q_sum", "w_sum", "d_sum"):
+        err = (got[name] - want[name]).abs()
+        if bool((err > 1e-5 * want[name].abs()).any()):
+            raise AssertionError(f"{what}: {name} off by {float(err.max())}")
+        max_err = max(max_err, float(err.max()))
+    return max_err
+
+
+def phase_quality(torch, np, ck, kernels, spec, device, baseline=None):
     """``quality_accum`` against its plain version on the same CUDA
     tensors, at every bucket, on step results with real matches: histograms
     and counts equal, sums within 1e-5 of the sum of their addends (all
-    >= 0, so of the sums themselves). Times the kernel at every bucket
-    (device ms, host µs per call), the plain version at B = 1,024, and the
-    bound from the bytes the call must move."""
+    >= 0, so of the sums themselves); two launches on the same inputs end
+    bit-equal. The kernel reads ``now`` from the packed window's row on the
+    device. Times the kernel at every bucket (device ms, host µs per call),
+    beside an empty kernel launched the same way (the launch floor), at 32
+    rating and 32 wait edges, the plain version at B = 1,024, and the bound
+    from the bytes the call must move. With ``baseline`` (another tree's
+    ``cuda_kernels``), its ``quality_accum`` (the parent's: a host ``now``)
+    is checked too and timed in turns with this one: old, new, new, old."""
     acc = kernels.QualityAccumKernel(
         capacity=FULL_P, widen_per_sec=5.0, max_threshold=250.0,
         rating_edges=spec.rating_edges, n_quality=spec.n_quality,
@@ -579,33 +613,57 @@ def phase_quality(torch, np, ck, kernels, spec, device):
               rating_edges=acc.rating_edges, n_quality=acc.n_quality,
               wait_edges=acc.wait_edges)
     res = {"ms_by_bucket": {}, "host_us_by_bucket": {},
+           "empty_ms_by_bucket": {}, "empty_host_us_by_bucket": {},
            "matches_by_bucket": {}}
+    if baseline is not None:
+        res["baseline_ms_by_bucket"] = {}
+        res["baseline_host_us_by_bucket"] = {}
     max_err = 0.0
-    for b, (pool, out, now) in step_windows(torch, np, kernels, device).items():
+    for b, (pool, out, now, packed) in step_windows(torch, np, kernels,
+                                                    device).items():
+        now_row = packed[-1]  # the packed window's now row, on the card
         plain = lambda state: ck.quality_accum_reference(
             state, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
             now, **kw)
-        got, want = acc.init_state(device), acc.init_state(device)
-        acc.accum(got, pool, out, now)
+        got, again, want = (acc.init_state(device) for _ in range(3))
+        acc.accum(got, pool, out, now_row)
+        acc.accum(again, pool, out, now_row)
         plain(want)
         torch.cuda.synchronize()
         matches = int((out[0] < FULL_P).sum())
-        for name in ("q_hist", "w_hist", "count"):
-            if not torch.equal(got[name], want[name]):
-                raise AssertionError(f"quality_accum B={b}: {name} differs")
         if int(got["count"].sum()) != 2 * matches or matches == 0:
             raise AssertionError(f"quality_accum B={b}: {got['count'].sum()} "
                                  f"samples for {matches} matches")
-        for name in ("q_sum", "w_sum", "d_sum"):
-            err = (got[name] - want[name]).abs()
-            if bool((err > 1e-5 * want[name].abs()).any()):
-                raise AssertionError(f"quality_accum B={b}: {name} off by "
-                                     f"{float(err.max())}")
-            max_err = max(max_err, float(err.max()))
+        max_err = max(max_err, quality_state_check(torch, got, want,
+                                                   f"quality_accum B={b}"))
+        if not torch.equal(got.flat, again.flat):
+            raise AssertionError(f"quality_accum B={b}: two launches on the "
+                                 f"same inputs differ")
         scratch = acc.init_state(device)
-        call = lambda: acc.accum(scratch, pool, out, now)
-        res["ms_by_bucket"][b] = time_ms(torch, call)
-        res["host_us_by_bucket"][b] = host_us(torch, call)
+        new = lambda: acc.accum(scratch, pool, out, now_row)
+        empty = lambda: acc._bound.launch_empty(out, now_row)
+        if baseline is None:
+            res["ms_by_bucket"][b] = time_ms(torch, new)
+            res["host_us_by_bucket"][b] = host_us(torch, new)
+        else:
+            old_state = acc.init_state(device)
+            old = lambda: baseline.quality_accum(
+                old_state, pool["rating"], pool["enqueue_t"],
+                pool["threshold"], out, now, **kw)
+            check = acc.init_state(device)
+            baseline.quality_accum(check, pool["rating"], pool["enqueue_t"],
+                                   pool["threshold"], out, now, **kw)
+            torch.cuda.synchronize()
+            quality_state_check(torch, check, want,
+                                f"baseline quality_accum B={b}")
+            o1, n1, n2, o2 = (time_ms(torch, f) for f in (old, new, new, old))
+            res["ms_by_bucket"][b] = statistics.median([n1, n2])
+            res["baseline_ms_by_bucket"][b] = statistics.median([o1, o2])
+            o1, n1, n2, o2 = (host_us(torch, f) for f in (old, new, new, old))
+            res["host_us_by_bucket"][b] = statistics.median([n1, n2])
+            res["baseline_host_us_by_bucket"][b] = statistics.median([o1, o2])
+        res["empty_ms_by_bucket"][b] = time_ms(torch, empty)
+        res["empty_host_us_by_bucket"][b] = host_us(torch, empty)
         res["matches_by_bucket"][b] = matches
         if b == FULL_B:
             res["plain_ms"] = time_ms(torch, lambda: plain(scratch), reps=20)
@@ -614,12 +672,37 @@ def phase_quality(torch, np, ck, kernels, spec, device):
             nbytes = 3 * b * 4 + 2 * matches * 3 * 4 + 2 * acc.size * 4
             res.update(roofline({"samples": 2 * matches},
                                 2 * matches * QUALITY_OPS_PER_SAMPLE, nbytes))
+            # The most edges the kernel takes: 32 rating and 32 wait edges
+            # (the default spec has 7 and 22).
+            wide = kernels.QualityAccumKernel(
+                capacity=FULL_P, widen_per_sec=5.0, max_threshold=250.0,
+                rating_edges=np.linspace(600.0, 2400.0, 32),
+                n_quality=spec.n_quality,
+                wait_edges=np.geomspace(1e-3, 60.0, 32))
+            w_got, w_want = wide.init_state(device), wide.init_state(device)
+            wide.accum(w_got, pool, out, now_row)
+            ck.quality_accum_reference(
+                w_want, pool["rating"], pool["enqueue_t"], pool["threshold"],
+                out, now, **dict(kw, rating_edges=wide.rating_edges,
+                                 wait_edges=wide.wait_edges))
+            torch.cuda.synchronize()
+            max_err = max(max_err, quality_state_check(
+                torch, w_got, w_want, "quality_accum, 32 edges"))
+            res["ms_32_edges"] = time_ms(
+                torch, lambda: wide.accum(w_got, pool, out, now_row))
     res["ms"] = res["ms_by_bucket"][FULL_B]
     res["host_us"] = res["host_us_by_bucket"][FULL_B]
-    log(f"quality_accum: ms by bucket {res['ms_by_bucket']}; host µs per call "
-        f"{res['host_us_by_bucket']} (plain {res['plain_ms']:.3f} ms, bound "
-        f"{res['bound_ms']:.5f} ms by {res['bound_by']} at B={FULL_B}); "
-        f"matches {res['matches_by_bucket']}; max sum error {max_err}")
+    res["empty_ms"] = res["empty_ms_by_bucket"][FULL_B]
+    log(f"quality_accum: ms by bucket {res['ms_by_bucket']}"
+        + (f", baseline {res['baseline_ms_by_bucket']}" if baseline else "")
+        + f"; host µs per call {res['host_us_by_bucket']}"
+        + (f", baseline {res['baseline_host_us_by_bucket']}" if baseline
+           else "")
+        + f"; empty launch ms {res['empty_ms_by_bucket']}, host µs "
+        f"{res['empty_host_us_by_bucket']}; 32 edges {res['ms_32_edges']:.5f}"
+        f" ms (plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.7f} ms"
+        f" by {res['bound_by']} at B={FULL_B}); matches "
+        f"{res['matches_by_bucket']}; max sum error {max_err}")
     return res, max_err
 
 
@@ -1867,6 +1950,283 @@ def role_delegation(torch, np, mods, path, *, waiting, seed):
     return res
 
 
+async def service_role_health(np, mods, path, *, waiting, seed):
+    """Config #5's hand-over through the service, on the card: ``waiting``
+    players restored, then a 2-player party with an ``x-deadline`` 0.5 s
+    out hands the queue to the host oracle; the deadline sweep answers it
+    ``timeout``, after which no traffic is sent, so only the health timer
+    (the file's ``health_interval_s``, the default 1 s) can move the queue
+    back onto the card once the quiet period (cut from 5 s to 1 s on this
+    engine, to keep the smoke short) has passed. Then 64 pinned arrivals
+    are answered by the device step."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.contract import decode_response
+
+    Config, _, _, SearchRequest = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        overload=dataclasses.replace(cfg.overload, deadline_sweep_ms=20.0))
+    interval, quiet = cfg.engine.health_interval_s, 1.0
+    if interval <= 0 or cfg.queues[0].rescan_interval_s > 0:
+        raise AssertionError(f"{path}: the health timer must be the only "
+                             f"ticker")
+    pop = TeamPopulation(np, np.random.default_rng(seed), waiting + 64,
+                         roles=True, prefix="h")
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()
+    reply = "health.replies"
+    try:
+        app.broker.declare_queue(reply)
+        eng = app.engine
+        eng.TEAM_REPROMOTE_QUIET_S = quiet
+        t0 = time.time()
+        app.restore(pop.requests(SearchRequest, 0, waiting, t0, reply), t0)
+        t_arrival = time.time()
+        app.broker.publish(app.queue_cfg.name, json.dumps({
+            "id": "party", "rating": -4000.0, "region": "eu",
+            "game_mode": "ranked", "roles": ["tank"],
+            "party": [{"id": "party2", "rating": -4000.0,
+                       "roles": ["healer"]}]}).encode(),
+            Properties(reply_to=reply, correlation_id="party",
+                       headers={"x-deadline": repr(t_arrival + 0.5)}))
+        statuses = []
+        deadline = time.monotonic() + 30.0
+        while "timeout" not in statuses and time.monotonic() < deadline:
+            d = await app.broker.get(reply, timeout=0.05)
+            if d is not None and d.properties.correlation_id == "party":
+                statuses.append(decode_response(d.body).status)
+        if statuses != ["queued", "timeout"] or eng.dev_pool is not None:
+            raise AssertionError(f"role health: the party got {statuses}, "
+                                 f"engine counters {eng.counters}")
+        while (not eng.counters.get("team_repromoted")
+               and time.monotonic() < deadline):
+            await asyncio.sleep(0.005)
+        t_back = time.time()
+        if (eng.counters != {"team_delegated": 1, "team_repromoted": 1}
+                or app.counters["health_repromotions"] < 1
+                or eng.dev_pool is None):
+            raise AssertionError(f"role health: not back on the card by the "
+                                 f"health timer: {eng.counters}, "
+                                 f"{app.counters}")
+        late_s = t_back - (t_arrival + quiet)
+        if late_s > interval + 0.5:
+            raise AssertionError(f"role health: back {late_s:.3f} s after "
+                                 f"the quiet period, interval {interval} s")
+        left = eng.pool_size()
+        ids = pop.ids[waiting:]
+        for k in range(waiting, waiting + 64):
+            app.broker.publish(app.queue_cfg.name, json.dumps({
+                "id": pop.ids[k], "rating": float(pop.rating[k]),
+                "region": pop.region[k], "game_mode": pop.mode[k],
+                "roles": list(pop.roles[k])}).encode(),
+                Properties(reply_to=reply, correlation_id=pop.ids[k]))
+        got = {}
+        while len(got) < 64 and time.monotonic() < deadline:
+            d = await app.broker.get(reply, timeout=0.05)
+            if d is not None and d.properties.correlation_id in ids:
+                got.setdefault(d.properties.correlation_id, decode_response(
+                    d.body).status)
+        while app.engine.inflight() and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        if len(got) != 64 or eng.counters["team_delegated"] != 1:
+            raise AssertionError(f"role health: {len(got)} of 64 arrivals "
+                                 f"answered, counters {eng.counters}")
+    finally:
+        await app.stop()
+    check_faults(app, "role health")
+    res = {"config": path, "waiting": waiting, "health_interval_s": interval,
+           "quiet_s": quiet, "repromoted_after_quiet_s": late_s,
+           "pool_after": left, "counters": dict(eng.counters),
+           "health_repromotions": app.counters["health_repromotions"],
+           "arrivals_after": {s: list(got.values()).count(s)
+                              for s in set(got.values())}}
+    log(f"role health {path}: {res}")
+    return res
+
+
+async def service_multiqueue(np, ck, mods, path, *, waiting, requests, burst,
+                             seed):
+    """Config #2's service on the card: both queues (ranked at threshold
+    75, casual at 150) served by one app, each with ``waiting`` players
+    restored and ``requests`` published in bursts of ``burst`` (regions and
+    modes drawn with wildcards). Every request is answered from its window
+    once (queued or matched) and matched at most once, within its queue's
+    threshold and filters, by a partner from its own queue; each queue gets
+    one publish_batch per window; one block_best and one quality_accum
+    launch per window. A probe pair 100 apart, far from everyone, is
+    matched on casual and left waiting on ranked; a ranked and a casual
+    player 10 apart are both left waiting."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.contract import decode_response
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, warm_start=True))
+    names = [q.name for q in cfg.queues]
+    thr = {q.name: q.rating_threshold for q in cfg.queues}
+    if len(names) != 2 or thr[names[0]] == thr[names[1]]:
+        raise AssertionError(f"{path}: expected two queues, two thresholds")
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pops, reply = {}, {}
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()
+    try:
+        for name, prefix in zip(names, "rc"):
+            pop = pops[name] = Population(np, rng, waiting + requests, t0,
+                                          filters=True, glicko2=False)
+            pop.ids = np.char.add(prefix, np.arange(waiting + requests)
+                                  .astype(str)).astype(object)
+            reply[name] = f"mq.{prefix}.replies"
+            app.broker.declare_queue(reply[name])
+            eng = app.runtime(name).engine
+            app.restore_columns(pop.columns(RequestColumns, eng, 0, waiting, t0,
+                                            reply[name]),
+                                pop.region[:waiting], pop.mode[:waiting], t0,
+                                queue=name)
+        reset_counts(ck)  # the service's own windows only
+        calls = {name: 0 for name in names}
+        queue_of_reply = {v: k for k, v in reply.items()}
+        real = app.broker.publish_batch
+
+        def publish_batch(items):
+            # Every row of a runtime's batch goes to its queue's replies.
+            calls[queue_of_reply[items[0][0]]] += 1
+            if len({r for r, _, _ in items}) != 1:
+                raise AssertionError("a publish_batch mixed the queues")
+            real(items)
+
+        app.broker.publish_batch = publish_batch
+        low, high = min(names, key=thr.get), max(names, key=thr.get)
+        probes = {(low, "lowA", 6000.0), (high, "highA", 6000.0),
+                  (low, "crossA", 8000.0)}
+        probes_late = {(low, "lowB", 6100.0), (high, "highB", 6100.0),
+                       (high, "crossB", 8010.0)}
+
+        def publish(name, pid, body):
+            app.broker.publish(name, json.dumps(body).encode(),
+                               Properties(reply_to=reply[name],
+                                          correlation_id=pid))
+
+        for name, pid, r in sorted(probes):
+            publish(name, pid, {"id": pid, "rating": r})
+        t_soak = time.perf_counter()
+        for b in range(0, requests, burst):
+            for name in names:
+                pop = pops[name]
+                for k in range(waiting + b, waiting + min(b + burst, requests)):
+                    body = {"id": pop.ids[k], "rating": float(pop.rating[k])}
+                    if pop.region[k] != "*":
+                        body["region"] = pop.region[k]
+                    if pop.mode[k] != "*":
+                        body["game_mode"] = pop.mode[k]
+                    publish(name, pop.ids[k], body)
+            await asyncio.sleep(0.005)
+        for name, pid, r in sorted(probes_late):
+            publish(name, pid, {"id": pid, "rating": r})
+        answers = {name: {} for name in names}
+        want = {name: set(pops[name].ids[waiting:].tolist())
+                | {pid for n, pid, _ in probes | probes_late if n == name}
+                for name in names}
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            busy = False
+            for name in names:
+                d = await app.broker.get(reply[name], timeout=0.01)
+                if d is not None:
+                    busy = True
+                    answers[name].setdefault(d.properties.correlation_id,
+                                             []).append(decode_response(d.body))
+            if (not busy and all(want[n] <= answers[n].keys() for n in names)
+                    and not any(app.runtime(n).engine.inflight()
+                                for n in names)):
+                break
+        soak_s = time.perf_counter() - t_soak
+        while True:  # late matches of queued players
+            got_any = False
+            for name in names:
+                d = await app.broker.get(reply[name], timeout=0.2)
+                if d is not None:
+                    got_any = True
+                    answers[name].setdefault(d.properties.correlation_id,
+                                             []).append(decode_response(d.body))
+            if not got_any:
+                break
+    finally:
+        await app.stop()
+    check_faults(app, "multiqueue service")
+    windows = {n: app.runtime(n).counters["windows"] for n in names}
+    total = sum(windows.values())
+    if (ck.LAUNCHES["block_best"] != total
+            or ck.LAUNCHES["quality_accum"] != total):
+        raise AssertionError(f"multiqueue service: {ck.LAUNCHES} launches for "
+                             f"{total} windows")
+    if calls != windows:
+        raise AssertionError(f"multiqueue service: publish_batch calls "
+                             f"{calls} for windows {windows}")
+    res = {"config": path, "waiting": waiting, "requests": requests,
+           "burst": burst, "windows": windows, "launches": total,
+           "soak_s": soak_s, "requests_per_s": 2 * requests / soak_s,
+           "players_matched": {}}
+    for name in names:
+        pop, got = pops[name], answers[name]
+        row = {pid: k for k, pid in enumerate(pop.ids.tolist())}
+        rating = {pid: float(pop.rating[k]) for pid, k in row.items()}
+        rating.update({pid: r for n, pid, r in probes | probes_late
+                       if n == name})
+        published = set(pop.ids[waiting:].tolist()) | {
+            pid for n, pid, _ in probes | probes_late if n == name}
+        matched = {}
+        for pid, rs in got.items():
+            seq = [r.status for r in rs]
+            # A restored player gets its match only; a published one its
+            # window's answer first.
+            if seq not in ((["matched"], ["queued"], ["queued", "matched"])
+                           if pid in published else (["matched"],)):
+                raise AssertionError(f"{name}: {pid} answered {seq}")
+            if seq[-1] == "matched":
+                matched[pid] = rs[-1].match
+        if len(published & set(got)) != requests + 3:
+            raise AssertionError(f"{name}: {len(published & set(got))} of "
+                                 f"{requests + 3} requests answered")
+        for pid, m in matched.items():
+            other = next(p for p in m.players if p != pid)
+            if other not in rating:
+                raise AssertionError(f"{name}: {pid} matched {other}, who is "
+                                     f"not on this queue")
+            if abs(rating[pid] - rating[other]) > thr[name]:
+                raise AssertionError(f"{name}: {pid} and {other} are "
+                                     f"{abs(rating[pid] - rating[other])} "
+                                     f"apart, threshold {thr[name]}")
+            if pid in row and other in row:
+                a, b = row[pid], row[other]
+                for col in (pop.region, pop.mode):
+                    if "*" not in (col[a], col[b]) and col[a] != col[b]:
+                        raise AssertionError(f"{name}: {pid} and {other} "
+                                             f"fail a filter")
+            if other in matched and matched[other].match_id != m.match_id:
+                raise AssertionError(f"{name}: {pid}'s partner disagrees")
+        res["players_matched"][name] = len(matched)
+        probe_status = {pid: got[pid][-1].status
+                        for n, pid, _ in probes | probes_late if n == name}
+        res.setdefault("probes", {}).update(probe_status)
+    want_probes = {"lowA": "queued", "lowB": "queued", "highA": "matched",
+                   "highB": "matched", "crossA": "queued", "crossB": "queued"}
+    if res["probes"] != want_probes:
+        raise AssertionError(f"multiqueue service: probes {res['probes']}, "
+                             f"expected {want_probes}")
+    log(f"multiqueue service {path}: {res}")
+    return res
+
+
 async def service_team(np, mods, path, *, waiting, requests, burst, seed):
     """Config #3's service on the card: ``waiting`` players restored
     through the app, then ``requests`` published in bursts of ``burst``.
@@ -2044,7 +2404,7 @@ def main(argv) -> int:
              else None)
     span = phase_span(torch, np, ck, kernels, scoring, device)
     quality, q_err = phase_quality(torch, np, ck, kernels, QualitySpec(),
-                                   device)
+                                   device, baseline)
 
     # 3. the engine main path: columnar, pipelined, at full width
     mods = (Config, GpuEngine, RequestColumns, SearchRequest)
@@ -2101,6 +2461,10 @@ def main(argv) -> int:
     service_rescan_run = asyncio.run(service_rescan(
         np, ck, mods, "configs/glicko2.json", waiting=20_000, seed=7))
     launches["service_rescan_glicko2"] = service_rescan_run["launches"]
+    multiqueue = asyncio.run(service_multiqueue(
+        np, ck, mods, "configs/multiqueue_filters.json", waiting=20_000,
+        requests=2_048, burst=512, seed=12))
+    launches["service_multiqueue_filters"] = multiqueue["launches"]
 
     # 5. team and role queues at full width: configs #3 and #5 on the card
     #    (their steps score no 1v1 blocks: block_best must stay at 0), the
@@ -2114,6 +2478,8 @@ def main(argv) -> int:
                         cpu_windows=3, seed=9, roles=True)
     delegation = role_delegation(torch, np, mods, "configs/role_party.json",
                                  waiting=200, seed=10)
+    role_health = asyncio.run(service_role_health(
+        np, mods, "configs/role_party.json", waiting=200, seed=13))
     team_service = asyncio.run(service_team(
         np, mods, "configs/team_5v5.json", waiting=50_000, requests=8_192,
         burst=512, seed=11))
@@ -2168,9 +2534,18 @@ def main(argv) -> int:
         "launches_by_path": {
             "columnar_elo_1v1": main_run["quality_launches"],
             "columnar_elo_1v1_pruned": pruned_run["quality_launches"],
-            "rescan_tick_glicko2": rescan["tick_launches"]},
+            "rescan_tick_glicko2": rescan["tick_launches"],
+            "service_soak": soak["launches"],
+            "service_multiqueue_filters": multiqueue["launches"]},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
+        "host_us_by_bucket": quality["host_us_by_bucket"],
+        "empty_ms_by_bucket": quality["empty_ms_by_bucket"],
+        "empty_host_us_by_bucket": quality["empty_host_us_by_bucket"],
+        "ms_32_edges": quality["ms_32_edges"],
+        **{k: quality[k] for k in ("baseline_ms_by_bucket",
+                                   "baseline_host_us_by_bucket")
+           if k in quality},
     }]}
     for k in line["kernels"]:
         for path, n in k["launches_by_path"].items():
@@ -2217,6 +2592,9 @@ def main(argv) -> int:
             for name, run in (("team_5v5", team_run),
                               ("role_party", role_run))},
         "role_delegation": delegation,
+        "role_health": role_health,
+        "multiqueue_service": {k: multiqueue[k] for k in (
+            "windows", "requests_per_s", "players_matched", "probes")},
         "team_service": {k: team_service[k] for k in (
             "latency_ms_p50", "latency_ms_p99", "latency_ms_max",
             "requests_per_s", "windows", "publish_batches",
@@ -2245,6 +2623,8 @@ def main(argv) -> int:
                        "soak": soak, "service_rescan": service_rescan_run,
                        "team": [team_run, role_run],
                        "role_delegation": delegation,
+                       "role_health": role_health,
+                       "multiqueue_service": multiqueue,
                        "team_service": team_service,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,

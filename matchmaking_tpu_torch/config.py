@@ -96,6 +96,12 @@ class EngineConfig:
     #: Run every step variant once at service start (``Engine.warmup``),
     #: so no first-of-its-kind window pays a first use while serving.
     warm_start: bool = False
+    #: The service's health timer (seconds; 0 disables): each queue's
+    #: heartbeat moves an idle team or role queue that was handed to the
+    #: host oracle back onto the card once its blockers drained,
+    #: independent of the rescan loop (configs #3 and #5 run none). The
+    #: JAX package's timer also drives breaker probes; the port's does not.
+    health_interval_s: float = 1.0
     #: Rating-banded candidate pruning of the 1v1 step (0: every pool
     #: block is scored). N > 0: each rating-sorted chunk of a window scores
     #: only an N-block span of the pool, chosen from the blocks' live

@@ -12,16 +12,19 @@ every block otherwise.
 
 ``quality_accum`` folds one window's matches into the engine's
 device-resident quality state (``csrc/quality_accum.cu``); it replaces the
-XLA step ``kernels.QualityAccumKernel._accum`` of the JAX package.
+XLA step ``kernels.QualityAccumKernel._accum`` of the JAX package. It reads
+the window's time from the device (the packed window's ``now`` row).
 
 - ``block_best_reference``, ``block_best_span_reference`` and
   ``quality_accum_reference`` are the plain PyTorch versions: the same
   arithmetic, one op at a time. The CPU tests use them, ``chip_smoke.py``
   holds the kernels to them on the card, and the wrappers take them only
   for tensors that lie on the CPU.
-- ``block_best`` and ``quality_accum`` are the wrappers: they check
+- ``block_best`` and ``QualityAccum`` are the wrappers: they check
   devices, dtypes, shapes and contiguity, and for CUDA tensors launch the
-  kernel on the current stream (or raise). Each launch adds one to
+  kernel on the current stream (or raise). ``QualityAccum`` is bound to one
+  state and pool: it checks them and takes their pointers once, and per
+  call checks only the window's result. Each launch adds one to
   ``LAUNCHES[name]``.
 - ``plan_grid`` chooses ``block_best``'s launch from the window: rows per
   CTA and the thread block cluster that splits each pool block's slots. It
@@ -62,7 +65,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"block_best": "block_best.cu", "quality_accum": "quality_accum.cu"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-#: Each kernel's launch function, loaded at first use.
+#: The libraries' launch functions by symbol, loaded at first use.
 _launchers: dict[str, ctypes._CFuncPtr] = {}
 _lib_lock = threading.Lock()
 
@@ -220,24 +223,25 @@ _ARGTYPES = {
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
-    "quality_accum": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                      + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_int]
-                      + [ctypes.POINTER(ctypes.c_float), ctypes.c_int] * 2
-                      + [ctypes.c_void_p] * 7),
+    # (out, b, now, the parameter block, stream); the empty kernel's too
+    "quality_accum": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
-def _load(name: str):
-    """The launch function of kernel ``name``, built at first use."""
-    fn = _launchers.get(name)
+def _load(name: str, symbol: str | None = None):
+    """The launch function ``symbol`` (default ``<name>_launch``) of kernel
+    ``name``'s library, built at first use."""
+    symbol = symbol or f"{name}_launch"
+    fn = _launchers.get(symbol)
     if fn is None:
         with _lib_lock:
-            if name not in _launchers:
-                fn = getattr(ctypes.CDLL(str(build(name))), f"{name}_launch")
+            if symbol not in _launchers:
+                fn = getattr(ctypes.CDLL(str(build(name))), symbol)
                 fn.argtypes = _ARGTYPES[name]
                 fn.restype = ctypes.c_int
-                _launchers[name] = fn
-            fn = _launchers[name]
+                _launchers[symbol] = fn
+            fn = _launchers[symbol]
     return fn
 
 
@@ -483,7 +487,7 @@ def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
 QUALITY_FIELDS = (("q_hist", torch.int32), ("w_hist", torch.int32),
                   ("count", torch.int32), ("q_sum", torch.float32),
                   ("w_sum", torch.float32), ("d_sum", torch.float32))
-#: Most edges the kernel takes per axis (kernel arguments).
+#: Most edges the kernel takes per axis (its parameter block's arrays).
 MAX_QUALITY_EDGES = 32
 
 
@@ -529,62 +533,135 @@ def quality_accum_reference(state: dict, rating, enqueue_t, threshold, out,
         state[name] += window.index_add_(0, rb, x)
 
 
-@lru_cache(maxsize=None)
-def _c_floats(values: tuple[float, ...]):
-    """A C float array of ``values`` (at least one element), built once."""
-    return (ctypes.c_float * max(1, len(values)))(*values)
+class QualityAccumParams(ctypes.Structure):
+    """``QualityAccumParams`` of ``csrc/quality_accum.cu``: what stays fixed
+    for one state and one pool (pointers, sizes, constants, edges)."""
+
+    _fields_ = [("rating", ctypes.c_void_p), ("enq", ctypes.c_void_p),
+                ("thr", ctypes.c_void_p), ("state", ctypes.c_void_p),
+                ("capacity", ctypes.c_int), ("n_quality", ctypes.c_int),
+                ("n_rating_edges", ctypes.c_int),
+                ("n_wait_edges", ctypes.c_int),
+                ("widen", ctypes.c_float), ("max_thr", ctypes.c_float),
+                ("rating_edges", ctypes.c_float * MAX_QUALITY_EDGES),
+                ("wait_edges", ctypes.c_float * MAX_QUALITY_EDGES)]
 
 
-def quality_accum(state: dict, rating, enqueue_t, threshold, out, now: float,
-                  *, widen_per_sec: float, max_threshold: float, rating_edges,
-                  n_quality: int, wait_edges) -> None:
-    """Fold one window result ``out`` (f32[3, B]: q_slot, c_slot, dist) into
-    ``state`` (``QUALITY_FIELDS``, shaped by the edges), in place: two
-    samples per matched lane, read from the pool columns ``rating`` /
-    ``enqueue_t`` / ``threshold`` at both sides' slots.
+#: Most bytes of the kernel's shared histograms (q_hist, w_hist, count).
+MAX_QUALITY_HIST_BYTES = 32 * 1024
+
+
+class QualityAccum:
+    """``quality_accum`` bound to one state and one pool's three columns
+    (each of ``capacity`` slots).
+
+    Construction checks everything that stays fixed (the state's fields and
+    its one flat buffer, the columns, the edges) and, for CUDA tensors,
+    keeps their pointers in the kernel's parameter block. Each call then
+    checks only the window result ``out`` and ``now`` and launches: fold
+    ``out`` (f32[3, B]: q_slot, c_slot, dist) into the state, in place, two
+    samples per matched lane, at the window's device time ``now`` (a f32
+    tensor whose first element is it: the packed window's ``now`` row).
 
     CUDA tensors launch ``csrc/quality_accum.cu`` on the current stream
-    (one launch, no host sync); CPU tensors take
-    ``quality_accum_reference``. A kernel that cannot build or launch
-    raises."""
-    n_rating, n_wait = len(rating_edges) + 1, len(wait_edges) + 1
-    device = rating.device
-    capacity = rating.shape[0]
-    if out.dim() != 2 or out.shape[0] != 3:
-        raise ValueError(f"out must be f32[3, B]; got {tuple(out.shape)}")
-    b = out.shape[1]
-    _check_tensor("out", out, torch.float32, (3, b), device)
-    for name, t in (("rating", rating), ("enqueue_t", enqueue_t),
-                    ("threshold", threshold)):
-        _check_tensor(name, t, torch.float32, (capacity,), device)
-    shapes = {"q_hist": (n_rating, n_quality), "w_hist": (n_rating, n_wait)}
-    for name, dtype in QUALITY_FIELDS:
-        _check_tensor(f"state[{name!r}]", state[name], dtype,
-                      shapes.get(name, (n_rating,)), device)
-    kw = dict(widen_per_sec=widen_per_sec, max_threshold=max_threshold,
-              rating_edges=rating_edges, n_quality=n_quality,
-              wait_edges=wait_edges)
-    if device.type == "cpu":
-        quality_accum_reference(state, rating, enqueue_t, threshold, out, now,
-                                **kw)
-        return
-    if device.type != "cuda":
-        raise ValueError(f"quality_accum runs on cuda or cpu tensors, not "
-                         f"{device}")
-    if max(len(rating_edges), len(wait_edges)) > MAX_QUALITY_EDGES:
-        raise ValueError(f"quality_accum takes at most {MAX_QUALITY_EDGES} "
-                         f"rating and wait edges")
-    launch = _load("quality_accum")
-    r_edges, w_edges = _c_floats(tuple(rating_edges)), _c_floats(
-        tuple(wait_edges))
-    with torch.cuda.device(device):
-        rc = launch(
-            out.data_ptr(), b, rating.data_ptr(), enqueue_t.data_ptr(),
-            threshold.data_ptr(), capacity, _f32(now), _f32(widen_per_sec),
-            _f32(max_threshold), n_quality, r_edges, len(rating_edges),
-            w_edges, len(wait_edges),
-            *(state[name].data_ptr() for name, _ in QUALITY_FIELDS),
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"quality_accum launch failed: CUDA error {rc}")
-    LAUNCHES["quality_accum"] += 1
+    (one launch, no host sync, no host time value); CPU tensors take
+    ``quality_accum_reference`` (``now`` may then be a float). A kernel that
+    cannot build or launch raises. Rebind (build a new one) when the pool
+    or the state tensors change: the pointers are taken once."""
+
+    def __init__(self, state, rating, enqueue_t, threshold, *, capacity: int,
+                 widen_per_sec: float, max_threshold: float, rating_edges,
+                 n_quality: int, wait_edges):
+        n_rating, n_wait = len(rating_edges) + 1, len(wait_edges) + 1
+        self.device = device = rating.device
+        for name, t in (("rating", rating), ("enqueue_t", enqueue_t),
+                        ("threshold", threshold)):
+            _check_tensor(name, t, torch.float32, (capacity,), device)
+        shapes = {"q_hist": (n_rating, n_quality),
+                  "w_hist": (n_rating, n_wait)}
+        for name, dtype in QUALITY_FIELDS:
+            _check_tensor(f"state[{name!r}]", state[name], dtype,
+                          shapes.get(name, (n_rating,)), device)
+        self.state = state
+        self.columns = (rating, enqueue_t, threshold)
+        self.kw = dict(widen_per_sec=widen_per_sec,
+                       max_threshold=max_threshold, rating_edges=rating_edges,
+                       n_quality=n_quality, wait_edges=wait_edges)
+        if device.type == "cpu":
+            return
+        if device.type != "cuda":
+            raise ValueError(f"quality_accum runs on cuda or cpu tensors, "
+                             f"not {device}")
+        if max(len(rating_edges), len(wait_edges)) > MAX_QUALITY_EDGES:
+            raise ValueError(f"quality_accum takes at most "
+                             f"{MAX_QUALITY_EDGES} rating and wait edges")
+        for what, edges in (("rating", rating_edges), ("wait", wait_edges)):
+            if any(a > b for a, b in zip(edges, edges[1:])):
+                raise ValueError(f"quality_accum: the {what} edges must "
+                                 f"ascend")
+        if 4 * n_rating * (n_quality + n_wait + 1) > MAX_QUALITY_HIST_BYTES:
+            raise ValueError(f"quality_accum: histograms of {n_rating} x "
+                             f"({n_quality} + {n_wait} + 1) cells exceed "
+                             f"{MAX_QUALITY_HIST_BYTES} bytes of shared memory")
+        # The kernel writes the flat buffer at offsets it derives from the
+        # sizes: the fields must be its views, in QUALITY_FIELDS order.
+        flat = getattr(state, "flat", None)
+        size = n_rating * (n_quality + n_wait + 4)
+        if flat is None:
+            raise ValueError("quality_accum on the card needs the state's "
+                             "flat buffer (kernels.QualityState)")
+        _check_tensor("state.flat", flat, torch.int32, (size,), device)
+        at = flat.data_ptr()
+        for name, _ in QUALITY_FIELDS:
+            if state[name].data_ptr() != at:
+                raise ValueError(f"state[{name!r}] is not its view of the "
+                                 f"flat buffer")
+            at += 4 * state[name].numel()
+        self._params = QualityAccumParams(
+            rating.data_ptr(), enqueue_t.data_ptr(), threshold.data_ptr(),
+            flat.data_ptr(), capacity, n_quality, len(rating_edges),
+            len(wait_edges), _f32(widen_per_sec),
+            _f32(max_threshold),
+            (ctypes.c_float * MAX_QUALITY_EDGES)(*rating_edges),
+            (ctypes.c_float * MAX_QUALITY_EDGES)(*wait_edges))
+        self._params_ref = ctypes.byref(self._params)
+        self._index = (device.index if device.index is not None
+                       else torch.cuda.current_device())
+        self._launch = _load("quality_accum")
+
+    def __call__(self, out, now) -> None:
+        device = self.device
+        if out.device != device or out.dtype != torch.float32 \
+                or out.dim() != 2 or out.shape[0] != 3 \
+                or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous f32[3, B] tensor on "
+                             f"{device}; got {out.dtype} {tuple(out.shape)} "
+                             f"on {out.device}")
+        if device.type == "cpu":
+            if isinstance(now, torch.Tensor):
+                now = float(now.reshape(-1)[0])
+            quality_accum_reference(self.state, *self.columns, out, now,
+                                    **self.kw)
+            return
+        if not isinstance(now, torch.Tensor) or now.device != device \
+                or now.dtype != torch.float32:
+            raise ValueError(f"now must be a f32 tensor on {device} (the "
+                             f"packed window's now row)")
+        self._call(self._launch, out, now)
+        LAUNCHES["quality_accum"] += 1
+
+    def launch_empty(self, out, now) -> None:
+        """An empty kernel launched as ``__call__`` launches the kernel (the
+        same CTAs and arguments): the launch-latency floor that
+        ``chip_smoke.py`` times beside it. Not counted."""
+        self._call(_load("quality_accum", "quality_accum_empty_launch"),
+                   out, now)
+
+    def _call(self, launch, out, now) -> None:
+        if torch.cuda.current_device() != self._index:
+            with torch.cuda.device(self._index):
+                return self._call(launch, out, now)
+        rc = launch(out.data_ptr(), out.shape[1], now.data_ptr(),
+                    self._params_ref, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"quality_accum launch failed: CUDA error {rc}")

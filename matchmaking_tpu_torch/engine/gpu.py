@@ -477,9 +477,10 @@ class GpuEngine(Engine):
             for bucket in self.buckets:
                 batch = self.pool.batch_arrays([], [], bucket)
                 for step in steps:
-                    out = step(self.dev_pool, self._h2d(batch, 0.0)[0], 0.0)
+                    packed = self._h2d(batch, 0.0)[0]
+                    out = step(self.dev_pool, packed, 0.0)
                     # An all-padding result: the accumulator adds nothing.
-                    self._quality_accum_dispatch(out, 0.0)
+                    self._quality_accum_dispatch(out, packed)
                     _Readback(out).numpy()
                 self._admit(batch)
             self._evict(np.empty(0, np.int32))
@@ -755,12 +756,14 @@ class GpuEngine(Engine):
             add_arrays(arrays, self._team_delegate.quality_accum.arrays)
         return arrays
 
-    def _quality_accum_dispatch(self, out: torch.Tensor, now_rel: float) -> None:
+    def _quality_accum_dispatch(self, out: torch.Tensor,
+                                packed: torch.Tensor) -> None:
         """Queue the fold of one window step's result into the device
         quality state, behind the step on the same stream: one launch, no
-        host read."""
+        host read. The kernel reads the window's time from the packed
+        window's ``now`` row (its last), on the device."""
         if self._quality is not None:
-            self._quality.accum(self._q_dev, self.dev_pool, out, now_rel)
+            self._quality.accum(self._q_dev, self.dev_pool, out, packed[-1])
 
     def _quality_sync_finalize(self) -> None:
         """At each finalize: take the state copy in flight if its event has
@@ -849,7 +852,7 @@ class GpuEngine(Engine):
         self.spans["h2d_s"] += time.perf_counter() - _t
         _t = time.perf_counter()
         out = step(self.dev_pool, packed, now_rel)
-        self._quality_accum_dispatch(out, now_rel)
+        self._quality_accum_dispatch(out, packed)
         self.spans["step_s"] += time.perf_counter() - _t
         return out
 

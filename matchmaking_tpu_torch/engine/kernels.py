@@ -21,8 +21,8 @@ reads the choice from the device, so the step never reads it on the host.
 The outputs equal the dense step's bit for bit (see ``KernelSet``).
 
 ``QualityAccumKernel`` folds each window's matches into a device-resident
-quality state (cuda_kernels.quality_accum: a hand-written kernel on the
-card).
+quality state (cuda_kernels.QualityAccum: a hand-written kernel on the
+card, which reads the window's time from the packed ``now`` row).
 
 Port of ``matchmaking_tpu/engine/kernels.py``'s single-device
 ``KernelSet`` and ``QualityAccumKernel``. Plain functions on tensors with
@@ -520,20 +520,32 @@ class QualityAccumKernel:
                        "count": (r,), "q_sum": (r,), "w_sum": (r,),
                        "d_sum": (r,)}
         self.size = sum(int(np.prod(v)) for v in self.shapes.values())
+        #: The launch bound to the last state and pool columns accumulated.
+        self._bound: cuda_kernels.QualityAccum | None = None
 
     def init_state(self, device) -> QualityState:
         return QualityState(torch.zeros(self.size, dtype=torch.int32,
                                         device=device), self.shapes)
 
     def accum(self, state: QualityState, pool: dict[str, torch.Tensor],
-              out: torch.Tensor, now: float) -> None:
-        """Fold one window result (f32[3, B]) into ``state``, in place;
-        ``now`` is the window's device time (the packed ``now`` row)."""
-        cuda_kernels.quality_accum(
-            state, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
-            now, widen_per_sec=self.widen_per_sec,
-            max_threshold=self.max_threshold, rating_edges=self.rating_edges,
-            n_quality=self.n_quality, wait_edges=self.wait_edges)
+              out: torch.Tensor, now) -> None:
+        """Fold one window result (f32[3, B]) into ``state``, in place, at
+        the window's device time ``now``: the packed window's ``now`` row
+        (a f32 tensor on the state's device; on the CPU also a float). The
+        launch is bound to ``state`` and the pool's columns, and bound
+        again, with every check, whenever they are other tensors (revive,
+        restore and re-promotion build a fresh pool)."""
+        cols = (pool["rating"], pool["enqueue_t"], pool["threshold"])
+        bound = self._bound
+        if (bound is None or bound.state is not state
+                or any(a is not b for a, b in zip(bound.columns, cols))):
+            self._bound = bound = cuda_kernels.QualityAccum(
+                state, *cols, capacity=self.capacity,
+                widen_per_sec=self.widen_per_sec,
+                max_threshold=self.max_threshold,
+                rating_edges=self.rating_edges, n_quality=self.n_quality,
+                wait_edges=self.wait_edges)
+        bound(out, now)
 
     def arrays(self, flat: np.ndarray) -> dict[str, np.ndarray]:
         """A host copy of ``state.flat`` → the state's numpy arrays."""

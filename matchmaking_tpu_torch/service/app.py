@@ -1,6 +1,9 @@
-"""The matchmaking service for one queue: the pipelined window loop.
+"""The matchmaking service: the pipelined window loop of every queue of a
+config.
 
-A 1v1 queue takes the columnar path:
+Each queue of ``cfg.queues`` gets its own ``_QueueRuntime``: an engine, a
+consumer of the queue's broker queue, a batcher, its loops and its
+terminal-replay cache. A 1v1 queue takes the columnar path:
 
     broker consume → stamp middleware → batcher window → ``_flush``:
     native batch decode (rows the codec flags NEEDS_PYTHON decode through
@@ -21,9 +24,11 @@ answered when it is collected — by a later flush or by the collector loop
 — and the batcher waits while the pipeline is full. With depth 1 each
 window is dispatched and collected in one step. Beside the batcher run the
 rescan loop (``QueueConfig.rescan_interval_s``: re-matches the
-longest-waiting players so widened thresholds resolve inside the pool) and
+longest-waiting players so widened thresholds resolve inside the pool),
 the sweep loop (``request_timeout_s`` timeouts and the per-player
-``x-deadline`` expiry of ``OverloadConfig.deadline_sweep_ms``).
+``x-deadline`` expiry of ``OverloadConfig.deadline_sweep_ms``) and the
+health timer (``EngineConfig.health_interval_s``: moves an idle team or
+role queue that was handed to the host oracle back onto the card).
 
 Every request gets a ``queued`` ack when it enters the pool
 (``send_queued_ack``), each matched player a ``matched`` response with
@@ -34,22 +39,25 @@ A window that fails on the device is nacked (the broker redelivers it) and
 the engine is rebuilt from the old engine's mirror, its quality counters
 carried across (``quality_checkpoint`` / ``quality_restore``). Every
 published match also lands in ``app.quality`` (service/quality.py), the
-per-tier ledger of matched players' quality and wait.
+per-queue, per-tier ledger of matched players' quality and wait.
 
 Everything runs on the event loop's thread: a dispatch or a collection
-runs to its end without yielding, so no lock is needed around the engine,
+runs to its end without yielding, so no lock is needed around an engine,
 and no second thread contends with the loop for the interpreter lock
 (every PyTorch call of the window step releases and retakes it).
 
-This is the JAX package's ``_QueueRuntime`` for one queue (its columnar
-path, and the pipelined branch of its object flush), without admission
-control, durability, replication, tracing, the dispatch arbiter,
-speculation, the health/probe loop and consume-time burst decode.
+This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
+columnar path, the pipelined branch of the object flush, and the
+heartbeat half of the health timer), without admission control,
+durability, replication, tracing, the dispatch arbiter, speculation, the
+breaker and probe half of the health timer and consume-time burst decode.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
+                                                [--config PATH]
 
-runs ten players through the service (on the card unless ``--device``
-says otherwise) and prints their answers.
+runs ten players through every queue of the service (the default
+one-queue config, or the config file at PATH; on the card unless
+``--device`` says otherwise) and prints their answers.
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ from typing import Sequence
 
 import numpy as np
 
-from matchmaking_tpu_torch.config import Config, EngineConfig
+from matchmaking_tpu_torch.config import Config, EngineConfig, QueueConfig
 from matchmaking_tpu_torch.engine.interface import (
     ColumnarOutcome,
     SearchOutcome,
@@ -98,37 +106,38 @@ Row = tuple[str, str, bytes]
 #: Counters of failures the service catches and recovers from (a failed
 #: window is nacked and the engine revived, a failed tick retried).
 FAULT_COUNTERS = ("engine_failures", "revives", "outcome_errors",
-                  "collector_errors", "rescan_skipped")
+                  "collector_errors", "rescan_skipped", "health_tick_errors")
 
 
-class MatchmakingApp:
-    """Serves ``cfg.queues[0]`` from ``broker`` (a fresh in-process broker
-    by default) with an engine on ``device`` (default: the card)."""
+class _QueueRuntime:
+    """One queue of the app: its engine (``make_engine``), batcher and
+    consumer, its collector, rescan, sweep and health loops, its revive
+    state, its terminal-replay cache and its pipeline (the object or the
+    columnar path). A queue's answers are published, acked, deduped and
+    observed by its own runtime only; the quality ledger is the app's,
+    keyed by queue name."""
 
-    def __init__(self, cfg: Config, broker: InProcBroker | None = None,
-                 device=None):
-        self.cfg = cfg
-        self.queue_cfg = cfg.queues[0]
-        self.broker = broker or InProcBroker(cfg.broker)
-        self.device = device
+    def __init__(self, app: "MatchmakingApp", queue_cfg: QueueConfig):
+        self.cfg = app.cfg
+        self.queue_cfg = queue_cfg
+        self.broker = app.broker
+        self.device = app.device
+        #: The app-wide ledger: per queue, per tier quality and wait of
+        #: matched players, fed when their answers are published.
+        self.quality = app.quality
         #: Team and role queues speak the engine's object API (decoded
         #: requests, ``SearchOutcome``s); 1v1 queues the columnar one.
-        self._objects = self.queue_cfg.team_size > 1
-        self.pipeline = (default_pipeline(cfg.auth) if self._objects
-                         else columnar_pipeline(cfg.auth))
-        self.pipeline_depth = max(1, cfg.engine.pipeline_depth)
+        self._objects = queue_cfg.team_size > 1
+        self.pipeline = (default_pipeline(self.cfg.auth) if self._objects
+                         else columnar_pipeline(self.cfg.auth))
+        self.pipeline_depth = max(1, self.cfg.engine.pipeline_depth)
         self.engine = None
-        #: Per-queue, per-tier quality and wait of matched players, fed
-        #: when their answers are published.
-        self.quality = QualityLedger(
-            QualitySpec.from_config(cfg.observability),
-            quality_target=cfg.observability.quality_slo_target)
         self.counters = {
             "windows": 0, "requests": 0, "players_matched": 0, "queued": 0,
             "rejected": 0, "deduped_replays": 0, "publish_batches": 0,
             "engine_failures": 0, "revives": 0, "outcome_errors": 0,
             "collector_errors": 0, "rescan_matches": 0, "rescan_skipped": 0,
-            "timeouts": 0}
+            "timeouts": 0, "health_repromotions": 0, "health_tick_errors": 0}
         #: Terminal-replay cache: player id → (response body, expiry).
         self._recent: dict[str, tuple[bytes, float]] = {}
         self._next_prune = 0.0
@@ -145,7 +154,6 @@ class MatchmakingApp:
         self._loops: list[asyncio.Task] = []
 
     async def start(self) -> None:
-        codec.load()  # a codec that cannot build raises here
         self.engine = self._make_engine()
         if self.cfg.engine.warm_start:
             self.engine.warmup()
@@ -160,6 +168,8 @@ class MatchmakingApp:
         if (self.queue_cfg.request_timeout_s is not None
                 or self.cfg.overload.deadline_sweep_ms > 0):
             self._loops.append(asyncio.create_task(self._sweep_loop()))
+        if self.cfg.engine.health_interval_s > 0:
+            self._loops.append(asyncio.create_task(self._health_loop()))
 
     async def stop(self) -> None:
         for task in self._loops:
@@ -173,13 +183,14 @@ class MatchmakingApp:
             self._collector.cancel()
             await asyncio.gather(self._collector, return_exceptions=True)
             self._collector = None
-        self._drain_engine(time.time())
+        if self.engine is not None:
+            self._drain_engine(time.time())
         if self._tag is not None:
             self.broker.basic_cancel(self._tag)
             self._tag = None
 
     def faults(self) -> dict[str, object]:
-        """The failures this app caught and recovered from: the nonzero
+        """The failures this queue caught and recovered from: the nonzero
         fault counters, and the engine's parked device error. Empty when
         every window, collection and tick ran clean."""
         out: dict[str, object] = {k: self.counters[k] for k in FAULT_COUNTERS
@@ -793,6 +804,29 @@ class MatchmakingApp:
                 self._remember(removed.id, body, now)
                 self._publish(removed.reply_to, removed.correlation_id, body)
 
+    async def _health_loop(self) -> None:
+        """The heartbeat half of the JAX package's health timer: every
+        ``EngineConfig.health_interval_s``, a team or role queue handed to
+        the host oracle is moved back onto the card by
+        ``engine.heartbeat(now)`` once its blockers drained and the quiet
+        period passed (for a queue that is not delegated the heartbeat
+        does nothing). Under zero traffic nothing else would (configs #3
+        and #5 run no rescan ticks). The tick runs on the event loop, as every
+        other engine call does. Supervised: a tick that raises is logged,
+        counted and retried on the next interval; it never ends the loop.
+        (The breaker and probe half is not ported.)"""
+        interval = self.cfg.engine.health_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                if self.engine.heartbeat(time.time()):
+                    self.counters["health_repromotions"] += 1
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("health tick failed; retrying")
+                self.counters["health_tick_errors"] += 1
+
     # ---- egress -----------------------------------------------------------
 
     def _publish_batch(self, rows: list[Row]) -> None:
@@ -850,20 +884,115 @@ class MatchmakingApp:
         self.broker.nack(self._tag, delivery.delivery_tag, requeue=True)
 
 
-async def run_demo(device=None, players: int = 10) -> list[SearchResponse]:
-    """Spin the app, submit ``players`` players, return their answers.
+class MatchmakingApp:
+    """Serves every queue of ``cfg.queues`` from ``broker`` (a fresh
+    in-process broker by default), each through its own ``_QueueRuntime``
+    with an engine on ``device`` (default: the card).
+
+    ``engine``, ``counters`` and ``queue_cfg`` are the first queue's (a
+    one-queue app's); ``runtime(name)`` gives any queue's."""
+
+    def __init__(self, cfg: Config, broker: InProcBroker | None = None,
+                 device=None):
+        self.cfg = cfg
+        self.broker = broker or InProcBroker(cfg.broker)
+        self.device = device
+        #: Per-queue, per-tier quality and wait of matched players, fed
+        #: when their answers are published.
+        self.quality = QualityLedger(
+            QualitySpec.from_config(cfg.observability),
+            quality_target=cfg.observability.quality_slo_target)
+        names = [q.name for q in cfg.queues]
+        if len(set(names)) != len(names):
+            raise ValueError(f"queue names must be distinct: {names}")
+        self._runtimes = {q.name: _QueueRuntime(self, q) for q in cfg.queues}
+        self._first = self._runtimes[names[0]]
+
+    async def start(self) -> None:
+        codec.load()  # a codec that cannot build raises here
+        for rt in self._runtimes.values():
+            await rt.start()
+
+    async def stop(self) -> None:
+        for rt in self._runtimes.values():
+            await rt.stop()
+
+    def runtime(self, queue_name: str) -> _QueueRuntime:
+        return self._runtimes[queue_name]
+
+    @property
+    def engine(self):
+        return self._first.engine
+
+    @property
+    def counters(self) -> dict[str, int]:
+        return self._first.counters
+
+    @property
+    def queue_cfg(self) -> QueueConfig:
+        return self._first.queue_cfg
+
+    def faults(self) -> dict[str, object]:
+        """The failures the app caught and recovered from, over every
+        queue: each nonzero fault counter summed, and each parked device
+        error under ``device_error`` by queue name. Empty when every
+        window, collection and tick ran clean."""
+        out: dict[str, object] = {}
+        errors = {}
+        for name, rt in self._runtimes.items():
+            for k, v in rt.faults().items():
+                if k == "device_error":
+                    errors[name] = v
+                else:
+                    out[k] = out.get(k, 0) + v
+        if errors:
+            out["device_error"] = errors
+        return out
+
+    def restore(self, requests: Sequence[SearchRequest], now: float,
+                queue: str | None = None) -> None:
+        """Re-admit waiting players of ``queue`` (default: the first)
+        without matching (the object path's checkpoint, an engine's
+        ``waiting()``)."""
+        self._queue(queue).restore(requests, now)
+
+    def restore_columns(self, cols: RequestColumns, regions, modes,
+                        now: float, queue: str | None = None) -> None:
+        """Re-admit waiting players of ``queue`` (default: the first)
+        without matching — a checkpoint such as an engine's
+        ``waiting_columns()``: ``cols`` with each row's region and mode
+        given by name in ``regions`` / ``modes`` (the codes in ``cols``
+        are ignored)."""
+        self._queue(queue).restore_columns(cols, regions, modes, now)
+
+    def _queue(self, name: str | None) -> _QueueRuntime:
+        return self._first if name is None else self._runtimes[name]
+
+
+async def run_demo(device=None, players: int = 10,
+                   cfg: Config | None = None) -> list[SearchResponse]:
+    """Spin the app (``cfg``, or a small one-queue config), submit
+    ``players`` players to each of its queues, return their answers (in
+    queue order). A role queue's players take its role slots in turn.
     Raises if the app caught a failure on the way (``faults()``)."""
-    cfg = Config(engine=EngineConfig(backend="gpu", pool_capacity=1024,
-                                     pool_block=256, batch_buckets=(16, 64),
-                                     warm_start=True))
+    if cfg is None:
+        cfg = Config(engine=EngineConfig(backend="gpu", pool_capacity=1024,
+                                         pool_block=256, batch_buckets=(16, 64),
+                                         warm_start=True))
     app = MatchmakingApp(cfg, device=device)
     await app.start()
     try:
         client = MatchmakingClient(app.broker, cfg.broker.request_queue)
-        answers = list(await asyncio.gather(*[
-            client.search_until_matched(
-                {"id": f"p{i}", "rating": 1500 + (i % 7) * 12}, timeout=10.0)
-            for i in range(players)]))
+        searches = []
+        for q in cfg.queues:
+            prefix = "" if len(cfg.queues) == 1 else f"{q.name}:"
+            for i in range(players):
+                player = {"id": f"{prefix}p{i}", "rating": 1500 + (i % 7) * 12}
+                if q.role_slots:
+                    player["roles"] = [q.role_slots[i % len(q.role_slots)]]
+                searches.append(client.search_until_matched(
+                    player, queue=q.name, timeout=10.0))
+        answers = list(await asyncio.gather(*searches))
     finally:
         await app.stop()
     if app.faults():
@@ -875,10 +1004,12 @@ async def run_demo(device=None, players: int = 10) -> list[SearchResponse]:
 def _main(argv: Sequence[str]) -> int:
     if "--demo" not in argv:
         print("usage: python -m matchmaking_tpu_torch.service.app --demo "
-              "[--device cpu|cuda]")
+              "[--device cpu|cuda] [--config PATH]")
         return 2
     device = argv[argv.index("--device") + 1] if "--device" in argv else None
-    for resp in asyncio.run(run_demo(device)):
+    cfg = (Config.from_json(argv[argv.index("--config") + 1], backend="gpu")
+           if "--config" in argv else None)
+    for resp in asyncio.run(run_demo(device, cfg=cfg)):
         # The id TAIL: the head is the per-process prefix shared by all.
         match_id = resp.match.match_id[-8:] if resp.match else "-"
         print(f"{resp.player_id}: {resp.status} match={match_id}")

@@ -121,3 +121,14 @@ def test_gpu_engine_refuses_the_bucketed_step(knob):
                                                    pool_block=256, **knob))
     with pytest.raises(ValueError, match="bucketed"):
         GpuEngine(cfg, cfg.queues[0], device="cpu")
+
+
+def test_health_interval_loads_with_the_jax_meaning():
+    """``engine.health_interval_s`` (the service's health timer; 0 turns
+    it off) loads under the JAX name, as the JAX package reads it."""
+    raw = {"queues": [{}], "engine": {"health_interval_s": 0.25}}
+    cfg = config.Config.from_dict(raw, backend="gpu")
+    assert (cfg.engine.health_interval_s
+            == jax_config.Config.from_dict(raw).engine.health_interval_s
+            == 0.25)
+    assert config.EngineConfig().health_interval_s == 1.0

@@ -229,7 +229,7 @@ def test_search_step_packed_does_not_sync(cuda, skip_filters, prune):
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = ks.search_step_packed(pool, step, 6.0, skip_filters)
-        acc.accum(state, pool, out, 6.0)
+        acc.accum(state, pool, out, step[-1])  # now: the packed row
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (out[0] < P).sum() > 0  # it formed matches
@@ -396,35 +396,88 @@ def assert_quality_state(got, want):
                                    atol=0.0, err_msg=name)
 
 
+#: Rating edges, quality buckets and wait edges of the kernel tests: the
+#: default spec's (7 rating and 22 wait edges, what the engine runs), and
+#: none, one and 32 rating edges (the most the kernel takes), each with 32
+#: wait edges.
+WAIT_32 = tuple(float(e) for e in np.geomspace(1e-3, 60.0, 32, dtype=np.float32))
+EDGES = {"default": (QualitySpec().rating_edges, QualitySpec().n_quality,
+                     QualitySpec().wait_edges),
+         "rating0": ((), 20, WAIT_32), "rating1": ((1500.0,), 20, WAIT_32),
+         "rating32": (tuple(float(e) for e in np.linspace(
+             600.0, 2400.0, 32, dtype=np.float32)), 20, WAIT_32)}
+
+
 @pytest.mark.parametrize("widen", [0.0, 2.0])
-@pytest.mark.parametrize("capacity,b", [(4096, 16), (4096, 256),
-                                        (131072, 1024), (131072, 1000)])
-def test_quality_accum_equals_plain(cuda, capacity, b, widen):
+@pytest.mark.parametrize("edges", list(EDGES))
+@pytest.mark.parametrize("b", [1, 16, 33, 256, 1000, 1024])
+def test_quality_accum_equals_plain(cuda, b, edges, widen):
     """Windows of real-looking matches (zero thresholds among them), a
-    window with none, and an all-padding one, folded into one state by
-    the kernel and by the plain version on the same CUDA tensors."""
-    spec = QualitySpec()
+    window with fewer and one with none, folded into one state by the
+    kernel and by the plain version on the same CUDA tensors: histograms
+    and counts equal, sums within 1e-5 relative, the state accumulating
+    across windows. B up to 256 launches one CTA, larger B a cluster of 8
+    (256 is the last one-CTA bucket). The kernel reads ``now`` from a
+    device tensor. A second state fed the same
+    launches ends bit-equal (the sums' order is fixed)."""
+    rating_edges, n_quality, wait_edges = EDGES[edges]
+    capacity = 131072 if b >= 1000 else 4096
     acc = QualityAccumKernel(capacity=capacity, widen_per_sec=widen,
+                             max_threshold=250.0, rating_edges=rating_edges,
+                             n_quality=n_quality, wait_edges=wait_edges)
+    got, again, want = (acc.init_state(cuda) for _ in range(3))
+    rng = np.random.default_rng(capacity + b)
+    kw = dict(widen_per_sec=widen, max_threshold=250.0,
+              rating_edges=acc.rating_edges, n_quality=n_quality,
+              wait_edges=acc.wait_edges)
+    before = cuda_kernels.LAUNCHES["quality_accum"]
+    matches = (max(1, b // 2), b // 3, 0)
+    for w, matched in enumerate(matches):
+        pool, out = quality_window(rng, capacity, b, matched, cuda)
+        now = torch.full((b,), 30.0 + w, device=cuda)
+        acc.accum(got, pool, out, now)
+        acc.accum(again, pool, out, now)
+        cuda_kernels.quality_accum_reference(
+            want, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
+            30.0 + w, **kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["quality_accum"] == before + 6
+    assert int(got["count"].sum()) == 2 * sum(matches)
+    assert_quality_state(got, want)
+    assert torch.equal(got.flat, again.flat)
+
+
+def test_quality_accum_refuses_what_it_cannot_take(cuda):
+    """33 edges, unsorted edges and a host ``now`` are refused before any
+    launch; a wrong-shaped pool column handed in later is caught by the
+    re-check that a new pool triggers."""
+    spec = QualitySpec()
+    before = cuda_kernels.LAUNCHES["quality_accum"]
+    pool, out = quality_window(np.random.default_rng(1), 4096, 16, 8, cuda)
+    now = torch.full((1,), 30.0, device=cuda)
+    for rating_edges, what in ((tuple(range(33)), "at most 32"),
+                               ((1600.0, 1400.0), "ascend")):
+        acc = QualityAccumKernel(capacity=4096, widen_per_sec=0.0,
+                                 max_threshold=250.0,
+                                 rating_edges=rating_edges,
+                                 n_quality=spec.n_quality,
+                                 wait_edges=spec.wait_edges)
+        with pytest.raises(ValueError, match=what):
+            acc.accum(acc.init_state(cuda), pool, out, now)
+    acc = QualityAccumKernel(capacity=4096, widen_per_sec=0.0,
                              max_threshold=250.0,
                              rating_edges=spec.rating_edges,
                              n_quality=spec.n_quality,
                              wait_edges=spec.wait_edges)
-    got, want = acc.init_state(cuda), acc.init_state(cuda)
-    rng = np.random.default_rng(capacity + b)
-    kw = dict(widen_per_sec=widen, max_threshold=250.0,
-              rating_edges=acc.rating_edges, n_quality=spec.n_quality,
-              wait_edges=acc.wait_edges)
-    before = cuda_kernels.LAUNCHES["quality_accum"]
-    for matched in (b // 2, b // 3, 0):
-        pool, out = quality_window(rng, capacity, b, matched, cuda)
-        acc.accum(got, pool, out, 30.0)
-        cuda_kernels.quality_accum_reference(
-            want, pool["rating"], pool["enqueue_t"], pool["threshold"], out,
-            30.0, **kw)
+    state = acc.init_state(cuda)
+    with pytest.raises(ValueError, match="now"):
+        acc.accum(state, pool, out, 30.0)
+    acc.accum(state, pool, out, now)
+    with pytest.raises(ValueError, match="rating"):
+        acc.accum(state, dict(pool, rating=torch.zeros(4097, device=cuda)),
+                  out, now)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["quality_accum"] == before + 3
-    assert int(got["count"].sum()) == 2 * (b // 2 + b // 3)
-    assert_quality_state(got, want)
+    assert cuda_kernels.LAUNCHES["quality_accum"] == before + 1
 
 
 def span_inputs(seed, glicko2, filters, device, *, capacity=131072,

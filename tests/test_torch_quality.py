@@ -284,6 +284,70 @@ def test_accumulator_refuses_bad_state():
         tk.accum(state, pool, torch.zeros(2, 4), 0.0)
 
 
+def test_accumulator_binds_once_and_checks_tensors_it_was_not_handed():
+    """The launch is bound to a state and a pool's columns: the same
+    tensors again reuse it (no checks); a new pool (as revive, restore and
+    re-promotion build) is checked again, so a wrong-shaped column handed
+    in later raises."""
+    tk = QualityAccumKernel(capacity=8, widen_per_sec=0.0, max_threshold=0.0,
+                            rating_edges=(1500.0,), n_quality=4,
+                            wait_edges=(1.0,))
+    state = tk.init_state("cpu")
+    pool = {k: torch.zeros(8) for k in ("rating", "enqueue_t", "threshold")}
+    out = torch.tensor([[0.0], [1.0], [5.0]])
+    tk.accum(state, pool, out, 2.0)
+    bound = tk._bound
+    tk.accum(state, pool, out, 2.0)
+    assert tk._bound is bound
+    fresh = {k: torch.zeros(8) for k in pool}
+    tk.accum(state, fresh, out, 2.0)
+    assert tk._bound is not bound and tk._bound.columns[0] is fresh["rating"]
+    with pytest.raises(ValueError, match="rating"):
+        tk.accum(state, dict(fresh, rating=torch.zeros(9)), out, 2.0)
+    assert int(state["count"].sum()) == 6
+
+
+def test_engine_folds_each_window_at_its_packed_now_row():
+    """The engine hands the accumulator the packed window's ``now`` row (a
+    tensor: on the card the kernel reads it on the device), never a host
+    float; its state equals the plain version fed each window's host
+    ``now`` float at the same moment."""
+    _, teng = engine_pair()
+    real = teng._quality.accum
+    shadow = teng._quality.init_state("cpu")
+    seen = []
+
+    def spy(state, pool, out, now):
+        assert isinstance(now, torch.Tensor) and now.dim() == 1
+        assert now.shape[0] == out.shape[1] and bool((now == now[0]).all())
+        seen.append(float(now[0]))
+        cuda_kernels.quality_accum_reference(
+            shadow, pool["rating"], pool["enqueue_t"], pool["threshold"],
+            out, float(np.float32(teng._t0_now - teng._t0)),
+            widen_per_sec=teng._quality.widen_per_sec,
+            max_threshold=teng._quality.max_threshold,
+            rating_edges=teng._quality.rating_edges,
+            n_quality=teng._quality.n_quality,
+            wait_edges=teng._quality.wait_edges)
+        real(state, pool, out, now)
+
+    teng._quality.accum = spy
+    rng = np.random.default_rng(9)
+    for k in range(4):
+        now = 200.0 + 0.37 * k
+        teng._t0_now = now
+        ids = [f"p{k}_{i}" for i in range(64)]
+        ratings = rng.normal(1500.0, 220.0, 64).astype(np.float32)
+        teng.search_columns_async(columns(RequestColumns, teng, ids, ratings,
+                                          now - rng.uniform(0.05, 8.0, 64)),
+                                  now)
+        teng.flush()
+    assert seen == [float(np.float32(200.0 + 0.37 * k - teng._t0))
+                    for k in range(4)]
+    assert int(shadow["count"].sum()) > 0
+    assert torch.equal(teng._q_dev.flat, shadow.flat)
+
+
 # ---- engines -----------------------------------------------------------------
 
 

@@ -270,7 +270,7 @@ async def test_depth_one_dispatches_and_collects_each_window():
     app = MatchmakingApp(small_cfg(pipeline_depth=1), device="cpu")
     await app.start()
     try:
-        assert app._collector is None
+        assert app.runtime(app.queue_cfg.name)._collector is None
         client = MatchmakingClient(app.broker, app.queue_cfg.name)
         a, b = await asyncio.gather(
             client.search_until_matched({"id": "x", "rating": 1500}),
