@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (matchmaking_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--out results.json] [--baseline-tree DIR]
-                          [--plan-sweep]
+                          [--plan-sweep] [--profile-soak]
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -39,7 +39,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    at 32 rating and wait edges, and its bound; with ``--baseline-tree``,
    the other tree's quality_accum is checked and timed in turns too.
 3. engine: the main path. GpuEngine with configs/elo_1v1.json (backend
-   overridden to "gpu"): 100k waiting players through restore_columns(),
+   overridden to "gpu"), its warmup() capturing one CUDA graph per (step
+   variant, bucket) (capture ms and memory reported; no window may
+   capture again): 100k waiting players through restore_columns(),
    then 48 windows of 1,024 through search_columns_async() at the config's
    pipeline depth (2): window N+1 is dispatched before window N is
    collected with collect_ready(), and flush() ends the run. Restores and
@@ -53,22 +55,34 @@ Phases, each of which raises (exit code != 0) when it fails:
    engine on the card (8 windows, the old path's timing and GC) forms the
    first window's pairs too. Then an expire_deadlines() sweep over the
    5 % of waiting players stamped with a deadline, and 8 more windows
-   under torch.profiler for the device's busy share and kernels per window
-   (at most 401 + 1, the quality state's copies aside). 3b: the same
+   under torch.profiler for the device's busy share, the launches the host
+   queues per window (graph launches and copies) and the kernels the
+   device runs per window (at most 401 + 1, the quality state's copies
+   aside), among them exactly one prep_kernel, one block_best_kernel and
+   one quality_accum_kernel, counted on the device by name. Then every
+   window is driven again through an engine that replays its graphs and
+   one that runs the same steps eagerly on the card, in lockstep from the
+   same pool: each window's pairs, distances (bit for bit) and queued ids,
+   and at the end the pools and quality states, must be equal. 3b: the same
    config with BENCH_SWEEP.md §5's pruning (band_spec gaussian:1500:300,
    prune_window_blocks 6, prune_chunk 128): the same 48 windows, checks and
    CPU comparison, and the windows that took the span path rather than the
    dense fallback, counted on the device and read once. Configs #2 (filters,
    6 windows) and #4 (Glicko-2 + widening, 24 windows) run the same way,
    and config #4 runs a two-chunk rescan tick between two windows in
-   flight, which must form matches, the same as on the CPU (and reconcile
-   its quality samples).
+   flight, which must form matches, the same as on the CPU and as the
+   eager steps on the card (and reconcile its quality samples); one more
+   tick runs under torch.profiler (launches queued and kernels run per
+   chunk, one of each hand kernel per chunk).
 4. service: the in-process service on the card: the 10-player demo; a
    soak with 100k restored players and 16,384 requests published in
    bursts (every request answered once from its window, partners agree,
    one publish_batch per window; request latency publish → first answer;
    the quality ledger and the engine's quality state both hold every
-   matched player); config #4's service, whose rescan loop must
+   matched player; with the broker's burst consume, every burst decoded
+   at consume and no window at the flush), and the same soak with
+   consume_batch off (the per-delivery path, the flush decoding each
+   window); config #4's service, whose rescan loop must
    publish matches; and config #2's service, both of its queues in one
    app (20k restored and 2,048 requests each): every answer within its
    queue's threshold and filters and from its own queue, one
@@ -86,7 +100,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    the CPU. Config #3 then runs a rescan tick 30 s later (widened
    thresholds), which must form matches. The engine's quality_report()
    holds one sample per member of every match. Each queue profiles 8 more
-   windows (device ms and kernels per window) and its step alone (kernels,
+   windows (device ms and kernels per window; none of the hand kernels
+   may run) and its step alone (kernels,
    device ms, CUDA-event ms, host ms per call: the ``steps`` line; the team
    step must stay within 300 kernels, the role step within 60 more). On a
    200-player role pool a 3-player party hands the queue to the host
@@ -101,6 +116,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
+``--profile-soak`` (with ``--out``) writes cProfile's functions by own
+time over each of the two soaks beside the output file.
 
 The last lines of standard output are a JSON summary of phases 3-5, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
@@ -116,6 +133,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import re
@@ -257,6 +275,17 @@ def load_baseline(tree):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def now_arg(mod, t, value):
+    """``now`` as ``mod``'s ``block_best`` takes it: the one-element f32
+    tensor ``t`` on the card (the packed window's now row), or the host
+    float ``value`` for a tree whose kernel still took the time as a
+    float (the parent of the device-read ``now``)."""
+    import inspect
+
+    ann = inspect.signature(mod.block_best).parameters["now"].annotation
+    return value if ann in ("float", float) else t
 
 
 # ---- phase 2: kernel vs plain ---------------------------------------------
@@ -409,6 +438,8 @@ def phase_kernel(torch, ck, scoring, device, baseline=None):
     old)."""
     kw = dict(pool_block=FULL_BLOCK, max_threshold=250.0,
               g_coeff=scoring.G_COEFF_F32)
+    now = torch.tensor([20.0], device=device)
+    old_now = now_arg(baseline, now, 20.0) if baseline is not None else None
     results, max_err = {}, 0.0
     for vi, (name, (glicko2, filters, widen)) in enumerate(VARIANTS.items()):
         args = dict(kw, glicko2=glicko2, widen_per_sec=widen, filters=filters)
@@ -419,17 +450,17 @@ def phase_kernel(torch, ck, scoring, device, baseline=None):
         for b in BUCKETS:
             pool, batch, q_thr = kernel_inputs(torch, 100 + vi, FULL_P,
                                                FULL_ACTIVE, b, filters, device)
-            got = ck.block_best(pool, batch, q_thr, 20.0, **args)
-            want = ck.block_best_reference(pool, batch, q_thr, 20.0, **args)
+            got = ck.block_best(pool, batch, q_thr, now, **args)
+            want = ck.block_best_reference(pool, batch, q_thr, now, **args)
             torch.cuda.synchronize()
             max_err = max(max_err, compare(torch, got, want, f"{name} B={b}"))
-            new = lambda: ck.block_best(pool, batch, q_thr, 20.0, **args)
+            new = lambda: ck.block_best(pool, batch, q_thr, now, **args)
             if baseline is None:
                 res["ms_by_bucket"][b] = time_ms(torch, new)
                 res["host_us_by_bucket"][b] = host_us(torch, new)
             else:
-                old = lambda: baseline.block_best(pool, batch, q_thr, 20.0,
-                                                  **args)
+                old = lambda: baseline.block_best(pool, batch, q_thr,
+                                                  old_now, **args)
                 compare(torch, old(), want, f"baseline {name} B={b}")
                 o1, n1, n2, o2 = (time_ms(torch, f) for f in (old, new, new, old))
                 res["ms_by_bucket"][b] = statistics.median([n1, n2])
@@ -444,7 +475,7 @@ def phase_kernel(torch, ck, scoring, device, baseline=None):
                 res["blocks_with_candidate"] = float(
                     torch.isfinite(got[0]).float().mean())
                 res["plain_ms"] = time_ms(torch, lambda: ck.block_best_reference(
-                    pool, batch, q_thr, 20.0, **args), reps=20)
+                    pool, batch, q_thr, now, **args), reps=20)
                 res.update(bound(ck, int(batch["valid"].sum()), glicko2,
                                  filters))
         res["ms"] = res["ms_by_bucket"][FULL_B]
@@ -468,8 +499,8 @@ def phase_kernel(torch, ck, scoring, device, baseline=None):
         args = dict(kw, pool_block=blk, glicko2=bool(seed % 2), widen_per_sec=3.0,
                     filters=filters)
         max_err = max(max_err, compare(
-            torch, ck.block_best(pool, batch, q_thr, 20.0, **args),
-            ck.block_best_reference(pool, batch, q_thr, 20.0, **args),
+            torch, ck.block_best(pool, batch, q_thr, now, **args),
+            ck.block_best_reference(pool, batch, q_thr, now, **args),
             f"ragged B={rows} P={cap}"))
     # Crafted exact tie: 1490 and 1510 around 1500, in both orders, spread
     # over the quarters of each block (so over the cluster's slices); the
@@ -487,8 +518,9 @@ def phase_kernel(torch, ck, scoring, device, baseline=None):
     for filters in (True, False):
         args = dict(kw, pool_block=1024, glicko2=False, widen_per_sec=0.0,
                     filters=filters)
-        got = ck.block_best(pool, batch, q_thr, 0.0, **args)
-        compare(torch, got, ck.block_best_reference(pool, batch, q_thr, 0.0,
+        zero = torch.zeros(1, device=device)
+        got = ck.block_best(pool, batch, q_thr, zero, **args)
+        compare(torch, got, ck.block_best_reference(pool, batch, q_thr, zero,
                                                     **args), "exact tie")
         expect = torch.tensor(firsts, dtype=torch.int32, device=device)
         if not torch.equal(got[1], expect.expand(40, 4)):
@@ -513,8 +545,9 @@ def plan_sweep(torch, ck, scoring, device, variants=("elo", "elo_widen",
         for b in BUCKETS:
             pool, batch, q_thr = kernel_inputs(torch, 100, FULL_P,
                                                FULL_ACTIVE, b, filters, device)
-            ck._check(pool, batch, q_thr, FULL_BLOCK)
-            want = ck.block_best_reference(pool, batch, q_thr, 20.0, **kw)
+            now = torch.tensor([20.0], device=device)
+            ck._check(pool, batch, q_thr, now, FULL_BLOCK)
+            want = ck.block_best_reference(pool, batch, q_thr, now, **kw)
             best = ck.plan_grid(b, n_blocks, FULL_BLOCK, ck.sm_count(0))
             row = sweep.setdefault(name, {})[b] = {
                 "chosen": f"{best.rows_per_cta}x{best.cluster}"}
@@ -522,7 +555,7 @@ def plan_sweep(torch, ck, scoring, device, variants=("elo", "elo_widen",
                 for cluster in (1, 2, 4, 8):
                     plan = ck.GridPlan(rows, cluster,
                                        (n_blocks * cluster, -(-b // rows)))
-                    fn = lambda: ck._launch(plan, pool, batch, q_thr, 20.0,
+                    fn = lambda: ck._launch(plan, pool, batch, q_thr, now,
                                             **kw)
                     compare(torch, fn(), want, f"plan {plan} B={b}")
                     row[f"{rows}x{cluster}"] = time_ms(torch, fn)
@@ -571,7 +604,7 @@ def step_windows(torch, np, kernels, device, buckets=BUCKETS):
         packed[8] = 30.0
         pool = kernels.pool_from_reference(arrays, device)
         packed_dev = torch.from_numpy(packed).to(device)
-        res = ks.search_step_packed(pool, packed_dev, 30.0, skip_filters=True)
+        res = ks.search_step_packed(pool, packed_dev, skip_filters=True)
         out[b] = (pool, res, 30.0, packed_dev)
     torch.cuda.synchronize()
     return out
@@ -603,8 +636,8 @@ def phase_quality(torch, np, ck, kernels, spec, device, baseline=None):
     beside an empty kernel launched the same way (the launch floor), at 32
     rating and 32 wait edges, the plain version at B = 1,024, and the bound
     from the bytes the call must move. With ``baseline`` (another tree's
-    ``cuda_kernels``), its ``quality_accum`` (the parent's: a host ``now``)
-    is checked too and timed in turns with this one: old, new, new, old."""
+    ``cuda_kernels``), its ``QualityAccum`` is checked too and timed in
+    turns with this one: old, new, new, old."""
     acc = kernels.QualityAccumKernel(
         capacity=FULL_P, widen_per_sec=5.0, max_threshold=250.0,
         rating_edges=spec.rating_edges, n_quality=spec.n_quality,
@@ -646,13 +679,13 @@ def phase_quality(torch, np, ck, kernels, spec, device, baseline=None):
             res["ms_by_bucket"][b] = time_ms(torch, new)
             res["host_us_by_bucket"][b] = host_us(torch, new)
         else:
-            old_state = acc.init_state(device)
-            old = lambda: baseline.quality_accum(
-                old_state, pool["rating"], pool["enqueue_t"],
-                pool["threshold"], out, now, **kw)
+            cols = (pool["rating"], pool["enqueue_t"], pool["threshold"])
+            old = functools.partial(baseline.QualityAccum(
+                acc.init_state(device), *cols, capacity=FULL_P, **kw),
+                out, now_row)
             check = acc.init_state(device)
-            baseline.quality_accum(check, pool["rating"], pool["enqueue_t"],
-                                   pool["threshold"], out, now, **kw)
+            baseline.QualityAccum(check, *cols, capacity=FULL_P, **kw)(
+                out, now_row)
             torch.cuda.synchronize()
             quality_state_check(torch, check, want,
                                 f"baseline quality_accum B={b}")
@@ -765,8 +798,9 @@ def span_inputs(torch, np, kernels, device, *, glicko2, filters, thr,
                            prune_window_blocks=PRUNE["prune_window_blocks"],
                            prune_chunk=PRUNE["prune_chunk"])
     kernels.admit(pool, batch)
-    q_thr = effective_threshold(batch["threshold"], batch["enqueue_t"], 20.0,
-                                2.0, 250.0)
+    q_thr = effective_threshold(batch["threshold"], batch["enqueue_t"],
+                                torch.tensor([20.0], device=device), 2.0,
+                                250.0)
     start, feasible = ks._chunk_windows(batch, q_thr, *ks._live_stats(pool))
     return ks, pool, batch, q_thr, start, feasible
 
@@ -793,18 +827,19 @@ def phase_span(torch, np, ck, kernels, scoring, device):
             kw = dict(pool_block=FULL_BLOCK, glicko2=glicko2, filters=filters,
                       widen_per_sec=2.0, max_threshold=250.0,
                       g_coeff=scoring.G_COEFF_F32)
-            dense = ck.block_best(pool, batch, q_thr, 20.0, **kw)
+            now = torch.tensor([20.0], device=device)
+            dense = ck.block_best(pool, batch, q_thr, now, **kw)
             feasible_seen.add(bool(feasible))
             what = f"span glicko2={glicko2} filters={filters} thr={thr}"
             spans = {}
             for flag in (feasible, ~feasible):
                 span = ck.Span(start, chunk, w, flag.reshape(1))
-                got = ck.block_best(pool, batch, q_thr, 20.0, span=span, **kw)
+                got = ck.block_best(pool, batch, q_thr, now, span=span, **kw)
                 compare(torch, got, ck.block_best_span_reference(
-                    pool, batch, q_thr, 20.0, span, **kw), what)
+                    pool, batch, q_thr, now, span, **kw), what)
                 spans[bool(flag)] = span
             if bool(feasible):
-                compare(torch, ck.block_best(pool, batch, q_thr, 20.0,
+                compare(torch, ck.block_best(pool, batch, q_thr, now,
                                              span=spans[True], **kw),
                         dense, f"{what}: span against dense")
             if (glicko2, filters) == (False, False):
@@ -813,11 +848,11 @@ def phase_span(torch, np, ck, kernels, scoring, device):
                 r = res
                 for name, fn in (
                         ("span_ms", lambda: ck.block_best(
-                            pool, batch, q_thr, 20.0, span=spans[True], **kw)),
+                            pool, batch, q_thr, now, span=spans[True], **kw)),
                         ("fallback_ms", lambda: ck.block_best(
-                            pool, batch, q_thr, 20.0, span=spans[False], **kw)),
+                            pool, batch, q_thr, now, span=spans[False], **kw)),
                         ("dense_ms", lambda: ck.block_best(
-                            pool, batch, q_thr, 20.0, **kw))):
+                            pool, batch, q_thr, now, **kw))):
                     r[name] = time_ms(torch, fn)
                 starts = start.tolist()
                 blocks = {s_ + j for s_ in starts for j in range(w)}
@@ -829,7 +864,7 @@ def phase_span(torch, np, ck, kernels, scoring, device):
                                pairs=rows * w * FULL_BLOCK,
                                pool_slots=len(blocks) * FULL_BLOCK))
                 r["plain_ms"] = time_ms(torch, lambda: (
-                    ck.block_best_span_reference(pool, batch, q_thr, 20.0,
+                    ck.block_best_span_reference(pool, batch, q_thr, now,
                                                  spans[True], **kw)), reps=10)
                 log(f"span launch, feasible window (thr {thr}): span "
                     f"{r['span_ms']:.4f} ms, fallback {r['fallback_ms']:.4f} "
@@ -987,8 +1022,20 @@ def device_busy(torch, run):
     kernels.sort(reverse=True)
     host_ops.sort(reverse=True)
     device_us = sum(k[0] for k in kernels)
+    calls = {k: c for _, c, k in host_ops}
+    # The hand kernels the device ran, by name, as the profiler saw them
+    # (inside the graphs' replays too): what backs the LAUNCHES counts,
+    # which a replay adds on the host.
+    own = {name: sum(k[1] for k in kernels if name in k[2])
+           for name in OWN_KERNELS}
     return {"windows": n, "wall_ms_per_window": wall / n * 1e3,
+            "own_kernels": own,
             "kernels_per_window": sum(k[1] for k in kernels) / n,
+            # What the host queued: kernel launches, graph launches and
+            # copies (runtime API calls the profiler saw).
+            "queued_per_window": sum(calls.get(k, 0)
+                                     for k in LAUNCH_CALLS) / n,
+            "graph_launches_per_window": calls.get("cudaGraphLaunch", 0) / n,
             "device_ms_per_window": device_us / n / 1e3,
             "device_busy_share": device_us / 1e6 / wall,
             "device_idle_share": 1.0 - device_us / 1e6 / wall,
@@ -998,6 +1045,84 @@ def device_busy(torch, run):
             "top_host_ops": [{"name": k[2], "count": k[1],
                               "host_ms_per_window": k[0] / n / 1e3}
                              for k in host_ops[:12]]}
+
+
+#: The device kernels of csrc/: block_best.cu's two, quality_accum.cu's.
+OWN_KERNELS = ("prep_kernel", "block_best_kernel", "quality_accum_kernel")
+
+
+def check_own_kernels(prof, want, what):
+    """The profiled run's hand kernels, counted on the device, must be
+    ``want`` of each (one per window chunk on a 1v1 path, none on a team
+    or role path)."""
+    if prof["own_kernels"] != {name: want for name in OWN_KERNELS}:
+        raise AssertionError(f"{what}: the device ran {prof['own_kernels']} "
+                             f"of the hand kernels, expected {want} of each")
+
+
+#: Runtime API calls that queue work on the card: kernel launches, graph
+#: launches, copies and fills.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def graph_summary(rep):
+    """An engine's ``graph_report()`` in brief: captures, capture and
+    warm-up host ms (sum and largest), private memory (sum and by graph)."""
+    graphs = rep["graphs"].values()
+    return {"captures": rep["captures"],
+            "capture_ms_total": sum(g["capture_ms"] for g in graphs),
+            "capture_ms_max": max(g["capture_ms"] for g in graphs),
+            "warm_ms_total": sum(g["warm_ms"] for g in graphs),
+            "memory_bytes_total": sum(g["memory_bytes"] for g in graphs),
+            "by_graph": {k: {"capture_ms": round(g["capture_ms"], 3),
+                             "memory_bytes": g["memory_bytes"]}
+                         for k, g in rep["graphs"].items()}}
+
+
+def replay_equals_eager(torch, np, mods, cfg, pop, *, waiting, t0, windows,
+                        now_of, label):
+    """Each window of the main path through an engine that replays its
+    captured steps and through one that runs the same steps eagerly on the
+    card (its graph set taken away), dispatched and flushed in lockstep
+    from the same restored pool: every window's pairs, distances (bit for
+    bit) and queued ids equal, and at the end the pools, the quality
+    states and the pruned step's counts equal."""
+    _, GpuEngine, RequestColumns, _ = mods
+    queue = cfg.queues[0]
+    graphed, eager = (GpuEngine(cfg, queue, device="cuda") for _ in range(2))
+    eager._graphs = None
+    for e in (graphed, eager):
+        e.warmup()
+        e.restore_columns(pop.columns(RequestColumns, e, 0, waiting, t0), t0)
+    for w in range(windows):
+        outs = []
+        for e in (graphed, eager):
+            e.search_columns_async(pop.columns(
+                RequestColumns, e, waiting + w * FULL_B,
+                waiting + (w + 1) * FULL_B, now_of[w]), now_of[w])
+            (_, out), = e.flush()
+            outs.append(out)
+        a, b = outs
+        if (a.m_id_a.tolist() != b.m_id_a.tolist()
+                or a.m_id_b.tolist() != b.m_id_b.tolist()
+                or a.q_ids.tolist() != b.q_ids.tolist()
+                or not np.array_equal(a.m_dist.view(np.int32),
+                                      b.m_dist.view(np.int32))):
+            raise AssertionError(f"{label} window {w}: the replayed step "
+                                 f"differs from the eager one")
+    torch.cuda.synchronize()
+    for name, col in eager.dev_pool.full.items():
+        if not torch.equal(graphed.dev_pool.full[name], col):
+            raise AssertionError(f"{label}: pool column {name} differs after "
+                                 f"{windows} replayed and eager windows")
+    if not torch.equal(graphed._q_dev.flat, eager._q_dev.flat):
+        raise AssertionError(f"{label}: the quality states differ")
+    if graphed.prune_report() != eager.prune_report():
+        raise AssertionError(f"{label}: pruned counts {graphed.prune_report()}"
+                             f" != {eager.prune_report()}")
+    return windows
 
 
 def greedy_pair_kernels(torch, kernels, capacity, rows, n_blocks, rounds):
@@ -1079,7 +1204,10 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         lo = waiting + w * FULL_B
         enq[lo:lo + FULL_B] = now - pop.waited[lo:lo + FULL_B]
     eng = GpuEngine(cfg, queue, device="cuda")
+    t = time.perf_counter()
     eng.warmup()
+    warmup_s = time.perf_counter() - t
+    graphs = graph_summary(eng.graph_report())
     fill = pop.columns(RequestColumns, eng, 0, waiting, t0)
     stream = [pop.columns(RequestColumns, eng, waiting + w * FULL_B,
                           waiting + (w + 1) * FULL_B, now_of[w])
@@ -1169,13 +1297,20 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         raise AssertionError(f"expire_deadlines took {len(expired)} of {left}")
     if any(r.id in eng.pool for r in expired):
         raise AssertionError("an expired player is still waiting")
+    if eng.graph_report()["captures"] != graphs["captures"]:
+        raise AssertionError(f"{label}: a window captured a graph again")
     log(f"columnar {label}: {matches} matches in {windows} windows, "
-        f"dispatch p50 {statistics.median(dispatch_ms):.3f} ms, turnaround "
+        f"dispatch p50 {statistics.median(dispatch_ms):.3f} ms p99 "
+        f"{pct(dispatch_ms, 0.99):.3f} ms, turnaround "
         f"p50 {statistics.median(turnaround_ms):.2f} ms, "
         f"{windows * FULL_B / run_s:.0f} requests/s, launches {launches} "
         f"block_best + {q_launches} quality_accum, {samples} quality samples "
         f"reconciled, pruned {prune}, "
-        f"deadline sweep {len(expired)} players in {sweep_ms:.2f} ms")
+        f"deadline sweep {len(expired)} players in {sweep_ms:.2f} ms; "
+        f"warmup {warmup_s:.2f} s: {graphs['captures']} graphs captured in "
+        f"{graphs['capture_ms_total']:.1f} ms (largest "
+        f"{graphs['capture_ms_max']:.1f}), {graphs['memory_bytes_total']} "
+        f"bytes of graph memory")
     # The device's busy share over further windows, under torch.profiler.
     prof = None
     if profile_windows:
@@ -1187,6 +1322,7 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
             eng.flush()
             return profile_windows
         prof = device_busy(torch, run)
+        check_own_kernels(prof, profile_windows, f"profile {label}")
         from matchmaking_tpu_torch.engine import kernels
         prof["greedy_pair_kernels_per_call"] = greedy_pair_kernels(
             torch, kernels, eng.kernels.capacity, FULL_B, eng.kernels.n_blocks,
@@ -1200,7 +1336,9 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
                                            - prof["quality_copies"]
                                            / profile_windows)
         log(f"profile {label}: device busy {prof['device_busy_share']:.3f}, "
-            f"{prof['device_ms_per_window']:.3f} device ms and "
+            f"{prof['device_ms_per_window']:.3f} device ms, "
+            f"{prof['queued_per_window']:.2f} launches queued by the host "
+            f"({prof['graph_launches_per_window']:.2f} graph launches) and "
             f"{prof['kernels_per_window']:.2f} kernels per window "
             f"({prof['step_kernels_per_window']:.2f} without the quality "
             f"state's copies), {prof['greedy_pair_kernels_per_call']} in "
@@ -1220,6 +1358,12 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         if pair_set(cpu_outs[w]) != pair_set(outs[w]):
             raise AssertionError(f"{label} window {w}: the CPU engine formed "
                                  f"other pairs")
+    # Every window replayed against the same step run eagerly on the card.
+    eager_windows = replay_equals_eager(
+        torch, np, mods, cfg, pop, waiting=waiting, t0=t0, windows=windows,
+        now_of=now_of, label=label)
+    log(f"columnar {label}: {eager_windows} windows replayed bit-equal to "
+        f"the eager step")
     # The object path on the card, from the same pool: the same first
     # window, then its own windows (its slot layout parts from the
     # columnar one after a window: see PERF.md).
@@ -1287,6 +1431,8 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         "deadlines_waiting_at_start": deadlines_waiting,
         "deadline_sweep": {"expired": len(expired), "ms": sweep_ms},
         "cpu_windows_equal": cpu_windows, "profile": prof, "object": obj,
+        "eager_windows_equal": eager_windows, "warmup_s": warmup_s,
+        "graphs": graphs,
     }
 
 
@@ -1309,8 +1455,10 @@ def run_rescan(torch, np, ck, scoring, mods, path, *, waiting, seed):
                           nows[0] - pop.waited[waiting:waiting + FULL_B],
                           nows[2] - pop.waited[waiting + FULL_B:]])
 
-    def drive(device):
+    def drive(device, eager=False):
         eng = GpuEngine(cfg, queue, device=device)
+        if eager:
+            eng._graphs = None  # the same steps, eagerly on the card
         eng.warmup()
         eng.restore_columns(pop.columns(RequestColumns, eng, 0, waiting, t0), t0)
         a = pop.columns(RequestColumns, eng, waiting, waiting + FULL_B, nows[0])
@@ -1351,16 +1499,39 @@ def run_rescan(torch, np, ck, scoring, mods, path, *, waiting, seed):
         if pair_set(got) != pair_set(want):
             raise AssertionError(f"rescan run, outcome {k}: the CPU engine "
                                  f"formed other pairs")
+    # The tick's two chunks replay one graph before the tick's readbacks:
+    # each reads back its own result, the eager step's.
+    _, eager_outs, _ = drive("cuda", eager=True)
+    for k, (got, want) in enumerate(zip(outs, eager_outs)):
+        if (got.m_id_a.tolist() != want.m_id_a.tolist()
+                or not np.array_equal(got.m_dist.view(np.int32),
+                                      want.m_dist.view(np.int32))):
+            raise AssertionError(f"rescan run, outcome {k}: the replayed "
+                                 f"steps differ from the eager ones")
+    # One more tick under torch.profiler: what the host queues and the
+    # device runs per chunk (each chunk one graph replay).
+    def run():
+        eng.rescan_async(tick, nows[2] + 1.0)
+        eng.flush()
+        return chunks
+    prof = device_busy(torch, run)
+    check_own_kernels(prof, chunks, "rescan tick profile")
+    log(f"rescan tick profile: {prof['queued_per_window']:.2f} launches "
+        f"queued by the host ({prof['graph_launches_per_window']:.2f} graph "
+        f"launches) and {prof['kernels_per_window']:.2f} kernels per chunk, "
+        f"{prof['device_ms_per_window']:.3f} device ms a chunk")
     log(f"rescan {path}: tick of {chunks} chunks formed "
         f"{outs[1].n_matches} matches between waiting players "
         f"(arrivals {outs[0].n_matches} + {outs[2].n_matches}); same pairs "
-        f"on the CPU; launches {tick_launches} in the tick, "
+        f"on the CPU and eagerly on the card; launches {tick_launches} in "
+        f"the tick, "
         f"{launches - tick_launches} in the arrival windows")
     return {"config": path, "waiting": waiting, "rescan_chunks": chunks,
             "rescan_matches": outs[1].n_matches,
             "arrival_matches": outs[0].n_matches + outs[2].n_matches,
             "launches": launches, "tick_launches": tick_launches,
-            "arrival_launches": launches - tick_launches}
+            "arrival_launches": launches - tick_launches,
+            "tick_profile": prof}
 
 
 def check_faults(app, what):
@@ -1376,22 +1547,38 @@ def check_faults(app, what):
 
 
 async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
-                       seed):
+                       seed, consume_batch=True, profile_to=None):
     """The service at full width: ``waiting`` players restored, then
     ``requests`` published in bursts of ``burst``. Every request is
     answered from its window once (queued or matched) and matched at most
     once, partners agree, one publish_batch per answered window, one
     block_best launch per window (each fits one chunk), and the service
-    caught no failure."""
+    caught no failure. ``consume_batch`` (the broker's burst consume, on
+    by default) off runs the per-delivery path; the codec's decode calls
+    are counted: with it on, the bursts are decoded at consume and no
+    window at the flush. ``profile_to``: a file that gets cProfile's
+    functions by own time over the soak (the event loop's thread, which
+    runs every part of the service)."""
     import dataclasses
 
+    from matchmaking_tpu_torch.native import codec
     from matchmaking_tpu_torch.service.app import MatchmakingApp
     from matchmaking_tpu_torch.service.broker import Properties
 
     Config, _, RequestColumns, _ = mods
     cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
-    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
-        cfg.engine, warm_start=True))
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        broker=dataclasses.replace(cfg.broker, consume_batch=consume_batch))
+    decodes = {"consume": 0, "flush": 0}
+    real_decode = {"consume": codec.decode_batch_concat,
+                   "flush": codec.decode_batch}
+
+    def counted(where):
+        def call(*a, **k):
+            decodes[where] += 1
+            return real_decode[where](*a, **k)
+        return call
     rng = np.random.default_rng(seed)
     t0 = time.time()
     pop = Population(np, rng, waiting + requests, t0, filters=False,
@@ -1399,7 +1586,9 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     if cfg.batcher.max_batch > max(cfg.engine.batch_buckets):
         raise AssertionError("soak: a window would take several chunks")
     app = MatchmakingApp(cfg, device="cuda")
-    await app.start()  # warm_start: all-padding launches of every variant
+    await app.start()  # warm_start: every (variant, bucket) graph captured
+    codec.decode_batch_concat = counted("consume")
+    codec.decode_batch = counted("flush")
     try:
         reply = "soak.replies"
         app.broker.declare_queue(reply)
@@ -1426,6 +1615,13 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
         bodies = [json.dumps({"id": pop.ids[k], "rating": float(pop.rating[k]),
                               "rating_deviation": float(pop.rd[k])}).encode()
                   for k in range(waiting, waiting + requests)]
+        prof = None
+        if profile_to:
+            import cProfile
+
+            prof = cProfile.Profile()
+            prof.enable()
+        gc_clock = GcClock().__enter__()
         t_soak = time.perf_counter()
         for b in range(0, requests, burst):
             for k in range(b, min(b + burst, requests)):
@@ -1439,6 +1635,16 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
         while len(first) < requests and time.monotonic() < deadline:
             await asyncio.sleep(0.01)
         soak_s = time.perf_counter() - t_soak
+        gc_clock.__exit__()
+        if prof is not None:
+            import io
+            import pstats
+
+            prof.disable()
+            text = io.StringIO()
+            pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(40)
+            with open(profile_to, "w") as f:
+                f.write(text.getvalue())
         while app.engine.inflight() and time.monotonic() < deadline:
             await asyncio.sleep(0.01)
         if len(first) != requests:
@@ -1447,8 +1653,14 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
         spans, util = app.engine.span_report(), app.engine.util_report()
     finally:
         await app.stop()
+        codec.decode_batch_concat = real_decode["consume"]
+        codec.decode_batch = real_decode["flush"]
     launches = ck.LAUNCHES["block_best"]
     check_faults(app, "soak")
+    if (consume_batch and (decodes["flush"] or not decodes["consume"])) or (
+            not consume_batch and decodes["consume"]):
+        raise AssertionError(f"soak, consume_batch {consume_batch}: decode "
+                             f"calls {decodes}")
     windows = app.counters["windows"]
     if launches != windows or ck.LAUNCHES["quality_accum"] != windows:
         raise AssertionError(f"soak: {ck.LAUNCHES} launches for {windows} "
@@ -1490,7 +1702,9 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
                              f"{len(matched)} matched players")
     lat = [v * 1e3 for v in first.values()]
     res = {"config": path, "waiting": waiting, "requests": requests,
-           "burst": burst, "windows": windows, "launches": launches,
+           "burst": burst, "consume_batch": consume_batch,
+           "gc_ms": gc_clock.total * 1e3,
+           "decode_calls": decodes, "windows": windows, "launches": launches,
            "soak_s": soak_s,
            "requests_per_s": requests / soak_s,
            "players_matched": len(matched), "publish_batches": len(calls),
@@ -1499,8 +1713,10 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
            "counters": dict(app.counters), "span_report": spans,
            "util_report": util, "quality_samples": engine_samples,
            "ledger": {k: ledger[k] for k in ("matched_players",)}}
-    log(f"service soak {path}: {requests} requests over {waiting} waiting, "
-        f"{windows} windows, {res['requests_per_s']:.0f} requests/s, "
+    log(f"service soak {path} (consume_batch {consume_batch}): {requests} "
+        f"requests over {waiting} waiting, {windows} windows, decode calls "
+        f"{decodes}, GC {res['gc_ms']:.1f} ms, "
+        f"{res['requests_per_s']:.0f} requests/s, "
         f"latency p50 {res['latency_ms_p50']:.2f} ms p99 "
         f"{res['latency_ms_p99']:.2f} ms")
     return res
@@ -1718,7 +1934,7 @@ def step_profile(torch, np, ks, src_pool, batch, now, reps=10):
     copies = [DevicePool({k: t.clone() for k, t in src_pool.full.items()})
               for _ in range(3 * reps + 6)]
     torch.cuda.synchronize()
-    step = lambda: ks.search_step_packed(copies.pop(), packed, now)
+    step = lambda: ks.search_step_packed(copies.pop(), packed)
     out_elems = step().numel()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1765,6 +1981,7 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
     fill = pop.requests(SearchRequest, 0, waiting, t0)
     eng = GpuEngine(cfg, queue, device="cuda")
     eng.warmup()
+    graphs = graph_summary(eng.graph_report())
     raws = record_raw(eng)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1861,6 +2078,7 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
         eng.flush()
         return profile_windows
     prof = device_busy(torch, run)
+    check_own_kernels(prof, 0, f"{path} profile")
     res = {
         "config": path, "waiting": waiting, "windows": windows,
         "window": FULL_B, "pipeline_depth": depth, "matches": matches,
@@ -1878,7 +2096,10 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
                                 for k, v in spans.items() if k.endswith("_s")},
         "cpu_windows_equal": cpu_windows, "rescan": rescan,
         "profile": prof, "step": steps, "quality_samples": samples,
+        "graphs": graphs,
     }
+    if eng.graph_report()["captures"] != graphs["captures"]:
+        raise AssertionError(f"{path}: a window captured a graph again")
     log(f"team {path}: {matches} matches in {windows} windows "
         f"(per window {matches_per_window}), dispatch p50/p99 "
         f"{res['dispatch_ms_p50']:.2f}/{res['dispatch_ms_p99']:.2f} ms, "
@@ -1886,9 +2107,10 @@ def run_team(torch, np, mods, path, *, waiting, windows, profile_windows,
         f"{res['turnaround_ms_p99']:.2f} ms, {res['requests_per_s']:.0f} "
         f"requests/s, finalize {res['finalize_ms_per_window']:.2f} ms a "
         f"window, team_delegated 0; profile: {prof['kernels_per_window']:.0f} "
-        f"kernels and {prof['device_ms_per_window']:.3f} device ms a window, "
+        f"kernels ({prof['queued_per_window']:.1f} launches queued) and "
+        f"{prof['device_ms_per_window']:.3f} device ms a window, "
         f"busy {prof['device_busy_share']:.3f}; step alone: {steps}; rescan "
-        f"{rescan}; {samples} quality samples")
+        f"{rescan}; {samples} quality samples; graphs {graphs}")
     return res
 
 
@@ -2227,12 +2449,17 @@ async def service_multiqueue(np, ck, mods, path, *, waiting, requests, burst,
     return res
 
 
-async def service_team(np, mods, path, *, waiting, requests, burst, seed):
+async def service_team(np, mods, path, *, waiting, requests, burst, seed,
+                       interval_s=0.0):
     """Config #3's service on the card: ``waiting`` players restored
-    through the app, then ``requests`` published in bursts of ``burst``.
-    Every request is answered from its window (queued, then at most one
-    matched; or matched), every matched answer carries two teams of five
-    whose members agree on the match, and the service caught no failure."""
+    through the app, then ``requests`` published in bursts of ``burst``,
+    5 ms apart, or with ``interval_s`` burst k at k x ``interval_s`` after
+    the first (a fixed offered load; scripts/torch_service_ab.py). Every request is
+    answered from its window (queued, then at most one matched; or
+    matched), every matched answer carries two teams of five whose members
+    agree on the match, and the service caught no failure. Unpaced, the
+    publisher shares the event loop with the service, so the load offered
+    (``offered_per_s``) grows as the service frees the loop sooner."""
     import dataclasses
 
     from matchmaking_tpu_torch.service.app import MatchmakingApp
@@ -2270,19 +2497,25 @@ async def service_team(np, mods, path, *, waiting, requests, burst, seed):
                               "region": pop.region[j],
                               "game_mode": pop.mode[j]}).encode()
                   for j in range(waiting, waiting + requests)]
+        gc_clock = GcClock().__enter__()
         t_soak = time.perf_counter()
-        for b in range(0, requests, burst):
+        for n, b in enumerate(range(0, requests, burst)):
+            if n:
+                await asyncio.sleep(max(0.0, t_soak + n * interval_s
+                                        - time.perf_counter())
+                                    if interval_s else 0.005)
             for j in range(b, min(b + burst, requests)):
                 pid = pop.ids[waiting + j]
                 t_pub[pid] = time.perf_counter()
                 app.broker.publish(app.queue_cfg.name, bodies[j],
                                    Properties(reply_to=reply,
                                               correlation_id=pid))
-            await asyncio.sleep(0.005)
+        publish_s = time.perf_counter() - t_soak
         deadline = time.monotonic() + 120.0
         while len(first) < requests and time.monotonic() < deadline:
             await asyncio.sleep(0.01)
         soak_s = time.perf_counter() - t_soak
+        gc_clock.__exit__()
         while app.engine.inflight() and time.monotonic() < deadline:
             await asyncio.sleep(0.01)
         if len(first) != requests:
@@ -2324,18 +2557,22 @@ async def service_team(np, mods, path, *, waiting, requests, burst, seed):
                                      f"disagree on their match")
     lat = [v * 1e3 for v in first.values()]
     res = {"config": path, "waiting": waiting, "requests": requests,
-           "burst": burst, "windows": app.counters["windows"],
+           "burst": burst,
+           "gc_ms": gc_clock.total * 1e3, "windows": app.counters["windows"],
            "publish_batches": len(calls), "soak_s": soak_s,
+           "interval_s": interval_s, "publish_s": publish_s,
+           "offered_per_s": requests / publish_s,
            "requests_per_s": requests / soak_s,
            "players_matched": app.counters["players_matched"],
            "latency_ms_p50": statistics.median(lat),
            "latency_ms_p99": pct(lat, 0.99), "latency_ms_max": max(lat),
            "span_report": spans}
     log(f"team service {path}: {requests} requests over {waiting} waiting, "
-        f"{res['windows']} windows, {res['requests_per_s']:.0f} requests/s, "
+        f"{res['windows']} windows, offered {res['offered_per_s']:.0f} and "
+        f"served {res['requests_per_s']:.0f} requests/s, "
         f"latency p50 {res['latency_ms_p50']:.2f} ms p99 "
         f"{res['latency_ms_p99']:.2f} ms, {res['players_matched']} players "
-        f"matched")
+        f"matched, GC {res['gc_ms']:.1f} ms")
     return res
 
 
@@ -2454,10 +2691,20 @@ def main(argv) -> int:
         if by_id[partner].status != "matched":
             raise AssertionError(f"demo: partner {partner} not matched")
     log(f"service demo: {len(answers)} players answered, all matched")
-    soak = asyncio.run(service_soak(np, ck, mods, "configs/elo_1v1.json",
-                                    waiting=100_000, requests=16_384,
-                                    burst=512, seed=6))
+    profile_soak = "--profile-soak" in argv and out_dir
+    soak = asyncio.run(service_soak(
+        np, ck, mods, "configs/elo_1v1.json", waiting=100_000,
+        requests=16_384, burst=512, seed=6,
+        profile_to=(os.path.join(out_dir, "soak_profile_on.txt")
+                    if profile_soak else None)))
     launches["service_soak"] = soak["launches"]
+    # The same soak on the per-delivery path (consume_batch off).
+    soak_off = asyncio.run(service_soak(
+        np, ck, mods, "configs/elo_1v1.json", waiting=100_000,
+        requests=16_384, burst=512, seed=6, consume_batch=False,
+        profile_to=(os.path.join(out_dir, "soak_profile_off.txt")
+                    if profile_soak else None)))
+    launches["service_soak_per_delivery"] = soak_off["launches"]
     service_rescan_run = asyncio.run(service_rescan(
         np, ck, mods, "configs/glicko2.json", waiting=20_000, seed=7))
     launches["service_rescan_glicko2"] = service_rescan_run["launches"]
@@ -2559,10 +2806,15 @@ def main(argv) -> int:
             "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
             "turnaround_ms_p99", "requests_per_s", "idle_fraction",
             "gc_ms_total", "gc_ms_max", "matches", "launches",
-            "quality_samples", "prune")}
+            "quality_samples", "prune", "eager_windows_equal")}
+        columnar[name]["graphs"] = {k: v for k, v in run["graphs"].items()
+                                    if k != "by_graph"}
         if run["profile"]:
             columnar[name]["kernels_per_window"] = (
                 run["profile"]["step_kernels_per_window"])
+            columnar[name]["queued_per_window"] = (
+                run["profile"]["queued_per_window"])
+            columnar[name]["own_kernels"] = run["profile"]["own_kernels"]
             columnar[name]["block_best_device_ms_per_window"] = sum(
                 k["device_ms_per_window"] for k in run["profile"]["top_kernels"]
                 if "block_best_kernel" in k["name"])
@@ -2576,19 +2828,31 @@ def main(argv) -> int:
         "object_step_ms_p50": main_run["object"]["step_ms_p50"],
         "object_step_ms_max": main_run["object"]["step_ms_max"],
         "object_gc_ms_max": max(main_run["object"]["gc_ms"]),
-        "rescan": rescan, "service_rescan": service_rescan_run,
+        "rescan": {k: v for k, v in rescan.items() if k != "tick_profile"}
+        | {"tick_" + k + "_per_chunk": rescan["tick_profile"][k + "_per_window"]
+           for k in ("queued", "graph_launches", "kernels", "device_ms")}
+        | {"tick_own_kernels": rescan["tick_profile"]["own_kernels"]},
+        "service_rescan": service_rescan_run,
         "soak": {k: soak[k] for k in ("latency_ms_p50", "latency_ms_p99",
                                       "latency_ms_max", "requests_per_s",
                                       "windows", "publish_batches",
-                                      "players_matched", "quality_samples")},
+                                      "players_matched", "quality_samples",
+                                      "decode_calls")},
+        "soak_per_delivery": {k: soak_off[k] for k in (
+            "latency_ms_p50", "latency_ms_p99", "latency_ms_max",
+            "requests_per_s", "windows", "players_matched", "decode_calls")},
         "team": {name: {k: run[k] for k in (
             "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
             "turnaround_ms_p99", "requests_per_s", "matches",
             "matches_per_window", "finalize_ms_per_window",
             "team_delegated", "rescan", "quality_samples")}
             | {"kernels_per_window": run["profile"]["kernels_per_window"],
+               "queued_per_window": run["profile"]["queued_per_window"],
                "device_ms_per_window": run["profile"]["device_ms_per_window"],
-               "device_busy_share": run["profile"]["device_busy_share"]}
+               "device_busy_share": run["profile"]["device_busy_share"],
+               "graphs": {k: v for k, v in run["graphs"].items()
+                          if k != "by_graph"},
+               "step_queue_ms_per_window": run["step_queue_ms_per_window"]}
             for name, run in (("team_5v5", team_run),
                               ("role_party", role_run))},
         "role_delegation": delegation,
@@ -2620,7 +2884,8 @@ def main(argv) -> int:
                        "columnar": [main_run, pruned_run, filters_run,
                                     glicko_run],
                        "rescan": rescan, "demo_players": len(answers),
-                       "soak": soak, "service_rescan": service_rescan_run,
+                       "soak": soak, "soak_per_delivery": soak_off,
+                       "service_rescan": service_rescan_run,
                        "team": [team_run, role_run],
                        "role_delegation": delegation,
                        "role_health": role_health,

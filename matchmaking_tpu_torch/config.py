@@ -131,6 +131,21 @@ class BrokerConfig:
     prefetch: int = 2048
     #: Redelivery attempts for nacked deliveries before dead-lettering.
     max_redelivery: int = 3
+    #: Burst consume: the broker drains the deliveries already buffered on
+    #: a queue into one burst and a columnar (1v1) queue's runtime gets ONE
+    #: callback per burst, which decodes the burst's bodies in one native
+    #: call at consume (``service/ingress.py``); the window flush then
+    #: gathers columns from the decoded bursts instead of decoding again.
+    #: False = the per-delivery path, byte for byte.
+    consume_batch: bool = True
+    #: Deliveries per consume burst (the burst callback's most rows).
+    consume_batch_max: int = 256
+    #: Ingress shard workers per queue: a burst's rows that the native
+    #: decoder leaves to Python are consistent-hashed (crc32 of the
+    #: correlation id) into N slices, each decoded on a worker thread, and
+    #: the terminal-replay cache is split into N dicts by player id. 1 =
+    #: one slice, decoded inline.
+    ingress_shards: int = 1
 
 
 @dataclass(frozen=True)

@@ -168,7 +168,8 @@ prep_kernel(const float* __restrict__ c_rating, const float* __restrict__ c_rd,
             const float* __restrict__ c_thr, const float* __restrict__ c_enq,
             const uint8_t* __restrict__ c_active, float2* __restrict__ rec_a,
             Extra* __restrict__ rec_b, int capacity, int pool_block,
-            int stride, float now, float widen, float max_thr) {
+            int stride, const float* __restrict__ now, float widen,
+            float max_thr) {
   // Let block_best_kernel's CTAs start their set-up now; they wait for this
   // grid to finish (griddepcontrol.wait) before they read a record.
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -178,7 +179,7 @@ prep_kernel(const float* __restrict__ c_rating, const float* __restrict__ c_rd,
   const int o = blk * stride + (g - blk * pool_block);
   float thr = c_thr[g];
   if (widen > 0.0f) {
-    const float waited = fmaxf(0.0f, __fadd_rn(now, -c_enq[g]));
+    const float waited = fmaxf(0.0f, __fadd_rn(*now, -c_enq[g]));
     thr = fminf(max_thr, __fadd_rn(thr, __fmul_rn(widen, waited)));
   }
   rec_a[o] = make_float2(c_rating[g], c_active[g] != 0 ? thr : -CUDART_INF_F);
@@ -481,8 +482,8 @@ cudaError_t allow_ring(size_t smem) {
 }
 
 template <bool G, bool F>
-int launch(const void* const* pool, const Params& p, float now, float widen,
-           float max_thr, cudaStream_t stream) {
+int launch(const void* const* pool, const Params& p, const float* now,
+           float widen, float max_thr, cudaStream_t stream) {
   const int threads = 256;
   prep_kernel<G, F><<<(p.capacity + threads - 1) / threads, threads, 0, stream>>>(
       static_cast<const float*>(pool[0]), static_cast<const float*>(pool[1]),
@@ -524,7 +525,9 @@ int launch(const void* const* pool, const Params& p, float now, float widen,
 // CUDA error (cudaGetLastError() after each launch), so that a refused
 // launch is seen. The plan (rows_per_cta, cluster) comes from
 // cuda_kernels.plan_grid; a plan the kernel does not take is refused with
-// cudaErrorInvalidValue before anything is launched.
+// cudaErrorInvalidValue before anything is launched. `now` points at the
+// window's time on the device (the packed window's now row), so that a
+// launch captured into a CUDA graph reads each replay's own time.
 extern "C" int block_best_launch(
     const void* c_rating, const void* c_rd, const void* c_region,
     const void* c_mode, const void* c_thr, const void* c_enq,
@@ -532,7 +535,7 @@ extern "C" int block_best_launch(
     const void* q_rd, const void* q_thr_eff, const void* q_region,
     const void* q_mode, const void* q_valid, void* out_v, void* out_i,
     void* rec_a, void* rec_b, int n_rows, int n_blocks, int pool_block,
-    int capacity, int rows_per_cta, int cluster, float now, int glicko2,
+    int capacity, int rows_per_cta, int cluster, const void* now, int glicko2,
     int filters, float widen, float max_thr, float g_coeff,
     const void* span_start, const void* feasible, int chunk_rows,
     int span_blocks, void* stream) {
@@ -543,7 +546,8 @@ extern "C" int block_best_launch(
                            cluster == 8) && pool_block % cluster == 0 &&
                           (cluster == 1 || (pool_block / cluster) % kAlign == 0);
   if (!rows_ok || !cluster_ok || capacity != n_blocks * pool_block ||
-      rec_a == nullptr || ((glicko2 || filters) && rec_b == nullptr)) {
+      rec_a == nullptr || now == nullptr ||
+      ((glicko2 || filters) && rec_b == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (span_start != nullptr &&
@@ -581,10 +585,11 @@ extern "C" int block_best_launch(
   const void* pool[7] = {c_rating, c_rd, c_region, c_mode, c_thr, c_enq,
                          c_active};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(now);
   if (glicko2) {
-    return filters ? launch<true, true>(pool, p, now, widen, max_thr, s)
-                   : launch<true, false>(pool, p, now, widen, max_thr, s);
+    return filters ? launch<true, true>(pool, p, t, widen, max_thr, s)
+                   : launch<true, false>(pool, p, t, widen, max_thr, s);
   }
-  return filters ? launch<false, true>(pool, p, now, widen, max_thr, s)
-                 : launch<false, false>(pool, p, now, widen, max_thr, s);
+  return filters ? launch<false, true>(pool, p, t, widen, max_thr, s)
+                 : launch<false, false>(pool, p, t, widen, max_thr, s);
 }

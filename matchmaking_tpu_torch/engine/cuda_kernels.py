@@ -36,7 +36,9 @@ the window's time from the device (the packed window's ``now`` row).
   loaded with ``ctypes``.
 
 The pool is passed as its SoA columns (``POOL_FIELDS``, active as bool);
-the window as its own columns plus the pre-widened request thresholds.
+the window as its own columns plus the pre-widened request thresholds, and
+its time as a one-element f32 tensor on the card, which both kernels read
+there (a launch captured into a CUDA graph reads each replay's own).
 """
 
 from __future__ import annotations
@@ -220,7 +222,7 @@ def _compile(name: str, report: bool) -> tuple[Path, str]:
 #: ctypes argument types of each library's launch function.
 _ARGTYPES = {
     "block_best": ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     # (out, b, now, the parameter block, stream); the empty kernel's too
@@ -257,13 +259,15 @@ def _f32(x: float) -> float:
         return math.copysign(math.inf, x)
 
 
-def effective_threshold(thr, enqueue_t, now: float, widen_per_sec: float,
+def effective_threshold(thr, enqueue_t, now, widen_per_sec: float,
                         max_threshold: float):
     """Threshold widening by wait time, one rounded f32 op at a time:
-    ``min(max_thr, thr + widen · max(0, now − enqueue_t))``."""
+    ``min(max_thr, thr + widen · max(0, now − enqueue_t))``. ``now`` is the
+    window's time as a one-element f32 tensor on the columns' device (the
+    packed window's now row), so that nothing is read on the host."""
     if widen_per_sec <= 0.0:
         return thr
-    waited = (_f32(now) - enqueue_t).clamp_min(0.0)
+    waited = (now - enqueue_t).clamp_min(0.0)
     return (thr + _f32(widen_per_sec) * waited).clamp_max(_f32(max_threshold))
 
 
@@ -299,12 +303,13 @@ def _block_scores(pool: dict, c_thr, batch: dict, q_thr_eff, j: int, *,
                           torch.full_like(a, capacity, dtype=torch.int32))
 
 
-def block_best_reference(pool: dict, batch: dict, q_thr_eff, now: float, *,
+def block_best_reference(pool: dict, batch: dict, q_thr_eff, now, *,
                          pool_block: int, glicko2: bool, filters: bool,
                          widen_per_sec: float, max_threshold: float,
                          g_coeff: float):
     """Plain PyTorch version of the kernel: (vals f32[B, n_blocks],
-    idx i32[B, n_blocks]), one (B, pool_block) score tile per block."""
+    idx i32[B, n_blocks]), one (B, pool_block) score tile per block;
+    ``now`` as ``block_best`` takes it."""
     n_blocks = pool["rating"].shape[0] // pool_block
     c_thr = effective_threshold(pool["threshold"], pool["enqueue_t"], now,
                                 widen_per_sec, max_threshold)
@@ -330,7 +335,7 @@ class Span(NamedTuple):
 
 
 def block_best_span_reference(pool: dict, batch: dict, q_thr_eff,
-                              now: float, span: Span, **kw):
+                              now, span: Span, **kw):
     """Plain version of the span launch: ``block_best_reference``'s tiles
     for each chunk's span of blocks, -inf / ``capacity`` elsewhere; the
     dense result when ``span.feasible`` is unset (a host read: CPU
@@ -361,7 +366,7 @@ def block_best_span_reference(pool: dict, batch: dict, q_thr_eff,
 _BATCH_NAMES = tuple(name for name, _ in _BATCH_COLS)
 
 
-def _check(pool: dict, batch: dict, q_thr_eff, pool_block: int):
+def _check(pool: dict, batch: dict, q_thr_eff, now, pool_block: int):
     capacity = pool["rating"].shape[0]
     if pool_block <= 0 or capacity % pool_block != 0:
         raise ValueError(f"pool_block {pool_block} must divide the capacity "
@@ -373,10 +378,14 @@ def _check(pool: dict, batch: dict, q_thr_eff, pool_block: int):
         for name, dtype in cols:
             _check_tensor(f"{what}[{name!r}]", src[name], dtype, (n,), device)
     _check_tensor("q_thr_eff", q_thr_eff, torch.float32, (n_rows,), device)
+    _check_tensor("now", now, torch.float32, (1,), device)
     return device, capacity, n_rows
 
 
 def _check_tensor(what: str, t, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor of "
+                         f"shape {shape} on {device}; got {type(t).__name__}")
     if t.device != device or t.dtype != dtype or t.shape != shape \
             or not t.is_contiguous():
         raise ValueError(
@@ -396,14 +405,16 @@ def _check_span(span: Span, n_rows: int, n_blocks: int, device) -> None:
     _check_tensor("feasible", span.feasible, torch.bool, (1,), device)
 
 
-def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
+def block_best(pool: dict, batch: dict, q_thr_eff, now, *,
                pool_block: int, glicko2: bool, filters: bool,
                widen_per_sec: float, max_threshold: float, g_coeff: float,
                span: Span | None = None):
     """Best candidate per pool block: (vals f32[B, n_blocks], idx
     i32[B, n_blocks]); -inf / ``capacity`` where a block has none (or,
     with ``span``, lies outside the row's chunk span of a feasible
-    window).
+    window). ``now`` is the window's time as a one-element f32 tensor on
+    the pool's device (the packed window's now row): the kernel reads it
+    there, so a launch captured into a CUDA graph reads each replay's own.
 
     CUDA tensors launch the ``csrc/block_best.cu`` kernels (record prep,
     then the scorer, planned by ``plan_grid``) on the current stream; CPU
@@ -411,7 +422,7 @@ def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
     with ``span``). Nothing falls back: a kernel that cannot build or
     launch raises. The span launch reads ``span.feasible`` on the device:
     no host sync."""
-    device, capacity, n_rows = _check(pool, batch, q_thr_eff, pool_block)
+    device, capacity, n_rows = _check(pool, batch, q_thr_eff, now, pool_block)
     n_blocks = capacity // pool_block
     if span is not None:
         _check_span(span, n_rows, n_blocks, device)
@@ -432,7 +443,7 @@ def block_best(pool: dict, batch: dict, q_thr_eff, now: float, *,
     return _launch(plan, pool, batch, q_thr_eff, now, span=span, **kw)
 
 
-def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
+def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now,
             *, pool_block: int, glicko2: bool, filters: bool,
             widen_per_sec: float, max_threshold: float, g_coeff: float,
             span: Span | None = None):
@@ -466,7 +477,7 @@ def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now: float,
             out_v.data_ptr(), out_i.data_ptr(), rec.data_ptr(),
             rec.data_ptr() + 8 * n_rec if extra else None,
             n_rows, n_blocks, pool_block, capacity, plan.rows_per_cta,
-            plan.cluster, _f32(now),
+            plan.cluster, now.data_ptr(),
             int(glicko2), int(filters), _f32(widen_per_sec),
             _f32(max_threshold), _f32(g_coeff),
             span.span_start.data_ptr() if span is not None else None,

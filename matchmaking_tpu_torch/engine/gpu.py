@@ -23,7 +23,16 @@ Host/device split:
   checkpoint), padding windows to batch buckets, mapping matched slot pairs
   back to requests. No internal locks: one caller at a time drives every
   public method (the service calls them from its event loop only).
-- Device: the pool tensors, updated in place, and the window step.
+- Device: the pool tensors, updated in place, and the window step. On
+  the card each step variant runs as one CUDA graph per batch bucket
+  (engine/graphs.py ``StepGraphs``), the counterpart of the JAX package's
+  jitted step set: a window chunk is one copy of its packed rows into the
+  graph's static input, one replay, and one copy of its static output.
+  The step reads the window's time on the device (the packed ``now``
+  row). Graphs are captured on first use or by ``warmup()``, and dropped
+  whenever the device pool is replaced (a team or role queue handed to
+  the host oracle parks its pool and clears it on its return, so its
+  graphs stay valid). On the CPU the steps run eagerly.
 
 Pipelining. ``search_async`` / ``search_columns_async`` / ``rescan_async``
 queue a window's work and return a token without waiting; the results come
@@ -85,6 +94,7 @@ from matchmaking_tpu_torch.core.pool import (
 )
 from matchmaking_tpu_torch.engine import kernels, scoring
 from matchmaking_tpu_torch.engine.cpu import CpuEngine
+from matchmaking_tpu_torch.engine.graphs import StepGraphs, uncounted
 from matchmaking_tpu_torch.engine.interface import (
     ColumnarOutcome,
     Engine,
@@ -157,8 +167,7 @@ class _Pending:
     token: int
     #: Per device chunk: (payload, result, now). The payload is the request
     #: list (object path) or (RequestColumns, slots) (columnar path); the
-    #: result is the step's device tensor until ``_submit`` replaces it by
-    #: its ``_Readback``.
+    #: result is the ``_Readback`` queued behind the chunk's step.
     chunks: list[tuple[Any, Any, float]] = field(default_factory=list)
     #: perf_counter at dispatch, for the turnaround span.
     created: float = 0.0
@@ -234,7 +243,12 @@ class GpuEngine(Engine):
             ec.band_spec, 0 if self._team_device else self.kernels.n_blocks)
         self.pool = PlayerPool(ec.pool_capacity, queue.rating_threshold,
                                band_edges=self._band_edges)
+        #: The captured window steps (the card only; None on the CPU).
+        self._graphs = (StepGraphs(self.kernels, self.device)
+                        if self.device.type == "cuda" else None)
         self.dev_pool = self._fresh_device_pool()
+        #: A delegated team/role queue's device pool, kept for its return.
+        self._parked_pool: kernels.DevicePool | None = None
         #: The host oracle while a team/role queue is delegated (else None).
         self._team_delegate: CpuEngine | None = None
         #: ``now`` of the last device-blocking arrival while delegated.
@@ -451,38 +465,33 @@ class GpuEngine(Engine):
         return False
 
     def warmup(self) -> None:
-        """Build the kernel (CUDA) and run every bucket's all-padding
-        window through every step variant, read back as a window is, so no
-        first-of-its-kind window pays a first use. 1v1 steps run on the
-        pool itself (nothing is admitted, matched or evicted); the team
-        and role steps form matches pool-wide, so they run on a scratch
-        pool. A delegated queue has nothing to warm."""
+        """Make every (step variant, bucket) ready, so that no
+        first-of-its-kind window pays a first use: on the card, capture
+        each one's CUDA graph (``StepGraphs``: what ``TpuEngine.warmup``'s
+        compiles are to the JAX engine); on the CPU, run each bucket's
+        all-padding window through every variant, read back as a window
+        is. 1v1 steps run on the pool itself (nothing is admitted, matched
+        or evicted); the team and role steps form matches pool-wide, so
+        they run on a scratch pool. No warm-up counts as a pruned window
+        (``prune_report``). A delegated queue has nothing to warm."""
         if self._team_delegate is not None:
             return
         self._require_idle("warmup()")
-        if self._team_device:
-            scratch = self._fresh_device_pool()
+        if self._graphs is not None:
             for bucket in self.buckets:
-                batch = self.pool.batch_arrays([], [], bucket)
-                _Readback(self.kernels.search_step_packed(
-                    scratch, self._h2d(batch, 0.0)[0], 0.0)).numpy()
-                self.kernels.admit_packed(scratch, self._h2d(batch, 0.0)[0])
-            kernels.evict(scratch, torch.empty(0, dtype=torch.int32,
-                                               device=self.device))
+                for variant in self._variants():
+                    self._step_graph(variant, bucket)
         else:
-            steps = [functools.partial(self.kernels.search_step_packed,
-                                       skip_filters=skip)
-                     for skip in (False, True)]
-            steps.append(self.kernels.search_step_packed_rescan)
-            for bucket in self.buckets:
-                batch = self.pool.batch_arrays([], [], bucket)
-                for step in steps:
-                    packed = self._h2d(batch, 0.0)[0]
-                    out = step(self.dev_pool, packed, 0.0)
-                    # An all-padding result: the accumulator adds nothing.
-                    self._quality_accum_dispatch(out, packed)
-                    _Readback(out).numpy()
-                self._admit(batch)
+            pool = self._warm_pool()
+            with uncounted(self.kernels):
+                for bucket in self.buckets:
+                    batch = self.pool.batch_arrays([], [], bucket)
+                    for variant in self._variants():
+                        packed = self._stage(batch, 0.0).to(self.device,
+                                                            non_blocking=True)
+                        _Readback(self._step_fn(variant)(pool,
+                                                         packed)).numpy()
+                    self._admit(batch)
             self._evict(np.empty(0, np.int32))
         # Finalize's numpy calls pay their first-use imports here (numpy
         # 2.3 imports numpy.ma on the first np.unique: ~50 ms where no
@@ -632,8 +641,7 @@ class GpuEngine(Engine):
                 correlation_id=pool.m_corr[slots])
             bucket = self._bucket_for(slots.size)
             batch = pool.batch_arrays_cols(cols, slots, bucket, t0)
-            out = self._launch(self.kernels.search_step_packed_rescan, batch,
-                               now, pending)
+            out = self._launch("rescan", batch, now, pending)
             self.util["lanes_valid"] += int(slots.size)
             self.util["lanes_padded"] += bucket
             pending.chunks.append(((cols, slots), out, now))
@@ -653,8 +661,7 @@ class GpuEngine(Engine):
         pending = _Pending(token=self._next_token, created=time.perf_counter())
         self._next_token += 1
         batch = self.pool.batch_arrays([], [], self.buckets[0])
-        out = self._launch(self.kernels.search_step_packed, batch, now,
-                           pending)
+        out = self._launch(self._variants()[0], batch, now, pending)
         pending.chunks.append(([], out, now))
         self._submit(pending)
         return pending.token
@@ -756,14 +763,11 @@ class GpuEngine(Engine):
             add_arrays(arrays, self._team_delegate.quality_accum.arrays)
         return arrays
 
-    def _quality_accum_dispatch(self, out: torch.Tensor,
-                                packed: torch.Tensor) -> None:
-        """Queue the fold of one window step's result into the device
-        quality state, behind the step on the same stream: one launch, no
-        host read. The kernel reads the window's time from the packed
-        window's ``now`` row (its last), on the device."""
-        if self._quality is not None:
-            self._quality.accum(self._q_dev, self.dev_pool, out, packed[-1])
+    def graph_report(self) -> dict | None:
+        """The captured steps (``StepGraphs.report``: per variant and
+        bucket, capture and warm-up host ms, memory, replays); None on the
+        CPU."""
+        return None if self._graphs is None else self._graphs.report()
 
     def _quality_sync_finalize(self) -> None:
         """At each finalize: take the state copy in flight if its event has
@@ -812,14 +816,12 @@ class GpuEngine(Engine):
             self._t0 = now
         return self._t0
 
-    def _h2d(self, batch: BatchArrays, now_rel: float,
-             requests: Sequence[SearchRequest] = ()
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Pack a window into a host staging buffer (pinned for the card)
-        and queue its copy to the device: (device tensor f32[pack_rows, B],
-        the staging buffer, which must outlive the copy). Role steps get
-        the ``role_mask`` row of ``requests`` (lane order) before the
-        trailing ``now`` row; padding lanes carry mask 0."""
+    def _stage(self, batch: BatchArrays, now_rel: float,
+               requests: Sequence[SearchRequest] = ()) -> torch.Tensor:
+        """Pack a window into a host staging buffer f32[pack_rows, B]
+        (pinned for the card), which must outlive its copy to the device.
+        Role steps get the ``role_mask`` row of ``requests`` (lane order)
+        before the trailing ``now`` row; padding lanes carry mask 0."""
         staging = torch.empty((self.kernels.pack_rows, batch.slot.shape[0]),
                               dtype=torch.float32, pin_memory=self._pinned)
         rows = staging.numpy()
@@ -829,42 +831,102 @@ class GpuEngine(Engine):
             rows[len(PACKED_ROWS)] = 0.0
             rows[len(PACKED_ROWS), :len(requests)] = [
                 self.kernels.mask_of(r.roles) for r in requests]
-        return staging.to(self.device, non_blocking=True), staging
+        return staging
 
     def _admit(self, batch: BatchArrays,
                requests: Sequence[SearchRequest] = ()) -> None:
-        """Queue the admission of a padded window (restore paths). The
-        pinned allocator keeps the staging block until the copy has run."""
-        self.kernels.admit_packed(self.dev_pool,
-                                  self._h2d(batch, 0.0, requests)[0])
+        """Queue the admission of a padded window (restore paths), eagerly.
+        The pinned allocator keeps the staging block until the copy has
+        run."""
+        self.kernels.admit_packed(self.dev_pool, self._stage(
+            batch, 0.0, requests).to(self.device, non_blocking=True))
 
-    def _launch(self, step, batch: BatchArrays, now: float,
+    def _variants(self) -> tuple[str, ...]:
+        """The step variants of this queue (one graph each per bucket):
+        the team or role step; for 1v1 queues the traffic step with and
+        without filters (dense, or pruned with ``prune_window_blocks``)
+        and the rescan step."""
+        if self._team_device:
+            return ("role",) if self._role_device else ("team",)
+        base = "pruned" if self.kernels.prune_window_blocks else "dense"
+        return base, base + "_nofilter", "rescan"
+
+    def _step_fn(self, variant: str):
+        """The step a variant runs, as a graph captures it: (device pool,
+        packed window) → the result, with a 1v1 step's quality fold behind
+        it (one ``quality_accum`` launch; it reads the window's time from
+        the packed ``now`` row, its last, on the device)."""
+        ks = self.kernels
+        if variant == "rescan":
+            step = ks.search_step_packed_rescan
+        elif self._team_device:
+            step = ks.search_step_packed
+        else:
+            step = functools.partial(ks.search_step_packed,
+                                     skip_filters=variant.endswith("nofilter"))
+        quality = self._quality
+        if quality is None:
+            return step
+        state = self._q_dev
+
+        def run(pool, packed):
+            out = step(pool, packed)
+            quality.accum(state, pool, out, packed[-1])
+            return out
+        return run
+
+    def _warm_pool(self) -> kernels.DevicePool:
+        """The pool a variant's eager warm-up runs on: the pool itself for
+        a 1v1 step (an all-padding window changes nothing), a scratch pool
+        for the team and role steps (they form matches pool-wide)."""
+        return self._fresh_device_pool() if self._team_device else self.dev_pool
+
+    def _step_graph(self, variant: str, bucket: int):
+        """The graph of (variant, bucket), captured at its first use."""
+        g = self._graphs.get(variant, bucket)
+        if g is None:
+            empty = self._stage(self.pool.batch_arrays([], [], bucket), 0.0)
+            g = self._graphs.capture(variant, bucket, self._step_fn(variant),
+                                     self.dev_pool, empty, self._warm_pool())
+        return g
+
+    def _launch(self, variant: str, batch: BatchArrays, now: float,
                 pending: _Pending,
-                requests: Sequence[SearchRequest] = ()) -> torch.Tensor:
-        """Copy one window chunk to the device and queue ``step`` on it;
-        returns the step's device result (1v1: f32[3, B] q_slot, c_slot,
-        dist; team/role: f32[need + 2 (+1), M])."""
+                requests: Sequence[SearchRequest] = ()) -> _Readback:
+        """Copy one window chunk to the device, queue the ``variant`` step
+        on it (on the card, one replay of its graph) and the copy of its
+        result to the host right behind it: the next replay of the graph
+        (a later chunk of this window) overwrites its static output.
+        Returns that ``_Readback`` of the result (1v1: f32[3, B] q_slot,
+        c_slot, dist; team/role: f32[need + 2 (+1), M])."""
         t0 = self._rel_base(now)
         now_rel = float(np.float32(now - t0))  # the packed now row's value
         _t = time.perf_counter()
-        packed, staging = self._h2d(batch, now_rel, requests)
+        staging = self._stage(batch, now_rel, requests)
         pending.staging.append(staging)
+        if self._graphs is not None:
+            g = self._step_graph(variant, batch.slot.shape[0])
+            g.static_in.copy_(staging, non_blocking=True)
+        else:  # eager (the CPU: no copy)
+            packed = staging.to(self.device, non_blocking=True)
         self.spans["h2d_s"] += time.perf_counter() - _t
         _t = time.perf_counter()
-        out = step(self.dev_pool, packed, now_rel)
-        self._quality_accum_dispatch(out, packed)
+        if self._graphs is not None:
+            out = self._graphs.replay(g)
+        else:
+            out = self._step_fn(variant)(self.dev_pool, packed)
+        readback = _Readback(out)
         self.spans["step_s"] += time.perf_counter() - _t
-        return out
+        return readback
 
-    def _step_for(self, batch: BatchArrays):
-        """The all-ANY variant drops the region/mode tests: exact when no
-        lane carries a filter (padding lanes hold code 0). Team and role
-        steps have one variant."""
-        if self._team_device:
-            return self.kernels.search_step_packed
-        skip = not batch.region.any() and not batch.mode.any()
-        return functools.partial(self.kernels.search_step_packed,
-                                 skip_filters=skip)
+    def _step_for(self, batch: BatchArrays) -> str:
+        """The variant of a traffic window. The all-ANY variant drops the
+        region/mode tests: exact when no lane carries a filter (padding
+        lanes hold code 0). Team and role steps have one variant."""
+        base = self._variants()[0]
+        if self._team_device or batch.region.any() or batch.mode.any():
+            return base
+        return base + "_nofilter"
 
     def _dispatch(self, window: list[SearchRequest], now: float,
                   pending: _Pending) -> None:
@@ -918,10 +980,8 @@ class GpuEngine(Engine):
         pending.chunks.append(((cols, slots), out, now))
 
     def _submit(self, pending: _Pending) -> None:
-        """Queue each chunk's result copy behind its step, and track the
-        window FIFO."""
-        pending.chunks = [(payload, _Readback(out), now)
-                          for payload, out, now in pending.chunks]
+        """Track the window FIFO (each chunk's result copy is already
+        queued behind its step)."""
         pending.queued_readback = time.perf_counter()
         if self._open == 0:
             now_pc = time.perf_counter()
@@ -1129,9 +1189,22 @@ class GpuEngine(Engine):
 
     # ---- internals: delegation to the host oracle (team/role queues) -----
 
+    @property
+    def dev_pool(self) -> kernels.DevicePool | None:
+        """The device pool. Replacing it drops every captured step, whose
+        graphs hold the old pool's addresses."""
+        return self._dev_pool
+
+    @dev_pool.setter
+    def dev_pool(self, pool: kernels.DevicePool | None) -> None:
+        self._dev_pool = pool
+        if self._graphs is not None:
+            self._graphs.clear()
+
     def _fresh_device_pool(self) -> kernels.DevicePool:
         """An empty device pool for the kernel set (with its extra columns,
-        the role step's ``role_mask``): at start and at re-promotion."""
+        the role step's ``role_mask``): at start, and as the scratch pool
+        of a team or role step's warm-up."""
         return kernels.fresh_pool(self.kernels.capacity, self.device,
                                   self.kernels.extra_pool_fields)
 
@@ -1155,7 +1228,8 @@ class GpuEngine(Engine):
         (the mirror must be post-match), their outcomes kept for the next
         collect_ready()/flush() under their tokens; every waiting player
         moves to a ``CpuEngine`` with its enqueue time; the device pool is
-        dropped. True when the queue was handed over."""
+        parked (``dev_pool`` is None while delegated). True when the queue
+        was handed over."""
         if not self._team_device or self._team_delegate is not None:
             return False
         if not any(self._device_blocker(r) for r in requests):
@@ -1178,7 +1252,10 @@ class GpuEngine(Engine):
         self._delegate_last_wc = now
         self.counters["team_delegated"] = (
             self.counters.get("team_delegated", 0) + 1)
-        self.dev_pool = None
+        # The device pool is parked, not dropped: re-promotion clears and
+        # reuses it, so the captured steps, which hold its addresses, stay
+        # valid.
+        self._parked_pool, self._dev_pool = self._dev_pool, None
         self.pool = PlayerPool(self.kernels.capacity,
                                self.queue.rating_threshold,
                                band_edges=self._band_edges)
@@ -1189,8 +1266,9 @@ class GpuEngine(Engine):
         device-blocking request arrived for ``TEAM_REPROMOTE_QUIET_S`` and
         none waits, and the waiting players fit the device pool with one
         arrival batch of headroom (else it stays delegated, rechecked a
-        quiet period later). The players move with their enqueue times.
-        True if the queue is now on the card."""
+        quiet period later). The players move with their enqueue times,
+        into the device pool parked at delegation, cleared. True if the
+        queue is now on the card."""
         d = self._team_delegate
         if d is None:
             return False
@@ -1211,7 +1289,10 @@ class GpuEngine(Engine):
         self.pool = PlayerPool(self.kernels.capacity,
                                self.queue.rating_threshold,
                                band_edges=self._band_edges)
-        self.dev_pool = self._fresh_device_pool()
+        pool, self._parked_pool = self._parked_pool, None
+        for col in pool.full.values():
+            col.zero_()  # as fresh: every slot inactive
+        self._dev_pool = pool
         if waiting:
             self.restore(waiting, now)
         self.counters["team_repromoted"] = (

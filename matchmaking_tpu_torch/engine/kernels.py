@@ -39,6 +39,7 @@ already O(B), and leaves the same pool.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import numpy as np
@@ -120,6 +121,15 @@ def pool_from_reference(arrays: dict[str, np.ndarray], device,
 def pool_to_numpy(pool: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Inverse of ``pool_from_reference`` (host numpy, for comparisons)."""
     return {name: t.cpu().numpy() for name, t in pool.items()}
+
+
+def packed_now(packed: torch.Tensor) -> torch.Tensor:
+    """The window's time from a packed window: its last row's first
+    element, as a one-element f32 view on the window's device (row 8 of
+    the 1v1 and team windows, row 9 of the role window; the JAX steps read
+    ``packed[8, 0]``). The steps read it there, never as a host float, so
+    a step captured into a CUDA graph reads each replay's own time."""
+    return packed[-1, :1]
 
 
 def unpack_batch(packed: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -272,9 +282,27 @@ class KernelSet:
         self.pruned_steps = 0
         self.span_steps: torch.Tensor | None = None
 
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Steps run inside count in neither ``pruned_steps`` nor
+        ``span_steps`` (a warm-up's all-padding windows are not windows).
+        The device counter is put back in place, on the current stream, so
+        a step captured inside keeps its address."""
+        steps = self.pruned_steps
+        span = None if self.span_steps is None else self.span_steps.clone()
+        try:
+            yield
+        finally:
+            self.pruned_steps = steps
+            if self.span_steps is not None:
+                if span is None:
+                    self.span_steps.zero_()
+                else:
+                    self.span_steps.copy_(span)
+
     def candidates(self, batch: dict[str, Any], q_thr_eff,
-                   pool: dict[str, Any], now: float, skip_filters: bool = False,
-                   span: Span | None = None):
+                   pool: dict[str, Any], now: torch.Tensor,
+                   skip_filters: bool = False, span: Span | None = None):
         """Best-per-block candidate lists (vals f32[B, n_blocks], idx
         i32[B, n_blocks]) — the hand-written kernel on CUDA tensors.
         ``skip_filters`` drops the region/mode tests, which is exact when
@@ -288,10 +316,12 @@ class KernelSet:
             g_coeff=scoring.G_COEFF_F32, span=span)
 
     def search_step(self, pool: dict[str, Any], batch: dict[str, Any],
-                    now: float, skip_filters: bool = False):
+                    now: torch.Tensor, skip_filters: bool = False):
         """One window: admit → block-best → pair → evict matched, with
-        the pool updated in place. Returns (q_slot[B], c_slot[B], dist[B])
-        with sentinel ``capacity`` / +inf in unmatched lanes."""
+        the pool updated in place, at the window's time ``now`` (a
+        one-element f32 tensor on the pool's device: ``packed_now``).
+        Returns (q_slot[B], c_slot[B], dist[B]) with sentinel
+        ``capacity`` / +inf in unmatched lanes."""
         if self.prune_window_blocks:
             order = _rating_order(batch["valid"], batch["rating"])
             sb = {k: v.index_select(0, order) for k, v in batch.items()}
@@ -310,12 +340,13 @@ class KernelSet:
         return out_q, out_c, out_d
 
     def search_step_packed(self, pool: dict[str, Any], packed: torch.Tensor,
-                           now: float, skip_filters: bool = False):
-        """Packed window step: f32[9, B] in (``now`` is row 8's value, also
-        passed as a host float so no device read is needed), f32[3, B]
-        (q_slot, c_slot, dist) out — slot ids ≪ 2^24 are f32-exact. The
-        pruned form sorts the packed window with one gather and unsorts the
-        packed result with one indexed copy."""
+                           skip_filters: bool = False):
+        """Packed window step: f32[9, B] in (``now`` read on the device from
+        row 8: ``packed_now``), f32[3, B] (q_slot, c_slot, dist) out — slot
+        ids ≪ 2^24 are f32-exact. The pruned form sorts the packed window
+        with one gather and unsorts the packed result with one indexed
+        copy."""
+        now = packed_now(packed)
         if self.prune_window_blocks:
             order = _rating_order(packed[7] > 0, packed[1])
             outs = self._search_step_pruned(
@@ -327,7 +358,7 @@ class KernelSet:
                                             skip_filters))
 
     def search_step_rescan(self, pool: dict[str, Any],
-                           batch: dict[str, Any], now: float):
+                           batch: dict[str, Any], now: torch.Tensor):
         """No-admission window step for rescans: nothing is admitted, and
         each lane's validity is ANDed with the device-side ``active`` flag
         of its own slot (a gather, no host read). A lane built from a host
@@ -349,11 +380,11 @@ class KernelSet:
         return out_q, out_c, out_d
 
     def search_step_packed_rescan(self, pool: dict[str, Any],
-                                  packed: torch.Tensor, now: float):
+                                  packed: torch.Tensor):
         """Packed-I/O twin of ``search_step_rescan`` (the layout of
         ``search_step_packed``)."""
-        return _stack_out(*self.search_step_rescan(pool, unpack_batch(packed),
-                                                   now))
+        return _stack_out(*self.search_step_rescan(
+            pool, unpack_batch(packed), packed_now(packed)))
 
     def admit_packed(self, pool: dict[str, Any], packed: torch.Tensor) -> None:
         admit(pool, unpack_batch(packed))
@@ -361,7 +392,7 @@ class KernelSet:
     # ---- the rating-banded pruned step ----------------------------------
 
     def _search_step_pruned(self, pool: dict[str, Any], sb: dict[str, Any],
-                            order: torch.Tensor, now: float,
+                            order: torch.Tensor, now: torch.Tensor,
                             skip_filters: bool = False):
         """The pruned step on a window sorted by ``_rating_order``
         (``order[k]`` is sorted lane k's original lane): admit, the blocks'

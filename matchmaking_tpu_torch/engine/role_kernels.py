@@ -42,6 +42,7 @@ from matchmaking_tpu_torch.engine.kernels import (
     ADMIT_FIELDS,
     admit,
     evict,
+    packed_now,
     unpack_batch,
 )
 from matchmaking_tpu_torch.engine.teams import (
@@ -161,14 +162,15 @@ class RoleKernelSet(TeamKernelSet):
         ok = ok_m.any(1)
         return ok, torch.where(ok, split_bits[first], 0)
 
-    def _windows_roles(self, pool, order, group, now: float):
+    def _windows_roles(self, pool, order, group, now: torch.Tensor):
         """Team-window validity and the role cover/split term."""
         valid, spread, win_thr = self._windows(pool, order, group, now)
         member_masks = pool["role_mask"][order].unfold(0, self.need, 1)
         cover_ok, split = self._cover_split(member_masks)
         return valid & cover_ok, spread, win_thr, split
 
-    def search_step(self, pool, batch: dict[str, torch.Tensor], now: float):
+    def search_step(self, pool, batch: dict[str, torch.Tensor],
+                    now: torch.Tensor):
         admit(pool, batch, self.admit_fields)
         order, group = sorted_group_order(pool)
         valid, spread, win_thr, split = self._windows_roles(
@@ -181,9 +183,9 @@ class RoleKernelSet(TeamKernelSet):
                 torch.where(is_match, win_thr[w], 0.0),
                 torch.where(is_match, split[w], 0))
 
-    def search_step_packed(self, pool, packed: torch.Tensor, now: float):
+    def search_step_packed(self, pool, packed: torch.Tensor):
         slots, spread, limit, split = self.search_step(
-            pool, self.unpack(packed), now)
+            pool, self.unpack(packed), packed_now(packed))
         return torch.cat([slots.T.to(torch.float32), spread[None, :],
                           limit[None, :], split.to(torch.float32)[None, :]])
 

@@ -43,6 +43,7 @@ from matchmaking_tpu_torch.engine.kernels import (
     ADMIT_FIELDS,
     admit,
     evict,
+    packed_now,
     unpack_batch,
 )
 
@@ -117,7 +118,7 @@ class TeamKernelSet:
 
     # ---- the step -----------------------------------------------------------
 
-    def _windows(self, pool, order, group, now: float):
+    def _windows(self, pool, order, group, now: torch.Tensor):
         """Validity, spread and minimum effective threshold of every window
         start w ∈ [0, P − need]. A window is valid iff its first and last
         members share a group below ``BIG_I32`` (the order is sorted by
@@ -184,9 +185,12 @@ class TeamKernelSet:
             won |= win
         return won
 
-    def search_step(self, pool, batch: dict[str, torch.Tensor], now: float):
+    def search_step(self, pool, batch: dict[str, torch.Tensor],
+                    now: torch.Tensor):
         """One team window: admit → form → evict, the pool updated in
-        place. Returns (slots i32[M, need], spread f32[M], limit f32[M])."""
+        place, at the window's time ``now`` (a one-element f32 tensor on
+        the pool's device). Returns (slots i32[M, need], spread f32[M],
+        limit f32[M])."""
         admit(pool, batch, self.admit_fields)
         order, group = sorted_group_order(pool)
         valid, spread, win_thr = self._windows(pool, order, group, now)
@@ -197,11 +201,12 @@ class TeamKernelSet:
         return (slots, torch.where(is_match, spread[w], INF),
                 torch.where(is_match, win_thr[w], 0.0))
 
-    def search_step_packed(self, pool, packed: torch.Tensor, now: float):
-        """Packed step: f32[pack_rows, B] in (``now`` also passed as the
-        host float of its row, so nothing is read back), f32[need + 2, M]
-        out: member slots (f32-exact), spread, limit."""
-        slots, spread, limit = self.search_step(pool, self.unpack(packed), now)
+    def search_step_packed(self, pool, packed: torch.Tensor):
+        """Packed step: f32[pack_rows, B] in (``now`` read on the device from
+        its last row: ``packed_now``), f32[need + 2, M] out: member slots
+        (f32-exact), spread, limit."""
+        slots, spread, limit = self.search_step(pool, self.unpack(packed),
+                                                packed_now(packed))
         return torch.cat([slots.T.to(torch.float32), spread[None, :],
                           limit[None, :]])
 

@@ -1,7 +1,9 @@
 """ctypes binding of the batch wire codec (``csrc/codec.cc``).
 
 Ingress: one C call decodes a window of JSON request bodies into the
-columns of ``contract.RequestColumns``. Rows flagged ``NEEDS_PYTHON``
+columns of ``contract.RequestColumns``: from a list of bodies
+(``decode_batch``), or from one buffer of bodies packed back to back and
+their offsets (``decode_batch_concat``, a consume burst's layout). Rows flagged ``NEEDS_PYTHON``
 (parties, roles, string escapes) re-decode through
 ``contract.decode_request``, the semantic source of truth whose validation
 the C++ mirrors; other statuses are contract errors (``error_code``).
@@ -103,6 +105,14 @@ def load() -> ctypes.CDLL:
             ctypes.c_char_p, ctypes.c_int64,           # arena, cap
             i64, i64, i64,                             # id/region/mode offsets
         ]
+        lib.mm_decode_requests_concat.restype = ctypes.c_int64
+        lib.mm_decode_requests_concat.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, i64,      # buf, len, offsets
+            ctypes.c_int32,                            # n
+            f32, f32, f32, i32,                        # rating, rd, thr, status
+            ctypes.c_char_p, ctypes.c_int64,           # arena, cap
+            i64, i64, i64,                             # id/region/mode offsets
+        ]
         lib.mm_encode_matched.restype = ctypes.c_int64
         lib.mm_encode_matched.argtypes = [
             strs, strs, strs, ctypes.c_int32,          # id_a, id_b, match_id, n
@@ -147,7 +157,40 @@ def decode_batch(bodies: list[bytes]):
                                   arena, cap, id_off, region_off, mode_off)
     if used < 0:
         raise RuntimeError("wire codec: decode arena overflow")
-    raw = arena.raw
+    return _columns(arena.raw, n, rating, rd, threshold, status, id_off,
+                    region_off, mode_off)
+
+
+def decode_batch_concat(buf: bytes, offsets):
+    """Decode a consume burst: ``buf`` holds n bodies back to back, body i
+    spanning ``offsets[i]:offsets[i + 1]`` (``offsets``: n + 1 int64).
+    The same return as ``decode_batch``; a row whose offsets are inverted
+    or out of the buffer's range comes back as ``bad_json``."""
+    lib = load()
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n = len(offsets) - 1
+    rating = np.empty(n, np.float32)
+    rd = np.empty(n, np.float32)
+    threshold = np.empty(n, np.float32)
+    status = np.empty(n, np.int32)
+    id_off = np.empty(n + 1, np.int64)
+    region_off = np.empty(n + 1, np.int64)
+    mode_off = np.empty(n + 1, np.int64)
+    cap = len(buf) + 16  # every decoded string is a slice of a body
+    arena = ctypes.create_string_buffer(cap)
+    used = lib.mm_decode_requests_concat(buf, len(buf), offsets, n, rating,
+                                         rd, threshold, status, arena, cap,
+                                         id_off, region_off, mode_off)
+    if used < 0:
+        raise RuntimeError("wire codec: decode arena overflow")
+    return _columns(arena.raw, n, rating, rd, threshold, status, id_off,
+                    region_off, mode_off)
+
+
+def _columns(raw: bytes, n: int, rating, rd, threshold, status, id_off,
+             region_off, mode_off):
+    """The decoders' string columns from their arena: object arrays of the
+    OK rows' ids, regions and modes ("" elsewhere)."""
     ids = np.empty(n, object)
     regions = np.empty(n, object)
     modes = np.empty(n, object)

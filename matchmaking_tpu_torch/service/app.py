@@ -5,11 +5,17 @@ Each queue of ``cfg.queues`` gets its own ``_QueueRuntime``: an engine, a
 consumer of the queue's broker queue, a batcher, its loops and its
 terminal-replay cache. A 1v1 queue takes the columnar path:
 
-    broker consume → stamp middleware → batcher window → ``_flush``:
-    native batch decode (rows the codec flags NEEDS_PYTHON decode through
-    the contract module) → terminal-replay probe → column assembly →
+    broker burst consume → ``_on_delivery_batch``: the first-receive
+    stamp, one native decode of the burst (``service/ingress.py``: rows
+    the codec flags NEEDS_PYTHON decode through the contract module;
+    malformed rows are answered here) → batcher window → ``_flush``:
+    terminal-replay probe → column gather from the decoded bursts →
     ``engine.search_columns_async`` …
     collected window: native batch encode → one ``publish_batch`` → acks
+
+With ``BrokerConfig.consume_batch`` off (or a burst under
+``_MIN_DECODE_BURST`` rows) each delivery runs the stamp middleware on its
+own and the flush decodes the window natively instead.
 
 A team or role queue (configs #3 and #5) takes the object path:
 
@@ -48,9 +54,9 @@ and no second thread contends with the loop for the interpreter lock
 
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the pipelined branch of the object flush, and the
-heartbeat half of the health timer), without admission control,
-durability, replication, tracing, the dispatch arbiter, speculation, the
-breaker and probe half of the health timer and consume-time burst decode.
+heartbeat half of the health timer, and burst consume and decode), without
+admission control, durability, replication, tracing, the dispatch arbiter,
+speculation and the breaker and probe half of the health timer.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -90,6 +96,11 @@ from matchmaking_tpu_torch.service.contract import (
     decode_request,
     encode_response,
 )
+from matchmaking_tpu_torch.service.ingress import (
+    IngressShards,
+    ShardedRecent,
+    gather_rows,
+)
 from matchmaking_tpu_torch.service.middleware import (
     MessageContext,
     MiddlewareReject,
@@ -102,6 +113,10 @@ log = logging.getLogger(__name__)
 
 #: A response row: (reply_to, correlation_id, body).
 Row = tuple[str, str, bytes]
+
+#: Fewest deliveries of a consume burst that are decoded at consume; the
+#: rows of a smaller burst are decoded with their window at the flush.
+_MIN_DECODE_BURST = 16
 
 #: Counters of failures the service catches and recovers from (a failed
 #: window is nacked and the engine revived, a failed tick retried).
@@ -138,9 +153,16 @@ class _QueueRuntime:
             "engine_failures": 0, "revives": 0, "outcome_errors": 0,
             "collector_errors": 0, "rescan_matches": 0, "rescan_skipped": 0,
             "timeouts": 0, "health_repromotions": 0, "health_tick_errors": 0}
-        #: Terminal-replay cache: player id → (response body, expiry).
-        self._recent: dict[str, tuple[bytes, float]] = {}
+        #: Terminal-replay cache: player id → (response body, expiry),
+        #: split by the ingress shards' hash of the player id.
+        self._recent = ShardedRecent(self.cfg.broker.ingress_shards)
         self._next_prune = 0.0
+        #: The burst decode of a 1v1 queue's consume bursts.
+        self._shards = IngressShards(self.cfg.broker.ingress_shards)
+        #: One callback per consume burst (1v1 queues): the burst is
+        #: decoded at consume and the flush gathers its columns.
+        self._consume_batch = (self.cfg.broker.consume_batch
+                               and not self._objects)
         #: Token → (player id → delivery, deliveries) of every dispatched,
         #: not yet answered window.
         self._inflight_meta: dict[int, tuple[dict[str, Delivery],
@@ -159,8 +181,12 @@ class _QueueRuntime:
             self.engine.warmup()
         self.broker.declare_queue(self.queue_cfg.name)
         self._batcher = Batcher(self.cfg.batcher, self._flush)
-        self._tag = self.broker.basic_consume(self.queue_cfg.name,
-                                              self._on_delivery)
+        # Every callback here is non-blocking (auth is "none"), so the
+        # deliveries already buffered drain into one handler task a burst.
+        self._tag = self.broker.basic_consume(
+            self.queue_cfg.name, self._on_delivery, batch_hint=True,
+            batch_callback=(self._on_delivery_batch if self._consume_batch
+                            else None))
         if self.pipeline_depth > 1:
             self._collector = asyncio.create_task(self._collector_loop())
         if self.queue_cfg.rescan_interval_s > 0:
@@ -234,6 +260,27 @@ class _QueueRuntime:
         self._batcher.submit((ctx.request, delivery) if self._objects
                              else delivery)
 
+    async def _on_delivery_batch(self, deliveries: list[Delivery]) -> None:
+        """One consume burst of a 1v1 queue: one clock read for the
+        first-receive stamp of every delivery; a burst of at least
+        ``_MIN_DECODE_BURST`` rows decoded in one native call (malformed
+        and unservable rows are answered and acked here, as the flush's
+        decode would have); then the whole burst to the batcher."""
+        received_at = time.time()
+        for delivery in deliveries:
+            first = delivery.properties.headers.setdefault(
+                "x-first-received", received_at)
+            try:
+                delivery.first_received = float(first)
+            except (TypeError, ValueError):
+                delivery.first_received = received_at
+        live = deliveries
+        if len(live) >= _MIN_DECODE_BURST:
+            live, rejects = await self._shards.decode_burst(live)
+            for delivery, code, reason in rejects:
+                self._reject(delivery, code, reason)
+        self._batcher.submit_many(live)
+
     def _first_received(self, delivery: Delivery, now: float) -> float:
         if delivery.first_received >= 0.0:
             return delivery.first_received
@@ -286,7 +333,7 @@ class _QueueRuntime:
         for req, delivery in window:
             cached = self._recent.get(req.id)
             if cached is not None and cached[1] <= now:
-                del self._recent[req.id]  # expired: a genuine re-queue
+                self._recent.pop(req.id)  # expired: a genuine re-queue
                 cached = None
             if cached is not None:
                 self._replay(delivery, cached[0])
@@ -308,34 +355,28 @@ class _QueueRuntime:
             dispatch, [(r.id, d) for r, d in fresh], now)
 
     async def _flush_columnar(self, deliveries: list[Delivery]) -> None:
-        """Decode a window natively, answer terminal replays, assemble the
-        rest as columns and dispatch them. Per-row Python is the replay
-        probe and the rows the codec leaves to the contract module."""
+        """Answer terminal replays, assemble the rest as columns and
+        dispatch them. A window whose every delivery was decoded at consume
+        (``Delivery.row``) gathers its columns from the bursts; any other
+        window is decoded here, natively, as a whole. Per-row Python is the
+        replay probe and the rows the codec leaves to the contract
+        module."""
         now = time.time()
         self._prune_recent(now)
-        ids_n, rating_n, rd_n, thr_n, regions_n, modes_n, status_n = (
-            codec.decode_batch([bytes(d.body) for d in deliveries]))
-        # (delivery index, player id, request decoded in Python or None)
-        rows: list[tuple[int, str, SearchRequest | None]] = []
-        for i, (delivery, st) in enumerate(zip(deliveries, status_n.tolist())):
-            if st == codec.OK:
-                rows.append((i, ids_n[i], None))
-            elif st != codec.NEEDS_PYTHON:
-                self._reject(delivery, codec.error_code(st), "malformed payload")
-            else:
-                req = self._decode_or_reject(delivery, now)
-                if req is None:
-                    continue
-                if req.party_size > 1:  # a 1v1 queue serves no parties
-                    self._reject(delivery, "party_not_supported",
-                                 "engine rejected request: party_not_supported")
-                    continue
-                rows.append((i, req.id, req))
+        native = None
+        if all(d.row is not None for d in deliveries):
+            # Decoded at consume: every row is valid (the others were
+            # answered there), and its columns are gathered below.
+            rows = [(i, d.row[0].ids[d.row[1]], None)
+                    for i, d in enumerate(deliveries)]
+        else:
+            native = codec.decode_batch([bytes(d.body) for d in deliveries])
+            rows = self._window_rows(deliveries, native[-1], native[0], now)
         keep = []
         for src, pid, req in rows:
             cached = self._recent.get(pid)
             if cached is not None and cached[1] <= now:
-                del self._recent[pid]  # expired: a genuine re-queue
+                self._recent.pop(pid)  # expired: a genuine re-queue
                 cached = None
             if cached is not None:
                 self._replay(deliveries[src], cached[0])
@@ -345,11 +386,16 @@ class _QueueRuntime:
             return
         k = len(keep)
         picked = [deliveries[s] for s, _, _ in keep]
-        if all(req is None for _, _, req in keep):
+        if native is None:
+            ids, rating, rd, thr, region_names, mode_names = gather_rows(
+                [d.row for d in picked])
+        elif all(req is None for _, _, req in keep):
+            ids_n, rating_n, rd_n, thr_n, regions_n, modes_n, _ = native
             sel = np.fromiter((s for s, _, _ in keep), np.int64, k)
             ids, rating, rd, thr = ids_n[sel], rating_n[sel], rd_n[sel], thr_n[sel]
             region_names, mode_names = regions_n[sel], modes_n[sel]
         else:
+            _, rating_n, rd_n, thr_n, regions_n, modes_n, _ = native
             ids = np.fromiter((pid for _, pid, _ in keep), object, k)
             rating, rd, thr = (np.empty(k, np.float32) for _ in range(3))
             region_names, mode_names = np.empty(k, object), np.empty(k, object)
@@ -392,6 +438,29 @@ class _QueueRuntime:
 
         await self._dispatch_window(
             dispatch, [(pid, deliveries[s]) for s, pid, _ in keep], now)
+
+    def _window_rows(self, deliveries: list[Delivery], status, ids,
+                     now: float) -> list[tuple[int, str, SearchRequest | None]]:
+        """The rows of a window the flush decoded natively (``status`` and
+        ``ids`` per delivery): (delivery index, player id, the request
+        decoded in Python for a NEEDS_PYTHON row, else None). Malformed
+        rows and parties are answered and acked here."""
+        rows: list[tuple[int, str, SearchRequest | None]] = []
+        for i, (delivery, st) in enumerate(zip(deliveries, status.tolist())):
+            if st == codec.OK:
+                rows.append((i, ids[i], None))
+            elif st != codec.NEEDS_PYTHON:
+                self._reject(delivery, codec.error_code(st), "malformed payload")
+            else:
+                req = self._decode_or_reject(delivery, now)
+                if req is None:
+                    continue
+                if req.party_size > 1:  # a 1v1 queue serves no parties
+                    self._reject(delivery, "party_not_supported",
+                                 "engine rejected request: party_not_supported")
+                    continue
+                rows.append((i, req.id, req))
+        return rows
 
     async def _dispatch_window(self, dispatch,
                                pairs: list[tuple[str, Delivery]],
@@ -863,18 +932,18 @@ class _QueueRuntime:
         self._ack(delivery)
 
     def _remember(self, player_id: str, body: bytes, now: float) -> None:
-        self._recent[player_id] = (body, now + self.queue_cfg.dedup_ttl_s)
+        self._recent.set(player_id, (body, now + self.queue_cfg.dedup_ttl_s))
 
     def _remember_window(self, terminals: list[tuple[str, bytes]],
                          now: float) -> None:
         expiry = now + self.queue_cfg.dedup_ttl_s
         for pid, body in terminals:
-            self._recent[pid] = (body, expiry)
+            self._recent.set(pid, (body, expiry))
 
     def _prune_recent(self, now: float) -> None:
         """Drop expired replay entries, at most every ``dedup_ttl_s / 2``."""
         if len(self._recent) > 4096 and now >= self._next_prune:
-            self._recent = {k: v for k, v in self._recent.items() if v[1] > now}
+            self._recent.prune(now)
             self._next_prune = now + self.queue_cfg.dedup_ttl_s / 2.0
 
     def _ack(self, delivery: Delivery) -> None:

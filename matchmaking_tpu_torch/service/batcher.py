@@ -6,7 +6,8 @@ Windows are serialized — the next is not cut until the previous flush
 returns — which is the atomicity guarantee: a matched player is out of the
 pool before any later window can see them.
 
-All state is event-loop-confined: call ``submit`` from the loop only.
+All state is event-loop-confined: call ``submit`` and ``submit_many``
+from the loop only.
 """
 
 from __future__ import annotations
@@ -36,6 +37,18 @@ class Batcher(Generic[T]):
         if self._closed:
             raise RuntimeError("batcher closed")
         self._pending.append(item)
+        self._first.set()
+        if len(self._pending) >= self.max_batch:
+            self._full.set()
+
+    def submit_many(self, items: list[T]) -> None:
+        """Submit a consume burst: one extend and one trigger check for the
+        whole burst."""
+        if self._closed:
+            raise RuntimeError("batcher closed")
+        if not items:
+            return
+        self._pending.extend(items)
         self._first.set()
         if len(self._pending) >= self.max_batch:
             self._full.set()

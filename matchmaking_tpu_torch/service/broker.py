@@ -3,9 +3,13 @@
 The port's own minimal copy: named queues (declared on first use),
 competing consumers with a per-consumer prefetch, ack / nack(requeue) by
 delivery tag, redelivery with a cap (then dead-lettered), consumer
-cancellation that requeues its unacked deliveries, and ``get`` for clients
-awaiting replies. Fault injection and trace propagation are not carried.
-All methods are called from one event loop.
+cancellation that requeues its unacked deliveries, burst consume (the
+deliveries already buffered drain into one handler task, or into one
+``batch_callback`` call: ``BrokerConfig.consume_batch``), and ``get`` for
+clients awaiting replies. Fault injection and trace propagation are not
+carried, so the JAX broker's fall-back to per-delivery handling while
+consume faults are armed has nothing to guard here. All methods are called
+from one event loop.
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ class Delivery:
     #: The ``x-first-received`` stamp as a float, cached by the ingress
     #: middleware (< 0: not read yet).
     first_received: float = -1.0
+    #: The row decoded at consume (burst consume, ``service/ingress.py``):
+    #: ``(DecodedBurst, index)`` into the burst's columns, which the window
+    #: flush gathers instead of decoding the body again. None: not decoded
+    #: at consume (the per-delivery path).
+    row: Any = None
 
 
 class _Queue:
@@ -48,35 +57,154 @@ class _Queue:
         self.consumers: list["_Consumer"] = []
 
 
+class _BatchState:
+    """One handler task's deliveries and progress, registered BEFORE the
+    task is created, so that ``cancel()`` can requeue them even if the
+    task is cancelled before its first step (a coroutine that never
+    started never runs its try/finally: relying on the task body alone
+    would lose the whole batch)."""
+
+    __slots__ = ("batch", "i", "current")
+
+    def __init__(self, batch: list[Delivery]):
+        self.batch = batch
+        self.i = 0                              # next index to start
+        self.current: Delivery | None = None    # in-flight delivery, if any
+
+
 class _Consumer:
-    """Takes deliveries up to ``prefetch`` unacked and runs the callback of
-    each in its own task (concurrent handlers, like a worker pool)."""
+    """Takes deliveries up to ``prefetch`` unacked. Each delivery runs in a
+    handler task of its own, so callbacks run concurrently up to
+    ``prefetch``; with ``batch_hint`` the deliveries already buffered on
+    the queue drain into ONE handler task per sweep (up to
+    ``consume_batch_max``), run one after another; with ``batch_callback``
+    such a burst goes to the app as ONE ``batch_callback(burst)`` call
+    instead of a callback per delivery."""
 
     def __init__(self, broker: "InProcBroker", queue: _Queue,
-                 callback: Callable[[Delivery], Awaitable[None]], prefetch: int):
+                 callback: Callable[[Delivery], Awaitable[None]],
+                 prefetch: int, batch_hint: bool = False,
+                 batch_callback: Callable[[list[Delivery]],
+                                          Awaitable[None]] | None = None):
         self.broker = broker
         self.queue = queue
         self.callback = callback
+        self.prefetch = max(1, prefetch)
         self.unacked: dict[int, Delivery] = {}
+        self.cancelled = False
         self.tag = f"ctag-{uuid.uuid4().hex[:8]}"
-        self._slots = asyncio.Semaphore(max(1, prefetch))
+        self.batch_hint = batch_hint
+        self.batch_callback = batch_callback
+        self._burst_max = max(1, broker.cfg.consume_batch_max)
+        #: Tags the last cancel() requeued from ``unacked``.
+        self._cancel_requeued: set[int] = set()
+        self._batch_states: set[_BatchState] = set()
+        self._free = self.prefetch
+        self._free_ev = asyncio.Event()
         self._handlers: set[asyncio.Task] = set()
         self._task = asyncio.create_task(self._run())
 
+    async def _acquire(self) -> None:
+        while self._free <= 0:
+            self._free_ev.clear()
+            await self._free_ev.wait()
+        self._free -= 1
+
+    def _release(self) -> None:
+        self._free += 1
+        self._free_ev.set()
+
+    def _try_acquire(self) -> bool:
+        if self._free > 0:
+            self._free -= 1
+            return True
+        return False
+
     async def _run(self) -> None:
-        while True:
-            await self._slots.acquire()
+        while not self.cancelled:
+            await self._acquire()
             try:
                 delivery = await self.queue.messages.get()
             except asyncio.CancelledError:
-                self._slots.release()
+                self._release()
                 raise
-            self.unacked[delivery.delivery_tag] = delivery
-            task = asyncio.create_task(self._handle(delivery))
+            if self.cancelled:
+                # Closed mid-delivery: put it back and stop.
+                self.queue.messages.put_nowait(delivery)
+                self._release()
+                return
+            batch = [delivery]
+            if self.batch_hint or self.batch_callback is not None:
+                while (len(batch) < self._burst_max
+                       and not self.queue.messages.empty()
+                       and self._try_acquire()):
+                    batch.append(self.queue.messages.get_nowait())
+            # Registered BEFORE create_task: cancel() must see these
+            # deliveries even if the task is cancelled before it runs.
+            state = _BatchState(batch)
+            self._batch_states.add(state)
+            handler = (self._handle_burst if self.batch_callback is not None
+                       else self._handle_batch)
+            task = asyncio.create_task(handler(state))
             self._handlers.add(task)
             task.add_done_callback(self._handlers.discard)
 
+    def _requeue_batch_rest(self, state: _BatchState) -> None:
+        """Requeue a batch's unfinished deliveries exactly once. Called
+        from the handler's finally or from cancel(), whichever runs first:
+        it empties the state, so the other is a no-op. The in-flight
+        delivery is requeued by cancel()'s sweep of ``unacked`` once its
+        handler registered it; the ``unacked`` and ``_cancel_requeued``
+        checks cover the moment before that."""
+        start = state.i
+        current, state.current = state.current, None
+        if current is not None:
+            if (current.delivery_tag not in self.unacked
+                    and current.delivery_tag not in self._cancel_requeued):
+                self._release()
+                self.broker._requeue(self.queue, current)
+            start += 1
+        for j in range(start, len(state.batch)):
+            self._release()
+            self.broker._requeue(self.queue, state.batch[j])
+        state.i = len(state.batch)
+        self._batch_states.discard(state)
+
+    async def _handle_batch(self, state: _BatchState) -> None:
+        try:
+            while state.i < len(state.batch):
+                state.current = state.batch[state.i]
+                await self._handle(state.current)
+                state.current = None
+                state.i += 1
+        finally:
+            self._requeue_batch_rest(state)
+
+    async def _handle_burst(self, state: _BatchState) -> None:
+        """One app callback for the whole drained burst. Every delivery is
+        registered in ``unacked`` BEFORE the callback, so the at-least-once
+        contract moves wholesale: cancel()'s sweep of ``unacked`` requeues
+        them, acks and nacks settle them one by one as the app's windows
+        finish, and a crashing callback nack-requeues every delivery it
+        had not settled (the per-delivery crash contract, for a burst)."""
+        batch = state.batch
+        for delivery in batch:
+            self.unacked[delivery.delivery_tag] = delivery
+        # ``unacked`` owns the burst now: the sweep of batches that never
+        # started (_requeue_batch_rest) must not requeue it a second time.
+        state.i = len(batch)
+        state.current = None
+        self._batch_states.discard(state)
+        try:
+            await self.batch_callback(batch)
+        except Exception:
+            self.broker.stats["consumer_errors"] += 1
+            for delivery in batch:
+                if delivery.delivery_tag in self.unacked:
+                    self.nack(delivery.delivery_tag, requeue=True)
+
     async def _handle(self, delivery: Delivery) -> None:
+        self.unacked[delivery.delivery_tag] = delivery
         try:
             await self.callback(delivery)
         except Exception:
@@ -87,13 +215,13 @@ class _Consumer:
     def ack(self, delivery_tag: int) -> None:
         if self.unacked.pop(delivery_tag, None) is not None:
             self.broker.stats["acked"] += 1
-            self._slots.release()
+            self._release()
 
     def nack(self, delivery_tag: int, requeue: bool = True) -> None:
         delivery = self.unacked.pop(delivery_tag, None)
         if delivery is None:
             return
-        self._slots.release()
+        self._release()
         if requeue:
             self.broker._requeue(self.queue, delivery)
         else:
@@ -101,13 +229,21 @@ class _Consumer:
 
     def cancel(self) -> None:
         """Stop consuming; unacked deliveries go back to the queue (like an
-        AMQP channel close)."""
+        AMQP channel close), and so do the batches whose handler never
+        started."""
+        self.cancelled = True
         self._task.cancel()
         for task in list(self._handlers):
             task.cancel()
+        self._cancel_requeued = set(self.unacked)
         for delivery in list(self.unacked.values()):
             self.broker._requeue(self.queue, delivery)
         self.unacked.clear()
+        # A handler task cancelled before its first step never runs its
+        # finally: sweep its registered batch here (a state empties on its
+        # first sweep, so a finally that runs later is a no-op).
+        for state in list(self._batch_states):
+            self._requeue_batch_rest(state)
 
 
 class InProcBroker:
@@ -152,10 +288,18 @@ class InProcBroker:
 
     def basic_consume(self, queue: str,
                       callback: Callable[[Delivery], Awaitable[None]],
-                      prefetch: int | None = None) -> str:
+                      prefetch: int | None = None, batch_hint: bool = False,
+                      batch_callback: Callable[[list[Delivery]],
+                                               Awaitable[None]] | None = None
+                      ) -> str:
+        """Consume ``queue``: ``callback`` per delivery, or with
+        ``batch_callback`` one call per drained burst (``batch_hint``: the
+        per-delivery callbacks of a burst run in one task)."""
         self.declare_queue(queue)
         consumer = _Consumer(self, self._queues[queue], callback,
-                             prefetch or self.cfg.prefetch)
+                             prefetch or self.cfg.prefetch,
+                             batch_hint=batch_hint,
+                             batch_callback=batch_callback)
         self._queues[queue].consumers.append(consumer)
         self._consumers[consumer.tag] = consumer
         return consumer.tag

@@ -88,12 +88,19 @@ def make_batch(rng, b, start_slot, filters, thr=100.0):
     }
 
 
+def now_tensor(now):
+    """The window's time as the port's kernels take it: a one-element f32
+    tensor (the packed window's now row)."""
+    return torch.tensor([now], dtype=torch.float32)
+
+
 def port_candidates(ks, pool_np, batch_np, q_thr_eff, now, filters=True):
     pool = pool_from_reference(pool_np, "cpu")
     batch = {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in batch_np.items()}
     v, i = cuda_kernels.block_best(
-        pool, batch, torch.from_numpy(np.array(q_thr_eff, np.float32)), now,
+        pool, batch, torch.from_numpy(np.array(q_thr_eff, np.float32)),
+        now_tensor(now),
         pool_block=ks.pool_block, glicko2=ks.glicko2, filters=filters,
         widen_per_sec=ks.widen_per_sec, max_threshold=ks.max_threshold,
         g_coeff=scoring.G_COEFF_F32)
@@ -201,15 +208,18 @@ def test_wrapper_rejects_bad_inputs():
               max_threshold=400.0, g_coeff=scoring.G_COEFF_F32)
     thr = batch["threshold"]
     with pytest.raises(ValueError, match="must divide"):
-        cuda_kernels.block_best(pool, batch, thr, 0.0, **dict(kw, pool_block=100))
+        cuda_kernels.block_best(pool, batch, thr, now_tensor(0.0),
+                                **dict(kw, pool_block=100))
     with pytest.raises(ValueError, match="slot"):
         cuda_kernels.block_best(pool, dict(batch, slot=batch["slot"].long()),
-                                thr, 0.0, **kw)
+                                thr, now_tensor(0.0), **kw)
     with pytest.raises(ValueError, match="rating"):
         cuda_kernels.block_best(dict(pool, rating=pool["rating"][::2]),
-                                batch, thr, 0.0, **kw)
+                                batch, thr, now_tensor(0.0), **kw)
+    with pytest.raises(ValueError, match="now"):  # a host float: refused
+        cuda_kernels.block_best(pool, batch, thr, 0.0, **kw)
     before = cuda_kernels.LAUNCHES["block_best"]
-    cuda_kernels.block_best(pool, batch, thr, 0.0, **kw)
+    cuda_kernels.block_best(pool, batch, thr, now_tensor(0.0), **kw)
     assert cuda_kernels.LAUNCHES["block_best"] == before  # CPU: no launch
 
 
@@ -303,8 +313,9 @@ def test_cluster_split_and_merge_equals_whole_block(case, cluster):
     kw = dict(pool_block=blk, glicko2=c["glicko2"], filters=True,
               widen_per_sec=c["widen"], max_threshold=300.0,
               g_coeff=scoring.G_COEFF_F32)
-    whole = cuda_kernels.block_best_reference(pool, batch, q_thr, 6.0, **kw)
-    merged = split_merge(pool, batch, q_thr, 6.0, kw, cluster)
+    whole = cuda_kernels.block_best_reference(pool, batch, q_thr,
+                                              now_tensor(6.0), **kw)
+    merged = split_merge(pool, batch, q_thr, now_tensor(6.0), kw, cluster)
     assert torch.equal(merged[1], whole[1])
     assert torch.equal(merged[0].view(torch.int32), whole[0].view(torch.int32))
     if case == "tie":

@@ -18,6 +18,9 @@ histograms and counts are exact, its sums within 1e-5 of the sum of their
 addends' magnitudes (every addend is >= 0, so of the sum itself).
 """
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +82,12 @@ def inputs(seed, capacity, rows, active_frac, filters, device):
     return to(pool), to(batch), torch.from_numpy(q_thr).to(device)
 
 
+def now_on(device, now):
+    """The window's time as the kernels take it: a one-element f32 tensor
+    on the card (the packed window's now row)."""
+    return torch.tensor([now], dtype=torch.float32, device=device)
+
+
 def assert_bit_equal(kernel, plain):
     (kv, ki), (rv, ri) = kernel, plain
     assert torch.equal(ki, ri)
@@ -114,15 +123,16 @@ def test_kernel_bit_equal_to_plain(cuda, case, geometry):
     kw = dict(pool_block=pool_block, glicko2=c["glicko2"], filters=True,
               widen_per_sec=c["widen"], max_threshold=250.0,
               g_coeff=scoring.G_COEFF_F32)
+    now = now_on(cuda, 9.0)
     before = cuda_kernels.LAUNCHES["block_best"]
-    got = cuda_kernels.block_best(pool, batch, q_thr, 9.0, **kw)
-    want = cuda_kernels.block_best_reference(pool, batch, q_thr, 9.0, **kw)
+    got = cuda_kernels.block_best(pool, batch, q_thr, now, **kw)
+    want = cuda_kernels.block_best_reference(pool, batch, q_thr, now, **kw)
     torch.cuda.synchronize()
     assert cuda_kernels.LAUNCHES["block_best"] == before + 1
     assert got[0].shape == (rows, capacity // pool_block)
     assert_bit_equal(got, want)
     if not c["filters"]:
-        nf = cuda_kernels.block_best(pool, batch, q_thr, 9.0,
+        nf = cuda_kernels.block_best(pool, batch, q_thr, now,
                                      **dict(kw, filters=False))
         assert_bit_equal(nf, want)
 
@@ -145,20 +155,22 @@ def test_exact_ties_take_the_first_slot(cuda):
     kw = dict(pool_block=pool_block, glicko2=False, filters=True,
               widen_per_sec=0.0, max_threshold=400.0,
               g_coeff=scoring.G_COEFF_F32)
-    v, i = cuda_kernels.block_best(pool, batch, q_thr, 0.0, **kw)
+    now = now_on(cuda, 0.0)
+    v, i = cuda_kernels.block_best(pool, batch, q_thr, now, **kw)
     expect = torch.tensor([blk * pool_block + 37 * blk + 5 for blk in range(4)],
                           dtype=torch.int32, device=cuda)
     assert torch.equal(i, expect.expand(40, 4))
     assert (v == -10.0).all()
     assert_bit_equal((v, i), cuda_kernels.block_best_reference(
-        pool, batch, q_thr, 0.0, **kw))
+        pool, batch, q_thr, now, **kw))
 
 
 def test_wrapper_refuses_mixed_devices(cuda):
     pool, batch, q_thr = inputs(1, 1024, 16, 0.5, False, cuda)
     with pytest.raises(ValueError, match="slot"):
         cuda_kernels.block_best(pool, dict(batch, slot=batch["slot"].cpu()),
-                                q_thr, 0.0, pool_block=256, glicko2=False,
+                                q_thr, now_on(cuda, 0.0), pool_block=256,
+                                glicko2=False,
                                 filters=True, widen_per_sec=0.0,
                                 max_threshold=400.0, g_coeff=0.0)
 
@@ -220,15 +232,16 @@ def test_search_step_packed_does_not_sync(cuda, skip_filters, prune):
         packed[5, :n_valid] = 100.0
         packed[6, :n_valid] = rng.uniform(0, 5, n_valid)
         packed[7, :n_valid] = 1.0
+        packed[8] = 6.0
         return torch.from_numpy(packed).to(cuda)
 
     ks.admit_packed(pool, window(0, B))
     step = window(B, 200)  # padding lanes too
-    ks.search_step_packed(pool, window(2 * B, 10), 6.0, skip_filters)  # build
+    ks.search_step_packed(pool, window(2 * B, 10), skip_filters)  # build
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = ks.search_step_packed(pool, step, 6.0, skip_filters)
+        out = ks.search_step_packed(pool, step, skip_filters)
         acc.accum(state, pool, out, step[-1])  # now: the packed row
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -316,8 +329,8 @@ def test_pinned_readback_waits_for_its_event(cuda):
                                        np.arange(3000, 3256, dtype=np.int32),
                                        256, eng._rel_base(51.0))
     eng.pool.allocate_columns(columns(rng, eng, 256, 5000, 51.0))
-    packed, _ = eng._h2d(batch, 1.0)
-    step = eng.kernels.search_step_packed(eng.dev_pool, packed, 1.0)
+    packed = eng._stage(batch, 1.0).to(cuda, non_blocking=True)
+    step = eng.kernels.search_step_packed(eng.dev_pool, packed)
     np.testing.assert_array_equal(_Readback(step).numpy(), step.cpu().numpy())
 
 
@@ -522,7 +535,8 @@ def span_inputs(seed, glicko2, filters, device, *, capacity=131072,
         else np.float32)).to(device) for k, v in batch.items()}
     admit(pool, batch)
     q_thr = cuda_kernels.effective_threshold(
-        batch["threshold"], batch["enqueue_t"], 9.0, 2.0, 250.0)
+        batch["threshold"], batch["enqueue_t"], now_on(device, 9.0), 2.0,
+        250.0)
     start, feasible = ks._chunk_windows(batch, q_thr, *ks._live_stats(pool))
     return ks, pool, batch, q_thr, start, feasible
 
@@ -540,21 +554,22 @@ def test_span_launch_equals_plain_at_full_width(cuda, glicko2, filters):
     kw = dict(pool_block=ks.pool_block, glicko2=glicko2, filters=filters,
               widen_per_sec=2.0, max_threshold=250.0,
               g_coeff=scoring.G_COEFF_F32)
-    dense = cuda_kernels.block_best(pool, batch, q_thr, 9.0, **kw)
+    now = now_on(cuda, 9.0)
+    dense = cuda_kernels.block_best(pool, batch, q_thr, now, **kw)
     for flag in (True, False):
         span = cuda_kernels.Span(start, 128, 6,
                                  torch.tensor([flag], device=cuda))
-        got = cuda_kernels.block_best(pool, batch, q_thr, 9.0, span=span, **kw)
-        want = cuda_kernels.block_best_span_reference(pool, batch, q_thr, 9.0,
+        got = cuda_kernels.block_best(pool, batch, q_thr, now, span=span, **kw)
+        want = cuda_kernels.block_best_span_reference(pool, batch, q_thr, now,
                                                       span, **kw)
         assert_bit_equal(got, want)
         assert_bit_equal(got, dense)
     # Spans that miss candidates: only the span's blocks are scored.
     span = cuda_kernels.Span(torch.zeros_like(start), 128, 3,
                              torch.tensor([True], device=cuda))
-    got = cuda_kernels.block_best(pool, batch, q_thr, 9.0, span=span, **kw)
+    got = cuda_kernels.block_best(pool, batch, q_thr, now, span=span, **kw)
     assert_bit_equal(got, cuda_kernels.block_best_span_reference(
-        pool, batch, q_thr, 9.0, span, **kw))
+        pool, batch, q_thr, now, span, **kw))
     assert (got[1][:, 3:] == ks.capacity).all()
 
 
@@ -691,11 +706,11 @@ def test_team_and_role_steps_do_not_sync(cuda, kind):
     window dispatched by the engine, without a device→host sync."""
     ks = team_step(kind, 16384, 1024)
     pool, packed = team_inputs(ks, 1, 1024, cuda)
-    ks.search_step_packed(pool, team_inputs(ks, 2, 256, cuda)[1], 35.0)
+    ks.search_step_packed(pool, team_inputs(ks, 2, 256, cuda)[1])
     torch.cuda.synchronize()  # built: the role tables are on the card
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = ks.search_step_packed(pool, packed, 35.0)
+        out = ks.search_step_packed(pool, packed)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (out[0] < ks.capacity).sum() > 0
@@ -735,9 +750,10 @@ def test_team_and_role_steps_on_card_equal_cpu_at_full_width(
     pools, outs = {}, {}
     for dev in (cuda, torch.device("cpu")):
         pool, packed = team_inputs(ks, 7, 1024, dev)
-        first = ks.search_step_packed(pool, packed, 35.0)
-        second = ks.search_step_packed(pool, team_inputs(ks, 8, 1024, dev)[1],
-                                       40.0)
+        first = ks.search_step_packed(pool, packed)
+        later = team_inputs(ks, 8, 1024, dev)[1]
+        later[-1] = 40.0  # the second window's time
+        second = ks.search_step_packed(pool, later)
         outs[dev.type] = [first.cpu().numpy(), second.cpu().numpy()]
         pools[dev.type] = pool_to_numpy(pool)
     for got, want in zip(outs["cuda"], outs["cpu"]):
@@ -783,3 +799,295 @@ def test_delegated_window_never_touches_the_device_pool(cuda):
     assert eng.counters == {"team_delegated": 1, "team_repromoted": 1}
     assert eng.dev_pool is not None and eng.pool_size() == 9
     assert int(eng.dev_pool["active"].sum()) == 9
+
+
+# ---- the window step as one CUDA graph per (variant, bucket) -----------------
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
+#: Config #1's pruning (band_spec, six blocks a chunk, chunks of 128).
+PRUNE_1 = dict(prune_window_blocks=6, prune_chunk=128,
+               band_spec="gaussian:1500:300")
+
+
+def graph_and_eager(cuda, name, **engine):
+    """Two engines of config ``name`` (a file under configs/, at its full
+    width) on the card, both warmed up: one replays its captured steps,
+    the other runs the same steps eagerly (its graph set taken away, which
+    only a test does)."""
+    cfg = Config.from_json(os.path.join(CONFIGS, name + ".json"),
+                           backend="gpu")
+    if engine:
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, **engine))
+    queue = cfg.queues[0]
+    graphed = GpuEngine(cfg, queue, device=cuda)
+    graphed.warmup()
+    eager = GpuEngine(cfg, queue, device=cuda)
+    eager._graphs = None
+    eager.warmup()
+    return graphed, eager
+
+
+def named_columns(rng, n, start, now, filtered):
+    """A seeded columnar window with region and mode names (wildcards
+    only, or a mix of names and wildcards)."""
+    ids = np.array([f"p{start + i}" for i in range(n)], object)
+    pick = lambda names: (np.array(names, object)[rng.integers(0, len(names), n)]
+                          if filtered else np.full(n, "*", object))
+    cols = RequestColumns(
+        ids=ids, rating=rng.normal(1500, 300, n).astype(np.float32),
+        rd=rng.uniform(30, 350, n).astype(np.float32), region=None,
+        mode=None, threshold=np.full(n, np.nan, np.float32),
+        enqueued_at=now - rng.uniform(0, 20, n),
+        reply_to=np.array([f"rq.{i}" for i in ids], object),
+        correlation_id=ids.copy())
+    return cols, pick(("eu", "na", "*")), pick(("ranked", "casual", "*"))
+
+
+def interned(eng, window):
+    cols, regions, modes = window
+    region, mode = eng.intern_columns(regions.tolist(), modes.tolist())
+    return dataclasses.replace(cols, region=region, mode=mode)
+
+
+def assert_same_engines(graphed, eager):
+    """Pool columns bit-equal, the host mirrors equal, the quality states
+    (1v1) bit-equal."""
+    torch.cuda.synchronize()
+    for name, col in eager.dev_pool.full.items():
+        assert torch.equal(graphed.dev_pool.full[name].view(torch.int8),
+                           col.view(torch.int8)), name
+    assert graphed.pool._slot_of == eager.pool._slot_of
+    if eager._q_dev is not None:
+        assert torch.equal(graphed._q_dev.flat, eager._q_dev.flat)
+
+
+def assert_same_columnar(got, want):
+    for name in ("m_id_a", "m_id_b", "q_ids", "m_reply_a", "m_corr_b"):
+        assert getattr(got, name).tolist() == getattr(want, name).tolist(), name
+    for name in ("m_dist", "m_quality"):
+        np.testing.assert_array_equal(getattr(got, name).view(np.int32),
+                                      getattr(want, name).view(np.int32))
+    assert got.rejected == want.rejected
+
+
+@pytest.mark.parametrize("name,engine", [("elo_1v1", {}),
+                                         ("elo_1v1", PRUNE_1),
+                                         ("glicko2", {})],
+                         ids=["elo_1v1", "elo_1v1_pruned", "glicko2"])
+def test_replay_bit_equal_to_eager_1v1_at_full_width(cuda, name, engine):
+    """Configs #1 (dense and pruned) and #4 at P = 131,072 with 100k
+    waiting: at every bucket, a filtered window (the filter variant), a
+    wildcard one (the variant without filters) and a rescan tick of the
+    bucket's size go through the replayed graphs and through the eager
+    steps; the outcomes (pairs, distances and qualities bit for bit, the
+    queued ids), the pools and the quality states are equal. Then a window
+    of two chunks of 1,024 and a rescan tick of two chunks, each chunk
+    replaying one graph before the window's readbacks are queued: each
+    chunk reads back its own result. No window captures again."""
+    graphed, eager = graph_and_eager(cuda, name, **engine)
+    captures = graphed.graph_report()["captures"]
+    assert captures == 4 * 3
+    rng = np.random.default_rng(50)
+    fill = named_columns(rng, 100_000, 0, 100.0, True)
+    for eng in (graphed, eager):
+        eng.restore_columns(interned(eng, fill), 100.0)
+    t, start = 101.0, 1_000_000
+    plan = [(b, f, 1) for b in graphed.buckets for f in (True, False)]
+    for bucket, filtered, chunks in plan + [(1024, False, 2)]:
+        window = named_columns(rng, bucket * chunks, start, t, filtered)
+        start += bucket * chunks
+        outs = []
+        for eng in (graphed, eager):
+            tok = eng.search_columns_async(interned(eng, window), t)
+            (got_tok, out), = eng.flush()
+            assert got_tok == tok
+            outs.append(out)
+        assert_same_columnar(*outs)
+        assert_same_engines(graphed, eager)
+        ticks = []
+        for eng in (graphed, eager):
+            tok = eng.rescan_async(bucket * chunks, t + 0.25)
+            (_, out), = eng.flush()
+            eng.rescan_tokens.discard(tok)
+            ticks.append(out)
+        assert_same_columnar(*ticks)
+        assert_same_engines(graphed, eager)
+        t += 0.5
+    assert graphed.graph_report()["captures"] == captures
+    assert graphed.prune_report() == eager.prune_report()
+    assert graphed.quality_report()["samples"] > 0
+
+
+def team_requests(rng, n, start, now, roles):
+    return [SearchRequest(
+        id=f"p{start + i}", rating=float(rng.normal(1500, 300)),
+        region=("eu", "na", "apac")[i % 3], game_mode=("ranked", "casual")[i % 2],
+        roles=(("tank",), ("healer",), ("dps",), ("dps", "healer"), ())[i % 5]
+        if roles else (),
+        enqueued_at=now - float(rng.uniform(0, 20))) for i in range(n)]
+
+
+def match_rows(out):
+    return [(tuple(r.id for r in m.teams[0]), tuple(r.id for r in m.teams[1]),
+             np.float32(m.quality).view(np.int32).item()) for m in out.matches]
+
+
+@pytest.mark.parametrize("name,waiting", [("team_5v5", 50_000),
+                                          ("role_party", 12_000)])
+def test_replay_bit_equal_to_eager_team_and_role_at_full_width(
+        cuda, name, waiting):
+    """Configs #3 (P = 65,536) and #5 (P = 16,384), ``waiting`` players
+    restored: a window of every bucket, then a rescan tick, through the
+    replayed graph and the eager step: the same matches (teams, members
+    and quality bit for bit), queued players and pools. No window captures
+    again."""
+    graphed, eager = graph_and_eager(cuda, name)
+    captures = graphed.graph_report()["captures"]
+    assert captures == 4
+    rng = np.random.default_rng(51)
+    roles = name == "role_party"
+    fill = team_requests(rng, waiting, 0, 100.0, roles)
+    for eng in (graphed, eager):
+        eng.restore(fill, 100.0)
+    t, start = 101.0, 1_000_000
+    for bucket in graphed.buckets:
+        reqs = team_requests(rng, bucket, start, t, roles)
+        start += bucket
+        outs = [eng.search(reqs, t) for eng in (graphed, eager)]
+        assert match_rows(outs[0]) == match_rows(outs[1])
+        assert ([r.id for r in outs[0].queued]
+                == [r.id for r in outs[1].queued])
+        assert_same_engines(graphed, eager)
+        t += 0.5
+    ticks = []
+    for eng in (graphed, eager):
+        tok = eng.rescan_async(1024, t + 30.0)
+        (_, out), = eng.flush()
+        eng.rescan_tokens.discard(tok)
+        ticks.append(out)
+    assert match_rows(ticks[0]) == match_rows(ticks[1])
+    assert_same_engines(graphed, eager)
+    assert graphed.counters == {} and match_rows(outs[0])
+    assert graphed.graph_report()["captures"] == captures
+
+
+def test_two_chunks_of_one_bucket_read_back_their_own(cuda):
+    """A window of 2,048 lanes is two chunks of bucket 1,024, both replays
+    of one graph queued before the window's readbacks: each chunk's result
+    is its own (the eager step's), not the second chunk's twice."""
+    graphed, eager = graph_and_eager(cuda, "elo_1v1", pool_capacity=16384,
+                                     pool_block=4096)
+    rng = np.random.default_rng(52)
+    fill = named_columns(rng, 10_000, 0, 10.0, False)
+    window = named_columns(rng, 2048, 100_000, 11.0, False)
+    outs = []
+    for eng in (graphed, eager):
+        eng.restore_columns(interned(eng, fill), 10.0)
+        eng.search_columns_async(interned(eng, window), 11.0)
+        outs.append(eng._pending[-1])
+        (_, out), = eng.flush()
+        outs[-1] = (outs[-1].raw, out)
+    (graph_raw, graph_out), (eager_raw, eager_out) = outs
+    assert len(graph_raw) == 2
+    for got, want in zip(graph_raw, eager_raw):
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.array_equal(graph_raw[0], graph_raw[1])
+    assert_same_columnar(graph_out, eager_out)
+    assert graphed.graph_report()["graphs"]["dense_nofilter/1024"][
+        "replays"] == 2
+
+
+def test_replay_after_the_pool_is_replaced_writes_the_new_pool(cuda):
+    """Replacing the engine's device pool drops every graph (they hold the
+    old pool's addresses); the next window captures anew and admits into
+    the new pool, leaving the old one as it was."""
+    from matchmaking_tpu_torch.engine.kernels import fresh_pool as fresh
+
+    cfg = widening_cfg()
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    eng.warmup()
+    assert len(eng.graph_report()["graphs"]) == 4 * 3
+    old = eng.dev_pool
+    eng.dev_pool = fresh(eng.kernels.capacity, cuda)
+    assert eng.graph_report()["graphs"] == {}
+    rng = np.random.default_rng(53)
+    eng.search_columns_async(columns(rng, eng, 500, 0, 10.0), 10.0)
+    (_, out), = eng.flush()
+    assert int(eng.dev_pool["active"].sum()) == eng.pool_size() == (
+        500 - 2 * out.n_matches)
+    assert int(old["active"].sum()) == 0
+    assert list(eng.graph_report()["graphs"]) == ["dense_nofilter/1024"]
+
+
+@pytest.mark.parametrize("kind", ["dense", "pruned", "team", "role"])
+def test_warmup_captures_every_pair_and_replays_never_capture(cuda, kind):
+    """``warmup()`` captures one graph per (variant, bucket); windows of
+    every bucket and rescan ticks afterwards only replay them, and each
+    replay counts its kernels' launches."""
+    if kind in ("team", "role"):
+        queue = (QueueConfig(team_size=5, rating_threshold=120.0,
+                             widen_per_sec=2.0, max_threshold=300.0)
+                 if kind == "team" else
+                 QueueConfig(team_size=5, rating_threshold=150.0,
+                             role_slots=SLOTS5))
+        cfg = Config(engine=EngineConfig(pool_capacity=16384,
+                                         team_max_matches=512),
+                     queues=(queue,))
+        variants = [kind]
+    else:
+        cfg = widening_cfg(**(PRUNED if kind == "pruned" else {}))
+        base = "pruned" if kind == "pruned" else "dense"
+        variants = [base, base + "_nofilter", "rescan"]
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    eng.warmup()
+    rep = eng.graph_report()
+    want = {f"{v}/{b}" for v in variants for b in eng.buckets}
+    assert set(rep["graphs"]) == want and rep["captures"] == len(want)
+    for g in rep["graphs"].values():
+        assert g["replays"] == 0 and g["capture_ms"] > 0
+        assert g["memory_bytes"] > 0
+    rng = np.random.default_rng(54)
+    before = dict(cuda_kernels.LAUNCHES)
+    t = 10.0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for bucket in eng.buckets:
+            if kind in ("team", "role"):
+                eng.search(team_requests(rng, bucket, int(t) * 10_000, t,
+                                         kind == "role"), t)
+            else:
+                for filtered in (True, False):
+                    eng.search_columns_async(interned(eng, named_columns(
+                        rng, bucket, int(t * 10) * 10_000, t, filtered)), t)
+                    eng.flush()
+            tok = eng.rescan_async(bucket, t + 0.25)
+            if tok is not None:
+                eng.flush()
+                eng.rescan_tokens.discard(tok)
+            t += 1.0
+        torch.cuda.synchronize()
+    rep = eng.graph_report()
+    assert rep["captures"] == len(want)
+    replays = sum(g["replays"] for g in rep["graphs"].values())
+    assert replays >= len(eng.buckets)
+    launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items()}
+    one_v_one = kind in ("dense", "pruned")
+    assert launched == {"block_best": replays if one_v_one else 0,
+                        "quality_accum": replays if one_v_one else 0}
+    # What the device ran inside the replays, counted by the profiler: one
+    # of each hand kernel per 1v1 replay, none on a team or role step.
+    ran = {name: sum(e.count for e in prof.key_averages()
+                     if name in e.key and str(e.device_type).endswith("CUDA"))
+           for name in ("prep_kernel", "block_best_kernel",
+                        "quality_accum_kernel")}
+    assert ran == dict.fromkeys(ran, replays if one_v_one else 0)
+    if kind == "pruned":
+        # Every replay of a pruned graph is a pruned window; the warm-up
+        # before each capture is none.
+        assert eng.prune_report()["windows"] == sum(
+            g["replays"] for k, g in rep["graphs"].items()
+            if not k.startswith("rescan/"))

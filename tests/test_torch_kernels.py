@@ -6,6 +6,11 @@ CPU tensors, plain versions of the kernels) against the JAX
 pairs must be equal, distances equal (ELO bit-exact; Glicko-2 within the
 3 ulp explained in test_torch_block_best.py), and after every step the
 port's pool must equal the JAX pool field by field.
+
+Every packed step (dense, without filters, pruned, rescan; the team and
+role steps) reads the window's time on the device from the packed
+window's last row, as the JAX steps read ``packed[8, 0]``: held to the
+JAX packed steps at two times on the same window.
 """
 
 import numpy as np
@@ -25,6 +30,7 @@ from matchmaking_tpu_torch.engine.kernels import (
     admit,
     fresh_pool,
     greedy_pair,
+    packed_now,
     pool_from_reference,
     pool_to_numpy,
     unpack_batch,
@@ -127,8 +133,9 @@ def test_search_step_chain_matches_jax(case):
         packed[8] = now
         jpool, jq, jc, jd = jks._search_step(jpool, jax_batch(packed),
                                              jnp.float32(now))
-        tq, tc, td = tks.search_step(tpool, unpack_batch(
-            torch.from_numpy(packed)), now)
+        tpacked = torch.from_numpy(packed)
+        tq, tc, td = tks.search_step(tpool, unpack_batch(tpacked),
+                                     packed_now(tpacked))
         jq, jc, jd = np.asarray(jq), np.asarray(jc), np.asarray(jd)
         tq, tc, td = tq.numpy(), tc.numpy(), td.numpy()
         if c["glicko2"]:
@@ -160,7 +167,7 @@ def test_packed_step_layout():
                     widen_per_sec=0.0, max_threshold=400.0)
     pool = pool_from_reference(seeded_pool(rng, P, 300, False), "cpu")
     packed = torch.from_numpy(seeded_window(rng, 64, 64, 300, P, False))
-    out = tks.search_step_packed(pool, packed, 0.0)
+    out = tks.search_step_packed(pool, packed)
     assert out.shape == (3, 64) and out.dtype == torch.float32
     hit = out[0] < P
     assert hit.any()
@@ -174,10 +181,11 @@ def test_skip_filters_equals_filtered_step_on_all_any_window():
                widen_per_sec=3.0, max_threshold=300.0)
     pool_np = seeded_pool(rng, P, 500, filters=True)  # pool has filters
     packed = torch.from_numpy(seeded_window(rng, B, B, 500, P, filters=False))
+    packed[8] = 4.0
     outs = []
     for skip in (False, True):
         pool = pool_from_reference(pool_np, "cpu")
-        out = KernelSet(**geo).search_step_packed(pool, packed, 4.0,
+        out = KernelSet(**geo).search_step_packed(pool, packed,
                                                   skip_filters=skip)
         outs.append((out, pool_to_numpy(pool)))
     assert torch.equal(outs[0][0], outs[1][0])
@@ -264,3 +272,145 @@ def test_device_pool_columns_view_the_spare_tensors(make):
         assert torch.equal(pool[name], before)
         full[0] = 1
         assert bool(pool[name][0] == 1)
+
+
+# ---- the window's time, read on the device from the packed window ----------
+
+NOW_VARIANTS = ("dense", "nofilter", "pruned", "rescan")
+
+
+def assert_step_outputs(tout, jout, glicko2, capacity):
+    """ELO: every lane bit for bit. Glicko-2: the same pairs, distances
+    within GLICKO_ULP (see pairs_by_slots)."""
+    if not glicko2:
+        np.testing.assert_array_equal(tout.view(np.int32), jout.view(np.int32))
+        return
+    tp = pairs_by_slots(tout[0], tout[1], tout[2], capacity)
+    jp = pairs_by_slots(jout[0], jout[1], jout[2], capacity)
+    assert tp.keys() == jp.keys()
+    assert max((ulp_diff(tp[k], jp[k]) for k in tp), default=0) <= GLICKO_ULP
+
+
+@pytest.mark.parametrize("glicko2", [False, True], ids=["elo", "glicko2"])
+@pytest.mark.parametrize("variant", NOW_VARIANTS)
+def test_packed_steps_read_now_from_row_8_like_jax(variant, glicko2):
+    """Each packed 1v1 step (dense, without filters, pruned, rescan) reads
+    the window's time from row 8 on the device, as the JAX steps read
+    ``packed[8, 0]``: at two times 20 s apart its result and pool equal
+    the JAX packed step's on the same window. Everyone is enqueued at 20 s
+    with a threshold of 0.5, widening 7/s: at 6 s nobody has waited, at 26
+    s everyone has; the window with only row 8 moved matches more players,
+    so the step follows row 8 and no other time reaches it."""
+    P, B = 1024, 64
+    rng = np.random.default_rng(41 + NOW_VARIANTS.index(variant) * 2 + glicko2)
+    geo = dict(capacity=P, top_k=8, pool_block=128, glicko2=glicko2,
+               widen_per_sec=7.0, max_threshold=250.0, pair_rounds=8)
+    prune = (dict(prune_window_blocks=3, prune_chunk=16)
+             if variant == "pruned" else {})
+    jks, tks = JaxKernelSet(**geo, **prune), KernelSet(**geo, **prune)
+    filters = variant != "nofilter"
+    pool_np = seeded_pool(rng, P, 500, filters=True)
+    # Everyone enqueued at t = 20 with a threshold of 0.5: at t = 6 nobody
+    # has waited (limit 0.5), at t = 26 everyone has waited 6 s (42.5).
+    pool_np["threshold"][:] = 0.5
+    pool_np["enqueue_t"][:] = 20.0
+    if variant == "rescan":  # waiting players, as the mirror lists them
+        slots = np.sort(rng.choice(500, 48, replace=False))
+        packed = np.zeros((9, B), np.float32)
+        packed[0] = P
+        packed[0, :48] = slots
+        for row, name in ((1, "rating"), (2, "rd"), (3, "region"),
+                          (4, "mode"), (5, "threshold"), (6, "enqueue_t")):
+            packed[row, :48] = pool_np[name][slots]
+        packed[7, :48] = 1.0
+    else:
+        packed = seeded_window(rng, B, 56, 500, P, filters)
+        packed[5, :56] = 0.5
+        packed[6, :56] = 20.0
+    jstep = {"dense": jks.search_step_packed,
+             "nofilter": jks.search_step_packed_nofilter,
+             "pruned": jks.search_step_packed,
+             "rescan": jks.search_step_packed_rescan}[variant]
+    tstep = {"dense": tks.search_step_packed,
+             "nofilter": lambda pool, p: tks.search_step_packed(
+                 pool, p, skip_filters=True),
+             "pruned": tks.search_step_packed,
+             "rescan": tks.search_step_packed_rescan}[variant]
+    outs = []
+    for now in (6.0, 26.0):
+        packed[8] = now
+        jpool, jout = jstep({k: jnp.asarray(v) for k, v in pool_np.items()},
+                            jnp.asarray(packed))
+        tpool = pool_from_reference(pool_np, "cpu")
+        tout = tstep(tpool, torch.from_numpy(packed.copy())).numpy()
+        assert_step_outputs(tout, np.asarray(jout), glicko2, P)
+        port_np = pool_to_numpy(tpool)
+        for name, _ in POOL_FIELDS:
+            np.testing.assert_array_equal(port_np[name],
+                                          np.asarray(jpool[name]), name)
+        outs.append(tout)
+    assert (outs[1][0] < P).sum() > (outs[0][0] < P).sum()
+
+
+@pytest.mark.parametrize("kind", ["team", "role"])
+def test_team_and_role_steps_read_now_from_their_last_row_like_jax(kind):
+    """The team and role steps read the window's time from the packed
+    window's last row (row 8 of the team window, row 9 of the role
+    window): at two times 30 s apart (widening 2/s) their results and
+    pools equal the JAX steps' bit for bit, and differ from each other."""
+    from matchmaking_tpu.engine.role_kernels import (
+        role_kernel_set as jax_role_set,
+    )
+    from matchmaking_tpu.engine.teams import team_kernel_set as jax_team_set
+    from matchmaking_tpu_torch.engine.role_kernels import RoleKernelSet
+    from matchmaking_tpu_torch.engine.teams import TeamKernelSet
+
+    P, B, M = 512, 64, 64
+    slots5 = ("tank", "healer", "dps", "dps", "dps")
+    if kind == "team":
+        jset = jax_team_set(P, 5, 2.0, 300.0, M, 16)
+        tset = TeamKernelSet(capacity=P, team_size=5, widen_per_sec=2.0,
+                             max_threshold=300.0, max_matches=M)
+    else:
+        jset = jax_role_set(P, 5, slots5, 2.0, 300.0, M, 16)
+        tset = RoleKernelSet(capacity=P, team_size=5, role_slots=slots5,
+                             widen_per_sec=2.0, max_threshold=300.0,
+                             max_matches=M)
+    rng = np.random.default_rng(47 + (kind == "role"))
+    pool_np = JaxPlayerPool.empty_device_arrays(P)
+    pool_np["rating"] = rng.normal(1500, 200, P).astype(np.float32)
+    pool_np["region"] = rng.integers(1, 3, P).astype(np.int32)
+    pool_np["mode"] = rng.integers(1, 3, P).astype(np.int32)
+    pool_np["threshold"] = rng.choice([20.0, 40.0, 60.0], P).astype(np.float32)
+    pool_np["enqueue_t"] = rng.uniform(0, 5, P).astype(np.float32)
+    pool_np["active"] = rng.random(P) < 0.6
+    if tset.is_role:
+        pool_np["role_mask"] = rng.integers(1, 8, P).astype(np.int32)
+    free = np.nonzero(~pool_np["active"])[0][:B - 4]
+    packed = np.zeros((tset.pack_rows, B), np.float32)
+    packed[0] = P
+    packed[0, :free.size] = free
+    packed[1, :free.size] = rng.normal(1500, 200, free.size)
+    packed[3, :free.size] = rng.integers(1, 3, free.size)
+    packed[4, :free.size] = rng.integers(1, 3, free.size)
+    packed[5, :free.size] = 40.0
+    packed[6, :free.size] = rng.uniform(0, 5, free.size)
+    packed[7, :free.size] = 1.0
+    if tset.is_role:
+        packed[8, :free.size] = rng.integers(1, 8, free.size)
+    outs = []
+    for now in (6.0, 36.0):
+        packed[-1] = now
+        jpool, jout = jset.search_step_packed(
+            {k: jnp.asarray(v) for k, v in pool_np.items()},
+            jnp.asarray(packed))
+        tpool = pool_from_reference(pool_np, "cpu", tset.extra_pool_fields)
+        tout = tset.search_step_packed(tpool,
+                                       torch.from_numpy(packed.copy())).numpy()
+        np.testing.assert_array_equal(tout.view(np.int32),
+                                      np.asarray(jout).view(np.int32))
+        port_np = pool_to_numpy(tpool)
+        for name, col in jpool.items():
+            np.testing.assert_array_equal(port_np[name], np.asarray(col), name)
+        outs.append(tout)
+    assert (outs[1][0] < P).sum() > (outs[0][0] < P).sum()

@@ -47,6 +47,7 @@ from matchmaking_tpu_torch.engine.gpu import GpuEngine
 from matchmaking_tpu_torch.engine.kernels import (
     KernelSet,
     admit,
+    packed_now,
     pool_from_reference,
     pool_to_numpy,
     unpack_batch,
@@ -59,6 +60,12 @@ torch.set_num_threads(1)
 
 P, BLOCK, CHUNK, W = 4096, 256, 32, 6
 GLICKO_ULP = 3
+
+
+def now_tensor(now):
+    """The window's time as the port's steps take it: a one-element f32
+    tensor (the packed window's now row)."""
+    return torch.tensor([now], dtype=torch.float32)
 
 
 # ---- the banded allocator ------------------------------------------------------
@@ -242,7 +249,8 @@ def run_pruned(jax_set, port_set, pool_np, packed, now, skip_filters):
                    else jax_set.search_step_packed)(
         {k: jnp.asarray(v) for k, v in pool_np.items()}, jnp.asarray(packed))
     tpool = pool_from_reference(pool_np, "cpu")
-    tout = port_set.search_step_packed(tpool, torch.from_numpy(packed), now,
+    assert packed[8, 0] == np.float32(now)  # the steps read row 8
+    tout = port_set.search_step_packed(tpool, torch.from_numpy(packed),
                                        skip_filters)
     return ({k: np.asarray(v) for k, v in jpool.items()}, np.asarray(jout),
             pool_to_numpy(tpool), tout.numpy())
@@ -272,7 +280,7 @@ def test_pruned_step_equals_jax(glicko2, widen, banded, skip_filters):
         matched += int((tout[0] < P).sum())
         # The port's dense step on the same window: bit for bit.
         dpool = pool_from_reference(pool, "cpu")
-        dout = dense.search_step_packed(dpool, torch.from_numpy(packed), now,
+        dout = dense.search_step_packed(dpool, torch.from_numpy(packed),
                                         skip_filters).numpy()
         np.testing.assert_array_equal(tout.view(np.int32), dout.view(np.int32))
         for f, col in pool_to_numpy(dpool).items():
@@ -294,7 +302,7 @@ def test_banded_windows_take_the_span_path_and_unbanded_fall_back():
         packed[5, :100] = 20.0
         before = (0 if tks.span_steps is None else int(tks.span_steps.item()))
         tks.search_step_packed(pool_from_reference(pool, "cpu"),
-                               torch.from_numpy(packed), 5.0)
+                               torch.from_numpy(packed))
         assert int(tks.span_steps.item()) - before == expect, banded
 
 
@@ -328,8 +336,9 @@ def test_dict_step_equals_packed_step():
     pool = seeded_pool(rng, True)
     packed = seeded_packed(rng, pool, 256, 180, 9.0)
     a, b = pool_from_reference(pool, "cpu"), pool_from_reference(pool, "cpu")
-    want = tks.search_step_packed(a, torch.from_numpy(packed), 9.0)
-    got = tks.search_step(b, unpack_batch(torch.from_numpy(packed)), 9.0)
+    want = tks.search_step_packed(a, torch.from_numpy(packed))
+    got = tks.search_step(b, unpack_batch(torch.from_numpy(packed)),
+                          packed_now(torch.from_numpy(packed)))
     for row, t in zip(want, got):
         np.testing.assert_array_equal(t.to(torch.float32).numpy().view(np.int32),
                                       row.numpy().view(np.int32))
@@ -377,7 +386,7 @@ def test_chunk_windows_equal_jax(glicko2):
                                        float("inf")), stable=True).indices
         sb = {k: v.index_select(0, order) for k, v in batch.items()}
         qte = cuda_kernels.effective_threshold(sb["threshold"], sb["enqueue_t"],
-                                               4.0, 2.0, 200.0)
+                                               now_tensor(4.0), 2.0, 200.0)
         tpool = pool_from_reference(pool, "cpu")
         admit(tpool, sb)
         bounds = tks._live_stats(tpool)
@@ -408,30 +417,31 @@ def test_span_reference_equals_dense_on_banded_pool(glicko2, filters):
     batch = unpack_batch(torch.from_numpy(packed))
     pool = pool_from_reference(pool_np, "cpu")
     admit(pool, batch)
+    now = now_tensor(6.0)
     qte = cuda_kernels.effective_threshold(batch["threshold"],
-                                           batch["enqueue_t"], 6.0, 2.0, 200.0)
+                                           batch["enqueue_t"], now, 2.0, 200.0)
     dstart, feasible = tks._chunk_windows(batch, qte, *tks._live_stats(pool))
     assert bool(feasible)
     kw = dict(pool_block=BLOCK, glicko2=glicko2, filters=filters,
               widen_per_sec=2.0, max_threshold=200.0,
               g_coeff=scoring.G_COEFF_F32)
-    dense = cuda_kernels.block_best_reference(pool, batch, qte, 6.0, **kw)
+    dense = cuda_kernels.block_best_reference(pool, batch, qte, now, **kw)
     for flag in (True, False):
         span = cuda_kernels.Span(dstart, CHUNK, W, torch.tensor([flag]))
-        got = cuda_kernels.block_best(pool, batch, qte, 6.0, span=span, **kw)
+        got = cuda_kernels.block_best(pool, batch, qte, now, span=span, **kw)
         assert torch.equal(got[1], dense[1])
         assert torch.equal(got[0].view(torch.int32), dense[0].view(torch.int32))
     # Spans that miss candidates: the plain version scores only the spans
     # (-inf / capacity elsewhere), and every block when infeasible.
     wrong = torch.zeros_like(dstart)
     got = cuda_kernels.block_best_span_reference(
-        pool, batch, qte, 6.0, cuda_kernels.Span(wrong, CHUNK, 4,
+        pool, batch, qte, now, cuda_kernels.Span(wrong, CHUNK, 4,
                                                  torch.tensor([True])), **kw)
     assert torch.equal(got[0][:, :4].view(torch.int32),
                        dense[0][:, :4].view(torch.int32))
     assert (got[0][:, 4:] == float("-inf")).all() and (got[1][:, 4:] == P).all()
     got = cuda_kernels.block_best_span_reference(
-        pool, batch, qte, 6.0, cuda_kernels.Span(wrong, CHUNK, 4,
+        pool, batch, qte, now, cuda_kernels.Span(wrong, CHUNK, 4,
                                                  torch.tensor([False])), **kw)
     assert torch.equal(got[1], dense[1])
 
@@ -454,8 +464,8 @@ def test_span_launch_checks_its_arguments():
                       (cuda_kernels.Span(starts, 32, 4, torch.tensor(True)),
                        "feasible")):
         with pytest.raises(ValueError, match=msg):
-            cuda_kernels.block_best(pool, batch, batch["threshold"], 1.0,
-                                    span=span, **kw)
+            cuda_kernels.block_best(pool, batch, batch["threshold"],
+                                    now_tensor(1.0), span=span, **kw)
 
 
 @pytest.mark.parametrize("n_rows,chunk", [(1024, 128), (1024, 32), (256, 16),
@@ -516,3 +526,15 @@ def test_engine_pruned_equals_jax_engine_and_port_dense():
     rep = teng.prune_report()
     assert rep["windows"] >= 6 and 0 <= rep["span_windows"] <= rep["windows"]
     assert dense.prune_report() is None
+
+
+def test_warmup_counts_no_pruned_window():
+    """``warmup()`` runs every variant's all-padding window; none of them is
+    a window of traffic, so the pruned counts stay at zero and the first
+    window counts as the first."""
+    _, teng = engines(True)
+    teng.warmup()
+    assert teng.prune_report() == {"windows": 0, "span_windows": 0}
+    teng.search([SearchRequest(id="a", rating=1500.0, enqueued_at=1.0),
+                 SearchRequest(id="b", rating=1510.0, enqueued_at=1.0)], 1.0)
+    assert teng.prune_report()["windows"] == 1

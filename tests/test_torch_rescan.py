@@ -214,7 +214,7 @@ def test_search_step_packed_rescan_matches_jax(glicko2):
     jpool = {k: jnp.asarray(v) for k, v in arrs.items()}
     jpool, jout = jks.search_step_packed_rescan(jpool, jnp.asarray(packed))
     tpool = pool_from_reference(arrs, "cpu")
-    tout = tks.search_step_packed_rescan(tpool, torch.from_numpy(packed), now)
+    tout = tks.search_step_packed_rescan(tpool, torch.from_numpy(packed))
     jout, tout = np.asarray(jout), tout.numpy()
     assert tout.shape == (3, B)
     pairs = lambda o: {frozenset((int(a), int(b))): np.float32(d)

@@ -99,8 +99,8 @@ def run_steps(jax_set, port_set, seed, steps=3, extra=None, ulp_limit=False):
                                role_mask=port_set.is_role)
         jpool, jout = jax_set.search_step_packed(jpool, jnp.asarray(packed))
         jout = np.asarray(jout)
-        tout = port_set.search_step_packed(tpool, torch.from_numpy(packed),
-                                           float(packed[-1, 0])).numpy()
+        tout = port_set.search_step_packed(tpool,
+                                           torch.from_numpy(packed)).numpy()
         assert tout.shape == jout.shape
         need = port_set.need
         exact = np.arange(jout.shape[0]) != need + 1 if ulp_limit else slice(None)
