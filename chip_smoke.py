@@ -30,7 +30,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    whose spans fit W = 6 blocks and on config #1's window, whose do not:
    bit-equal to its plain version with the step's own flag and with the
    flag flipped, and a feasible launch equal to the dense one; span,
-   fallback and dense ms at B = 1,024. Then quality_accum against its
+   fallback and dense ms at B = 1,024. The same at chunks of 16 rows (the
+   bucketed step's, whose spans hold config #1's window): bit-equal to the
+   plain version and the dense launch, span and dense ms, the plan and
+   the bound. Then quality_accum against its
    plain version at every bucket on step results with real matches
    (histograms and counts equal, sums within 1e-5 relative; every addend
    is >= 0; two launches on the same inputs bit-equal), reading ``now``
@@ -67,13 +70,30 @@ Phases, each of which raises (exit code != 0) when it fails:
    config with BENCH_SWEEP.md §5's pruning (band_spec gaussian:1500:300,
    prune_window_blocks 6, prune_chunk 128): the same 48 windows, checks and
    CPU comparison, and the windows that took the span path rather than the
-   dense fallback, counted on the device and read once. Configs #2 (filters,
+   dense fallback, counted on the device and read once. 3c: config #1
+   bucketed with the JAX bench's geometry (band_spec gaussian:1500:300,
+   prune_window_blocks 6, prune_chunk 16): the same 48 windows, checks,
+   CPU comparison and lockstep replay (pools, index columns included,
+   equal), the span-path count (it fails if no window took the span
+   path), formation_report()'s touched fraction and bucket occupancy (equal
+   to the device index counts and to a host count of the pool after
+   flush()), and one heartbeat() with windows in flight, whose index must
+   equal a host rebuild of the pool it read. Configs #2 (filters,
    6 windows) and #4 (Glicko-2 + widening, 24 windows) run the same way,
    and config #4 runs a two-chunk rescan tick between two windows in
    flight, which must form matches, the same as on the CPU and as the
    eager steps on the card (and reconcile its quality samples); one more
    tick runs under torch.profiler (launches queued and kernels run per
-   chunk, one of each hand kernel per chunk).
+   chunk, one of each hand kernel per chunk). 3d: speculation, for
+   config #4 (the dense rescan family) and config #1 bucketed (the
+   bucketed one): an engine with spec_formation (two passes) and a twin
+   take the same restore and 4 windows in lockstep; the engine then
+   speculates 30 s later (its live pool must stay bit-equal), validates
+   and commits, and its outcome must equal the twin's two cold
+   rescan_async ticks at that time, with pools and quality states equal;
+   a second speculation, discarded by an admission, leaves the live pool
+   as it was. Prints the counters and the device ms of the spare pool's
+   copy, a speculation and a commit, with their launches.
 4. service: the in-process service on the card: the 10-player demo; a
    soak with 100k restored players and 16,384 requests published in
    bursts (every request answered once from its window, partners agree,
@@ -87,7 +107,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    app (20k restored and 2,048 requests each): every answer within its
    queue's threshold and filters and from its own queue, one
    publish_batch per window per queue, and a probe pair 100 apart matched
-   at casual's threshold 150 and left waiting at ranked's 75.
+   at casual's threshold 150 and left waiting at ranked's 75. Then config
+   #1 bucketed with spec_formation and no rescan loop: two players 400
+   apart under fast widening must be matched by the speculation loop
+   alone.
 5. teams and roles: config #3 (team_5v5.json, P = 65,536) with 50k
    restored solo players and 24 object windows of 1,024 at depth 2, and
    config #5 (role_party.json, P = 16,384) with 12k players (declared
@@ -119,7 +142,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 ``--profile-soak`` (with ``--out``) writes cProfile's functions by own
 time over each of the two soaks beside the output file.
 
-The last lines of standard output are a JSON summary of phases 3-5, the
+Each phase's seconds are logged. The last lines of standard output are a
+JSON summary of phases 3-5, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -743,10 +767,15 @@ def phase_quality(torch, np, ck, kernels, spec, device, baseline=None):
 #: W = 6 of 16 blocks, chunks of 128, gaussian:1500:300 bands.
 PRUNE = {"prune_window_blocks": 6, "prune_chunk": 128,
          "band_spec": "gaussian:1500:300"}
+#: Config #1 bucketed, with the JAX bench's bucketed geometry
+#: (bench.py ``_bucketed_geometry``: W = ceil(16 · 33 / 100) = 6 blocks,
+#: chunks of max(8, min(128, 1024 // 64)) = 16 rows).
+BUCKETED = {"bucketed": True, "prune_window_blocks": 6, "prune_chunk": 16,
+            "band_spec": "gaussian:1500:300"}
 
 
 def span_inputs(torch, np, kernels, device, *, glicko2, filters, thr,
-                window_std, seed):
+                window_std, seed, chunk=PRUNE["prune_chunk"], widen=2.0):
     """A pool laid out by the banded allocator (gaussian:1500:300, one band
     per block; 100k players of N(1500, 300)), a window of 1,024 arrivals
     placed by it too and sorted by rating as the pruned step sorts it, and
@@ -793,19 +822,19 @@ def span_inputs(torch, np, kernels, device, *, glicko2, filters, thr,
              "enqueue_t": to(rng.uniform(0, 20, FULL_B).astype(np.float32)),
              "valid": to(np.ones(FULL_B, bool))}
     ks = kernels.KernelSet(capacity=FULL_P, top_k=8, pool_block=FULL_BLOCK,
-                           glicko2=glicko2, widen_per_sec=2.0,
+                           glicko2=glicko2, widen_per_sec=widen,
                            max_threshold=250.0,
                            prune_window_blocks=PRUNE["prune_window_blocks"],
-                           prune_chunk=PRUNE["prune_chunk"])
+                           prune_chunk=chunk)
     kernels.admit(pool, batch)
     q_thr = effective_threshold(batch["threshold"], batch["enqueue_t"],
-                                torch.tensor([20.0], device=device), 2.0,
+                                torch.tensor([20.0], device=device), widen,
                                 250.0)
     start, feasible = ks._chunk_windows(batch, q_thr, *ks._live_stats(pool))
     return ks, pool, batch, q_thr, start, feasible
 
 
-def phase_span(torch, np, ck, kernels, scoring, device):
+def phase_span(torch, np, ck, kernels, scoring, device, sweep=False):
     """The span launch of block_best at full width on a banded pool, for
     all four instances: a narrow window (thresholds 30, ratings N(1500,
     60)) whose spans fit W = 6 blocks, and config #1's window (thresholds
@@ -874,8 +903,82 @@ def phase_span(torch, np, ck, kernels, scoring, device):
     if feasible_seen != {True, False}:
         raise AssertionError(f"span phase: feasibility {feasible_seen}, "
                              f"wanted both")
+    res["chunk16"] = span_chunk16(torch, np, ck, kernels, scoring, device,
+                                  sweep)
     torch.cuda.synchronize()
     return res
+
+
+def span_chunk16(torch, np, ck, kernels, scoring, device, sweep=False):
+    """The bucketed step's span launch: config #1's window (thresholds 100,
+    no widening, N(1500, 300)) cut into chunks of 16 rows, whose spans fit
+    W = 6 blocks (chunks of 128 do not; nor do chunks of 16 once 20 s of
+    widening at 2/s reach 140), for the ELO instance, and the Glicko-2 +
+    filters instance on the same window (its spans, widened by rating
+    deviations up to 350, do not fit): bit-equal to the plain version with
+    the flag set and flipped, and to the dense launch where the flag is
+    the step's own. ELO: span and dense device ms on the
+    same inputs, the plan (``plan_grid`` takes 16 rows a CTA so that a
+    CTA's rows share one span), the plain version's ms and the bound over
+    the spans' pairs. With ``sweep``, every plan with 8 or 16 rows a CTA,
+    each checked and timed."""
+    w, chunk = BUCKETED["prune_window_blocks"], BUCKETED["prune_chunk"]
+    out = {}
+    for vi, (glicko2, filters) in enumerate(((False, False), (True, True))):
+        ks, pool, batch, q_thr, start, feasible = span_inputs(
+            torch, np, kernels, device, glicko2=glicko2, filters=filters,
+            thr=100.0, window_std=300.0, seed=30 + vi, chunk=chunk, widen=0.0)
+        what = f"span chunk 16 glicko2={glicko2} filters={filters}"
+        if bool(feasible) == glicko2:
+            raise AssertionError(f"{what}: feasibility {bool(feasible)}")
+        kw = dict(pool_block=FULL_BLOCK, glicko2=glicko2, filters=filters,
+                  widen_per_sec=0.0, max_threshold=250.0,
+                  g_coeff=scoring.G_COEFF_F32)
+        now = torch.tensor([20.0], device=device)
+        dense = ck.block_best(pool, batch, q_thr, now, **kw)
+        spans = {}
+        for flag in (True, False):
+            span = ck.Span(start, chunk, w, torch.tensor([flag], device=device))
+            got = ck.block_best(pool, batch, q_thr, now, span=span, **kw)
+            compare(torch, got, ck.block_best_span_reference(
+                pool, batch, q_thr, now, span, **kw), what)
+            if not flag or bool(feasible):
+                compare(torch, got, dense, f"{what}: against dense")
+            spans[flag] = span
+        if glicko2:
+            continue
+        plan = ck.plan_grid(FULL_B, FULL_P // FULL_BLOCK, FULL_BLOCK,
+                            ck.sm_count(0), chunk)
+        starts = start.tolist()
+        blocks = {s_ + j for s_ in starts for j in range(w)}
+        rows = int(batch["valid"].sum())
+        out = {"plan": f"{plan.rows_per_cta}x{plan.cluster}",
+               "span_starts": starts,
+               "span_ms": time_ms(torch, lambda: ck.block_best(
+                   pool, batch, q_thr, now, span=spans[True], **kw)),
+               "dense_ms": time_ms(torch, lambda: ck.block_best(
+                   pool, batch, q_thr, now, **kw)),
+               "plain_ms": time_ms(torch, lambda: ck.block_best_span_reference(
+                   pool, batch, q_thr, now, spans[True], **kw), reps=5)}
+        out.update(bound(ck, rows, False, False, pairs=rows * w * FULL_BLOCK,
+                         pool_slots=len(blocks) * FULL_BLOCK))
+        if sweep:
+            n_blocks = FULL_P // FULL_BLOCK
+            out["plans"] = {}
+            for rows_cta in (8, 16):
+                for cluster in (1, 2, 4, 8):
+                    gp = ck.GridPlan(rows_cta, cluster, (n_blocks * cluster,
+                                                         -(-FULL_B // rows_cta)))
+                    fn = lambda: ck._launch(gp, pool, batch, q_thr, now,
+                                            span=spans[True], **kw)
+                    compare(torch, fn(), dense, f"{what} plan {gp}")
+                    out["plans"][f"{rows_cta}x{cluster}"] = time_ms(torch, fn)
+        log(f"span launch, chunks of 16 (config #1's window, W = {w}, plan "
+            f"{out['plan']}): span {out['span_ms']:.5f} ms, dense "
+            f"{out['dense_ms']:.5f} ms, plain {out['plain_ms']:.3f} ms, bound "
+            f"{out['bound_ms']:.5f} ms; {len(blocks)} blocks in some span"
+            + (f"; plans {out['plans']}" if sweep else ""))
+    return out
 
 
 # ---- phase 3: the engine main path (columnar, pipelined) -------------------
@@ -1028,8 +1131,10 @@ def device_busy(torch, run):
     # which a replay adds on the host.
     own = {name: sum(k[1] for k in kernels if name in k[2])
            for name in OWN_KERNELS}
+    own_ms = {name: sum(k[0] for k in kernels if name in k[2]) / n / 1e3
+              for name in OWN_KERNELS}
     return {"windows": n, "wall_ms_per_window": wall / n * 1e3,
-            "own_kernels": own,
+            "own_kernels": own, "own_kernel_ms_per_window": own_ms,
             "kernels_per_window": sum(k[1] for k in kernels) / n,
             # What the host queued: kernel launches, graph launches and
             # copies (runtime API calls the profiler saw).
@@ -1122,7 +1227,55 @@ def replay_equals_eager(torch, np, mods, cfg, pop, *, waiting, t0, windows,
     if graphed.prune_report() != eager.prune_report():
         raise AssertionError(f"{label}: pruned counts {graphed.prune_report()}"
                              f" != {eager.prune_report()}")
+    if graphed.formation_report() != eager.formation_report():
+        raise AssertionError(f"{label}: formation reports differ")
     return windows
+
+
+def exact_index(np, active, rating, rd, n_blocks):
+    """The bucket index of a pool from its columns, on the host: per block
+    the active count, the live rating bounds (+inf / -inf when empty) and
+    the largest live rating deviation (0 when empty)."""
+    act = active.reshape(n_blocks, -1)
+    r = rating.reshape(n_blocks, -1)
+    return {"bidx_count": act.sum(1).astype(np.int32),
+            "bidx_min": np.where(act, r, np.inf).min(1).astype(np.float32),
+            "bidx_max": np.where(act, r, -np.inf).max(1).astype(np.float32),
+            "bidx_rd": np.where(act, rd.reshape(n_blocks, -1),
+                                0.0).max(1).astype(np.float32)}
+
+
+def check_bucketed(torch, np, eng, at_heartbeat, windows, label):
+    """A bucketed run's index, after ``flush()``: the mid-stream heartbeat's
+    rebuild equal to a host rebuild of the pool it read; the device counts
+    equal to the mirror's bucket occupancy (``formation_report``) and to a
+    host count of the pool, its bounds holding the live bounds; every
+    window in the touched count. Returns the formation report's numbers."""
+    nb = eng.kernels.n_blocks
+    host = {k: v.cpu().numpy() for k, v in at_heartbeat.items()}
+    want = exact_index(np, host["active"], host["rating"], host["rd"], nb)
+    for k, v in want.items():
+        if not np.array_equal(host[k].view(np.int32), v.view(np.int32)):
+            raise AssertionError(f"{label}: the heartbeat's {k} "
+                                 f"{host[k].tolist()} != {v.tolist()}")
+    pool = {k: eng.dev_pool[k].cpu().numpy() for k in (
+        "active", "rating", "rd", "bidx_count", "bidx_min", "bidx_max")}
+    exact = exact_index(np, pool["active"], pool["rating"], pool["rd"], nb)
+    rep = eng.formation_report()
+    if (pool["bidx_count"].tolist() != rep["bucket_occupancy"]
+            or pool["bidx_count"].tolist() != exact["bidx_count"].tolist()):
+        raise AssertionError(f"{label}: index counts {pool['bidx_count']} "
+                             f"!= occupancy {rep['bucket_occupancy']} or "
+                             f"the pool's {exact['bidx_count']}")
+    if ((pool["bidx_min"] > exact["bidx_min"]).any()
+            or (pool["bidx_max"] < exact["bidx_max"]).any()):
+        raise AssertionError(f"{label}: index bounds narrower than the pool's")
+    if rep["windows"] != windows:
+        raise AssertionError(f"{label}: formation counted {rep['windows']} "
+                             f"of {windows} windows")
+    return {k: rep[k] for k in ("windows", "touched_slots", "total_slots",
+                                "formation_touched_frac", "bucket_occupancy",
+                                "peak_bucket_occupancy")}
 
 
 def greedy_pair_kernels(torch, kernels, capacity, rows, n_blocks, rounds):
@@ -1177,12 +1330,15 @@ def quality_reconciles(np, eng, pop, outs, what):
 
 def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
                  glicko2, filters, seed, cpu_windows, object_windows,
-                 profile_windows, engine_over=None):
+                 profile_windows, engine_over=None, heartbeat_at=None):
     """The main path: ``restore_columns`` fills the pool, then ``windows``
     windows of 1,024 go through ``search_columns_async`` at the config's
     pipeline depth, each collected with ``collect_ready`` only after the
     next is dispatched, and ``flush`` ends the run. ``engine_over``
-    replaces engine keys of the file (the pruned path's knobs)."""
+    replaces engine keys of the file (the pruned or bucketed path's
+    knobs). A bucketed run calls ``heartbeat`` right after window
+    ``heartbeat_at`` is dispatched (windows in flight) and holds the index
+    it rebuilt to an exact rebuild of the pool at that point."""
     import dataclasses
 
     Config, GpuEngine, RequestColumns, SearchRequest = mods
@@ -1190,7 +1346,9 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
     if engine_over:
         cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
             cfg.engine, **engine_over))
-    label = path + (" (pruned)" if engine_over else "")
+    bucketed = bool(cfg.engine.bucketed)
+    label = path + (" (bucketed)" if bucketed
+                    else " (pruned)" if engine_over else "")
     queue, depth = cfg.queues[0], cfg.engine.pipeline_depth
     rng = np.random.default_rng(seed)
     t0 = 1_700_000_000.0
@@ -1228,6 +1386,7 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
     reset_counts(ck)  # count the main path's launches only
     dispatch_ms, turnaround_ms, gc_ms = [], [], []
     outs, t_disp, token_window = {}, {}, {}
+    at_heartbeat = None
     with GcClock() as gc_clock:
         t_run = time.perf_counter()
         for w in range(windows):
@@ -1237,6 +1396,14 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
                 tok = eng.search_columns_async(stream[w], now_of[w])
             dispatch_ms.append((time.perf_counter() - t) * 1e3)
             t_disp[tok], token_window[tok] = t, w
+            if bucketed and w == heartbeat_at:
+                # The rebuild queues behind the windows in flight; so do
+                # these copies of its index and of the pool it read.
+                with no_sync(torch):
+                    eng.heartbeat(now_of[w])
+                    at_heartbeat = {k: eng.dev_pool[k].clone() for k in (
+                        "active", "rating", "rd", "bidx_count", "bidx_min",
+                        "bidx_max", "bidx_rd")}
             if w == 1:
                 # Collect windows 0 and 1 together, so the CPU replay of the
                 # first three windows sees the same pool at each dispatch.
@@ -1269,6 +1436,11 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
                              f"window chunks")
     if prune is not None and prune["windows"] != windows:
         raise AssertionError(f"pruned steps {prune} for {windows} windows")
+    formation = (check_bucketed(torch, np, eng, at_heartbeat, windows, label)
+                 if bucketed else None)
+    if bucketed and prune["span_windows"] == 0:
+        raise AssertionError(f"{label}: no window took the span path "
+                             f"({prune})")
     seen, matches, admitted = set(), 0, 0
     for w in range(windows):
         out = outs[w]
@@ -1305,7 +1477,7 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         f"p50 {statistics.median(turnaround_ms):.2f} ms, "
         f"{windows * FULL_B / run_s:.0f} requests/s, launches {launches} "
         f"block_best + {q_launches} quality_accum, {samples} quality samples "
-        f"reconciled, pruned {prune}, "
+        f"reconciled, pruned {prune}, formation {formation}, "
         f"deadline sweep {len(expired)} players in {sweep_ms:.2f} ms; "
         f"warmup {warmup_s:.2f} s: {graphs['captures']} graphs captured in "
         f"{graphs['capture_ms_total']:.1f} ms (largest "
@@ -1417,7 +1589,8 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
         "windows": windows, "window": FULL_B, "pipeline_depth": depth,
         "matches": matches, "launches": launches,
         "quality_launches": q_launches, "quality_samples": samples,
-        "prune": prune, "pool_size_end": eng.pool_size(),
+        "prune": prune, "formation": formation,
+        "pool_size_end": eng.pool_size(),
         "restore_s": restore_s,
         "dispatch_ms": dispatch_ms, "turnaround_ms": turnaround_ms,
         "dispatch_ms_p50": statistics.median(dispatch_ms),
@@ -1532,6 +1705,192 @@ def run_rescan(torch, np, ck, scoring, mods, path, *, waiting, seed):
             "launches": launches, "tick_launches": tick_launches,
             "arrival_launches": launches - tick_launches,
             "tick_profile": prof}
+
+
+def same_outcomes(np, got, want, what):
+    """Two columnar outcomes (or lists of them, concatenated) with the same
+    pairs in the same order, distances bit for bit, and queued ids."""
+    cat = lambda outs, name: [x for o in outs for x in getattr(o, name).tolist()]
+    got = got if isinstance(got, list) else [got]
+    want = want if isinstance(want, list) else [want]
+    for name in ("m_id_a", "m_id_b", "q_ids"):
+        if cat(got, name) != cat(want, name):
+            raise AssertionError(f"{what}: {name} differ")
+    gd = np.concatenate([o.m_dist for o in got]).view(np.int32)
+    wd = np.concatenate([o.m_dist for o in want]).view(np.int32)
+    if not np.array_equal(gd, wd):
+        raise AssertionError(f"{what}: distances differ")
+    return sum(o.n_matches for o in got)
+
+
+def same_pools(torch, a, b, what):
+    """Two engines' device pools (index columns included) and quality
+    states bit-equal."""
+    torch.cuda.synchronize()
+    for name, col in a.dev_pool.full.items():
+        if not torch.equal(col, b.dev_pool.full[name]):
+            raise AssertionError(f"{what}: pool column {name} differs")
+    if not torch.equal(a._q_dev.flat, b._q_dev.flat):
+        raise AssertionError(f"{what}: the quality states differ")
+
+
+def event_ms(torch, fn):
+    """Device ms from a CUDA event before ``fn()`` to one after it (what
+    ``fn`` queued on the stream), and ``fn``'s result."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+def run_speculation(torch, np, ck, mods, path, *, engine_over, waiting,
+                    windows, seed):
+    """Phase 3d: speculation on the card. An engine with ``spec_formation``
+    (two passes) and a twin without a held speculation take the same
+    restore and ``windows`` traffic windows in lockstep (equal outcomes).
+    Then the engine speculates 30 s after the stream (widened thresholds
+    where the queue widens): its live pool stays bit-equal through it, and
+    the commit's outcome equals the twin's two cold ``rescan_async`` ticks
+    at the same time (queued back to back, so both pick the same players,
+    as the two passes do), pair for pair, distances bit for bit, with equal
+    pools (index columns included) and quality states after. A second
+    speculation, invalidated by a traffic window, leaves the live pool
+    bit-equal to before it, and the next window's outcome and the pools
+    again equal the twin's. Times: the spare pool's copy (device ms,
+    median of 10), a speculation (device ms from an event before to one
+    after: the copy, 2 passes of the rescan graph per chunk, the result
+    copies) and a commit (the copy back and one quality fold a chunk),
+    with their host ms; the launches of each; the counters."""
+    import dataclasses
+
+    Config, GpuEngine, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, spec_formation=True, spec_max_steps=2, **engine_over))
+    label = f"speculation {path}" + (" (bucketed)" if cfg.engine.bucketed
+                                     else "")
+    queue = cfg.queues[0]
+    rng = np.random.default_rng(seed)
+    t0 = 1_700_000_000.0
+    pop = Population(np, rng, waiting + (windows + 1) * FULL_B, t0,
+                     filters=False, glicko2=queue.glicko2)
+    now_of = [t0 + 1.0 + 0.05 * w for w in range(windows + 1)]
+    eng, twin = (GpuEngine(cfg, queue, device="cuda") for _ in range(2))
+    for e in (eng, twin):
+        e.warmup()
+        e.restore_columns(pop.columns(RequestColumns, e, 0, waiting, t0), t0)
+
+    def window(w):
+        outs = []
+        for e in (eng, twin):
+            e.search_columns_async(pop.columns(
+                RequestColumns, e, waiting + w * FULL_B,
+                waiting + (w + 1) * FULL_B, now_of[w]), now_of[w])
+            (_, out), = e.flush()
+            outs.append(out)
+        same_outcomes(np, *outs, f"{label} window {w}")
+
+    for w in range(windows):
+        window(w)
+    same_pools(torch, eng, twin, f"{label} after the stream")
+    t_spec = now_of[windows - 1] + 30.0
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in eng.dev_pool.full.items()}
+    reset_counts(ck)
+    h = time.perf_counter()
+    spec_ms, held = event_ms(torch, lambda: eng.speculate(t_spec))
+    spec_host_ms = (time.perf_counter() - h) * 1e3
+    spec_launches = dict(ck.LAUNCHES)
+    if not held:
+        raise AssertionError(f"{label}: no speculation held")
+    for k, v in before.items():
+        if not torch.equal(eng.dev_pool.full[k], v):
+            raise AssertionError(f"{label}: the speculation wrote the live "
+                                 f"pool's {k}")
+    reset_counts(ck)
+    tok = eng.spec_validate(t_spec)
+    h = time.perf_counter()
+    commit_ms, _ = event_ms(torch, lambda: eng.spec_commit(tok, t_spec))
+    commit_host_ms = (time.perf_counter() - h) * 1e3
+    commit_launches = dict(ck.LAUNCHES)
+    (_, got), = eng.flush()
+    # Two ticks queued back to back: the second picks the first's players
+    # again (the mirror lags until the flush), as the second pass does.
+    for _ in range(2):
+        twin.rescan_async(2 * FULL_B, t_spec)
+    cold = [o for _, o in twin.flush()]
+    matches = same_outcomes(np, got, cold, f"{label}: commit against the "
+                            f"cold rescans")
+    same_pools(torch, eng, twin, f"{label} after the commit")
+    steps = eng.spec_report()["spec_committed_steps"]
+    if (matches == 0 or spec_launches["block_best"] != steps
+            or spec_launches["quality_accum"] != 0
+            or commit_launches != {"block_best": 0, "quality_accum": steps}):
+        raise AssertionError(f"{label}: {matches} matches; launches "
+                             f"{spec_launches} speculating, "
+                             f"{commit_launches} committing, {steps} passes")
+    # A speculation discarded by an admission.
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in eng.dev_pool.full.items()}
+    if not eng.speculate(t_spec + 1.0):
+        raise AssertionError(f"{label}: no second speculation")
+    torch.cuda.synchronize()
+    for k, v in before.items():
+        if not torch.equal(eng.dev_pool.full[k], v):
+            raise AssertionError(f"{label}: the discarded speculation wrote "
+                                 f"the live pool's {k}")
+    now_of[windows] = t_spec + 2.0
+    window(windows)
+    if eng.spec_validate(t_spec + 2.0) is not None:
+        raise AssertionError(f"{label}: an admission left the speculation")
+    same_pools(torch, eng, twin, f"{label} after the discarded speculation")
+    report = eng.spec_report()
+    if report["spec_hit"] != 1 or report["spec_wasted"] != 1:
+        raise AssertionError(f"{label}: counters {report}")
+    spare = eng._spec_device_pool()
+    copy_ms = statistics.median(event_ms(torch, lambda: eng._copy_pool(
+        spare, eng.dev_pool))[0] for _ in range(10))
+    # The host's pick of the players (a rescan tick's): what most of a
+    # speculation's host time goes to at this pool size.
+    h = time.perf_counter()
+    eng._rescan_chunks(2 * FULL_B, t_spec)
+    pick_host_ms = (time.perf_counter() - h) * 1e3
+    # One more speculation and its commit under torch.profiler: the device
+    # time of what each queued (kernels and copies), apart from the host's.
+    t_prof = t_spec + 3.0
+    prof_spec = device_busy(torch, lambda: eng.speculate(t_prof) and 1)
+    prof_commit = device_busy(torch, lambda: eng.spec_commit(
+        eng.spec_validate(t_prof), t_prof) is not None and 1)
+    eng.flush()
+    out = {"config": path, "engine_over": engine_over, "waiting": waiting,
+           "windows": windows, "commit_matches": matches, "passes": steps,
+           "copy_ms": copy_ms, "speculate_ms": spec_ms,
+           "speculate_host_ms": spec_host_ms, "pick_host_ms": pick_host_ms,
+           "commit_ms": commit_ms,
+           "commit_host_ms": commit_host_ms,
+           "speculate_device_ms": prof_spec["device_ms_per_window"],
+           "speculate_wall_ms": prof_spec["wall_ms_per_window"],
+           "speculate_kernels": prof_spec["kernels_per_window"],
+           "commit_device_ms": prof_commit["device_ms_per_window"],
+           "commit_wall_ms": prof_commit["wall_ms_per_window"],
+           "commit_kernels": prof_commit["kernels_per_window"],
+           "speculate_launches": spec_launches["block_best"],
+           "commit_launches": commit_launches["quality_accum"],
+           "counters": report}
+    log(f"{label}: commit of {steps} passes formed {matches} matches, equal "
+        f"to the twin's cold rescans; pools equal; counters {report}; spare "
+        f"pool copy {copy_ms:.4f} ms (events); speculate {spec_ms:.4f} ms "
+        f"between events ({spec_host_ms:.3f} host, {pick_host_ms:.3f} of "
+        f"it the players' pick), profiled: "
+        f"{out['speculate_device_ms']:.4f} device ms in "
+        f"{out['speculate_kernels']:.0f} kernels and copies, "
+        f"{out['speculate_wall_ms']:.3f} wall; commit {commit_ms:.4f} ms "
+        f"between events ({commit_host_ms:.3f} host), profiled "
+        f"{out['commit_device_ms']:.4f} device ms in "
+        f"{out['commit_kernels']:.0f}, {out['commit_wall_ms']:.3f} wall")
+    return out
 
 
 def check_faults(app, what):
@@ -1769,6 +2128,65 @@ async def service_rescan(np, ck, mods, path, *, waiting, seed):
         f"{launches} block_best launches")
     return {"config": path, "waiting": waiting, "rescan_interval_s": interval,
             "rescan_matches": m, "answers": n, "launches": launches}
+
+
+async def service_spec(ck, mods, path):
+    """Config #1 bucketed (the JAX bench's geometry) with speculation on
+    and no rescan loop: two players far apart (1500 and 1900) under fast
+    widening (threshold 50, 400/s, capped at 2000), the geometry of the
+    JAX package's own test. Only the speculation loop can match them; both
+    must be answered matched by one match, and the service must catch no
+    failure."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.client import MatchmakingClient
+
+    Config = mods[0]
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(
+            cfg.engine, warm_start=True, spec_formation=True,
+            spec_interval_ms=10.0, spec_max_steps=2, spec_staleness_ms=500.0,
+            **BUCKETED),
+        queues=(dataclasses.replace(cfg.queues[0], rating_threshold=50.0,
+                                    widen_per_sec=400.0, max_threshold=2000.0,
+                                    rescan_interval_s=0.0),))
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()
+    try:
+        reset_counts(ck)
+        t = time.perf_counter()
+        client = MatchmakingClient(app.broker, cfg.queues[0].name)
+        a = client.submit({"id": "alice", "rating": 1500})
+        b = client.submit({"id": "bob", "rating": 1900})
+        first = [(await client.next_response(h, timeout=30.0)).status
+                 for h in (a, b)]
+        second = [await client.next_response(h, timeout=30.0) for h in (a, b)]
+        wait_s = time.perf_counter() - t
+        report = app.engine.spec_report()
+        counters = dict(app.counters)
+    finally:
+        await app.stop()
+    check_faults(app, "service speculation")
+    if (first != ["queued", "queued"]
+            or [r.status for r in second] != ["matched", "matched"]
+            or second[0].match.match_id != second[1].match.match_id
+            or counters["rescan_matches"] != 1 or counters["spec_commits"] == 0
+            or report["spec_hit"] == 0):
+        raise AssertionError(f"service speculation: {first}, "
+                             f"{[r.status for r in second]}, {counters}, "
+                             f"{report}")
+    launches = dict(ck.LAUNCHES)
+    if launches["block_best"] == 0 or launches["quality_accum"] == 0:
+        raise AssertionError(f"service speculation: launches {launches}")
+    log(f"service speculation {path} (bucketed): both players matched by the "
+        f"speculation loop alone in {wait_s:.3f} s; {counters['spec_commits']} "
+        f"commits, counters {report}, launches {launches}")
+    return {"config": path, "engine_over": BUCKETED, "matched_after_s": wait_s,
+            "spec_commits": counters["spec_commits"], "counters": report,
+            "launches": launches["block_best"],
+            "quality_launches": launches["quality_accum"]}
 
 
 # ---- phase 5: team and role queues (configs #3 and #5) ------------------------
@@ -2639,11 +3057,16 @@ def main(argv) -> int:
     kernel, max_err = phase_kernel(torch, ck, scoring, device, baseline)
     sweep = (plan_sweep(torch, ck, scoring, device) if "--plan-sweep" in argv
              else None)
-    span = phase_span(torch, np, ck, kernels, scoring, device)
+    span = phase_span(torch, np, ck, kernels, scoring, device,
+                      sweep=sweep is not None)
+    if sweep is not None:
+        sweep["span_chunk16"] = span["chunk16"]["plans"]
     quality, q_err = phase_quality(torch, np, ck, kernels, QualitySpec(),
                                    device, baseline)
 
     # 3. the engine main path: columnar, pipelined, at full width
+    phase_s = {"1-2": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
     mods = (Config, GpuEngine, RequestColumns, SearchRequest)
     launches = {}
     main_run = run_columnar(torch, np, ck, scoring, mods, "configs/elo_1v1.json",
@@ -2656,6 +3079,8 @@ def main(argv) -> int:
         raise AssertionError(f"the main path's window runs "
                              f"{main_run['profile']['step_kernels_per_window']}"
                              f" kernels, over 401 + the quality_accum launch")
+    phase_s["3"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     # 3b. the pruned main path: config #1 with BENCH_SWEEP.md §5's pruning
     pruned_run = run_columnar(torch, np, ck, scoring, mods,
                               "configs/elo_1v1.json", waiting=100_000,
@@ -2663,6 +3088,19 @@ def main(argv) -> int:
                               cpu_windows=3, object_windows=0,
                               profile_windows=8, engine_over=PRUNE)
     launches["columnar_elo_1v1_pruned"] = pruned_run["launches"]
+    # 3c. the bucketed main path: config #1 with the JAX bench's bucketed
+    #     geometry, a heartbeat (the index rebuild) mid-stream
+    phase_s["3b"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    bucketed_run = run_columnar(torch, np, ck, scoring, mods,
+                                "configs/elo_1v1.json", waiting=100_000,
+                                windows=48, glicko2=False, filters=False,
+                                seed=1, cpu_windows=3, object_windows=0,
+                                profile_windows=8, engine_over=BUCKETED,
+                                heartbeat_at=24)
+    launches["columnar_elo_1v1_bucketed"] = bucketed_run["launches"]
+    phase_s["3c"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     filters_run = run_columnar(torch, np, ck, scoring, mods,
                                "configs/multiqueue_filters.json",
                                waiting=50_000, windows=6, glicko2=False,
@@ -2679,6 +3117,21 @@ def main(argv) -> int:
                         waiting=50_000, seed=5)
     launches["rescan_tick_glicko2"] = rescan["tick_launches"]
     launches["rescan_arrivals_glicko2"] = rescan["arrival_launches"]
+    phase_s["3 (#2, #4, rescan)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # 3d. speculation: the dense rescan family (config #4) and the
+    #     bucketed one (config #1 bucketed)
+    speculation = {
+        "glicko2": run_speculation(torch, np, ck, mods, "configs/glicko2.json",
+                                   engine_over={}, waiting=50_000, windows=4,
+                                   seed=14),
+        "elo_1v1_bucketed": run_speculation(
+            torch, np, ck, mods, "configs/elo_1v1.json", engine_over=BUCKETED,
+            waiting=100_000, windows=4, seed=15)}
+    for name, run in speculation.items():
+        launches["speculation_" + name] = run["speculate_launches"]
+    phase_s["3d"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 4. the service on the card: the demo, the full-width soak, and
     #    config #4's rescan loop
@@ -2712,6 +3165,10 @@ def main(argv) -> int:
         np, ck, mods, "configs/multiqueue_filters.json", waiting=20_000,
         requests=2_048, burst=512, seed=12))
     launches["service_multiqueue_filters"] = multiqueue["launches"]
+    spec_service = asyncio.run(service_spec(ck, mods, "configs/elo_1v1.json"))
+    launches["service_speculation_bucketed"] = spec_service["launches"]
+    phase_s["4"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 5. team and role queues at full width: configs #3 and #5 on the card
     #    (their steps score no 1v1 blocks: block_best must stay at 0), the
@@ -2731,6 +3188,9 @@ def main(argv) -> int:
         np, mods, "configs/team_5v5.json", waiting=50_000, requests=8_192,
         burst=512, seed=11))
     launches["team_and_role_paths"] = ck.LAUNCHES["block_best"]
+    phase_s["5"] = time.perf_counter() - t_phase
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
         raise AssertionError("block_best ran on a team/role path")
     team_launches = team_run["step"]["launches"]
@@ -2746,10 +3206,15 @@ def main(argv) -> int:
     # launches_by_path; quality_accum runs once behind each of those steps).
     main_launches = (launches["columnar_elo_1v1"]
                      + launches["columnar_elo_1v1_pruned"]
-                     + launches["rescan_tick_glicko2"])
+                     + launches["columnar_elo_1v1_bucketed"]
+                     + launches["rescan_tick_glicko2"]
+                     + sum(r["speculate_launches"]
+                           for r in speculation.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
-                  + rescan["tick_launches"])
+                  + bucketed_run["quality_launches"]
+                  + rescan["tick_launches"]
+                  + sum(r["commit_launches"] for r in speculation.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -2781,7 +3246,11 @@ def main(argv) -> int:
         "launches_by_path": {
             "columnar_elo_1v1": main_run["quality_launches"],
             "columnar_elo_1v1_pruned": pruned_run["quality_launches"],
+            "columnar_elo_1v1_bucketed": bucketed_run["quality_launches"],
             "rescan_tick_glicko2": rescan["tick_launches"],
+            **{"spec_commit_" + name: run["commit_launches"]
+               for name, run in speculation.items()},
+            "service_speculation_bucketed": spec_service["quality_launches"],
             "service_soak": soak["launches"],
             "service_multiqueue_filters": multiqueue["launches"]},
         "ms_by_bucket": quality["ms_by_bucket"],
@@ -2800,13 +3269,14 @@ def main(argv) -> int:
                 raise AssertionError(f"{k['name']} never ran on {path}")
     columnar = {}
     for name, run in (("elo_1v1", main_run), ("elo_1v1_pruned", pruned_run),
+                      ("elo_1v1_bucketed", bucketed_run),
                       ("multiqueue_filters", filters_run),
                       ("glicko2", glicko_run)):
         columnar[name] = {k: run[k] for k in (
             "dispatch_ms_p50", "dispatch_ms_p99", "turnaround_ms_p50",
             "turnaround_ms_p99", "requests_per_s", "idle_fraction",
             "gc_ms_total", "gc_ms_max", "matches", "launches",
-            "quality_samples", "prune", "eager_windows_equal")}
+            "quality_samples", "prune", "formation", "eager_windows_equal")}
         columnar[name]["graphs"] = {k: v for k, v in run["graphs"].items()
                                     if k != "by_graph"}
         if run["profile"]:
@@ -2815,9 +3285,11 @@ def main(argv) -> int:
             columnar[name]["queued_per_window"] = (
                 run["profile"]["queued_per_window"])
             columnar[name]["own_kernels"] = run["profile"]["own_kernels"]
-            columnar[name]["block_best_device_ms_per_window"] = sum(
-                k["device_ms_per_window"] for k in run["profile"]["top_kernels"]
-                if "block_best_kernel" in k["name"])
+            own_ms = run["profile"]["own_kernel_ms_per_window"]
+            columnar[name]["block_best_device_ms_per_window"] = (
+                own_ms["prep_kernel"] + own_ms["block_best_kernel"])
+            columnar[name]["quality_accum_device_ms_per_window"] = (
+                own_ms["quality_accum_kernel"])
     summary = {
         "card": card, "columnar": columnar,
         "split_ms_per_window": main_run["split_ms_per_window"],
@@ -2833,6 +3305,9 @@ def main(argv) -> int:
            for k in ("queued", "graph_launches", "kernels", "device_ms")}
         | {"tick_own_kernels": rescan["tick_profile"]["own_kernels"]},
         "service_rescan": service_rescan_run,
+        "speculation": speculation,
+        "service_speculation": spec_service,
+        "phase_s": phase_s,
         "soak": {k: soak[k] for k in ("latency_ms_p50", "latency_ms_p99",
                                       "latency_ms_max", "requests_per_s",
                                       "windows", "publish_batches",
@@ -2881,8 +3356,10 @@ def main(argv) -> int:
                        "sass_elo_inner_loop": sass, "plan_sweep": sweep,
                        "kernel": kernel, "max_abs_err": max_err,
                        "span": span, "quality": quality,
-                       "columnar": [main_run, pruned_run, filters_run,
-                                    glicko_run],
+                       "columnar": [main_run, pruned_run, bucketed_run,
+                                    filters_run, glicko_run],
+                       "speculation": speculation,
+                       "service_speculation": spec_service,
                        "rescan": rescan, "demo_players": len(answers),
                        "soak": soak, "soak_per_delivery": soak_off,
                        "service_rescan": service_rescan_run,

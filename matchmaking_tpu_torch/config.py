@@ -115,11 +115,35 @@ class EngineConfig:
     #: band_edges_from_spec``), one band per pool block: "" (off),
     #: "uniform:LO:HI" or "gaussian:MEAN:STD" (equal-mass bands).
     band_spec: str = ""
-    #: The JAX package's bucket-indexed formation and its sharded frontier
-    #: exchange: carried so that a file naming them loads, and refused by
-    #: ``GpuEngine`` (not ported).
+    #: Rating-bucketed formation of the 1v1 step: the device pool carries a
+    #: bucket index (per pool block: live count, rating bounds that only
+    #: widen between rebuilds, max rating deviation), kept by every admit,
+    #: match and evict, and each rating-sorted chunk of a window scores
+    #: only the span of blocks the index admits (``prune_window_blocks``
+    #: wide; ≤ 0 means a quarter of the blocks), with the pruned step's
+    #: whole-window dense fallback. Exact either way. The health timer's
+    #: heartbeat re-tightens the bounds.
     bucketed: bool = False
+    #: The sharded frontier exchange of bucketed formation (multi-device):
+    #: carried so that a file naming it loads, and refused by ``GpuEngine``
+    #: when > 0 (not ported).
     bucket_frontier_k: int = 0
+    #: Speculative formation: between windows the engine runs up to
+    #: ``spec_max_steps`` no-admission rescan passes over the resident
+    #: pool into a spare pool, off the books; the next cut (a traffic
+    #: window, a rescan tick, the next speculation tick) commits them in
+    #: O(1) if no pool mutation happened since, or discards them. 1v1
+    #: queues only.
+    spec_formation: bool = False
+    #: Chained speculative passes per gap (each over the previous pass's
+    #: pool, at the same time).
+    spec_max_steps: int = 2
+    #: A speculation older than this (ms) at the cut is discarded even if
+    #: no mutation invalidated it.
+    spec_staleness_ms: float = 500.0
+    #: The service's speculation loop cadence (ms; 0 disables the loop,
+    #: and the cut-time commit still runs).
+    spec_interval_ms: float = 10.0
 
 
 @dataclass(frozen=True)

@@ -15,6 +15,9 @@ means which player:
   with room. Each pool block then holds a narrow rating interval, which
   is what lets the pruned window step skip blocks. The slot sequence is
   the JAX allocator's, spills included.
+- **Segment counts** (``segments``): waiting players per pool block,
+  kept by allocate and release, the host twin of the bucketed step's
+  device index counts.
 - **Columnar mirror.** Waiting requests are kept as slot-indexed numpy
   columns; ``SearchRequest`` objects are built lazily for matched slots.
   Device state is a pure function of the mirror, so the mirror is the
@@ -112,9 +115,18 @@ class PlayerPool:
     """Host-side owner of the pool: slot allocator + columnar mirror."""
 
     def __init__(self, capacity: int, default_threshold: float,
-                 band_edges: Sequence[float] | None = None):
+                 band_edges: Sequence[float] | None = None,
+                 segments: int = 0):
         self.capacity = int(capacity)
         self.default_threshold = float(default_threshold)
+        # Occupancy per segment of ``capacity // segments`` slots (the
+        # bucketed engine passes its device block count): the host twin of
+        # the device bucket index's counts, kept by allocate and release.
+        # 0 = not tracked.
+        self._segments = max(0, int(segments))
+        self._seg_size = self.capacity // self._segments if self._segments else 0
+        self._seg_n = (np.zeros(self._segments, np.int64)
+                       if self._segments else None)
         # Free list popped from the END: initial pops yield 0, 1, 2, ...
         self._free = np.arange(self.capacity - 1, -1, -1, dtype=np.int32)
         self._head = self.capacity  # number of free slots
@@ -220,6 +232,25 @@ class PlayerPool:
         """Waiting players with a stamped deadline (O(1))."""
         return self._deadline_n
 
+    def segment_counts(self) -> np.ndarray | None:
+        """Waiting players per segment (= device pool block, the rating
+        bucket under ``band_spec``), kept by allocate and release: an
+        O(segments) read. None when segments are not tracked."""
+        return self._seg_n
+
+    def segment_max(self) -> int:
+        """The most waiting players in one segment (0 when not tracked or
+        empty)."""
+        if self._seg_n is None:
+            return 0
+        return int(self._seg_n.max(initial=0))
+
+    def _seg_add(self, slots: np.ndarray, sign: int) -> None:
+        if self._seg_n is None or slots.size == 0:
+            return
+        seg = np.minimum(slots // self._seg_size, self._segments - 1)
+        np.add.at(self._seg_n, seg, sign)
+
     def band_report(self) -> dict | None:
         """The rating bands' free stacks: per band its free-slot count
         (head) and size, and the edges. None without bands."""
@@ -294,6 +325,7 @@ class PlayerPool:
             self.m_deadline[slots] = dl
             self._deadline_n += int((dl != 0.0).sum())
         self._slot_of.update(zip(ids, slots.tolist()))
+        self._seg_add(slots, 1)
         return slots
 
     def allocate(self, requests: Sequence[SearchRequest]) -> list[int]:
@@ -322,6 +354,7 @@ class PlayerPool:
             return
         for pid in ids[occupied].tolist():
             del self._slot_of[pid]
+        self._seg_add(arr, -1)
         # Tier/deadline occupancy before the slots are cleared.
         for t, c in zip(*np.unique(self.m_tier[arr], return_counts=True)):
             self._tier_n[int(t)] = self._tier_n.get(int(t), 0) - int(c)

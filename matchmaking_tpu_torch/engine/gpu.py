@@ -57,6 +57,29 @@ The asynchrony is PyTorch's, kept free of implicit host syncs:
   players), its token lands in ``failed_tokens`` and the error in
   ``device_error``.
 
+Bucketed formation (``EngineConfig.bucketed``, 1v1 queues). The device
+pool carries the bucket index (``kernels.INDEX_FIELDS``): every traffic
+and rescan step, restore and eviction keeps its counts exact and its
+bounds wide enough, so each window scores only its chunks' spans of
+blocks, with no O(P) pass; ``heartbeat`` re-tightens the bounds with one
+exact scan (the service's health timer calls it under zero traffic too).
+The mirror counts the waiting players per block (``PlayerPool``
+segments); the steps return a fourth row, the pool slots each lane
+scored, which ``formation_report()`` sums.
+
+Speculative formation (``EngineConfig.spec_formation``, 1v1 queues).
+``speculate`` copies the live pool into a spare pool of the same geometry
+(allocated once) and runs up to ``spec_max_steps`` passes of the rescan
+step over the longest-waiting players there (on the card, replays of a
+graph captured against the spare pool), holding the results off the
+books. Every operation that changes the pool advances ``pool_mutations``
+and discards it; ``spec_validate`` checks that the clock has not moved
+(and the age), and ``spec_commit`` copies the spare pool back into the
+live pool in place, folds the held results into the quality state and
+submits them as one rescan window. A committed speculation is the rescan
+ticks a cold ``rescan_async`` at its time would run, bit for bit; a
+discarded one leaves the live pool untouched.
+
 Match quality. A 1v1 queue folds every window step's matches into a
 device-resident quality state (``kernels.QualityAccumKernel``: one
 ``quality_accum`` launch behind each step, on the same stream). Every
@@ -161,6 +184,31 @@ class _Readback:
 
 
 @dataclass
+class _Speculation:
+    """A speculation held off the books: the spare pool holds its result,
+    and the live pool is untouched until ``spec_commit``."""
+
+    #: ``pool_mutations`` when it was taken: it commits only while the
+    #: clock still reads this.
+    basis_seq: int
+    #: The time every pass ran at.
+    spec_now: float
+    #: ``now`` as the steps read it (f32[1] on the pool's device), for the
+    #: quality fold at commit.
+    now_dev: torch.Tensor
+    #: ``_Pending``-shaped chunks: ((cols, slots), readback, spec_now).
+    chunks: list[tuple[Any, Any, float]] = field(default_factory=list)
+    #: Each chunk's result on the device (a copy taken right after its
+    #: step), for the quality fold at commit.
+    outs: list[torch.Tensor] = field(default_factory=list)
+    #: Pinned staging buffers of its host→device copies.
+    staging: list[torch.Tensor] = field(default_factory=list)
+    steps: int = 0
+    lanes_valid: int = 0
+    lanes_padded: int = 0
+
+
+@dataclass
 class _Pending:
     """One dispatched-but-uncollected window."""
 
@@ -200,15 +248,17 @@ class GpuEngine(Engine):
         #: Host buffers are pinned for the card only (pinning needs CUDA).
         self._pinned = self.device.type == "cuda"
         ec = cfg.engine
-        if ec.bucketed or ec.bucket_frontier_k > 0:
-            raise ValueError("bucketed formation (bucketed, "
-                             "bucket_frontier_k) is not supported by "
-                             "GpuEngine; the pruned step (prune_window_blocks "
-                             "with band_spec) is")
+        if ec.bucket_frontier_k > 0:
+            raise ValueError("the sharded bucket frontier (bucket_frontier_k "
+                             "> 0) is not supported by GpuEngine; bucketed "
+                             "formation on one device is")
         #: Team-family queues: role queues (config #5) run the solo role
         #: step, plain team queues (config #3) the team step.
         self._role_device = queue.team_size > 1 and bool(queue.role_slots)
         self._team_device = queue.team_size > 1
+        #: Bucketed formation: 1v1 queues only (team and role steps form
+        #: windows pool-wide).
+        self._bucketed = bool(ec.bucketed) and not self._team_device
         if self._role_device:
             self.kernels = role_kernel_set(
                 capacity=ec.pool_capacity, team_size=queue.team_size,
@@ -235,14 +285,29 @@ class GpuEngine(Engine):
                 pair_rounds=ec.pair_rounds,
                 prune_window_blocks=ec.prune_window_blocks,
                 prune_chunk=ec.prune_chunk,
+                bucketed=self._bucketed,
             )
         #: Rating bands of the slot allocator, one per pool block of a 1v1
         #: queue (``band_spec``; None: off). They keep each block's live
         #: rating interval narrow, which the pruned step needs.
         self._band_edges = band_edges_from_spec(
             ec.band_spec, 0 if self._team_device else self.kernels.n_blocks)
-        self.pool = PlayerPool(ec.pool_capacity, queue.rating_threshold,
-                               band_edges=self._band_edges)
+        #: The mirror's segments: one per device block of a bucketed queue
+        #: (its bucket occupancy), else none.
+        self._segments = self.kernels.n_blocks if self._bucketed else 0
+        self.pool = self._new_pool()
+        #: Bucketed formation: pool slots the steps scored and the flat
+        #: step's equivalent, summed at finalize from result row 3.
+        self.formation = {"touched_slots": 0.0, "total_slots": 0.0,
+                          "windows": 0}
+        #: Speculation: the validation clock (advanced by every operation
+        #: that changes the pool), the held speculation, the clock value
+        #: ``spec_validate`` last stamped, and the spare pool (made at the
+        #: first speculation).
+        self.pool_mutations = 0
+        self._spec: _Speculation | None = None
+        self._spec_validated_seq: int | None = None
+        self._spec_pool: kernels.DevicePool | None = None
         #: The captured window steps (the card only; None on the CPU).
         self._graphs = (StepGraphs(self.kernels, self.device)
                         if self.device.type == "cuda" else None)
@@ -420,6 +485,8 @@ class GpuEngine(Engine):
             self._team_delegate.restore(requests, now)
             return
         fresh = [r for r in requests if r.id not in self.pool]
+        if fresh:
+            self._pool_mutated()
         top = self.buckets[-1]
         for start in range(0, len(fresh), top):
             chunk = fresh[start:start + top]
@@ -442,6 +509,8 @@ class GpuEngine(Engine):
                 seen.add(pid)
         if not keep.all():
             cols = cols.take(keep)
+        if len(cols):
+            self._pool_mutated()
         top = self.buckets[-1]
         t0 = self._rel_base(now)
         for start in range(0, len(cols), top):
@@ -459,9 +528,16 @@ class GpuEngine(Engine):
     def heartbeat(self, now: float) -> bool:
         """Health-timer tick: moves an idle delegated team/role queue back
         onto the card once its blockers drained (nothing else would notice
-        under zero traffic). True when it did."""
+        under zero traffic); True when it did. A bucketed queue rebuilds
+        its bucket index here (one exact O(P) pass, queued behind any
+        window in flight): between rebuilds the bounds only widen, and a
+        drifting rating distribution would otherwise push every window to
+        the dense fallback."""
         if self._team_delegate is not None:
             return self._maybe_repromote_team(now)
+        if self._bucketed and self.dev_pool is not None:
+            self._pool_mutated()
+            self.kernels.index_rebuild(self.dev_pool)
         return False
 
     def warmup(self) -> None:
@@ -477,20 +553,24 @@ class GpuEngine(Engine):
         if self._team_delegate is not None:
             return
         self._require_idle("warmup()")
+        self._pool_mutated()
+        variants = self._variants()
+        if self._speculates():
+            variants += ("spec",)
         if self._graphs is not None:
             for bucket in self.buckets:
-                for variant in self._variants():
+                for variant in variants:
                     self._step_graph(variant, bucket)
         else:
-            pool = self._warm_pool()
             with uncounted(self.kernels):
                 for bucket in self.buckets:
                     batch = self.pool.batch_arrays([], [], bucket)
-                    for variant in self._variants():
+                    for variant in variants:
                         packed = self._stage(batch, 0.0).to(self.device,
                                                             non_blocking=True)
-                        _Readback(self._step_fn(variant)(pool,
-                                                         packed)).numpy()
+                        _Readback(self._step_fn(variant)(
+                            self._pool_for(variant, warm=True),
+                            packed)).numpy()
                     self._admit(batch)
             self._evict(np.empty(0, np.int32))
         # Finalize's numpy calls pay their first-use imports here (numpy
@@ -542,6 +622,8 @@ class GpuEngine(Engine):
             else:
                 seen.add(req.id)
                 fresh.append(req)
+        if fresh:
+            self._pool_mutated()
         top = self.buckets[-1]
         for start in range(0, len(fresh), top):
             self._dispatch(fresh[start:start + top], now, pending)
@@ -577,6 +659,8 @@ class GpuEngine(Engine):
         if not keep.all():
             cols = cols.take(keep)
         self.spans["dedupe_s"] += time.perf_counter() - _t
+        if len(cols):
+            self._pool_mutated()
         top = self.buckets[-1]
         for start in range(0, len(cols), top):
             self._dispatch_cols(cols.slice(start, start + top), now, pending)
@@ -617,6 +701,26 @@ class GpuEngine(Engine):
         if len(pool) == 0:
             return None
         t_start = time.perf_counter()
+        pending = _Pending(token=self._next_token, created=t_start)
+        pending.columnar = empty_columnar_outcome()
+        self._next_token += 1
+        self._pool_mutated()
+        variant = self._variants()[2]
+        for payload, batch, bucket in self._rescan_chunks(max_window, now):
+            out = self._launch(variant, batch, now, pending.staging)
+            self.util["lanes_valid"] += int(payload[1].size)
+            self.util["lanes_padded"] += bucket
+            pending.chunks.append((payload, out, now))
+        self._submit(pending)
+        self.rescan_tokens.add(pending.token)
+        return pending.token
+
+    def _rescan_chunks(self, max_window: int, now: float):
+        """A rescan tick's chunks (a speculation's too): at most
+        ``max_window`` waiting players, lowest (tier, deadline, enqueue
+        time) first, in slot order, cut into chunks of the largest bucket,
+        each as ((cols, slots), padded batch, bucket)."""
+        pool = self.pool
         slots_all = pool.waiting_slots()
         if slots_all.size > max_window:
             enq = pool.m_enqueued[slots_all]
@@ -626,10 +730,9 @@ class GpuEngine(Engine):
             chosen = np.sort(slots_all[order]).astype(np.int32)
         else:
             chosen = np.sort(slots_all).astype(np.int32)
-        pending = _Pending(token=self._next_token, created=t_start)
-        pending.columnar = empty_columnar_outcome()
-        self._next_token += 1
         t0 = self._rel_base(now)
+        top = self.buckets[-1]
+        out = []
         for start in range(0, chosen.size, top):
             slots = chosen[start:start + top]
             cols = RequestColumns(
@@ -640,14 +743,10 @@ class GpuEngine(Engine):
                 reply_to=pool.m_reply[slots],
                 correlation_id=pool.m_corr[slots])
             bucket = self._bucket_for(slots.size)
-            batch = pool.batch_arrays_cols(cols, slots, bucket, t0)
-            out = self._launch("rescan", batch, now, pending)
-            self.util["lanes_valid"] += int(slots.size)
-            self.util["lanes_padded"] += bucket
-            pending.chunks.append(((cols, slots), out, now))
-        self._submit(pending)
-        self.rescan_tokens.add(pending.token)
-        return pending.token
+            out.append(((cols, slots),
+                        pool.batch_arrays_cols(cols, slots, bucket, t0),
+                        bucket))
+        return out
 
     def _rescan_team(self, now: float) -> int | None:
         """Team/role rescan: the step's window formation is pool-wide (the
@@ -661,7 +760,7 @@ class GpuEngine(Engine):
         pending = _Pending(token=self._next_token, created=time.perf_counter())
         self._next_token += 1
         batch = self.pool.batch_arrays([], [], self.buckets[0])
-        out = self._launch(self._variants()[0], batch, now, pending)
+        out = self._launch(self._variants()[0], batch, now, pending.staging)
         pending.chunks.append(([], out, now))
         self._submit(pending)
         return pending.token
@@ -717,6 +816,9 @@ class GpuEngine(Engine):
             "lanes_valid": valid,
             "lanes_padded": padded,
             "effective_occupancy": round(valid / max(1, padded), 6),
+            # Finalized windows that were speculative commits.
+            "spec_commit_share": round(self.counters.get("spec_hit", 0)
+                                       / max(1, self.spans["windows"]), 6),
         }
 
     def quality_report(self) -> dict:
@@ -754,6 +856,205 @@ class GpuEngine(Engine):
             return None
         span = 0 if ks.span_steps is None else int(ks.span_steps.item())
         return {"windows": ks.pruned_steps, "span_windows": span}
+
+    def formation_report(self) -> dict | None:
+        """Bucketed formation: the buckets (device blocks), the windows and
+        pool slots their steps scored against the flat step's (every lane
+        the whole pool), the touched fraction, each bucket's waiting
+        players (the mirror's segment counts) and the bands. None when not
+        bucketed. Host counters only: no device read."""
+        if not self._bucketed:
+            return None
+        total = self.formation["total_slots"]
+        rep: dict = {
+            "mode": "bucketed",
+            "buckets": self._segments,
+            "windows": self.formation["windows"],
+            "touched_slots": self.formation["touched_slots"],
+            "total_slots": total,
+            "formation_touched_frac": (
+                round(self.formation["touched_slots"] / total, 6)
+                if total else None),
+        }
+        seg = self.pool.segment_counts()
+        if seg is not None:
+            rep["bucket_occupancy"] = seg.tolist()
+            rep["peak_bucket_occupancy"] = self.pool.segment_max()
+        band = self.pool.band_report()
+        if band is not None:
+            rep["bands"] = band
+        return rep
+
+    def _formation_observe(self, result: np.ndarray) -> None:
+        """Fold a collected chunk's touched row (row 3 of a bucketed
+        result; flat results have three rows) into ``formation``."""
+        if result.ndim < 2 or result.shape[0] <= 3:
+            return
+        self.formation["touched_slots"] += float(result[3, 0])
+        self.formation["total_slots"] += float(self.kernels.capacity)
+        self.formation["windows"] += 1
+
+    # ---- speculative formation ---------------------------------------------
+
+    def _pool_mutated(self) -> None:
+        """Advance the validation clock and discard any held speculation.
+        Runs before every operation that changes the pool (admission,
+        matching, eviction, restore, the index rebuild, warm-up, a hand-
+        over to the host oracle and back); a sweep that changes nothing
+        does not run it, so an idle pool keeps its speculation."""
+        self.pool_mutations += 1
+        self._spec_validated_seq = None
+        if self._spec is not None:
+            self._spec = None
+            self._count("spec_wasted")
+
+    def _count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def _speculates(self) -> bool:
+        return bool(self.cfg.engine.spec_formation) and not self._team_device
+
+    def _spec_device_pool(self) -> kernels.DevicePool:
+        """The spare pool speculation runs on (made once: the ``spec``
+        graphs hold its addresses)."""
+        if self._spec_pool is None:
+            self._spec_pool = self._fresh_device_pool()
+        return self._spec_pool
+
+    @staticmethod
+    def _copy_pool(dst: kernels.DevicePool, src: kernels.DevicePool) -> None:
+        """Every column of ``src`` into ``dst``, in place, on the stream."""
+        for name, col in src.full.items():
+            dst.full[name].copy_(col, non_blocking=True)
+
+    def speculate(self, now: float) -> bool:
+        """Run up to ``spec_max_steps`` chained passes of the rescan step
+        at ``now`` over the longest-waiting players (a rescan tick's pick
+        and chunks) on a copy of the live pool, and hold the results off
+        the books: no mirror, token, quality state or live pool changes.
+        A later pass sees the earlier passes' matches as inactive lanes, so
+        a commit equals that many ``rescan_async`` ticks at ``now``. True
+        when a speculation is held (already, or now)."""
+        if not self._speculates():
+            return False
+        if self._spec is not None:
+            return True
+        if len(self.pool) < 2:
+            return False
+        top = self.buckets[-1]
+        chunks = self._rescan_chunks(self._rescan_chunk_cap * top, now)
+        now_rel = float(np.float32(now - self._rel_base(now)))
+        held = _Speculation(
+            basis_seq=self.pool_mutations, spec_now=now,
+            now_dev=torch.full((1,), now_rel, dtype=torch.float32,
+                               device=self.device))
+        self._copy_pool(self._spec_device_pool(), self.dev_pool)
+        for _ in range(max(1, self.cfg.engine.spec_max_steps)):
+            for payload, batch, bucket in chunks:
+                rb = self._launch("spec", batch, now, held.staging,
+                                  keep=held.outs)
+                held.chunks.append((payload, rb, now))
+                held.lanes_valid += int(payload[1].size)
+                held.lanes_padded += bucket
+                held.steps += 1
+        self._count("spec_steps", held.steps)
+        self._spec = held
+        return True
+
+    def spec_validate(self, now: float, max_age_s: float = 0.0) -> int | None:
+        """The held speculation's token (its clock value) if no pool
+        mutation happened since it was taken and, with ``max_age_s`` > 0,
+        it is at most that old at ``now``; else it is discarded
+        (``spec_miss``) and None returned. O(1): a compare, no scan."""
+        s = self._spec
+        if s is None:
+            return None
+        if (s.basis_seq != self.pool_mutations
+                or (max_age_s > 0.0 and now - s.spec_now > max_age_s)):
+            self._spec = None
+            self._spec_validated_seq = None
+            self._count("spec_miss")
+            return None
+        self._spec_validated_seq = s.basis_seq
+        return s.basis_seq
+
+    def spec_commit(self, token: int | None, now: float) -> int | None:
+        """Commit the validated speculation as a rescan window: copy the
+        spare pool back into the live pool in place (the captured steps
+        keep their addresses), fold each held result into the quality
+        state (one ``quality_accum`` launch a chunk), and submit the held
+        chunks under a token in ``rescan_tokens``, collected as any window
+        is. ``token`` must be what ``spec_validate`` just returned, with no
+        pool mutation since: a stale or unvalidated token raises. Returns
+        the window's token, or None when nothing was held and ``token`` is
+        None."""
+        s = self._spec
+        if s is None:
+            if token is None:
+                return None
+            raise RuntimeError(
+                f"spec_commit token {token} refers to a discarded "
+                f"speculation (pool_mutations={self.pool_mutations}): a pool "
+                f"mutation ran between spec_validate and spec_commit")
+        if (self._spec_validated_seq is None
+                or token != self._spec_validated_seq
+                or token != s.basis_seq or token != self.pool_mutations):
+            raise RuntimeError(
+                f"spec_commit token {token} is not freshly validated "
+                f"(validated={self._spec_validated_seq}, basis={s.basis_seq}"
+                f", pool_mutations={self.pool_mutations}): call "
+                f"spec_validate right before spec_commit, with no pool "
+                f"mutation in between")
+        self._spec = None
+        self._spec_validated_seq = None
+        self.pool_mutations += 1  # the commit changes the pool
+        self._copy_pool(self.dev_pool, self._spec_pool)
+        if self._quality is not None:
+            # The spare pool's rating, enqueue and threshold columns are the
+            # live pool's (the passes change only ``active``), so the fold
+            # reads what the rescan tick's would.
+            for out in s.outs:
+                self._quality.accum(self._q_dev, self.dev_pool, out[:3],
+                                    s.now_dev)
+        pending = _Pending(token=self._next_token, created=time.perf_counter())
+        pending.columnar = empty_columnar_outcome()
+        pending.chunks = s.chunks
+        pending.staging = s.staging
+        self._next_token += 1
+        self.util["lanes_valid"] += s.lanes_valid
+        self.util["lanes_padded"] += s.lanes_padded
+        self._count("spec_hit")
+        self._count("spec_committed_steps", s.steps)
+        self._submit(pending)
+        self.rescan_tokens.add(pending.token)
+        return pending.token
+
+    def spec_invalidate(self, reason: str = "external") -> None:
+        """Discard the held speculation without advancing the clock (the
+        service's drain and revive). It owns no player, so none is lost."""
+        if self._spec is not None:
+            self._spec = None
+            self._count("spec_wasted")
+        self._spec_validated_seq = None
+
+    def spec_report(self) -> dict | None:
+        """Speculation counts (hits, misses, discarded, passes run and
+        committed, one held or not), the hit rate and the share of passes
+        wasted; None for team and role queues."""
+        if self._team_device:
+            return None
+        c = self.counters
+        hits, miss = c.get("spec_hit", 0), c.get("spec_miss", 0)
+        wasted, steps = c.get("spec_wasted", 0), c.get("spec_steps", 0)
+        committed = c.get("spec_committed_steps", 0)
+        return {
+            "spec_hit": hits, "spec_miss": miss, "spec_wasted": wasted,
+            "spec_steps": steps, "spec_committed_steps": committed,
+            "spec_pending": int(self._spec is not None),
+            "spec_hit_rate": round(hits / max(1, hits + miss + wasted), 6),
+            "spec_wasted_step_fraction": round(
+                (steps - committed) / max(1, steps), 6),
+        }
 
     def _quality_arrays(self) -> dict[str, np.ndarray]:
         arrays = empty_arrays(self._q_spec)
@@ -844,20 +1145,26 @@ class GpuEngine(Engine):
     def _variants(self) -> tuple[str, ...]:
         """The step variants of this queue (one graph each per bucket):
         the team or role step; for 1v1 queues the traffic step with and
-        without filters (dense, or pruned with ``prune_window_blocks``)
-        and the rescan step."""
+        without filters (dense, pruned with ``prune_window_blocks``, or
+        bucketed) and the rescan step (dense, or bucketed). A speculating
+        queue has one more, ``spec``: the rescan step on the spare pool,
+        with no quality fold."""
         if self._team_device:
             return ("role",) if self._role_device else ("team",)
+        if self._bucketed:
+            return "bucketed", "bucketed_nofilter", "bucketed_rescan"
         base = "pruned" if self.kernels.prune_window_blocks else "dense"
         return base, base + "_nofilter", "rescan"
 
     def _step_fn(self, variant: str):
         """The step a variant runs, as a graph captures it: (device pool,
         packed window) → the result, with a 1v1 step's quality fold behind
-        it (one ``quality_accum`` launch; it reads the window's time from
-        the packed ``now`` row, its last, on the device)."""
+        it (one ``quality_accum`` launch on the result's first three rows;
+        it reads the window's time from the packed ``now`` row, its last,
+        on the device). The ``spec`` step folds nothing: a speculation's
+        results are folded at its commit, and a discarded one never."""
         ks = self.kernels
-        if variant == "rescan":
+        if variant in ("rescan", "bucketed_rescan", "spec"):
             step = ks.search_step_packed_rescan
         elif self._team_device:
             step = ks.search_step_packed
@@ -865,21 +1172,27 @@ class GpuEngine(Engine):
             step = functools.partial(ks.search_step_packed,
                                      skip_filters=variant.endswith("nofilter"))
         quality = self._quality
-        if quality is None:
+        if quality is None or variant == "spec":
             return step
         state = self._q_dev
 
         def run(pool, packed):
             out = step(pool, packed)
-            quality.accum(state, pool, out, packed[-1])
+            quality.accum(state, pool, out[:3], packed[-1])
             return out
         return run
 
-    def _warm_pool(self) -> kernels.DevicePool:
-        """The pool a variant's eager warm-up runs on: the pool itself for
-        a 1v1 step (an all-padding window changes nothing), a scratch pool
-        for the team and role steps (they form matches pool-wide)."""
-        return self._fresh_device_pool() if self._team_device else self.dev_pool
+    def _pool_for(self, variant: str, warm: bool = False) -> kernels.DevicePool:
+        """The pool a variant's step runs on: the spare pool for ``spec``,
+        else the live pool. For an eager warm-up (``warm``) a team or role
+        step gets a scratch pool (they form matches pool-wide); a 1v1 step
+        runs on its own pool, which an all-padding window leaves as it
+        is."""
+        if variant == "spec":
+            return self._spec_device_pool()
+        if warm and self._team_device:
+            return self._fresh_device_pool()
+        return self.dev_pool
 
     def _step_graph(self, variant: str, bucket: int):
         """The graph of (variant, bucket), captured at its first use."""
@@ -887,23 +1200,28 @@ class GpuEngine(Engine):
         if g is None:
             empty = self._stage(self.pool.batch_arrays([], [], bucket), 0.0)
             g = self._graphs.capture(variant, bucket, self._step_fn(variant),
-                                     self.dev_pool, empty, self._warm_pool())
+                                     self._pool_for(variant), empty,
+                                     self._pool_for(variant, warm=True))
         return g
 
     def _launch(self, variant: str, batch: BatchArrays, now: float,
-                pending: _Pending,
-                requests: Sequence[SearchRequest] = ()) -> _Readback:
+                staging_list: list[torch.Tensor],
+                requests: Sequence[SearchRequest] = (),
+                keep: list[torch.Tensor] | None = None) -> _Readback:
         """Copy one window chunk to the device, queue the ``variant`` step
         on it (on the card, one replay of its graph) and the copy of its
         result to the host right behind it: the next replay of the graph
         (a later chunk of this window) overwrites its static output.
         Returns that ``_Readback`` of the result (1v1: f32[3, B] q_slot,
-        c_slot, dist; team/role: f32[need + 2 (+1), M])."""
+        c_slot, dist, and a fourth row, the touched slots, when bucketed;
+        team/role: f32[need + 2 (+1), M]). The staging buffer goes to
+        ``staging_list``; with ``keep``, a device copy of the result,
+        taken before anything else is queued, goes there too."""
         t0 = self._rel_base(now)
         now_rel = float(np.float32(now - t0))  # the packed now row's value
         _t = time.perf_counter()
         staging = self._stage(batch, now_rel, requests)
-        pending.staging.append(staging)
+        staging_list.append(staging)
         if self._graphs is not None:
             g = self._step_graph(variant, batch.slot.shape[0])
             g.static_in.copy_(staging, non_blocking=True)
@@ -914,7 +1232,10 @@ class GpuEngine(Engine):
         if self._graphs is not None:
             out = self._graphs.replay(g)
         else:
-            out = self._step_fn(variant)(self.dev_pool, packed)
+            out = self._step_fn(variant)(self._pool_for(variant), packed)
+        if keep is not None:
+            out = out.clone()
+            keep.append(out)
         readback = _Readback(out)
         self.spans["step_s"] += time.perf_counter() - _t
         return readback
@@ -948,7 +1269,8 @@ class GpuEngine(Engine):
         batch = self.pool.batch_arrays(window, slots, bucket,
                                        self._rel_base(now))
         self.spans["pack_s"] += time.perf_counter() - _t
-        out = self._launch(self._step_for(batch), batch, now, pending, window)
+        out = self._launch(self._step_for(batch), batch, now,
+                           pending.staging, window)
         self.util["lanes_valid"] += len(window)
         self.util["lanes_padded"] += bucket
         pending.chunks.append((list(window), out, now))
@@ -974,7 +1296,8 @@ class GpuEngine(Engine):
         batch = self.pool.batch_arrays_cols(cols, slots, bucket,
                                             self._rel_base(now))
         self.spans["pack_s"] += time.perf_counter() - _t
-        out = self._launch(self._step_for(batch), batch, now, pending)
+        out = self._launch(self._step_for(batch), batch, now,
+                           pending.staging)
         self.util["lanes_valid"] += len(cols)
         self.util["lanes_padded"] += bucket
         pending.chunks.append(((cols, slots), out, now))
@@ -1052,6 +1375,7 @@ class GpuEngine(Engine):
     def _finalize_objects(self, pending: _Pending) -> None:
         out = pending.outcome
         for (window, _, now), result in zip(pending.chunks, pending.raw or ()):
+            self._formation_observe(result)
             q_slot = result[0].astype(np.int32)
             c_slot = result[1].astype(np.int32)
             hit = q_slot < self.kernels.capacity
@@ -1070,6 +1394,7 @@ class GpuEngine(Engine):
                     out.matches.append(Match(match_id=new_match_id(),
                                              teams=((req_q,), (req_c,)),
                                              quality=qual))
+                self._pool_mutated()
                 self.pool.release(qs_l)
                 self.pool.release(cs_l)
             for req in window:
@@ -1096,6 +1421,7 @@ class GpuEngine(Engine):
         pool = self.pool
         for (payload, _, now), result in zip(pending.chunks, pending.raw or ()):
             cols, slots = payload
+            self._formation_observe(result)
             q_slot = result[0].astype(np.int32)
             c_slot = result[1].astype(np.int32)
             hit = q_slot < self.kernels.capacity
@@ -1128,6 +1454,7 @@ class GpuEngine(Engine):
                         ("m_tier_b", pool.m_tier[cs])):
                     setattr(out, name, np.concatenate([getattr(out, name), col]))
                 matched = np.concatenate([qs, cs])
+                self._pool_mutated()
                 pool.release(matched)
                 queued_ids = cols.ids[~np.isin(slots, matched)]
             else:
@@ -1202,11 +1529,21 @@ class GpuEngine(Engine):
             self._graphs.clear()
 
     def _fresh_device_pool(self) -> kernels.DevicePool:
-        """An empty device pool for the kernel set (with its extra columns,
-        the role step's ``role_mask``): at start, and as the scratch pool
-        of a team or role step's warm-up."""
-        return kernels.fresh_pool(self.kernels.capacity, self.device,
+        """An empty device pool for the kernel set (with its extra columns:
+        the role step's ``role_mask``, a bucketed set's index, written
+        empty): at start, as the scratch pool of a team or role step's
+        warm-up, and as the spare pool of speculation."""
+        pool = kernels.fresh_pool(self.kernels.capacity, self.device,
                                   self.kernels.extra_pool_fields)
+        if self._bucketed:
+            self.kernels.index_rebuild(pool)
+        return pool
+
+    def _new_pool(self) -> PlayerPool:
+        """An empty mirror of this queue's geometry."""
+        return PlayerPool(self.kernels.capacity, self.queue.rating_threshold,
+                          band_edges=self._band_edges,
+                          segments=self._segments)
 
     def _device_blocker(self, req: SearchRequest) -> bool:
         """True if the device step cannot serve ``req``: a wildcard region
@@ -1244,6 +1581,7 @@ class GpuEngine(Engine):
             # flush() takes (and rebinds) _done_early: read it after.
             finished = self.flush()
             self._done_early.extend(finished)
+        self._pool_mutated()
         delegate = CpuEngine(self.cfg, self.queue)
         waiting = self.pool.waiting()
         if waiting:
@@ -1256,9 +1594,7 @@ class GpuEngine(Engine):
         # reuses it, so the captured steps, which hold its addresses, stay
         # valid.
         self._parked_pool, self._dev_pool = self._dev_pool, None
-        self.pool = PlayerPool(self.kernels.capacity,
-                               self.queue.rating_threshold,
-                               band_edges=self._band_edges)
+        self.pool = self._new_pool()
         return True
 
     def _maybe_repromote_team(self, now: float) -> bool:
@@ -1284,11 +1620,10 @@ class GpuEngine(Engine):
         waiting = d.waiting()
         # The oracle's matches were this queue's: its quality samples stay.
         add_arrays(self._q_host_accum.arrays, d.quality_accum.arrays)
+        self._pool_mutated()
         self._team_delegate = None
         self._delegate_last_wc = float("-inf")
-        self.pool = PlayerPool(self.kernels.capacity,
-                               self.queue.rating_threshold,
-                               band_edges=self._band_edges)
+        self.pool = self._new_pool()
         pool, self._parked_pool = self._parked_pool, None
         for col in pool.full.values():
             col.zero_()  # as fresh: every slot inactive
@@ -1311,13 +1646,19 @@ class GpuEngine(Engine):
         return reqs
 
     def _release_and_evict(self, slots: np.ndarray) -> None:
+        self._pool_mutated()
         self.pool.release(slots)
         self._evict(slots)
 
     def _evict(self, slots: np.ndarray) -> None:
-        """One device eviction of exactly ``slots``. (The JAX package evicts
-        in chunks of ``evict_bucket`` padded with the sentinel ``capacity``,
-        for a fixed compiled shape; ``kernels.evict`` takes any length, so
-        one call over the slots marks the same ones.)"""
-        kernels.evict(self.dev_pool, torch.from_numpy(
-            np.ascontiguousarray(slots, np.int32)).to(self.device))
+        """One device eviction of exactly ``slots`` (a bucketed queue's
+        counts them out of its index). (The JAX package evicts in chunks
+        of ``evict_bucket`` padded with the sentinel ``capacity``, for a
+        fixed compiled shape; the eviction takes any length, so one call
+        over the slots marks the same ones.)"""
+        t = torch.from_numpy(np.ascontiguousarray(slots, np.int32)).to(
+            self.device)
+        if self._team_device:
+            kernels.evict(self.dev_pool, t)
+        else:
+            self.kernels.evict(self.dev_pool, t)

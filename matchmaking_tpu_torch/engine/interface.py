@@ -179,6 +179,37 @@ class Engine(abc.ABC):
         """Fold a predecessor engine's ``quality_checkpoint`` into this
         engine's accounting. Default: nothing tracked."""
 
+    # ---- speculative formation ---------------------------------------------
+    # The seam of speculation (engine/gpu.py): a formation window computed
+    # in the gap between cuts, validated at the cut against the pool's
+    # mutation clock, then committed or discarded. Engines without a
+    # speculation path (the host oracle) keep these no-ops, so both sides
+    # of a comparison can call the same methods.
+
+    def speculate(self, now: float) -> bool:
+        """Compute a speculative formation window over the current pool
+        without changing it; True when one is held. Default: none."""
+        return False
+
+    def spec_validate(self, now: float, max_age_s: float = 0.0) -> int | None:
+        """The held speculation's token if the pool is unchanged since it
+        was taken (and it is at most ``max_age_s`` old, when > 0), else
+        discard it and return None. Default: nothing held."""
+        return None
+
+    def spec_commit(self, token: int | None, now: float) -> int | None:
+        """Commit the speculation ``spec_validate`` just validated, as a
+        window collected as any other; returns its token, or None when
+        nothing was held. Default: nothing to commit."""
+        return None
+
+    def spec_invalidate(self, reason: str = "external") -> None:
+        """Discard any held speculation. Default: nothing held."""
+
+    def spec_report(self) -> dict | None:
+        """Speculation counts, or None without a speculation path."""
+        return None
+
     def effective_threshold(self, req: SearchRequest, now: float) -> float:
         """The request's ``rating_threshold`` (or the queue default) plus
         config-gated widening by wait time."""

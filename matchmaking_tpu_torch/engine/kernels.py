@@ -20,6 +20,14 @@ block. Both branches are one launch of ``block_best``'s span form, which
 reads the choice from the device, so the step never reads it on the host.
 The outputs equal the dense step's bit for bit (see ``KernelSet``).
 
+The bucketed step (``bucketed``) is the pruned step with the blocks'
+rating bounds kept as state: four per-block columns of the device pool
+(``INDEX_FIELDS``), which admission widens, matching and eviction count
+down, and ``index_rebuild`` re-tightens with one exact scan (the engine's
+heartbeat). It takes no O(P) pass per window, and its rescan twin scores
+spans too. Its packed output has a fourth row, the pool slots each lane's
+formation scored.
+
 ``QualityAccumKernel`` folds each window's matches into a device-resident
 quality state (cuda_kernels.QualityAccum: a hand-written kernel on the
 card, which reads the window's time from the packed ``now`` row).
@@ -52,6 +60,14 @@ from matchmaking_tpu_torch.engine.cuda_kernels import Span, effective_threshold
 #: Numeric pool fields admitted from a window (active is set separately).
 ADMIT_FIELDS = ("rating", "rd", "region", "mode", "threshold", "enqueue_t")
 
+#: The bucket index of a bucketed kernel set: per pool block (= rating
+#: bucket under ``band_spec``) its live count, rating bounds and largest
+#: rating deviation, as columns of the device pool (the JAX package's
+#: ``INDEX_FIELDS``). The bounds only widen between rebuilds, so they
+#: always hold the live bounds, which is all the span choice needs.
+INDEX_FIELDS = (("bidx_count", np.int32), ("bidx_min", np.float32),
+                ("bidx_max", np.float32), ("bidx_rd", np.float32))
+
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.int32): torch.int32,
                 np.dtype(np.bool_): torch.bool}
@@ -81,26 +97,37 @@ class DevicePool(dict):
     set's ``extra_pool_fields``), each the first ``capacity`` elements of
     the tensor of the same name in ``full``, which has one spare element
     more. ``admit`` writes padding lanes into
-    the spare (index ``capacity``), which no column shows."""
+    the spare (index ``capacity``), which no column shows. The bucket
+    index's columns have ``n_blocks`` elements and a spare (index
+    ``n_blocks``), where the index updates send the padding lanes."""
 
     def __init__(self, full: dict[str, torch.Tensor]):
         super().__init__((name, t[:-1]) for name, t in full.items())
         self.full = full
 
 
-def _pool_fields(extra: dict[str, Any] | None) -> list[tuple[str, Any]]:
-    return list(POOL_FIELDS) + list((extra or {}).items())
+def _pool_fields(extra: dict[str, Any] | None
+                 ) -> list[tuple[str, Any, int | None]]:
+    """(name, numpy dtype, length or None for ``capacity``) of every
+    column: ``extra`` maps a name to a dtype or to (dtype, length)."""
+    out = [(name, dt, None) for name, dt in POOL_FIELDS]
+    for name, spec in (extra or {}).items():
+        dt, n = spec if isinstance(spec, tuple) else (spec, None)
+        out.append((name, dt, n))
+    return out
 
 
 def fresh_pool(capacity: int, device,
                extra_fields: dict[str, Any] | None = None) -> DevicePool:
-    """Empty device pool: every slot inactive. ``extra_fields`` (name →
-    numpy dtype) adds columns beyond ``POOL_FIELDS``, e.g. the role step's
-    ``role_mask``; each has the spare element too."""
-    return DevicePool({name: torch.zeros(capacity + 1,
+    """Empty device pool: every slot inactive, every column zero.
+    ``extra_fields`` (name → numpy dtype, or (dtype, length)) adds columns
+    beyond ``POOL_FIELDS``, e.g. the role step's ``role_mask`` or the
+    bucket index (whose empty state ``KernelSet.index_rebuild`` writes);
+    each has the spare element too."""
+    return DevicePool({name: torch.zeros((capacity if n is None else n) + 1,
                                          dtype=_TORCH_DTYPE[np.dtype(dt)],
                                          device=device)
-                       for name, dt in _pool_fields(extra_fields)})
+                       for name, dt, n in _pool_fields(extra_fields)})
 
 
 def pool_from_reference(arrays: dict[str, np.ndarray], device,
@@ -110,7 +137,7 @@ def pool_from_reference(arrays: dict[str, np.ndarray], device,
     layout plus a kernel set's ``extra_pool_fields``, fetched with
     ``np.asarray``) → the port's device pool."""
     full = {}
-    for name, dt in _pool_fields(extra_fields):
+    for name, dt, _ in _pool_fields(extra_fields):
         a = np.asarray(arrays[name], dtype=dt)
         full[name] = torch.zeros(a.shape[0] + 1,
                                  dtype=_TORCH_DTYPE[np.dtype(dt)], device=device)
@@ -252,10 +279,22 @@ class KernelSet:
     past f32 rounding), so the dense scan would find -inf there too: the
     candidate lists are the dense step's, and so are the pairs. Where a
     chunk's span is wider than W, the whole window scores every block.
-    Rescans stay dense."""
+    Rescans of a pruned set stay dense.
+
+    With ``bucketed`` the blocks' bounds come from the bucket index in the
+    pool (``INDEX_FIELDS``, an ``extra_pool_fields`` of this set) instead
+    of a scan of the pool: admission widens them by the window's own
+    per-block bounds, so they hold the post-admission live bounds, and a
+    wider bound only widens a span, which keeps the dense step's result.
+    Every traffic and rescan step, ``admit_packed`` and ``evict`` keep the
+    index's counts exact; ``index_rebuild`` re-tightens the bounds. The
+    rescan step scores spans too, from the index alone. The packed steps
+    return f32[4, B]: the flat step's three rows, then the pool slots each
+    lane scored (``W · pool_block`` on the span path, ``capacity`` on the
+    fallback). W defaults to a quarter of the blocks (at least 2)."""
 
     is_role = False
-    #: Device pool columns beyond ``POOL_FIELDS``.
+    #: Device pool columns beyond ``POOL_FIELDS`` (a bucketed set's index).
     extra_pool_fields: dict[str, Any] = {}
     #: Rows of the packed window: ``PACKED_ROWS`` + now.
     pack_rows = len(PACKED_ROWS) + 1
@@ -263,7 +302,7 @@ class KernelSet:
     def __init__(self, *, capacity: int, top_k: int, pool_block: int,
                  glicko2: bool, widen_per_sec: float, max_threshold: float,
                  pair_rounds: int = 8, prune_window_blocks: int = 0,
-                 prune_chunk: int = 128):
+                 prune_chunk: int = 128, bucketed: bool = False):
         pool_block = effective_pool_block(capacity, pool_block, top_k)
         self.capacity = capacity
         self.pool_block = pool_block
@@ -272,13 +311,19 @@ class KernelSet:
         self.widen_per_sec = widen_per_sec
         self.max_threshold = max_threshold
         self.pair_rounds = pair_rounds
+        self.bucketed = bucketed
+        if bucketed:
+            if prune_window_blocks <= 0:
+                prune_window_blocks = max(2, self.n_blocks // 4)
+            self.extra_pool_fields = {name: (dt, self.n_blocks)
+                                      for name, dt in INDEX_FIELDS}
         self.prune_window_blocks = min(max(0, prune_window_blocks),
                                        self.n_blocks)
         self.prune_chunk = max(1, prune_chunk)
-        #: Pruned steps run, and (a device i32[1] counter, made on the
-        #: first pruned step) how many of them took the span path: the
-        #: step adds its feasibility flag on the device, so reading the
-        #: count is one host sync, at the caller's choice.
+        #: Pruned (or bucketed) traffic steps run, and (a device i32[1]
+        #: counter, made on the first such step) how many of them took the
+        #: span path: the step adds its feasibility flag on the device, so
+        #: reading the count is one host sync, at the caller's choice.
         self.pruned_steps = 0
         self.span_steps: torch.Tensor | None = None
 
@@ -322,6 +367,13 @@ class KernelSet:
         one-element f32 tensor on the pool's device: ``packed_now``).
         Returns (q_slot[B], c_slot[B], dist[B]) with sentinel
         ``capacity`` / +inf in unmatched lanes."""
+        if self.bucketed:
+            order = _rating_order(batch["valid"], batch["rating"])
+            sb = {k: v.index_select(0, order) for k, v in batch.items()}
+            *outs, _ = self._search_step_bucketed(pool, sb, order, now,
+                                                  skip_filters)
+            return tuple(torch.empty_like(o).index_copy_(0, order, o)
+                         for o in outs)
         if self.prune_window_blocks:
             order = _rating_order(batch["valid"], batch["rating"])
             sb = {k: v.index_select(0, order) for k, v in batch.items()}
@@ -345,8 +397,14 @@ class KernelSet:
         row 8: ``packed_now``), f32[3, B] (q_slot, c_slot, dist) out — slot
         ids ≪ 2^24 are f32-exact. The pruned form sorts the packed window
         with one gather and unsorts the packed result with one indexed
-        copy."""
+        copy; the bucketed form adds the touched row (f32[4, B] out)."""
         now = packed_now(packed)
+        if self.bucketed:
+            order = _rating_order(packed[7] > 0, packed[1])
+            *outs, touched = self._search_step_bucketed(
+                pool, unpack_batch(packed.index_select(1, order)), order,
+                now, skip_filters)
+            return _pack_bucketed(order, outs, touched)
         if self.prune_window_blocks:
             order = _rating_order(packed[7] > 0, packed[1])
             outs = self._search_step_pruned(
@@ -366,13 +424,18 @@ class KernelSet:
         matched and evicted — is then a no-op, which is what makes a rescan
         safe to dispatch with windows in flight, and to split into chunks
         (a later chunk cannot re-match players an earlier one retired).
-        Scoring, pairing and eviction are the full-filter dense step's."""
+        Scoring, pairing and eviction are the full-filter dense step's (a
+        bucketed set's: its rescan over spans, ``_rescan_step_bucketed``)."""
+        batch = self._gate_active(pool, batch)
+        if self.bucketed:
+            order = _rating_order(batch["valid"], batch["rating"])
+            sb = {k: v.index_select(0, order) for k, v in batch.items()}
+            *outs, _ = self._rescan_step_bucketed(pool, sb, order, now)
+            return tuple(torch.empty_like(o).index_copy_(0, order, o)
+                         for o in outs)
         q_thr_eff = effective_threshold(batch["threshold"], batch["enqueue_t"],
                                         now, self.widen_per_sec,
                                         self.max_threshold)
-        lane_act = pool["active"].index_select(
-            0, batch["slot"].long().clamp(0, self.capacity - 1))
-        batch = dict(batch, valid=batch["valid"] & lane_act)
         vals, idxs = self.candidates(batch, q_thr_eff, pool, now)
         out_q, out_c, out_d = greedy_pair(vals, idxs, batch["slot"],
                                           self.capacity, self.pair_rounds)
@@ -382,12 +445,91 @@ class KernelSet:
     def search_step_packed_rescan(self, pool: dict[str, Any],
                                   packed: torch.Tensor):
         """Packed-I/O twin of ``search_step_rescan`` (the layout of
-        ``search_step_packed``)."""
+        ``search_step_packed``; f32[4, B] for a bucketed set)."""
+        now = packed_now(packed)
+        if self.bucketed:
+            batch = self._gate_active(pool, unpack_batch(packed))
+            order = _rating_order(batch["valid"], batch["rating"])
+            sb = {k: v.index_select(0, order) for k, v in batch.items()}
+            *outs, touched = self._rescan_step_bucketed(pool, sb, order, now)
+            return _pack_bucketed(order, outs, touched)
         return _stack_out(*self.search_step_rescan(
-            pool, unpack_batch(packed), packed_now(packed)))
+            pool, unpack_batch(packed), now))
+
+    def _gate_active(self, pool: dict[str, Any],
+                     batch: dict[str, Any]) -> dict[str, Any]:
+        """A rescan window with each lane's validity ANDed with its slot's
+        device-side ``active`` flag."""
+        lane_act = pool["active"].index_select(
+            0, batch["slot"].long().clamp(0, self.capacity - 1))
+        return dict(batch, valid=batch["valid"] & lane_act)
 
     def admit_packed(self, pool: dict[str, Any], packed: torch.Tensor) -> None:
-        admit(pool, unpack_batch(packed))
+        """Admit a packed window without matching (restores); a bucketed
+        set's index counts it and widens its bounds."""
+        batch = unpack_batch(packed)
+        admit(pool, batch)
+        if self.bucketed:
+            self._index_admit(pool, batch)
+
+    def evict(self, pool: dict[str, Any], slots: torch.Tensor) -> None:
+        """Clear ``slots`` (sentinels ≥ capacity are padding), in place. A
+        bucketed set counts down only the slots that were active when
+        called, so a slot evicted twice counts once (the JAX
+        ``_evict_indexed``); bounds stay as they are."""
+        if not self.bucketed:
+            evict(pool, slots)
+            return
+        live_now = pool["active"].index_select(
+            0, slots.long().clamp(0, self.capacity - 1)) & (slots < self.capacity)
+        live = torch.where(live_now, slots, self.capacity)
+        evict(pool, slots)
+        self._index_release(pool, live)
+
+    # ---- the bucket index ----------------------------------------------------
+
+    def _block_of(self, slots: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+        """Each slot's pool block where ``hit``, else the index columns'
+        spare element ``n_blocks`` (i64, for the indexed updates)."""
+        return torch.where(hit, slots // self.pool_block, self.n_blocks).long()
+
+    def _index_admit(self, pool: DevicePool, batch: dict[str, Any]) -> None:
+        """Count a window's valid lanes into their blocks and widen the
+        blocks' bounds by the lanes' ratings and rating deviations, in
+        place (indexed adds and min/max scatters: no host read, no
+        ``bincount``). The JAX ``_incoming_stats`` merge: the same bounds."""
+        hit = batch["valid"] & (batch["slot"] < self.capacity)
+        blk = self._block_of(batch["slot"], hit)
+        full = pool.full
+        full["bidx_count"].index_add_(0, blk, hit.to(torch.int32))
+        full["bidx_min"].scatter_reduce_(0, blk, batch["rating"], "amin")
+        full["bidx_max"].scatter_reduce_(0, blk, batch["rating"], "amax")
+        full["bidx_rd"].scatter_reduce_(0, blk, batch["rd"], "amax")
+
+    def _index_release(self, pool: DevicePool, slots: torch.Tensor) -> None:
+        """Count ``slots`` (< capacity; sentinels skipped) out of their
+        blocks, in place. Bounds stay: they only re-tighten at a
+        rebuild."""
+        hit = slots < self.capacity
+        pool.full["bidx_count"].index_add_(0, self._block_of(slots, hit),
+                                           hit.to(torch.int32), alpha=-1)
+
+    def index_rebuild(self, pool: DevicePool) -> None:
+        """The exact index of the pool, written in place (the addresses a
+        captured step holds stay): per block the active count, the live
+        rating bounds (+inf / -inf when empty) and the largest live rating
+        deviation (0 when empty), kept for ELO too. One O(P) pass, off
+        the window path: the engine's heartbeat, and a fresh pool's empty
+        index."""
+        shape = (self.n_blocks, self.pool_block)
+        act = pool["active"].view(shape)
+        r = pool["rating"].view(shape)
+        inf = float("inf")
+        pool["bidx_count"].copy_(act.sum(1, dtype=torch.int32))
+        pool["bidx_min"].copy_(torch.where(act, r, inf).amin(1))
+        pool["bidx_max"].copy_(torch.where(act, r, -inf).amax(1))
+        pool["bidx_rd"].copy_(torch.where(act, pool["rd"].view(shape),
+                                          0.0).amax(1))
 
     # ---- the rating-banded pruned step ----------------------------------
 
@@ -419,6 +561,81 @@ class KernelSet:
                                     rid=order.to(torch.int32))
         evict(pool, torch.cat([s_q, s_c]))
         return s_q, s_c, s_d
+
+    # ---- the bucketed steps ------------------------------------------------
+
+    def _span_launch(self, sb: dict[str, Any], q_thr_eff, bmin, bmax, brd,
+                     count: bool):
+        """The chunks' spans from the blocks' bounds, as a span launch's
+        arguments, and the window's touched row: ``W · pool_block`` pool
+        slots per lane on the span path, ``capacity`` on the fallback
+        (f32[1], read from the device flag). ``count`` adds the step to
+        the pruned counts (traffic steps)."""
+        dstart, feasible = self._chunk_windows(sb, q_thr_eff, bmin, bmax, brd)
+        if count:
+            if self.span_steps is None:
+                self.span_steps = torch.zeros(1, dtype=torch.int32,
+                                              device=feasible.device)
+            self.span_steps += feasible
+            self.pruned_steps += 1
+        span = Span(dstart, self._chunk_size(sb["rating"].shape[0]),
+                    self.prune_window_blocks, feasible.reshape(1))
+        per_lane = float(min(self.prune_window_blocks * self.pool_block,
+                             self.capacity))
+        touched = torch.where(span.feasible, per_lane, float(self.capacity))
+        return span, touched
+
+    def _search_step_bucketed(self, pool: DevicePool, sb: dict[str, Any],
+                              order: torch.Tensor, now: torch.Tensor,
+                              skip_filters: bool = False):
+        """The bucketed traffic step on a window sorted by
+        ``_rating_order``: admit the whole window (the pool the JAX
+        ``_admit_chunked`` leaves), count it into the index and widen the
+        bounds (the JAX merge of the index with ``_incoming_stats``), the
+        spans from the index, the span launch (its own dense fallback),
+        pairing with the original lanes as tie-break, the matched slots
+        counted out of the index, eviction. Plain ``evict`` stands in for
+        the JAX ``_evict_spans``: every matched slot lies in a span, so the
+        pool after is the same. Returns the sorted lanes' (q_slot, c_slot,
+        dist) and the touched row."""
+        q_thr_eff = effective_threshold(sb["threshold"], sb["enqueue_t"], now,
+                                        self.widen_per_sec, self.max_threshold)
+        admit(pool, sb)
+        self._index_admit(pool, sb)
+        span, touched = self._span_launch(
+            sb, q_thr_eff, pool["bidx_min"], pool["bidx_max"],
+            pool["bidx_rd"], count=True)
+        vals, idxs = self.candidates(sb, q_thr_eff, pool, now, skip_filters,
+                                     span)
+        s_q, s_c, s_d = greedy_pair(vals, idxs, sb["slot"], self.capacity,
+                                    self.pair_rounds,
+                                    rid=order.to(torch.int32))
+        matched = torch.cat([s_q, s_c])
+        self._index_release(pool, matched)
+        evict(pool, matched)
+        return s_q, s_c, s_d, touched
+
+    def _rescan_step_bucketed(self, pool: DevicePool, sb: dict[str, Any],
+                              order: torch.Tensor, now: torch.Tensor):
+        """The bucketed rescan on a gated window sorted by
+        ``_rating_order``: nothing is admitted, the spans come from the
+        index alone (every live lane is in the pool, so the index bounds
+        cover it), the span launch with every filter, pairing with the
+        original lanes as tie-break, and only the matched slots leave the
+        index. Returns what ``_search_step_bucketed`` returns."""
+        q_thr_eff = effective_threshold(sb["threshold"], sb["enqueue_t"], now,
+                                        self.widen_per_sec, self.max_threshold)
+        span, touched = self._span_launch(
+            sb, q_thr_eff, pool["bidx_min"], pool["bidx_max"],
+            pool["bidx_rd"], count=False)
+        vals, idxs = self.candidates(sb, q_thr_eff, pool, now, span=span)
+        s_q, s_c, s_d = greedy_pair(vals, idxs, sb["slot"], self.capacity,
+                                    self.pair_rounds,
+                                    rid=order.to(torch.int32))
+        matched = torch.cat([s_q, s_c])
+        self._index_release(pool, matched)
+        evict(pool, matched)
+        return s_q, s_c, s_d, touched
 
     def _live_stats(self, pool: dict[str, Any]):
         """Per-block rating bounds of the pool: (min_r, max_r, max_rd)
@@ -502,6 +719,18 @@ def _rating_order(valid, rating) -> torch.Tensor:
 def _stack_out(out_q, out_c, out_d) -> torch.Tensor:
     return torch.stack([out_q.to(torch.float32), out_c.to(torch.float32),
                         out_d])
+
+
+def _pack_bucketed(order: torch.Tensor, outs, touched: torch.Tensor
+                   ) -> torch.Tensor:
+    """A bucketed step's packed result, f32[4, B]: rows 0-2 the sorted
+    lanes' (q_slot, c_slot, dist) back in the window's order, byte for
+    byte the flat packed step's; row 3 the touched count in every lane."""
+    b = order.shape[0]
+    out = torch.empty((4, b), dtype=torch.float32, device=order.device)
+    out[:3].index_copy_(1, order, _stack_out(*outs))
+    out[3:].copy_(touched.reshape(1, 1).expand(1, b))
+    return out
 
 
 class QualityState(dict):

@@ -32,9 +32,16 @@ window is dispatched and collected in one step. Beside the batcher run the
 rescan loop (``QueueConfig.rescan_interval_s``: re-matches the
 longest-waiting players so widened thresholds resolve inside the pool),
 the sweep loop (``request_timeout_s`` timeouts and the per-player
-``x-deadline`` expiry of ``OverloadConfig.deadline_sweep_ms``) and the
+``x-deadline`` expiry of ``OverloadConfig.deadline_sweep_ms``), the
 health timer (``EngineConfig.health_interval_s``: moves an idle team or
-role queue that was handed to the host oracle back onto the card).
+role queue that was handed to the host oracle back onto the card, and
+rebuilds a bucketed queue's index) and, for a 1v1 queue with
+``EngineConfig.spec_formation``, the speculation loop: every
+``spec_interval_ms`` while no window is in flight it commits the
+speculation it left last time, if still valid, and lets the engine
+speculate again. Every cut (a window's dispatch, a rescan tick) first
+commits a valid speculation (``spec_validate`` then ``spec_commit``, with
+nothing in between); its matches are published as a rescan tick's.
 
 Every request gets a ``queued`` ack when it enters the pool
 (``send_queued_ack``), each matched player a ``matched`` response with
@@ -54,9 +61,10 @@ and no second thread contends with the loop for the interpreter lock
 
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the pipelined branch of the object flush, and the
-heartbeat half of the health timer, and burst consume and decode), without
-admission control, durability, replication, tracing, the dispatch arbiter,
-speculation and the breaker and probe half of the health timer.
+heartbeat half of the health timer, burst consume and decode, and the
+speculation loop and cut), without admission control, durability,
+replication, tracing, the dispatch arbiter and the breaker and probe half
+of the health timer.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -121,7 +129,8 @@ _MIN_DECODE_BURST = 16
 #: Counters of failures the service catches and recovers from (a failed
 #: window is nacked and the engine revived, a failed tick retried).
 FAULT_COUNTERS = ("engine_failures", "revives", "outcome_errors",
-                  "collector_errors", "rescan_skipped", "health_tick_errors")
+                  "collector_errors", "rescan_skipped", "health_tick_errors",
+                  "spec_errors")
 
 
 class _QueueRuntime:
@@ -152,7 +161,8 @@ class _QueueRuntime:
             "rejected": 0, "deduped_replays": 0, "publish_batches": 0,
             "engine_failures": 0, "revives": 0, "outcome_errors": 0,
             "collector_errors": 0, "rescan_matches": 0, "rescan_skipped": 0,
-            "timeouts": 0, "health_repromotions": 0, "health_tick_errors": 0}
+            "timeouts": 0, "health_repromotions": 0, "health_tick_errors": 0,
+            "spec_commits": 0, "spec_errors": 0}
         #: Terminal-replay cache: player id → (response body, expiry),
         #: split by the ingress shards' hash of the player id.
         self._recent = ShardedRecent(self.cfg.broker.ingress_shards)
@@ -196,6 +206,10 @@ class _QueueRuntime:
             self._loops.append(asyncio.create_task(self._sweep_loop()))
         if self.cfg.engine.health_interval_s > 0:
             self._loops.append(asyncio.create_task(self._health_loop()))
+        if (self.cfg.engine.spec_formation
+                and self.cfg.engine.spec_interval_ms > 0
+                and not self._objects):
+            self._loops.append(asyncio.create_task(self._spec_loop()))
 
     async def stop(self) -> None:
         for task in self._loops:
@@ -483,6 +497,10 @@ class _QueueRuntime:
                 deliveries_in = [d for _, d in pairs]
                 if not pairs:
                     return
+            # The window is a cut: a still-valid speculation commits first
+            # (then [commit; window] equals [rescan at its time; window]),
+            # and is otherwise discarded by the window's admission.
+            self._spec_cut(now)
             tok = dispatch(stale)
             self._inflight_meta[tok] = (dict(pairs), deliveries_in)
             recorded = True
@@ -718,8 +736,10 @@ class _QueueRuntime:
     # ---- engine lifecycle -------------------------------------------------
 
     def _drain_engine(self, now: float) -> None:
-        """Collect and answer every in-flight window (blocking); then
-        revive, if a window failed."""
+        """Discard a held speculation (the caller is about to change,
+        read out or replace the pool); collect and answer every in-flight
+        window (blocking); then revive, if a window failed."""
+        self.engine.spec_invalidate("drain")
         if self.engine.inflight() > 0:
             for tok, out in self.engine.flush():
                 self._finish_token(tok, out, now)
@@ -749,6 +769,7 @@ class _QueueRuntime:
         the host oracle's included, for team and role queues. Every window
         still tracked is nacked: the new engine numbers its tokens from 0."""
         self._needs_revive = False
+        self.engine.spec_invalidate("revive")
         for tok, (_, deliveries) in list(self._inflight_meta.items()):
             for d in deliveries:
                 self._nack(d)
@@ -808,6 +829,9 @@ class _QueueRuntime:
                 continue
             outstanding = None
             try:
+                # A rescan tick is a cut too: a valid speculation commits,
+                # and the tick then widens over the pool after it.
+                self._spec_cut(now)
                 tok = self.engine.rescan_async(window, now)
                 if tok is None:
                     continue
@@ -895,6 +919,59 @@ class _QueueRuntime:
             except Exception:
                 log.exception("health tick failed; retrying")
                 self.counters["health_tick_errors"] += 1
+
+    def _spec_cut(self, now: float) -> bool:
+        """Commit the held speculation at a cut if it is still valid (no
+        pool mutation since it was taken, and at most
+        ``spec_staleness_ms`` old): ``spec_validate`` then ``spec_commit``
+        with nothing in between; the committed window is collected and
+        published as a rescan tick's. True when one committed. A failed
+        commit is counted and discarded: the cut's own step that follows
+        is the full step."""
+        eng = self.engine
+        try:
+            tok = eng.spec_validate(
+                now, max_age_s=self.cfg.engine.spec_staleness_ms / 1e3)
+            if tok is None:
+                return False
+            eng.spec_commit(tok, now)
+        except Exception:
+            log.exception("speculative commit failed; the cut runs its "
+                          "full step")
+            self.counters["spec_errors"] += 1
+            eng.spec_invalidate("cut-commit failure")
+            return False
+        self.counters["spec_commits"] += 1
+        return True
+
+    async def _spec_loop(self) -> None:
+        """Every ``spec_interval_ms``, in the gap between windows (nothing
+        in flight, no revive pending): commit the speculation left by the
+        last tick if still valid (the tick is a cut), let the engine
+        speculate at the current time, and collect what has landed. With
+        windows in flight it only collects (a flush yields to the loop only
+        while its windows are in flight). A tick that raises is counted and
+        its speculation discarded; the loop goes on. It runs on the event
+        loop, as every engine call does."""
+        interval = max(0.001, self.cfg.engine.spec_interval_ms / 1e3)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                if self._needs_revive:
+                    continue
+                if self.engine.inflight() > 0:
+                    self._collect_ready(time.time())
+                    continue
+                now = time.time()
+                self._spec_cut(now)
+                self.engine.speculate(now)
+                self._collect_ready(time.time())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("speculation tick failed; discarding it")
+                self.counters["spec_errors"] += 1
+                self.engine.spec_invalidate("tick failure")
 
     # ---- egress -----------------------------------------------------------
 

@@ -110,17 +110,35 @@ def test_observability_and_pruning_keys_load(caplog):
     assert cfg.observability.quality_rating_edges == (1200.0, 1800.0)
 
 
-@pytest.mark.parametrize("knob", [{"bucketed": True},
+@pytest.mark.parametrize("knob", [{"bucketed": True, "bucket_frontier_k": 4},
                                   {"bucket_frontier_k": 4}])
 def test_gpu_engine_refuses_the_bucketed_step(knob):
-    """The bucket-indexed formation is not ported: a config that asks for
-    it is refused, not run dense."""
+    """The sharded bucket frontier (``bucket_frontier_k`` > 0) is not
+    ported: a config that asks for it, with bucketed formation or
+    without, is refused, not run some other way. (Bucketed formation on
+    one device is served: tests/test_torch_bucketed.py.)"""
     from matchmaking_tpu_torch.engine.gpu import GpuEngine
 
     cfg = config.Config(engine=config.EngineConfig(pool_capacity=1024,
                                                    pool_block=256, **knob))
-    with pytest.raises(ValueError, match="bucketed"):
+    with pytest.raises(ValueError, match="bucket_frontier_k"):
         GpuEngine(cfg, cfg.queues[0], device="cpu")
+
+
+def test_bucketed_and_spec_keys_load_with_the_jax_names_and_defaults():
+    """``engine.bucketed`` and the four ``engine.spec_*`` keys load under
+    the JAX names, with the JAX defaults when absent."""
+    keys = ("bucketed", "spec_formation", "spec_max_steps",
+            "spec_staleness_ms", "spec_interval_ms")
+    default, jax_default = config.EngineConfig(), jax_config.EngineConfig()
+    for key in keys:
+        assert getattr(default, key) == getattr(jax_default, key), key
+    raw = {"queues": [{}], "engine": {
+        "bucketed": True, "spec_formation": True, "spec_max_steps": 3,
+        "spec_staleness_ms": 250.0, "spec_interval_ms": 5.0}}
+    cfg = config.Config.from_dict(raw, backend="gpu")
+    assert [getattr(cfg.engine, k) for k in keys] == [True, True, 3, 250.0,
+                                                      5.0]
 
 
 def test_health_interval_loads_with_the_jax_meaning():

@@ -273,13 +273,18 @@ def columns(rng, eng, n, start, now):
 
 PRUNED = dict(prune_window_blocks=2, prune_chunk=128,
               band_spec="gaussian:1500:300")
+#: Bucketed formation on the same geometry (four blocks, spans of two).
+BUCKETED = dict(bucketed=True, prune_window_blocks=2, prune_chunk=16,
+                band_spec="gaussian:1500:300")
 
 
-@pytest.mark.parametrize("engine", [{}, PRUNED], ids=["dense", "pruned"])
+@pytest.mark.parametrize("engine", [{}, PRUNED, BUCKETED],
+                         ids=["dense", "pruned", "bucketed"])
 def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda, engine):
     """restore_columns, search_columns_async and rescan_async queue their
     device work (pinned staging, non-blocking copies, events, the quality
-    accumulator behind each step; the pruned step with ``engine``) with no
+    accumulator behind each step; the pruned or bucketed step with
+    ``engine``, whose index updates and heartbeat rebuild too) with no
     device→host synchronisation; the results then collect as usual, and
     the quality report counts every matched player."""
     cfg = widening_cfg(**engine)
@@ -294,6 +299,7 @@ def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda, engine):
     try:
         eng.restore_columns(fill, 100.0)
         t1 = eng.search_columns_async(w1, 101.0)
+        eng.heartbeat(101.5)
         t2 = eng.search_columns_async(w2, 102.0)
         t3 = eng.rescan_async(2048, 104.0)
     finally:
@@ -573,6 +579,88 @@ def test_span_launch_equals_plain_at_full_width(cuda, glicko2, filters):
     assert (got[1][:, 3:] == ks.capacity).all()
 
 
+def test_span_launch_at_chunk_16_equals_plain_at_full_width(cuda):
+    """The bucketed step's span launch of config #1 (chunks of 16 rows,
+    so ``plan_grid`` takes 16 rows a CTA; W = 6) at P = 131,072 and
+    B = 1,024, feasible and not, against its plain version and, feasible,
+    the dense launch."""
+    for glicko2, filters in ((False, False), (True, True)):
+        ks, pool, batch, q_thr, start, feasible = span_inputs(
+            60 + glicko2, glicko2, filters, cuda, chunk=16)
+        assert bool(feasible) and start.shape == (64,)
+        plan = cuda_kernels.plan_grid(1024, 16, 8192, cuda_kernels.sm_count(
+            torch.cuda.current_device()), 16)
+        assert plan.rows_per_cta == 16
+        kw = dict(pool_block=ks.pool_block, glicko2=glicko2, filters=filters,
+                  widen_per_sec=2.0, max_threshold=250.0,
+                  g_coeff=scoring.G_COEFF_F32)
+        now = now_on(cuda, 9.0)
+        dense = cuda_kernels.block_best(pool, batch, q_thr, now, **kw)
+        for flag in (True, False):
+            span = cuda_kernels.Span(start, 16, 6,
+                                     torch.tensor([flag], device=cuda))
+            got = cuda_kernels.block_best(pool, batch, q_thr, now, span=span,
+                                          **kw)
+            assert_bit_equal(got, cuda_kernels.block_best_span_reference(
+                pool, batch, q_thr, now, span, **kw))
+            assert_bit_equal(got, dense)
+
+
+@pytest.mark.parametrize("engine", [{}, BUCKETED], ids=["dense", "bucketed"])
+def test_speculation_on_card_leaves_the_live_pool_and_commits_a_rescan(
+        cuda, engine):
+    """A speculation (its graphs replayed on the spare pool) leaves the
+    live pool bit-equal; its commit equals two cold rescan ticks of a twin
+    engine at the same time, queued back to back (pairs, distances, pools,
+    quality states);
+    speculating and committing queue no device→host synchronisation."""
+    cfg = widening_cfg(**engine, spec_formation=True, spec_max_steps=2)
+    spec, cold = (GpuEngine(cfg, cfg.queues[0], device=cuda)
+                  for _ in range(2))
+    rng = np.random.default_rng(6)
+    fill = columns(rng, spec, 3000, 0, 100.0)
+    for eng in (spec, cold):
+        eng.warmup()
+        eng.restore_columns(fill, 100.0)
+    assert "spec/1024" in spec.graph_report()["graphs"]
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in spec.dev_pool.full.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert spec.speculate(130.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for k, v in before.items():
+        assert torch.equal(spec.dev_pool.full[k], v), k
+    launched = dict(cuda_kernels.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = spec.spec_validate(130.0)
+        spec.spec_commit(tok, 130.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # One quality fold a held chunk (two chunks of 1,024, two passes) at
+    # the commit; no block_best launch.
+    assert cuda_kernels.LAUNCHES["quality_accum"] - launched[
+        "quality_accum"] == spec.spec_report()["spec_committed_steps"] == 4
+    assert cuda_kernels.LAUNCHES["block_best"] == launched["block_best"]
+    (_, got), = spec.flush()
+    # Two ticks queued back to back pick the same players, as the two
+    # passes do (the mirror lags until the flush).
+    for _ in range(2):
+        cold.rescan_async(2048, 130.0)
+    want = [o for _, o in cold.flush()]
+    for name in ("m_id_a", "m_id_b"):
+        assert getattr(got, name).tolist() == sum(
+            (getattr(o, name).tolist() for o in want), [])
+    np.testing.assert_array_equal(
+        got.m_dist.view(np.int32),
+        np.concatenate([o.m_dist for o in want]).view(np.int32))
+    assert got.n_matches > 0
+    assert_same_engines(spec, cold)
+
+
 def test_pruned_engine_on_card_equals_cpu(cuda):
     """A banded, pruned engine on the card and on the CPU: the same pairs
     and pool over windows of 1,024 (the span path and the fallback), and
@@ -808,6 +896,9 @@ CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
 #: Config #1's pruning (band_spec, six blocks a chunk, chunks of 128).
 PRUNE_1 = dict(prune_window_blocks=6, prune_chunk=128,
                band_spec="gaussian:1500:300")
+#: Config #1 bucketed, with the JAX bench's geometry (chunks of 16).
+BUCKETED_1 = dict(bucketed=True, prune_window_blocks=6, prune_chunk=16,
+                  band_spec="gaussian:1500:300")
 
 
 def graph_and_eager(cuda, name, **engine):
@@ -874,8 +965,10 @@ def assert_same_columnar(got, want):
 
 @pytest.mark.parametrize("name,engine", [("elo_1v1", {}),
                                          ("elo_1v1", PRUNE_1),
-                                         ("glicko2", {})],
-                         ids=["elo_1v1", "elo_1v1_pruned", "glicko2"])
+                                         ("glicko2", {}),
+                                         ("elo_1v1", BUCKETED_1)],
+                         ids=["elo_1v1", "elo_1v1_pruned", "glicko2",
+                              "elo_1v1_bucketed"])
 def test_replay_bit_equal_to_eager_1v1_at_full_width(cuda, name, engine):
     """Configs #1 (dense and pruned) and #4 at P = 131,072 with 100k
     waiting: at every bucket, a filtered window (the filter variant), a
@@ -917,6 +1010,7 @@ def test_replay_bit_equal_to_eager_1v1_at_full_width(cuda, name, engine):
         t += 0.5
     assert graphed.graph_report()["captures"] == captures
     assert graphed.prune_report() == eager.prune_report()
+    assert graphed.formation_report() == eager.formation_report()
     assert graphed.quality_report()["samples"] > 0
 
 
@@ -1021,7 +1115,8 @@ def test_replay_after_the_pool_is_replaced_writes_the_new_pool(cuda):
     assert list(eng.graph_report()["graphs"]) == ["dense_nofilter/1024"]
 
 
-@pytest.mark.parametrize("kind", ["dense", "pruned", "team", "role"])
+@pytest.mark.parametrize("kind", ["dense", "pruned", "team", "role",
+                                  "bucketed"])
 def test_warmup_captures_every_pair_and_replays_never_capture(cuda, kind):
     """``warmup()`` captures one graph per (variant, bucket); windows of
     every bucket and rescan ticks afterwards only replay them, and each
@@ -1036,6 +1131,10 @@ def test_warmup_captures_every_pair_and_replays_never_capture(cuda, kind):
                                          team_max_matches=512),
                      queues=(queue,))
         variants = [kind]
+    elif kind == "bucketed":
+        cfg = widening_cfg(**BUCKETED, spec_formation=True)
+        variants = ["bucketed", "bucketed_nofilter", "bucketed_rescan",
+                    "spec"]
     else:
         cfg = widening_cfg(**(PRUNED if kind == "pruned" else {}))
         base = "pruned" if kind == "pruned" else "dense"
@@ -1075,7 +1174,7 @@ def test_warmup_captures_every_pair_and_replays_never_capture(cuda, kind):
     replays = sum(g["replays"] for g in rep["graphs"].values())
     assert replays >= len(eng.buckets)
     launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items()}
-    one_v_one = kind in ("dense", "pruned")
+    one_v_one = kind in ("dense", "pruned", "bucketed")
     assert launched == {"block_best": replays if one_v_one else 0,
                         "quality_accum": replays if one_v_one else 0}
     # What the device ran inside the replays, counted by the profiler: one
@@ -1085,9 +1184,10 @@ def test_warmup_captures_every_pair_and_replays_never_capture(cuda, kind):
            for name in ("prep_kernel", "block_best_kernel",
                         "quality_accum_kernel")}
     assert ran == dict.fromkeys(ran, replays if one_v_one else 0)
-    if kind == "pruned":
-        # Every replay of a pruned graph is a pruned window; the warm-up
-        # before each capture is none.
+    if kind in ("pruned", "bucketed"):
+        # Every replay of a pruned (bucketed) traffic graph is a pruned
+        # window; the warm-up before each capture is none, and a rescan
+        # counts as none.
         assert eng.prune_report()["windows"] == sum(
             g["replays"] for k, g in rep["graphs"].items()
-            if not k.startswith("rescan/"))
+            if not k.split("/")[0].endswith("rescan"))
