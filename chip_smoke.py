@@ -136,6 +136,36 @@ Phases, each of which raises (exit code != 0) when it fails:
    end. Config #3's service: 50k restored through the app, 8,192
    requests in bursts of 512, every request answered, every match two
    teams of five, no fault caught.
+6. overload control: config #1's service with 100k restored (tiers 0 / 1
+   / 2 at 25 / 50 / 25 %) and 16,384 requests of the mixed-tier-peak
+   cohorts (ranked tier 0 with a 1.5 s deadline, quick-play tier 1 with
+   4 s, bot-fill tier 2 with none) in bursts of 512, unpaced, under
+   max_waiting 100,000, max_inflight 8,192, 3 tiers, the "oldest" debt,
+   EDF and a 25 ms deadline sweep; then the same soak with no overload
+   control. Every request answered once (at most one terminal answer),
+   the pool at or under 100,000 after every window, no tier-0 player shed
+   while a tier-2 player waits, the shed answers by tier equal to the
+   controller's, nobody matched later than its deadline + 25 ms, no
+   credit held after the drain. Prints requests/s, latency p50/p99 by
+   tier and overall for both soaks, shed and expired by tier, the
+   admission cut's host µs and the debt's (pick and eviction) host ms a
+   window.
+7. the circuit breaker: config #1's service with breaker threshold 2
+   (window 30 s, first probe 0.25 s, backoff 2, max 60 s, health timer
+   0.05 s) and a chaos script failing device steps 0-1 and the first
+   probe; 100k restored, 8 requests: two failed windows trip the breaker
+   and the host oracle, with the whole pool, answers them; probe 1 fails,
+   probe 2 captures and replays the base step's graph (block_best and
+   quality_accum each launched by the replay and by the eager run before
+   the capture) and the pool moves onto a fresh engine; 1,024
+   more requests in 8 windows answered on the card. The counters must be
+   the script's (crashes 2, trips 1, probes 2, probe failures 1, closes
+   1), every player answered once, the moved pool the oracle's, the
+   quality counts monotone, and the allocated device memory back within
+   5 % of one engine's share after the demotion and within 5 % of that
+   share after the re-promotion. Prints the ms from the trip to the first
+   degraded answer, the probe's build, probe (capture and replay) and
+   move ms, and the first 8 windows' dispatch ms after it.
 
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
@@ -143,7 +173,7 @@ Phases, each of which raises (exit code != 0) when it fails:
 time over each of the two soaks beside the output file.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-5, the
+JSON summary of phases 3-7, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -2994,6 +3024,477 @@ async def service_team(np, mods, path, *, waiting, requests, burst, seed,
     return res
 
 
+# ---- phase 6: overload control -------------------------------------------
+
+
+#: configs/scenarios/mixed-tier-peak.json's cohorts: (name, share, tier,
+#: rating mean, rating sigma, deadline in s or None).
+COHORTS = (("ranked", 0.25, 0, 1600.0, 150.0, 1.5),
+           ("quickplay", 0.50, 1, 1480.0, 300.0, 4.0),
+           ("botfill", 0.25, 2, 1400.0, 350.0, None))
+
+#: Phase 6's overload settings (the JAX bench's scenario matrix and its
+#: placement soak's credit cap, 8 x window).
+OVERLOAD = dict(max_waiting=100_000, max_inflight=8_192, tiers=3,
+                shed_policy="oldest", edf=True, deadline_sweep_ms=25.0,
+                batch_admission=True)
+
+#: The statuses a request may get, in order: at most one terminal answer.
+ANSWER_SEQS = (["queued"], ["matched"], ["queued", "matched"], ["shed"],
+               ["queued", "shed"], ["timeout"], ["queued", "timeout"])
+
+
+class AnswerLog:
+    """Every answer the service publishes to ``reply``, with the host
+    time of its publish (the broker's ``publish`` and ``publish_batch``
+    are wrapped, so reading the replies times nothing)."""
+
+    def __init__(self, app, reply):
+        self.times: dict[str, list[float]] = {}
+        self.wall: dict[str, list[float]] = {}
+        real_one, real_batch = app.broker.publish, app.broker.publish_batch
+
+        def note(queue, props):
+            if queue == reply and props is not None:
+                cid = props.correlation_id
+                self.times.setdefault(cid, []).append(time.perf_counter())
+                self.wall.setdefault(cid, []).append(time.time())
+
+        def publish(queue, body, props=None):
+            note(queue, props)
+            real_one(queue, body, props)
+
+        def publish_batch(items):
+            for queue, _, props in items:
+                note(queue, props)
+            real_batch(items)
+
+        app.broker.publish, app.broker.publish_batch = publish, publish_batch
+        self.app, self.reply = app, reply
+
+    async def read(self):
+        """Every answer on the reply queue: cid → [decoded responses]."""
+        from matchmaking_tpu_torch.service.contract import decode_response
+
+        out = {}
+        while (d := await self.app.broker.get(self.reply,
+                                              timeout=0.2)) is not None:
+            out.setdefault(d.properties.correlation_id, []).append(
+                decode_response(d.body))
+        return out
+
+
+def cohort_requests(np, rng, n, start):
+    """``n`` requests of the mixed-tier-peak cohorts: (id, body, tier,
+    deadline budget in s or None), seeded."""
+    pick = rng.choice(len(COHORTS), size=n, p=[c[1] for c in COHORTS])
+    out = []
+    for j, c in enumerate(pick.tolist()):
+        _, _, tier, mean, sigma, budget = COHORTS[c]
+        pid = f"r{start + j}"
+        body = json.dumps({"id": pid, "rating": round(
+            float(rng.normal(mean, sigma)), 3)}).encode()
+        out.append((pid, body, tier, budget))
+    return out
+
+
+def timed(obj, name, spans):
+    """Wrap ``obj.name`` to append each call's host seconds to
+    ``spans``."""
+    real = getattr(obj, name)
+
+    def call(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            spans.append(time.perf_counter() - t)
+    setattr(obj, name, call)
+
+
+def watch_tier0(rt, tier_of, violations):
+    """Record in ``violations`` every shed of a tier-0 player (refused at
+    the cut, or picked by the debt) made while a tier-2 player waited in
+    the pool (or, for the debt, entered with the window)."""
+    real_shed, real_pick = rt._shed_deliveries, rt._pick_victims
+
+    def tier2_waits():
+        return rt.engine.pool_tier_counts(3)[2] > 0
+
+    def shed(deliveries):
+        if any(d.tier == 0 for d in deliveries) and tier2_waits():
+            violations.append(("cut", len(deliveries)))
+        real_shed(deliveries)
+
+    def pick(k, entering=()):
+        pool_ids, victims = real_pick(k, entering)
+        tiers = [tier_of[p] for p in pool_ids] + [v[1] for v in victims]
+        if 0 in tiers and (tier2_waits()
+                           or any(e[1] == 2 for e in entering)):
+            violations.append(("debt", tiers.count(0)))
+        return pool_ids, victims
+
+    rt._shed_deliveries, rt._pick_victims = shed, pick
+
+
+async def service_overload(np, ck, mods, path, *, waiting, requests, burst,
+                           seed, overload_on):
+    """Config #1's service at full width with 100k waiting (tiered 25 / 50
+    / 25 %) and ``requests`` of the mixed-tier-peak cohorts published in
+    bursts of ``burst``, unpaced, each with its ``x-tier`` and (ranked,
+    quickplay) ``x-deadline``; with ``overload_on`` under OVERLOAD, else
+    with no overload control. Checks: every request answered once (at most
+    one terminal answer); with overload control, the pool at or under
+    max_waiting after every window, no tier-0 player shed while a tier-2
+    player waits, the shed answers by tier equal to the controller's
+    ``shed_by_tier``, nobody matched later than its deadline plus one
+    sweep interval, no credit held after the drain, and the service
+    caught no failure. Times the admission cut and the debt's pick and
+    eviction per window."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.config import OverloadConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        overload=OverloadConfig(**OVERLOAD) if overload_on
+        else OverloadConfig())
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting, t0, filters=False, glicko2=False)
+    pool_tier = rng.choice(3, size=waiting, p=[0.25, 0.5, 0.25]).astype(
+        np.int32)
+    traffic = cohort_requests(np, rng, requests, 0)
+    tier_of = {pid: tier for pid, _, tier, _ in traffic}
+    tier_of.update(zip(pop.ids.tolist(), pool_tier.tolist()))
+    violations: list = []
+    app = MatchmakingApp(cfg, device="cuda")
+    reply = "overload.replies"
+    await app.start()
+    rt = app.runtime(cfg.queues[0].name)
+    spans = {"cut": [], "pick": [], "debt": []}
+    pool_after: list[int] = []
+    backlog: list[int] = []
+    try:
+        app.broker.declare_queue(reply)
+        fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply)
+        app.restore_columns(dataclasses.replace(fill, tier=pool_tier),
+                            pop.region, pop.mode, t0)
+        log_ = AnswerLog(app, reply)
+        if overload_on:
+            timed(rt, "_admission_cut", spans["cut"])
+            timed(rt, "_pick_victims", spans["pick"])
+            timed(rt, "_pay_debt", spans["debt"])
+            watch_tier0(rt, tier_of, violations)
+        real_handle, real_cut = rt._handle_columnar_out, rt._batcher._cut
+
+        def handle(*a, **k):
+            real_handle(*a, **k)
+            pool_after.append(rt.engine.pool_size())
+
+        def cut():  # the backlog EDF can reorder at each cut
+            backlog.append(rt._batcher.depth)
+            return real_cut()
+        rt._handle_columnar_out, rt._batcher._cut = handle, cut
+        reset_counts(ck)  # this soak's windows only
+        t_pub, deadline_of = {}, {}
+        t_soak = time.perf_counter()
+        for b in range(0, requests, burst):
+            for pid, body, tier, budget in traffic[b:b + burst]:
+                headers = {"x-tier": str(tier)}
+                if budget is not None:
+                    deadline_of[pid] = time.time() + budget
+                    headers["x-deadline"] = repr(deadline_of[pid])
+                t_pub[pid] = time.perf_counter()
+                app.broker.publish(cfg.queues[0].name, body, Properties(
+                    reply_to=reply, correlation_id=pid, headers=headers))
+            await asyncio.sleep(0.005)
+        end = time.monotonic() + 120.0
+        while (not all(p in log_.times for p in t_pub)
+               and time.monotonic() < end):
+            await asyncio.sleep(0.01)
+        soak_s = time.perf_counter() - t_soak
+        while app.engine.inflight() and time.monotonic() < end:
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(0.1)  # the last sweep's expiries
+        unanswered = [p for p in t_pub if p not in log_.times]
+        if unanswered:
+            raise AssertionError(f"overload soak: {len(unanswered)} requests "
+                                 f"never answered")
+        counters = dict(rt.counters)
+        shed_by_tier = list(rt.admission.shed_by_tier) if rt.admission else []
+        expired_by_tier = (list(rt.admission.expired_by_tier)
+                           if rt.admission else [])
+    finally:
+        await app.stop()
+    check_faults(app, "overload soak")
+    if overload_on and rt.admission.inflight() != 0:
+        raise AssertionError(f"overload soak: {rt.admission.inflight()} "
+                             f"credits held after the drain")
+    launches = dict(ck.LAUNCHES)
+    windows = counters["windows"]
+    if launches["block_best"] != windows or launches["quality_accum"] != windows:
+        raise AssertionError(f"overload soak: {launches} for {windows} "
+                             f"windows")
+    answers = await log_.read()
+    sweep_s = OVERLOAD["deadline_sweep_ms"] / 1e3
+    shed_seen = [0, 0, 0]
+    late = 0
+    for pid, resps in answers.items():
+        seq = [r.status for r in resps]
+        if seq not in ANSWER_SEQS:
+            raise AssertionError(f"overload soak: {pid} answered {seq}")
+        for r, t_wall in zip(resps, log_.wall[pid]):
+            if r.status == "shed":
+                tier = r.tier if r.tier is not None else tier_of[pid]
+                shed_seen[tier] += 1
+            if (r.status == "matched" and pid in deadline_of
+                    and t_wall > deadline_of[pid] + sweep_s):
+                late += 1
+    if overload_on:
+        if max(pool_after) > OVERLOAD["max_waiting"]:
+            raise AssertionError(f"overload soak: the pool reached "
+                                 f"{max(pool_after)} after a window")
+        if shed_seen != shed_by_tier:
+            raise AssertionError(f"overload soak: shed answers by tier "
+                                 f"{shed_seen}, shed_by_tier {shed_by_tier}")
+        if late:
+            raise AssertionError(f"overload soak: {late} players matched "
+                                 f"after their deadline + {sweep_s} s")
+        if violations:
+            raise AssertionError(f"overload soak: tier-0 players shed while "
+                                 f"tier 2 waited: {violations[:5]}")
+    lat = {t: [] for t in range(3)}
+    for pid, t in t_pub.items():
+        lat[tier_of[pid]].append((log_.times[pid][0] - t) * 1e3)
+    every = [x for xs in lat.values() for x in xs]
+    status_by_tier = {t: {} for t in range(3)}
+    for pid, _, tier, _ in traffic:
+        last = answers[pid][-1].status
+        status_by_tier[tier][last] = status_by_tier[tier].get(last, 0) + 1
+    res = {"overload": overload_on, "waiting": waiting, "requests": requests,
+           "burst": burst, "soak_s": soak_s, "requests_per_s": requests / soak_s,
+           "windows": windows, "launches": launches["block_best"],
+           "latency_ms_p50": statistics.median(every),
+           "latency_ms_p99": pct(every, 0.99),
+           "latency_ms_by_tier": {t: {"p50": statistics.median(v),
+                                      "p99": pct(v, 0.99)}
+                                  for t, v in lat.items()},
+           "final_status_by_tier": status_by_tier,
+           "shed_by_tier": shed_by_tier, "expired_by_tier": expired_by_tier,
+           "backlog_at_cut": {"p50": statistics.median(backlog),
+                              "max": max(backlog)},
+           "pool_max_after_window": max(pool_after),
+           "pool_min_after_window": min(pool_after),
+           "matched_late": late,
+           "admission_cut_us_per_window": (
+               statistics.mean(spans["cut"]) * 1e6 if spans["cut"] else None),
+           "debt_windows": len(spans["debt"]),
+           "debt_ms_per_window": (statistics.mean(spans["debt"]) * 1e3
+                                  if spans["debt"] else None),
+           "debt_pick_ms_per_window": (statistics.mean(spans["pick"]) * 1e3
+                                       if spans["pick"] else None),
+           "counters": {k: v for k, v in counters.items() if v}}
+    log(f"overload soak (overload {'on' if overload_on else 'off'}): "
+        f"{requests} requests over {waiting} waiting, {windows} windows, "
+        f"{res['requests_per_s']:.0f} requests/s, latency p50 "
+        f"{res['latency_ms_p50']:.2f} ms p99 {res['latency_ms_p99']:.2f} ms, "
+        f"by tier {res['latency_ms_by_tier']}, shed {shed_by_tier}, expired "
+        f"{expired_by_tier}, batcher backlog at a cut "
+        f"{res['backlog_at_cut']}, pool after a window "
+        f"{res['pool_min_after_window']}-{res['pool_max_after_window']}, "
+        f"admission cut {res['admission_cut_us_per_window']} us, debt "
+        f"{res['debt_ms_per_window']} ms (pick "
+        f"{res['debt_pick_ms_per_window']} ms) over {len(spans['debt'])} "
+        f"windows")
+    return res
+
+
+# ---- phase 7: the circuit breaker ------------------------------------------
+
+
+async def service_breaker(np, ck, mods, path, *, waiting, seed):
+    """Config #1's service at full width with its breaker on (threshold 2,
+    window 30 s, probes 0.25 s, backoff 2, max 60 s, health timer 0.05 s)
+    and a chaos script failing device steps 0-1 and the first probe:
+    100k restored; 8 requests, whose two failed windows trip the breaker,
+    answered by the host oracle with the whole pool; probe 1 fails, probe
+    2 captures and replays the base step's graph (each kernel launched by
+    the replay and by the eager run before the capture) and the pool
+    moves onto a fresh engine; 1,024 more requests
+    in 8 windows answered on the card. Checks the counters (crashes 2,
+    trips 1, probes 2, probe failures 1, closes 1), every player answered
+    once, the waiting ids after the move equal the oracle's, the quality
+    counters never decrease, and ``torch.cuda.memory_allocated()`` back
+    within 5 % of one engine's share after the demotion and within 5 % of
+    it after the re-promotion."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from matchmaking_tpu_torch.config import ChaosConfig
+    from matchmaking_tpu_torch.engine.cpu import CpuEngine
+    from matchmaking_tpu_torch.engine.gpu import GpuEngine
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(
+            cfg.engine, breaker_threshold=2, breaker_window_s=30.0,
+            breaker_probe_initial_s=0.25, breaker_probe_backoff=2.0,
+            breaker_probe_max_s=60.0, health_interval_s=0.05),
+        chaos=ChaosConfig(fail_step_ranges=((0, 2),), fail_probes=1))
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting, t0, filters=False, glicko2=False)
+    queue = cfg.queues[0].name
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    mem0 = allocated()
+    app = MatchmakingApp(cfg, device="cuda")
+    reply = "breaker.replies"
+    await app.start()
+    rt = app.runtime(queue)
+    quality = []
+
+    def quality_count():
+        quality.append(int(rt.engine.quality_checkpoint()["count"].sum()))
+
+    async def until(pred, what, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > end:
+                raise AssertionError(f"breaker phase: timed out on {what}")
+            await asyncio.sleep(0.005)
+
+    def publish(lo, hi):
+        for k in range(lo, hi):
+            pid = f"b{k}"
+            app.broker.publish(queue, json.dumps(
+                {"id": pid, "rating": round(float(rng.normal(1500, 300)), 3)}
+            ).encode(), Properties(reply_to=reply, correlation_id=pid))
+
+    try:
+        app.broker.declare_queue(reply)
+        app.restore_columns(
+            pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply),
+            pop.region, pop.mode, t0)
+        engine_share = allocated() - mem0
+        quality_count()
+        log_ = AnswerLog(app, reply)
+        t_demote = time.perf_counter()
+        publish(0, 8)
+        await until(lambda: all(f"b{k}" in log_.times for k in range(8)),
+                    "the degraded answers")
+        if not isinstance(rt.engine, CpuEngine):
+            raise AssertionError("breaker phase: not demoted to the oracle")
+        oracle_s = time.perf_counter() - t_demote
+        opened_wall = rt.breaker.opened_at
+        first_degraded = min(min(log_.wall[f"b{k}"]) for k in range(8))
+        mem_demoted = allocated() - mem0
+        quality_count()
+        oracle_ids = [r.id for r in rt.engine.waiting()]
+        reset_counts(ck)  # the probes' launches only
+        await until(lambda: rt.counters["breaker_closes"] == 1,
+                    "the re-promotion")
+        probe_launches = dict(ck.LAUNCHES)
+        if not isinstance(rt.engine, GpuEngine):
+            raise AssertionError("breaker phase: not back on the card")
+        moved_ids = [r.id for r in rt.engine.waiting()]
+        mem_promoted = allocated() - mem0
+        quality_count()
+        probe = dict(rt.last_probe)
+        graphs = rt.engine.graph_report()
+        probe["captures"] = graphs["captures"]
+        probe["capture_ms"] = sum(g["capture_ms"]
+                                  for g in graphs["graphs"].values())
+        # 1,024 more requests in 8 windows of 128, each answered before
+        # the next: the first windows capture their graphs.
+        dispatch_ms = []
+        timed(rt.engine, "search_columns_async", dispatch_ms)
+        reset_counts(ck)  # the windows after the re-promotion only
+        for w in range(8):
+            publish(8 + 128 * w, 8 + 128 * (w + 1))
+            await until(lambda: all(
+                f"b{k}" in log_.times
+                for k in range(8 + 128 * w, 8 + 128 * (w + 1))),
+                f"window {w} after the re-promotion")
+        await until(lambda: rt.engine.inflight() == 0, "the last window")
+        after_launches = dict(ck.LAUNCHES)
+        quality_count()
+        counters = dict(rt.counters)
+        hook_steps = app.chaos.engine_hook(queue).steps
+    finally:
+        await app.stop()
+    faults = app.faults()
+    want = {"engine_crashes": 2, "breaker_trips": 1, "breaker_probes": 2,
+            "breaker_probe_failures": 1, "breaker_closes": 1}
+    got = {k: counters[k] for k in want}
+    if got != want or faults != {"engine_failures": 2, "revives": 2}:
+        raise AssertionError(f"breaker phase: counters {got}, faults "
+                             f"{faults}")
+    if moved_ids != oracle_ids:
+        raise AssertionError("breaker phase: the moved pool differs from "
+                             "the oracle's")
+    if any(b < a for a, b in zip(quality, quality[1:])):
+        raise AssertionError(f"breaker phase: quality counts {quality}")
+    # The passing probe replays one graph, captured first: its eager run
+    # before the capture launches each kernel once more.
+    runs = 1 + probe["captures"]
+    if probe_launches != {"block_best": runs, "quality_accum": runs}:
+        raise AssertionError(f"breaker phase: the probes launched "
+                             f"{probe_launches} (graphs captured: "
+                             f"{probe['captures']})")
+    windows = counters["windows"]
+    if (after_launches["block_best"] < 8
+            or after_launches["quality_accum"] != after_launches["block_best"]):
+        raise AssertionError(f"breaker phase: {after_launches} launches "
+                             f"after the re-promotion")
+    if abs(mem_demoted) > 0.05 * engine_share or abs(
+            mem_promoted - engine_share) > 0.05 * engine_share:
+        raise AssertionError(
+            f"breaker phase: memory allocated {mem_demoted} B after the "
+            f"demotion, {mem_promoted} B after the re-promotion, one engine "
+            f"{engine_share} B")
+    answers = await log_.read()
+    for pid, resps in answers.items():
+        seq = [r.status for r in resps]
+        if seq not in ANSWER_SEQS:
+            raise AssertionError(f"breaker phase: {pid} answered {seq}")
+    if not all(f"b{k}" in answers for k in range(8 + 1024)):
+        raise AssertionError("breaker phase: a request was not answered")
+    res = {"waiting": waiting, "counters": got, "faults": faults,
+           "chaos_steps": hook_steps, "oracle_share_s": oracle_s,
+           "trip_to_first_degraded_answer_ms":
+               (first_degraded - opened_wall) * 1e3,
+           "probe": probe, "moved": len(moved_ids),
+           "first_8_windows_dispatch_ms": [x * 1e3 for x in dispatch_ms],
+           "windows": windows, "probe_launches": probe_launches,
+           "launches_after": after_launches["block_best"],
+           "quality_counts": quality,
+           "memory_bytes": {"one_engine": engine_share,
+                            "after_demotion": mem_demoted,
+                            "after_repromotion": mem_promoted}}
+    log(f"breaker phase: {waiting} waiting; the oracle answered 8 in "
+        f"{oracle_s:.2f} s ({res['trip_to_first_degraded_answer_ms']:.1f} ms "
+        f"from the trip to its first answer); probe {probe}; "
+        f"{len(moved_ids)} moved; first 8 windows' dispatch ms "
+        f"{[round(x, 3) for x in res['first_8_windows_dispatch_ms']]}; "
+        f"memory {res['memory_bytes']}")
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -3189,6 +3690,27 @@ def main(argv) -> int:
         burst=512, seed=11))
     launches["team_and_role_paths"] = ck.LAUNCHES["block_best"]
     phase_s["5"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 6. overload control at full width: config #1's service with the
+    #    waiting cap, tiers, EDF and deadlines, then the same soak without
+    overload = {on: asyncio.run(service_overload(
+        np, ck, mods, "configs/elo_1v1.json", waiting=100_000,
+        requests=16_384, burst=512, seed=16, overload_on=on))
+        for on in (True, False)}
+    launches["service_overload"] = overload[True]["launches"]
+    phase_s["6"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 7. the circuit breaker at full width: two failed windows demote the
+    #    queue to the host oracle, the second probe brings it back
+    breaker_run = asyncio.run(service_breaker(
+        np, ck, mods, "configs/elo_1v1.json", waiting=100_000, seed=17))
+    launches["service_breaker_probe"] = (
+        breaker_run["probe_launches"]["block_best"])
+    launches["service_breaker_after_repromotion"] = (
+        breaker_run["launches_after"])
+    phase_s["7"] = time.perf_counter() - t_phase
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -3252,7 +3774,12 @@ def main(argv) -> int:
                for name, run in speculation.items()},
             "service_speculation_bucketed": spec_service["quality_launches"],
             "service_soak": soak["launches"],
-            "service_multiqueue_filters": multiqueue["launches"]},
+            "service_multiqueue_filters": multiqueue["launches"],
+            "service_overload": overload[True]["launches"],
+            "service_breaker_probe":
+                breaker_run["probe_launches"]["quality_accum"],
+            "service_breaker_after_repromotion":
+                breaker_run["launches_after"]},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -3338,6 +3865,15 @@ def main(argv) -> int:
             "latency_ms_p50", "latency_ms_p99", "latency_ms_max",
             "requests_per_s", "windows", "publish_batches",
             "players_matched")},
+        "overload": {("on" if on else "off"): {k: run[k] for k in (
+            "requests_per_s", "latency_ms_p50", "latency_ms_p99",
+            "latency_ms_by_tier", "final_status_by_tier", "shed_by_tier",
+            "expired_by_tier", "pool_max_after_window", "backlog_at_cut",
+            "admission_cut_us_per_window", "debt_windows",
+            "debt_ms_per_window", "debt_pick_ms_per_window", "windows")}
+            for on, run in overload.items()},
+        "breaker": {k: v for k, v in breaker_run.items()
+                    if k != "quality_counts"},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -3368,6 +3904,7 @@ def main(argv) -> int:
                        "role_health": role_health,
                        "multiqueue_service": multiqueue,
                        "team_service": team_service,
+                       "overload": overload, "breaker": breaker_run,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

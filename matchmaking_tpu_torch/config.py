@@ -6,8 +6,10 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 ``configs/*.json`` files; those name the JAX package's ``"tpu"`` backend,
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
-JAX name. Sections and keys the port does not carry yet (chaos, durability,
-most of overload, ...) are ignored with a warning.
+JAX name. Sections and keys the port does not carry yet (durability,
+replication, tracing, the broker and network faults of chaos, ...) are
+ignored with a warning; a few values that need a module the port does not
+have yet are refused at construction, with the module named.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class QueueConfig:
     #: Terminal-replay horizon: a redelivered request whose player was
     #: matched within this many seconds gets the cached response again.
     dedup_ttl_s: float = 30.0
+    #: QoS tier of a request that arrives without an ``x-tier`` header
+    #: (service/overload.py: tier 0 is the most latency-critical, higher
+    #: tiers are shed first). Read only when ``OverloadConfig.tiers > 1``.
+    default_tier: int = 0
     #: Periodic rescan of the longest-waiting players (seconds; 0 = off).
     #: Matching is otherwise arrival-triggered, so two waiting players
     #: whose thresholds widened into range would never match without it.
@@ -64,8 +70,9 @@ class QueueConfig:
 class EngineConfig:
     """Engine selection + device-pool geometry."""
 
-    #: ``"gpu"`` → the batched PyTorch/CUDA engine (engine/gpu.py). The
-    #: repository's JSON files say ``"tpu"``; override it at load time.
+    #: ``"gpu"`` → the batched PyTorch/CUDA engine (engine/gpu.py);
+    #: ``"cpu"`` → the host oracle (engine/cpu.py). The repository's JSON
+    #: files say ``"tpu"``; override it at load time.
     backend: str = "gpu"
     #: Fixed device-pool capacity P (slots are recycled).
     pool_capacity: int = 131_072
@@ -96,11 +103,27 @@ class EngineConfig:
     #: Run every step variant once at service start (``Engine.warmup``),
     #: so no first-of-its-kind window pays a first use while serving.
     warm_start: bool = False
+    #: Device-engine circuit breaker (service/breaker.py): after this many
+    #: engine crashes within ``breaker_window_s`` the queue's breaker trips
+    #: and the queue is served by the host oracle (engine/cpu.py) until a
+    #: half-open probe proves the card again. 0 disables it (every crash
+    #: revives the device engine at once).
+    breaker_threshold: int = 0
+    #: Sliding window of the crash count (seconds).
+    breaker_window_s: float = 30.0
+    #: Half-open probes while the breaker is open: the first
+    #: ``breaker_probe_initial_s`` after the trip; each failed probe
+    #: multiplies the delay by ``breaker_probe_backoff``, up to
+    #: ``breaker_probe_max_s``. A probe builds a fresh device engine and
+    #: replays one all-padding window step; success moves the pool back.
+    breaker_probe_initial_s: float = 1.0
+    breaker_probe_backoff: float = 2.0
+    breaker_probe_max_s: float = 60.0
     #: The service's health timer (seconds; 0 disables): each queue's
     #: heartbeat moves an idle team or role queue that was handed to the
     #: host oracle back onto the card once its blockers drained,
-    #: independent of the rescan loop (configs #3 and #5 run none). The
-    #: JAX package's timer also drives breaker probes; the port's does not.
+    #: independent of the rescan loop (configs #3 and #5 run none), and the
+    #: timer runs the breaker's half-open probes.
     health_interval_s: float = 1.0
     #: Rating-banded candidate pruning of the 1v1 step (0: every pool
     #: block is scored). N > 0: each rating-sorted chunk of a window scores
@@ -189,12 +212,109 @@ class AuthConfig:
 
 @dataclass(frozen=True)
 class OverloadConfig:
-    """The one overload knob the port carries: the pool-resident deadline
-    sweep (admission control, shedding and EDF are not ported yet)."""
+    """Overload control (service/overload.py): per-queue admission with a
+    credit limiter and a waiting-pool cap, QoS tiers, deadline propagation
+    and expiry, earliest-deadline-first window cutting and adaptive
+    shedding. Every decision is a pure function of the controller's counts
+    at the decision point."""
 
+    #: Most admitted-but-unsettled deliveries per queue (a credit is held
+    #: from admission to the delivery's ack or nack); 0 = unlimited. The
+    #: broker consumer's prefetch is raised to twice this.
+    max_inflight: int = 0
+    #: Most waiting players counted at admission (the live pool plus the
+    #: admitted credits on their way into it); 0 = unlimited.
+    max_waiting: int = 0
+    #: At the waiting cap: ``"reject"`` sheds the arriving request;
+    #: ``"oldest"`` admits it and sheds the longest-waiting pool player of
+    #: the lowest tier instead, at the dispatch.
+    shed_policy: str = "reject"
+    #: Retry-after hint (ms) carried on shed responses.
+    retry_after_ms: float = 1000.0
+    #: Requests without an ``x-deadline`` header get one at admission:
+    #: first-received + this budget (ms; 0 = none stamped).
+    default_deadline_ms: float = 0.0
+    #: QoS tiers (``x-tier`` header, 0 = the most latency-critical; a
+    #: missing header reads as the queue's ``default_tier``). Every cap is
+    #: split into a nested ladder, so the lowest tier is shed first.
+    tiers: int = 1
+    #: Share of each cap tier ``t`` may fill, counting tiers 0..t only
+    #: (element 0 is forced to 1.0; () = the equal ladder (tiers-t)/tiers).
+    tier_shares: tuple[float, ...] = ()
+    #: Earliest-deadline-first window cutting: the batcher and the flush
+    #: order a window by (tier, absolute deadline), stable within equal
+    #: keys.
+    edf: bool = False
     #: Sweep the waiting pool's per-player ``x-deadline`` column this often
     #: (ms; 0 = off) and answer ``timeout`` exactly at each deadline.
     deadline_sweep_ms: float = 0.0
+    #: Adaptive shedding: scale both caps by a credit fraction that
+    #: tightens (``tighten_step``) while the pipeline is full or the stage
+    #: p99 is over ``target_p99_ms``, and relaxes (``relax_step``) once
+    #: both recover, within [``min_credit_fraction``, 1].
+    adaptive: bool = False
+    target_p99_ms: float = 250.0
+    min_credit_fraction: float = 0.25
+    tighten_step: float = 0.5
+    relax_step: float = 1.25
+    #: Graceful drain's checkpoint directory. The port drains without a
+    #: checkpoint only: a non-empty value needs the durability modules
+    #: (journal and checkpoint, ROADMAP Queue 1 item 5) and is refused.
+    drain_checkpoint_dir: str = ""
+    #: Window-granular admission: the credit and occupancy ladder runs once
+    #: per cut window at the top of the flush, in arrival order; ingress
+    #: keeps only the pre-checks (expired at receive, draining). False =
+    #: the per-delivery decision at ingress.
+    batch_admission: bool = True
+
+    def __post_init__(self) -> None:
+        if self.drain_checkpoint_dir:
+            raise ValueError(
+                "overload.drain_checkpoint_dir needs the durability modules "
+                "(journal and checkpoint), which the port does not carry yet "
+                "(ROADMAP Queue 1 item 5); drain without it")
+        if self.shed_policy not in ("reject", "oldest"):
+            raise ValueError(f"overload.shed_policy must be 'reject' or "
+                             f"'oldest', not {self.shed_policy!r}")
+
+    def enabled(self) -> bool:
+        """Any admission, deadline or drain machinery configured? With none
+        the ingress pays nothing for it."""
+        return bool(self.max_inflight > 0 or self.max_waiting > 0
+                    or self.default_deadline_ms > 0 or self.adaptive
+                    or self.drain_checkpoint_dir or self.tiers > 1
+                    or self.deadline_sweep_ms > 0)
+
+
+@dataclass(frozen=True)
+class ChaosConfig:
+    """Scripted engine faults (utils/chaos.py): device search-step indices
+    and breaker probes that raise, per queue, counted outside the engine so
+    the indices survive revives. The JAX package's broker, replication and
+    network faults are not carried (ignored with a warning)."""
+
+    seed: int = 0
+    #: Queues the faults apply to; () = every queue.
+    queues: tuple[str, ...] = ()
+    #: Device search-step indices that raise ``ChaosInjectedError``.
+    fail_steps: tuple[int, ...] = ()
+    #: The same, as [start, stop) ranges.
+    fail_step_ranges: tuple[tuple[int, int], ...] = ()
+    #: The first N half-open breaker probes raise.
+    fail_probes: int = 0
+    #: Device-loss steps: they need the multi-GPU engine (ROADMAP Queue 1
+    #: item 6) and are refused.
+    device_lost_steps: tuple[int, ...] = ()
+
+    def __post_init__(self) -> None:
+        if self.device_lost_steps:
+            raise ValueError(
+                "chaos.device_lost_steps needs the sharded multi-GPU engine "
+                "(ROADMAP Queue 1 item 6), which the port does not carry yet")
+
+    def enabled(self) -> bool:
+        return bool(self.fail_steps or self.fail_step_ranges
+                    or self.fail_probes)
 
 
 @dataclass(frozen=True)
@@ -224,8 +344,13 @@ class ObservabilityConfig:
 
 _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "batcher": BatcherConfig, "auth": AuthConfig,
-             "overload": OverloadConfig,
+             "overload": OverloadConfig, "chaos": ChaosConfig,
              "observability": ObservabilityConfig}
+
+
+def _tuples(v):
+    """JSON lists → tuples, nested ones too (``fail_step_ranges``)."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
 
 
 def _known(cls, section: str, d: Mapping[str, Any]) -> dict[str, Any]:
@@ -238,7 +363,7 @@ def _known(cls, section: str, d: Mapping[str, Any]) -> dict[str, Any]:
             logging.getLogger(__name__).warning(
                 "config: ignoring %s.%s (not carried by the port)", section, k)
             continue
-        out[k] = tuple(v) if isinstance(v, list) else v
+        out[k] = _tuples(v)
     return out
 
 
@@ -250,6 +375,8 @@ class Config:
     batcher: BatcherConfig = field(default_factory=BatcherConfig)
     auth: AuthConfig = field(default_factory=AuthConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
+    #: Scripted engine faults (empty: no chaos hook on any engine).
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig)
 

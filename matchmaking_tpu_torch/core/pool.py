@@ -342,9 +342,17 @@ class PlayerPool:
                 self.m_roles[s] = req.roles
         return slots
 
-    def release(self, slots: Sequence[int] | np.ndarray) -> None:
-        """Free slots (matched / cancelled / timed out). Idempotent."""
-        arr = np.unique(np.asarray(slots, dtype=np.int32))
+    def release(self, slots: Sequence[int] | np.ndarray,
+                in_order: bool = False) -> None:
+        """Free slots (matched / cancelled / timed out). Idempotent. The
+        freed slots go onto the free stacks in slot order; with
+        ``in_order`` in the order given (first occurrence), which leaves
+        the stacks as a ``release`` of each slot in turn would."""
+        arr = np.asarray(slots, dtype=np.int32)
+        if in_order:
+            arr = np.fromiter(dict.fromkeys(arr.tolist()), np.int32)
+        else:
+            arr = np.unique(arr)
         if arr.size == 0:
             return
         ids = self.m_id[arr]
@@ -367,7 +375,9 @@ class PlayerPool:
             # occupancy heals as spilled players match out.
             bands = np.searchsorted(self._band_start, arr, side="right") - 1
             for b in np.unique(bands):
-                sel = arr[bands == b][::-1]
+                sel = arr[bands == b]
+                if not in_order:
+                    sel = sel[::-1]
                 h = self._band_head[b]
                 self._band_free[b][h:h + sel.size] = sel
                 self._band_head[b] += sel.size

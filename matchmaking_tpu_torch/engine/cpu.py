@@ -7,7 +7,9 @@ threshold; a team or role request joins the pool and then forms at most
 one match among the compatible waiting players. It is no backend of its
 own here: ``GpuEngine`` hands a team or role queue to it while wildcard
 requests (or, on a role queue, parties) wait, since the device steps group
-by exact region/mode code and pack solo players only.
+by exact region/mode code and pack solo players only, and the service runs
+a queue on it while its circuit breaker is open (``backend="cpu"`` builds
+it directly).
 
 Every formed match lands in ``quality_accum`` (engine/quality.py's host
 accumulator), one sample per member request, so the matches a delegated
@@ -45,6 +47,9 @@ class CpuEngine(Engine):
         # Waiting pool: insertion-ordered parallel lists.
         self._entries: list[SearchRequest] = []
         self._by_id: dict[str, int] = {}  # player id -> index in _entries
+        #: Waiting players per QoS tier and with a deadline, kept by every
+        #: insert and eviction (the O(1) reads admission and the sweep use).
+        self._tier_n: dict[int, int] = {}
         self._deadline_n = 0
         #: Match-quality accounting of every match formed here.
         self.quality_accum = HostQualityAccum(
@@ -88,6 +93,12 @@ class CpuEngine(Engine):
 
     def deadline_count(self) -> int:
         return self._deadline_n
+
+    def pool_tier_counts(self, n_tiers: int) -> list[int]:
+        out = [0] * max(1, n_tiers)
+        for t, n in self._tier_n.items():
+            out[min(max(t, 0), len(out) - 1)] += n
+        return out
 
     def waiting(self) -> list[SearchRequest]:
         return list(self._entries)
@@ -158,6 +169,7 @@ class CpuEngine(Engine):
     def _insert(self, req: SearchRequest) -> None:
         self._by_id[req.id] = len(self._entries)
         self._entries.append(req)
+        self._tier_n[req.tier] = self._tier_n.get(req.tier, 0) + 1
         if req.deadline_at:
             self._deadline_n += 1
 
@@ -168,6 +180,7 @@ class CpuEngine(Engine):
         req = self._entries[idx]
         last = self._entries.pop()
         del self._by_id[req.id]
+        self._tier_n[req.tier] = self._tier_n.get(req.tier, 0) - 1
         if req.deadline_at:
             self._deadline_n -= 1
         if idx < len(self._entries):

@@ -90,6 +90,16 @@ reads it at once. Team and role matches, and the host oracle's while a
 queue is delegated, go to a ``HostQualityAccum``. ``quality_report()``
 merges them.
 
+The circuit breaker (service/breaker.py). ``probe()`` is its half-open
+probe: one all-padding window of the smallest bucket through the traffic
+step (on the card, one replay of its graph), then a device synchronize,
+so that a failing card raises there; it changes no pool, index or quality
+state. ``close()`` releases the device state when the service replaces
+the engine. ``chaos_hook`` (utils/chaos.py, set by the service) is asked
+before each search step is dispatched, before any state of the chunk is
+touched, so a scripted failure leaves the mirror and the device pool as
+they were.
+
 Runs on ``device`` (default ``"cuda"``, which must exist); ``device="cpu"``
 runs the plain PyTorch versions of the kernels synchronously: every result
 is ready as soon as it is dispatched, and no pinned memory is used.
@@ -385,6 +395,9 @@ class GpuEngine(Engine):
         self._q_sync: _Readback | None = None
         self._q_sync_every = max(1, cfg.observability.quality_report_every)
         self._q_windows = 0
+        #: Scripted faults (utils/chaos.py ``EngineChaosHook``; None: none),
+        #: set by the service on every engine it builds for the queue.
+        self.chaos_hook = None
 
     # ---- Engine API -------------------------------------------------------
 
@@ -419,6 +432,35 @@ class GpuEngine(Engine):
         req = self.pool.request_at(slot)
         self._release_and_evict(np.array([slot], np.int32))
         return req
+
+    def remove_many(self, player_ids: Sequence[str]) -> list[SearchRequest]:
+        """Evict the named waiting players (absent ids are skipped) with
+        one mirror release and one device eviction, and return their
+        requests in the order named. The mirror's free-slot order after it
+        is what ``remove`` of each in turn leaves, so later windows
+        allocate the same slots."""
+        if self._team_delegate is not None:
+            out = [self._team_delegate.remove(pid) for pid in player_ids]
+            return [r for r in out if r is not None]
+        self._require_idle("remove_many()")
+        slots = np.fromiter(
+            (s for s in (self.pool.slot_of(pid) for pid in player_ids)
+             if s is not None), np.int32)
+        if slots.size == 0:
+            return []
+        reqs = [self.pool.request_at(int(s)) for s in slots]
+        self._release_and_evict(slots, in_order=True)
+        return reqs
+
+    def waiting_qos(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(ids, tiers, enqueue times) of the waiting players in
+        ``waiting()`` order, read from the mirror's columns: what the
+        service's debt pick sorts, with no request object built."""
+        if self._team_delegate is not None:
+            return super().waiting_qos()
+        slots = self.pool.waiting_slots()
+        return (self.pool.m_id[slots], self.pool.m_tier[slots],
+                self.pool.m_enqueued[slots])
 
     def expire(self, now: float, timeout: float) -> list[SearchRequest]:
         """Timeout sweep over the mirror (enqueue time 0.0 means unstamped
@@ -459,6 +501,12 @@ class GpuEngine(Engine):
         if self._team_delegate is not None:
             return self._team_delegate.deadline_count()
         return self.pool.deadline_count()
+
+    def pool_tier_counts(self, n_tiers: int) -> list[int]:
+        """Waiting players per QoS tier: the mirror's counts, O(tiers)."""
+        if self._team_delegate is not None:
+            return self._team_delegate.pool_tier_counts(n_tiers)
+        return self.pool.tier_counts(n_tiers)
 
     def waiting(self) -> list[SearchRequest]:
         if self._team_delegate is not None:
@@ -581,6 +629,55 @@ class GpuEngine(Engine):
         new_match_ids(1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def probe(self) -> None:
+        """The breaker's half-open probe: the chaos hook's probe stream
+        first, then one all-padding window of the smallest bucket through
+        the base traffic step (on the card, one replay of its graph,
+        captured now if this engine has not yet; ``block_best`` and
+        ``quality_accum`` launch), then a device synchronize, so that a
+        failed launch raises here. Nothing is admitted, matched or evicted:
+        the pool, the bucket index and the quality state stay as they
+        were, and the step counts in no ``prune_report``. A team or role
+        step forms matches pool-wide, so it runs eagerly on a scratch
+        pool."""
+        if self.chaos_hook is not None:
+            self.chaos_hook.on_probe()
+        if self._team_delegate is not None:
+            return  # the oracle serves the queue: nothing on the card
+        variant = self._variants()[0]
+        bucket = self.buckets[0]
+        staging = self._stage(self.pool.batch_arrays([], [], bucket), 0.0)
+        with uncounted(self.kernels):
+            if self._graphs is not None and not self._team_device:
+                g = self._step_graph(variant, bucket)
+                g.static_in.copy_(staging, non_blocking=True)
+                self._graphs.replay(g)
+            else:
+                self._step_fn(variant)(
+                    self._pool_for(variant, warm=True),
+                    staging.to(self.device, non_blocking=True))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def close(self) -> None:
+        """Release the device state when the service replaces this engine:
+        the captured graphs (and their private memory), the live, spare
+        and parked device pools, the quality state and the windows still
+        pending with their staging buffers. The engine is not used again;
+        its host reports still read (the quality state as last read
+        back)."""
+        self._spec = None
+        self._spec_validated_seq = None
+        self._pending.clear()
+        self._done_early = []
+        self._open = 0
+        self.dev_pool = None  # drops every graph
+        self._spec_pool = None
+        self._parked_pool = None
+        self._quality = None
+        self._q_dev = None
+        self._q_sync = None
 
     # ---- pipelined window API ---------------------------------------------
 
@@ -707,6 +804,7 @@ class GpuEngine(Engine):
         self._pool_mutated()
         variant = self._variants()[2]
         for payload, batch, bucket in self._rescan_chunks(max_window, now):
+            self._chaos_step()
             out = self._launch(variant, batch, now, pending.staging)
             self.util["lanes_valid"] += int(payload[1].size)
             self.util["lanes_padded"] += bucket
@@ -757,6 +855,7 @@ class GpuEngine(Engine):
         and formation reads only the device pool, in stream order."""
         if len(self.pool) < self.kernels.need:
             return None
+        self._chaos_step()
         pending = _Pending(token=self._next_token, created=time.perf_counter())
         self._next_token += 1
         batch = self.pool.batch_arrays([], [], self.buckets[0])
@@ -1096,6 +1195,12 @@ class GpuEngine(Engine):
 
     # ---- internals: dispatch ----------------------------------------------
 
+    def _chaos_step(self) -> None:
+        """A search step is about to be dispatched: the chaos hook may
+        fail it, before any state of the chunk is touched."""
+        if self.chaos_hook is not None:
+            self.chaos_hook.on_step()
+
     def _require_idle(self, what: str) -> None:
         if self._open:
             raise RuntimeError(f"{what} with windows in flight — collect "
@@ -1254,6 +1359,7 @@ class GpuEngine(Engine):
         """Admit + queue the step for one object chunk; no waiting."""
         if not window:
             return
+        self._chaos_step()
         free = self.pool.free_count()
         if len(window) > free:  # admit what fits, reject the overflow
             for req in window[free:]:
@@ -1280,6 +1386,7 @@ class GpuEngine(Engine):
         """Columnar twin of ``_dispatch``."""
         if not len(cols):
             return
+        self._chaos_step()
         free = self.pool.free_count()
         if len(cols) > free:
             assert pending.columnar is not None
@@ -1645,9 +1752,10 @@ class GpuEngine(Engine):
         self._release_and_evict(slots)
         return reqs
 
-    def _release_and_evict(self, slots: np.ndarray) -> None:
+    def _release_and_evict(self, slots: np.ndarray,
+                           in_order: bool = False) -> None:
         self._pool_mutated()
-        self.pool.release(slots)
+        self.pool.release(slots, in_order=in_order)
         self._evict(slots)
 
     def _evict(self, slots: np.ndarray) -> None:

@@ -9,11 +9,12 @@ One engine serves one matchmaking queue. Semantics contract:
   ever in two matches;
 - unmatched requests join the pool and may match in any later window.
 
-``make_engine`` is the backend selection point. This package has one
-backend, ``"gpu"`` (engine/gpu.py), for 1v1, team and role queues, which
-runs on the card unless the caller asks for the CPU with ``device="cpu"``.
-The host oracle (engine/cpu.py) is no backend of its own: a team or role
-queue hands itself to it while wildcards or parties wait.
+``make_engine`` is the backend selection point: ``"gpu"`` (engine/gpu.py)
+for 1v1, team and role queues, which runs on the card unless the caller
+asks for the CPU with ``device="cpu"``, and ``"cpu"``, the host oracle
+(engine/cpu.py). The oracle also serves a team or role queue while
+wildcards or parties wait, and any queue whose circuit breaker is open
+(service/breaker.py).
 """
 
 from __future__ import annotations
@@ -123,6 +124,13 @@ class Engine(abc.ABC):
     def remove(self, player_id: str) -> SearchRequest | None:
         """Cancel: evict a waiting player (returns their request, or None)."""
 
+    def remove_many(self, player_ids: Sequence[str]) -> list[SearchRequest]:
+        """Evict the named waiting players (absent ids are skipped) and
+        return their requests in the order named. Default: ``remove`` of
+        each in turn."""
+        out = [self.remove(pid) for pid in player_ids]
+        return [r for r in out if r is not None]
+
     @abc.abstractmethod
     def pool_size(self) -> int:
         """Number of requests currently waiting."""
@@ -138,6 +146,38 @@ class Engine(abc.ABC):
     def warmup(self) -> None:
         """Prepare every device path the serving path can reach (nothing
         for a host engine)."""
+
+    def heartbeat(self, now: float) -> bool:
+        """The health timer's tick; True when it changed the engine's
+        state. Default: nothing to do."""
+        return False
+
+    def close(self) -> None:
+        """Release what the engine holds (a device engine: its pools,
+        graphs and staging buffers) when it is replaced; it is not used
+        again. Default: nothing to release."""
+
+    def probe(self) -> None:
+        """One end-to-end no-op step that proves the engine healthy (the
+        circuit breaker's half-open probe); raises if it is not. Default:
+        a host engine has no device path to check."""
+
+    def pool_tier_counts(self, n_tiers: int) -> list[int] | None:
+        """Waiting players per QoS tier (``n_tiers`` entries, out-of-range
+        tiers in the last), or None when the engine does not track them
+        (admission then counts every waiting player against every tier).
+        O(n_tiers): both engines keep the counts as players come and go."""
+        return None
+
+    def waiting_qos(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(ids, tiers, enqueue times) of the waiting players in
+        ``waiting()`` order: what the service's ``shed_policy="oldest"``
+        debt pick sorts. Default: read from ``waiting()``."""
+        waiting = self.waiting()
+        n = len(waiting)
+        return (np.fromiter((r.id for r in waiting), object, n),
+                np.fromiter((r.tier for r in waiting), np.int32, n),
+                np.fromiter((r.enqueued_at for r in waiting), np.float64, n))
 
     def expire(self, now: float, timeout: float) -> list[SearchRequest]:
         """Evict every waiting request older than ``timeout`` (enqueue time
@@ -225,12 +265,18 @@ class Engine(abc.ABC):
 def make_engine(cfg: Config, queue: QueueConfig, device=None) -> Engine:
     """Engine factory. ``backend="gpu"`` builds a ``GpuEngine`` on
     ``device`` (default ``"cuda"``; raises when CUDA is absent — pass
-    ``device="cpu"`` explicitly to run the plain versions on the CPU)."""
+    ``device="cpu"`` explicitly to run the plain versions on the CPU);
+    ``backend="cpu"`` builds the host oracle ``CpuEngine`` (``device`` is
+    not read)."""
+    if cfg.engine.backend == "cpu":
+        from matchmaking_tpu_torch.engine.cpu import CpuEngine
+
+        return CpuEngine(cfg, queue)
     if cfg.engine.backend == "gpu":
         from matchmaking_tpu_torch.engine.gpu import GpuEngine
 
         return GpuEngine(cfg, queue, device=device)
     raise ValueError(
         f"unknown engine backend {cfg.engine.backend!r} (this package serves "
-        f"'gpu'; load the repository's configs with "
+        f"'gpu' and 'cpu'; load the repository's configs with "
         f"Config.from_json(path, backend='gpu'))")

@@ -34,8 +34,9 @@ longest-waiting players so widened thresholds resolve inside the pool),
 the sweep loop (``request_timeout_s`` timeouts and the per-player
 ``x-deadline`` expiry of ``OverloadConfig.deadline_sweep_ms``), the
 health timer (``EngineConfig.health_interval_s``: moves an idle team or
-role queue that was handed to the host oracle back onto the card, and
-rebuilds a bucketed queue's index) and, for a 1v1 queue with
+role queue that was handed to the host oracle back onto the card,
+rebuilds a bucketed queue's index, and runs the circuit breaker's
+half-open probes) and, for a 1v1 queue with
 ``EngineConfig.spec_formation``, the speculation loop: every
 ``spec_interval_ms`` while no window is in flight it commits the
 speculation it left last time, if still valid, and lets the engine
@@ -50,9 +51,36 @@ expired players ``timeout``. A redelivered request whose player reached a
 terminal answer within ``dedup_ttl_s`` is answered with the cached body.
 A window that fails on the device is nacked (the broker redelivers it) and
 the engine is rebuilt from the old engine's mirror, its quality counters
-carried across (``quality_checkpoint`` / ``quality_restore``). Every
-published match also lands in ``app.quality`` (service/quality.py), the
-per-queue, per-tier ledger of matched players' quality and wait.
+carried across (``quality_checkpoint`` / ``quality_restore``), and the old
+engine closed. Every published match also lands in ``app.quality``
+(service/quality.py), the per-queue, per-tier ledger of matched players'
+quality and wait.
+
+Overload control (``OverloadConfig``, service/overload.py): with any of its
+knobs set, each runtime has an ``AdmissionController``. Ingress stamps the
+default deadline, caches each delivery's tier and deadline, and answers a
+request already past its deadline (``timeout``) or arriving while draining
+(``shed``). The credit and waiting-pool ladder runs once per cut window at
+the top of the flush, in arrival order (``_admission_cut``; per delivery at
+ingress with ``batch_admission`` off); a refused request gets ``shed``
+with a retry-after hint. The batcher and the flush order a window by
+(tier, deadline) with ``edf``; a deadline is checked again at the cut and
+right before the dispatch; under ``shed_policy="oldest"`` the dispatch
+pays the window's debt by evicting the lowest tier's longest-waiting
+players (``shed`` answers) or shedding the window's own lowest-tier
+entrants. A credit is returned on every settle (ack or nack).
+
+The circuit breaker (``EngineConfig.breaker_threshold``,
+service/breaker.py): every engine crash is counted; once the breaker
+trips, the next engine rebuild is the host oracle (engine/cpu.py) with the
+whole pool, served synchronously on the object path (a columnar delivery
+already in the batcher is decoded at its flush). The health timer's
+half-open probes (``_probe_device``) build a fresh device engine and run
+its ``probe()``; on success the pool moves onto it (``waiting()`` objects)
+and the breaker closes. ``_bind_engine`` recomputes the ingress shape, the
+pipeline and the collector on every swap. Scripted engine faults
+(``Config.chaos``, utils/chaos.py) reach every engine of a queue through
+one hook, whose indices survive the swaps.
 
 Everything runs on the event loop's thread: a dispatch or a collection
 runs to its end without yielding, so no lock is needed around an engine,
@@ -60,11 +88,13 @@ and no second thread contends with the loop for the interpreter lock
 (every PyTorch call of the window step releases and retakes it).
 
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
-columnar path, the pipelined branch of the object flush, and the
-heartbeat half of the health timer, burst consume and decode, and the
-speculation loop and cut), without admission control, durability,
-replication, tracing, the dispatch arbiter and the breaker and probe half
-of the health timer.
+columnar path, the object flush, the health timer, burst consume and
+decode, the speculation loop and cut, overload control and the circuit
+breaker), without durability (a drain with a checkpoint), replication,
+tracing (so adaptive shedding reads no stage p99, as the JAX service with
+tracing off), auth modes other than ``"none"``, the dispatch arbiter, and
+the metrics, gauges and event log (the counters are each runtime's
+``counters`` dict, under the JAX package's names).
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -85,6 +115,7 @@ from typing import Sequence
 import numpy as np
 
 from matchmaking_tpu_torch.config import Config, EngineConfig, QueueConfig
+from matchmaking_tpu_torch.engine.cpu import CpuEngine
 from matchmaking_tpu_torch.engine.interface import (
     ColumnarOutcome,
     SearchOutcome,
@@ -93,8 +124,9 @@ from matchmaking_tpu_torch.engine.interface import (
 from matchmaking_tpu_torch.engine.quality import QualitySpec
 from matchmaking_tpu_torch.native import codec
 from matchmaking_tpu_torch.service.batcher import Batcher
+from matchmaking_tpu_torch.service.breaker import CLOSED, CircuitBreaker
 from matchmaking_tpu_torch.service.broker import Delivery, InProcBroker, Properties
-from matchmaking_tpu_torch.service.client import DEADLINE_HEADER, MatchmakingClient
+from matchmaking_tpu_torch.service.client import MatchmakingClient
 from matchmaking_tpu_torch.service.contract import (
     ContractError,
     MatchResult,
@@ -115,7 +147,14 @@ from matchmaking_tpu_torch.service.middleware import (
     columnar_pipeline,
     default_pipeline,
 )
+from matchmaking_tpu_torch.service.overload import (
+    ADMIT,
+    EXPIRED,
+    AdmissionController,
+    deadline_of,
+)
 from matchmaking_tpu_torch.service.quality import QualityLedger
+from matchmaking_tpu_torch.utils.chaos import ChaosState
 
 log = logging.getLogger(__name__)
 
@@ -130,16 +169,20 @@ _MIN_DECODE_BURST = 16
 #: window is nacked and the engine revived, a failed tick retried).
 FAULT_COUNTERS = ("engine_failures", "revives", "outcome_errors",
                   "collector_errors", "rescan_skipped", "health_tick_errors",
-                  "spec_errors")
+                  "spec_errors", "flush_errors")
 
 
 class _QueueRuntime:
-    """One queue of the app: its engine (``make_engine``), batcher and
-    consumer, its collector, rescan, sweep and health loops, its revive
-    state, its terminal-replay cache and its pipeline (the object or the
-    columnar path). A queue's answers are published, acked, deduped and
-    observed by its own runtime only; the quality ledger is the app's,
-    keyed by queue name."""
+    """One queue of the app: its engine (``make_engine``, or the host
+    oracle while its breaker is open), batcher and consumer, its
+    collector, rescan, sweep and health loops, its revive state, its
+    admission controller and breaker, its terminal-replay cache and its
+    pipeline (the object or the columnar path). A queue's answers are
+    published, acked, deduped and observed by its own runtime only; the
+    quality ledger is the app's, keyed by queue name.
+
+    Batcher items are ``(request or None, delivery)``: None where decoding
+    waits for the flush (the columnar ingress)."""
 
     def __init__(self, app: "MatchmakingApp", queue_cfg: QueueConfig):
         self.cfg = app.cfg
@@ -150,19 +193,57 @@ class _QueueRuntime:
         #: matched players, fed when their answers are published.
         self.quality = app.quality
         #: Team and role queues speak the engine's object API (decoded
-        #: requests, ``SearchOutcome``s); 1v1 queues the columnar one.
-        self._objects = queue_cfg.team_size > 1
-        self.pipeline = (default_pipeline(self.cfg.auth) if self._objects
-                         else columnar_pipeline(self.cfg.auth))
+        #: requests, ``SearchOutcome``s); 1v1 queues the columnar one,
+        #: except while the host oracle serves them (``_bind_engine``).
+        self._team = queue_cfg.team_size > 1
+        self._objects = self._team
+        self.pipeline = None
         self.pipeline_depth = max(1, self.cfg.engine.pipeline_depth)
         self.engine = None
+        #: The engine has the pipelined window API (``collect_ready``,
+        #: ``inflight``, ...): the device engine; the host oracle has not.
+        self._async_api = False
+        #: The columnar ingress runs (decode waits for the flush, and a
+        #: consume burst is decoded at once), else each delivery runs the
+        #: middleware chain, admission included, on its own.
+        self._inline_ingress = False
         self.counters = {
             "windows": 0, "requests": 0, "players_matched": 0, "queued": 0,
             "rejected": 0, "deduped_replays": 0, "publish_batches": 0,
             "engine_failures": 0, "revives": 0, "outcome_errors": 0,
             "collector_errors": 0, "rescan_matches": 0, "rescan_skipped": 0,
             "timeouts": 0, "health_repromotions": 0, "health_tick_errors": 0,
-            "spec_commits": 0, "spec_errors": 0}
+            "spec_commits": 0, "spec_errors": 0, "flush_errors": 0,
+            "engine_crashes": 0, "breaker_trips": 0,
+            "breaker_degraded_revives": 0, "breaker_probes": 0,
+            "breaker_probe_failures": 0, "breaker_closes": 0}
+        #: Overload control (None: no OverloadConfig knob set, and the
+        #: ingress pays nothing for it). Its counters (``shed_requests``,
+        #: ``expired_requests``, and per tier) land in ``counters``.
+        self.admission: AdmissionController | None = (
+            AdmissionController(self.cfg.overload, queue_cfg.name,
+                                self.counters,
+                                default_tier=queue_cfg.default_tier)
+            if self.cfg.overload.enabled() else None)
+        #: Window-granular admission: the ladder runs once per cut window.
+        self._batch_admission = (self.admission is not None
+                                 and self.cfg.overload.batch_admission)
+        #: Batcher submit sequence (``Delivery.arrival``).
+        self._arrival_seq = 0
+        #: The device engine's circuit breaker (a host-backend queue has
+        #: nothing to demote to).
+        self.breaker: CircuitBreaker | None = (
+            CircuitBreaker(self.cfg.engine)
+            if self.cfg.engine.backend == "gpu" else None)
+        #: Scripted engine faults, handed to every device engine of this
+        #: queue (the hook's indices outlive the engines).
+        self._chaos_hook = (app.chaos.engine_hook(queue_cfg.name)
+                            if app.chaos is not None
+                            and app.chaos.applies(queue_cfg.name) else None)
+        #: The last half-open probe that passed: host ms of the engine
+        #: build (``build_ms``), of its ``probe()`` (``probe_ms``) and of
+        #: the pool's move (``move_ms``), and the players moved.
+        self.last_probe: dict[str, float] | None = None
         #: Terminal-replay cache: player id → (response body, expiry),
         #: split by the ingress shards' hash of the player id.
         self._recent = ShardedRecent(self.cfg.broker.ingress_shards)
@@ -171,8 +252,7 @@ class _QueueRuntime:
         self._shards = IngressShards(self.cfg.broker.ingress_shards)
         #: One callback per consume burst (1v1 queues): the burst is
         #: decoded at consume and the flush gathers its columns.
-        self._consume_batch = (self.cfg.broker.consume_batch
-                               and not self._objects)
+        self._consume_batch = self.cfg.broker.consume_batch and not self._team
         #: Token → (player id → delivery, deliveries) of every dispatched,
         #: not yet answered window.
         self._inflight_meta: dict[int, tuple[dict[str, Delivery],
@@ -184,31 +264,44 @@ class _QueueRuntime:
         self._tag: str | None = None
         self._collector: asyncio.Task | None = None
         self._loops: list[asyncio.Task] = []
+        #: Set by ``stop()``: no engine swap starts a collector after it.
+        self._stopping = False
 
     async def start(self) -> None:
-        self.engine = self._make_engine()
+        self._bind_engine(self._make_engine())
         if self.cfg.engine.warm_start:
             self.engine.warmup()
         self.broker.declare_queue(self.queue_cfg.name)
-        self._batcher = Batcher(self.cfg.batcher, self._flush)
+        ov = self.cfg.overload
+        self._batcher = Batcher(
+            self.cfg.batcher, self._flush,
+            observe_window=(self._observe_window
+                            if self.admission is not None and ov.adaptive
+                            else None),
+            sort_key=self._edf_key if ov.edf else None)
+        # Admitted deliveries hold a prefetch slot until settled: keep
+        # prefetch above the credit cap, so the excess reaches admission
+        # (and is shed with an answer) instead of waiting in the broker.
+        prefetch = self.cfg.broker.prefetch
+        if ov.max_inflight > 0:
+            prefetch = max(prefetch, 2 * ov.max_inflight)
         # Every callback here is non-blocking (auth is "none"), so the
         # deliveries already buffered drain into one handler task a burst.
         self._tag = self.broker.basic_consume(
-            self.queue_cfg.name, self._on_delivery, batch_hint=True,
+            self.queue_cfg.name, self._on_delivery, prefetch=prefetch,
+            batch_hint=True,
             batch_callback=(self._on_delivery_batch if self._consume_batch
                             else None))
-        if self.pipeline_depth > 1:
-            self._collector = asyncio.create_task(self._collector_loop())
         if self.queue_cfg.rescan_interval_s > 0:
             self._loops.append(asyncio.create_task(self._rescan_loop()))
         if (self.queue_cfg.request_timeout_s is not None
-                or self.cfg.overload.deadline_sweep_ms > 0):
+                or ov.deadline_sweep_ms > 0):
             self._loops.append(asyncio.create_task(self._sweep_loop()))
         if self.cfg.engine.health_interval_s > 0:
             self._loops.append(asyncio.create_task(self._health_loop()))
         if (self.cfg.engine.spec_formation
                 and self.cfg.engine.spec_interval_ms > 0
-                and not self._objects):
+                and not self._team):
             self._loops.append(asyncio.create_task(self._spec_loop()))
 
     async def stop(self) -> None:
@@ -219,6 +312,7 @@ class _QueueRuntime:
         if self._batcher is not None:
             await self._batcher.close()
             self._batcher = None
+        self._stopping = True
         if self._collector is not None:
             self._collector.cancel()
             await asyncio.gather(self._collector, return_exceptions=True)
@@ -235,12 +329,66 @@ class _QueueRuntime:
         every window, collection and tick ran clean."""
         out: dict[str, object] = {k: self.counters[k] for k in FAULT_COUNTERS
                                   if self.counters[k]}
-        if self.engine is not None and self.engine.device_error is not None:
-            out["device_error"] = repr(self.engine.device_error)
+        error = getattr(self.engine, "device_error", None)
+        if error is not None:
+            out["device_error"] = repr(error)
         return out
 
+    # ---- engine lifecycle: build, bind, crash accounting ------------------
+
     def _make_engine(self):
-        return make_engine(self.cfg, self.queue_cfg, device=self.device)
+        """This queue's engine for the breaker's state: the configured
+        engine while it is closed; the host oracle while it is open or
+        half-open, so matches keep flowing while the card is failing."""
+        if self.breaker is not None and self.breaker.state != CLOSED:
+            self.counters["breaker_degraded_revives"] += 1
+            log.warning("queue %r: breaker %s — serving on the host oracle",
+                        self.queue_cfg.name, self.breaker.state)
+            return CpuEngine(self.cfg, self.queue_cfg)
+        return self._device_engine()
+
+    def _device_engine(self):
+        engine = make_engine(self.cfg, self.queue_cfg, device=self.device)
+        if self._chaos_hook is not None and hasattr(engine, "chaos_hook"):
+            engine.chaos_hook = self._chaos_hook
+        return engine
+
+    def _bind_engine(self, engine) -> None:
+        """Install ``engine`` and recompute what depends on its kind: the
+        ingress shape (columnar for a 1v1 device engine, objects for team
+        and role queues and for the host oracle), the middleware chain,
+        the pipelined API and the collector task that follows it. Every
+        engine swap (start, revive, breaker demotion, probe re-promotion)
+        comes through here."""
+        self.engine = engine
+        self._objects = self._team or not hasattr(engine,
+                                                  "search_columns_async")
+        self.pipeline = (default_pipeline(self.cfg.auth) if self._objects
+                         else columnar_pipeline(self.cfg.auth))
+        self._inline_ingress = not self._objects and (
+            self.admission is None or self._batch_admission)
+        self._async_api = hasattr(engine, "collect_ready")
+        want = self._async_api and self.pipeline_depth > 1
+        if want and not self._stopping and (self._collector is None
+                                            or self._collector.done()):
+            self._collector = asyncio.create_task(self._collector_loop())
+        elif not want and self._collector is not None:
+            self._collector.cancel()
+            self._collector = None
+
+    def _record_engine_crash(self, now: float) -> None:
+        """Count one engine crash and feed the breaker: when this crash
+        trips it, the engine rebuild that follows every crash is the host
+        oracle."""
+        self.counters["engine_failures"] += 1
+        self.counters["engine_crashes"] += 1
+        if self.breaker is not None and self.breaker.record_crash(now):
+            self.counters["breaker_trips"] += 1
+            log.error("queue %r: circuit breaker tripped (%d engine crashes "
+                      "within %.1f s): demoting to the host oracle; first "
+                      "half-open probe in %.2f s", self.queue_cfg.name,
+                      self.breaker.threshold, self.breaker.window_s,
+                      self.breaker.probe_delay_s)
 
     def restore(self, requests: Sequence[SearchRequest], now: float) -> None:
         """Re-admit waiting players without matching (the object path's
@@ -265,35 +413,103 @@ class _QueueRuntime:
     # ---- ingress ----------------------------------------------------------
 
     async def _on_delivery(self, delivery: Delivery) -> None:
-        ctx = MessageContext(delivery=delivery, queue=self.queue_cfg.name)
+        received_at = time.time()
+        ac = self.admission
+        if self._batch_admission:
+            # Only the pre-checks run per delivery; the ladder runs at the
+            # window cut (_admission_cut).
+            decision = ac.pre_decide(delivery, received_at)
+            if decision is EXPIRED:
+                self._expire_delivery(delivery, received_at)
+                return
+            if decision is not ADMIT:  # draining
+                self._shed_delivery(delivery)
+                return
+        elif ac is not None:
+            # Per-delivery admission, before any middleware work.
+            pool_tiers = (self.engine.pool_tier_counts(ac.tiers)
+                          if ac.tiers > 1 else None)
+            decision = ac.decide(delivery, received_at,
+                                 self.engine.pool_size(), pool_tiers)
+            if decision is EXPIRED and delivery.redelivered:
+                # The player may have reached a terminal answer already:
+                # the flush's terminal replay (or its deadline check)
+                # answers it.
+                decision = ADMIT
+            if decision is not ADMIT:
+                if decision is EXPIRED:
+                    self._expire_delivery(delivery, received_at)
+                else:
+                    self._shed_delivery(delivery)
+                return
+            ac.admit(delivery.delivery_tag, delivery.tier)
+            try:
+                await self._ingress_submit(delivery, received_at)
+            except BaseException:
+                # The broker settles a crashed callback itself (a nack that
+                # does not pass through _nack): return the credit here.
+                ac.release(delivery.delivery_tag)
+                raise
+            return
+        await self._ingress_submit(delivery, received_at)
+
+    async def _ingress_submit(self, delivery: Delivery,
+                              received_at: float) -> None:
+        """The middleware chain (the first-receive stamp; on the object
+        path the decode too), then the batcher."""
+        ctx = MessageContext(delivery=delivery, queue=self.queue_cfg.name,
+                             received_at=received_at)
         try:
             await self.pipeline.run(ctx)
         except MiddlewareReject as e:
             self._reject(delivery, e.code, e.reason)
             return
-        self._batcher.submit((ctx.request, delivery) if self._objects
-                             else delivery)
+        delivery.arrival = self._arrival_seq
+        self._arrival_seq += 1
+        self._batcher.submit((ctx.request, delivery))
 
     async def _on_delivery_batch(self, deliveries: list[Delivery]) -> None:
-        """One consume burst of a 1v1 queue: one clock read for the
-        first-receive stamp of every delivery; a burst of at least
-        ``_MIN_DECODE_BURST`` rows decoded in one native call (malformed
-        and unservable rows are answered and acked here, as the flush's
-        decode would have); then the whole burst to the batcher."""
+        """One consume burst of a 1v1 queue: the admission pre-checks over
+        the burst, one clock read for the first-receive stamp of every
+        delivery, a burst of at least ``_MIN_DECODE_BURST`` rows decoded in
+        one native call (malformed and unservable rows are answered and
+        acked here, as the flush's decode would have), then the whole
+        burst to the batcher. While the queue is not on the columnar
+        ingress (the host oracle serves it, or admission decides per
+        delivery) each delivery takes the per-delivery path."""
+        if not self._inline_ingress:
+            for delivery in deliveries:
+                await self._on_delivery(delivery)
+            return
         received_at = time.time()
-        for delivery in deliveries:
+        ac = self.admission
+        decisions = (ac.pre_decide_batch(deliveries, received_at)
+                     if ac is not None else None)
+        live: list[Delivery] = []
+        for idx, delivery in enumerate(deliveries):
+            if decisions is not None:
+                decision = decisions[idx]
+                if decision is EXPIRED:
+                    self._expire_delivery(delivery, received_at)
+                    continue
+                if decision is not ADMIT:  # draining
+                    self._shed_delivery(delivery)
+                    continue
             first = delivery.properties.headers.setdefault(
                 "x-first-received", received_at)
             try:
                 delivery.first_received = float(first)
             except (TypeError, ValueError):
                 delivery.first_received = received_at
-        live = deliveries
+            delivery.arrival = self._arrival_seq
+            self._arrival_seq += 1
+            live.append(delivery)
         if len(live) >= _MIN_DECODE_BURST:
             live, rejects = await self._shards.decode_burst(live)
             for delivery, code, reason in rejects:
                 self._reject(delivery, code, reason)
-        self._batcher.submit_many(live)
+        if live:
+            self._batcher.submit_many([(None, d) for d in live])
 
     def _first_received(self, delivery: Delivery, now: float) -> float:
         if delivery.first_received >= 0.0:
@@ -307,17 +523,43 @@ class _QueueRuntime:
         return first
 
     @staticmethod
-    def _deadline_of(delivery: Delivery) -> float:
-        """The delivery's absolute ``x-deadline`` (0.0: none or garbled)."""
-        try:
-            return float(delivery.properties.headers.get(DEADLINE_HEADER, 0.0))
-        except (TypeError, ValueError):
-            return 0.0
+    def _delivery_deadline(delivery: Delivery) -> float:
+        """The delivery's absolute deadline (0.0: none or garbled), from
+        the cache admission filled, else parsed once from its header."""
+        dl = delivery.deadline
+        if dl < 0.0:
+            dl = deadline_of(delivery.properties.headers) or 0.0
+            delivery.deadline = dl
+        return dl
+
+    def _deadline_expired(self, delivery: Delivery, now: float) -> bool:
+        """Has the delivery's deadline passed? Only with overload control
+        (without it no header is read)."""
+        if self.admission is None:
+            return False
+        dl = self._delivery_deadline(delivery)
+        return dl > 0.0 and now >= dl
+
+    def _edf_key(self, item: tuple[SearchRequest | None, Delivery]):
+        """The EDF cut key: (tier, absolute deadline, no deadline last), a
+        pure function of the delivery's cached tier and deadline."""
+        delivery = item[1]
+        dl = self._delivery_deadline(delivery)
+        return (delivery.tier, dl if dl else float("inf"))
+
+    def _observe_window(self, size: int, age_s: float) -> None:
+        """The batcher cut a window: feed adaptive shedding its batch fill
+        and pipeline occupancy (no stage p99: the port has no tracing)."""
+        fill = size / max(1, self._batcher.max_batch)
+        frac = (self.engine.inflight() / self.pipeline_depth
+                if self._async_api else 0.0)
+        self.admission.observe_window(fill, frac, None)
 
     def _decode_or_reject(self, delivery: Delivery,
                           now: float) -> SearchRequest | None:
         """The contract module's decode, for the rows the codec leaves to
-        Python; a malformed payload is answered and acked here."""
+        Python (and for a columnar delivery reaching an object flush); a
+        malformed payload is answered and acked here."""
         try:
             return decode_request(
                 delivery.body, reply_to=delivery.properties.reply_to,
@@ -328,35 +570,226 @@ class _QueueRuntime:
             self._reject(delivery, e.code, e.reason)
             return None
 
+    # ---- overload: shed, expire, the window cut, the debt -----------------
+
+    def _shed_delivery(self, delivery: Delivery) -> None:
+        """Refuse one request under overload, before any decode: a ``shed``
+        answer with the retry-after hint (no player id: clients correlate
+        by correlation id), then the ack."""
+        ac = self.admission
+        ac.record_shed(tier=delivery.tier)
+        self._publish(delivery.properties.reply_to,
+                      delivery.properties.correlation_id,
+                      encode_response(SearchResponse(
+                          status="shed", player_id="",
+                          retry_after_ms=self.cfg.overload.retry_after_ms,
+                          tier=delivery.tier if ac.tiers > 1 else None)))
+        self._ack(delivery)
+
+    def _shed_deliveries(self, deliveries: list[Delivery]) -> None:
+        """``_shed_delivery`` for a window's refused rows: the bodies from
+        the native batch encoder, one ``publish_batch``, then the acks."""
+        ac = self.admission
+        tiered = ac.tiers > 1
+        retry = self.cfg.overload.retry_after_ms
+        for d in deliveries:
+            ac.record_shed(tier=d.tier)
+        n = len(deliveries)
+        bodies = codec.encode_simple_batch(
+            np.full(n, codec.KIND_SHED, np.int32), [""] * n,
+            np.zeros(n, np.float64), np.full(n, retry, np.float64),
+            [""] * n,
+            np.fromiter((d.tier if tiered else -1 for d in deliveries),
+                        np.int32, n))
+        rows: list[Row] = []
+        for d, body in zip(deliveries, bodies):
+            if body is None:  # a row the C encoder cannot express
+                body = encode_response(SearchResponse(
+                    status="shed", player_id="", retry_after_ms=retry,
+                    tier=d.tier if tiered else None))
+            rows.append((d.properties.reply_to, d.properties.correlation_id,
+                         body))
+        self._publish_batch(rows)
+        for d in deliveries:
+            self._ack(d)
+
+    def _expire_delivery(self, delivery: Delivery, now: float,
+                         player_id: str = "") -> None:
+        """A request past its deadline: ``timeout``, with no device work
+        spent on it, then the ack."""
+        ac = self.admission
+        tiered = ac is not None and ac.tiers > 1
+        if ac is not None:
+            ac.record_expired(tier=delivery.tier)
+        self._publish(delivery.properties.reply_to,
+                      delivery.properties.correlation_id,
+                      encode_response(SearchResponse(
+                          status="timeout", player_id=player_id,
+                          tier=delivery.tier if tiered else None)))
+        self._ack(delivery)
+
+    def _admission_cut(self, deliveries: list[Delivery],
+                       now: float) -> set[int] | None:
+        """Window-granular admission over one cut window: one read of the
+        pool's size and tier counts and one ``decide_batch`` pass in
+        arrival order (the EDF sort reorders a window for its dispatch,
+        never for admission); the refused rows are shed in one batch.
+        Returns the delivery tags to drop (None: keep all). It runs before
+        the decode, so a shed request costs no decode."""
+        ac = self.admission
+        if ac is None or not self._batch_admission:
+            return None
+        ordered = sorted(deliveries, key=lambda d: d.arrival)
+        pool_tiers = (self.engine.pool_tier_counts(ac.tiers)
+                      if ac.tiers > 1 else None)
+        decisions = ac.decide_batch(ordered, now, self.engine.pool_size(),
+                                    pool_tiers)
+        shed = [d for d, dec in zip(ordered, decisions) if dec is not ADMIT]
+        if not shed:
+            return None
+        self._shed_deliveries(shed)
+        return {d.delivery_tag for d in shed}
+
+    def _settle_expired(self, pairs: list[tuple[str, Delivery]],
+                        now: float) -> set[str]:
+        """The deadline check right before the dispatch (the cut's check
+        raced the batcher wait and the pipeline's backpressure): expired
+        rows are answered ``timeout``; returns their ids."""
+        if self.admission is None:
+            return set()
+        expired: set[str] = set()
+        for pid, delivery in pairs:
+            if self._deadline_expired(delivery, now):
+                expired.add(pid)
+                self._expire_delivery(delivery, now, player_id=pid)
+        return expired
+
+    def _pick_victims(self, k: int, entering=()):
+        """The ``k`` lowest-tier, longest-waiting candidates: the waiting
+        pool (in ``waiting()`` order) then ``entering`` ((pid, tier,
+        enqueued_at, delivery), in window order), sorted by (-tier,
+        enqueue time), stable. Returns (pool victim ids, entering
+        victims), each in pick order."""
+        ids, tiers, enq = self.engine.waiting_qos()
+        n_pool = len(ids)
+        if entering:
+            tiers = np.concatenate([tiers, np.fromiter(
+                (e[1] for e in entering), np.int32, len(entering))])
+            enq = np.concatenate([enq, np.fromiter(
+                (e[2] for e in entering), np.float64, len(entering))])
+        order = np.lexsort((enq, -tiers.astype(np.int64)))[:k].tolist()
+        return ([ids[i] for i in order if i < n_pool],
+                [entering[i - n_pool] for i in order if i >= n_pool])
+
+    def _pay_debt(self, entering: list[tuple[str, int, float, Delivery]],
+                  debt: int, now: float) -> set[str]:
+        """Settle a dispatching window's waiting-cap debt
+        (``shed_policy="oldest"``). Untiered: evict the ``debt``
+        longest-waiting pool players. Tiered: pick the ``debt`` lowest-tier
+        candidates over the pool and the window, oldest first in a tier:
+        pool victims are evicted (in one batch) with ``shed`` answers by
+        name, the window's own victims are shed before the dispatch (an
+        entrant never displaces a higher tier the ladder protected).
+        Returns the window ids to drop from the dispatch (settled here)."""
+        if debt <= 0:
+            return set()
+        ac = self.admission
+        tiered = ac.tiers > 1
+        pool_ids, victims = self._pick_victims(
+            debt, entering if tiered else ())
+        if pool_ids:
+            self._publish_shed_evictions(self.engine.remove_many(pool_ids),
+                                         now)
+        drop: set[str] = set()
+        for pid, _, _, delivery in victims:
+            drop.add(pid)
+            ac.record_shed(tier=delivery.tier)
+            self._publish(delivery.properties.reply_to,
+                          delivery.properties.correlation_id,
+                          encode_response(SearchResponse(
+                              status="shed", player_id=pid,
+                              retry_after_ms=self.cfg.overload.retry_after_ms,
+                              tier=delivery.tier)))
+            self._ack(delivery)
+        return drop
+
+    def _publish_shed_evictions(self, evicted: list[SearchRequest],
+                                now: float) -> None:
+        """``shed`` answers for pool players evicted by the debt,
+        remembered for terminal replay (a redelivered copy replays the
+        shed instead of entering again)."""
+        ac = self.admission
+        tiered = ac.tiers > 1
+        for req in evicted:
+            ac.record_shed(tier=req.tier)
+            body = encode_response(SearchResponse(
+                status="shed", player_id=req.id,
+                retry_after_ms=self.cfg.overload.retry_after_ms,
+                latency_ms=((now - req.enqueued_at) * 1e3
+                            if req.enqueued_at else 0.0),
+                tier=req.tier if tiered else None))
+            self._remember(req.id, body, now)
+            self._publish(req.reply_to, req.correlation_id, body)
+
     # ---- one window -------------------------------------------------------
 
     async def _flush(self, window: list) -> None:
-        if self._objects:
-            await self._flush_objects(window)
-        else:
-            await self._flush_columnar(window)
+        """One cut window. Whatever goes wrong, its deliveries are settled:
+        a delivery left unacked holds a prefetch slot (and a credit) for
+        good. A nack of a delivery already settled does nothing."""
+        try:
+            if self._objects:
+                await self._flush_objects(window)
+            else:
+                await self._flush_columnar([d for _, d in window])
+        except Exception:
+            log.exception("window flush failed; nacking its deliveries")
+            self.counters["flush_errors"] += 1
+            for _, delivery in window:
+                self._nack(delivery)
 
     async def _flush_objects(
-            self, window: list[tuple[SearchRequest, Delivery]]) -> None:
-        """Answer terminal replays, then dispatch the decoded requests as
-        one object window (``engine.search_async``)."""
+            self, window: list[tuple[SearchRequest | None, Delivery]]) -> None:
+        """The admission cut, the decode of deliveries still undecoded
+        (they entered through the columnar ingress before the host oracle
+        took the queue over), terminal replays and the deadline check;
+        then the window goes to the engine: pipelined
+        (``engine.search_async``) on a device engine, or in one
+        synchronous ``search`` on the host oracle."""
         now = time.time()
+        if self._batch_admission:
+            dropped = self._admission_cut([d for _, d in window], now)
+            if dropped:
+                window = [(r, d) for r, d in window
+                          if d.delivery_tag not in dropped]
+        if any(req is None for req, _ in window):
+            window = [(req if req is not None
+                       else self._decode_or_reject(d, now), d)
+                      for req, d in window]
+            window = [(r, d) for r, d in window if r is not None]
         self._prune_recent(now)
-        stamp_deadline = self.cfg.overload.deadline_sweep_ms > 0
+        stamp_qos = self.admission is not None
         fresh: list[tuple[SearchRequest, Delivery]] = []
         for req, delivery in window:
+            if stamp_qos:
+                deadline = self._delivery_deadline(delivery)
+                if delivery.tier or deadline:
+                    req = dataclasses.replace(req, tier=delivery.tier,
+                                              deadline_at=deadline)
             cached = self._recent.get(req.id)
             if cached is not None and cached[1] <= now:
                 self._recent.pop(req.id)  # expired: a genuine re-queue
                 cached = None
             if cached is not None:
                 self._replay(delivery, cached[0])
-                continue
-            if stamp_deadline:
-                req = dataclasses.replace(
-                    req, deadline_at=self._deadline_of(delivery))
-            fresh.append((req, delivery))
+            elif self._deadline_expired(delivery, now):
+                self._expire_delivery(delivery, now, player_id=req.id)
+            else:
+                fresh.append((req, delivery))
         if not fresh:
+            return
+        if not self._async_api:
+            self._search_sync(fresh, now)
             return
         requests = [r for r, _ in fresh]
 
@@ -368,15 +801,49 @@ class _QueueRuntime:
         await self._dispatch_window(
             dispatch, [(r.id, d) for r, d in fresh], now)
 
+    def _search_sync(self, fresh: list[tuple[SearchRequest, Delivery]],
+                     now: float) -> None:
+        """An object window on an engine without the pipelined API (the
+        host oracle): the debt, one ``search``, the answers, the acks. A
+        crash is counted for the breaker, the engine rebuilt and the
+        window nacked."""
+        try:
+            if self.admission is not None:
+                debt = self.admission.eviction_debt(len(fresh),
+                                                    self.engine.pool_size())
+                drop = self._pay_debt([(r.id, r.tier, r.enqueued_at, d)
+                                       for r, d in fresh], debt, now)
+                if drop:
+                    fresh = [(r, d) for r, d in fresh if r.id not in drop]
+                    if not fresh:
+                        return
+            outcome = self.engine.search([r for r, _ in fresh], now)
+        except Exception:
+            log.exception("engine step crashed; reviving the engine from "
+                          "its waiting players")
+            self._record_engine_crash(now)
+            self._revive(now)
+            for _, d in fresh:
+                self._nack(d)
+            return
+        self._handle_object_out(outcome, [d for _, d in fresh], now)
+
     async def _flush_columnar(self, deliveries: list[Delivery]) -> None:
-        """Answer terminal replays, assemble the rest as columns and
-        dispatch them. A window whose every delivery was decoded at consume
-        (``Delivery.row``) gathers its columns from the bursts; any other
-        window is decoded here, natively, as a whole. Per-row Python is the
-        replay probe and the rows the codec leaves to the contract
-        module."""
+        """The admission cut, then terminal replays and the deadline check;
+        the rest assembled as columns and dispatched. A window whose every
+        delivery was decoded at consume (``Delivery.row``) gathers its
+        columns from the bursts; any other window is decoded here,
+        natively, as a whole. Per-row Python is the replay probe and the
+        rows the codec leaves to the contract module."""
         now = time.time()
         self._prune_recent(now)
+        if self._batch_admission:
+            dropped = self._admission_cut(deliveries, now)
+            if dropped:
+                deliveries = [d for d in deliveries
+                              if d.delivery_tag not in dropped]
+                if not deliveries:
+                    return
         native = None
         if all(d.row is not None for d in deliveries):
             # Decoded at consume: every row is valid (the others were
@@ -394,11 +861,31 @@ class _QueueRuntime:
                 cached = None
             if cached is not None:
                 self._replay(deliveries[src], cached[0])
+            elif self._deadline_expired(deliveries[src], now):
+                # After the decode, so the timeout names the player.
+                self._expire_delivery(deliveries[src], now, player_id=pid)
             else:
                 keep.append((src, pid, req))
         if not keep:
             return
         k = len(keep)
+        # The QoS columns, from the caches admission filled: the mirror
+        # keeps them for the tiered debt and the deadline sweep.
+        tier_col = dl_col = None
+        if self.admission is not None:
+            tier_col = np.fromiter((deliveries[s].tier for s, _, _ in keep),
+                                   np.int32, k)
+            dl_col = np.fromiter((self._delivery_deadline(deliveries[s])
+                                  for s, _, _ in keep), np.float64, k)
+            if self.cfg.overload.edf and k > 1:
+                # EDF again after the filtering above: a window split into
+                # chunks sends its near-deadline tier-0 lanes first; the
+                # arange keeps arrival order within equal keys.
+                order = np.lexsort((np.arange(k),
+                                    np.where(dl_col > 0.0, dl_col, np.inf),
+                                    tier_col))
+                keep = [keep[j] for j in order.tolist()]
+                tier_col, dl_col = tier_col[order], dl_col[order]
         picked = [deliveries[s] for s, _, _ in keep]
         if native is None:
             ids, rating, rd, thr, region_names, mode_names = gather_rows(
@@ -432,9 +919,7 @@ class _QueueRuntime:
                                  object, k),
             correlation_id=np.fromiter(
                 (d.properties.correlation_id for d in picked), object, k),
-            deadline=(np.fromiter((self._deadline_of(d) for d in picked),
-                                  np.float64, k)
-                      if self.cfg.overload.deadline_sweep_ms > 0 else None))
+            tier=tier_col, deadline=dl_col)
 
         def dispatch(drop: set[str]) -> int:
             # Region/mode are interned here, into the current engine's
@@ -451,7 +936,8 @@ class _QueueRuntime:
                 dataclasses.replace(c, region=reg, mode=mode), now)
 
         await self._dispatch_window(
-            dispatch, [(pid, deliveries[s]) for s, pid, _ in keep], now)
+            dispatch, [(pid, d) for (_, pid, _), d in zip(keep, picked)],
+            now)
 
     def _window_rows(self, deliveries: list[Delivery], status, ids,
                      now: float) -> list[tuple[int, str, SearchRequest | None]]:
@@ -479,10 +965,14 @@ class _QueueRuntime:
     async def _dispatch_window(self, dispatch,
                                pairs: list[tuple[str, Delivery]],
                                now: float) -> None:
-        """Dispatch one window (``dispatch(drop)`` returns its token), then
-        collect what has landed; with a full pipeline, hold this flush (and
-        so the batcher) until a slot frees. A dispatch that raises rebuilds
-        the engine; the window's deliveries are nacked."""
+        """Dispatch one window on a device engine (``dispatch(drop)``
+        returns its token), then collect what has landed; with a full
+        pipeline, hold this flush (and so the batcher) until a slot frees.
+        Before the dispatch: collect, the terminal-replay and deadline
+        re-checks, and the debt of ``shed_policy="oldest"`` (paid when the
+        pipeline is empty, or once it reaches a whole batch: eviction
+        needs a drained pipeline). A dispatch that raises is an engine
+        crash: the engine is rebuilt and the window's deliveries nacked."""
         recorded = False
         deliveries_in = [d for _, d in pairs]
         try:
@@ -491,12 +981,36 @@ class _QueueRuntime:
                 # A collected window failed: the device pool diverged from
                 # the mirror. Revive before dispatching into it.
                 self._drain_engine(now)
+                if not self._async_api:
+                    # The revive tripped the breaker: the host oracle took
+                    # the queue, and this window was never dispatched. The
+                    # redelivery takes the object path.
+                    for d in deliveries_in:
+                        self._nack(d)
+                    return
             stale = self._settle_terminal(pairs, now)
+            stale |= self._settle_expired(
+                [p for p in pairs if p[0] not in stale], now)
             if stale:
                 pairs = [(p, d) for p, d in pairs if p not in stale]
                 deliveries_in = [d for _, d in pairs]
                 if not pairs:
                     return
+            if self.admission is not None:
+                debt = self.admission.eviction_debt(len(pairs),
+                                                    self.engine.pool_size())
+                if debt and (self.engine.inflight() == 0
+                             or debt >= self._batcher.max_batch):
+                    self._drain_engine(now)
+                    drop = self._pay_debt(
+                        [(pid, d.tier, self._first_received(d, now), d)
+                         for pid, d in pairs], debt, now)
+                    if drop:
+                        stale |= drop
+                        pairs = [(p, d) for p, d in pairs if p not in drop]
+                        deliveries_in = [d for _, d in pairs]
+                        if not pairs:
+                            return
             # The window is a cut: a still-valid speculation commits first
             # (then [commit; window] equals [rescan at its time; window]),
             # and is otherwise discarded by the window's admission.
@@ -511,16 +1025,18 @@ class _QueueRuntime:
         except Exception:
             log.exception("window dispatch failed; reviving the engine "
                           "from its mirror")
-            self.counters["engine_failures"] += 1
+            self._record_engine_crash(now)
             self._revive_after_failure(
                 now, extra_nack=None if recorded else deliveries_in)
             return
-        while self.engine.inflight() >= self.pipeline_depth:
+        # The engine may be swapped meanwhile (a revive onto the host
+        # oracle nacks this window's meta): nothing is left to wait for.
+        while self._async_api and self.engine.inflight() >= self.pipeline_depth:
             await asyncio.sleep(0.001)
             self._collect_ready(time.time())
 
     def _settle_terminal(self, pairs: list[tuple[str, Delivery]],
-                                now: float) -> set[str]:
+                         now: float) -> set[str]:
         """Second terminal-replay probe, right before the dispatch: the
         flush's probe ran before the collection of earlier windows, and a
         player those windows just matched is out of the pool (so the
@@ -540,6 +1056,8 @@ class _QueueRuntime:
     def _collect_ready(self, now: float) -> None:
         """Answer every landed window. The results were copied to the host
         behind each step, so this is numpy and publishing."""
+        if not self._async_api:
+            return
         for tok, out in self.engine.collect_ready():
             self._finish_token(tok, out, now)
 
@@ -553,7 +1071,7 @@ class _QueueRuntime:
                     self.engine.failed_tokens.discard(tok)
                     log.error("rescan window %d failed on the device; "
                               "revive scheduled", tok)
-                    self.counters["engine_failures"] += 1
+                    self._record_engine_crash(now)
                     self._needs_revive = True
                     return
                 self._publish_rescan_outcome(out, now)
@@ -563,7 +1081,7 @@ class _QueueRuntime:
             self.engine.failed_tokens.discard(tok)
             log.error("window %d failed on the device; nack + revive "
                       "scheduled", tok)
-            self.counters["engine_failures"] += 1
+            self._record_engine_crash(now)
             for d in deliveries:
                 self._nack(d)
             self._needs_revive = True
@@ -740,7 +1258,7 @@ class _QueueRuntime:
         read out or replace the pool); collect and answer every in-flight
         window (blocking); then revive, if a window failed."""
         self.engine.spec_invalidate("drain")
-        if self.engine.inflight() > 0:
+        if self._async_api and self.engine.inflight() > 0:
             for tok, out in self.engine.flush():
                 self._finish_token(tok, out, now)
         if self._needs_revive:
@@ -750,12 +1268,13 @@ class _QueueRuntime:
                               extra_nack: list[Delivery] | None = None) -> None:
         """After a failed dispatch: answer what landed, nack the rest and
         rebuild the engine from its mirror."""
-        try:
-            outs = self.engine.flush()
-        except Exception:
-            log.exception("flush during revive failed; every in-flight "
-                          "window is nacked")
-            outs = []
+        outs = []
+        if self._async_api:
+            try:
+                outs = self.engine.flush()
+            except Exception:
+                log.exception("flush during revive failed; every in-flight "
+                              "window is nacked")
         for tok, out in outs:
             self._finish_token(tok, out, now)
         for d in extra_nack or ():
@@ -763,36 +1282,47 @@ class _QueueRuntime:
         self._revive(now)
 
     def _revive(self, now: float) -> None:
-        """Rebuild the engine and re-admit the old engine's mirror (nothing
-        is in flight on the old engine, or what is will never be
-        collected): as columns for 1v1 queues, as ``waiting()`` requests,
-        the host oracle's included, for team and role queues. Every window
-        still tracked is nacked: the new engine numbers its tokens from 0."""
+        """Rebuild the engine (``_make_engine``: the host oracle while the
+        breaker is open) and re-admit the old engine's waiting players:
+        as columns between two 1v1 device engines, as ``waiting()``
+        requests otherwise (team and role queues, and any move to or from
+        the host oracle). The quality counters are carried across and the
+        old engine is closed. Every window still tracked is nacked (the
+        new engine numbers its tokens from 0); nothing is in flight on the
+        old engine, or what is will never be collected."""
         self._needs_revive = False
-        self.engine.spec_invalidate("revive")
+        old = self.engine
+        old.spec_invalidate("revive")
         for tok, (_, deliveries) in list(self._inflight_meta.items()):
             for d in deliveries:
                 self._nack(d)
             del self._inflight_meta[tok]
         engine = self._make_engine()
-        if self._objects:
-            waiting = self.engine.waiting()
-            engine.restore(waiting, now)
-            n = len(waiting)
+        columns = (not self._team and hasattr(old, "waiting_columns")
+                   and hasattr(engine, "restore_columns"))
+        if columns:
+            waiting = old.waiting_columns()
+            n = len(waiting[0])
         else:
-            cols, region_names, mode_names = self.engine.waiting_columns()
-            self._restore_into(engine, cols, region_names, mode_names, now)
-            n = len(cols)
+            waiting = old.waiting()
+            n = len(waiting)
         # The quality counters stay monotone across the rebuild.
-        engine.quality_restore(self.engine.quality_checkpoint())
-        self.engine = engine
+        quality = old.quality_checkpoint()
+        old.close()
+        if columns:
+            self._restore_into(engine, *waiting, now)
+        else:
+            engine.restore(waiting, now)
+        engine.quality_restore(quality)
+        self._bind_engine(engine)
         self.counters["revives"] += 1
-        log.warning("engine revived: %d waiting players restored", n)
+        log.warning("engine revived (%s): %d waiting players restored",
+                    type(engine).__name__, n)
 
     async def _collector_loop(self) -> None:
         """Collect landed windows when no flush is running (traffic stops:
         the windows in flight must still be answered). One failed tick must
-        not end the loop."""
+        not end the loop. A swap onto the host oracle cancels it."""
         while True:
             try:
                 if self.engine.inflight() > 0 or self._needs_revive:
@@ -814,7 +1344,8 @@ class _QueueRuntime:
         """Every ``rescan_interval_s``, dispatch a rescan tick into the
         pipeline (it may overlap windows in flight) and wait, without
         draining, for the shared collection to publish it. A tick still
-        outstanding after 30 s makes the next ticks skip until it lands."""
+        outstanding after 30 s makes the next ticks skip until it lands.
+        On the host oracle the tick is its synchronous ``rescan``."""
         interval = self.queue_cfg.rescan_interval_s
         window = self.queue_cfg.rescan_window or self.cfg.batcher.max_batch
         outstanding: int | None = None
@@ -822,13 +1353,18 @@ class _QueueRuntime:
             await asyncio.sleep(interval)
             now = time.time()
             if (outstanding is not None
-                    and outstanding in self.engine.rescan_tokens):
+                    and outstanding in getattr(self.engine, "rescan_tokens",
+                                               ())):
                 log.warning("rescan token %d still outstanding; skipping "
                             "this tick", outstanding)
                 self.counters["rescan_skipped"] += 1
                 continue
             outstanding = None
             try:
+                if not self._async_api:
+                    self._publish_rescan_outcome(
+                        self.engine.rescan(window, now), now)
+                    continue
                 # A rescan tick is a cut too: a valid speculation commits,
                 # and the tick then widens over the pool after it.
                 self._spec_cut(now)
@@ -839,7 +1375,8 @@ class _QueueRuntime:
                 done = False
                 while not done and time.monotonic() < deadline:
                     self._collect_ready(time.time())
-                    done = tok not in self.engine.rescan_tokens
+                    done = tok not in getattr(self.engine, "rescan_tokens",
+                                              ())
                     if self._needs_revive and self.engine.inflight() == 0:
                         self._revive(time.time())
                     if not done:
@@ -851,7 +1388,7 @@ class _QueueRuntime:
             except Exception:
                 log.exception("rescan failed; reviving the engine from its "
                               "mirror")
-                self.counters["engine_failures"] += 1
+                self._record_engine_crash(now)
                 self._revive(now)
 
     async def _sweep_loop(self) -> None:
@@ -880,12 +1417,11 @@ class _QueueRuntime:
             try:
                 self._drain_engine(now)
                 expired = self.engine.expire(now, timeout) if run_timeout else []
-                if run_dl:
-                    expired += self.engine.expire_deadlines(now)
+                dl_expired = self.engine.expire_deadlines(now) if run_dl else []
             except Exception:
                 log.exception("expiry sweep failed; reviving the engine from "
                               "its mirror")
-                self.counters["engine_failures"] += 1
+                self._record_engine_crash(now)
                 self._revive(now)
                 continue
             for removed in expired:
@@ -896,29 +1432,108 @@ class _QueueRuntime:
                                 if removed.enqueued_at else 0.0)))
                 self._remember(removed.id, body, now)
                 self._publish(removed.reply_to, removed.correlation_id, body)
+            for removed in dl_expired:
+                self._publish_pool_expiry(removed, now)
+
+    def _publish_pool_expiry(self, removed: SearchRequest, now: float) -> None:
+        """A waiting player the deadline sweep removed: ``timeout``
+        (remembered, so a redelivered copy replays it), counted as expired
+        in its tier."""
+        self.counters["timeouts"] += 1
+        ac = self.admission
+        if ac is not None:
+            ac.record_expired(tier=removed.tier)
+        body = encode_response(SearchResponse(
+            status="timeout", player_id=removed.id,
+            latency_ms=((now - removed.enqueued_at) * 1e3
+                        if removed.enqueued_at else 0.0),
+            tier=removed.tier if ac is not None and ac.tiers > 1 else None))
+        self._remember(removed.id, body, now)
+        self._publish(removed.reply_to, removed.correlation_id, body)
 
     async def _health_loop(self) -> None:
-        """The heartbeat half of the JAX package's health timer: every
-        ``EngineConfig.health_interval_s``, a team or role queue handed to
-        the host oracle is moved back onto the card by
-        ``engine.heartbeat(now)`` once its blockers drained and the quiet
-        period passed (for a queue that is not delegated the heartbeat
-        does nothing). Under zero traffic nothing else would (configs #3
-        and #5 run no rescan ticks). The tick runs on the event loop, as every
-        other engine call does. Supervised: a tick that raises is logged,
-        counted and retried on the next interval; it never ends the loop.
-        (The breaker and probe half is not ported.)"""
+        """The health timer, every ``EngineConfig.health_interval_s``:
+        ``engine.heartbeat(now)`` (a team or role queue handed to the host
+        oracle goes back onto the card once its blockers drained and the
+        quiet period passed; a bucketed queue rebuilds its index), and,
+        while the breaker is open and a probe is due, the half-open probe
+        (``_probe_device``). Nothing else would do either under zero
+        traffic. The tick runs on the event loop, as every other engine
+        call does. Supervised: a tick that raises is logged, counted and
+        retried on the next interval; it never ends the loop."""
         interval = self.cfg.engine.health_interval_s
         while True:
             await asyncio.sleep(interval)
+            now = time.time()
             try:
-                if self.engine.heartbeat(time.time()):
+                if self.engine.heartbeat(now):
                     self.counters["health_repromotions"] += 1
+                if self.breaker is not None and self.breaker.probe_due(now):
+                    self._probe_device(now)
             except asyncio.CancelledError:
                 raise
             except Exception:
                 log.exception("health tick failed; retrying")
                 self.counters["health_tick_errors"] += 1
+
+    def _probe_build(self):
+        """A fresh device engine that passed its ``probe()``, and the host
+        ms of its build and of the probe (on the card: the capture of the
+        probed graph, its replay and the synchronize). On a failed probe
+        the engine is closed and the error raised."""
+        t0 = time.perf_counter()
+        engine = self._device_engine()
+        t1 = time.perf_counter()
+        try:
+            engine.probe()
+        except BaseException:
+            engine.close()
+            raise
+        return engine, {"build_ms": (t1 - t0) * 1e3,
+                        "probe_ms": (time.perf_counter() - t1) * 1e3}
+
+    def _probe_device(self, now: float) -> None:
+        """The half-open probe: a fresh device engine is built and probed
+        while the host oracle keeps the pool. On success the waiting
+        players move onto it (``waiting()`` requests, restored before the
+        oracle is dropped, so a failed move leaves the oracle serving),
+        with the quality counters, and the breaker closes; on failure the
+        breaker backs off and the oracle stays."""
+        self.breaker.begin_probe(now)
+        self.counters["breaker_probes"] += 1
+        try:
+            candidate, times = self._probe_build()
+        except Exception as e:
+            self._probe_failed(f"probe: {e}")
+            return
+        t0 = time.perf_counter()
+        swap_now = time.time()
+        self._drain_engine(swap_now)
+        old = self.engine
+        try:
+            waiting = old.waiting()
+            candidate.restore(waiting, swap_now)
+            candidate.quality_restore(old.quality_checkpoint())
+        except Exception as e:
+            candidate.close()
+            self._probe_failed(f"pool move: {e}")
+            return
+        old.close()
+        self._bind_engine(candidate)
+        self.breaker.probe_succeeded(time.time())
+        self.counters["breaker_closes"] += 1
+        self.last_probe = {**times, "move_ms": (time.perf_counter() - t0) * 1e3,
+                           "moved": len(waiting)}
+        log.info("queue %r: half-open probe passed; breaker closed, %d "
+                 "waiting players back on the device engine",
+                 self.queue_cfg.name, len(waiting))
+
+    def _probe_failed(self, why: str) -> None:
+        self.breaker.probe_failed(time.time())
+        self.counters["breaker_probe_failures"] += 1
+        log.warning("queue %r: half-open probe failed (%s); next probe in "
+                    "%.2f s", self.queue_cfg.name, why,
+                    self.breaker.probe_delay_s)
 
     def _spec_cut(self, now: float) -> bool:
         """Commit the held speculation at a cut if it is still valid (no
@@ -946,18 +1561,18 @@ class _QueueRuntime:
 
     async def _spec_loop(self) -> None:
         """Every ``spec_interval_ms``, in the gap between windows (nothing
-        in flight, no revive pending): commit the speculation left by the
-        last tick if still valid (the tick is a cut), let the engine
-        speculate at the current time, and collect what has landed. With
-        windows in flight it only collects (a flush yields to the loop only
-        while its windows are in flight). A tick that raises is counted and
-        its speculation discarded; the loop goes on. It runs on the event
-        loop, as every engine call does."""
+        in flight, no revive pending, a device engine): commit the
+        speculation left by the last tick if still valid (the tick is a
+        cut), let the engine speculate at the current time, and collect
+        what has landed. With windows in flight it only collects (a flush
+        yields to the loop only while its windows are in flight). A tick
+        that raises is counted and its speculation discarded; the loop
+        goes on. It runs on the event loop, as every engine call does."""
         interval = max(0.001, self.cfg.engine.spec_interval_ms / 1e3)
         while True:
             await asyncio.sleep(interval)
             try:
-                if self._needs_revive:
+                if self._needs_revive or not self._async_api:
                     continue
                 if self.engine.inflight() > 0:
                     self._collect_ready(time.time())
@@ -1024,10 +1639,19 @@ class _QueueRuntime:
             self._next_prune = now + self.queue_cfg.dedup_ttl_s / 2.0
 
     def _ack(self, delivery: Delivery) -> None:
+        """Ack and return the delivery's admission credit: every settle
+        comes through here or ``_nack``, so ``admission.inflight()``
+        counts exactly the admitted, unsettled deliveries."""
         self.broker.ack(self._tag, delivery.delivery_tag)
+        if self.admission is not None:
+            self.admission.release(delivery.delivery_tag)
 
     def _nack(self, delivery: Delivery) -> None:
+        """Nack (requeue) and return the credit: the redelivery takes
+        admission again."""
         self.broker.nack(self._tag, delivery.delivery_tag, requeue=True)
+        if self.admission is not None:
+            self.admission.release(delivery.delivery_tag)
 
 
 class MatchmakingApp:
@@ -1048,6 +1672,9 @@ class MatchmakingApp:
         self.quality = QualityLedger(
             QualitySpec.from_config(cfg.observability),
             quality_target=cfg.observability.quality_slo_target)
+        #: Scripted engine faults (None: no chaos configured); each queue
+        #: runtime takes its hook from here.
+        self.chaos = ChaosState(cfg.chaos) if cfg.chaos.enabled() else None
         names = [q.name for q in cfg.queues]
         if len(set(names)) != len(names):
             raise ValueError(f"queue names must be distinct: {names}")

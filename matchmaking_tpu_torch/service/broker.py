@@ -40,9 +40,20 @@ class Delivery:
     delivery_tag: int
     redelivered: bool = False
     redelivery_count: int = 0
+    #: The QoS tier (service/overload.py), read from the ``x-tier`` header
+    #: at admission and cached here for the EDF key and the flush; 0 is
+    #: the most latency-critical tier and the untiered default.
+    tier: int = 0
+    #: The ``x-deadline`` header as a float, cached at admission: < 0 not
+    #: read yet, 0.0 none, else the absolute wall-clock deadline.
+    deadline: float = -1.0
     #: The ``x-first-received`` stamp as a float, cached by the ingress
     #: middleware (< 0: not read yet).
     first_received: float = -1.0
+    #: Submit sequence at the batcher (per queue runtime, renewed at each
+    #: submit): window-granular admission decides a cut window in this
+    #: order, whatever order the EDF sort gave it.
+    arrival: int = -1
     #: The row decoded at consume (burst consume, ``service/ingress.py``):
     #: ``(DecodedBurst, index)`` into the burst's columns, which the window
     #: flush gathers instead of decoding the body again. None: not decoded

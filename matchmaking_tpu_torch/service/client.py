@@ -10,25 +10,11 @@ import asyncio
 import json
 import time
 import uuid
-from typing import Any, Mapping, MutableMapping
+from typing import Any, Mapping
 
 from matchmaking_tpu_torch.service.broker import InProcBroker, Properties
 from matchmaking_tpu_torch.service.contract import SearchResponse, decode_response
-
-DEADLINE_HEADER = "x-deadline"
-TIER_HEADER = "x-tier"
-
-
-def stamp_deadline(headers: MutableMapping[str, Any], now: float,
-                   budget_s: float) -> None:
-    """Stamp ``now + budget_s`` as the request deadline unless one is
-    already set (redeliveries reuse the same headers dict)."""
-    headers.setdefault(DEADLINE_HEADER, repr(now + budget_s))
-
-
-def stamp_tier(headers: MutableMapping[str, Any], tier: int) -> None:
-    """Stamp the QoS tier unless one is already set."""
-    headers.setdefault(TIER_HEADER, str(int(tier)))
+from matchmaking_tpu_torch.service.overload import stamp_deadline, stamp_tier
 
 
 class MatchmakingClient:

@@ -1191,3 +1191,146 @@ def test_warmup_captures_every_pair_and_replays_never_capture(cuda, kind):
         assert eng.prune_report()["windows"] == sum(
             g["replays"] for k, g in rep["graphs"].items()
             if not k.split("/")[0].endswith("rescan"))
+
+
+# ---- the breaker's probe, close, and chaos on the card ----------------------
+
+def full_width_engine(cuda, engine=None, **kw):
+    """Config #1 at full width on the card with 100k waiting and one
+    window of 1,024 through it (so the quality state holds matches)."""
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, **(engine or {})), **kw)
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    rng = np.random.default_rng(61)
+    eng.restore_columns(interned(eng, named_columns(rng, 100_000, 0, 100.0,
+                                                    False)), 100.0)
+    eng.search_columns_async(interned(eng, named_columns(
+        rng, 1024, 1_000_000, 101.0, False)), 101.0)
+    eng.flush()
+    return eng
+
+
+def device_state(eng):
+    """Every pool and index column (the views: no spare element) and the
+    quality state, as raw bytes."""
+    torch.cuda.synchronize()
+    state = {k: v.view(torch.int8).clone() for k, v in eng.dev_pool.items()}
+    state["quality"] = eng._q_dev.flat.view(torch.int8).clone()
+    return state
+
+
+def assert_same_state(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("engine", [{}, BUCKETED_1], ids=["dense", "bucketed"])
+def test_probe_at_full_width_leaves_pool_index_and_quality_bit_equal(
+        cuda, engine):
+    """``probe()`` on a full pool: one replay of the base step's graph at
+    the smallest bucket (one ``block_best`` and one ``quality_accum``
+    launch, and one more of each in the eager run before the graph's
+    capture, where the probe captures it) leaves every pool column, the
+    bucket index and the quality state bit-equal, and the prune and
+    formation reports as they were."""
+    eng = full_width_engine(cuda, engine)
+    before = device_state(eng)
+    reports = (eng.prune_report(), eng.formation_report(),
+               eng.quality_report())
+    launches = dict(cuda_kernels.LAUNCHES)
+    captures = eng.graph_report()["captures"]
+    for _ in range(2):  # the second probe replays the graph the first made
+        eng.probe()
+    runs = 2 + eng.graph_report()["captures"] - captures
+    assert {k: v - launches[k] for k, v in cuda_kernels.LAUNCHES.items()} == {
+        "block_best": runs, "quality_accum": runs}
+    assert_same_state(device_state(eng), before)
+    assert (eng.prune_report(), eng.formation_report(),
+            eng.quality_report()) == reports
+
+
+def test_close_returns_memory_allocated(cuda):
+    """An engine with every graph captured and the spare pool of
+    speculation made holds device memory; ``close()`` gives it back: the
+    allocated bytes return to within 5 % of the engine's share of what
+    was allocated before it was built."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = full_width_engine(cuda, {"spec_formation": True})
+    eng.warmup()
+    assert eng.speculate(102.0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert held > 131_072 * 4 * 8
+    eng.close()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert abs(torch.cuda.memory_allocated() - base) <= 0.05 * held
+
+
+def test_a_chaos_failed_dispatch_touches_no_device_state(cuda):
+    """A dispatch the chaos hook fails raises before its chunk touches
+    anything: the device pool, the index, the quality state and the mirror
+    are as they were, and the next dispatch runs."""
+    from matchmaking_tpu_torch.config import ChaosConfig
+    from matchmaking_tpu_torch.utils.chaos import (
+        ChaosInjectedError,
+        EngineChaosHook,
+    )
+
+    eng = full_width_engine(cuda, BUCKETED_1)
+    eng.chaos_hook = EngineChaosHook(ChaosConfig(fail_steps=(0,)))
+    before = device_state(eng)
+    slots = dict(eng.pool._slot_of)
+    free = eng.pool.band_report()
+    rng = np.random.default_rng(62)
+    window = interned(eng, named_columns(rng, 1024, 2_000_000, 103.0, False))
+    with pytest.raises(ChaosInjectedError):
+        eng.search_columns_async(window, 103.0)
+    assert eng.inflight() == 0
+    assert_same_state(device_state(eng), before)
+    assert eng.pool._slot_of == slots and eng.pool.band_report() == free
+    eng.search_columns_async(window, 103.5)
+    (_, out), = eng.flush()
+    assert out.n_matches > 0
+
+
+def test_columnar_dispatch_with_qos_columns_does_not_sync(cuda):
+    """Overload control's columns (tier, deadline) ride the columnar
+    dispatch and restore with no device→host synchronisation; the mirror
+    counts them per tier."""
+    cfg = widening_cfg()
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    eng.warmup()
+    rng = np.random.default_rng(63)
+
+    def qos(cols, now):
+        n = len(cols)
+        return dataclasses.replace(
+            cols, tier=rng.integers(0, 3, n).astype(np.int32),
+            deadline=np.where(rng.random(n) < 0.3, now + 30.0, 0.0))
+
+    fill = qos(columns(rng, eng, 4000, 0, 100.0), 100.0)
+    w1 = qos(columns(rng, eng, 1024, 10_000, 101.0), 101.0)
+    w2 = qos(columns(rng, eng, 300, 20_000, 102.0), 102.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.restore_columns(fill, 100.0)
+        eng.search_columns_async(w1, 101.0)
+        counts = eng.pool_tier_counts(3)
+        eng.search_columns_async(w2, 102.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sum(counts) == 5024
+    outs = eng.flush()
+    assert len(outs) == 2 and not eng.failed_tokens
+    tiers = np.concatenate([fill.tier, w1.tier, w2.tier])
+    matched = sum(o.n_matches for _, o in outs)
+    assert sum(eng.pool_tier_counts(3)) == len(tiers) - 2 * matched

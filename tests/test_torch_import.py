@@ -56,7 +56,11 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.service.broker",
                  "matchmaking_tpu_torch.service.contract",
                  "matchmaking_tpu_torch.service.middleware",
-                 "matchmaking_tpu_torch.service.quality"):
+                 "matchmaking_tpu_torch.service.quality",
+                 "matchmaking_tpu_torch.service.overload",
+                 "matchmaking_tpu_torch.service.breaker",
+                 "matchmaking_tpu_torch.service.batcher",
+                 "matchmaking_tpu_torch.utils.chaos"):
         assert must in mods
 
 
