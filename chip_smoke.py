@@ -167,13 +167,44 @@ Phases, each of which raises (exit code != 0) when it fails:
    degraded answer, the probe's build, probe (capture and replay) and
    move ms, and the first 8 windows' dispatch ms after it.
 
+8. durability, the drain and auth: config #1's service at full width
+   with 100k restored. 8a: 16,384 requests in bursts of 512 with
+   durability off, then with the write-ahead journal on (fsync "window"),
+   after a compaction that anchors the 100k (timed, with the snapshot's
+   bytes): requests/s and latency p50/p99 for both, the journal's host ms
+   a window (ADMIT rows, their append and write, the terminals' append,
+   the commit on its thread and the loop's wait for it); every request
+   answered once, the segment's ADMIT records equal to the windows
+   dispatched. 8b: a second stream crashed (``crash()``) right after its
+   4th window is dispatched and journaled, in flight; a successor on the
+   same directory recovers on the card (rto_ms
+   and its split: attach, snapshot load, removes, tail, heartbeat, the
+   re-anchoring compaction; and the device's drain after it): its waiting
+   set equal to a host recomputation from the files (read_segment and the
+   snapshot), every player answered ``matched`` before the crash absent
+   from it and its redelivery replaying that body byte for byte, every
+   admitted player without a terminal waiting once; 1,024 new requests
+   whose first window's pairs equal those of a port app on the CPU
+   recovered from a copy of the directory, then the redeliveries and
+   6,144 more; both hand kernels launched, nobody in two matches across
+   both apps, the first 8 windows' dispatch ms. 8c: phase 6's overload settings, 100k
+   tiered waiting, 1,024 requests answered, then ``drain(dir)`` with 512
+   requests reaching the broker after the consumer is cancelled (the
+   backlog); a successor's ``restore_checkpoint(dir)``: the pool's columns
+   equal after the round trip, the backlog re-published and answered on
+   the card, no credit held; save and restore ms and bytes. 8d: auth
+   ``rpc`` (an in-process responder, a 5 s timeout), ``static`` and
+   ``none``, 1,024
+   requests each (one in 8 with a bad token, answered ``unauthorized``),
+   requests/s for each.
+
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
 ``--profile-soak`` (with ``--out``) writes cProfile's functions by own
 time over each of the two soaks beside the output file.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-7, the
+JSON summary of phases 3-8, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -3053,6 +3084,7 @@ class AnswerLog:
         self.times: dict[str, list[float]] = {}
         self.wall: dict[str, list[float]] = {}
         real_one, real_batch = app.broker.publish, app.broker.publish_batch
+        in_batch = [False]  # the broker's publish_batch calls publish
 
         def note(queue, props):
             if queue == reply and props is not None:
@@ -3061,13 +3093,18 @@ class AnswerLog:
                 self.wall.setdefault(cid, []).append(time.time())
 
         def publish(queue, body, props=None):
-            note(queue, props)
+            if not in_batch[0]:
+                note(queue, props)
             real_one(queue, body, props)
 
         def publish_batch(items):
             for queue, _, props in items:
                 note(queue, props)
-            real_batch(items)
+            in_batch[0] = True
+            try:
+                real_batch(items)
+            finally:
+                in_batch[0] = False
 
         app.broker.publish, app.broker.publish_batch = publish, publish_batch
         self.app, self.reply = app, reply
@@ -3495,6 +3532,688 @@ async def service_breaker(np, ck, mods, path, *, waiting, seed):
     return res
 
 
+# ---- phase 8: durability, the drain, auth -----------------------------------
+
+
+class Crashed(BaseException):
+    """Unwinds the task a simulated hard crash stopped (not an Exception:
+    no handler of the service may catch it and go on)."""
+
+
+class Replies:
+    """Every answer the service publishes to ``reply``: correlation id →
+    [(host time of its publish, body)] (the broker's ``publish`` and
+    ``publish_batch`` are wrapped, so reading the replies times
+    nothing)."""
+
+    def __init__(self, app, reply):
+        self.got: dict[str, list[tuple[float, bytes]]] = {}
+        real_one, real_batch = app.broker.publish, app.broker.publish_batch
+        in_batch = [False]  # the broker's publish_batch calls publish
+
+        def publish(queue, body, props=None):
+            if queue == reply and props is not None and not in_batch[0]:
+                self.got.setdefault(props.correlation_id, []).append(
+                    (time.perf_counter(), bytes(body)))
+            real_one(queue, body, props)
+
+        def publish_batch(items):
+            t = time.perf_counter()
+            for queue, body, props in items:
+                if queue == reply and props is not None:
+                    self.got.setdefault(props.correlation_id, []).append(
+                        (t, bytes(body)))
+            in_batch[0] = True
+            try:
+                real_batch(items)
+            finally:
+                in_batch[0] = False
+
+        app.broker.publish, app.broker.publish_batch = publish, publish_batch
+        app.broker.declare_queue(reply)
+
+    def statuses(self, pid):
+        return [json.loads(b)["status"] for _, b in self.got.get(pid, ())]
+
+    def matched(self):
+        """player id → match id of every matched answer."""
+        out = {}
+        for pid, answers in self.got.items():
+            for _, b in answers:
+                d = json.loads(b)
+                if d["status"] == "matched":
+                    out.setdefault(pid, set()).add(d["match"]["match_id"])
+        return out
+
+
+def durable_cfg(Config, path, *, journal_dir, fsync="window", overload=None,
+                auth=None, warm=True, compact_interval_s=0.0):
+    import dataclasses
+
+    from matchmaking_tpu_torch.config import (
+        AuthConfig,
+        DurabilityConfig,
+        OverloadConfig,
+    )
+
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    return dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=warm),
+        durability=DurabilityConfig(journal_dir=journal_dir or "",
+                                    fsync=fsync,
+                                    compact_interval_s=compact_interval_s),
+        overload=OverloadConfig(**overload) if overload else OverloadConfig(),
+        auth=AuthConfig(**auth) if auth else AuthConfig())
+
+
+def request_bodies(pop, lo, hi):
+    return [(pop.ids[k], json.dumps({"id": pop.ids[k],
+                                     "rating": float(pop.rating[k])}).encode())
+            for k in range(lo, hi)]
+
+
+async def publish_and_wait(app, rows, burst, reply, replies, *, headers=None,
+                           timeout=120.0):
+    """Publish ``rows`` ((id, body)) in bursts of ``burst`` (5 ms apart),
+    then wait until each has an answer. Returns (seconds, publish times)."""
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    t_pub = {}
+    t0 = time.perf_counter()
+    for b in range(0, len(rows), burst):
+        for pid, body in rows[b:b + burst]:
+            t_pub[pid] = time.perf_counter()
+            app.broker.publish(app.queue_cfg.name, body, Properties(
+                reply_to=reply, correlation_id=pid,
+                headers=dict(headers(pid)) if headers else {}))
+        await asyncio.sleep(0.005)
+    end = time.monotonic() + timeout
+    while (not all(p in replies.got for p in t_pub)
+           and time.monotonic() < end):
+        await asyncio.sleep(0.01)
+    soak_s = time.perf_counter() - t0
+    missing = [p for p in t_pub if p not in replies.got]
+    if missing:
+        raise AssertionError(f"{len(missing)} requests never answered")
+    return soak_s, t_pub
+
+
+async def settle(app, timeout=60.0):
+    """Until no window is in flight and no answer waits for its commit."""
+    rt = app.runtime(app.queue_cfg.name)
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if (app.engine.inflight() == 0 and rt._settler is None
+                and rt._batcher.depth == 0
+                and app.broker.queue_depth(app.queue_cfg.name) == 0):
+            return
+        await asyncio.sleep(0.01)
+    raise AssertionError("the service did not settle")
+
+
+def latency_ms(replies, t_pub):
+    lat = [(replies.got[p][0][0] - t) * 1e3 for p, t in t_pub.items()]
+    return statistics.median(lat), pct(lat, 0.99)
+
+
+def journal_account(np, directory, queue):
+    """A host recomputation of the waiting set from the files alone: the
+    newest snapshot's ids, then every record after its anchor in seq
+    order (ADMIT adds its rows, TERMINAL/TERMINALS remove), over the
+    retained segments. Returns (waiting set, admitted-and-not-terminal
+    set, anchor, records by type)."""
+    from matchmaking_tpu_torch.utils import journal as jr
+
+    snaps = jr.list_snapshots(directory, queue)
+    anchor, snap = snaps[0]
+    with np.load(snap, allow_pickle=False) as z:
+        waiting = set(z["ids"].tolist())
+    records = []
+    live = jr.journal_path(directory, queue)
+    for path in (live + ".prev", live):
+        if os.path.exists(path):
+            _, recs, _, _ = jr.read_segment(path)
+            records += recs
+    records.sort(key=lambda r: r[0])
+    admitted = set()
+    kinds: dict[int, int] = {}
+    for seq, rtype, payload in records:
+        kinds[rtype] = kinds.get(rtype, 0) + 1
+        if seq <= anchor:
+            continue
+        d = json.loads(payload)
+        if rtype == jr.RT_ADMIT:
+            for row in d["rows"]:
+                waiting.add(row[0])
+                admitted.add(row[0])
+        elif rtype == jr.RT_TERMINALS:
+            for pid, _, _ in d["t"]:
+                waiting.discard(pid)
+                admitted.discard(pid)
+        elif rtype == jr.RT_TERMINAL:
+            waiting.discard(d["id"])
+            admitted.discard(d["id"])
+    return waiting, admitted, anchor, kinds
+
+
+def window_pairs(replies, pids):
+    """The pairs among the answers to ``pids``."""
+    out = set()
+    for pid in pids:
+        for _, b in replies.got.get(pid, ()):
+            d = json.loads(b)
+            if d["status"] == "matched":
+                out.add(tuple(sorted(d["match"]["players"])))
+    return out
+
+
+async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
+                             burst, seed):
+    """8a and 8b. Config #1's service at full width, with 100k restored:
+    the soak of ``requests`` in bursts of ``burst`` with durability off,
+    then with the journal on (fsync="window"): a compaction first anchors
+    the 100k (timed; its snapshot's bytes), then the soak; requests/s,
+    latency p50/p99, and the journal's host ms a window (ADMIT rows, their
+    append and write, the terminals' append, the commit on its thread and
+    the loop's wait for it). Checks: every request answered once, the
+    segment's ADMIT records equal the windows dispatched. Then a second
+    stream, crashed right after its 4th window is dispatched and
+    journaled (in flight, uncollected); a successor on the same
+    directory recovers on the card (rto_ms and its split, the device's
+    drain after it), its waiting set equal to a host recomputation from
+    the files, every player answered ``matched`` before the crash absent
+    from it, every admitted player without a terminal waiting once; then
+    1,024 new requests (its first window's pairs equal to a port app's on
+    the CPU recovered from a copy of the directory) and the second
+    stream's redeliveries (each matched player's replaying its body byte
+    for byte), then 6,144 more new requests (the first 8 windows' dispatch
+    ms), with block_best and quality_accum launched, and nobody in two
+    matches across both apps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.utils import journal as jr
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    second = 8_192
+    pop = Population(np, rng, waiting + requests + second + 7_168, t0,
+                     filters=False, glicko2=False)
+    res: dict = {}
+    work = tempfile.mkdtemp(prefix="mm_journal_")
+    jdir = os.path.join(work, "journal")
+    reply = "dur.replies"
+    queue = None
+    try:
+        # ---- 8a: the soak with durability off, then on --------------------
+        for on in (False, True):
+            cfg = durable_cfg(Config, path, journal_dir=jdir if on else None)
+            queue = cfg.queues[0].name
+            app = MatchmakingApp(cfg, device="cuda")
+            await app.start()
+            rt = app.runtime(queue)
+            replies = Replies(app, reply)
+            fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0,
+                               reply)
+            app.restore_columns(fill, pop.region[:waiting],
+                                pop.mode[:waiting], t0)
+            leg = {}
+            if on:
+                t = time.perf_counter()
+                anchor = await rt.compact_journal()
+                leg["compact_ms"] = (time.perf_counter() - t) * 1e3
+                leg["snapshot_bytes"] = os.path.getsize(anchor["snapshot"])
+                leg["snapshot_players"] = anchor["count"]
+                if anchor["count"] != waiting:
+                    raise AssertionError(f"8a: the anchor snapshotted "
+                                         f"{anchor['count']} players")
+            stats0 = dict(rt.journal_stats)
+            windows0 = rt.counters["windows"]
+            reset_counts(ck)
+            soak_s, t_pub = await publish_and_wait(
+                app, request_bodies(pop, waiting, waiting + requests), burst,
+                reply, replies)
+            await settle(app)
+            windows = rt.counters["windows"] - windows0
+            p50, p99 = latency_ms(replies, t_pub)
+            leg.update({"requests_per_s": requests / soak_s, "soak_s": soak_s,
+                        "latency_ms_p50": p50, "latency_ms_p99": p99,
+                        "windows": windows,
+                        "launches": dict(ck.LAUNCHES)})
+            for pid in t_pub:
+                if replies.statuses(pid) not in (["queued"], ["matched"],
+                                                 ["queued", "matched"]):
+                    raise AssertionError(f"8a: {pid} answered "
+                                         f"{replies.statuses(pid)}")
+            check_faults(app, "8a soak")
+            if leg["launches"]["block_best"] != windows or leg["launches"][
+                    "quality_accum"] != windows:
+                raise AssertionError(f"8a: {leg['launches']} for {windows} "
+                                     f"windows")
+            if not on:
+                await app.stop()
+                res["off"] = leg
+                continue
+            stats = {k: rt.journal_stats[k] - stats0[k] for k in stats0}
+            leg["journal_ms_per_window"] = {
+                "admit_rows": stats["admit_rows_ms"] / windows,
+                "admit_append_write": stats["admit_write_ms"] / windows,
+                "terminals_append": stats["terminals_ms"] / windows,
+                "commit_thread": stats["commit_thread_ms"] / windows,
+                "commit_loop_wait": stats["commit_wait_ms"] / windows}
+            leg["commits"] = stats["commits"]
+            _, _, anchor_seq, kinds = journal_account(np, jdir, queue)
+            _, recs, _, _ = jr.read_segment(jr.journal_path(jdir, queue))
+            admits = sum(1 for s, t, _ in recs
+                         if t == jr.RT_ADMIT and s > anchor_seq)
+            if admits != windows or stats["admit_records"] != windows:
+                raise AssertionError(f"8a: {admits} ADMIT records for "
+                                     f"{windows} windows")
+            leg["segment_bytes"] = os.path.getsize(jr.journal_path(jdir,
+                                                                   queue))
+            leg["records"] = kinds
+            res["on"] = leg
+            log(f"8a journal on: {leg['requests_per_s']:.0f} requests/s "
+                f"(off {res['off']['requests_per_s']:.0f}), latency p50 "
+                f"{p50:.2f} ms p99 {p99:.2f} ms (off "
+                f"{res['off']['latency_ms_p50']:.2f}/"
+                f"{res['off']['latency_ms_p99']:.2f}), anchor compaction "
+                f"{leg['compact_ms']:.1f} ms, snapshot "
+                f"{leg['snapshot_bytes']} bytes, journal ms a window "
+                f"{leg['journal_ms_per_window']}")
+
+            # ---- 8b: a second stream, crashed with windows in flight ------
+            # The crash comes right after the 4th window of the stream is
+            # dispatched and its ADMIT record written (so that window is in
+            # flight and journaled): crash() (no awaits inside: driven to
+            # its end here), then Crashed unwinds the dispatching task as
+            # a kill -9 would stop it.
+            rows = request_bodies(pop, waiting + requests,
+                                  waiting + requests + second)
+            state = {}
+            real_admit = rt._journal_admit_cols
+
+            def admit_then_crash(cols):
+                real_admit(cols)
+                state["windows"] = state.get("windows", 0) + 1
+                if state["windows"] == 4:
+                    state["in_flight"] = app.engine.inflight()
+                    crash = app.crash()
+                    try:
+                        crash.send(None)
+                    except StopIteration:
+                        pass
+                    raise Crashed()
+            rt._journal_admit_cols = admit_then_crash
+            sent = []
+            for b in range(0, second, burst):
+                for pid, body in rows[b:b + burst]:
+                    sent.append((pid, body))
+                    app.broker.publish(queue, body, Properties(
+                        reply_to=reply, correlation_id=pid))
+                await asyncio.sleep(0.004)
+                if "in_flight" in state:
+                    break
+            crashed_at = state.get("in_flight")
+            if not crashed_at:
+                raise AssertionError(f"8b: no window in flight at the crash "
+                                     f"({state})")
+            flusher = rt._batcher._task
+            await asyncio.sleep(0.01)
+            if flusher.done() and not flusher.cancelled():
+                flusher.exception()  # the Crashed it ended with, retrieved
+            before = {pid: list(v) for pid, v in replies.got.items()}
+            matched_before = replies.matched()
+            del app, rt
+            copy = os.path.join(work, "copy")
+            shutil.copytree(jdir, copy)
+            want_waiting, want_admitted, _, kinds = journal_account(
+                np, jdir, queue)
+
+            # The successor on the card.
+            app2 = MatchmakingApp(durable_cfg(Config, path, journal_dir=jdir),
+                                  device="cuda")
+            t = time.perf_counter()
+            await app2.start()
+            start_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            torch.cuda.synchronize()
+            drain_ms = (time.perf_counter() - t) * 1e3
+            rt2 = app2.runtime(queue)
+            rec = rt2.last_recovery
+            if rec is None:
+                raise AssertionError("8b: the successor did not recover")
+            got_waiting = set(rt2.engine.pool._slot_of)
+            if got_waiting != want_waiting:
+                raise AssertionError(
+                    f"8b: recovered {len(got_waiting)} waiting, the files "
+                    f"say {len(want_waiting)} "
+                    f"({len(got_waiting ^ want_waiting)} differ)")
+            active = int(rt2.engine.dev_pool["active"].sum())
+            if active != len(got_waiting) or not want_admitted <= got_waiting:
+                raise AssertionError(f"8b: {active} active slots for "
+                                     f"{len(got_waiting)} waiting")
+            published_terminal = {p for p in matched_before}
+            if published_terminal & got_waiting:
+                raise AssertionError("8b: a player answered matched before "
+                                     "the crash is waiting again")
+            replies2 = Replies(app2, reply)
+            dispatch_ms = []
+            timed(rt2.engine, "search_columns_async", dispatch_ms)
+            # 1,024 new requests: the first window after the recovery.
+            reset_counts(ck)
+            lo = waiting + requests + second
+            fresh = request_bodies(pop, lo, lo + 1_024)
+            await publish_and_wait(app2, fresh, 1_024, reply, replies2)
+            first_pairs = window_pairs(replies2, [p for p, _ in fresh])
+            # The redeliveries: every request of the second stream.
+            expect = [pid for pid, _ in sent if pid not in got_waiting]
+            for pid, body in sent:
+                app2.broker.publish(queue, body, Properties(
+                    reply_to=reply, correlation_id=pid))
+            end = time.monotonic() + 120.0
+            while (not all(p in replies2.got for p in expect)
+                   and time.monotonic() < end):
+                await asyncio.sleep(0.01)
+            await settle(app2)
+            if any(p not in replies2.got for p in expect):
+                raise AssertionError("8b: redeliveries unanswered")
+            # Six windows more of new requests: the first 8 windows'
+            # dispatch ms after the recovery.
+            more = request_bodies(pop, lo + 1_024, lo + 7_168)
+            await publish_and_wait(app2, more, 1_024, reply, replies2)
+            await settle(app2)
+            launches = dict(ck.LAUNCHES)
+            replays_checked = 0
+            for pid, _ in sent:
+                if pid not in matched_before:
+                    continue
+                first = [b for _, b in before[pid]
+                         if json.loads(b)["status"] == "matched"][0]
+                if replies2.got[pid][0][1] != first:
+                    raise AssertionError(f"8b: {pid}'s replay differs")
+                replays_checked += 1
+            if not replays_checked:
+                raise AssertionError("8b: no matched answer to replay")
+            for pid, _ in sent:
+                # A waiting player's copy enters nothing and gets no answer
+                # of its own; an arrival may match the player (and a copy
+                # that comes after that replays the match).
+                bodies = {b for _, b in replies2.got.get(pid, ())}
+                if pid in got_waiting and (
+                        len(bodies) > 1 or set(replies2.statuses(pid))
+                        - {"matched"}):
+                    raise AssertionError(f"8b: waiting {pid} answered "
+                                         f"{replies2.statuses(pid)}")
+            both = {p: set(v) for p, v in matched_before.items()}
+            for p, ids in replies2.matched().items():
+                both.setdefault(p, set()).update(ids)
+            twice = [p for p, ids in both.items() if len(ids) > 1]
+            if twice:
+                raise AssertionError(f"8b: {len(twice)} players in two "
+                                     f"matches")
+            if (launches["block_best"] == 0
+                    or launches["quality_accum"] != launches["block_best"]):
+                raise AssertionError(f"8b: {launches} on the recovered "
+                                     f"service")
+            check_faults(app2, "8b successor")
+            await app2.stop()
+
+            # The same recovery and first window on the CPU.
+            cpu = MatchmakingApp(durable_cfg(Config, path, journal_dir=copy,
+                                             warm=False), device="cpu")
+            await cpu.start()
+            replies3 = Replies(cpu, reply)
+            await publish_and_wait(cpu, fresh, 1_024, reply, replies3)
+            cpu_pairs = window_pairs(replies3, [p for p, _ in fresh])
+            cpu_rec = cpu.runtime(queue).last_recovery
+            await cpu.stop()
+            if first_pairs != cpu_pairs or not first_pairs:
+                raise AssertionError(
+                    f"8b: the first window's pairs differ from the CPU "
+                    f"app's ({len(first_pairs)} vs {len(cpu_pairs)})")
+            if cpu_rec["transcript"] != rec["transcript"]:
+                raise AssertionError("8b: the CPU app recovered another "
+                                     "transcript")
+            res["crash"] = {
+                "in_flight_at_crash": crashed_at,
+                "sent_before_crash": len(sent),
+                "answered_matched_before_crash": len(matched_before),
+                "records": kinds,
+                "rto_ms": rec["rto_ms"], "attach_ms": rec["attach_ms"],
+                "split_ms": rec["split_ms"], "start_ms": start_ms,
+                "device_drain_after_start_ms": drain_ms,
+                "snapshot_players": rec["snapshot_players"],
+                "tail_players": rec["tail_players"],
+                "removed_players": rec["removed_players"],
+                "dedup_entries": rec["dedup_entries"],
+                "recovered_waiting": len(got_waiting),
+                "first_window_pairs": len(first_pairs),
+                "replayed": rt2.counters["deduped_replays"],
+                "replays_checked": replays_checked,
+                "launches": launches,
+                "first_8_windows_dispatch_ms": [x * 1e3 for x in
+                                                dispatch_ms[:8]]}
+            log(f"8b crash with {crashed_at} windows in flight after "
+                f"{len(sent)} of the second stream: recovered "
+                f"{len(got_waiting)} waiting (= the files), rto "
+                f"{rec['rto_ms']:.1f} ms (attach {rec['attach_ms']:.1f} ms, "
+                f"{rec['split_ms']}), device drain {drain_ms:.1f} ms, "
+                f"{rt2.counters['deduped_replays']} replays, first window "
+                f"{len(first_pairs)} pairs = CPU app's, first 8 dispatch ms "
+                f"{[round(x * 1e3, 3) for x in dispatch_ms[:8]]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+async def service_drain(np, torch, ck, mods, path, *, waiting, backlog, seed):
+    """8c. Config #1's service with phase 6's overload settings and 100k
+    waiting (tiered), a burst of 1,024 answered, then ``drain(dir)`` while
+    ``backlog`` requests reach the broker after the consumer is cancelled
+    (the handoff's unconsumed backlog). A successor runs
+    ``restore_checkpoint(dir)``: the pool's columns (ids, rating, rd,
+    threshold, enqueue time, tier, deadline) equal the predecessor's after
+    the round trip, the backlog is re-published and answered on the card,
+    and no credit is left held. Times the save and the restore, with the
+    files' bytes."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.utils import checkpoint
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + 1_024 + backlog, t0, filters=False,
+                     glicko2=False, deadline_frac=0.05)
+    tiers = rng.choice(3, size=waiting, p=[0.25, 0.5, 0.25]).astype(np.int32)
+    work = tempfile.mkdtemp(prefix="mm_drain_")
+    reply = "drain.replies"
+    cfg = durable_cfg(Config, path, journal_dir=None, overload=OVERLOAD)
+    queue = cfg.queues[0].name
+
+    def columns(eng):
+        cols, _, _ = checkpoint.engine_waiting_columns(eng)
+        order = np.argsort(cols.ids.astype(str))
+        return {k: getattr(cols, k)[order] for k in (
+            "ids", "rating", "rd", "threshold", "enqueued_at", "tier",
+            "deadline")}
+
+    try:
+        app = MatchmakingApp(cfg, device="cuda")
+        await app.start()
+        rt = app.runtime(queue)
+        replies = Replies(app, reply)
+        fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply)
+        app.restore_columns(dataclasses.replace(fill, tier=tiers),
+                            pop.region[:waiting], pop.mode[:waiting], t0)
+        reset_counts(ck)
+        await publish_and_wait(app, request_bodies(pop, waiting,
+                                                   waiting + 1_024),
+                               1_024, reply, replies,
+                               headers=lambda pid: {"x-tier": "1"})
+        late = request_bodies(pop, waiting + 1_024, waiting + 1_024 + backlog)
+        real_cancel = app.broker.basic_cancel
+
+        def cancel(tag):
+            real_cancel(tag)
+            if tag == rt._tag:  # producers go on publishing
+                for pid, body in late:
+                    app.broker.publish(queue, body, Properties(
+                        reply_to=reply, correlation_id=pid,
+                        headers={"x-tier": "1"}))
+        app.broker.basic_cancel = cancel
+        t = time.perf_counter()
+        counts = await app.drain(work)
+        save_ms = (time.perf_counter() - t) * 1e3
+        if rt.admission.inflight() != 0:
+            raise AssertionError(f"8c: {rt.admission.inflight()} credits "
+                                 f"held after the drain")
+        check_faults(app, "8c predecessor")
+        want = columns(app.engine)
+        nbytes = {f: os.path.getsize(os.path.join(work, f))
+                  for f in sorted(os.listdir(work))}
+        with open(os.path.join(work, "_backlog.json")) as f:
+            saved_backlog = json.load(f)["count"]
+        if saved_backlog != backlog or counts[queue] != len(want["ids"]):
+            raise AssertionError(f"8c: saved {counts}, backlog "
+                                 f"{saved_backlog}")
+        app.engine.close()
+        del app, rt
+
+        succ = MatchmakingApp(cfg, device="cuda")
+        await succ.start()
+        rt2 = succ.runtime(queue)
+        replies2 = Replies(succ, reply)
+        reset_counts(ck)
+        t = time.perf_counter()
+        restored = await succ.restore_checkpoint(work)
+        restore_ms = (time.perf_counter() - t) * 1e3
+        got = columns(succ.engine)  # before the backlog's windows land
+        for k, v in want.items():
+            same = (np.array_equal(v, got[k], equal_nan=True)
+                    if v.dtype.kind == "f" else np.array_equal(v, got[k]))
+            if not same:
+                raise AssertionError(f"8c: column {k} differs after the "
+                                     f"round trip")
+        end = time.monotonic() + 60.0
+        while (not all(p in replies2.got for p, _ in late)
+               and time.monotonic() < end):
+            await asyncio.sleep(0.01)
+        if any(p not in replies2.got for p, _ in late):
+            raise AssertionError("8c: the backlog was not answered")
+        await settle(succ)
+        launches = dict(ck.LAUNCHES)
+        await succ.stop()
+        check_faults(succ, "8c successor")
+        if rt2.admission.inflight() != 0:
+            raise AssertionError("8c: a credit held after the successor")
+        if launches["block_best"] == 0 or launches["quality_accum"] == 0:
+            raise AssertionError(f"8c: {launches} answering the backlog")
+        statuses = {}
+        for pid, _ in late:
+            s = replies2.statuses(pid)[-1]
+            statuses[s] = statuses.get(s, 0) + 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res = {"saved": counts[queue], "restored": restored[queue],
+           "backlog": saved_backlog, "save_ms": save_ms,
+           "restore_ms": restore_ms, "bytes": nbytes,
+           "backlog_final_status": statuses, "launches": launches}
+    log(f"8c drain: {counts[queue]} players + {saved_backlog} backlog saved "
+        f"in {save_ms:.1f} ms ({nbytes}), restored in {restore_ms:.1f} ms, "
+        f"columns equal, backlog answered {statuses}")
+    return res
+
+
+async def service_auth(np, ck, mods, path, *, waiting, requests, seed):
+    """8d. Config #1's service with 100k waiting under auth ``rpc`` (an
+    in-process responder on ``rpc_queue``, a 5 s timeout), ``static``, and
+    ``none``, each
+    taking ``requests`` (one in 8 with a bad token) in bursts of 512:
+    the bad ones answered ``unauthorized``, the rest queued or matched on
+    the card (block_best and quality_accum launched). Requests/s for each
+    (rpc runs a task per delivery)."""
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=False)
+    secret = "tok"
+    res = {}
+    for mode in ("rpc", "static", "none"):
+        # A 5 s rpc timeout: the in-process responder, on the service's
+        # own event loop, answers a burst of 512 round trips in series
+        # (the default 250 ms timed some good tokens out as
+        # auth_unavailable on one card machine).
+        cfg = durable_cfg(Config, path, journal_dir=None,
+                          auth={"mode": mode, "static_secret": secret,
+                                "rpc_timeout_ms": 5_000.0})
+        app = MatchmakingApp(cfg, device="cuda")
+        await app.start()
+        try:
+            if mode == "rpc":
+                broker = app.broker
+
+                async def verify(d, broker=broker):
+                    ok = d.body.startswith(secret.encode())
+                    broker.publish(d.properties.reply_to,
+                                   b"ok" if ok else b"denied",
+                                   Properties(correlation_id=d.properties
+                                              .correlation_id))
+                    broker.ack(tag, d.delivery_tag)
+                tag = broker.basic_consume(cfg.auth.rpc_queue, verify,
+                                           prefetch=4096)
+            reply = "auth.replies"
+            replies = Replies(app, reply)
+            fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0,
+                               reply)
+            app.restore_columns(fill, pop.region[:waiting],
+                                pop.mode[:waiting], t0)
+            rows = request_bodies(pop, waiting, waiting + requests)
+            bad = {pid for j, (pid, _) in enumerate(rows) if j % 8 == 5}
+            reset_counts(ck)
+            soak_s, t_pub = await publish_and_wait(
+                app, rows, 512, reply, replies,
+                headers=lambda pid: {"authorization": (
+                    "wrong" if pid in bad else f"{secret}-{pid}")})
+            await settle(app)
+            launches = dict(ck.LAUNCHES)
+            check_faults(app, f"8d auth {mode}")
+        finally:
+            await app.stop()
+        for pid, _ in rows:
+            seq = replies.statuses(pid)
+            if pid in bad and mode != "none":
+                body = json.loads(replies.got[pid][0][1])
+                if seq != ["error"] or "unauthorized" not in json.dumps(body):
+                    raise AssertionError(f"8d {mode}: {pid} answered {seq}")
+            elif seq not in (["queued"], ["matched"], ["queued", "matched"]):
+                raise AssertionError(f"8d {mode}: {pid} answered {seq}")
+        if launches["block_best"] == 0 or launches["quality_accum"] == 0:
+            raise AssertionError(f"8d {mode}: {launches}")
+        p50, p99 = latency_ms(replies, t_pub)
+        res[mode] = {"requests_per_s": requests / soak_s,
+                     "latency_ms_p50": p50, "latency_ms_p99": p99,
+                     "unauthorized": len(bad) if mode != "none" else 0,
+                     "launches": launches}
+        log(f"8d auth {mode}: {requests} requests, "
+            f"{res[mode]['requests_per_s']:.0f} requests/s, latency p50 "
+            f"{p50:.2f} ms p99 {p99:.2f} ms")
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -3711,6 +4430,28 @@ def main(argv) -> int:
     launches["service_breaker_after_repromotion"] = (
         breaker_run["launches_after"])
     phase_s["7"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 8. durability at full width: the write-ahead journal's cost (on
+    #    against off), a hard crash with windows in flight and the
+    #    recovery on the card, the drain's round trip with its backlog,
+    #    and auth rpc and static
+    elo = "configs/elo_1v1.json"
+    durability = asyncio.run(service_durability(
+        np, torch, ck, mods, elo, waiting=100_000, requests=16_384,
+        burst=512, seed=18))
+    drain_run = asyncio.run(service_drain(
+        np, torch, ck, mods, elo, waiting=100_000, backlog=512, seed=19))
+    auth_run = asyncio.run(service_auth(
+        np, ck, mods, elo, waiting=100_000, requests=1_024, seed=20))
+    phase8 = {"service_journal_soak": durability["on"]["launches"],
+              "service_recovered": durability["crash"]["launches"],
+              "service_drain_restore": drain_run["launches"],
+              "service_auth_rpc": auth_run["rpc"]["launches"],
+              "service_auth_static": auth_run["static"]["launches"]}
+    for name, counts in phase8.items():
+        launches[name] = counts["block_best"]
+    phase_s["8"] = time.perf_counter() - t_phase
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -3731,12 +4472,14 @@ def main(argv) -> int:
                      + launches["columnar_elo_1v1_bucketed"]
                      + launches["rescan_tick_glicko2"]
                      + sum(r["speculate_launches"]
-                           for r in speculation.values()))
+                           for r in speculation.values())
+                     + sum(c["block_best"] for c in phase8.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
                   + rescan["tick_launches"]
-                  + sum(r["commit_launches"] for r in speculation.values()))
+                  + sum(r["commit_launches"] for r in speculation.values())
+                  + sum(c["quality_accum"] for c in phase8.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -3779,7 +4522,8 @@ def main(argv) -> int:
             "service_breaker_probe":
                 breaker_run["probe_launches"]["quality_accum"],
             "service_breaker_after_repromotion":
-                breaker_run["launches_after"]},
+                breaker_run["launches_after"],
+            **{name: c["quality_accum"] for name, c in phase8.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -3874,6 +4618,9 @@ def main(argv) -> int:
             for on, run in overload.items()},
         "breaker": {k: v for k, v in breaker_run.items()
                     if k != "quality_counts"},
+        "durability": durability,
+        "drain": drain_run,
+        "auth": auth_run,
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -3905,6 +4652,8 @@ def main(argv) -> int:
                        "multiqueue_service": multiqueue,
                        "team_service": team_service,
                        "overload": overload, "breaker": breaker_run,
+                       "durability": durability, "drain": drain_run,
+                       "auth": auth_run,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

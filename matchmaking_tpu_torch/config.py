@@ -6,10 +6,12 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 ``configs/*.json`` files; those name the JAX package's ``"tpu"`` backend,
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
-JAX name. Sections and keys the port does not carry yet (durability,
-replication, tracing, the broker and network faults of chaos, ...) are
-ignored with a warning; a few values that need a module the port does not
-have yet are refused at construction, with the module named.
+JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
+Sections and keys the port does not carry yet (tracing, the broker and
+network faults of chaos, ...) are ignored with a warning; a few values
+that need a module the port does not have yet are refused, with the module
+named: a ``replication`` section with a role at load, the multi-GPU chaos
+faults at construction.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
@@ -173,6 +176,9 @@ class EngineConfig:
 class BrokerConfig:
     """In-process broker knobs."""
 
+    #: Transport URL. The port serves on the in-process broker only: an
+    #: ``amqp://`` URL is refused by ``service.app.serve``.
+    url: str = "inproc://matchmaking"
     request_queue: str = "matchmaking.search"
     #: Per-consumer unacked-message cap.
     prefetch: int = 2048
@@ -205,9 +211,15 @@ class BatcherConfig:
 
 @dataclass(frozen=True)
 class AuthConfig:
-    """Auth middleware; this slice serves ``mode="none"`` only."""
+    """Auth middleware (service/middleware.py): ``"none"`` (off),
+    ``"static"`` (the request's ``authorization`` header must start with a
+    shared secret) or ``"rpc"`` (a round trip over the broker to an auth
+    service's queue, whose reply must be ``b"ok"``)."""
 
     mode: str = "none"
+    static_secret: str = "open-matchmaking"
+    rpc_queue: str = "auth.token.verify"
+    rpc_timeout_ms: float = 250.0
 
 
 @dataclass(frozen=True)
@@ -257,9 +269,10 @@ class OverloadConfig:
     min_credit_fraction: float = 0.25
     tighten_step: float = 0.5
     relax_step: float = 1.25
-    #: Graceful drain's checkpoint directory. The port drains without a
-    #: checkpoint only: a non-empty value needs the durability modules
-    #: (journal and checkpoint, ROADMAP Queue 1 item 5) and is refused.
+    #: Graceful drain's checkpoint directory (``MatchmakingApp.drain``): the
+    #: waiting pools, the admission state and the broker backlog are saved
+    #: there, and ``serve`` restores them at its next start ("" = a drain
+    #: without a checkpoint).
     drain_checkpoint_dir: str = ""
     #: Window-granular admission: the credit and occupancy ladder runs once
     #: per cut window at the top of the flush, in arrival order; ingress
@@ -268,11 +281,6 @@ class OverloadConfig:
     batch_admission: bool = True
 
     def __post_init__(self) -> None:
-        if self.drain_checkpoint_dir:
-            raise ValueError(
-                "overload.drain_checkpoint_dir needs the durability modules "
-                "(journal and checkpoint), which the port does not carry yet "
-                "(ROADMAP Queue 1 item 5); drain without it")
         if self.shed_policy not in ("reject", "oldest"):
             raise ValueError(f"overload.shed_policy must be 'reject' or "
                              f"'oldest', not {self.shed_policy!r}")
@@ -284,6 +292,39 @@ class OverloadConfig:
                     or self.default_deadline_ms > 0 or self.adaptive
                     or self.drain_checkpoint_dir or self.tiers > 1
                     or self.deadline_sweep_ms > 0)
+
+
+@dataclass(frozen=True)
+class DurabilityConfig:
+    """Crash durability (utils/journal.py): a write-ahead journal per
+    queue and periodic compaction snapshots, so a hard crash (OOM, host
+    loss, ``kill -9``) recovers the waiting pool, the terminal-replay
+    cache and the admission state. Admissions, matches, evictions and
+    expiries append CRC-framed records, one per cut window, committed
+    before the answers and acks they cover leave; a boot without the
+    clean-shutdown marker replays the newest valid snapshot and the
+    journal's tail into the engine."""
+
+    #: Directory of the journal segments and snapshots ("" = off: no
+    #: files, no work on the hot path).
+    journal_dir: str = ""
+    #: ``"none"``: no fsync (a process crash loses nothing written, a host
+    #: loss may lose the tail); ``"interval"``: at most every
+    #: ``fsync_interval_s``; ``"window"``: at every commit.
+    fsync: str = "none"
+    fsync_interval_s: float = 0.05
+    #: Compact once the live segment holds this many records…
+    compact_records: int = 50_000
+    #: …or this many bytes. Compaction runs on the durability timer, with
+    #: the pipeline drained and the pool held still.
+    compact_bytes: int = 8 << 20
+    #: The durability timer's cadence (seconds; 0 = no timer).
+    compact_interval_s: float = 1.0
+    #: Snapshot generations kept (a corrupt newest one falls back).
+    keep_snapshots: int = 2
+
+    def enabled(self) -> bool:
+        return bool(self.journal_dir)
 
 
 @dataclass(frozen=True)
@@ -345,7 +386,8 @@ class ObservabilityConfig:
 _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "batcher": BatcherConfig, "auth": AuthConfig,
              "overload": OverloadConfig, "chaos": ChaosConfig,
-             "observability": ObservabilityConfig}
+             "observability": ObservabilityConfig,
+             "durability": DurabilityConfig}
 
 
 def _tuples(v):
@@ -375,6 +417,8 @@ class Config:
     batcher: BatcherConfig = field(default_factory=BatcherConfig)
     auth: AuthConfig = field(default_factory=AuthConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
+    #: Write-ahead journal and crash recovery (off by default).
+    durability: DurabilityConfig = field(default_factory=DurabilityConfig)
     #: Scripted engine faults (empty: no chaos hook on any engine).
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     observability: ObservabilityConfig = field(
@@ -384,6 +428,11 @@ class Config:
     def from_dict(d: Mapping[str, Any], *, backend: str | None = None) -> "Config":
         """Build a Config; ``backend`` overrides ``engine.backend``."""
         kw: dict[str, Any] = {}
+        if (d.get("replication") or {}).get("role"):
+            raise ValueError(
+                "replication.role needs the replication module "
+                "(service/replication.py and net/), which the port does not "
+                "carry yet (ROADMAP Queue 1 item 5); remove the role")
         if "queues" in d:
             kw["queues"] = tuple(QueueConfig(**_known(QueueConfig, "queues", q))
                                  for q in d["queues"])
@@ -406,3 +455,40 @@ class Config:
     def from_json(path: str, *, backend: str | None = None) -> "Config":
         with open(path) as f:
             return Config.from_dict(json.load(f), backend=backend)
+
+    @staticmethod
+    def from_env(prefix: str = "MM_", *, backend: str = "gpu") -> "Config":
+        """A Config from ``MM_*`` variables, under the JAX package's names:
+        ``MM_<SECTION>_<KEY>`` (``MM_DURABILITY_JOURNAL_DIR``) with values
+        parsed as JSON where they parse; ``MM_CONFIG_JSON=<path>`` loads a
+        whole tree first (the variables win over it) and
+        ``MM_QUEUE_NAMES=a,b`` keeps only the named queues. The engine
+        backend is ``backend`` unless ``MM_ENGINE_BACKEND`` names one: the
+        files say the JAX package's ``"tpu"``."""
+        env = {k[len(prefix):].lower(): v for k, v in os.environ.items()
+               if k.startswith(prefix)}
+        d: dict[str, Any] = {}
+        if "config_json" in env:
+            with open(env.pop("config_json")) as f:
+                d = json.load(f)
+        queue_names = env.pop("queue_names", None)
+        for key, raw in env.items():
+            try:
+                val: Any = json.loads(raw)
+            except ValueError:
+                val = raw
+            section, _, name = key.partition("_")
+            if name:
+                d.setdefault(section, {})[name] = val
+        chosen = (d.get("engine") or {}).get("backend") \
+            if "engine_backend" in env else backend
+        cfg = Config.from_dict(d, backend=chosen)
+        if queue_names is not None:
+            names = [n for n in str(queue_names).split(",") if n]
+            keep = tuple(q for q in cfg.queues if q.name in names)
+            missing = set(names) - {q.name for q in keep}
+            if missing:
+                raise KeyError(
+                    f"MM_QUEUE_NAMES not in config: {sorted(missing)}")
+            cfg = dataclasses.replace(cfg, queues=keep)
+        return cfg

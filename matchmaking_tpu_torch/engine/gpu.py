@@ -1763,9 +1763,14 @@ class GpuEngine(Engine):
         counts them out of its index). (The JAX package evicts in chunks
         of ``evict_bucket`` padded with the sentinel ``capacity``, for a
         fixed compiled shape; the eviction takes any length, so one call
-        over the slots marks the same ones.)"""
-        t = torch.from_numpy(np.ascontiguousarray(slots, np.int32)).to(
-            self.device)
+        over the slots marks the same ones.) The slots are staged in
+        pinned memory on the card and copied without blocking (a pageable
+        copy would synchronize the stream; the pinned allocator keeps the
+        block until the copy has run)."""
+        staging = torch.empty(len(slots), dtype=torch.int32,
+                              pin_memory=self._pinned)
+        staging.numpy()[:] = slots
+        t = staging.to(self.device, non_blocking=True)
         if self._team_device:
             kernels.evict(self.dev_pool, t)
         else:

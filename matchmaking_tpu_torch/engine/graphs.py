@@ -45,6 +45,7 @@ static output); ``report()`` gives each graph's capture time and memory.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -123,14 +124,23 @@ class StepGraphs:
             graph = torch.cuda.CUDAGraph()
             reserved0 = torch.cuda.memory_reserved(dev)
             t = time.perf_counter()
-            graph.capture_begin()
+            # No cyclic collection during the capture: one that frees an
+            # older engine's graphs destroys them (a CUDA call a capturing
+            # stream forbids), which invalidates this capture.
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                static_out = fn(pool, static_in)
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
+                graph.capture_begin()
+                try:
+                    static_out = fn(pool, static_in)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             capture_ms = (time.perf_counter() - t) * 1e3
             memory = torch.cuda.memory_reserved(dev) - reserved0
             # The capture ran the step's Python but none of its kernels:

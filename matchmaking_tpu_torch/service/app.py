@@ -82,26 +82,51 @@ pipeline and the collector on every swap. Scripted engine faults
 (``Config.chaos``, utils/chaos.py) reach every engine of a queue through
 one hook, whose indices survive the swaps.
 
+Durability (``DurabilityConfig``, utils/journal.py): each queue writes a
+write-ahead journal. A dispatched window's players are one ADMIT record,
+written out at the dispatch; every terminal answer (a window's matches in
+one record, timeouts, evictions) is a TERMINAL record. Every answer and
+every ack leaves after a commit that covers the records before it: inline,
+or, under an fsync policy, through the settler (``_effect``), which
+commits on a worker thread and then publishes and acks in order. The
+compaction timer snapshots the pool (utils/checkpoint.py) and rotates the
+segment under ``_pool_lock``, which every pool-mutating entry point takes
+for its synchronous stretch. ``start`` recovers an unclean predecessor's
+journal before the consumer exists; ``stop`` writes the clean marker;
+``crash`` leaves the disk as ``kill -9`` would. ``drain`` stops admission,
+stops every queue and saves the pools, the admission state and the
+broker's backlog; ``restore_checkpoint`` takes them back.
+
+Auth (``AuthConfig``, service/middleware.py): ``static`` and ``rpc`` run
+in the middleware chain of each delivery (``rpc`` with a handler task per
+delivery, so its round trips overlap); the columnar ingress without the
+chain serves auth ``"none"`` only.
+
 Everything runs on the event loop's thread: a dispatch or a collection
-runs to its end without yielding, so no lock is needed around an engine,
-and no second thread contends with the loop for the interpreter lock
-(every PyTorch call of the window step releases and retakes it).
+runs to its end without yielding, so only compaction and recovery, which
+wait for a worker thread, need ``_pool_lock``; and no second thread
+contends with the loop for the interpreter lock (every PyTorch call of the
+window step releases and retakes it).
 
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the object flush, the health timer, burst consume and
 decode, the speculation loop and cut, overload control and the circuit
-breaker), without durability (a drain with a checkpoint), replication,
-tracing (so adaptive shedding reads no stage p99, as the JAX service with
-tracing off), auth modes other than ``"none"``, the dispatch arbiter, and
-the metrics, gauges and event log (the counters are each runtime's
-``counters`` dict, under the JAX package's names).
+breaker, durability, the drain and auth), without replication, tracing
+(so adaptive shedding reads no stage p99, as the JAX service with tracing
+off), the AMQP transport, the dispatch arbiter, and the metrics, gauges
+and event log (the counters are each runtime's ``counters`` dict, under
+the JAX package's names).
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
 
 runs ten players through every queue of the service (the default
 one-queue config, or the config file at PATH; on the card unless
-``--device`` says otherwise) and prints their answers.
+``--device`` says otherwise) and prints their answers;
+
+    python -m matchmaking_tpu_torch.service.app serve [--device cpu]
+
+serves the ``MM_*`` config on the in-process broker until SIGTERM.
 """
 
 from __future__ import annotations
@@ -109,8 +134,9 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import os
 import time
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -154,7 +180,9 @@ from matchmaking_tpu_torch.service.overload import (
     deadline_of,
 )
 from matchmaking_tpu_torch.service.quality import QualityLedger
+from matchmaking_tpu_torch.utils import checkpoint
 from matchmaking_tpu_torch.utils.chaos import ChaosState
+from matchmaking_tpu_torch.utils.journal import PoolJournal, row_to_request
 
 log = logging.getLogger(__name__)
 
@@ -216,7 +244,9 @@ class _QueueRuntime:
             "spec_commits": 0, "spec_errors": 0, "flush_errors": 0,
             "engine_crashes": 0, "breaker_trips": 0,
             "breaker_degraded_revives": 0, "breaker_probes": 0,
-            "breaker_probe_failures": 0, "breaker_closes": 0}
+            "breaker_probe_failures": 0, "breaker_closes": 0,
+            "journal_compactions": 0, "journal_compact_errors": 0,
+            "crash_recoveries": 0}
         #: Overload control (None: no OverloadConfig knob set, and the
         #: ingress pays nothing for it). Its counters (``shed_requests``,
         #: ``expired_requests``, and per tier) land in ``counters``.
@@ -266,12 +296,64 @@ class _QueueRuntime:
         self._loops: list[asyncio.Task] = []
         #: Set by ``stop()``: no engine swap starts a collector after it.
         self._stopping = False
+        #: Held by compaction and recovery for their whole span, and by
+        #: every other entry point that mutates the pool or appends to the
+        #: journal (a flush, a collector or speculation tick, a rescan
+        #: dispatch or collection, a sweep, a health tick, the stop's
+        #: drain) for its synchronous stretch: nothing changes the pool
+        #: between a compaction's anchor and its rotation. Uncontended, it
+        #: costs no yield.
+        self._pool_lock = asyncio.Lock()
+        #: The write-ahead journal (utils/journal.py; None: durability
+        #: off). Construction attaches to what a predecessor left;
+        #: ``start`` applies it (``recover_from_journal``) before the
+        #: consumer exists.
+        self.journal: PoolJournal | None = None
+        #: Host ms of the journal's attach (its recovery parse).
+        self.attach_ms = 0.0
+        dur = self.cfg.durability
+        if dur.enabled():
+            t0 = time.perf_counter()
+            self.journal = PoolJournal(
+                dur.journal_dir, queue_cfg.name, fsync=dur.fsync,
+                fsync_interval_s=dur.fsync_interval_s,
+                compact_records=dur.compact_records,
+                compact_bytes=dur.compact_bytes,
+                keep_snapshots=dur.keep_snapshots)
+            self.attach_ms = (time.perf_counter() - t0) * 1e3
+        #: The journal's host cost: ms building ADMIT rows, appending and
+        #: writing them, appending terminals, committing (in the settle
+        #: thread) and the loop's wait for those commits, with counts.
+        self.journal_stats = {"admit_rows_ms": 0.0, "admit_write_ms": 0.0,
+                              "admit_records": 0, "terminals_ms": 0.0,
+                              "terminal_records": 0, "commit_thread_ms": 0.0,
+                              "commit_wait_ms": 0.0, "commits": 0}
+        #: The last hard-crash recovery (None: a clean or fresh boot).
+        self.last_recovery: dict[str, Any] | None = None
+        #: The compaction timer (armed after recovery).
+        self._durability: asyncio.Task | None = None
+        #: ``start`` got past the recovery: only then may ``stop`` mark the
+        #: journal clean (a runtime that never recovered must leave an
+        #: unclean journal as it found it).
+        self._recovered = False
+        #: Write-ahead settle: with an fsync policy, a window's answers and
+        #: acks wait here (in order) while the commit that covers their
+        #: records runs on a worker thread; every later effect queues
+        #: behind them, so the order of answers is kept.
+        self._settle_async = (self.journal is not None
+                              and self.journal.fsync != "none")
+        self._egress: list = []
+        self._settler: asyncio.Task | None = None
 
     async def start(self) -> None:
         self._bind_engine(self._make_engine())
         if self.cfg.engine.warm_start:
             self.engine.warmup()
         self.broker.declare_queue(self.queue_cfg.name)
+        # An unclean predecessor's pool, replay cache and admission state,
+        # before any consumer or timer exists.
+        await self.recover_from_journal()
+        self._recovered = True
         ov = self.cfg.overload
         self._batcher = Batcher(
             self.cfg.batcher, self._flush,
@@ -285,13 +367,15 @@ class _QueueRuntime:
         prefetch = self.cfg.broker.prefetch
         if ov.max_inflight > 0:
             prefetch = max(prefetch, 2 * ov.max_inflight)
-        # Every callback here is non-blocking (auth is "none"), so the
-        # deliveries already buffered drain into one handler task a burst.
+        # Every callback but rpc auth's is non-blocking, so the deliveries
+        # already buffered drain into one handler task a burst; rpc auth
+        # keeps a task per delivery, so its round trips overlap.
+        rpc = self.cfg.auth.mode == "rpc"
         self._tag = self.broker.basic_consume(
             self.queue_cfg.name, self._on_delivery, prefetch=prefetch,
-            batch_hint=True,
-            batch_callback=(self._on_delivery_batch if self._consume_batch
-                            else None))
+            batch_hint=not rpc,
+            batch_callback=(self._on_delivery_batch
+                            if self._consume_batch and not rpc else None))
         if self.queue_cfg.rescan_interval_s > 0:
             self._loops.append(asyncio.create_task(self._rescan_loop()))
         if (self.queue_cfg.request_timeout_s is not None
@@ -303,8 +387,13 @@ class _QueueRuntime:
                 and self.cfg.engine.spec_interval_ms > 0
                 and not self._team):
             self._loops.append(asyncio.create_task(self._spec_loop()))
+        self.start_durability_timer()
 
     async def stop(self) -> None:
+        """Cancel the loops (a compaction under way finishes first), drain
+        the batcher (its last windows are answered and acked), collect
+        every window in flight, settle every answer, cancel the consumer,
+        then write the journal's clean-shutdown marker and close it."""
         for task in self._loops:
             task.cancel()
         await asyncio.gather(*self._loops, return_exceptions=True)
@@ -318,10 +407,39 @@ class _QueueRuntime:
             await asyncio.gather(self._collector, return_exceptions=True)
             self._collector = None
         if self.engine is not None:
-            self._drain_engine(time.time())
+            async with self._pool_lock:
+                self._drain_engine(time.time())
+        await self._settled()
         if self._tag is not None:
             self.broker.basic_cancel(self._tag)
             self._tag = None
+        if (self.journal is not None and self._recovered
+                and not self.journal._closed):
+            # Its presence tells the next boot to skip recovery.
+            self.journal.mark_clean()
+            self.journal.close()
+
+    def abandon(self) -> None:
+        """A hard crash's teardown: every task cancelled, the answers
+        waiting for a commit dropped, the journal closed without a clean
+        marker, a commit or its buffer: on disk is what ``kill -9`` would
+        leave. The engine is closed (its device memory would otherwise
+        outlive the crashed app)."""
+        tasks = list(self._loops) + [self._collector, self._settler]
+        if self._batcher is not None:
+            tasks.append(self._batcher._task)
+        for task in tasks:
+            if task is not None:
+                task.cancel()
+        self._loops = []
+        self._egress = []
+        self._stopping = True
+        if self.journal is not None:
+            self.journal.abandon()
+        if self._tag is not None:
+            self.broker.basic_cancel(self._tag)
+            self._tag = None
+        self.engine.close()
 
     def faults(self) -> dict[str, object]:
         """The failures this queue caught and recovered from: the nonzero
@@ -363,10 +481,14 @@ class _QueueRuntime:
         self.engine = engine
         self._objects = self._team or not hasattr(engine,
                                                   "search_columns_async")
-        self.pipeline = (default_pipeline(self.cfg.auth) if self._objects
-                         else columnar_pipeline(self.cfg.auth))
-        self._inline_ingress = not self._objects and (
-            self.admission is None or self._batch_admission)
+        self.pipeline = (
+            default_pipeline(self.cfg.auth, self.broker) if self._objects
+            else columnar_pipeline(self.cfg.auth, self.broker))
+        # Auth runs in the middleware chain: the inline columnar ingress
+        # (no chain) holds only without it.
+        self._inline_ingress = (
+            not self._objects and self.cfg.auth.mode == "none"
+            and (self.admission is None or self._batch_admission))
         self._async_api = hasattr(engine, "collect_ready")
         want = self._async_api and self.pipeline_depth > 1
         if want and not self._stopping and (self._collector is None
@@ -409,6 +531,149 @@ class _QueueRuntime:
         reg, mode = engine.intern_columns(list(regions), list(modes))
         engine.restore_columns(dataclasses.replace(cols, region=reg, mode=mode),
                                now)
+
+    # ---- durability: compaction and crash recovery ------------------------
+
+    def start_durability_timer(self) -> None:
+        """Arm the compaction timer: after recovery, so that the first
+        compaction snapshots a recovered (or fresh) pool, never the empty
+        one a recovery is about to fill."""
+        if (self.journal is not None and self._durability is None
+                and self.cfg.durability.compact_interval_s > 0):
+            self._durability = asyncio.create_task(self._durability_loop())
+            self._loops.append(self._durability)
+
+    async def _durability_loop(self) -> None:
+        """Compact once the live segment crosses its record or byte
+        budget. A failed compaction is logged and counted, and retried."""
+        interval = self.cfg.durability.compact_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                if self.journal.wants_compact():
+                    await self.compact_journal()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("journal compaction failed; retrying")
+                self.counters["journal_compact_errors"] += 1
+
+    async def compact_journal(self) -> dict[str, Any]:
+        """One compaction, under the pool lock with the pipeline drained:
+        the anchor seq, the pool's snapshot (utils/checkpoint.py) and the
+        segment's rotation, carrying the live replay entries and the
+        admission checkpoint. The snapshot and the rotation run on a
+        worker thread; a cancellation waits for the thread (it cannot be
+        interrupted) before it propagates, so ``stop`` never writes its
+        clean marker into a segment being retired."""
+        j = self.journal
+        async with self._pool_lock:
+            now = time.time()
+            self._drain_engine(now)
+            anchor, snap_path = j.compact_begin()
+            carry = [(pid, body, exp)
+                     for pid, (body, exp) in self._recent.items() if exp > now]
+            adm = (self.admission.checkpoint()
+                   if self.admission is not None else None)
+            engine, name = self.engine, self.queue_cfg.name
+
+            def rotate() -> int:
+                n = checkpoint.save_pool(engine, snap_path, queue_name=name)
+                j.compact_finish(anchor, snap_path, carry, adm)
+                return n
+
+            task = asyncio.ensure_future(asyncio.to_thread(rotate))
+            try:
+                count = await asyncio.shield(task)
+            except asyncio.CancelledError:
+                while not task.done():
+                    try:
+                        await asyncio.shield(task)
+                    except asyncio.CancelledError:
+                        continue
+                    except Exception:
+                        break
+                raise
+        self.counters["journal_compactions"] += 1
+        return {"anchor": anchor, "snapshot": snap_path, "count": count}
+
+    async def recover_from_journal(self) -> dict[str, Any] | None:
+        """Apply an unclean predecessor's journal (None on a clean or
+        fresh boot): discard any speculation, load the newest valid
+        snapshot (``restore_columns`` on a columnar engine), remove the
+        players that reached a terminal after it, restore the journal's
+        tail, ``heartbeat`` (a bucketed queue's index rebuilt exactly),
+        refill the replay cache and the admission state, and re-anchor
+        with a compaction. Its span is ``rto_ms``, split by step in
+        ``split_ms`` (host ms; the journal's attach and parse happened at
+        construction, ``attach_ms``)."""
+        j = self.journal
+        if j is None or j.recovered is None:
+            return None
+        rec = j.recovered
+        q = self.queue_cfg.name
+        for note in rec.corrupt:
+            log.warning("queue %r: %s", q, note)
+        if rec.clean:
+            return None
+        t0 = time.perf_counter()
+        now = time.time()
+        split: dict[str, float] = {}
+
+        def lap(key: str, since: float) -> float:
+            t = time.perf_counter()
+            split[key] = (t - since) * 1e3
+            return t
+
+        async with self._pool_lock:
+            eng = self.engine
+            # The pool is rebuilt from the journal: a speculation is
+            # against a pool that never was.
+            eng.spec_invalidate("journal replay")
+            t = time.perf_counter()
+            n_snap = (checkpoint.load_pool(eng, rec.snapshot, now)
+                      if rec.snapshot else 0)
+            t = lap("snapshot_ms", t)
+            removed = sorted(rec.removed)
+            if removed:
+                # One release in this order equals removing each in turn.
+                eng.remove_many(removed)
+            t = lap("removes_ms", t)
+            tail = [row_to_request(rec.waiting[pid])
+                    for pid in sorted(rec.waiting)]
+            if tail:
+                eng.restore(tail, now)
+            t = lap("tail_ms", t)
+            eng.heartbeat(now)
+            lap("heartbeat_ms", t)
+            for pid, (body, exp) in rec.recent.items():
+                if exp > now:
+                    self._recent.set(pid, (body, exp))
+            if rec.admission is not None and self.admission is not None:
+                self.admission.restore_state(rec.admission)
+        t = time.perf_counter()
+        # Re-anchor: the tail must not replay again after the next crash.
+        await self.compact_journal()
+        lap("compact_ms", t)
+        rto_ms = (time.perf_counter() - t0) * 1e3
+        self.counters["crash_recoveries"] += 1
+        log.warning("queue %r: recovered from an unclean shutdown: %d "
+                    "snapshot + %d journal-tail players, %d replay entries, "
+                    "rto %.1f ms", q, n_snap, len(tail), len(rec.recent),
+                    rto_ms)
+        self.last_recovery = {
+            "rto_ms": round(rto_ms, 3),
+            "attach_ms": round(self.attach_ms, 3),
+            "split_ms": {k: round(v, 3) for k, v in split.items()},
+            "snapshot_players": n_snap,
+            "tail_players": len(tail),
+            "removed_players": len(removed),
+            "dedup_entries": len(rec.recent),
+            "fallback": rec.fallback,
+            "corrupt": list(rec.corrupt),
+            "transcript": rec.transcript(),
+        }
+        return self.last_recovery
 
     # ---- ingress ----------------------------------------------------------
 
@@ -738,10 +1003,11 @@ class _QueueRuntime:
         a delivery left unacked holds a prefetch slot (and a credit) for
         good. A nack of a delivery already settled does nothing."""
         try:
-            if self._objects:
-                await self._flush_objects(window)
-            else:
-                await self._flush_columnar([d for _, d in window])
+            async with self._pool_lock:
+                if self._objects:
+                    await self._flush_objects(window)
+                else:
+                    await self._flush_columnar([d for _, d in window])
         except Exception:
             log.exception("window flush failed; nacking its deliveries")
             self.counters["flush_errors"] += 1
@@ -796,7 +1062,9 @@ class _QueueRuntime:
         def dispatch(drop: set[str]) -> int:
             reqs = ([r for r in requests if r.id not in drop] if drop
                     else requests)
-            return self.engine.search_async(reqs, now)[0]
+            tok = self.engine.search_async(reqs, now)[0]
+            self._journal_admit_reqs(reqs)
+            return tok
 
         await self._dispatch_window(
             dispatch, [(r.id, d) for r, d in fresh], now)
@@ -817,7 +1085,11 @@ class _QueueRuntime:
                     fresh = [(r, d) for r, d in fresh if r.id not in drop]
                     if not fresh:
                         return
-            outcome = self.engine.search([r for r, _ in fresh], now)
+            requests = [r for r, _ in fresh]
+            # The sync step admits and matches in one call: the admits
+            # are journaled first, so the replay order holds either way.
+            self._journal_admit_reqs(requests)
+            outcome = self.engine.search(requests, now)
         except Exception:
             log.exception("engine step crashed; reviving the engine from "
                           "its waiting players")
@@ -932,8 +1204,12 @@ class _QueueRuntime:
             reg, mode = self.engine.intern_columns(
                 ["*" if r == "" else r for r in c.region.tolist()],
                 ["*" if m == "" else m for m in c.mode.tolist()])
-            return self.engine.search_columns_async(
-                dataclasses.replace(c, region=reg, mode=mode), now)
+            c = dataclasses.replace(c, region=reg, mode=mode)
+            tok = self.engine.search_columns_async(c, now)
+            # After the stale, expired and debt drops: the journal holds
+            # exactly what entered the pool.
+            self._journal_admit_cols(c)
+            return tok
 
         await self._dispatch_window(
             dispatch, [(pid, d) for (_, pid, _), d in zip(keep, picked)],
@@ -1326,10 +1602,13 @@ class _QueueRuntime:
         while True:
             try:
                 if self.engine.inflight() > 0 or self._needs_revive:
-                    now = time.time()
-                    self._collect_ready(now)
-                    if self._needs_revive and self.engine.inflight() == 0:
-                        self._revive(now)
+                    async with self._pool_lock:
+                        now = time.time()
+                        if self._async_api:
+                            self._collect_ready(now)
+                            if (self._needs_revive
+                                    and self.engine.inflight() == 0):
+                                self._revive(now)
                     await asyncio.sleep(0.001)
                 else:
                     await asyncio.sleep(0.01)
@@ -1361,24 +1640,29 @@ class _QueueRuntime:
                 continue
             outstanding = None
             try:
-                if not self._async_api:
-                    self._publish_rescan_outcome(
-                        self.engine.rescan(window, now), now)
-                    continue
-                # A rescan tick is a cut too: a valid speculation commits,
-                # and the tick then widens over the pool after it.
-                self._spec_cut(now)
-                tok = self.engine.rescan_async(window, now)
+                async with self._pool_lock:
+                    now = time.time()
+                    if not self._async_api:
+                        self._publish_rescan_outcome(
+                            self.engine.rescan(window, now), now)
+                        continue
+                    # A rescan tick is a cut too: a valid speculation
+                    # commits, and the tick then widens over the pool
+                    # after it.
+                    self._spec_cut(now)
+                    tok = self.engine.rescan_async(window, now)
                 if tok is None:
                     continue
                 deadline = time.monotonic() + 30.0
                 done = False
                 while not done and time.monotonic() < deadline:
-                    self._collect_ready(time.time())
-                    done = tok not in getattr(self.engine, "rescan_tokens",
-                                              ())
-                    if self._needs_revive and self.engine.inflight() == 0:
-                        self._revive(time.time())
+                    async with self._pool_lock:
+                        self._collect_ready(time.time())
+                        done = tok not in getattr(self.engine,
+                                                  "rescan_tokens", ())
+                        if (self._needs_revive
+                                and self.engine.inflight() == 0):
+                            self._revive(time.time())
                     if not done:
                         await asyncio.sleep(0.01)
                 if not done:
@@ -1388,8 +1672,9 @@ class _QueueRuntime:
             except Exception:
                 log.exception("rescan failed; reviving the engine from its "
                               "mirror")
-                self._record_engine_crash(now)
-                self._revive(now)
+                async with self._pool_lock:
+                    self._record_engine_crash(now)
+                    self._revive(now)
 
     async def _sweep_loop(self) -> None:
         """Timeouts (``request_timeout_s``, on a quarter of it) and
@@ -1414,26 +1699,34 @@ class _QueueRuntime:
             run_dl = dl_interval is not None and self.engine.deadline_count() != 0
             if not run_timeout and not run_dl:
                 continue
-            try:
-                self._drain_engine(now)
-                expired = self.engine.expire(now, timeout) if run_timeout else []
-                dl_expired = self.engine.expire_deadlines(now) if run_dl else []
-            except Exception:
-                log.exception("expiry sweep failed; reviving the engine from "
-                              "its mirror")
-                self._record_engine_crash(now)
-                self._revive(now)
-                continue
-            for removed in expired:
-                self.counters["timeouts"] += 1
-                body = encode_response(SearchResponse(
-                    status="timeout", player_id=removed.id,
-                    latency_ms=((now - removed.enqueued_at) * 1e3
-                                if removed.enqueued_at else 0.0)))
-                self._remember(removed.id, body, now)
-                self._publish(removed.reply_to, removed.correlation_id, body)
-            for removed in dl_expired:
-                self._publish_pool_expiry(removed, now)
+            async with self._pool_lock:
+                self._sweep(now, timeout if run_timeout else None, run_dl)
+
+    def _sweep(self, now: float, timeout: float | None, run_dl: bool) -> None:
+        """One expiry sweep on a drained pipeline: ``timeout`` answers for
+        players waiting past ``timeout`` (None: no timeout sweep), and the
+        deadline expiries with ``run_dl``."""
+        try:
+            self._drain_engine(now)
+            expired = (self.engine.expire(now, timeout)
+                       if timeout is not None else [])
+            dl_expired = self.engine.expire_deadlines(now) if run_dl else []
+        except Exception:
+            log.exception("expiry sweep failed; reviving the engine from "
+                          "its mirror")
+            self._record_engine_crash(now)
+            self._revive(now)
+            return
+        for removed in expired:
+            self.counters["timeouts"] += 1
+            body = encode_response(SearchResponse(
+                status="timeout", player_id=removed.id,
+                latency_ms=((now - removed.enqueued_at) * 1e3
+                            if removed.enqueued_at else 0.0)))
+            self._remember(removed.id, body, now)
+            self._publish(removed.reply_to, removed.correlation_id, body)
+        for removed in dl_expired:
+            self._publish_pool_expiry(removed, now)
 
     def _publish_pool_expiry(self, removed: SearchRequest, now: float) -> None:
         """A waiting player the deadline sweep removed: ``timeout``
@@ -1464,12 +1757,14 @@ class _QueueRuntime:
         interval = self.cfg.engine.health_interval_s
         while True:
             await asyncio.sleep(interval)
-            now = time.time()
             try:
-                if self.engine.heartbeat(now):
-                    self.counters["health_repromotions"] += 1
-                if self.breaker is not None and self.breaker.probe_due(now):
-                    self._probe_device(now)
+                async with self._pool_lock:
+                    now = time.time()
+                    if self.engine.heartbeat(now):
+                        self.counters["health_repromotions"] += 1
+                    if (self.breaker is not None
+                            and self.breaker.probe_due(now)):
+                        self._probe_device(now)
             except asyncio.CancelledError:
                 raise
             except Exception:
@@ -1572,15 +1867,16 @@ class _QueueRuntime:
         while True:
             await asyncio.sleep(interval)
             try:
-                if self._needs_revive or not self._async_api:
-                    continue
-                if self.engine.inflight() > 0:
+                async with self._pool_lock:
+                    if self._needs_revive or not self._async_api:
+                        continue
+                    if self.engine.inflight() > 0:
+                        self._collect_ready(time.time())
+                        continue
+                    now = time.time()
+                    self._spec_cut(now)
+                    self.engine.speculate(now)
                     self._collect_ready(time.time())
-                    continue
-                now = time.time()
-                self._spec_cut(now)
-                self.engine.speculate(now)
-                self._collect_ready(time.time())
             except asyncio.CancelledError:
                 raise
             except Exception:
@@ -1588,21 +1884,127 @@ class _QueueRuntime:
                 self.counters["spec_errors"] += 1
                 self.engine.spec_invalidate("tick failure")
 
-    # ---- egress -----------------------------------------------------------
+    # ---- egress: every answer and settle, behind its journal commit -------
+
+    def _effect(self, fn, *, hold: bool = False) -> None:
+        """Run ``fn`` (a publish, an ack or a nack) after a journal commit
+        that covers every record appended so far (write-ahead). Inline,
+        commit then ``fn``, unless the settle is asynchronous and ``hold``
+        asks for it (a window's publish, with a commit owed), or earlier
+        effects still wait: then ``fn`` queues for the settler, whose
+        commit runs on a worker thread."""
+        if self._egress or (hold and self._settle_async
+                            and self.journal.needs_commit):
+            self._egress.append(fn)
+            if self._settler is None:
+                self._settler = asyncio.create_task(self._settle_loop())
+            return
+        self._journal_commit()
+        fn()
+
+    async def _settle_loop(self) -> None:
+        """Commit on a worker thread, then run the effects queued before
+        the commit began, in order; again until none wait. An effect that
+        raises is logged and counted; the rest still run."""
+        stats = self.journal_stats
+        try:
+            while self._egress:
+                batch, self._egress = self._egress, []
+                t0 = time.perf_counter()
+                thread_ms = await asyncio.to_thread(self._timed_commit)
+                stats["commit_wait_ms"] += (time.perf_counter() - t0) * 1e3
+                stats["commit_thread_ms"] += thread_ms
+                stats["commits"] += 1
+                for fn in batch:
+                    try:
+                        fn()
+                    except Exception:
+                        log.exception("a settle after the journal commit "
+                                      "failed")
+                        self.counters["outcome_errors"] += 1
+        finally:
+            self._settler = None
+
+    def _timed_commit(self) -> float:
+        t0 = time.perf_counter()
+        self.journal.commit()
+        return (time.perf_counter() - t0) * 1e3
+
+    async def _settled(self) -> None:
+        """Wait until no effect waits for a commit."""
+        while self._settler is not None:
+            await asyncio.gather(self._settler, return_exceptions=True)
+
+    def _journal_commit(self) -> None:
+        """Write (and fsync, per policy) the journal's records before an
+        effect leaves: nothing with durability off or nothing owed."""
+        j = self.journal
+        if j is not None and j.needs_commit:
+            j.commit()
+
+    def _journal_admit_cols(self, cols: RequestColumns) -> None:
+        """One dispatched columnar window's ADMIT record (region and mode
+        codes of this engine's interners, journaled by name), written out
+        at once without an fsync: a crash mid-window recovers the window's
+        players as waiting. The rows are the JAX package's, value for
+        value (the same dtypes, read in the same order)."""
+        j = self.journal
+        if j is None or not len(cols):
+            return
+        t0 = time.perf_counter()
+        k = len(cols)
+        tiers = cols.tier.tolist() if cols.tier is not None else [0] * k
+        dls = (cols.deadline.tolist() if cols.deadline is not None
+               else [0.0] * k)
+        thr = cols.threshold.astype(object)  # Python floats
+        thr[np.isnan(cols.threshold)] = None
+        # Tuples, not lists: the same JSON, with no list built per row.
+        rows = list(zip(
+            cols.ids.tolist(), cols.rating.tolist(), cols.rd.tolist(),
+            self.engine.pool.regions.names()[cols.region].tolist(),
+            self.engine.pool.modes.names()[cols.mode].tolist(),
+            thr.tolist(), cols.enqueued_at.tolist(), cols.reply_to.tolist(),
+            cols.correlation_id.tolist(), tiers, dls))
+        t1 = time.perf_counter()
+        j.append_admits(rows)
+        j.flush_buffer()
+        stats = self.journal_stats
+        stats["admit_rows_ms"] += (t1 - t0) * 1e3
+        stats["admit_write_ms"] += (time.perf_counter() - t1) * 1e3
+        stats["admit_records"] += 1
+
+    def _journal_admit_reqs(self, requests: Sequence[SearchRequest]) -> None:
+        """The object path's ADMIT record (team and role queues, and the
+        host oracle's synchronous flush)."""
+        j = self.journal
+        if j is None or not requests:
+            return
+        j.append_admits([
+            [r.id, float(r.rating), float(r.rating_deviation), r.region,
+             r.game_mode,
+             (None if r.rating_threshold is None
+              else float(r.rating_threshold)),
+             float(r.enqueued_at), r.reply_to, r.correlation_id,
+             int(r.tier), float(r.deadline_at)]
+            for r in requests
+        ])
+        j.flush_buffer()
+        self.journal_stats["admit_records"] += 1
 
     def _publish_batch(self, rows: list[Row]) -> None:
         """One broker ``publish_batch`` call for a window's responses
-        (rows without a reply queue are dropped)."""
+        (rows without a reply queue are dropped), after the commit that
+        covers them."""
         items = [(reply_to, body, Properties(correlation_id=corr))
                  for reply_to, corr, body in rows if reply_to]
         if items:
-            self.broker.publish_batch(items)
+            self._effect(lambda: self.broker.publish_batch(items), hold=True)
             self.counters["publish_batches"] += 1
 
     def _publish(self, reply_to: str, correlation_id: str, body: bytes) -> None:
         if reply_to:
-            self.broker.publish(reply_to, body,
-                                Properties(correlation_id=correlation_id))
+            props = Properties(correlation_id=correlation_id)
+            self._effect(lambda: self.broker.publish(reply_to, body, props))
 
     def _replay(self, delivery: Delivery, body: bytes) -> None:
         """Answer a redelivered request with its cached terminal body."""
@@ -1624,13 +2026,29 @@ class _QueueRuntime:
         self._ack(delivery)
 
     def _remember(self, player_id: str, body: bytes, now: float) -> None:
-        self._recent.set(player_id, (body, now + self.queue_cfg.dedup_ttl_s))
+        """Every terminal answer lands here or in ``_remember_window``: in
+        the replay cache and, as a TERMINAL record, in the journal."""
+        expiry = now + self.queue_cfg.dedup_ttl_s
+        self._recent.set(player_id, (body, expiry))
+        if self.journal is not None:
+            self.journal.append_terminal(player_id, body, expiry)
 
     def _remember_window(self, terminals: list[tuple[str, bytes]],
                          now: float) -> None:
+        """A window's terminals: the replay cache, and one TERMINALS
+        record written out at once."""
+        if not terminals:
+            return
         expiry = now + self.queue_cfg.dedup_ttl_s
         for pid, body in terminals:
             self._recent.set(pid, (body, expiry))
+        if self.journal is not None:
+            t0 = time.perf_counter()
+            self.journal.append_terminals(
+                [(pid, body, expiry) for pid, body in terminals])
+            self.journal_stats["terminals_ms"] += (
+                time.perf_counter() - t0) * 1e3
+            self.journal_stats["terminal_records"] += 1
 
     def _prune_recent(self, now: float) -> None:
         """Drop expired replay entries, at most every ``dedup_ttl_s / 2``."""
@@ -1639,19 +2057,24 @@ class _QueueRuntime:
             self._next_prune = now + self.queue_cfg.dedup_ttl_s / 2.0
 
     def _ack(self, delivery: Delivery) -> None:
-        """Ack and return the delivery's admission credit: every settle
-        comes through here or ``_nack``, so ``admission.inflight()``
-        counts exactly the admitted, unsettled deliveries."""
-        self.broker.ack(self._tag, delivery.delivery_tag)
-        if self.admission is not None:
-            self.admission.release(delivery.delivery_tag)
+        """Ack and return the delivery's admission credit, after the
+        journal commit: every settle comes through here or ``_nack``, so
+        ``admission.inflight()`` counts exactly the admitted, unsettled
+        deliveries."""
+        def settle() -> None:
+            self.broker.ack(self._tag, delivery.delivery_tag)
+            if self.admission is not None:
+                self.admission.release(delivery.delivery_tag)
+        self._effect(settle)
 
     def _nack(self, delivery: Delivery) -> None:
         """Nack (requeue) and return the credit: the redelivery takes
         admission again."""
-        self.broker.nack(self._tag, delivery.delivery_tag, requeue=True)
-        if self.admission is not None:
-            self.admission.release(delivery.delivery_tag)
+        def settle() -> None:
+            self.broker.nack(self._tag, delivery.delivery_tag, requeue=True)
+            if self.admission is not None:
+                self.admission.release(delivery.delivery_tag)
+        self._effect(settle)
 
 
 class MatchmakingApp:
@@ -1682,6 +2105,9 @@ class MatchmakingApp:
         self._first = self._runtimes[names[0]]
 
     async def start(self) -> None:
+        """Load the codec, then start every queue: its engine, the
+        recovery of an unclean predecessor's journal, its consumer and
+        loops, and then its compaction timer."""
         codec.load()  # a codec that cannot build raises here
         for rt in self._runtimes.values():
             await rt.start()
@@ -1689,6 +2115,112 @@ class MatchmakingApp:
     async def stop(self) -> None:
         for rt in self._runtimes.values():
             await rt.stop()
+
+    async def crash(self) -> None:
+        """A hard crash, for tests and the smoke: no drain, no checkpoint,
+        no clean marker; windows in flight and answers waiting for their
+        commit are dropped and the broker's consumers die. A successor on
+        the same ``journal_dir`` must recover what is on disk."""
+        for rt in self._runtimes.values():
+            rt.abandon()
+        self.broker.close()
+
+    async def drain(self, checkpoint_dir: str | None = None) -> dict[str, int]:
+        """The graceful drain (SIGTERM, see ``serve``): admission stops on
+        every queue first (late arrivals are shed with a retry-after),
+        every queue stops (its last windows answered and acked, its
+        journal marked clean), then, with a directory (default
+        ``OverloadConfig.drain_checkpoint_dir``), each queue's waiting
+        pool is saved there with the ``_admission.json`` sidecar and the
+        ``_backlog.json`` of the deliveries no consumer took. Returns the
+        players saved per queue ({} without a directory)."""
+        directory = (checkpoint_dir if checkpoint_dir is not None
+                     else self.cfg.overload.drain_checkpoint_dir)
+        for rt in self._runtimes.values():
+            if rt.admission is not None:
+                rt.admission.begin_drain()
+        for rt in self._runtimes.values():
+            await rt.stop()
+        counts: dict[str, int] = {}
+        if directory:
+            counts = await self.save_checkpoint(directory)
+            adm = {name: rt.admission.checkpoint()
+                   for name, rt in self._runtimes.items()
+                   if rt.admission is not None}
+            if adm:
+                checkpoint.save_admission(
+                    os.path.join(directory, "_admission.json"), adm)
+            backlog = {name: self.broker.drain_backlog(name)
+                       for name in self._runtimes}
+            n = checkpoint.save_backlog(
+                os.path.join(directory, "_backlog.json"),
+                {k: v for k, v in backlog.items() if v})
+            if n:
+                log.info("drain: %d unconsumed deliveries checkpointed", n)
+        self.broker.close()
+        return counts
+
+    async def save_checkpoint(self, directory: str) -> dict[str, int]:
+        """Write every queue's waiting pool to ``directory``, one
+        ``<queue>.npz`` each, with its windows in flight collected first.
+        Returns the players saved per queue."""
+        os.makedirs(directory, exist_ok=True)
+        counts: dict[str, int] = {}
+        for name, rt in self._runtimes.items():
+            async with rt._pool_lock:
+                rt._drain_engine(time.time())
+                counts[name] = checkpoint.save_pool(
+                    rt.engine, os.path.join(directory, f"{name}.npz"),
+                    queue_name=name)
+        return counts
+
+    async def restore_checkpoint(self, directory: str,
+                                 now: float | None = None) -> dict[str, int]:
+        """Re-admit the pools saved in ``directory`` without matching (a
+        queue without a file is skipped; one whose file does not read
+        starts empty, with a warning), restore the admission sidecar, and
+        re-publish the backlog sidecar's deliveries to their queues.
+        Returns the players restored per queue."""
+        counts: dict[str, int] = {}
+        for name, rt in self._runtimes.items():
+            path = os.path.join(directory, f"{name}.npz")
+            if not os.path.exists(path):
+                continue
+            async with rt._pool_lock:
+                rt._drain_engine(time.time() if now is None else now)
+                try:
+                    counts[name] = checkpoint.load_pool(rt.engine, path, now)
+                except Exception as e:
+                    log.warning("pool checkpoint %s unreadable (%s); queue "
+                                "%r starts empty", path, e, name)
+        adm_path = os.path.join(directory, "_admission.json")
+        if os.path.exists(adm_path):
+            try:
+                restored = checkpoint.load_admission(adm_path)
+            except Exception as e:
+                restored = {}
+                log.warning("admission sidecar %s unreadable: %s",
+                            adm_path, e)
+            for qname, state in restored.items():
+                rt = self._runtimes.get(qname)
+                if rt is not None and rt.admission is not None:
+                    rt.admission.restore_state(state)
+        backlog_path = os.path.join(directory, "_backlog.json")
+        if os.path.exists(backlog_path):
+            try:
+                per_queue = checkpoint.load_backlog(backlog_path)
+            except Exception as e:
+                per_queue = {}
+                log.warning("backlog sidecar %s unreadable: %s",
+                            backlog_path, e)
+            for qname, rows in per_queue.items():
+                for row in rows:
+                    self.broker.publish(
+                        qname, row["body"],
+                        Properties(reply_to=row["reply_to"],
+                                   correlation_id=row["correlation_id"],
+                                   headers=dict(row["headers"])))
+        return counts
 
     def runtime(self, queue_name: str) -> _QueueRuntime:
         return self._runtimes[queue_name]
@@ -1774,12 +2306,55 @@ async def run_demo(device=None, players: int = 10,
     return answers
 
 
+async def serve(stop: asyncio.Event | None = None, device=None) -> None:
+    """The service's entry point: the config from the ``MM_*`` variables
+    (``Config.from_env``), on the in-process broker, until SIGTERM or
+    SIGINT (or until ``stop`` is set). With
+    ``MM_OVERLOAD_DRAIN_CHECKPOINT_DIR`` the start restores what a
+    predecessor's drain saved there, and the shutdown is a drain into it;
+    with ``MM_DURABILITY_JOURNAL_DIR`` a crashed predecessor's journal is
+    recovered at start. An ``amqp://`` broker URL is refused: the AMQP
+    transport (``service/amqp_transport.py``) is not carried by the
+    port."""
+    import signal
+
+    cfg = Config.from_env()
+    if cfg.broker.url.startswith(("amqp://", "amqps://")):
+        raise ValueError(
+            f"broker url {cfg.broker.url!r} needs the AMQP transport "
+            f"(service/amqp_transport.py), which the port does not carry; "
+            f"serve on the in-process broker")
+    app = MatchmakingApp(cfg, device=device)
+    await app.start()
+    drain_dir = cfg.overload.drain_checkpoint_dir
+    if drain_dir and os.path.isdir(drain_dir):
+        restored = await app.restore_checkpoint(drain_dir)
+        if restored:
+            log.info("restored %d waiting players from %s",
+                     sum(restored.values()), drain_dir)
+    if stop is None:
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, stop.set)
+    try:
+        await stop.wait()
+    finally:
+        if drain_dir:
+            await app.drain(drain_dir)
+        else:
+            await app.stop()
+
+
 def _main(argv: Sequence[str]) -> int:
-    if "--demo" not in argv:
-        print("usage: python -m matchmaking_tpu_torch.service.app --demo "
-              "[--device cpu|cuda] [--config PATH]")
-        return 2
     device = argv[argv.index("--device") + 1] if "--device" in argv else None
+    if "serve" in argv:
+        asyncio.run(serve(device=device))
+        return 0
+    if "--demo" not in argv:
+        print("usage: python -m matchmaking_tpu_torch.service.app "
+              "(serve | --demo [--config PATH]) [--device cpu|cuda]")
+        return 2
     cfg = (Config.from_json(argv[argv.index("--config") + 1], backend="gpu")
            if "--config" in argv else None)
     for resp in asyncio.run(run_demo(device, cfg=cfg)):

@@ -5,8 +5,11 @@ competing consumers with a per-consumer prefetch, ack / nack(requeue) by
 delivery tag, redelivery with a cap (then dead-lettered), consumer
 cancellation that requeues its unacked deliveries, burst consume (the
 deliveries already buffered drain into one handler task, or into one
-``batch_callback`` call: ``BrokerConfig.consume_batch``), and ``get`` for
-clients awaiting replies. Fault injection and trace propagation are not
+``batch_callback`` call: ``BrokerConfig.consume_batch``), ``get`` for
+clients awaiting replies, ``rpc`` (a request over an ephemeral reply
+queue: the auth middleware's round trip), and the drain's handoff
+(``drain_backlog`` pops what is still buffered, ``queue_depth`` and
+``handlers_idle`` say when nothing is left on the way). Fault injection and trace propagation are not
 carried, so the JAX broker's fall-back to per-delivery handling while
 consume faults are armed has nothing to guard here. All methods are called
 from one event loop.
@@ -277,6 +280,28 @@ class InProcBroker:
             for consumer in list(q.consumers):
                 self.basic_cancel(consumer.tag)
 
+    def queue_depth(self, name: str) -> int:
+        q = self._queues.get(name)
+        return q.messages.qsize() if q else 0
+
+    def drain_backlog(self, name: str) -> list[Delivery]:
+        """Pop every delivery still buffered on ``name`` (the drain's
+        handoff: with the queue's consumers cancelled they would die with
+        the process; the app checkpoints them and a successor re-publishes
+        them). Call it after cancelling the queue's consumers."""
+        q = self._queues.get(name)
+        out: list[Delivery] = []
+        if q is None:
+            return out
+        while not q.messages.empty():
+            out.append(q.messages.get_nowait())
+        return out
+
+    def handlers_idle(self) -> bool:
+        """No consumer has a handler task outstanding (a delivery inside a
+        handler that has not run yet is invisible to ``queue_depth``)."""
+        return all(not c._handlers for c in self._consumers.values())
+
     def publish(self, queue: str, body: bytes,
                 properties: Properties | None = None) -> None:
         # Default-exchange semantics: a publish to an undeclared queue is
@@ -341,6 +366,31 @@ class InProcBroker:
             return await asyncio.wait_for(q.messages.get(), timeout)
         except asyncio.TimeoutError:
             return None
+
+    async def rpc(self, queue: str, body: bytes,
+                  timeout: float) -> bytes | None:
+        """Publish ``body`` to ``queue`` with an ephemeral reply queue and
+        await the reply that carries its correlation id (None on
+        timeout). The reply queue is deleted afterwards."""
+        reply_queue = f"amq.gen-{uuid.uuid4().hex}"
+        corr = uuid.uuid4().hex
+        self.declare_queue(reply_queue)  # before publish: replies must route
+        self.publish(queue, body, Properties(reply_to=reply_queue,
+                                             correlation_id=corr))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout
+        try:
+            while True:
+                remaining = deadline - loop.time()
+                if remaining <= 0:
+                    return None
+                reply = await self.get(reply_queue, timeout=remaining)
+                if reply is None:
+                    return None
+                if reply.properties.correlation_id == corr:
+                    return reply.body
+        finally:
+            self.delete_queue(reply_queue)
 
     def close(self) -> None:
         for tag in list(self._consumers):

@@ -18,9 +18,14 @@ from matchmaking_tpu_torch.service.overload import stamp_deadline, stamp_tier
 
 
 class MatchmakingClient:
-    def __init__(self, broker: InProcBroker, request_queue: str):
+    """``auth_token`` (when set) goes out as each request's
+    ``authorization`` header."""
+
+    def __init__(self, broker: InProcBroker, request_queue: str,
+                 auth_token: str = ""):
         self.broker = broker
         self.request_queue = request_queue
+        self.auth_token = auth_token
 
     def submit(self, player: Mapping[str, Any], *, queue: str | None = None,
                deadline_s: float | None = None,
@@ -28,7 +33,8 @@ class MatchmakingClient:
         """Fire a search request; returns the private reply queue name."""
         reply_to = f"amq.gen-{uuid.uuid4().hex}"
         self.broker.declare_queue(reply_to)  # before publish: replies must route
-        headers: dict[str, Any] = {}
+        headers: dict[str, Any] = (
+            {"authorization": self.auth_token} if self.auth_token else {})
         if deadline_s is not None:
             stamp_deadline(headers, time.time(), deadline_s)
         if tier is not None:

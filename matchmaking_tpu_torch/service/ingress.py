@@ -86,6 +86,12 @@ class ShardedRecent:
     def __len__(self) -> int:
         return sum(len(d) for d in self._shards)
 
+    def items(self):
+        """Every (pid, (body, expiry)), shard-major (a pure function of
+        the ids): the journal compaction's carry of the live entries."""
+        for d in self._shards:
+            yield from d.items()
+
     def prune(self, now: float) -> None:
         """Drop the entries expired at ``now``."""
         for i, d in enumerate(self._shards):

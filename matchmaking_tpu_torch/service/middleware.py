@@ -5,13 +5,17 @@ the service answers with an error response.
 
 Two chains, by queue kind (as the JAX service binds them):
 
-- ``columnar_pipeline`` (1v1 queues): the first-receive clock stamp only;
-  the service decodes a whole window at once, natively, at flush time;
+- ``columnar_pipeline`` (1v1 queues): the first-receive clock stamp, then
+  auth; the service decodes a whole window at once, natively, at flush
+  time;
 - ``default_pipeline`` (team and role queues, served by the object API):
   each delivery is stamped and decoded into a ``SearchRequest``, with its
-  party and roles, on ``ctx.request``.
+  party and roles, on ``ctx.request``, then auth.
 
-The port carries auth mode ``"none"`` only and refuses any other.
+``AuthMiddleware`` checks the ``authorization`` header per
+``AuthConfig.mode``: ``"none"`` passes, ``"static"`` wants the shared
+secret as its prefix, ``"rpc"`` asks the auth service on ``rpc_queue``
+through the broker and wants ``b"ok"`` back within ``rpc_timeout_ms``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from dataclasses import dataclass, field
 from typing import Awaitable, Callable, Sequence
 
 from matchmaking_tpu_torch.config import AuthConfig
-from matchmaking_tpu_torch.service.broker import Delivery
+from matchmaking_tpu_torch.service.broker import Delivery, InProcBroker
 from matchmaking_tpu_torch.service.contract import (
     ContractError,
     SearchRequest,
@@ -107,19 +111,51 @@ class DecodeMiddleware(Middleware):
         await next()
 
 
-def _require_no_auth(auth_cfg: AuthConfig) -> None:
-    if auth_cfg.mode != "none":
-        raise ValueError(f"auth mode {auth_cfg.mode!r} is not carried by the "
-                         f"port yet (only 'none')")
+class AuthMiddleware(Middleware):
+    """The token check: an ``unauthorized`` reject for a missing or wrong
+    token, ``auth_unavailable`` when the rpc auth service does not answer
+    in time (or there is no broker to ask)."""
+
+    def __init__(self, cfg: AuthConfig, broker: InProcBroker | None = None):
+        self.cfg = cfg
+        self.broker = broker
+
+    async def call(self, ctx: MessageContext, next: Next) -> None:  # noqa: A002
+        mode = self.cfg.mode
+        if mode == "none":
+            await next()
+            return
+        token = str(ctx.delivery.properties.headers.get("authorization", ""))
+        if mode == "static":
+            if not token or not token.startswith(self.cfg.static_secret):
+                raise MiddlewareReject("unauthorized",
+                                       "invalid or missing token")
+        elif mode == "rpc":
+            if self.broker is None:
+                raise MiddlewareReject("auth_unavailable",
+                                       "no broker for auth rpc")
+            reply = await self.broker.rpc(
+                self.cfg.rpc_queue, token.encode(),
+                timeout=self.cfg.rpc_timeout_ms / 1000.0)
+            if reply is None:
+                raise MiddlewareReject("auth_unavailable",
+                                       "auth service timeout")
+            if reply != b"ok":
+                raise MiddlewareReject("unauthorized",
+                                       reply.decode(errors="replace"))
+        else:
+            raise MiddlewareReject("auth_misconfigured",
+                                   f"unknown auth mode {mode!r}")
+        await next()
 
 
-def columnar_pipeline(auth_cfg: AuthConfig) -> Pipeline:
-    """Stamp only; decoding is deferred to the window flush."""
-    _require_no_auth(auth_cfg)
-    return Pipeline([StampMiddleware()])
+def columnar_pipeline(auth_cfg: AuthConfig,
+                      broker: InProcBroker | None = None) -> Pipeline:
+    """Stamp and auth; decoding is deferred to the window flush."""
+    return Pipeline([StampMiddleware(), AuthMiddleware(auth_cfg, broker)])
 
 
-def default_pipeline(auth_cfg: AuthConfig) -> Pipeline:
-    """Stamp and decode each delivery (the object path)."""
-    _require_no_auth(auth_cfg)
-    return Pipeline([DecodeMiddleware()])
+def default_pipeline(auth_cfg: AuthConfig,
+                     broker: InProcBroker | None = None) -> Pipeline:
+    """Stamp and decode each delivery (the object path), then auth."""
+    return Pipeline([DecodeMiddleware(), AuthMiddleware(auth_cfg, broker)])

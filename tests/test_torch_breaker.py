@@ -600,8 +600,9 @@ def test_breaker_overload_and_chaos_keys_load_like_jax(caplog):
     assert cfg.queues[0].default_tier == 2
     ignored = " ".join(r.getMessage() for r in caplog.records)
     assert "chaos.drop_seqs" in ignored and "chaos.net_drop_prob" in ignored
-    with pytest.raises(ValueError, match="durability"):
-        OverloadConfig(drain_checkpoint_dir="/tmp/x")
+    drain = {"overload": {"drain_checkpoint_dir": "/tmp/x"}}
+    assert Config.from_dict(drain).overload == OverloadConfig(
+        **vars(JaxConfig.from_dict(drain).overload))
     with pytest.raises(ValueError, match="multi-GPU"):
         ChaosConfig(device_lost_steps=(3,))
     with pytest.raises(ValueError, match="shed_policy"):

@@ -42,7 +42,8 @@ def test_config_file_loads_without_dropping_a_key(name, caplog):
 @pytest.mark.parametrize("section", ["QueueConfig", "EngineConfig",
                                      "BrokerConfig", "BatcherConfig",
                                      "AuthConfig", "OverloadConfig",
-                                     "ObservabilityConfig"])
+                                     "ObservabilityConfig",
+                                     "DurabilityConfig"])
 def test_port_fields_have_the_jax_names_and_defaults(section):
     port, jax = getattr(config, section)(), getattr(jax_config, section)()
     for f in dataclasses.fields(port):
@@ -150,3 +151,58 @@ def test_health_interval_loads_with_the_jax_meaning():
             == jax_config.Config.from_dict(raw).engine.health_interval_s
             == 0.25)
     assert config.EngineConfig().health_interval_s == 1.0
+
+
+def test_durability_auth_and_drain_keys_load_like_jax():
+    d = {"durability": {"journal_dir": "/tmp/j", "fsync": "window",
+                        "fsync_interval_s": 0.02, "compact_records": 99,
+                        "compact_bytes": 1 << 20, "compact_interval_s": 0.5,
+                        "keep_snapshots": 3},
+         "auth": {"mode": "rpc", "static_secret": "s", "rpc_queue": "a.q",
+                  "rpc_timeout_ms": 50.0},
+         "overload": {"drain_checkpoint_dir": "/tmp/d"},
+         "broker": {"url": "inproc://x"}}
+    cfg, jcfg = config.Config.from_dict(d), jax_config.Config.from_dict(d)
+    for section in ("durability", "auth", "overload", "broker"):
+        port, jax = getattr(cfg, section), getattr(jcfg, section)
+        for f in dataclasses.fields(port):
+            assert getattr(port, f.name) == getattr(jax, f.name), (
+                section, f.name)
+    assert cfg.durability.enabled() and cfg.overload.enabled()
+
+
+def test_a_replication_role_is_refused_naming_the_module(caplog):
+    with pytest.raises(ValueError, match="service/replication.py"):
+        config.Config.from_dict({"replication": {"role": "primary"}})
+    with caplog.at_level(logging.WARNING, logger=config.__name__):
+        config.Config.from_dict({"replication": {"role": "", "owner": "a"}})
+    assert "replication" in " ".join(r.getMessage() for r in caplog.records)
+
+
+def test_from_env_reads_the_mm_variables_like_jax(tmp_path, monkeypatch):
+    path = tmp_path / "cfg.json"
+    with open(os.path.join(ROOT, "configs", "multiqueue_filters.json")) as f:
+        path.write_text(f.read())
+    for k in list(os.environ):
+        if k.startswith("MM_"):
+            monkeypatch.delenv(k)
+    monkeypatch.setenv("MM_CONFIG_JSON", str(path))
+    monkeypatch.setenv("MM_DURABILITY_JOURNAL_DIR", str(tmp_path / "j"))
+    monkeypatch.setenv("MM_DURABILITY_FSYNC", "window")
+    monkeypatch.setenv("MM_OVERLOAD_DRAIN_CHECKPOINT_DIR", "/tmp/d")
+    monkeypatch.setenv("MM_AUTH_MODE", "static")
+    monkeypatch.setenv("MM_BATCHER_MAX_WAIT_MS", "2.5")
+    cfg, jcfg = config.Config.from_env(), jax_config.Config.from_env()
+    assert cfg.engine.backend == "gpu" and jcfg.engine.backend == "tpu"
+    for section in ("durability", "overload", "auth", "batcher"):
+        assert dataclasses.asdict(getattr(cfg, section)) == {
+            f.name: getattr(getattr(jcfg, section), f.name)
+            for f in dataclasses.fields(getattr(cfg, section))}, section
+    assert [q.name for q in cfg.queues] == [q.name for q in jcfg.queues]
+    monkeypatch.setenv("MM_ENGINE_BACKEND", "cpu")  # the variable wins
+    monkeypatch.setenv("MM_QUEUE_NAMES", cfg.queues[1].name)
+    cfg = config.Config.from_env()
+    assert cfg.engine.backend == "cpu" and len(cfg.queues) == 1
+    monkeypatch.setenv("MM_QUEUE_NAMES", "nope")
+    with pytest.raises(KeyError):
+        config.Config.from_env()

@@ -34,6 +34,7 @@ from matchmaking_tpu_torch.config import (
 from matchmaking_tpu_torch.engine import cuda_kernels, scoring
 from matchmaking_tpu_torch.engine.gpu import GpuEngine, _Readback
 from matchmaking_tpu_torch.engine.kernels import (
+    INDEX_FIELDS,
     KernelSet,
     QualityAccumKernel,
     admit,
@@ -1334,3 +1335,136 @@ def test_columnar_dispatch_with_qos_columns_does_not_sync(cuda):
     tiers = np.concatenate([fill.tier, w1.tier, w2.tier])
     matched = sum(o.n_matches for _, o in outs)
     assert sum(eng.pool_tier_counts(3)) == len(tiers) - 2 * matched
+
+
+def journal_dir_at_full_width(tmp_path, cfg):
+    """A crashed queue's journal directory at config #1's width: a
+    compaction snapshot of 100k waiting players, then a tail of two
+    windows' admissions (2,048 players) and the terminals of 1,000 of the
+    snapshot's players, abandoned as a crash leaves it."""
+    from matchmaking_tpu_torch.utils import checkpoint, journal
+
+    src = GpuEngine(cfg, cfg.queues[0], device="cpu")
+    rng = np.random.default_rng(71)
+    fill = named_columns(rng, 100_000, 0, 100.0, True)
+    src.restore_columns(interned(src, fill), 100.0)
+    j = journal.PoolJournal(str(tmp_path), cfg.queues[0].name)
+    anchor, snap = j.compact_begin()
+    checkpoint.save_pool(src, snap)
+    j.compact_finish(anchor, snap)
+    for w in range(2):
+        cols, regions, modes = named_columns(rng, 1024, 200_000 + 1024 * w,
+                                             101.0, True)
+        j.append_admits([
+            [pid, float(r), float(d), reg, mode, None, float(e), rep, pid, 0,
+             0.0]
+            for pid, r, d, reg, mode, e, rep in zip(
+                cols.ids.tolist(), cols.rating.tolist(), cols.rd.tolist(),
+                regions.tolist(), modes.tolist(), cols.enqueued_at.tolist(),
+                cols.reply_to.tolist())])
+    j.append_terminals([(f"p{i}", b"matched", 1e12)
+                        for i in range(0, 100_000, 100)])
+    j.commit()
+    j.abandon()
+    return journal.PoolJournal(str(tmp_path), cfg.queues[0].name).recovered
+
+
+def recover_into(eng, rec, now):
+    """The service's recovery steps (``_QueueRuntime.recover_from_journal``)
+    on an engine: the snapshot, the removes, the tail, the heartbeat."""
+    from matchmaking_tpu_torch.utils import checkpoint, journal
+
+    eng.spec_invalidate("journal replay")
+    n = checkpoint.load_pool(eng, rec.snapshot, now)
+    eng.remove_many(sorted(rec.removed))
+    eng.restore([journal.row_to_request(rec.waiting[p])
+                 for p in sorted(rec.waiting)], now)
+    eng.heartbeat(now)
+    return n
+
+
+@pytest.mark.parametrize("engine", [{}, BUCKETED_1], ids=["dense", "bucketed"])
+def test_journal_recovery_at_full_width_is_sync_free_and_equals_cpu(
+        cuda, tmp_path, engine):
+    """A journal's recovery (100k from the snapshot through
+    ``restore_columns``, 1,000 removes, 2,048 from the tail, the
+    heartbeat) onto a warmed-up engine on the card queues its device work
+    with no device→host synchronisation; its pool columns (the bucket
+    index too) and mirror equal a CPU engine's recovery of the same files,
+    and (bucketed) the index equals its own host rebuild."""
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, **engine))
+    rec = journal_dir_at_full_width(tmp_path, cfg)
+    assert not rec.clean and len(rec.removed) == 1000
+    assert len(rec.waiting) == 2048
+    card = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    card.warmup()
+    host = GpuEngine(cfg, cfg.queues[0], device="cpu")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert recover_into(card, rec, 150.0) == 100_000
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    recover_into(host, rec, 150.0)
+    assert card.pool_size() == host.pool_size() == 101_048
+    assert card.pool._slot_of == host.pool._slot_of
+    torch.cuda.synchronize()
+    for name, col in host.dev_pool.full.items():
+        assert torch.equal(card.dev_pool.full[name].cpu().view(torch.int8),
+                           col.view(torch.int8)), name
+    if engine:
+        names = [n for n, _ in INDEX_FIELDS]
+        held = {k: card.dev_pool[k].clone() for k in names}
+        card.kernels.index_rebuild(card.dev_pool)
+        for k in names:
+            assert torch.equal(held[k], card.dev_pool[k]), k
+    # The recovered engine serves: a window matches on the card.
+    rng = np.random.default_rng(72)
+    card.search_columns_async(interned(card, named_columns(
+        rng, 1024, 900_000, 151.0, False)), 151.0)
+    (_, out), = card.flush()
+    assert out.n_matches > 0 and card.device_error is None
+
+
+def test_capture_survives_a_collection_of_older_graphs(cuda):
+    """A cyclic garbage collection that frees an older engine (and so
+    destroys its captured graphs, a CUDA call a capturing stream forbids)
+    cannot land inside a capture: with the collector forced to run at
+    every allocation, a new engine still captures every graph, and its
+    windows replay."""
+    import gc
+
+    cfg = widening_cfg()
+    old = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    old.warmup()
+    cycle = [old]
+    cycle.append(cycle)  # only the cyclic collector frees it
+    del old, cycle
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+        real_step_fn, collecting = eng._step_fn, []
+
+        def step_fn(variant):
+            fn = real_step_fn(variant)
+
+            def run(pool, packed):
+                if torch.cuda.is_current_stream_capturing():
+                    collecting.append(gc.isenabled())
+                return fn(pool, packed)
+            return run
+        eng._step_fn = step_fn
+        eng.warmup()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert collecting and not any(collecting) and gc.isenabled()
+    rng = np.random.default_rng(73)
+    eng.restore_columns(columns(rng, eng, 4000, 0, 100.0), 100.0)
+    eng.search_columns_async(columns(rng, eng, 1024, 10_000, 101.0), 101.0)
+    (_, out), = eng.flush()
+    assert out.n_matches > 0 and eng.device_error is None
+    assert eng.graph_report()["captures"] == len(eng.graph_report()["graphs"])

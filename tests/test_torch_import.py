@@ -60,7 +60,9 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.service.overload",
                  "matchmaking_tpu_torch.service.breaker",
                  "matchmaking_tpu_torch.service.batcher",
-                 "matchmaking_tpu_torch.utils.chaos"):
+                 "matchmaking_tpu_torch.utils.chaos",
+                 "matchmaking_tpu_torch.utils.checkpoint",
+                 "matchmaking_tpu_torch.utils.journal"):
         assert must in mods
 
 

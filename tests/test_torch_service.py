@@ -197,6 +197,7 @@ async def test_expiry_sweep_answers_timeout(sweep):
     else:
         cfg = dataclasses.replace(small_cfg(), overload=OverloadConfig(
             deadline_sweep_ms=20.0))
+        # matchlint: ignore[determinism] x-deadline is wall-clock epoch seconds by the wire contract
         deadline = time.time() + 0.3
     app = MatchmakingApp(cfg, device="cpu")
     await app.start()
@@ -208,6 +209,7 @@ async def test_expiry_sweep_answers_timeout(sweep):
         if deadline is None:  # waited past the timeout, from its stamp
             assert got[1][1].latency_ms > 300.0
         else:
+            # matchlint: ignore[determinism] x-deadline is wall-clock epoch seconds by the wire contract
             assert time.time() >= deadline
         assert app.counters["timeouts"] == 1 and app.engine.pool_size() == 0
         assert app.engine.deadline_count() == 0
