@@ -196,15 +196,28 @@ Phases, each of which raises (exit code != 0) when it fails:
    ``rpc`` (an in-process responder, a 5 s timeout), ``static`` and
    ``none``, 1,024
    requests each (one in 8 with a bad token, answered ``unauthorized``),
-   requests/s for each.
+   requests/s for each. 8b's successor logs the recovery's events the
+   CPU app recovering the same files logs.
+9. tracing: config #1's service at full width, 100k restored and 16,384
+   requests in bursts of 512, three times in this process: tracing off,
+   on, and sampled (``trace_sample_n`` 16). Each prints requests/s,
+   latency p50/p99, GC ms, the flight recorder's and the attribution's
+   host ms (over the soak and a window) and the traces settled, which
+   must be the requests answered (on), 1 in 16 of them (sampled), none
+   (off). Every window's merged marks must be dispatch, (h2d,
+   device_step)+, readback_seal, collect; work + wait must equal the span
+   of every trace; each request's own answer quotes its trace id exactly
+   when it was traced. Phase 7's event kinds must be the CPU run's
+   (``BREAKER_EVENTS``).
 
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
 ``--profile-soak`` (with ``--out``) writes cProfile's functions by own
-time over each of the two soaks beside the output file.
+time over each of phase 4's two soaks and phase 9's three beside the
+output file.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-8, the
+JSON summary of phases 3-9, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -1967,7 +1980,8 @@ def check_faults(app, what):
 
 
 async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
-                       seed, consume_batch=True, profile_to=None):
+                       seed, consume_batch=True, profile_to=None,
+                       observability=None):
     """The service at full width: ``waiting`` players restored, then
     ``requests`` published in bursts of ``burst``. Every request is
     answered from its window once (queued or matched) and matched at most
@@ -1978,7 +1992,8 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     are counted: with it on, the bursts are decoded at consume and no
     window at the flush. ``profile_to``: a file that gets cProfile's
     functions by own time over the soak (the event loop's thread, which
-    runs every part of the service)."""
+    runs every part of the service). ``observability``: fields of the
+    config's ``ObservabilityConfig`` to replace (e.g. tracing off)."""
     import dataclasses
 
     from matchmaking_tpu_torch.native import codec
@@ -1990,6 +2005,9 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     cfg = dataclasses.replace(
         cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
         broker=dataclasses.replace(cfg.broker, consume_batch=consume_batch))
+    if observability:
+        cfg = dataclasses.replace(cfg, observability=dataclasses.replace(
+            cfg.observability, **observability))
     decodes = {"consume": 0, "flush": 0}
     real_decode = {"consume": codec.decode_batch_concat,
                    "flush": codec.decode_batch}
@@ -3475,6 +3493,10 @@ async def service_breaker(np, ck, mods, path, *, waiting, seed):
     finally:
         await app.stop()
     faults = app.faults()
+    events = [k for _, k, _, _ in event_rows(app)]
+    if events != BREAKER_EVENTS:
+        raise AssertionError(f"breaker phase: events {events}, the CPU "
+                             f"run's {BREAKER_EVENTS}")
     want = {"engine_crashes": 2, "breaker_trips": 1, "breaker_probes": 2,
             "breaker_probe_failures": 1, "breaker_closes": 1}
     got = {k: counters[k] for k in want}
@@ -3517,6 +3539,7 @@ async def service_breaker(np, ck, mods, path, *, waiting, seed):
                (first_degraded - opened_wall) * 1e3,
            "probe": probe, "moved": len(moved_ids),
            "first_8_windows_dispatch_ms": [x * 1e3 for x in dispatch_ms],
+           "events": events,
            "windows": windows, "probe_launches": probe_launches,
            "launches_after": after_launches["block_best"],
            "quality_counts": quality,
@@ -3880,6 +3903,7 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
             t = time.perf_counter()
             await app2.start()
             start_ms = (time.perf_counter() - t) * 1e3
+            recovery_events = event_rows(app2)
             t = time.perf_counter()
             torch.cuda.synchronize()
             drain_ms = (time.perf_counter() - t) * 1e3
@@ -3967,6 +3991,7 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
             cpu = MatchmakingApp(durable_cfg(Config, path, journal_dir=copy,
                                              warm=False), device="cpu")
             await cpu.start()
+            cpu_events = event_rows(cpu)
             replies3 = Replies(cpu, reply)
             await publish_and_wait(cpu, fresh, 1_024, reply, replies3)
             cpu_pairs = window_pairs(replies3, [p for p, _ in fresh])
@@ -3979,6 +4004,11 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
             if cpu_rec["transcript"] != rec["transcript"]:
                 raise AssertionError("8b: the CPU app recovered another "
                                      "transcript")
+            if (recovery_events != cpu_events or "crash_recovered" not in
+                    [k for _, k, _, _ in recovery_events]):
+                raise AssertionError(f"8b: the recovery's events "
+                                     f"{recovery_events}, the CPU app's "
+                                     f"{cpu_events}")
             res["crash"] = {
                 "in_flight_at_crash": crashed_at,
                 "sent_before_crash": len(sent),
@@ -3995,6 +4025,7 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
                 "first_window_pairs": len(first_pairs),
                 "replayed": rt2.counters["deduped_replays"],
                 "replays_checked": replays_checked,
+                "events": [k for _, k, _, _ in recovery_events],
                 "launches": launches,
                 "first_8_windows_dispatch_ms": [x * 1e3 for x in
                                                 dispatch_ms[:8]]}
@@ -4211,6 +4242,184 @@ async def service_auth(np, ck, mods, path, *, waiting, requests, seed):
         log(f"8d auth {mode}: {requests} requests, "
             f"{res[mode]['requests_per_s']:.0f} requests/s, latency p50 "
             f"{p50:.2f} ms p99 {p99:.2f} ms")
+    return res
+
+
+# ---- phase 9: tracing ---------------------------------------------------------
+
+#: The mark names of one 1v1 window: the engine's stamps, merged into every
+#: member trace.
+WINDOW_MARKS = re.compile(r"dispatch( h2d device_step)+ readback_seal collect")
+
+#: Phase 7's event kinds, as the CPU run of its scenario logs them
+#: (tests/test_torch_events.py holds the CPU app to this list): two
+#: chaos-failed windows, the trip, the demotion, a failed and a passing
+#: probe.
+BREAKER_EVENTS = [
+    "chaos_step_fault", "engine_crash", "engine_revive", "chaos_step_fault",
+    "engine_crash", "breaker_trip", "degraded_revive", "engine_revive",
+    "breaker_probe", "chaos_probe_fault", "probe_failed", "breaker_probe",
+    "breaker_closed"]
+
+
+def event_rows(app):
+    """The event log without its clocks (a recovery's measured ms masked)."""
+    return [(r["component"], r["kind"], r["queue"],
+             re.sub(r"rto [0-9.]+ ms", "rto # ms", r["detail"]))
+            for r in app.events.snapshot()]
+
+
+async def service_trace_soak(np, ck, mods, path, *, waiting, requests, burst,
+                             seed, mode, profile_to=None):
+    """Config #1's service at full width with tracing ``mode``: "off",
+    "on" (every request traced) or "sampled" (``trace_sample_n`` 16):
+    ``waiting`` players restored, then ``requests`` published in bursts of
+    ``burst``. Measures requests/s, latency p50/p99 (publish → first
+    answer), GC ms, and the host ms of the flight recorder (its stage
+    histograms) and of the attribution, each over the soak and a window.
+    Checks: every window's marks are ``WINDOW_MARKS``; the traces settled
+    are the requests answered (on), 1 in 16 of them (sampled), none (off);
+    work + wait equals the enqueue→publish span for every trace; every
+    request's own answer quotes its trace id exactly when it was traced;
+    one block_best and one quality_accum launch per window; no fault."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.config import ObservabilityConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.attribution import decompose_marks
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    sample_n = 16 if mode == "sampled" else 1
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        observability=ObservabilityConfig(trace=mode != "off",
+                                          trace_sample_n=sample_n))
+    if cfg.batcher.max_batch > max(cfg.engine.batch_buckets):
+        raise AssertionError("trace soak: a window would take several chunks")
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=cfg.queues[0].glicko2)
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()
+    queue = cfg.queues[0].name
+    rt = app.runtime(queue)
+    reply = "trace.replies"
+    settled = []
+    spent = {"recorder": 0.0, "attribution": 0.0}
+    real_complete = app.recorder.complete
+    real_observe = app.attribution.observe
+
+    def observe(tr):
+        t = time.perf_counter()
+        real_observe(tr)
+        spent["attribution"] += time.perf_counter() - t
+
+    def complete(tr):
+        t = time.perf_counter()
+        real_complete(tr)
+        spent["recorder"] += time.perf_counter() - t
+        settled.append(tr)
+
+    app.attribution.observe = observe
+    app.recorder.complete = complete
+    window_marks = []
+    real_merge = rt._merge_window_marks
+
+    def merge(tok, deliveries):
+        marks = rt.engine.window_marks.get(tok)
+        if marks:
+            window_marks.append(" ".join(n for n, _ in marks))
+        real_merge(tok, deliveries)
+
+    rt._merge_window_marks = merge
+    try:
+        replies = Replies(app, reply)
+        app.restore_columns(
+            pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply),
+            pop.region[:waiting], pop.mode[:waiting], t0)
+        windows0 = rt.counters["windows"]
+        reset_counts(ck)
+        prof = None
+        if profile_to:
+            import cProfile
+
+            prof = cProfile.Profile()
+            prof.enable()
+        gc_clock = GcClock().__enter__()
+        soak_s, t_pub = await publish_and_wait(
+            app, request_bodies(pop, waiting, waiting + requests), burst,
+            reply, replies)
+        gc_clock.__exit__()
+        if prof is not None:
+            import io
+            import pstats
+
+            prof.disable()
+            text = io.StringIO()
+            pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(40)
+            with open(profile_to, "w") as f:
+                f.write(text.getvalue())
+        await settle(app)
+        windows = rt.counters["windows"] - windows0
+        launches = dict(ck.LAUNCHES)
+        p50, p99 = latency_ms(replies, t_pub)
+        stages = app.metrics.report()["stage_seconds"].get(queue, {})
+    finally:
+        await app.stop()
+    check_faults(app, f"trace soak ({mode})")
+    bad = [m for m in window_marks if not WINDOW_MARKS.fullmatch(m)]
+    if bad or len(window_marks) != windows:
+        raise AssertionError(f"trace soak ({mode}): {len(window_marks)} "
+                             f"windows' marks for {windows} windows, "
+                             f"{len(bad)} not {WINDOW_MARKS.pattern}: "
+                             f"{bad[:2]}")
+    if (launches["block_best"] != windows
+            or launches["quality_accum"] != windows):
+        raise AssertionError(f"trace soak ({mode}): {launches} launches for "
+                             f"{windows} windows")
+    want = {"off": 0, "on": requests, "sampled": requests // sample_n}[mode]
+    if abs(len(settled) - want) > (1 if mode == "sampled" else 0):
+        raise AssertionError(f"trace soak ({mode}): {len(settled)} traces "
+                             f"settled, want {want}")
+    traced = {}
+    for tr in settled:
+        _, work, wait = decompose_marks(tr.marks)
+        if abs(work + wait - tr.total_s) > 1e-9:
+            raise AssertionError(f"trace soak ({mode}): {tr.trace_id} "
+                                 f"work + wait != span")
+        if tr.status not in ("matched", "queued"):
+            raise AssertionError(f"trace soak ({mode}): {tr.trace_id} "
+                                 f"settled {tr.status}")
+        traced[tr.correlation_id] = tr.trace_id
+    for pid in t_pub:
+        got = json.loads(replies.got[pid][0][1]).get("trace_id", "")
+        if got != traced.get(pid, ""):
+            raise AssertionError(f"trace soak ({mode}): {pid} answered with "
+                                 f"trace id {got!r}, traced "
+                                 f"{traced.get(pid, '')!r}")
+    res = {"mode": mode, "trace_sample_n": sample_n, "waiting": waiting,
+           "requests": requests, "burst": burst, "windows": windows,
+           "soak_s": soak_s, "requests_per_s": requests / soak_s,
+           "latency_ms_p50": p50, "latency_ms_p99": p99,
+           "gc_ms": gc_clock.total * 1e3, "traces_settled": len(settled),
+           "recorder_ms": (spent["recorder"] - spent["attribution"]) * 1e3,
+           "attribution_ms": spent["attribution"] * 1e3,
+           "recorder_ms_per_window":
+               (spent["recorder"] - spent["attribution"]) * 1e3
+               / max(1, windows),
+           "attribution_ms_per_window":
+               spent["attribution"] * 1e3 / max(1, windows),
+           "stage_counts": {k: v["count"] for k, v in stages.items()},
+           "launches": launches}
+    log(f"trace soak ({mode}): {requests} requests over {waiting} waiting, "
+        f"{windows} windows, {res['requests_per_s']:.0f} requests/s, latency "
+        f"p50 {p50:.2f} ms p99 {p99:.2f} ms, GC {res['gc_ms']:.1f} ms, "
+        f"{len(settled)} traces settled, recorder "
+        f"{res['recorder_ms']:.1f} ms ({res['recorder_ms_per_window']:.3f} a "
+        f"window), attribution {res['attribution_ms']:.1f} ms "
+        f"({res['attribution_ms_per_window']:.3f} a window)")
     return res
 
 
@@ -4452,6 +4661,19 @@ def main(argv) -> int:
     for name, counts in phase8.items():
         launches[name] = counts["block_best"]
     phase_s["8"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 9. tracing at full width: config #1's soak with tracing off, on and
+    #    sampled (1 in 16), in turns in this process
+    tracing = {mode: asyncio.run(service_trace_soak(
+        np, ck, mods, elo, waiting=100_000, requests=16_384, burst=512,
+        seed=21, mode=mode,
+        profile_to=(os.path.join(out_dir, f"trace_profile_{mode}.txt")
+                    if profile_soak else None)))
+        for mode in ("off", "on", "sampled")}
+    for mode, run in tracing.items():
+        launches["service_trace_" + mode] = run["launches"]["block_best"]
+    phase_s["9"] = time.perf_counter() - t_phase
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -4473,13 +4695,17 @@ def main(argv) -> int:
                      + launches["rescan_tick_glicko2"]
                      + sum(r["speculate_launches"]
                            for r in speculation.values())
-                     + sum(c["block_best"] for c in phase8.values()))
+                     + sum(c["block_best"] for c in phase8.values())
+                     + sum(r["launches"]["block_best"]
+                           for r in tracing.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
                   + rescan["tick_launches"]
                   + sum(r["commit_launches"] for r in speculation.values())
-                  + sum(c["quality_accum"] for c in phase8.values()))
+                  + sum(c["quality_accum"] for c in phase8.values())
+                  + sum(r["launches"]["quality_accum"]
+                        for r in tracing.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -4523,7 +4749,9 @@ def main(argv) -> int:
                 breaker_run["probe_launches"]["quality_accum"],
             "service_breaker_after_repromotion":
                 breaker_run["launches_after"],
-            **{name: c["quality_accum"] for name, c in phase8.items()}},
+            **{name: c["quality_accum"] for name, c in phase8.items()},
+            **{"service_trace_" + mode: run["launches"]["quality_accum"]
+               for mode, run in tracing.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -4621,6 +4849,9 @@ def main(argv) -> int:
         "durability": durability,
         "drain": drain_run,
         "auth": auth_run,
+        "tracing": {mode: {k: v for k, v in run.items()
+                           if k not in ("launches", "stage_counts")}
+                    for mode, run in tracing.items()},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -4653,7 +4884,7 @@ def main(argv) -> int:
                        "team_service": team_service,
                        "overload": overload, "breaker": breaker_run,
                        "durability": durability, "drain": drain_run,
-                       "auth": auth_run,
+                       "auth": auth_run, "tracing": tracing,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

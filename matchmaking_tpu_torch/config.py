@@ -7,8 +7,9 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
 JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
-Sections and keys the port does not carry yet (tracing, the broker and
-network faults of chaos, ...) are ignored with a warning; a few values
+Sections and keys the port does not carry yet (telemetry and SLO burn
+monitors, the broker and network faults of chaos, ...) are ignored with a
+warning; a few values
 that need a module the port does not have yet are refused, with the module
 named: a ``replication`` section with a role at load, the multi-GPU chaos
 faults at construction.
@@ -360,9 +361,36 @@ class ChaosConfig:
 
 @dataclass(frozen=True)
 class ObservabilityConfig:
-    """The match-quality keys of the JAX package's observability section
-    (engine/quality.py, service/quality.py); its tracing, SLO and
-    telemetry keys are not carried."""
+    """The JAX package's observability keys for tracing (utils/trace.py:
+    trace contexts stamped at broker publish, the flight recorder, the
+    event log, the per-stage histograms), the attribution's SLO target
+    (service/attribution.py) and match quality (engine/quality.py,
+    service/quality.py). The telemetry sampler and the SLO burn monitors
+    (``snapshot_interval_s``, ``telemetry_ring``, ``slo_objective``,
+    ``slo_*_window_s``, ``slo_burn_threshold``) and ``profile_dir`` are not
+    carried."""
+
+    #: Trace-context stamping and flight recording; on, as in the JAX
+    #: package.
+    trace: bool = True
+    #: Trace every Nth request publish (1: every one). With N > 1 a
+    #: delivery the broker did not stamp stays untraced.
+    trace_sample_n: int = 1
+    #: Settled traces kept per queue.
+    trace_ring: int = 256
+    #: Slow-trace exemplars kept per queue.
+    slow_trace_ring: int = 64
+    #: A settled trace whose enqueue→publish span reaches this is kept in
+    #: the slow ring.
+    slow_trace_ms: float = 250.0
+    #: Lifecycle events kept in the event log.
+    event_ring: int = 512
+    #: Stage histogram upper bounds in seconds; () → 100 µs · 2^k, 24
+    #: buckets (utils/metrics.DEFAULT_STAGE_BUCKETS).
+    stage_buckets: tuple[float, ...] = ()
+    #: A settled trace is good for the attribution's SLO counters when it
+    #: was served (matched, queued, deduped) within this many ms (0: off).
+    slo_target_ms: float = 0.0
 
     #: Rating-bucket edges of the quality accounting (() → the default
     #: eight buckets around N(1500, 300)).
@@ -383,11 +411,20 @@ class ObservabilityConfig:
     quality_slo_objective: float = 0.9
 
 
+@dataclass(frozen=True)
+class ForensicsConfig:
+    """The event spine's key of the JAX package's forensics section
+    (utils/forensics.py); the incident capture's keys are not carried."""
+
+    #: Events kept in the app's causal ring.
+    spine_ring: int = 4096
+
+
 _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "batcher": BatcherConfig, "auth": AuthConfig,
              "overload": OverloadConfig, "chaos": ChaosConfig,
              "observability": ObservabilityConfig,
-             "durability": DurabilityConfig}
+             "durability": DurabilityConfig, "forensics": ForensicsConfig}
 
 
 def _tuples(v):
@@ -423,6 +460,8 @@ class Config:
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig)
+    #: The event spine's ring.
+    forensics: ForensicsConfig = field(default_factory=ForensicsConfig)
 
     @staticmethod
     def from_dict(d: Mapping[str, Any], *, backend: str | None = None) -> "Config":

@@ -100,6 +100,19 @@ before each search step is dispatched, before any state of the chunk is
 touched, so a scripted failure leaves the mirror and the device pool as
 they were.
 
+Trace marks. Every window records host wall-clock stage marks
+(``time.time()``, no device read) at the JAX engine's program points and
+in its order: "dispatch" when it is accepted; per chunk "h2d" once its
+input copy is queued and "device_step" ("formation_bucketed" for a
+bucketed step) once its step is queued; "readback_seal" once every
+result copy is queued; "collect" at its finalize. A delegated window is
+"dispatch", "oracle_step"; a committed speculation starts with
+"spec_snapshot", "spec_commit"; a rescan tick has only the last two. The
+marks wait in ``window_marks[token]`` (at most 512, oldest dropped first)
+for the service to merge into the window's traces. ``events`` (the
+service's event log, or None) gets ``team_delegated`` and
+``team_repromoted``.
+
 Runs on ``device`` (default ``"cuda"``, which must exist); ``device="cpu"``
 runs the plain PyTorch versions of the kernels synchronously: every result
 is ready as soon as it is dispatched, and no pinned memory is used.
@@ -203,6 +216,8 @@ class _Speculation:
     basis_seq: int
     #: The time every pass ran at.
     spec_now: float
+    #: ``time.time()`` when it was taken (a commit's "spec_snapshot" mark).
+    wall_t: float
     #: ``now`` as the steps read it (f32[1] on the pool's device), for the
     #: quality fold at commit.
     now_dev: torch.Tensor
@@ -243,6 +258,9 @@ class _Pending:
     #: Pinned staging buffers of the window's host→device copies, held
     #: until its results are read (the copies have run by then).
     staging: list[torch.Tensor] = field(default_factory=list)
+    #: The window's trace marks, (stage, time.time()) in time order; they
+    #: move to ``GpuEngine.window_marks`` at finalize.
+    marks: list[tuple[str, float]] = field(default_factory=list)
 
 
 class GpuEngine(Engine):
@@ -357,6 +375,11 @@ class GpuEngine(Engine):
         #: Tokens of in-flight rescan windows, so a shared collector can
         #: route them apart from delivery-backed windows. Callers discard.
         self.rescan_tokens: set[int] = set()
+        #: Token → the finalized window's trace marks; the service pops
+        #: them. At most 512 kept (oldest dropped first).
+        self.window_marks: dict[int, list[tuple[str, float]]] = {}
+        #: The service's event log (utils/trace.EventLog), or None.
+        self.events = None
         #: Chunks one rescan tick may queue ahead of traffic windows.
         self._rescan_chunk_cap = max(1, ec.pipeline_depth)
         #: Host stage spans: cumulative seconds and counts (span_report).
@@ -414,6 +437,7 @@ class GpuEngine(Engine):
         # flush() returns the full outcome (dispatch-time rejections too).
         for tok, o in self.flush():
             self.failed_tokens.discard(tok)
+            self.window_marks.pop(tok, None)  # a sync caller merges none
             out.matches.extend(o.matches)
             out.queued.extend(o.queued)
             out.rejected.extend(o.rejected)
@@ -698,9 +722,13 @@ class GpuEngine(Engine):
         if self._team_delegate is not None:
             self._note_wildcards(requests, now)
             if not self._maybe_repromote_team(now):
+                t_disp = time.time()
                 out = self._team_delegate.search(requests, now)
                 pending = _Pending(token=self._next_token, outcome=out,
                                    raw=[])
+                # The oracle ran the whole window inline: two marks bound it.
+                pending.marks = [("dispatch", t_disp),
+                                 ("oracle_step", time.time())]
                 self._next_token += 1
                 self._submit(pending)
                 return pending.token, SearchOutcome()
@@ -708,6 +736,7 @@ class GpuEngine(Engine):
             return self.search_async(requests, now)  # through the oracle
         t_start = time.perf_counter()
         pending = _Pending(token=self._next_token, created=t_start)
+        pending.marks.append(("dispatch", time.time()))
         self._next_token += 1
         fresh: list[SearchRequest] = []
         seen: set[str] = set()
@@ -739,6 +768,7 @@ class GpuEngine(Engine):
         self._require_columnar("search_columns_async()")
         t_start = time.perf_counter()
         pending = _Pending(token=self._next_token, created=t_start)
+        pending.marks.append(("dispatch", time.time()))
         pending.columnar = empty_columnar_outcome()
         self._next_token += 1
         ids = cols.ids.tolist()
@@ -1044,7 +1074,7 @@ class GpuEngine(Engine):
         chunks = self._rescan_chunks(self._rescan_chunk_cap * top, now)
         now_rel = float(np.float32(now - self._rel_base(now)))
         held = _Speculation(
-            basis_seq=self.pool_mutations, spec_now=now,
+            basis_seq=self.pool_mutations, spec_now=now, wall_t=time.time(),
             now_dev=torch.full((1,), now_rel, dtype=torch.float32,
                                device=self.device))
         self._copy_pool(self._spec_device_pool(), self.dev_pool)
@@ -1117,6 +1147,8 @@ class GpuEngine(Engine):
                                     s.now_dev)
         pending = _Pending(token=self._next_token, created=time.perf_counter())
         pending.columnar = empty_columnar_outcome()
+        pending.marks.append(("spec_snapshot", s.wall_t))
+        pending.marks.append(("spec_commit", time.time()))
         pending.chunks = s.chunks
         pending.staging = s.staging
         self._next_token += 1
@@ -1312,7 +1344,8 @@ class GpuEngine(Engine):
     def _launch(self, variant: str, batch: BatchArrays, now: float,
                 staging_list: list[torch.Tensor],
                 requests: Sequence[SearchRequest] = (),
-                keep: list[torch.Tensor] | None = None) -> _Readback:
+                keep: list[torch.Tensor] | None = None,
+                marks: list[tuple[str, float]] | None = None) -> _Readback:
         """Copy one window chunk to the device, queue the ``variant`` step
         on it (on the card, one replay of its graph) and the copy of its
         result to the host right behind it: the next replay of the graph
@@ -1321,7 +1354,10 @@ class GpuEngine(Engine):
         c_slot, dist, and a fourth row, the touched slots, when bucketed;
         team/role: f32[need + 2 (+1), M]). The staging buffer goes to
         ``staging_list``; with ``keep``, a device copy of the result,
-        taken before anything else is queued, goes there too."""
+        taken before anything else is queued, goes there too. With
+        ``marks`` (a traffic window's), the "h2d" and "device_step" (or
+        "formation_bucketed") marks are appended once the input copy and
+        the step are queued."""
         t0 = self._rel_base(now)
         now_rel = float(np.float32(now - t0))  # the packed now row's value
         _t = time.perf_counter()
@@ -1333,11 +1369,17 @@ class GpuEngine(Engine):
         else:  # eager (the CPU: no copy)
             packed = staging.to(self.device, non_blocking=True)
         self.spans["h2d_s"] += time.perf_counter() - _t
+        if marks is not None:
+            marks.append(("h2d", time.time()))
         _t = time.perf_counter()
         if self._graphs is not None:
             out = self._graphs.replay(g)
         else:
             out = self._step_fn(variant)(self._pool_for(variant), packed)
+        if marks is not None:
+            marks.append(("formation_bucketed"
+                          if variant.startswith("bucketed")
+                          else "device_step", time.time()))
         if keep is not None:
             out = out.clone()
             keep.append(out)
@@ -1376,7 +1418,7 @@ class GpuEngine(Engine):
                                        self._rel_base(now))
         self.spans["pack_s"] += time.perf_counter() - _t
         out = self._launch(self._step_for(batch), batch, now,
-                           pending.staging, window)
+                           pending.staging, window, marks=pending.marks)
         self.util["lanes_valid"] += len(window)
         self.util["lanes_padded"] += bucket
         pending.chunks.append((list(window), out, now))
@@ -1404,14 +1446,16 @@ class GpuEngine(Engine):
                                             self._rel_base(now))
         self.spans["pack_s"] += time.perf_counter() - _t
         out = self._launch(self._step_for(batch), batch, now,
-                           pending.staging)
+                           pending.staging, marks=pending.marks)
         self.util["lanes_valid"] += len(cols)
         self.util["lanes_padded"] += bucket
         pending.chunks.append(((cols, slots), out, now))
 
     def _submit(self, pending: _Pending) -> None:
         """Track the window FIFO (each chunk's result copy is already
-        queued behind its step)."""
+        queued behind its step: the "readback_seal" mark)."""
+        if pending.chunks:
+            pending.marks.append(("readback_seal", time.time()))
         pending.queued_readback = time.perf_counter()
         if self._open == 0:
             now_pc = time.perf_counter()
@@ -1462,6 +1506,12 @@ class GpuEngine(Engine):
             self.spans["turnaround_s"] += time.perf_counter() - pending.created
         if pending.chunks:
             self.util["readback_s"] += _t - pending.queued_readback
+        pending.marks.append(("collect", time.time()))
+        marks = self.window_marks
+        marks[pending.token] = pending.marks
+        while len(marks) > 512:
+            # Unclaimed marks (sync callers, failed windows): oldest first.
+            marks.pop(next(iter(marks)))
         if pending.error is not None:
             self.device_error = pending.error
             self.failed_tokens.add(pending.token)
@@ -1697,6 +1747,9 @@ class GpuEngine(Engine):
         self._delegate_last_wc = now
         self.counters["team_delegated"] = (
             self.counters.get("team_delegated", 0) + 1)
+        if self.events is not None:
+            self.events.append("team_delegated", self.queue.name,
+                               f"{len(waiting)} waiting transferred")
         # The device pool is parked, not dropped: re-promotion clears and
         # reuses it, so the captured steps, which hold its addresses, stay
         # valid.
@@ -1739,6 +1792,9 @@ class GpuEngine(Engine):
             self.restore(waiting, now)
         self.counters["team_repromoted"] = (
             self.counters.get("team_repromoted", 0) + 1)
+        if self.events is not None:
+            self.events.append("team_repromoted", self.queue.name,
+                               f"{len(waiting)} waiting transferred")
         log.info("team queue %r: back on the device (%d waiting players "
                  "moved)", self.queue.name, len(waiting))
         return True

@@ -7,7 +7,8 @@ executable. The port's counterpart is a captured ``torch.cuda.CUDAGraph``
 per (variant, bucket): the step's few hundred kernels, ``block_best`` and
 ``quality_accum`` among them, are queued once at capture, and a window is
 one copy of its packed rows into the graph's static input, one replay and
-one copy of the static output.
+one copy of the static output. Each capture is counted, with its host
+seconds, in ``utils/metrics.CompileCounter``.
 
 ``StepGraphs`` keeps an engine's graphs. A graph is captured on its first
 use, as JAX compiles on first use, or by ``GpuEngine.warmup`` for every
@@ -53,6 +54,7 @@ from typing import Callable
 import torch
 
 from matchmaking_tpu_torch.engine import cuda_kernels
+from matchmaking_tpu_torch.utils.metrics import CompileCounter
 
 #: A step as a graph runs it: (device pool, packed window) → the result.
 StepFn = Callable[[dict, torch.Tensor], torch.Tensor]
@@ -156,6 +158,9 @@ class StepGraphs:
                       warm_ms, capture_ms, memory)
         self.graphs[(variant, bucket)] = g
         self.captures += 1
+        # The port's compile count (metrics' ``xla_compiles``), outside the
+        # capture: the warm run and the capture, in seconds.
+        CompileCounter.record((warm_ms + capture_ms) / 1e3)
         return g
 
     def replay(self, g: StepGraph) -> torch.Tensor:

@@ -108,14 +108,31 @@ wait for a worker thread, need ``_pool_lock``; and no second thread
 contends with the loop for the interpreter lock (every PyTorch call of the
 window step releases and retakes it).
 
+Tracing (``ObservabilityConfig.trace``, on by default; utils/trace.py):
+the broker stamps a ``TraceContext`` on each request it publishes (every
+``trace_sample_n``-th with sampling) and the runtime marks it at consume,
+middleware, batch, flush and the answer's encode, respond and publish;
+each window's engine marks (dispatch, h2d, device_step, readback_seal,
+collect) are merged into its members' traces when it is collected, and
+every answer carries its ``trace_id``. A settled trace goes to
+``app.recorder`` (the flight recorder), the per-stage histograms of
+``app.metrics`` and ``app.attribution`` (work against wait); adaptive
+shedding reads the p99 of the "total" stage over the traces settled since
+the last cut. ``app.metrics`` also holds the counters under the JAX
+package's names (each runtime's ``counters`` dict stays) and the gauges
+(breaker state, batch fill, admission, ``crash_rto_ms``); ``app.events``
+is the event log of every lifecycle event, stamped onto ``app.spine``
+(utils/forensics.py). The marks, events and histogram updates are host
+code outside any graph capture; settling a trace rides the same effect
+queue as its answer, so its marks keep the order they have in the JAX
+app.
+
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the object flush, the health timer, burst consume and
 decode, the speculation loop and cut, overload control and the circuit
-breaker, durability, the drain and auth), without replication, tracing
-(so adaptive shedding reads no stage p99, as the JAX service with tracing
-off), the AMQP transport, the dispatch arbiter, and the metrics, gauges
-and event log (the counters are each runtime's ``counters`` dict, under
-the JAX package's names).
+breaker, durability, the drain, auth, tracing, the metrics and the event
+log), without replication, telemetry and SLO burn monitors, incident
+capture, the AMQP transport, the dispatch arbiter and the HTTP surfaces.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -134,6 +151,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import math
 import os
 import time
 from typing import Any, Sequence
@@ -149,8 +167,13 @@ from matchmaking_tpu_torch.engine.interface import (
 )
 from matchmaking_tpu_torch.engine.quality import QualitySpec
 from matchmaking_tpu_torch.native import codec
+from matchmaking_tpu_torch.service.attribution import Attribution
 from matchmaking_tpu_torch.service.batcher import Batcher
-from matchmaking_tpu_torch.service.breaker import CLOSED, CircuitBreaker
+from matchmaking_tpu_torch.service.breaker import (
+    CLOSED,
+    STATE_CODE,
+    CircuitBreaker,
+)
 from matchmaking_tpu_torch.service.broker import Delivery, InProcBroker, Properties
 from matchmaking_tpu_torch.service.client import MatchmakingClient
 from matchmaking_tpu_torch.service.contract import (
@@ -182,12 +205,20 @@ from matchmaking_tpu_torch.service.overload import (
 from matchmaking_tpu_torch.service.quality import QualityLedger
 from matchmaking_tpu_torch.utils import checkpoint
 from matchmaking_tpu_torch.utils.chaos import ChaosState
+from matchmaking_tpu_torch.utils.forensics import EventSpine
 from matchmaking_tpu_torch.utils.journal import PoolJournal, row_to_request
+from matchmaking_tpu_torch.utils.metrics import Metrics
+from matchmaking_tpu_torch.utils.trace import (
+    EventLog,
+    FlightRecorder,
+    TraceContext,
+)
 
 log = logging.getLogger(__name__)
 
-#: A response row: (reply_to, correlation_id, body).
-Row = tuple[str, str, bytes]
+#: A response row: (reply_to, correlation_id, body, trace or None); the
+#: trace gets its "respond" mark when the row is published.
+Row = tuple[str, str, bytes, Any]
 
 #: Fewest deliveries of a consume burst that are decoded at consume; the
 #: rows of a smaller burst are decoded with their window at the flush.
@@ -213,10 +244,15 @@ class _QueueRuntime:
     waits for the flush (the columnar ingress)."""
 
     def __init__(self, app: "MatchmakingApp", queue_cfg: QueueConfig):
+        self.app = app
         self.cfg = app.cfg
         self.queue_cfg = queue_cfg
         self.broker = app.broker
         self.device = app.device
+        #: The app's metrics (counters under the JAX package's names,
+        #: gauges, stage histograms) and event log.
+        self.metrics: Metrics = app.metrics
+        self.events: EventLog = app.events
         #: The app-wide ledger: per queue, per tier quality and wait of
         #: matched players, fed when their answers are published.
         self.quality = app.quality
@@ -253,7 +289,8 @@ class _QueueRuntime:
         self.admission: AdmissionController | None = (
             AdmissionController(self.cfg.overload, queue_cfg.name,
                                 self.counters,
-                                default_tier=queue_cfg.default_tier)
+                                default_tier=queue_cfg.default_tier,
+                                metrics=app.metrics, events=app.events)
             if self.cfg.overload.enabled() else None)
         #: Window-granular admission: the ladder runs once per cut window.
         self._batch_admission = (self.admission is not None
@@ -344,6 +381,10 @@ class _QueueRuntime:
                               and self.journal.fsync != "none")
         self._egress: list = []
         self._settler: asyncio.Task | None = None
+        #: The "total" histogram's counts at the previous window cut (the
+        #: adaptive p99 reads the traces settled since).
+        self._stage_total_prev: tuple[list[int], int, int] | None = None
+        self._publish_breaker_gauges()
 
     async def start(self) -> None:
         self._bind_engine(self._make_engine())
@@ -357,9 +398,7 @@ class _QueueRuntime:
         ov = self.cfg.overload
         self._batcher = Batcher(
             self.cfg.batcher, self._flush,
-            observe_window=(self._observe_window
-                            if self.admission is not None and ov.adaptive
-                            else None),
+            observe_window=self._observe_window,
             sort_key=self._edf_key if ov.edf else None)
         # Admitted deliveries hold a prefetch slot until settled: keep
         # prefetch above the credit cap, so the excess reaches admission
@@ -460,6 +499,9 @@ class _QueueRuntime:
         half-open, so matches keep flowing while the card is failing."""
         if self.breaker is not None and self.breaker.state != CLOSED:
             self.counters["breaker_degraded_revives"] += 1
+            self.metrics.counters.inc("breaker_degraded_revives")
+            self.events.append("degraded_revive", self.queue_cfg.name,
+                               f"breaker {self.breaker.state}")
             log.warning("queue %r: breaker %s — serving on the host oracle",
                         self.queue_cfg.name, self.breaker.state)
             return CpuEngine(self.cfg, self.queue_cfg)
@@ -479,6 +521,9 @@ class _QueueRuntime:
         engine swap (start, revive, breaker demotion, probe re-promotion)
         comes through here."""
         self.engine = engine
+        # Engine-side lifecycle events (delegation, re-promotion) go to the
+        # app's log.
+        engine.events = self.events
         self._objects = self._team or not hasattr(engine,
                                                   "search_columns_async")
         self.pipeline = (
@@ -504,13 +549,35 @@ class _QueueRuntime:
         oracle."""
         self.counters["engine_failures"] += 1
         self.counters["engine_crashes"] += 1
+        self.metrics.counters.inc("engine_crashes")
+        self.events.append("engine_crash", self.queue_cfg.name)
         if self.breaker is not None and self.breaker.record_crash(now):
             self.counters["breaker_trips"] += 1
+            self.metrics.counters.inc("breaker_trips")
+            self.events.append(
+                "breaker_trip", self.queue_cfg.name,
+                f"{self.breaker.threshold} crashes in "
+                f"{self.breaker.window_s:.1f}s",
+                component="service",
+                refs={"crashes": self.breaker.threshold})
+            self._publish_breaker_gauges()
             log.error("queue %r: circuit breaker tripped (%d engine crashes "
                       "within %.1f s): demoting to the host oracle; first "
                       "half-open probe in %.2f s", self.queue_cfg.name,
                       self.breaker.threshold, self.breaker.window_s,
                       self.breaker.probe_delay_s)
+
+    def _publish_breaker_gauges(self) -> None:
+        """The breaker's state, probe delay and time degraded as gauges, on
+        every transition."""
+        if self.breaker is None:
+            return
+        snap = self.breaker.snapshot(time.time())
+        q = self.queue_cfg.name
+        m = self.metrics
+        m.set_gauge(f"breaker_state[{q}]", STATE_CODE[snap["state"]])
+        m.set_gauge(f"breaker_probe_delay_s[{q}]", snap["probe_delay_s"])
+        m.set_gauge(f"breaker_time_degraded_s[{q}]", snap["time_degraded_s"])
 
     def restore(self, requests: Sequence[SearchRequest], now: float) -> None:
         """Re-admit waiting players without matching (the object path's
@@ -557,6 +624,7 @@ class _QueueRuntime:
             except Exception:
                 log.exception("journal compaction failed; retrying")
                 self.counters["journal_compact_errors"] += 1
+                self.metrics.counters.inc("journal_compact_errors")
 
     async def compact_journal(self) -> dict[str, Any]:
         """One compaction, under the pool lock with the pipeline drained:
@@ -595,6 +663,11 @@ class _QueueRuntime:
                         break
                 raise
         self.counters["journal_compactions"] += 1
+        self.metrics.counters.inc("journal_compactions")
+        self.events.append(
+            "journal_compacted", self.queue_cfg.name,
+            f"anchor seq {anchor}, {count} waiting players snapshotted",
+            component="durability", refs={"anchor": anchor, "count": count})
         return {"anchor": anchor, "snapshot": snap_path, "count": count}
 
     async def recover_from_journal(self) -> dict[str, Any] | None:
@@ -613,6 +686,7 @@ class _QueueRuntime:
         rec = j.recovered
         q = self.queue_cfg.name
         for note in rec.corrupt:
+            self.events.append("journal_corrupt", q, note)
             log.warning("queue %r: %s", q, note)
         if rec.clean:
             return None
@@ -629,7 +703,7 @@ class _QueueRuntime:
             eng = self.engine
             # The pool is rebuilt from the journal: a speculation is
             # against a pool that never was.
-            eng.spec_invalidate("journal replay")
+            self._spec_invalidate_audited("journal replay")
             t = time.perf_counter()
             n_snap = (checkpoint.load_pool(eng, rec.snapshot, now)
                       if rec.snapshot else 0)
@@ -657,6 +731,17 @@ class _QueueRuntime:
         lap("compact_ms", t)
         rto_ms = (time.perf_counter() - t0) * 1e3
         self.counters["crash_recoveries"] += 1
+        self.metrics.set_gauge(f"crash_rto_ms[{q}]", round(rto_ms, 3))
+        self.metrics.counters.inc("crash_recoveries")
+        self.events.append(
+            "crash_recovered", q,
+            f"unclean shutdown: {n_snap} snapshot + {len(tail)} journal-tail "
+            f"players restored, {len(rec.recent)} dedup entries, "
+            f"rto {rto_ms:.1f} ms"
+            + (" (snapshot fallback)" if rec.fallback else ""),
+            component="durability",
+            refs={"snapshot_players": n_snap, "players": len(tail),
+                  "rto_ms": round(rto_ms, 3)})
         log.warning("queue %r: recovered from an unclean shutdown: %d "
                     "snapshot + %d journal-tail players, %d replay entries, "
                     "rto %.1f ms", q, n_snap, len(tail), len(rec.recent),
@@ -679,11 +764,16 @@ class _QueueRuntime:
 
     async def _on_delivery(self, delivery: Delivery) -> None:
         received_at = time.time()
+        tr = self._trace(delivery)
+        if tr is not None:
+            tr.mark("consume", received_at)
         ac = self.admission
         if self._batch_admission:
             # Only the pre-checks run per delivery; the ladder runs at the
             # window cut (_admission_cut).
             decision = ac.pre_decide(delivery, received_at)
+            if tr is not None:
+                tr.tier = delivery.tier
             if decision is EXPIRED:
                 self._expire_delivery(delivery, received_at)
                 return
@@ -696,6 +786,8 @@ class _QueueRuntime:
                           if ac.tiers > 1 else None)
             decision = ac.decide(delivery, received_at,
                                  self.engine.pool_size(), pool_tiers)
+            if tr is not None:
+                tr.tier = delivery.tier
             if decision is EXPIRED and delivery.redelivered:
                 # The player may have reached a terminal answer already:
                 # the flush's terminal replay (or its deadline check)
@@ -709,19 +801,21 @@ class _QueueRuntime:
                 return
             ac.admit(delivery.delivery_tag, delivery.tier)
             try:
-                await self._ingress_submit(delivery, received_at)
+                await self._ingress_submit(delivery, received_at, tr)
             except BaseException:
                 # The broker settles a crashed callback itself (a nack that
                 # does not pass through _nack): return the credit here.
                 ac.release(delivery.delivery_tag)
                 raise
             return
-        await self._ingress_submit(delivery, received_at)
+        await self._ingress_submit(delivery, received_at, tr)
 
-    async def _ingress_submit(self, delivery: Delivery,
-                              received_at: float) -> None:
+    async def _ingress_submit(self, delivery: Delivery, received_at: float,
+                              tr: TraceContext | None) -> None:
         """The middleware chain (the first-receive stamp; on the object
-        path the decode too), then the batcher."""
+        path the decode too), then the batcher. On the columnar ingress
+        (the chain is the stamp alone) its host time goes to the
+        attribution's consume category, one delivery at a time."""
         ctx = MessageContext(delivery=delivery, queue=self.queue_cfg.name,
                              received_at=received_at)
         try:
@@ -729,31 +823,46 @@ class _QueueRuntime:
         except MiddlewareReject as e:
             self._reject(delivery, e.code, e.reason)
             return
+        if tr is not None:
+            tr.mark("batch")
+            if ctx.request is not None:
+                tr.player_id = ctx.request.id
         delivery.arrival = self._arrival_seq
         self._arrival_seq += 1
         self._batcher.submit((ctx.request, delivery))
+        if self._inline_ingress:
+            self.app.attribution.observe_ingest(
+                self.queue_cfg.name, "consume", time.time() - received_at, 1)
 
     async def _on_delivery_batch(self, deliveries: list[Delivery]) -> None:
         """One consume burst of a 1v1 queue: the admission pre-checks over
-        the burst, one clock read for the first-receive stamp of every
-        delivery, a burst of at least ``_MIN_DECODE_BURST`` rows decoded in
-        one native call (malformed and unservable rows are answered and
-        acked here, as the flush's decode would have), then the whole
-        burst to the batcher. While the queue is not on the columnar
-        ingress (the host oracle serves it, or admission decides per
-        delivery) each delivery takes the per-delivery path."""
+        the burst, one clock read for the first-receive stamp (and the
+        consume, middleware and batch marks) of every delivery, a burst of
+        at least ``_MIN_DECODE_BURST`` rows decoded in one native call
+        (malformed and unservable rows are answered and acked here, as the
+        flush's decode would have), then the whole burst to the batcher.
+        Its consume and decode host time go to the attribution once per
+        burst. While the queue is not on the columnar ingress (the host
+        oracle serves it, or admission decides per delivery) each delivery
+        takes the per-delivery path."""
         if not self._inline_ingress:
             for delivery in deliveries:
                 await self._on_delivery(delivery)
             return
         received_at = time.time()
+        t_burst = time.perf_counter()
         ac = self.admission
         decisions = (ac.pre_decide_batch(deliveries, received_at)
                      if ac is not None else None)
         live: list[Delivery] = []
         for idx, delivery in enumerate(deliveries):
+            tr = self._trace(delivery)
+            if tr is not None:
+                tr.mark("consume", received_at)
             if decisions is not None:
                 decision = decisions[idx]
+                if tr is not None:
+                    tr.tier = delivery.tier
                 if decision is EXPIRED:
                     self._expire_delivery(delivery, received_at)
                     continue
@@ -766,15 +875,30 @@ class _QueueRuntime:
                 delivery.first_received = float(first)
             except (TypeError, ValueError):
                 delivery.first_received = received_at
+            if tr is not None:
+                tr.mark("middleware", received_at)
+                tr.mark("batch", received_at)
             delivery.arrival = self._arrival_seq
             self._arrival_seq += 1
             live.append(delivery)
+        if not live:
+            return
+        decode_s = 0.0
         if len(live) >= _MIN_DECODE_BURST:
+            t_dec = time.perf_counter()
             live, rejects = await self._shards.decode_burst(live)
+            decode_s = time.perf_counter() - t_dec
             for delivery, code, reason in rejects:
                 self._reject(delivery, code, reason)
+            self.app.attribution.observe_ingest(
+                self.queue_cfg.name, "decode", decode_s,
+                len(live) + len(rejects))
         if live:
             self._batcher.submit_many([(None, d) for d in live])
+        self.app.attribution.observe_ingest(
+            self.queue_cfg.name, "consume",
+            max(0.0, (time.perf_counter() - t_burst) - decode_s),
+            len(deliveries))
 
     def _first_received(self, delivery: Delivery, now: float) -> float:
         if delivery.first_received >= 0.0:
@@ -813,12 +937,133 @@ class _QueueRuntime:
         return (delivery.tier, dl if dl else float("inf"))
 
     def _observe_window(self, size: int, age_s: float) -> None:
-        """The batcher cut a window: feed adaptive shedding its batch fill
-        and pipeline occupancy (no stage p99: the port has no tracing)."""
+        """The batcher cut a window: its wait (the ``batch_window`` stage)
+        and fill (the ``batch_fill[q]`` gauge); with adaptive shedding,
+        the controller gets the fill, the pipeline's occupancy and the p99
+        of the traces settled since the previous cut."""
+        m = self.metrics
+        q = self.queue_cfg.name
+        m.observe_stage(q, "batch_window", age_s)
         fill = size / max(1, self._batcher.max_batch)
-        frac = (self.engine.inflight() / self.pipeline_depth
-                if self._async_api else 0.0)
-        self.admission.observe_window(fill, frac, None)
+        m.set_gauge(f"batch_fill[{q}]", fill)
+        if self.admission is not None and self.cfg.overload.adaptive:
+            frac = (self.engine.inflight() / self.pipeline_depth
+                    if self._async_api else 0.0)
+            hist = m.stages.get(q, {}).get("total")
+            self.admission.observe_window(fill, frac, self._delta_p99(hist))
+
+    def _delta_p99(self, hist) -> float | None:
+        """The p99 (a bucket's upper edge) of the "total"-stage samples
+        settled since the previous call, from the difference of two
+        snapshots of the cumulative histogram; None when none settled."""
+        if hist is None:
+            return None
+        prev = self._stage_total_prev
+        cur = (list(hist.counts), hist.overflow, hist.count)
+        self._stage_total_prev = cur
+        if prev is None:
+            prev = ([0] * len(cur[0]), 0, 0)
+        n = cur[2] - prev[2]
+        if n <= 0:
+            return None
+        rank = max(1, math.ceil(0.99 * n))
+        cum = 0
+        for edge, c0, c1 in zip(hist.buckets, prev[0], cur[0]):
+            cum += c1 - c0
+            if cum >= rank:
+                return edge
+        return hist.buckets[-1] if hist.buckets else None
+
+    # ---- tracing ----------------------------------------------------------
+
+    def _trace(self, delivery: Delivery) -> TraceContext | None:
+        """The delivery's trace, made here for a delivery the broker did
+        not stamp (its enqueue stage then reads 0). None with tracing off,
+        and with sampling (``trace_sample_n`` > 1): an unstamped delivery
+        was sampled out and stays untraced."""
+        tr = delivery.trace
+        if (tr is None and self.app.trace_enabled
+                and self.app.trace_sample_n <= 1):
+            tr = delivery.trace = TraceContext(
+                self.queue_cfg.name, delivery.properties.correlation_id,
+                redelivered=delivery.redelivered)
+        return tr
+
+    def _settle_trace(self, delivery: Delivery, status: str,
+                      *marks: str) -> None:
+        """Settle the delivery's trace after the effects queued before it
+        (its answer and ack): ``marks`` (e.g. "dedup_replay"), then the
+        "publish" mark, then the flight recorder. A nacked delivery keeps
+        its trace open: the redelivery appends to it."""
+        tr = delivery.trace
+        if tr is None:
+            return
+
+        def settle() -> None:
+            for name in marks:
+                tr.mark(name)
+            tr.status = status
+            tr.mark("publish")
+            self.app.recorder.complete(tr)
+        self._effect(settle)
+
+    def _settle_traces(self, pairs: list[tuple[TraceContext, str]]) -> None:
+        """Settle a window's traces with one "publish" time, after the
+        effects queued before them."""
+        if not pairs:
+            return
+
+        def settle() -> None:
+            t = time.time()
+            complete = self.app.recorder.complete
+            for tr, status in pairs:
+                tr.status = status
+                tr.mark("publish", t)
+                complete(tr)
+        self._effect(settle)
+
+    def _settle_outcome_traces(self, out: SearchOutcome,
+                               deliveries: list[Delivery]) -> None:
+        """Settle each delivery's trace with the status its player reached
+        in an object outcome."""
+        if all(d.trace is None for d in deliveries):
+            return
+        matched = {r.id for m in out.matches for r in m.requests()}
+        rejected = {r.id for r, _ in out.rejected}
+        timed = {r.id for r in getattr(out, "timed_out", ())}
+        pairs = []
+        for d in deliveries:
+            tr = d.trace
+            if tr is None:
+                continue
+            pid = tr.player_id
+            pairs.append((tr, "matched" if pid in matched else
+                          "rejected" if pid in rejected else
+                          "timeout" if pid in timed else "queued"))
+        self._settle_traces(pairs)
+
+    def _merge_window_marks(self, tok: int,
+                            deliveries: list[Delivery]) -> None:
+        """Append a collected window's engine marks (dispatch .. collect)
+        to each member's trace; the engine's entry is popped either way."""
+        wm = getattr(self.engine, "window_marks", None)
+        if wm is None:
+            return
+        marks = wm.pop(tok, None)
+        if not marks:
+            return
+        for d in deliveries:
+            if d.trace is not None:
+                d.trace.extend(marks)
+
+    @staticmethod
+    def _trace_maps(deliveries: list[Delivery]
+                    ) -> tuple[dict[str, str], dict[str, TraceContext]]:
+        """Player id → trace id and → trace, for a window's traced
+        deliveries (only their own window's answers quote them)."""
+        traces = {d.trace.player_id: d.trace for d in deliveries
+                  if d.trace is not None and d.trace.player_id}
+        return {pid: tr.trace_id for pid, tr in traces.items()}, traces
 
     def _decode_or_reject(self, delivery: Delivery,
                           now: float) -> SearchRequest | None:
@@ -842,14 +1087,22 @@ class _QueueRuntime:
         answer with the retry-after hint (no player id: clients correlate
         by correlation id), then the ack."""
         ac = self.admission
-        ac.record_shed(tier=delivery.tier)
+        tr = self._trace(delivery)
+        if tr is not None:
+            tr.tier = delivery.tier
+            tr.mark("shed")
+        ac.record_shed(f"inflight={ac.inflight()} "
+                       f"pool={self.engine.pool_size()}", tier=delivery.tier)
         self._publish(delivery.properties.reply_to,
                       delivery.properties.correlation_id,
                       encode_response(SearchResponse(
                           status="shed", player_id="",
                           retry_after_ms=self.cfg.overload.retry_after_ms,
-                          tier=delivery.tier if ac.tiers > 1 else None)))
+                          trace_id=tr.trace_id if tr is not None else "",
+                          tier=delivery.tier if ac.tiers > 1 else None)),
+                      trace=tr)
         self._ack(delivery)
+        self._settle_trace(delivery, "shed")
 
     def _shed_deliveries(self, deliveries: list[Delivery]) -> None:
         """``_shed_delivery`` for a window's refused rows: the bodies from
@@ -857,41 +1110,63 @@ class _QueueRuntime:
         ac = self.admission
         tiered = ac.tiers > 1
         retry = self.cfg.overload.retry_after_ms
+        traces = []
         for d in deliveries:
-            ac.record_shed(tier=d.tier)
+            tr = self._trace(d)
+            if tr is not None:
+                tr.tier = d.tier
+                tr.mark("shed")
+            ac.record_shed(f"window cut tag={d.delivery_tag}", tier=d.tier)
+            traces.append(tr)
         n = len(deliveries)
         bodies = codec.encode_simple_batch(
             np.full(n, codec.KIND_SHED, np.int32), [""] * n,
             np.zeros(n, np.float64), np.full(n, retry, np.float64),
-            [""] * n,
+            [tr.trace_id if tr is not None else "" for tr in traces],
             np.fromiter((d.tier if tiered else -1 for d in deliveries),
                         np.int32, n))
         rows: list[Row] = []
-        for d, body in zip(deliveries, bodies):
+        for d, tr, body in zip(deliveries, traces, bodies):
             if body is None:  # a row the C encoder cannot express
                 body = encode_response(SearchResponse(
                     status="shed", player_id="", retry_after_ms=retry,
+                    trace_id=tr.trace_id if tr is not None else "",
                     tier=d.tier if tiered else None))
+            if tr is not None:
+                tr.mark("encode")
             rows.append((d.properties.reply_to, d.properties.correlation_id,
-                         body))
+                         body, tr))
         self._publish_batch(rows)
         for d in deliveries:
             self._ack(d)
+        self._settle_traces([(tr, "shed") for tr in traces if tr is not None])
 
     def _expire_delivery(self, delivery: Delivery, now: float,
                          player_id: str = "") -> None:
         """A request past its deadline: ``timeout``, with no device work
-        spent on it, then the ack."""
+        spent on it (its trace's "expired" mark has no "dispatch" after
+        it), then the ack."""
         ac = self.admission
         tiered = ac is not None and ac.tiers > 1
+        tr = self._trace(delivery)
+        if tr is not None:
+            if player_id:
+                tr.player_id = player_id
+            tr.tier = delivery.tier
+            tr.mark("expired", now)
         if ac is not None:
-            ac.record_expired(tier=delivery.tier)
+            ac.record_expired(
+                f"player={player_id or '?'} tag={delivery.delivery_tag}",
+                tier=delivery.tier)
         self._publish(delivery.properties.reply_to,
                       delivery.properties.correlation_id,
                       encode_response(SearchResponse(
                           status="timeout", player_id=player_id,
-                          tier=delivery.tier if tiered else None)))
+                          trace_id=tr.trace_id if tr is not None else "",
+                          tier=delivery.tier if tiered else None)),
+                      trace=tr)
         self._ack(delivery)
+        self._settle_trace(delivery, "expired")
 
     def _admission_cut(self, deliveries: list[Delivery],
                        now: float) -> set[int] | None:
@@ -968,14 +1243,20 @@ class _QueueRuntime:
         drop: set[str] = set()
         for pid, _, _, delivery in victims:
             drop.add(pid)
-            ac.record_shed(tier=delivery.tier)
+            tr = delivery.trace
+            if tr is not None:
+                tr.mark("shed")
+            ac.record_shed(f"window debt {pid}", tier=delivery.tier)
             self._publish(delivery.properties.reply_to,
                           delivery.properties.correlation_id,
                           encode_response(SearchResponse(
                               status="shed", player_id=pid,
                               retry_after_ms=self.cfg.overload.retry_after_ms,
-                              tier=delivery.tier)))
+                              trace_id=tr.trace_id if tr is not None else "",
+                              tier=delivery.tier)),
+                          trace=tr)
             self._ack(delivery)
+            self._settle_trace(delivery, "shed")
         return drop
 
     def _publish_shed_evictions(self, evicted: list[SearchRequest],
@@ -986,7 +1267,7 @@ class _QueueRuntime:
         ac = self.admission
         tiered = ac.tiers > 1
         for req in evicted:
-            ac.record_shed(tier=req.tier)
+            ac.record_shed(f"evicted oldest {req.id}", tier=req.tier)
             body = encode_response(SearchResponse(
                 status="shed", player_id=req.id,
                 retry_after_ms=self.cfg.overload.retry_after_ms,
@@ -1011,6 +1292,7 @@ class _QueueRuntime:
         except Exception:
             log.exception("window flush failed; nacking its deliveries")
             self.counters["flush_errors"] += 1
+            self.metrics.counters.inc("flush_errors")
             for _, delivery in window:
                 self._nack(delivery)
 
@@ -1028,6 +1310,8 @@ class _QueueRuntime:
             if dropped:
                 window = [(r, d) for r, d in window
                           if d.delivery_tag not in dropped]
+                if not window:
+                    return
         if any(req is None for req, _ in window):
             window = [(req if req is not None
                        else self._decode_or_reject(d, now), d)
@@ -1042,6 +1326,10 @@ class _QueueRuntime:
                 if delivery.tier or deadline:
                     req = dataclasses.replace(req, tier=delivery.tier,
                                               deadline_at=deadline)
+            tr = delivery.trace
+            if tr is not None:
+                tr.player_id = req.id
+                tr.mark("flush", now)
             cached = self._recent.get(req.id)
             if cached is not None and cached[1] <= now:
                 self._recent.pop(req.id)  # expired: a genuine re-queue
@@ -1086,6 +1374,12 @@ class _QueueRuntime:
                     if not fresh:
                         return
             requests = [r for r, _ in fresh]
+            # After the debt: a window entrant shed as a victim carries no
+            # dispatch mark (no engine work was spent on it).
+            t_disp = time.time()
+            for _, d in fresh:
+                if d.trace is not None:
+                    d.trace.mark("dispatch", t_disp)
             # The sync step admits and matches in one call: the admits
             # are journaled first, so the replay order holds either way.
             self._journal_admit_reqs(requests)
@@ -1098,6 +1392,10 @@ class _QueueRuntime:
             for _, d in fresh:
                 self._nack(d)
             return
+        t_col = time.time()
+        for _, d in fresh:
+            if d.trace is not None:
+                d.trace.mark("collect", t_col)
         self._handle_object_out(outcome, [d for _, d in fresh], now)
 
     async def _flush_columnar(self, deliveries: list[Delivery]) -> None:
@@ -1117,14 +1415,31 @@ class _QueueRuntime:
                 if not deliveries:
                     return
         native = None
-        if all(d.row is not None for d in deliveries):
+        pre = all(d.row is not None for d in deliveries)
+        t_dec = time.perf_counter()
+        if not pre:
+            native = codec.decode_batch([bytes(d.body) for d in deliveries])
+        traced = any(d.trace is not None for d in deliveries)
+        if traced:
+            for d in deliveries:
+                if d.trace is not None:
+                    d.trace.mark("flush", now)
+        if pre:
             # Decoded at consume: every row is valid (the others were
             # answered there), and its columns are gathered below.
             rows = [(i, d.row[0].ids[d.row[1]], None)
                     for i, d in enumerate(deliveries)]
         else:
-            native = codec.decode_batch([bytes(d.body) for d in deliveries])
             rows = self._window_rows(deliveries, native[-1], native[0], now)
+            self.app.attribution.observe_ingest(
+                self.queue_cfg.name, "decode", time.perf_counter() - t_dec,
+                len(deliveries))
+        if traced:
+            for src, pid, _ in rows:
+                tr = deliveries[src].trace
+                if tr is not None:
+                    tr.player_id = pid
+                    tr.tier = deliveries[src].tier
         keep = []
         for src, pid, req in rows:
             cached = self._recent.get(pid)
@@ -1226,7 +1541,8 @@ class _QueueRuntime:
             if st == codec.OK:
                 rows.append((i, ids[i], None))
             elif st != codec.NEEDS_PYTHON:
-                self._reject(delivery, codec.error_code(st), "malformed payload")
+                self._reject(delivery, codec.error_code(st),
+                             "malformed payload")
             else:
                 req = self._decode_or_reject(delivery, now)
                 if req is None:
@@ -1341,7 +1657,13 @@ class _QueueRuntime:
                       now: float) -> None:
         meta = self._inflight_meta.pop(tok, None)
         if meta is None:  # a rescan tick (or a window already settled)
+            # Its marks go to the queue's rescan attribution (a rescan is
+            # no trace); popped either way.
+            marks = self.engine.window_marks.pop(tok, None)
             if tok in self.engine.rescan_tokens:
+                if marks:
+                    self.app.attribution.observe_rescan(self.queue_cfg.name,
+                                                        marks)
                 self.engine.rescan_tokens.discard(tok)
                 if tok in self.engine.failed_tokens:
                     self.engine.failed_tokens.discard(tok)
@@ -1353,11 +1675,14 @@ class _QueueRuntime:
                 self._publish_rescan_outcome(out, now)
             return
         by_id, deliveries = meta
+        self._merge_window_marks(tok, deliveries)
         if tok in self.engine.failed_tokens:
             self.engine.failed_tokens.discard(tok)
             log.error("window %d failed on the device; nack + revive "
                       "scheduled", tok)
             self._record_engine_crash(now)
+            self.events.append("window_failed", self.queue_cfg.name,
+                               f"token {tok}, {len(deliveries)} nacked")
             for d in deliveries:
                 self._nack(d)
             self._needs_revive = True
@@ -1373,6 +1698,7 @@ class _QueueRuntime:
             # the replay cache).
             log.exception("window %d outcome handling failed; nacking", tok)
             self.counters["outcome_errors"] += 1
+            self.metrics.counters.inc("outcome_errors")
             for d in deliveries:
                 self._nack(d)
 
@@ -1380,8 +1706,10 @@ class _QueueRuntime:
                              by_id: dict[str, Delivery],
                              deliveries: list[Delivery], now: float) -> None:
         """Publish one collected window's answers in one ``publish_batch``
-        (matched bodies and queued acks, both batch-encoded natively), then
-        the engine's rejections, then ack the window."""
+        (matched bodies and queued acks, both batch-encoded natively, each
+        with its trace id), then the engine's rejections, then ack the
+        window and settle its traces."""
+        trace_ids, traces = self._trace_maps(deliveries)
         # Queued acks first: in a window of several chunks, a player queued
         # by one chunk can be matched by a later chunk of the same window,
         # and its ack must not arrive after its match.
@@ -1390,31 +1718,52 @@ class _QueueRuntime:
                  if self.queue_cfg.send_queued_ack else [])
         if metas:
             nq = len(metas)
+            tids = [trace_ids.get(pid, "") for pid, _ in metas]
             bodies = codec.encode_simple_batch(
                 np.full(nq, codec.KIND_QUEUED, np.int32),
-                [pid for pid, _ in metas], np.zeros(nq, np.float64))
-            for (pid, d), body in zip(metas, bodies):
+                [pid for pid, _ in metas], np.zeros(nq, np.float64), None,
+                tids if trace_ids else None, None)
+            for (pid, d), tid, body in zip(metas, tids, bodies):
                 if body is None:  # a row the C encoder cannot express
-                    body = encode_response(SearchResponse(status="queued",
-                                                          player_id=pid))
+                    body = encode_response(SearchResponse(
+                        status="queued", player_id=pid, trace_id=tid))
+                if d.trace is not None:
+                    d.trace.mark("encode")
                 rows.append((d.properties.reply_to,
-                             d.properties.correlation_id, body))
-        rows += self._build_columnar_rows(out, now)
+                             d.properties.correlation_id, body, d.trace))
+        rows += self._build_columnar_rows(out, now, trace_ids, traces)
         self._publish_batch(rows)
         for pid, code in out.rejected:
+            self.metrics.counters.inc("rejected_by_engine")
             d = by_id.get(pid)
             if d is not None:
                 self._respond_error(d, code, f"engine rejected request: {code}")
         for d in deliveries:
             self._ack(d)
+        if traces:
+            matched_ids = set(out.m_id_a.tolist()) | set(out.m_id_b.tolist())
+            rejected_ids = {pid for pid, _ in out.rejected}
+            self._settle_traces([
+                (d.trace, "matched" if d.trace.player_id in matched_ids else
+                 "rejected" if d.trace.player_id in rejected_ids else
+                 "queued")
+                for d in deliveries if d.trace is not None])
         self.counters["windows"] += 1
         self.counters["requests"] += len(deliveries)
         self.counters["queued"] += len(out.q_ids)
+        self.metrics.counters.inc("windows")
+        self.metrics.counters.inc("requests_batched", len(deliveries))
 
-    def _build_columnar_rows(self, out: ColumnarOutcome, now: float) -> list[Row]:
+    def _build_columnar_rows(self, out: ColumnarOutcome, now: float,
+                             trace_ids: dict[str, str] | None = None,
+                             traces: dict[str, TraceContext] | None = None,
+                             ) -> list[Row]:
         """Matched bodies for a ColumnarOutcome, batch-encoded natively
-        (byte-identical to ``encode_response``; rows the encoder flags
-        re-encode in Python), remembered for terminal replay."""
+        (byte-identical to ``encode_response``, trace ids included; rows
+        the encoder flags re-encode in Python), remembered for terminal
+        replay. Each matched player's wait (``match_wait`` latency and the
+        ``e2e`` stage) goes to the metrics, and a traced player's trace
+        gets its quality, wait and "encode" mark."""
         n = out.n_matches
         if n == 0:
             return []
@@ -1430,10 +1779,23 @@ class _QueueRuntime:
         ids_a, ids_b = out.m_id_a.tolist(), out.m_id_b.tolist()
         mids = out.m_match_id.tolist()
         qual = out.m_quality.astype(np.float64)
+        tr_a = [trace_ids.get(p, "") for p in ids_a] if trace_ids else None
+        tr_b = [trace_ids.get(p, "") for p in ids_b] if trace_ids else None
         bodies = codec.encode_matched_batch(ids_a, ids_b, mids, lat_a, lat_b,
-                                            qual, wa_ms, wb_ms)
+                                            qual, wa_ms, wb_ms, tr_a, tr_b)
+        m = self.metrics
+        m.counters.inc("players_matched", 2 * n)
+        rec = m.latency["match_wait"]
+        q = self.queue_cfg.name
+        for enq in (out.m_enq_a, out.m_enq_b):
+            for w in (now - enq[enq != 0.0]).tolist():
+                rec.record(w)
+                m.observe_stage(q, "e2e", w)
         reply_a, reply_b = out.m_reply_a.tolist(), out.m_reply_b.tolist()
         corr_a, corr_b = out.m_corr_a.tolist(), out.m_corr_b.tolist()
+        wa_l, wb_l = wa_ms.tolist(), wb_ms.tolist()
+        qual_l = qual.tolist()
+        traces = traces or {}
         rows: list[Row] = []
         terminals: list[tuple[str, bytes]] = []
         for j in range(n):
@@ -1441,19 +1803,31 @@ class _QueueRuntime:
             if body_a is None or body_b is None:
                 result = MatchResult(
                     match_id=mids[j], players=(ids_a[j], ids_b[j]),
-                    teams=((ids_a[j],), (ids_b[j],)), quality=float(qual[j]))
+                    teams=((ids_a[j],), (ids_b[j],)), quality=qual_l[j])
                 if body_a is None:
                     body_a = encode_response(SearchResponse(
                         status="matched", player_id=ids_a[j], match=result,
-                        latency_ms=float(lat_a[j]), waited_ms=float(wa_ms[j])))
+                        latency_ms=float(lat_a[j]), waited_ms=wa_l[j],
+                        trace_id=tr_a[j] if tr_a else ""))
                 if body_b is None:
                     body_b = encode_response(SearchResponse(
                         status="matched", player_id=ids_b[j], match=result,
-                        latency_ms=float(lat_b[j]), waited_ms=float(wb_ms[j])))
+                        latency_ms=float(lat_b[j]), waited_ms=wb_l[j],
+                        trace_id=tr_b[j] if tr_b else ""))
+            tr_ja = traces.get(ids_a[j]) if traces else None
+            tr_jb = traces.get(ids_b[j]) if traces else None
+            if tr_ja is not None:
+                tr_ja.quality = qual_l[j]
+                tr_ja.waited_s = wa_l[j] / 1e3
+                tr_ja.mark("encode")
+            if tr_jb is not None:
+                tr_jb.quality = qual_l[j]
+                tr_jb.waited_s = wb_l[j] / 1e3
+                tr_jb.mark("encode")
             terminals.append((ids_a[j], body_a))
             terminals.append((ids_b[j], body_b))
-            rows.append((reply_a[j], corr_a[j], body_a))
-            rows.append((reply_b[j], corr_b[j], body_b))
+            rows.append((reply_a[j], corr_a[j], body_a, tr_ja))
+            rows.append((reply_b[j], corr_b[j], body_b, tr_jb))
         self._remember_window(terminals, now)
         self.counters["players_matched"] += 2 * n
         return rows
@@ -1462,34 +1836,50 @@ class _QueueRuntime:
                            deliveries: list[Delivery], now: float) -> None:
         """Publish one collected object window's answers in one
         ``publish_batch`` (queued acks, then every matched player's
-        answer), then the engine's rejections, then ack the window. Queued
-        acks go first for the reason the columnar path gives: a player
-        queued by one chunk (or, on the host oracle, at its own arrival)
-        can be matched later in the same window."""
+        answer), then the engine's rejections, then ack the window and
+        settle its traces. Queued acks go first for the reason the
+        columnar path gives: a player queued by one chunk (or, on the host
+        oracle, at its own arrival) can be matched later in the same
+        window."""
+        trace_ids, traces = self._trace_maps(deliveries)
         rows: list[Row] = []
         if self.queue_cfg.send_queued_ack:
             rows += [(r.reply_to, r.correlation_id, encode_response(
-                SearchResponse(status="queued", player_id=r.id)))
-                for r in out.queued]
-        rows += self._build_object_rows(out, now)
+                SearchResponse(status="queued", player_id=r.id,
+                               trace_id=trace_ids.get(r.id, ""))),
+                traces.get(r.id)) for r in out.queued]
+        rows += self._build_object_rows(out, now, trace_ids, traces)
         self._publish_batch(rows)
         for req, code in out.rejected:
             self.counters["rejected"] += 1
+            self.metrics.counters.inc("rejected_by_engine")
             self._publish(req.reply_to, req.correlation_id, encode_response(
                 SearchResponse(status="error", player_id=req.id,
                                error_code=code,
-                               error_reason=f"engine rejected request: {code}")))
+                               error_reason=f"engine rejected request: {code}",
+                               trace_id=trace_ids.get(req.id, ""))),
+                trace=traces.get(req.id))
         for d in deliveries:
             self._ack(d)
+        self._settle_outcome_traces(out, deliveries)
         self.counters["windows"] += 1
         self.counters["requests"] += len(deliveries)
         self.counters["queued"] += len(out.queued)
+        self.metrics.counters.inc("windows")
+        self.metrics.counters.inc("requests_batched", len(deliveries))
 
-    def _build_object_rows(self, out: SearchOutcome, now: float) -> list[Row]:
+    def _build_object_rows(self, out: SearchOutcome, now: float,
+                           trace_ids: dict[str, str] | None = None,
+                           traces: dict[str, TraceContext] | None = None,
+                           ) -> list[Row]:
         """Matched answers of a ``SearchOutcome``, one per player with the
         whole match (both teams), remembered for terminal replay. The
         object path has no dispatch stamp: ``waited_ms`` is the latency,
         as in the JAX service."""
+        trace_ids = trace_ids or {}
+        traces = traces or {}
+        m = self.metrics
+        q = self.queue_cfg.name
         rows: list[Row] = []
         terminals: list[tuple[str, bytes]] = []
         # The ledger's samples, one per member, observed once per window.
@@ -1505,11 +1895,20 @@ class _QueueRuntime:
             lats_ms += lats
             tiers += [r.tier for r in members]
             for req, lat in zip(members, lats):
+                m.counters.inc("players_matched")
+                if req.enqueued_at:
+                    m.record_latency("match_wait", now - req.enqueued_at)
+                    m.observe_stage(q, "e2e", now - req.enqueued_at)
                 body = encode_response(SearchResponse(
                     status="matched", player_id=req.id, match=result,
-                    latency_ms=lat, waited_ms=lat))
+                    latency_ms=lat, waited_ms=lat,
+                    trace_id=trace_ids.get(req.id, "")))
+                tr = traces.get(req.id)
+                if tr is not None:
+                    tr.quality = result.quality
+                    tr.waited_s = lat / 1e3
                 terminals.append((req.id, body))
-                rows.append((req.reply_to, req.correlation_id, body))
+                rows.append((req.reply_to, req.correlation_id, body, tr))
         self.quality.observe(self.queue_cfg.name, qualities,
                              np.asarray(lats_ms) / 1e3, tiers)
         self._remember_window(terminals, now)
@@ -1522,10 +1921,13 @@ class _QueueRuntime:
         already waiting, and are never acked again."""
         if isinstance(out, SearchOutcome):
             self._publish_batch(self._build_object_rows(out, now))
-            self.counters["rescan_matches"] += len(out.matches)
-            return
-        self._publish_batch(self._build_columnar_rows(out, now))
-        self.counters["rescan_matches"] += out.n_matches
+            n = len(out.matches)
+        else:
+            self._publish_batch(self._build_columnar_rows(out, now))
+            n = out.n_matches
+        self.counters["rescan_matches"] += n
+        if n:
+            self.metrics.counters.inc("rescan_matches", n)
 
     # ---- engine lifecycle -------------------------------------------------
 
@@ -1533,7 +1935,7 @@ class _QueueRuntime:
         """Discard a held speculation (the caller is about to change,
         read out or replace the pool); collect and answer every in-flight
         window (blocking); then revive, if a window failed."""
-        self.engine.spec_invalidate("drain")
+        self._spec_invalidate_audited("drain")
         if self._async_api and self.engine.inflight() > 0:
             for tok, out in self.engine.flush():
                 self._finish_token(tok, out, now)
@@ -1568,7 +1970,7 @@ class _QueueRuntime:
         old engine, or what is will never be collected."""
         self._needs_revive = False
         old = self.engine
-        old.spec_invalidate("revive")
+        self._spec_invalidate_audited("revive")
         for tok, (_, deliveries) in list(self._inflight_meta.items()):
             for d in deliveries:
                 self._nack(d)
@@ -1592,6 +1994,8 @@ class _QueueRuntime:
         engine.quality_restore(quality)
         self._bind_engine(engine)
         self.counters["revives"] += 1
+        self.events.append("engine_revive", self.queue_cfg.name,
+                           f"{n} players restored from mirror")
         log.warning("engine revived (%s): %d waiting players restored",
                     type(engine).__name__, n)
 
@@ -1617,6 +2021,7 @@ class _QueueRuntime:
             except Exception:
                 log.exception("collector tick failed; retrying")
                 self.counters["collector_errors"] += 1
+                self.metrics.counters.inc("collector_errors")
                 await asyncio.sleep(0.05)
 
     async def _rescan_loop(self) -> None:
@@ -1637,6 +2042,7 @@ class _QueueRuntime:
                 log.warning("rescan token %d still outstanding; skipping "
                             "this tick", outstanding)
                 self.counters["rescan_skipped"] += 1
+                self.metrics.counters.inc("rescan_skipped_outstanding")
                 continue
             outstanding = None
             try:
@@ -1669,6 +2075,9 @@ class _QueueRuntime:
                     outstanding = tok
                     log.warning("rescan token %d exceeded its 30 s "
                                 "collection deadline", tok)
+                    self.metrics.counters.inc("rescan_deadline_overruns")
+                    self.events.append("rescan_overrun", self.queue_cfg.name,
+                                       f"token {tok}")
             except Exception:
                 log.exception("rescan failed; reviving the engine from its "
                               "mirror")
@@ -1719,6 +2128,7 @@ class _QueueRuntime:
             return
         for removed in expired:
             self.counters["timeouts"] += 1
+            self.metrics.counters.inc("timeouts")
             body = encode_response(SearchResponse(
                 status="timeout", player_id=removed.id,
                 latency_ms=((now - removed.enqueued_at) * 1e3
@@ -1731,18 +2141,31 @@ class _QueueRuntime:
     def _publish_pool_expiry(self, removed: SearchRequest, now: float) -> None:
         """A waiting player the deadline sweep removed: ``timeout``
         (remembered, so a redelivered copy replays it), counted as expired
-        in its tier."""
+        in its tier. With tracing on the expiry is a trace of its own
+        (enqueue, expired, publish: no dispatch mark); the player's first
+        trace settled "queued" with its window."""
         self.counters["timeouts"] += 1
         ac = self.admission
         if ac is not None:
-            ac.record_expired(tier=removed.tier)
+            ac.record_expired(f"pool waiter {removed.id} deadline",
+                              tier=removed.tier)
+        tr = None
+        if self.app.trace_enabled:
+            tr = TraceContext(self.queue_cfg.name, removed.correlation_id,
+                              t=removed.enqueued_at or now)
+            tr.player_id = removed.id
+            tr.tier = removed.tier
+            tr.mark("expired", now)
         body = encode_response(SearchResponse(
             status="timeout", player_id=removed.id,
             latency_ms=((now - removed.enqueued_at) * 1e3
                         if removed.enqueued_at else 0.0),
+            trace_id=tr.trace_id if tr is not None else "",
             tier=removed.tier if ac is not None and ac.tiers > 1 else None))
         self._remember(removed.id, body, now)
-        self._publish(removed.reply_to, removed.correlation_id, body)
+        self._publish(removed.reply_to, removed.correlation_id, body, trace=tr)
+        if tr is not None:
+            self._settle_traces([(tr, "expired")])
 
     async def _health_loop(self) -> None:
         """The health timer, every ``EngineConfig.health_interval_s``:
@@ -1762,6 +2185,7 @@ class _QueueRuntime:
                     now = time.time()
                     if self.engine.heartbeat(now):
                         self.counters["health_repromotions"] += 1
+                        self.metrics.counters.inc("health_repromotions")
                     if (self.breaker is not None
                             and self.breaker.probe_due(now)):
                         self._probe_device(now)
@@ -1770,6 +2194,7 @@ class _QueueRuntime:
             except Exception:
                 log.exception("health tick failed; retrying")
                 self.counters["health_tick_errors"] += 1
+                self.metrics.counters.inc("health_tick_errors")
 
     def _probe_build(self):
         """A fresh device engine that passed its ``probe()``, and the host
@@ -1796,10 +2221,13 @@ class _QueueRuntime:
         breaker backs off and the oracle stays."""
         self.breaker.begin_probe(now)
         self.counters["breaker_probes"] += 1
+        self.metrics.counters.inc("breaker_probes")
+        self.events.append("breaker_probe", self.queue_cfg.name)
+        self._publish_breaker_gauges()
         try:
             candidate, times = self._probe_build()
         except Exception as e:
-            self._probe_failed(f"probe: {e}")
+            self._probe_failed(str(e))
             return
         t0 = time.perf_counter()
         swap_now = time.time()
@@ -1811,12 +2239,16 @@ class _QueueRuntime:
             candidate.quality_restore(old.quality_checkpoint())
         except Exception as e:
             candidate.close()
-            self._probe_failed(f"pool move: {e}")
+            self._probe_failed(f"pool transfer: {e}")
             return
         old.close()
         self._bind_engine(candidate)
         self.breaker.probe_succeeded(time.time())
         self.counters["breaker_closes"] += 1
+        self.metrics.counters.inc("breaker_closes")
+        self.events.append("breaker_closed", self.queue_cfg.name,
+                           f"{len(waiting)} waiting players transferred")
+        self._publish_breaker_gauges()
         self.last_probe = {**times, "move_ms": (time.perf_counter() - t0) * 1e3,
                            "moved": len(waiting)}
         log.info("queue %r: half-open probe passed; breaker closed, %d "
@@ -1826,6 +2258,9 @@ class _QueueRuntime:
     def _probe_failed(self, why: str) -> None:
         self.breaker.probe_failed(time.time())
         self.counters["breaker_probe_failures"] += 1
+        self.metrics.counters.inc("breaker_probe_failures")
+        self.events.append("probe_failed", self.queue_cfg.name, why)
+        self._publish_breaker_gauges()
         log.warning("queue %r: half-open probe failed (%s); next probe in "
                     "%.2f s", self.queue_cfg.name, why,
                     self.breaker.probe_delay_s)
@@ -1849,10 +2284,22 @@ class _QueueRuntime:
             log.exception("speculative commit failed; the cut runs its "
                           "full step")
             self.counters["spec_errors"] += 1
-            eng.spec_invalidate("cut-commit failure")
+            self.metrics.counters.inc("spec_errors")
+            self._spec_invalidate_audited("cut-commit failure")
             return False
         self.counters["spec_commits"] += 1
+        self.metrics.counters.inc("spec_commits")
         return True
+
+    def _spec_invalidate_audited(self, reason: str) -> None:
+        """Discard a held speculation; when one was held, the
+        ``spec_invalidate`` event records why."""
+        eng = self.engine
+        had = getattr(eng, "_spec", None) is not None
+        eng.spec_invalidate(reason)
+        if had:
+            self.events.append("spec_invalidate", self.queue_cfg.name,
+                               reason, component="engine")
 
     async def _spec_loop(self) -> None:
         """Every ``spec_interval_ms``, in the gap between windows (nothing
@@ -1882,7 +2329,8 @@ class _QueueRuntime:
             except Exception:
                 log.exception("speculation tick failed; discarding it")
                 self.counters["spec_errors"] += 1
-                self.engine.spec_invalidate("tick failure")
+                self.metrics.counters.inc("spec_errors")
+                self._spec_invalidate_audited("tick failure")
 
     # ---- egress: every answer and settle, behind its journal commit -------
 
@@ -1994,36 +2442,69 @@ class _QueueRuntime:
     def _publish_batch(self, rows: list[Row]) -> None:
         """One broker ``publish_batch`` call for a window's responses
         (rows without a reply queue are dropped), after the commit that
-        covers them."""
+        covers them; each traced row's trace gets its "respond" mark as
+        the batch leaves."""
         items = [(reply_to, body, Properties(correlation_id=corr))
-                 for reply_to, corr, body in rows if reply_to]
-        if items:
-            self._effect(lambda: self.broker.publish_batch(items), hold=True)
-            self.counters["publish_batches"] += 1
+                 for reply_to, corr, body, _ in rows if reply_to]
+        if not items:
+            return
+        traces = [tr for reply_to, _, _, tr in rows
+                  if reply_to and tr is not None]
 
-    def _publish(self, reply_to: str, correlation_id: str, body: bytes) -> None:
-        if reply_to:
-            props = Properties(correlation_id=correlation_id)
+        def publish() -> None:
+            if traces:
+                t = time.time()
+                for tr in traces:
+                    tr.mark("respond", t)
+            self.broker.publish_batch(items)
+        self._effect(publish, hold=True)
+        self.counters["publish_batches"] += 1
+
+    def _publish(self, reply_to: str, correlation_id: str, body: bytes,
+                 trace: TraceContext | None = None) -> None:
+        """One response, after the commit that covers it; ``trace`` gets
+        its "respond" mark as it leaves."""
+        if not reply_to:
+            return
+        props = Properties(correlation_id=correlation_id)
+        if trace is None:
             self._effect(lambda: self.broker.publish(reply_to, body, props))
+            return
+
+        def publish() -> None:
+            trace.mark("respond")
+            self.broker.publish(reply_to, body, props)
+        self._effect(publish)
 
     def _replay(self, delivery: Delivery, body: bytes) -> None:
         """Answer a redelivered request with its cached terminal body."""
         self.counters["deduped_replays"] += 1
+        self.metrics.counters.inc("deduped_replays")
         self._publish(delivery.properties.reply_to,
-                      delivery.properties.correlation_id, body)
+                      delivery.properties.correlation_id, body,
+                      trace=delivery.trace)
         self._ack(delivery)
+        self._settle_trace(delivery, "deduped", "dedup_replay")
 
     def _respond_error(self, delivery: Delivery, code: str, reason: str) -> None:
         self.counters["rejected"] += 1
+        tr = delivery.trace
         self._publish(delivery.properties.reply_to,
                       delivery.properties.correlation_id,
                       encode_response(SearchResponse(
                           status="error", player_id="", error_code=code,
-                          error_reason=reason)))
+                          error_reason=reason,
+                          trace_id=tr.trace_id if tr is not None else "")))
 
     def _reject(self, delivery: Delivery, code: str, reason: str) -> None:
+        """A middleware, decode or party reject: the error answer, the ack
+        and the trace's "reject" mark."""
+        self.metrics.counters.inc("rejected_by_engine"
+                                  if code == "party_not_supported"
+                                  else "rejected_by_middleware")
         self._respond_error(delivery, code, reason)
         self._ack(delivery)
+        self._settle_trace(delivery, "rejected", "reject")
 
     def _remember(self, player_id: str, body: bytes, now: float) -> None:
         """Every terminal answer lands here or in ``_remember_window``: in
@@ -2083,21 +2564,51 @@ class MatchmakingApp:
     with an engine on ``device`` (default: the card).
 
     ``engine``, ``counters`` and ``queue_cfg`` are the first queue's (a
-    one-queue app's); ``runtime(name)`` gives any queue's."""
+    one-queue app's); ``runtime(name)`` gives any queue's. ``spine``,
+    ``events``, ``metrics``, ``recorder`` and ``attribution`` are the
+    app's observability sinks (built in the JAX app's order)."""
 
     def __init__(self, cfg: Config, broker: InProcBroker | None = None,
                  device=None):
         self.cfg = cfg
-        self.broker = broker or InProcBroker(cfg.broker)
         self.device = device
+        obs = cfg.observability
+        #: The causal spine every lifecycle event is stamped onto (one per
+        #: app: each run's seq starts at 1).
+        self.spine = EventSpine(ring=cfg.forensics.spine_ring)
+        #: The lifecycle event log (appended by the runtimes, the engines,
+        #: the admission controllers, the chaos hooks and the broker).
+        self.events = EventLog(obs.event_ring, spine=self.spine)
+        #: Trace stamping (ObservabilityConfig.trace) and its sampling.
+        self.trace_enabled = obs.trace
+        self.trace_sample_n = max(1, obs.trace_sample_n)
+        #: Counters under the JAX package's names, gauges, latencies and
+        #: the per-stage histograms.
+        self.metrics = Metrics(stage_buckets=obs.stage_buckets or None)
+        #: Settled traces (per-queue rings and slow exemplars); feeds the
+        #: stage histograms and the attribution.
+        self.recorder = FlightRecorder(
+            self.metrics, ring=obs.trace_ring, slow_ring=obs.slow_trace_ring,
+            slow_threshold_s=obs.slow_trace_ms / 1e3)
+        #: Work against wait over settled traces, per queue and category.
+        self.attribution = Attribution(
+            buckets=obs.stage_buckets or None,
+            slo_target_s=obs.slo_target_ms / 1e3,
+            tiers=max(1, cfg.overload.tiers))
+        self.recorder.attribution = self.attribution
         #: Per-queue, per-tier quality and wait of matched players, fed
         #: when their answers are published.
         self.quality = QualityLedger(
-            QualitySpec.from_config(cfg.observability),
-            quality_target=cfg.observability.quality_slo_target)
+            QualitySpec.from_config(obs),
+            quality_target=obs.quality_slo_target)
         #: Scripted engine faults (None: no chaos configured); each queue
         #: runtime takes its hook from here.
-        self.chaos = ChaosState(cfg.chaos) if cfg.chaos.enabled() else None
+        self.chaos = (ChaosState(cfg.chaos, events=self.events)
+                      if cfg.chaos.enabled() else None)
+        self.broker = broker or InProcBroker(cfg.broker)
+        self.broker.events = self.events
+        self.broker.trace_enabled = self.trace_enabled
+        self.broker.trace_sample_n = self.trace_sample_n
         names = [q.name for q in cfg.queues]
         if len(set(names)) != len(names):
             raise ValueError(f"queue names must be distinct: {names}")
@@ -2136,6 +2647,8 @@ class MatchmakingApp:
         players saved per queue ({} without a directory)."""
         directory = (checkpoint_dir if checkpoint_dir is not None
                      else self.cfg.overload.drain_checkpoint_dir)
+        self.events.append("drain_begin", "",
+                           f"checkpoint={'on' if directory else 'off'}")
         for rt in self._runtimes.values():
             if rt.admission is not None:
                 rt.admission.begin_drain()
@@ -2152,11 +2665,19 @@ class MatchmakingApp:
                     os.path.join(directory, "_admission.json"), adm)
             backlog = {name: self.broker.drain_backlog(name)
                        for name in self._runtimes}
+            backlog = {k: v for k, v in backlog.items() if v}
             n = checkpoint.save_backlog(
-                os.path.join(directory, "_backlog.json"),
-                {k: v for k, v in backlog.items() if v})
+                os.path.join(directory, "_backlog.json"), backlog)
             if n:
+                self.events.append(
+                    "backlog_checkpointed", "",
+                    f"{n} unconsumed deliveries across "
+                    f"{len(backlog)} queue(s)")
                 log.info("drain: %d unconsumed deliveries checkpointed", n)
+        self.events.append(
+            "drain_complete", "",
+            f"{sum(counts.values())} waiting players checkpointed"
+            if directory else "no checkpoint directory")
         self.broker.close()
         return counts
 
@@ -2191,6 +2712,9 @@ class MatchmakingApp:
                 try:
                     counts[name] = checkpoint.load_pool(rt.engine, path, now)
                 except Exception as e:
+                    self.events.append(
+                        "checkpoint_corrupt", name,
+                        f"{os.path.basename(path)}: {e} — starting empty")
                     log.warning("pool checkpoint %s unreadable (%s); queue "
                                 "%r starts empty", path, e, name)
         adm_path = os.path.join(directory, "_admission.json")
@@ -2199,6 +2723,8 @@ class MatchmakingApp:
                 restored = checkpoint.load_admission(adm_path)
             except Exception as e:
                 restored = {}
+                self.events.append("checkpoint_corrupt", "",
+                                   f"_admission.json: {e} — skipped")
                 log.warning("admission sidecar %s unreadable: %s",
                             adm_path, e)
             for qname, state in restored.items():
@@ -2211,8 +2737,11 @@ class MatchmakingApp:
                 per_queue = checkpoint.load_backlog(backlog_path)
             except Exception as e:
                 per_queue = {}
+                self.events.append("checkpoint_corrupt", "",
+                                   f"_backlog.json: {e} — skipped")
                 log.warning("backlog sidecar %s unreadable: %s",
                             backlog_path, e)
+            republished = 0
             for qname, rows in per_queue.items():
                 for row in rows:
                     self.broker.publish(
@@ -2220,6 +2749,12 @@ class MatchmakingApp:
                         Properties(reply_to=row["reply_to"],
                                    correlation_id=row["correlation_id"],
                                    headers=dict(row["headers"])))
+                    republished += 1
+            if republished:
+                self.events.append(
+                    "backlog_restored", "",
+                    f"{republished} unconsumed deliveries re-published "
+                    f"from drain checkpoint")
         return counts
 
     def runtime(self, queue_name: str) -> _QueueRuntime:

@@ -9,8 +9,11 @@ deliveries already buffered drain into one handler task, or into one
 clients awaiting replies, ``rpc`` (a request over an ephemeral reply
 queue: the auth middleware's round trip), and the drain's handoff
 (``drain_backlog`` pops what is still buffered, ``queue_depth`` and
-``handlers_idle`` say when nothing is left on the way). Fault injection and trace propagation are not
-carried, so the JAX broker's fall-back to per-delivery handling while
+``handlers_idle`` say when nothing is left on the way). A request
+publish (one with ``reply_to``) is stamped with a trace context
+(``utils/trace.py``), every ``trace_sample_n``-th one when sampling; a
+dead letter lands in ``events`` (the app's event log). Fault injection is
+not carried, so the JAX broker's fall-back to per-delivery handling while
 consume faults are armed has nothing to guard here. All methods are called
 from one event loop.
 """
@@ -24,6 +27,7 @@ from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
 from matchmaking_tpu_torch.config import BrokerConfig
+from matchmaking_tpu_torch.utils.trace import TraceContext
 
 
 @dataclass(frozen=True, slots=True)
@@ -62,6 +66,9 @@ class Delivery:
     #: flush gathers instead of decoding the body again. None: not decoded
     #: at consume (the per-delivery path).
     row: Any = None
+    #: The request's trace (utils/trace.TraceContext), stamped at publish;
+    #: None: untraced (tracing off, sampled out, or a response).
+    trace: Any = None
 
 
 class _Queue:
@@ -270,6 +277,14 @@ class InProcBroker:
         self._consumers: dict[str, _Consumer] = {}
         self.stats = {"published": 0, "acked": 0, "dead_lettered": 0,
                       "consumer_errors": 0, "unroutable": 0}
+        #: The app's event log (utils/trace.EventLog), attached by the app:
+        #: dead letters land there.
+        self.events: Any = None
+        #: Trace stamping, set by the app (ObservabilityConfig.trace).
+        self.trace_enabled = True
+        #: Stamp every Nth request publish (1: every one).
+        self.trace_sample_n = 1
+        self._trace_count = 0
 
     def declare_queue(self, name: str) -> None:
         self._queues.setdefault(name, _Queue(name))
@@ -310,10 +325,19 @@ class InProcBroker:
         if q is None:
             self.stats["unroutable"] += 1
             return
+        props = properties or Properties()
+        # Only a request (reply_to set) gets a trace: a response is read by
+        # a client, never settled by a runtime.
+        stamp = self.trace_enabled and bool(props.reply_to)
+        if stamp and self.trace_sample_n > 1:
+            # Counted over stampable publishes: a uniform sample of requests.
+            self._trace_count += 1
+            stamp = self._trace_count % self.trace_sample_n == 1
         self.stats["published"] += 1
         q.messages.put_nowait(Delivery(
-            body=bytes(body), properties=properties or Properties(),
-            queue=queue, delivery_tag=next(self._tags)))
+            body=bytes(body), properties=props, queue=queue,
+            delivery_tag=next(self._tags),
+            trace=TraceContext(queue, props.correlation_id) if stamp else None))
 
     def publish_batch(self, items) -> None:
         """Publish a window of messages in one call (the service's one
@@ -399,6 +423,9 @@ class InProcBroker:
     def _requeue(self, queue: _Queue, delivery: Delivery) -> None:
         if delivery.redelivery_count >= self.cfg.max_redelivery:
             self.stats["dead_lettered"] += 1
+            if self.events is not None:
+                self.events.append("dead_letter", queue.name,
+                                   f"tag {delivery.delivery_tag}")
             return
         delivery.redelivered = True
         delivery.redelivery_count += 1

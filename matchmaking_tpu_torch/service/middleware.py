@@ -71,6 +71,11 @@ class Pipeline:
             await self._middlewares[i].call(ctx, lambda: invoke(i + 1))
 
         await invoke(0)
+        # The trace's stage mark: the delivery cleared the whole chain (auth
+        # round trips included). A reject raises past it; the app marks
+        # the reject itself.
+        if ctx.delivery.trace is not None:
+            ctx.delivery.trace.mark("middleware")
 
 
 def _stamp(ctx: MessageContext) -> None:

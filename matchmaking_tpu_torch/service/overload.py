@@ -24,18 +24,20 @@ queue in front of the matcher and answers what it refuses: an explicit
   the lowest tier's oldest players first: tier 0 is not shed while a
   lower tier holds anyone.
 - **Adaptive tightening**: a credit fraction scaling both caps, updated
-  once per cut window from batch fill, pipeline occupancy and the stage
-  p99 (the port has no tracing yet, so its service passes no p99, as the
-  JAX service does with tracing off).
+  once per cut window from batch fill, pipeline occupancy and the p99 of
+  the "total" stage over the traces settled since the last cut (None when
+  none settled, or with tracing off).
 
 ``begin_drain()`` turns the controller into shed-everything.
 
-The JAX controller writes its counters to ``utils/metrics``; this one adds
-to the ``counters`` dict it is given (the queue runtime's), under the same
-names (``shed_requests``, ``shed_requests_t{k}``, ``expired_requests``,
-``expired_requests_t{k}``). The JAX one's event log (and so the detail
-text its ``record_shed`` / ``record_expired`` take) and gauges have no
-counterpart in the port yet.
+Its counters (``shed_requests``, ``shed_requests_t{k}``,
+``expired_requests``, ``expired_requests_t{k}``) go to the ``counters``
+dict it is given (the queue runtime's) and, as in the JAX package, to
+``metrics`` (utils/metrics.Metrics) with the gauges
+``overload_inflight[q]`` and ``overload_credit_fraction[q]``; the
+``shed``, ``expired``, ``overload_tighten`` and
+``drain_admission_stopped`` events go to ``events`` (the app's event
+log).
 """
 
 from __future__ import annotations
@@ -104,10 +106,12 @@ class AdmissionController:
 
     def __init__(self, cfg: OverloadConfig, queue: str,
                  counters: MutableMapping[str, int] | None = None,
-                 default_tier: int = 0):
+                 default_tier: int = 0, metrics=None, events=None):
         self.cfg = cfg
         self.queue = queue
         self._counters = counters
+        self._metrics = metrics
+        self._events = events
         #: The QoS ladder (1 = untiered).
         self.tiers = max(1, cfg.tiers)
         self.default_tier = min(max(int(default_tier), 0), self.tiers - 1)
@@ -136,6 +140,7 @@ class AdmissionController:
         self.expired_total = 0
         self.shed_by_tier = [0] * self.tiers
         self.expired_by_tier = [0] * self.tiers
+        self._publish_gauges()
 
     # ---- decisions ---------------------------------------------------------
 
@@ -274,6 +279,9 @@ class AdmissionController:
             tier = min(max(tier, 0), self.tiers - 1)
             self._credits[delivery_tag] = tier
             self._held[tier] += 1
+        if self._metrics is not None:
+            self._metrics.set_gauge(f"overload_inflight[{self.queue}]",
+                                    len(self._credits))
 
     def release(self, delivery_tag: int) -> None:
         """Return the delivery's credit (idempotent: an unknown tag is a
@@ -281,6 +289,9 @@ class AdmissionController:
         tier = self._credits.pop(delivery_tag, None)
         if tier is not None:
             self._held[tier] -= 1
+            if self._metrics is not None:
+                self._metrics.set_gauge(f"overload_inflight[{self.queue}]",
+                                        len(self._credits))
 
     def inflight(self) -> int:
         return len(self._credits)
@@ -288,22 +299,32 @@ class AdmissionController:
     def _count(self, name: str) -> None:
         if self._counters is not None:
             self._counters[name] = self._counters.get(name, 0) + 1
+        if self._metrics is not None:
+            self._metrics.counters.inc(name)
 
-    def record_shed(self, tier: int = 0) -> None:
+    def record_shed(self, detail: str = "", tier: int = 0) -> None:
         self.shed_total += 1
         tier = min(max(tier, 0), self.tiers - 1)
         self.shed_by_tier[tier] += 1
         self._count("shed_requests")
         if self.tiers > 1:
             self._count(f"shed_requests_t{tier}")
+        if self._events is not None:
+            self._events.append("shed", self.queue,
+                                f"tier={tier} {detail}" if self.tiers > 1
+                                else detail)
 
-    def record_expired(self, tier: int = 0) -> None:
+    def record_expired(self, detail: str = "", tier: int = 0) -> None:
         self.expired_total += 1
         tier = min(max(tier, 0), self.tiers - 1)
         self.expired_by_tier[tier] += 1
         self._count("expired_requests")
         if self.tiers > 1:
             self._count(f"expired_requests_t{tier}")
+        if self._events is not None:
+            self._events.append("expired", self.queue,
+                                f"tier={tier} {detail}" if self.tiers > 1
+                                else detail)
 
     def eviction_debt(self, n_entering: int, pool_size: int) -> int:
         """``shed_policy="oldest"``: how many waiting players the dispatch
@@ -327,6 +348,7 @@ class AdmissionController:
         if not self.cfg.adaptive:
             return
         target_s = self.cfg.target_p99_ms / 1e3
+        old = self._fraction
         overloaded = ((p99_s is not None and p99_s > target_s)
                       or pipeline_frac >= 1.0)
         if overloaded:
@@ -335,6 +357,14 @@ class AdmissionController:
         elif ((p99_s is None or p99_s < target_s / 2.0)
               and pipeline_frac < 1.0 and batch_fill < 1.0):
             self._fraction = min(1.0, self._fraction * self.cfg.relax_step)
+        if self._fraction != old:
+            self._publish_gauges()
+            if self._events is not None and self._fraction < old:
+                self._events.append(
+                    "overload_tighten", self.queue,
+                    f"credit fraction {old:.3f} -> {self._fraction:.3f} "
+                    f"(p99 {0.0 if p99_s is None else p99_s * 1e3:.1f} ms, "
+                    f"pipeline {pipeline_frac:.2f})")
 
     @property
     def credit_fraction(self) -> float:
@@ -345,6 +375,7 @@ class AdmissionController:
         [min_credit_fraction, 1]); returns the value applied."""
         self._fraction = min(1.0, max(self.cfg.min_credit_fraction,
                                       float(fraction)))
+        self._publish_gauges()
         return self._fraction
 
     # ---- checkpoint / restore ----------------------------------------------
@@ -381,12 +412,23 @@ class AdmissionController:
                 for t in range(min(len(dst), len(v))):
                     if isinstance(v[t], int) and v[t] >= 0:
                         dst[t] = v[t]
+        self._publish_gauges()
 
     # ---- drain / observability --------------------------------------------
 
     def begin_drain(self) -> None:
         """Stop admission: every delivery from here on is shed."""
         self.draining = True
+        if self._events is not None:
+            self._events.append("drain_admission_stopped", self.queue)
+
+    def _publish_gauges(self) -> None:
+        if self._metrics is None:
+            return
+        self._metrics.set_gauge(f"overload_inflight[{self.queue}]",
+                                len(self._credits))
+        self._metrics.set_gauge(f"overload_credit_fraction[{self.queue}]",
+                                self._fraction)
 
     def snapshot(self) -> dict[str, Any]:
         snap: dict[str, Any] = {

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Config #3's service soak on one GPU, two checkouts of the port in turns.
+"""A service soak on one GPU, two checkouts of the port in turns.
 
     python3 scripts/torch_service_ab.py --tree build/parent --tree . \
-        [--rounds 3] [--interval-ms 0,250] [--out results.json]
+        [--soak team|elo] [--rounds 3] [--interval-ms 0,250]
+        [--out results.json]
 
-Each soak is ``chip_smoke.service_team`` of this checkout (50k players
-restored through the app, 8,192 requests in bursts of 512, every answer
-checked), run in a process of its own whose ``matchmaking_tpu_torch`` is
-the named tree's. Per interval, the trees take turns, the first tree first
+``--soak team`` (the default) is config #3's: ``chip_smoke.service_team``
+of this checkout (50k players restored through the app, 8,192 requests in
+bursts of 512, every answer checked). ``--soak elo`` is config #1's:
+``chip_smoke.service_soak`` (phase 4's soak: 100k restored, 16,384
+requests in bursts of 512, unpaced; ``--interval-ms`` is ignored). A tree
+named ``PATH:off`` is PATH with tracing off (``ObservabilityConfig.trace``
+False; a tree without tracing runs as it is). Each soak runs in a process
+of its own whose ``matchmaking_tpu_torch`` is the named tree's. Per interval, the trees take turns, the first tree first
 in even rounds and last in odd ones (A B B A A B for two trees and three
 rounds). An interval of 0 publishes the bursts 5 ms apart, as the smoke
 does: the publisher shares the event loop with the service, so a tree that
@@ -35,6 +40,9 @@ ROOT = os.path.dirname(HERE)
 KEYS = ("offered_per_s", "requests_per_s", "latency_ms_p50",
         "latency_ms_p99", "latency_ms_max", "windows", "publish_batches",
         "gc_ms", "publish_s", "soak_s")
+ELO_KEYS = ("requests_per_s", "latency_ms_p50", "latency_ms_p99",
+            "latency_ms_max", "windows", "publish_batches", "gc_ms",
+            "soak_s")
 
 
 def load_smoke():
@@ -46,25 +54,41 @@ def load_smoke():
     return smoke
 
 
-def soak(tree: str, interval_ms: float) -> dict:
+def soak(tree: str, interval_ms: float, kind: str = "team") -> dict:
     """One soak on ``tree``'s package (this process imports it first)."""
-    sys.path.insert(0, os.path.abspath(tree))
+    path, _, variant = tree.partition(":")
+    sys.path.insert(0, os.path.abspath(path))
     import numpy as np
 
-    from matchmaking_tpu_torch.config import Config
-    from matchmaking_tpu_torch.service.contract import SearchRequest
+    from matchmaking_tpu_torch.config import Config, ObservabilityConfig
+    from matchmaking_tpu_torch.service.contract import (
+        RequestColumns,
+        SearchRequest,
+    )
 
-    res = asyncio.run(load_smoke().service_team(
-        np, (Config, None, None, SearchRequest), "configs/team_5v5.json",
-        waiting=50_000, requests=8_192, burst=512, seed=11,
-        interval_s=interval_ms / 1e3))
-    return {k: res[k] for k in KEYS}
+    smoke = load_smoke()
+    if kind == "team":
+        res = asyncio.run(smoke.service_team(
+            np, (Config, None, None, SearchRequest), "configs/team_5v5.json",
+            waiting=50_000, requests=8_192, burst=512, seed=11,
+            interval_s=interval_ms / 1e3))
+        return {k: res[k] for k in KEYS}
+    from matchmaking_tpu_torch.engine import cuda_kernels as ck
+
+    obs = ({"trace": False} if variant == "off"
+           and "trace" in ObservabilityConfig.__dataclass_fields__ else None)
+    res = asyncio.run(smoke.service_soak(
+        np, ck, (Config, None, RequestColumns, SearchRequest),
+        "configs/elo_1v1.json", waiting=100_000, requests=16_384, burst=512,
+        seed=6, observability=obs))
+    return {k: res[k] for k in ELO_KEYS}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", required=True,
                     help="a checkout of the port (repeat for each tree)")
+    ap.add_argument("--soak", choices=("team", "elo"), default="team")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--interval-ms", default="0,250",
                     help="comma-separated burst intervals (0: unpaced)")
@@ -73,8 +97,10 @@ def main() -> int:
     args = ap.parse_args()
     intervals = [float(x) for x in args.interval_ms.split(",")]
     if args.child:
-        print(json.dumps(soak(args.child, intervals[0])))
+        print(json.dumps(soak(args.child, intervals[0], args.soak)))
         return 0
+    if args.soak == "elo":
+        intervals = [0.0]
     print(load_smoke().card_line())
     results = []
     for interval in intervals:
@@ -82,7 +108,8 @@ def main() -> int:
             for tree in (args.tree if r % 2 == 0 else args.tree[::-1]):
                 p = subprocess.run(
                     [sys.executable, os.path.abspath(__file__), "--tree",
-                     tree, "--child", tree, "--interval-ms", str(interval)],
+                     tree, "--child", tree, "--interval-ms", str(interval),
+                     "--soak", args.soak],
                     capture_output=True, text=True, check=False)
                 if p.returncode:
                     sys.stderr.write(p.stderr[-4000:])

@@ -39,6 +39,7 @@ from matchmaking_tpu_torch.config import (
     BrokerConfig,
     Config,
     EngineConfig,
+    ObservabilityConfig,
 )
 from matchmaking_tpu_torch.service import contract
 from matchmaking_tpu_torch.service.app import MatchmakingApp
@@ -205,7 +206,9 @@ def test_service_answers_equal_jax_app(mode):
     mine = MatchmakingApp(Config(engine=EngineConfig(**eng),
                                  batcher=BatcherConfig(max_batch=32,
                                                        max_wait_ms=20.0),
-                                 auth=AuthConfig(**auth)), device="cpu")
+                                 auth=AuthConfig(**auth),
+                                 observability=ObservabilityConfig(
+                                     trace=False)), device="cpu")
     theirs = JaxApp(JaxConfig(engine=JaxEngineConfig(backend="tpu", **eng),
                               batcher=JaxBatcherConfig(max_batch=32,
                                                        max_wait_ms=20.0),
@@ -241,3 +244,61 @@ def test_service_answers_equal_jax_app(mode):
             assert seq == ["queued"]  # its partner was refused
         else:
             assert seq[-1] == "matched"
+
+
+async def _rpc_burst(app, props, n):
+    """``n`` requests with good tokens in one burst through auth ``rpc``
+    (the default timeout): each one's seconds from publish to its answer,
+    and its status and error code."""
+    app.broker.declare_queue("auth.burst")
+    await app.start()
+    _responder(app.broker, app.cfg.auth.rpc_queue)
+    sent, got = {}, {}
+    try:
+        for i in range(n):
+            pid = f"r{i}"
+            sent[pid] = time.perf_counter()
+            app.broker.publish(
+                Q, json.dumps({"id": pid, "rating": 1000.0 + 7 * i}).encode(),
+                props(reply_to="auth.burst", correlation_id=pid,
+                      headers={"authorization": f"{SECRET}-{i}"}))
+        end = time.monotonic() + 60.0
+        while len(got) < n and time.monotonic() < end:
+            d = await app.broker.get("auth.burst", timeout=0.1)
+            if d is not None and d.properties.correlation_id not in got:
+                body = json.loads(d.body)
+                got[d.properties.correlation_id] = (
+                    time.perf_counter() - sent[d.properties.correlation_id],
+                    body["status"], body.get("error_code", ""))
+    finally:
+        await app.stop()
+    assert len(got) == n
+    return got
+
+
+def test_rpc_burst_of_512_answers_as_the_jax_app_within_the_timeout():
+    """A burst of 512 rpc round trips through each app on the CPU, auth's
+    default 250 ms timeout: wherever the JAX app authorizes a request in
+    time, the port does too (no more ``auth_unavailable`` answers). The
+    p50s from publish to answer print with ``-s``."""
+    eng = dict(pool_capacity=1024, pool_block=256, batch_buckets=(64, 512))
+    batch = dict(max_batch=512, max_wait_ms=20.0)
+    mine = asyncio.run(_rpc_burst(MatchmakingApp(Config(
+        engine=EngineConfig(**eng), batcher=BatcherConfig(**batch),
+        auth=AuthConfig(mode="rpc")), device="cpu"), Properties, 512))
+    theirs = asyncio.run(_rpc_burst(JaxApp(JaxConfig(
+        engine=JaxEngineConfig(backend="tpu", **eng),
+        batcher=JaxBatcherConfig(**batch), auth=JaxAuthConfig(mode="rpc"))),
+        JaxProperties, 512))
+
+    def summary(got):
+        lat = sorted(t for t, _, _ in got.values())
+        late = sum(1 for _, _, code in got.values()
+                   if code == "auth_unavailable")
+        return lat[len(lat) // 2] * 1e3, late
+    p50, late = summary(mine)
+    jp50, jlate = summary(theirs)
+    print(f"auth rpc, burst of 512 on the CPU: port p50 {p50:.1f} ms, "
+          f"{late} timed out; JAX app p50 {jp50:.1f} ms, {jlate} timed out")
+    assert late <= jlate
+    assert {s for _, s, _ in mine.values()} <= {"queued", "matched", "error"}

@@ -85,8 +85,10 @@ def test_the_loops_read_their_knobs():
 
 
 def test_observability_and_pruning_keys_load(caplog):
-    """The quality keys and the pruning knobs load with their JAX names;
-    the observability section's other keys warn and are dropped."""
+    """The quality and tracing keys and the pruning knobs load with their
+    JAX names and defaults, as does the forensics section's spine ring;
+    the observability and forensics sections' other keys (telemetry, the
+    SLO burn monitors, incident capture) warn and are dropped."""
     raw = {"queues": [{}],
            "engine": {"prune_window_blocks": 6, "prune_chunk": 128,
                       "band_spec": "gaussian:1500:300"},
@@ -94,20 +96,38 @@ def test_observability_and_pruning_keys_load(caplog):
                              "quality_buckets": 10,
                              "quality_report_every": 4,
                              "quality_slo_target": 0.5,
-                             "slo_target_ms": 50.0}}
+                             "slo_target_ms": 50.0,
+                             "trace_sample_n": 4,
+                             "stage_buckets": [0.01, 0.001],
+                             "snapshot_interval_s": 2.0},
+           "forensics": {"spine_ring": 128, "capture": False}}
     with caplog.at_level(logging.WARNING, logger=config.__name__):
         cfg = config.Config.from_dict(raw, backend="gpu")
     assert [r.getMessage() for r in caplog.records] == [
-        "config: ignoring observability.slo_target_ms (not carried by the "
-        "port)"]
+        "config: ignoring observability.snapshot_interval_s (not carried by "
+        "the port)",
+        "config: ignoring forensics.capture (not carried by the port)"]
     want = jax_config.Config.from_dict(raw)
     for key in ("prune_window_blocks", "prune_chunk", "band_spec"):
         assert getattr(cfg.engine, key) == getattr(want.engine, key), key
     for key in ("quality_rating_edges", "quality_buckets",
                 "quality_report_every", "quality_slo_target",
-                "quality_slo_objective", "quality_wait_buckets"):
+                "quality_slo_objective", "quality_wait_buckets", "trace",
+                "trace_sample_n", "trace_ring", "slow_trace_ring",
+                "slow_trace_ms", "event_ring", "slo_target_ms"):
         assert (getattr(cfg.observability, key)
                 == getattr(want.observability, key)), key
+    assert tuple(cfg.observability.stage_buckets) == tuple(
+        want.observability.stage_buckets) == (0.01, 0.001)
+    assert cfg.forensics.spine_ring == want.forensics.spine_ring == 128
+    default, jdefault = config.Config(), jax_config.Config()
+    for key in ("trace", "trace_sample_n", "trace_ring", "slow_trace_ring",
+                "slow_trace_ms", "event_ring", "stage_buckets",
+                "slo_target_ms"):
+        assert (getattr(default.observability, key)
+                == getattr(jdefault.observability, key)), key
+    assert default.observability.trace is True
+    assert default.forensics.spine_ring == jdefault.forensics.spine_ring
     assert cfg.observability.quality_rating_edges == (1200.0, 1800.0)
 
 

@@ -314,6 +314,39 @@ def test_columnar_dispatch_rescan_and_restore_do_not_sync(cuda, engine):
         o.n_matches for o in outs.values())
 
 
+@pytest.mark.parametrize("engine", [{}, BUCKETED], ids=["dense", "bucketed"])
+def test_window_marks_do_not_sync(cuda, engine):
+    """The trace marks of a window are host stamps: two windows of two
+    chunks each and a rescan tick dispatched under sync debug mode record
+    dispatch, (h2d, device_step or formation_bucketed) per chunk and
+    readback_seal with no device→host synchronisation; the collection
+    adds collect."""
+    cfg = widening_cfg(batch_buckets=(64, 512), **engine)
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    eng.warmup()
+    rng = np.random.default_rng(9)
+    fill = columns(rng, eng, 4000, 0, 100.0)
+    w1 = columns(rng, eng, 1024, 10_000, 101.0)
+    w2 = columns(rng, eng, 600, 20_000, 102.0)
+    eng.restore_columns(fill, 100.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t1 = eng.search_columns_async(w1, 101.0)
+        t2 = eng.search_columns_async(w2, 102.0)
+        t3 = eng.rescan_async(1024, 104.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng.flush()
+    step = "formation_bucketed" if engine else "device_step"
+    for tok in (t1, t2):
+        names = [n for n, _ in eng.window_marks.pop(tok)]
+        assert names == (["dispatch"] + ["h2d", step] * 2
+                         + ["readback_seal", "collect"]), names
+    assert [n for n, _ in eng.window_marks.pop(t3)] == ["readback_seal",
+                                                        "collect"]
+
+
 def test_pinned_readback_waits_for_its_event(cuda):
     """The result copy is queued behind the device's work: before its
     event completes the pinned buffer is not the result; ``numpy()`` waits

@@ -51,6 +51,7 @@ from matchmaking_tpu_torch.config import (
     Config,
     DurabilityConfig,
     EngineConfig,
+    ObservabilityConfig,
     OverloadConfig,
     QueueConfig,
 )
@@ -69,7 +70,7 @@ PLAYERS = (("p0", 1500.0), ("p1", 1501.0), ("p2", 2000.0), ("p3", 2001.0),
 
 
 def _cfg(pkg, jdir, *, bucketed=False, chaos_steps=(), compact_interval=0.0,
-         fsync="window", request_timeout=None, spec=False):
+         fsync="window", request_timeout=None, spec=False, trace=False):
     eng = dict(pool_capacity=256, pool_block=64, batch_buckets=(8, 32),
                top_k=4)
     if bucketed:
@@ -90,12 +91,13 @@ def _cfg(pkg, jdir, *, bucketed=False, chaos_steps=(), compact_interval=0.0,
             batcher=JaxBatcherConfig(max_batch=8, max_wait_ms=5.0),
             durability=JaxDurabilityConfig(**dur),
             chaos=JaxChaosConfig(**chaos) if chaos_steps else JaxChaosConfig(),
-            observability=JaxObservabilityConfig(trace=False))
+            observability=JaxObservabilityConfig(trace=trace))
     return Config(
         queues=(QueueConfig(**q),), engine=EngineConfig(**eng),
         batcher=BatcherConfig(max_batch=8, max_wait_ms=5.0),
         durability=DurabilityConfig(**dur),
-        chaos=ChaosConfig(**chaos) if chaos_steps else ChaosConfig())
+        chaos=ChaosConfig(**chaos) if chaos_steps else ChaosConfig(),
+        observability=ObservabilityConfig(trace=trace))
 
 
 def _app(pkg, cfg):
@@ -499,7 +501,8 @@ def _drain_cfg(pkg, directory):
                          observability=JaxObservabilityConfig(trace=False))
     return Config(queues=(QueueConfig(**q),), engine=EngineConfig(**eng),
                   batcher=BatcherConfig(max_batch=8, max_wait_ms=5.0),
-                  overload=OverloadConfig(**ov))
+                  overload=OverloadConfig(**ov),
+                  observability=ObservabilityConfig(trace=False))
 
 
 def _pool_rows(ckmod, engine):

@@ -6,7 +6,8 @@ and no fault injection).
   by the JAX app and by the port's app on the same seeded bursts, with
   ``consume_batch`` on: every answer's bytes are equal once the fields
   that differ by nature are carried over (match id, measured latency_ms
-  and waited_ms; the JAX app's trace id is dropped).
+  and waited_ms) and the trace ids correspond one to one (both apps trace;
+  each numbers its ids from a process-wide counter).
 - Within the port: ``consume_batch`` on and off, and ``ingress_shards`` 1
   and 4, give the same answers; with it on, each burst is decoded once at
   consume and never again at the flush.
@@ -146,6 +147,16 @@ def normalized(body: bytes) -> dict:
     return d
 
 
+def same_trace(seen, mine, theirs):
+    """The port's trace id, after checking that it and the JAX app's are
+    both set or both empty and correspond one to one over a run (each app
+    numbers its ids from a process-wide counter of its own)."""
+    assert bool(mine) == bool(theirs), (mine, theirs)
+    assert seen.setdefault(("jax", theirs), mine) == mine
+    assert seen.setdefault(("port", mine), theirs) == theirs
+    return mine
+
+
 def assert_same_answers(got, want):
     assert set(got) == set(want)
     for corr in want:
@@ -163,7 +174,7 @@ def run_port(cfg, bodies=None):
 def test_config1_answers_equal_jax_app_with_consume_batch():
     """Config #1 through both apps, consume_batch on: every answer's bytes
     equal the JAX app's (match id, latency_ms and waited_ms carried over,
-    the trace id dropped); real matches, queued acks and every kind of
+    the trace ids one to one); real matches, queued acks and every kind of
     reject are among them."""
     app, port = run_port(port_cfg())
     japp = JaxApp(jax_cfg())
@@ -171,6 +182,7 @@ def test_config1_answers_equal_jax_app_with_consume_batch():
     assert {c: len(v) for c, v in port.items()} == {
         c: len(v) for c, v in jax.items()}
     statuses = set()
+    seen: dict = {}
     for corr, bodies in port.items():
         for body, jbody in zip(bodies, jax[corr]):
             mine = contract.decode_response(body)
@@ -182,7 +194,8 @@ def test_config1_answers_equal_jax_app_with_consume_batch():
                                             match_id=mine.match.match_id)
             theirs = dataclasses.replace(
                 theirs, match=match, latency_ms=mine.latency_ms,
-                waited_ms=mine.waited_ms, trace_id="")
+                waited_ms=mine.waited_ms,
+                trace_id=same_trace(seen, mine.trace_id, theirs.trace_id))
             assert body == jax_contract.encode_response(theirs), corr
     assert {("matched", ""), ("queued", ""), ("error", "bad_json"),
             ("error", "bad_type"),

@@ -33,6 +33,7 @@ from matchmaking_tpu_torch.config import (
 from matchmaking_tpu_torch.service import contract
 from matchmaking_tpu_torch.service.app import MatchmakingApp, run_demo
 from matchmaking_tpu_torch.service.broker import Properties
+from test_torch_ingress import same_trace
 
 torch.set_num_threads(1)
 
@@ -104,7 +105,7 @@ async def test_config2_serves_both_queues_each_at_its_own_threshold():
     threshold, never across queues; every answer's bytes equal the JAX
     app's on the same requests once the fields that differ by nature are
     carried over (the match id, the measured latency_ms and waited_ms) and
-    the JAX app's trace id is dropped (the port has no tracing)."""
+    the trace ids correspond one to one (both apps trace)."""
     app = MatchmakingApp(port_config2(), device="cpu")
     assert [app.runtime(n).queue_cfg.rating_threshold
             for n in (RANKED, CASUAL)] == [75.0, 150.0]
@@ -132,6 +133,7 @@ async def test_config2_serves_both_queues_each_at_its_own_threshold():
     jax = await serve(japp, japp.broker.publish, JaxProperties)
     assert {pid: len(v) for pid, v in jax.items()} == {
         pid: len(v) for pid, v in port.items()}
+    seen: dict = {}
     for pid, bodies in port.items():
         for body, jbody in zip(bodies, jax[pid]):
             mine = contract.decode_response(body)
@@ -142,7 +144,8 @@ async def test_config2_serves_both_queues_each_at_its_own_threshold():
                                             match_id=mine.match.match_id)
             theirs = dataclasses.replace(
                 theirs, match=match, latency_ms=mine.latency_ms,
-                waited_ms=mine.waited_ms, trace_id="")
+                waited_ms=mine.waited_ms,
+                trace_id=same_trace(seen, mine.trace_id, theirs.trace_id))
             assert body == jax_contract.encode_response(theirs), pid
 
 

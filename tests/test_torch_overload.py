@@ -54,6 +54,7 @@ from matchmaking_tpu_torch.config import (
     BatcherConfig,
     Config,
     EngineConfig,
+    ObservabilityConfig,
     OverloadConfig,
     QueueConfig,
 )
@@ -275,7 +276,8 @@ def _port_runtime(tiers, engine):
     rt = MatchmakingApp(cfg, device="cpu").runtime(QUEUE)
     rt.engine = engine
     sent = []
-    rt._publish = lambda reply, corr, body: sent.append((corr, body))
+    rt._publish = lambda reply, corr, body, trace=None: sent.append(
+        (corr, body))
     rt._ack = lambda d: sent.append(("ack", d.delivery_tag))
     return rt, sent
 
@@ -415,7 +417,8 @@ def _port_app(batch):
     cfg = Config(queues=(QueueConfig(default_tier=1),),
                  engine=EngineConfig(**SMALL),
                  batcher=BatcherConfig(max_batch=BURST, max_wait_ms=250.0),
-                 overload=OverloadConfig(**OVERLOAD, batch_admission=batch))
+                 overload=OverloadConfig(**OVERLOAD, batch_admission=batch),
+                 observability=ObservabilityConfig(trace=False))
     return MatchmakingApp(cfg, device="cpu")
 
 

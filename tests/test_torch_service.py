@@ -409,7 +409,8 @@ async def test_team_queue_serves_5v5_matches_on_the_object_path():
             assert bodies[f"t{i}"][-1] == jax_contract.encode_response(
                 jax_contract.SearchResponse(
                     status="matched", player_id=resp.player_id, match=jm,
-                    latency_ms=resp.latency_ms, waited_ms=resp.waited_ms))
+                    latency_ms=resp.latency_ms, waited_ms=resp.waited_ms,
+                    trace_id=resp.trace_id))
         assert sorted(len(v) for v in matches.values()) == [10] * 4
         assert len(calls) == app.counters["windows"]
         assert app.engine.pool_size() == 0
