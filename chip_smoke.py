@@ -209,6 +209,25 @@ Phases, each of which raises (exit code != 0) when it fails:
    of every trace; each request's own answer quotes its trace id exactly
    when it was traced. Phase 7's event kinds must be the CPU run's
    (``BREAKER_EVENTS``).
+10. observability: config #1's service at full width, 100k restored and
+   16,384 requests in bursts of 512, twice in this process: (a) the
+   telemetry sampler off and no HTTP server; (b) the defaults (sampler at
+   1 s, tracing, incident capture) with ``metrics_port`` on a free port
+   and an SLO target of 100 ms (windows of 1 and 3 s). During (b) a
+   client on the same loop fetches ``/metrics?format=prom`` and
+   ``/healthz`` every 100 ms and ``/debug/profile?secs=1`` once after the
+   first 4 windows, then every route once. Checks: every request answered
+   once; every Prometheus text valid (one TYPE line per family, no
+   duplicate series, every value a number); the pool gauge is the
+   waiting count; every route's status that of the same configuration on
+   the CPU; the queue burns (a /healthz lists it; a ``slo_burn`` bundle
+   passes ``validate_bundle``); the profile's Chrome trace names
+   prep_kernel, block_best_kernel and quality_accum_kernel, counted
+   against the launches its capture saw. Prints requests/s and latency
+   of (a) and (b), the scrape's host ms (``build_report`` and
+   ``_flatten_prom``), the Prometheus bytes, the telemetry tick's and the
+   incident capture's host ms and the profile's ms. Phases 7 and 8b hold
+   one valid ``breaker_trip`` and one valid ``crash_recovery`` bundle.
 
 ``--plan-sweep`` times five variants at every bucket under every
 (rows per CTA, cluster) plan, to check ``plan_grid``'s choice.
@@ -217,7 +236,7 @@ time over each of phase 4's two soaks and phase 9's three beside the
 output file.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-9, the
+JSON summary of phases 3-10, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -3526,6 +3545,9 @@ async def service_breaker(np, ck, mods, path, *, waiting, seed):
             f"breaker phase: memory allocated {mem_demoted} B after the "
             f"demotion, {mem_promoted} B after the re-promotion, one engine "
             f"{engine_share} B")
+    # The trip froze one incident bundle (the JAX app's breaker_trip
+    # trigger), valid by the schema.
+    (bundle,) = check_bundles(app, "breaker_trip", "breaker phase")
     answers = await log_.read()
     for pid, resps in answers.items():
         seq = [r.status for r in resps]
@@ -3539,7 +3561,7 @@ async def service_breaker(np, ck, mods, path, *, waiting, seed):
                (first_degraded - opened_wall) * 1e3,
            "probe": probe, "moved": len(moved_ids),
            "first_8_windows_dispatch_ms": [x * 1e3 for x in dispatch_ms],
-           "events": events,
+           "events": events, "incident_capture_ms": bundle["capture_ms"],
            "windows": windows, "probe_launches": probe_launches,
            "launches_after": after_launches["block_best"],
            "quality_counts": quality,
@@ -3985,6 +4007,9 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
                 raise AssertionError(f"8b: {launches} on the recovered "
                                      f"service")
             check_faults(app2, "8b successor")
+            # The recovery froze one incident bundle (crash_recovered).
+            (rec_bundle,) = check_bundles(app2, "crash_recovery",
+                                          "8b successor")
             await app2.stop()
 
             # The same recovery and first window on the CPU.
@@ -3996,6 +4021,7 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
             await publish_and_wait(cpu, fresh, 1_024, reply, replies3)
             cpu_pairs = window_pairs(replies3, [p for p, _ in fresh])
             cpu_rec = cpu.runtime(queue).last_recovery
+            cpu_incidents = cpu.incidents.snapshot()["by_class"]
             await cpu.stop()
             if first_pairs != cpu_pairs or not first_pairs:
                 raise AssertionError(
@@ -4004,6 +4030,9 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
             if cpu_rec["transcript"] != rec["transcript"]:
                 raise AssertionError("8b: the CPU app recovered another "
                                      "transcript")
+            if cpu_incidents != app2.incidents.snapshot()["by_class"]:
+                raise AssertionError(f"8b: incidents {cpu_incidents} on the "
+                                     f"CPU app")
             if (recovery_events != cpu_events or "crash_recovered" not in
                     [k for _, k, _, _ in recovery_events]):
                 raise AssertionError(f"8b: the recovery's events "
@@ -4026,6 +4055,7 @@ async def service_durability(np, torch, ck, mods, path, *, waiting, requests,
                 "replayed": rt2.counters["deduped_replays"],
                 "replays_checked": replays_checked,
                 "events": [k for _, k, _, _ in recovery_events],
+                "incident_capture_ms": rec_bundle["capture_ms"],
                 "launches": launches,
                 "first_8_windows_dispatch_ms": [x * 1e3 for x in
                                                 dispatch_ms[:8]]}
@@ -4423,6 +4453,427 @@ async def service_trace_soak(np, ck, mods, path, *, waiting, requests, burst,
     return res
 
 
+# ---- phase 10: telemetry, SLO burn, incidents, the HTTP surfaces ------------
+
+#: Every route of the HTTP server but the profile's, fetched once at the
+#: end of the soak (and by the CPU run, whose statuses they must equal).
+OBS_ROUTES = ("/healthz", "/metrics", "/metrics?format=prom", "/debug/traces",
+              "/debug/attribution", "/debug/quality", "/debug/placement",
+              "/debug/autotune", "/debug/telemetry", "/debug/events",
+              "/debug/incidents")
+
+_PROM_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prom(text):
+    """Prometheus exposition text to ({family: type}, [(name, labels,
+    value)]), held to tests/test_observability.py's rules: one TYPE line
+    per family, before its samples; well-formed samples and labels; no
+    duplicate series; every value a number."""
+    types, samples, seen = {}, [], set()
+    if not text.endswith("\n"):
+        raise AssertionError("prom: the text does not end with a newline")
+    for line in text.rstrip("\n").split("\n"):
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            if (len(parts) != 4 or parts[2] in types or parts[2] in seen
+                    or parts[3] not in ("counter", "gauge", "histogram",
+                                        "summary", "untyped")):
+                raise AssertionError(f"prom: bad TYPE line {line!r}")
+            types[parts[2]] = parts[3]
+            continue
+        if line.startswith("#"):
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if not m:
+            raise AssertionError(f"prom: malformed sample {line!r}")
+        name, blob, value = m.group(1), m.group(2) or "", m.group(3)
+        labels = _PROM_LABEL.findall(blob)
+        if ",".join(f'{k}="{v}"' for k, v in labels) != blob:
+            raise AssertionError(f"prom: bad labels {line!r}")
+        family = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and types.get(
+                    name[:-len(suffix)]) == "histogram":
+                family = name[:-len(suffix)]
+        if family not in types:
+            raise AssertionError(f"prom: {name} has no TYPE line")
+        seen.add(family)
+        float(value)
+        samples.append((name, tuple(sorted(labels)), value))
+    keys = [(n, lb) for n, lb, _ in samples]
+    if len(keys) != len(set(keys)):
+        raise AssertionError("prom: a duplicate series")
+    return types, samples
+
+
+def free_port():
+    """A port the OS had free (bound to port 0, then released)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def http_get(session, port, path):
+    """(status, body, host ms) of one GET on this loop."""
+    t = time.perf_counter()
+    async with session.get(f"http://127.0.0.1:{port}{path}") as r:
+        text = await r.text()
+    return r.status, text, (time.perf_counter() - t) * 1e3
+
+
+def check_bundles(app, cls, what, n=1):
+    """``n`` bundles of trigger class ``cls`` in ``app``'s incident ring,
+    each accepted by the port's ``validate_bundle``."""
+    from matchmaking_tpu_torch.utils.forensics import validate_bundle
+
+    snap = app.incidents.snapshot(include_bundles=True)
+    bundles = [b for b in snap["bundles"] if b["trigger"]["class"] == cls]
+    bad = [p for b in bundles for p in validate_bundle(b)]
+    if len(bundles) != n or bad:
+        raise AssertionError(f"{what}: {len(bundles)} {cls} bundles (want "
+                             f"{n}), problems {bad}, by class "
+                             f"{snap['by_class']}")
+    return bundles
+
+
+def observability_cfg(Config, path, on, port=0):
+    """Config #1 with phase 10's observability: ``on`` the defaults
+    (sampler at 1 s, tracing, capture) with ``metrics_port``, an SLO
+    target of 100 ms and windows of 1 and 3 s; off, the sampler off and
+    no server."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.config import ObservabilityConfig
+
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    obs = (ObservabilityConfig(slo_target_ms=100.0, slo_fast_window_s=1.0,
+                               slo_slow_window_s=3.0) if on
+           else ObservabilityConfig(snapshot_interval_s=0.0))
+    return dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        observability=obs, metrics_port=port if on else 0)
+
+
+async def cpu_route_statuses(np, Config, path, seed):
+    """Phase 10's (b) configuration on the CPU at a small pool: 256
+    requests served, then every route's status."""
+    import dataclasses
+
+    import aiohttp
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    port = free_port()
+    cfg = observability_cfg(Config, path, True, port)
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, pool_capacity=2048, pool_block=256,
+        batch_buckets=(16, 64, 256), warm_start=False))
+    rng = np.random.default_rng(seed)
+    app = MatchmakingApp(cfg, device="cpu")
+    await app.start()
+    try:
+        replies = Replies(app, "cpu.obs.replies")
+        rows = [(f"cpu{k}", json.dumps({"id": f"cpu{k}", "rating": float(
+            rng.normal(1500, 300))}).encode()) for k in range(256)]
+        await publish_and_wait(app, rows, 64, "cpu.obs.replies", replies)
+        app.sample_telemetry()
+        async with aiohttp.ClientSession() as session:
+            out = {p: (await http_get(session, port, p))[0]
+                   for p in OBS_ROUTES}
+    finally:
+        await app.stop()
+    return out
+
+
+class TimedProfile:
+    """``torch.profiler.profile`` as ``/debug/profile`` builds it, with
+    the hand kernels' launch counts taken at its start and stop and the
+    host ms of its stop and export."""
+
+    def __init__(self, ck, real):
+        self.ck, self.real, self.runs = ck, real, []
+
+    def __call__(self, *a, **k):
+        prof, rec = self.real(*a, **k), {}
+        self.runs.append(rec)
+        start, stop, export = prof.start, prof.stop, prof.export_chrome_trace
+
+        def on_start():
+            t = time.perf_counter()
+            start()
+            rec["start_ms"] = (time.perf_counter() - t) * 1e3
+            rec["launches_at_start"] = dict(self.ck.LAUNCHES)
+
+        def on_stop():
+            rec["launches_at_stop"] = dict(self.ck.LAUNCHES)
+            rec["t_stop"] = time.perf_counter()
+            stop()
+
+        def on_export(path):
+            export(path)
+            rec["path"] = path
+            rec["stop_export_ms"] = (time.perf_counter() - rec["t_stop"]) * 1e3
+
+        prof.start, prof.stop, prof.export_chrome_trace = (on_start, on_stop,
+                                                           on_export)
+        return prof
+
+
+def trace_kernel_counts(path):
+    """Each hand kernel's device records in a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(1 for n in names if k in n) for k in OWN_KERNELS}
+
+
+async def service_observability(np, ck, mods, path, *, waiting, requests,
+                                burst, seed, on, cpu_statuses=None):
+    """Config #1's service at full width: ``waiting`` restored, then
+    ``requests`` in bursts of ``burst``, unpaced (phase 4's soak), (a) with
+    the sampler off and no server, or (b) ``on``: the defaults (sampler at
+    1 s, tracing, incident capture), ``metrics_port`` on a free port and
+    an SLO target of 100 ms (objective 0.99, windows of 1 and 3 s). During
+    (b) a client on the same loop fetches ``/metrics?format=prom`` and
+    ``/healthz`` every 100 ms and ``/debug/profile?secs=1`` once after
+    the first 4 windows, then every route once at the end. Checks: every
+    request answered once; every Prometheus text valid; the pool gauge is
+    the waiting count; each route's status the CPU run's; the queue burns
+    (a /healthz lists it, a valid ``slo_burn`` bundle); the profile's
+    trace names the three hand kernels (counted against the launches its
+    capture saw); one block_best and one quality_accum launch a window;
+    no fault. Measures requests/s, latency, the scrape's host ms split
+    into ``build_report`` and ``_flatten_prom``, the Prometheus bytes, the
+    tick's and the capture's host ms, the profile's ms."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import aiohttp
+    import torch.profiler
+
+    from matchmaking_tpu_torch.service import observability
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    Config, _, RequestColumns, _ = mods
+    port = free_port() if on else 0
+    cfg = observability_cfg(Config, path, on, port)
+    profile_dir = tempfile.mkdtemp(prefix="mm_smoke_profile_")
+    cfg = dataclasses.replace(cfg, observability=dataclasses.replace(
+        cfg.observability, profile_dir=profile_dir))
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=False)
+    queue = cfg.queues[0].name
+    spent = {"build_report": [], "flatten_prom": [], "tick": []}
+    real_build, real_flatten = (observability.build_report,
+                                observability._flatten_prom)
+
+    def build_report(app_):
+        t = time.perf_counter()
+        try:
+            return real_build(app_)
+        finally:
+            spent["build_report"].append((time.perf_counter() - t) * 1e3)
+
+    def flatten_prom(report):
+        t = time.perf_counter()
+        try:
+            return real_flatten(report)
+        finally:
+            spent["flatten_prom"].append((time.perf_counter() - t) * 1e3)
+
+    timed_profile = TimedProfile(ck, torch.profiler.profile)
+    observability.build_report, observability._flatten_prom = (build_report,
+                                                               flatten_prom)
+    torch.profiler.profile = timed_profile
+    app = MatchmakingApp(cfg, device="cuda")
+    real_tick = app.sample_telemetry
+
+    def tick(now=None):
+        t = time.perf_counter()
+        try:
+            return real_tick(now)
+        finally:
+            spent["tick"].append((time.perf_counter() - t) * 1e3)
+
+    app.sample_telemetry = tick
+    polls, routes, profile, pool_bounds, traced = [], {}, {}, (), {}
+    try:
+        await app.start()
+        rt = app.runtime(queue)
+        reply = "obs.replies"
+        replies = Replies(app, reply)
+        app.restore_columns(
+            pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply),
+            pop.region[:waiting], pop.mode[:waiting], t0)
+        if on:
+            # The soak starts at a tick: the next one (1 s later) falls
+            # inside it, with settled traffic in both burn windows.
+            while not len(app.telemetry):
+                await asyncio.sleep(0.005)
+        windows0 = rt.counters["windows"]
+        reset_counts(ck)
+        done = asyncio.Event()
+
+        async def client():
+            async with aiohttp.ClientSession() as session:
+                async def poll():
+                    while not done.is_set():
+                        prom = await http_get(session, port,
+                                              "/metrics?format=prom")
+                        health = await http_get(session, port, "/healthz")
+                        polls.append((prom, health))
+                        await asyncio.sleep(0.1)
+
+                async def take_profile():
+                    while rt.counters["windows"] - windows0 < 4:
+                        await asyncio.sleep(0.005)
+                    profile["windows_at_request"] = (rt.counters["windows"]
+                                                     - windows0)
+                    profile["response"] = await http_get(
+                        session, port, "/debug/profile?secs=1")
+
+                await asyncio.gather(poll(), take_profile())
+
+        poller = asyncio.create_task(client()) if on else None
+        soak_s, t_pub = await publish_and_wait(
+            app, request_bodies(pop, waiting, waiting + requests), burst,
+            reply, replies)
+        await settle(app)
+        if poller is not None:
+            while "response" not in profile and not poller.done():
+                await asyncio.sleep(0.01)
+            done.set()
+            await poller
+            # Each hand kernel's records in the profile's Chrome trace.
+            traced = {}
+            for run in timed_profile.runs:
+                traced = trace_kernel_counts(run["path"])
+            app.sample_telemetry()
+            async with aiohttp.ClientSession() as session:
+                for p in OBS_ROUTES:
+                    before = rt.engine.pool_size()
+                    routes[p] = await http_get(session, port, p)
+                    if p == "/metrics?format=prom":
+                        pool_bounds = (before, rt.engine.pool_size())
+                inc = await http_get(session, port,
+                                     "/debug/incidents?bundles=1")
+        windows = rt.counters["windows"] - windows0
+        launches = dict(ck.LAUNCHES)
+        p50, p99 = latency_ms(replies, t_pub)
+        capture = app.metrics.latency.get("incident_capture")
+    finally:
+        observability.build_report, observability._flatten_prom = (
+            real_build, real_flatten)
+        torch.profiler.profile = timed_profile.real
+        shutil.rmtree(profile_dir, ignore_errors=True)
+        await app.stop()
+    mode = "on" if on else "off"
+    check_faults(app, f"observability soak ({mode})")
+    for pid in t_pub:
+        seq = replies.statuses(pid)
+        if seq not in (["queued"], ["matched"], ["queued", "matched"]):
+            raise AssertionError(f"observability soak ({mode}): {pid} "
+                                 f"answered {seq}")
+    if (launches["block_best"] != windows
+            or launches["quality_accum"] != windows):
+        raise AssertionError(f"observability soak ({mode}): {launches} "
+                             f"launches for {windows} windows")
+    res = {"mode": mode, "waiting": waiting, "requests": requests,
+           "burst": burst, "windows": windows, "soak_s": soak_s,
+           "requests_per_s": requests / soak_s, "latency_ms_p50": p50,
+           "latency_ms_p99": p99, "launches": launches}
+    if not on:
+        if len(app.telemetry) or app._observability is not None:
+            raise AssertionError("observability soak (off): the sampler or "
+                                 "the server ran")
+        log(f"observability soak (off): {requests} requests over {waiting} "
+            f"waiting, {windows} windows, {res['requests_per_s']:.0f} "
+            f"requests/s, latency p50 {p50:.2f} ms p99 {p99:.2f} ms")
+        return res
+    burning = False
+    prom_bytes = []
+    for (pstat, ptext, _), (hstat, htext, _) in polls:
+        if pstat != 200 or hstat != 200:
+            raise AssertionError(f"observability soak: a poll answered "
+                                 f"{pstat} / {hstat}")
+        _, samples = parse_prom(ptext)
+        prom_bytes.append(len(ptext.encode()))
+        if len([n for n, _, _ in samples
+                if n == "matchmaking_pool_size"]) != 1:
+            raise AssertionError("observability soak: no pool gauge")
+        burning |= queue in json.loads(htext)["slo_burning_queues"]
+    # The pool gauge of the last scrape is the waiting count (read just
+    # before and after the scrape: a rescan tick may fall between).
+    _, samples = parse_prom(routes["/metrics?format=prom"][1])
+    (gauge,) = [float(v) for n, _, v in samples
+                if n == "matchmaking_pool_size"]
+    if not min(pool_bounds) <= gauge <= max(pool_bounds):
+        raise AssertionError(f"observability soak: the pool gauge {gauge} "
+                             f"is not the waiting count {pool_bounds}")
+    statuses = {p: r[0] for p, r in routes.items()}
+    if cpu_statuses is not None and statuses != cpu_statuses:
+        raise AssertionError(f"observability soak: route statuses "
+                             f"{statuses}, the CPU run's {cpu_statuses}")
+    if not burning:
+        raise AssertionError("observability soak: no /healthz listed the "
+                             "queue as burning")
+    bundles = [b for b in json.loads(inc[1])["bundles"]
+               if b["trigger"]["class"] == "slo_burn"]
+    check_bundles(app, "slo_burn", "observability soak", n=len(bundles))
+    if not bundles:
+        raise AssertionError("observability soak: no slo_burn bundle")
+    status, text, profile_ms = profile["response"]
+    if status != 200 or sorted(json.loads(text)) != ["secs", "trace_dir",
+                                                     "viewer"]:
+        raise AssertionError(f"observability soak: /debug/profile {status} "
+                             f"{text}")
+    (run,) = timed_profile.runs
+    in_capture = {k: run["launches_at_stop"][k] - run["launches_at_start"][k]
+                  for k in ("block_best", "quality_accum")}
+    if not traced or not all(traced.values()):
+        raise AssertionError(f"observability soak: the profile's trace "
+                             f"counted {traced}")
+    scrape = {k: {"p50": pct(v, 0.5), "p99": pct(v, 0.99), "n": len(v)}
+              for k, v in spent.items()}
+    res.update({
+        "polls": len(polls), "prom_bytes_max": max(prom_bytes),
+        "prom_bytes_last": prom_bytes[-1], "scrape_host_ms": scrape,
+        "incident_capture_ms": capture.summary_ms() if capture else None,
+        "incidents": app.incidents.snapshot()["by_class"],
+        "slo_events": [e["kind"] for e in app.events.snapshot()
+                       if e["kind"].startswith("slo_")],
+        "route_statuses": statuses,
+        "profile": {"request_ms": profile_ms, "start_ms": run["start_ms"],
+                    "stop_export_ms": run["stop_export_ms"],
+                    "windows_at_request": profile["windows_at_request"],
+                    "launches_in_capture": in_capture,
+                    "trace_kernels": traced},
+        "telemetry_snapshots": len(app.telemetry)})
+    log(f"observability soak (on): {requests} requests over {waiting} "
+        f"waiting, {windows} windows, {res['requests_per_s']:.0f} "
+        f"requests/s, latency p50 {p50:.2f} ms p99 {p99:.2f} ms; {len(polls)} "
+        f"polls, scrape host ms build_report p50 "
+        f"{scrape['build_report']['p50']:.3f} p99 "
+        f"{scrape['build_report']['p99']:.3f}, _flatten_prom p50 "
+        f"{scrape['flatten_prom']['p50']:.3f} p99 "
+        f"{scrape['flatten_prom']['p99']:.3f}, prom {prom_bytes[-1]} bytes; "
+        f"tick p50 {scrape['tick']['p50']:.3f} ms p99 "
+        f"{scrape['tick']['p99']:.3f} ms ({scrape['tick']['n']} ticks); "
+        f"capture {res['incident_capture_ms']}; incidents "
+        f"{res['incidents']}; profile {profile_ms:.1f} ms (start "
+        f"{run['start_ms']:.1f} ms, stop + export "
+        f"{run['stop_export_ms']:.1f} ms), launches in the capture "
+        f"{in_capture}, trace kernels {traced}")
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -4674,6 +5125,22 @@ def main(argv) -> int:
     for mode, run in tracing.items():
         launches["service_trace_" + mode] = run["launches"]["block_best"]
     phase_s["9"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 10. telemetry, the SLO burn monitors, incident capture and the HTTP
+    #     surfaces at full width: config #1's soak with the sampler off and
+    #     no server, then with the defaults, metrics_port and an SLO
+    #     target, in turns in this process; the routes' statuses against
+    #     a CPU run's
+    cpu_statuses = asyncio.run(cpu_route_statuses(np, Config, elo, seed=22))
+    observed = {name: asyncio.run(service_observability(
+        np, ck, mods, elo, waiting=100_000, requests=16_384, burst=512,
+        seed=22, on=on, cpu_statuses=cpu_statuses))
+        for name, on in (("off", False), ("on", True))}
+    for name, run in observed.items():
+        launches["service_observability_" + name] = (
+            run["launches"]["block_best"])
+    phase_s["10"] = time.perf_counter() - t_phase
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -4697,7 +5164,9 @@ def main(argv) -> int:
                            for r in speculation.values())
                      + sum(c["block_best"] for c in phase8.values())
                      + sum(r["launches"]["block_best"]
-                           for r in tracing.values()))
+                           for r in tracing.values())
+                     + sum(r["launches"]["block_best"]
+                           for r in observed.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -4705,7 +5174,9 @@ def main(argv) -> int:
                   + sum(r["commit_launches"] for r in speculation.values())
                   + sum(c["quality_accum"] for c in phase8.values())
                   + sum(r["launches"]["quality_accum"]
-                        for r in tracing.values()))
+                        for r in tracing.values())
+                  + sum(r["launches"]["quality_accum"]
+                        for r in observed.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -4751,7 +5222,9 @@ def main(argv) -> int:
                 breaker_run["launches_after"],
             **{name: c["quality_accum"] for name, c in phase8.items()},
             **{"service_trace_" + mode: run["launches"]["quality_accum"]
-               for mode, run in tracing.items()}},
+               for mode, run in tracing.items()},
+            **{"service_observability_" + name: run["launches"]["quality_accum"]
+               for name, run in observed.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -4852,6 +5325,9 @@ def main(argv) -> int:
         "tracing": {mode: {k: v for k, v in run.items()
                            if k not in ("launches", "stage_counts")}
                     for mode, run in tracing.items()},
+        "observability": {name: {k: v for k, v in run.items()
+                                 if k not in ("launches", "route_statuses")}
+                          for name, run in observed.items()},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -4885,6 +5361,8 @@ def main(argv) -> int:
                        "overload": overload, "breaker": breaker_run,
                        "durability": durability, "drain": drain_run,
                        "auth": auth_run, "tracing": tracing,
+                       "observability": observed,
+                       "cpu_route_statuses": cpu_statuses,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

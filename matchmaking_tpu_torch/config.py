@@ -7,8 +7,8 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
 JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
-Sections and keys the port does not carry yet (telemetry and SLO burn
-monitors, the broker and network faults of chaos, ...) are ignored with a
+Sections and keys the port does not carry yet (replication, placement,
+autotune, the broker and network faults of chaos, ...) are ignored with a
 warning; a few values
 that need a module the port does not have yet are refused, with the module
 named: a ``replication`` section with a role at load, the multi-GPU chaos
@@ -361,14 +361,13 @@ class ChaosConfig:
 
 @dataclass(frozen=True)
 class ObservabilityConfig:
-    """The JAX package's observability keys for tracing (utils/trace.py:
+    """The JAX package's observability keys: tracing (utils/trace.py:
     trace contexts stamped at broker publish, the flight recorder, the
-    event log, the per-stage histograms), the attribution's SLO target
+    event log, the per-stage histograms), the ``/debug/profile`` capture
+    directory, the telemetry sampler and the SLO burn monitors
+    (utils/timeseries.py), the attribution's SLO target
     (service/attribution.py) and match quality (engine/quality.py,
-    service/quality.py). The telemetry sampler and the SLO burn monitors
-    (``snapshot_interval_s``, ``telemetry_ring``, ``slo_objective``,
-    ``slo_*_window_s``, ``slo_burn_threshold``) and ``profile_dir`` are not
-    carried."""
+    service/quality.py)."""
 
     #: Trace-context stamping and flight recording; on, as in the JAX
     #: package.
@@ -388,9 +387,28 @@ class ObservabilityConfig:
     #: Stage histogram upper bounds in seconds; () → 100 µs · 2^k, 24
     #: buckets (utils/metrics.DEFAULT_STAGE_BUCKETS).
     stage_buckets: tuple[float, ...] = ()
+    #: Where ``/debug/profile?secs=N`` writes its torch.profiler Chrome
+    #: trace; "" → one temporary directory per server lifetime.
+    profile_dir: str = ""
+    #: The telemetry sampler (utils/timeseries.TelemetryRing): a snapshot
+    #: of per-queue signals (pool size, batch fill, breaker state,
+    #: shed/expired, stage p99, work/wait, SLO good/total, device busy/idle,
+    #: speculation) every this many seconds; 0 disables the sampler.
+    snapshot_interval_s: float = 1.0
+    #: Snapshots kept in the telemetry ring (newest wins).
+    telemetry_ring: int = 512
     #: A settled trace is good for the attribution's SLO counters when it
-    #: was served (matched, queued, deduped) within this many ms (0: off).
+    #: was served (matched, queued, deduped) within this many ms; with a
+    #: target the app runs SLO burn monitors (0: off).
     slo_target_ms: float = 0.0
+    #: The fraction of requests that must be good.
+    slo_objective: float = 0.99
+    #: The burn monitors' fast and slow windows: a queue burns (a
+    #: ``slo_burn`` event, the ``slo_burning`` gauge) when both windows'
+    #: burn rates reach ``slo_burn_threshold``.
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_burn_threshold: float = 1.0
 
     #: Rating-bucket edges of the quality accounting (() → the default
     #: eight buckets around N(1500, 300)).
@@ -413,11 +431,41 @@ class ObservabilityConfig:
 
 @dataclass(frozen=True)
 class ForensicsConfig:
-    """The event spine's key of the JAX package's forensics section
-    (utils/forensics.py); the incident capture's keys are not carried."""
+    """The JAX package's forensics section (utils/forensics.py): the event
+    spine's ring and the incident capture, which freezes the app's rings
+    into a schema-versioned bundle when a trigger kind is stamped (SLO
+    burn and its clearing, breaker trip, crash recovery, ...)."""
 
     #: Events kept in the app's causal ring.
     spine_ring: int = 4096
+    #: Incident capture on (the spine runs either way).
+    capture: bool = True
+    #: Where bundles are written as JSON; "" keeps them in memory only.
+    incident_dir: str = ""
+    #: Bundles kept in memory (newest wins).
+    incident_ring: int = 16
+    #: Bundle files kept under ``incident_dir`` (oldest removed).
+    retention_files: int = 32
+    #: Least seconds between two captures of one trigger class; a capture
+    #: dropped by it is counted (``incidents_dropped``).
+    min_interval_s: float = 5.0
+    #: Spine events frozen per bundle.
+    spine_window: int = 512
+    #: Telemetry snapshots frozen per bundle.
+    telemetry_tail: int = 32
+    #: Slow-trace exemplars frozen per queue per bundle.
+    trace_slice: int = 8
+    #: Placement and autotune audit records frozen per bundle.
+    audit_slice: int = 32
+    #: A placement action whose blackout exceeds this many ms triggers a
+    #: capture (0: that trigger off).
+    blackout_budget_ms: float = 0.0
+    #: Knob moves remembered per (queue, knob) by the autotune oscillation
+    #: detector.
+    oscillation_window: int = 8
+
+    def enabled(self) -> bool:
+        return self.capture
 
 
 _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
@@ -425,6 +473,11 @@ _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "overload": OverloadConfig, "chaos": ChaosConfig,
              "observability": ObservabilityConfig,
              "durability": DurabilityConfig, "forensics": ForensicsConfig}
+
+
+#: Top-level scalar keys the port carries (the JAX package's
+#: ``workers``, ``seed`` and ``debug_invariants`` are not carried).
+_SCALARS = ("metrics_port", "metrics_host")
 
 
 def _tuples(v):
@@ -460,8 +513,13 @@ class Config:
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig)
-    #: The event spine's ring.
+    #: The event spine's ring and the incident capture.
     forensics: ForensicsConfig = field(default_factory=ForensicsConfig)
+    #: The HTTP observability server's port (service/observability.py:
+    #: /healthz, /metrics, /debug/*); 0: no server.
+    metrics_port: int = 0
+    #: Its bind host (containers set ``0.0.0.0``).
+    metrics_host: str = "127.0.0.1"
 
     @staticmethod
     def from_dict(d: Mapping[str, Any], *, backend: str | None = None) -> "Config":
@@ -478,9 +536,12 @@ class Config:
         for name, cls in _SECTIONS.items():
             if name in d:
                 kw[name] = cls(**_known(cls, name, d[name]))
+        for scalar in _SCALARS:
+            if scalar in d:
+                kw[scalar] = d[scalar]
         for name in d:
-            if name not in _SECTIONS and name != "queues" \
-                    and not name.startswith("_"):
+            if name not in _SECTIONS and name not in _SCALARS \
+                    and name != "queues" and not name.startswith("_"):
                 logging.getLogger(__name__).warning(
                     "config: ignoring section %r (not carried by the port)",
                     name)
@@ -501,7 +562,9 @@ class Config:
         ``MM_<SECTION>_<KEY>`` (``MM_DURABILITY_JOURNAL_DIR``) with values
         parsed as JSON where they parse; ``MM_CONFIG_JSON=<path>`` loads a
         whole tree first (the variables win over it) and
-        ``MM_QUEUE_NAMES=a,b`` keeps only the named queues. The engine
+        ``MM_QUEUE_NAMES=a,b`` keeps only the named queues;
+        ``MM_METRICS_PORT`` / ``MM_METRICS_HOST`` set the top-level
+        ``metrics_port`` / ``metrics_host``. The engine
         backend is ``backend`` unless ``MM_ENGINE_BACKEND`` names one: the
         files say the JAX package's ``"tpu"``."""
         env = {k[len(prefix):].lower(): v for k, v in os.environ.items()
@@ -516,6 +579,9 @@ class Config:
                 val: Any = json.loads(raw)
             except ValueError:
                 val = raw
+            if key in _SCALARS:
+                d[key] = val
+                continue
             section, _, name = key.partition("_")
             if name:
                 d.setdefault(section, {})[name] = val

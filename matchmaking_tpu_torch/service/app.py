@@ -127,12 +127,25 @@ code outside any graph capture; settling a trace rides the same effect
 queue as its answer, so its marks keep the order they have in the JAX
 app.
 
+Telemetry (``ObservabilityConfig.snapshot_interval_s``, 1 s by default;
+utils/timeseries.py): a task samples pool size, batch fill, breaker state,
+shed and expired, the stage p99, work and wait, SLO good/total, the device's
+busy and idle seconds and speculation into ``app.telemetry`` and then runs
+the SLO burn monitors (``slo_target_ms``: one per queue, one per tier with
+``overload.tiers`` > 1, and ``<queue>#quality`` with
+``quality_slo_target``). ``app.incidents`` (utils/forensics.py) freezes an
+incident bundle when a trigger event (an SLO burn, a breaker trip, a crash
+recovery) is stamped. With ``Config.metrics_port`` the app serves
+``/healthz``, ``/metrics`` and ``/debug/*`` (service/observability.py) on
+its own loop. A tick, a capture and a scrape read host state only.
+
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the object flush, the health timer, burst consume and
 decode, the speculation loop and cut, overload control and the circuit
 breaker, durability, the drain, auth, tracing, the metrics and the event
-log), without replication, telemetry and SLO burn monitors, incident
-capture, the AMQP transport, the dispatch arbiter and the HTTP surfaces.
+log, telemetry and the SLO burn monitors, incident capture and the HTTP
+surfaces), without replication, placement, the autotuner, the AMQP
+transport and the dispatch arbiter.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -205,9 +218,10 @@ from matchmaking_tpu_torch.service.overload import (
 from matchmaking_tpu_torch.service.quality import QualityLedger
 from matchmaking_tpu_torch.utils import checkpoint
 from matchmaking_tpu_torch.utils.chaos import ChaosState
-from matchmaking_tpu_torch.utils.forensics import EventSpine
+from matchmaking_tpu_torch.utils.forensics import EventSpine, IncidentRecorder
 from matchmaking_tpu_torch.utils.journal import PoolJournal, row_to_request
 from matchmaking_tpu_torch.utils.metrics import Metrics
+from matchmaking_tpu_torch.utils.timeseries import SloMonitor, TelemetryRing
 from matchmaking_tpu_torch.utils.trace import (
     EventLog,
     FlightRecorder,
@@ -479,6 +493,11 @@ class _QueueRuntime:
             self.broker.basic_cancel(self._tag)
             self._tag = None
         self.engine.close()
+
+    def dedup_cache_size(self) -> int:
+        """The terminal-replay cache's entries (what ``/metrics`` reports
+        as ``dedup_cache``)."""
+        return len(self._recent)
 
     def faults(self) -> dict[str, object]:
         """The failures this queue caught and recovered from: the nonzero
@@ -2565,8 +2584,10 @@ class MatchmakingApp:
 
     ``engine``, ``counters`` and ``queue_cfg`` are the first queue's (a
     one-queue app's); ``runtime(name)`` gives any queue's. ``spine``,
-    ``events``, ``metrics``, ``recorder`` and ``attribution`` are the
-    app's observability sinks (built in the JAX app's order)."""
+    ``events``, ``metrics``, ``recorder``, ``attribution``, ``quality``,
+    ``telemetry`` and ``incidents`` are the app's observability sinks
+    (built in the JAX app's order: all of them before any runtime starts,
+    since a recovery at ``start`` stamps ``crash_recovered``)."""
 
     def __init__(self, cfg: Config, broker: InProcBroker | None = None,
                  device=None):
@@ -2601,6 +2622,13 @@ class MatchmakingApp:
         self.quality = QualityLedger(
             QualitySpec.from_config(obs),
             quality_target=obs.quality_slo_target)
+        #: The telemetry ring, sampled every ``snapshot_interval_s`` by
+        #: ``_telemetry_loop`` (and by ``sample_telemetry`` on demand).
+        self.telemetry = TelemetryRing(obs.telemetry_ring)
+        #: The SLO burn monitors by key (queue, ``queue@tN``,
+        #: ``queue#quality``), built at ``start`` after the recovery.
+        self._slo_monitors: dict[str, SloMonitor] = {}
+        self._telemetry_task: asyncio.Task | None = None
         #: Scripted engine faults (None: no chaos configured); each queue
         #: runtime takes its hook from here.
         self.chaos = (ChaosState(cfg.chaos, events=self.events)
@@ -2614,16 +2642,68 @@ class MatchmakingApp:
             raise ValueError(f"queue names must be distinct: {names}")
         self._runtimes = {q.name: _QueueRuntime(self, q) for q in cfg.queues}
         self._first = self._runtimes[names[0]]
+        #: Incident capture: subscribes to the spine (with
+        #: ``forensics.capture``), after ``_runtimes`` exists.
+        self.incidents = IncidentRecorder(self, cfg.forensics)
+        #: The HTTP server (``metrics_port``), from ``start`` on.
+        self._observability = None
 
     async def start(self) -> None:
         """Load the codec, then start every queue: its engine, the
         recovery of an unclean predecessor's journal, its consumer and
-        loops, and then its compaction timer."""
+        loops, and then its compaction timer. Then the SLO burn monitors,
+        the telemetry sampler and, with ``metrics_port``, the HTTP
+        server."""
         codec.load()  # a codec that cannot build raises here
         for rt in self._runtimes.values():
             await rt.start()
+        obs = self.cfg.observability
+
+        def monitor(key: str, target: float, objective: float,
+                    **series) -> None:
+            self._slo_monitors[key] = SloMonitor(
+                key, target_ms=target, objective=objective,
+                fast_window_s=obs.slo_fast_window_s,
+                slow_window_s=obs.slo_slow_window_s,
+                burn_threshold=obs.slo_burn_threshold,
+                events=self.events, metrics=self.metrics, **series)
+
+        for name in self._runtimes:
+            if obs.slo_target_ms > 0:
+                monitor(name, obs.slo_target_ms, obs.slo_objective)
+                # One monitor per tier too: tier 0 holding while tier 2
+                # burns must not average into one number.
+                if self.cfg.overload.tiers > 1:
+                    for t in range(self.cfg.overload.tiers):
+                        monitor(f"{name}@t{t}", obs.slo_target_ms,
+                                obs.slo_objective)
+        for name in self._runtimes:
+            if obs.quality_slo_target > 0:
+                monitor(f"{name}#quality", obs.quality_slo_target,
+                        obs.quality_slo_objective,
+                        good_key=f"quality_good[{name}]",
+                        total_key=f"quality_total[{name}]", kind="quality")
+        if obs.snapshot_interval_s > 0:
+            self._telemetry_task = asyncio.create_task(self._telemetry_loop())
+        elif self._slo_monitors:
+            # The monitors evaluate on telemetry ticks only.
+            log.warning(
+                "slo_target_ms is set but snapshot_interval_s=0 disables "
+                "the telemetry sampler — SLO burn monitors will never "
+                "evaluate (call sample_telemetry() manually, or set an "
+                "interval)")
+        if self.cfg.metrics_port:
+            from matchmaking_tpu_torch.service.observability import (
+                ObservabilityServer,
+            )
+
+            self._observability = ObservabilityServer(
+                self, host=self.cfg.metrics_host, port=self.cfg.metrics_port)
+            await self._observability.start()
 
     async def stop(self) -> None:
+        await self._stop_telemetry()
+        await self._stop_observability()
         for rt in self._runtimes.values():
             await rt.stop()
 
@@ -2631,7 +2711,11 @@ class MatchmakingApp:
         """A hard crash, for tests and the smoke: no drain, no checkpoint,
         no clean marker; windows in flight and answers waiting for their
         commit are dropped and the broker's consumers die. A successor on
-        the same ``journal_dir`` must recover what is on disk."""
+        the same ``journal_dir`` must recover what is on disk. Without an
+        HTTP server it never yields: one ``send(None)`` runs it to its
+        end."""
+        self._cancel_telemetry()
+        await self._stop_observability()
         for rt in self._runtimes.values():
             rt.abandon()
         self.broker.close()
@@ -2647,6 +2731,7 @@ class MatchmakingApp:
         players saved per queue ({} without a directory)."""
         directory = (checkpoint_dir if checkpoint_dir is not None
                      else self.cfg.overload.drain_checkpoint_dir)
+        await self._stop_telemetry()
         self.events.append("drain_begin", "",
                            f"checkpoint={'on' if directory else 'off'}")
         for rt in self._runtimes.values():
@@ -2678,8 +2763,120 @@ class MatchmakingApp:
             "drain_complete", "",
             f"{sum(counts.values())} waiting players checkpointed"
             if directory else "no checkpoint directory")
+        # Only now: /healthz says "draining" for the whole drain.
+        await self._stop_observability()
         self.broker.close()
         return counts
+
+    # ---- telemetry (utils/timeseries.py) and the HTTP server ------------
+
+    def sample_telemetry(self, now: float | None = None) -> dict[str, float]:
+        """Take one telemetry snapshot into the ring and run the SLO burn
+        monitors. ``_telemetry_loop`` calls it every
+        ``snapshot_interval_s``; tests call it with explicit ``now``
+        values. Reads host state only (pool sizes, gauges, monotone
+        counters, ``util_report`` and ``spec_report``: no device read)."""
+        now = time.time() if now is None else now
+        prev = self.telemetry.latest()
+        prev_vals = prev["values"] if prev is not None else {}
+        vals: dict[str, float] = {
+            "players_matched": self.metrics.counters.get("players_matched"),
+        }
+        gauges = self.metrics.gauges
+        tiers = self.cfg.overload.tiers
+        for name, rt in self._runtimes.items():
+            vals[f"pool_size[{name}]"] = float(rt.engine.pool_size())
+            for gauge in ("batch_fill", "breaker_state"):
+                g = gauges.get(f"{gauge}[{name}]")
+                if g is not None:
+                    vals[f"{gauge}[{name}]"] = g
+            adm = rt.admission
+            if adm is not None:
+                vals[f"shed_total[{name}]"] = float(adm.shed_total)
+                vals[f"expired_total[{name}]"] = float(adm.expired_total)
+                if adm.tiers > 1:
+                    for t in range(adm.tiers):
+                        vals[f"shed_total[{name}@t{t}]"] = float(
+                            adm.shed_by_tier[t])
+                        vals[f"expired_total[{name}@t{t}]"] = float(
+                            adm.expired_by_tier[t])
+            hist = self.metrics.stages.get(name, {}).get("total")
+            if hist is not None and hist.count:
+                vals[f"stage_total_p99_ms[{name}]"] = round(
+                    hist.percentile(99) * 1e3, 3)
+            totals = self.attribution.queue_totals(name)
+            vals[f"work_s[{name}]"] = round(totals["work_s"], 6)
+            vals[f"wait_s[{name}]"] = round(totals["wait_s"], 6)
+            good, total = self.attribution.slo_counts(name)
+            vals[f"slo_good[{name}]"] = float(good)
+            vals[f"slo_total[{name}]"] = float(total)
+            if self.cfg.observability.quality_slo_target > 0:
+                qg, qt = self.quality.slo_counts(name)
+                vals[f"quality_good[{name}]"] = float(qg)
+                vals[f"quality_total[{name}]"] = float(qt)
+            if tiers > 1:
+                for t in range(tiers):
+                    tg, tt = self.attribution.slo_counts_tier(name, t)
+                    vals[f"slo_good[{name}@t{t}]"] = float(tg)
+                    vals[f"slo_total[{name}@t{t}]"] = float(tt)
+            if hasattr(rt.engine, "util_report"):
+                u = rt.engine.util_report()
+                vals[f"device_busy_s[{name}]"] = u["device_busy_s"]
+                vals[f"device_idle_s[{name}]"] = u["device_idle_s"]
+                vals[f"effective_occupancy[{name}]"] = (
+                    u["effective_occupancy"])
+                # Idle fraction over the interval since the last snapshot;
+                # a negative delta means a revive or breaker swap reset the
+                # counters, and then the new engine's lifetime fraction.
+                db = u["device_busy_s"] - prev_vals.get(
+                    f"device_busy_s[{name}]", 0.0)
+                di = u["device_idle_s"] - prev_vals.get(
+                    f"device_idle_s[{name}]", 0.0)
+                vals[f"idle_frac[{name}]"] = (
+                    round(di / (db + di), 6)
+                    if db >= 0.0 and di >= 0.0 and db + di > 0
+                    else u["idle_fraction"])
+                vals[f"spec_commit_share[{name}]"] = u.get(
+                    "spec_commit_share", 0.0)
+            sr = rt.engine.spec_report()
+            if sr is not None:
+                for k in ("spec_hit", "spec_miss", "spec_wasted"):
+                    vals[f"{k}[{name}]"] = float(sr[k])
+                vals[f"spec_hit_rate[{name}]"] = sr["spec_hit_rate"]
+        self.telemetry.append(now, vals)
+        for mon in self._slo_monitors.values():
+            mon.evaluate(self.telemetry, now)
+        return vals
+
+    async def _telemetry_loop(self) -> None:
+        """The sampler: a failed tick is logged and counted
+        (``telemetry_errors``), and the next one runs."""
+        interval = self.cfg.observability.snapshot_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                self.sample_telemetry()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("telemetry snapshot failed; retrying")
+                self.metrics.counters.inc("telemetry_errors")
+
+    def _cancel_telemetry(self) -> asyncio.Task | None:
+        task, self._telemetry_task = self._telemetry_task, None
+        if task is not None:
+            task.cancel()
+        return task
+
+    async def _stop_telemetry(self) -> None:
+        task = self._cancel_telemetry()
+        if task is not None:
+            await asyncio.gather(task, return_exceptions=True)
+
+    async def _stop_observability(self) -> None:
+        server, self._observability = self._observability, None
+        if server is not None:
+            await server.stop()
 
     async def save_checkpoint(self, directory: str) -> dict[str, int]:
         """Write every queue's waiting pool to ``directory``, one
@@ -2844,9 +3041,12 @@ async def run_demo(device=None, players: int = 10,
 async def serve(stop: asyncio.Event | None = None, device=None) -> None:
     """The service's entry point: the config from the ``MM_*`` variables
     (``Config.from_env``), on the in-process broker, until SIGTERM or
-    SIGINT (or until ``stop`` is set). With
+    SIGINT (or until ``stop`` is set). With ``MM_METRICS_PORT`` the app
+    serves ``/healthz``, ``/metrics`` and ``/debug/*`` there (on
+    ``MM_METRICS_HOST``, default 127.0.0.1). With
     ``MM_OVERLOAD_DRAIN_CHECKPOINT_DIR`` the start restores what a
-    predecessor's drain saved there, and the shutdown is a drain into it;
+    predecessor's drain saved there, and the shutdown is a drain into it
+    (``/healthz`` answers ``draining`` until it completes);
     with ``MM_DURABILITY_JOURNAL_DIR`` a crashed predecessor's journal is
     recovered at start. An ``amqp://`` broker URL is refused: the AMQP
     transport (``service/amqp_transport.py``) is not carried by the

@@ -43,7 +43,7 @@ def test_config_file_loads_without_dropping_a_key(name, caplog):
                                      "BrokerConfig", "BatcherConfig",
                                      "AuthConfig", "OverloadConfig",
                                      "ObservabilityConfig",
-                                     "DurabilityConfig"])
+                                     "DurabilityConfig", "ForensicsConfig"])
 def test_port_fields_have_the_jax_names_and_defaults(section):
     port, jax = getattr(config, section)(), getattr(jax_config, section)()
     for f in dataclasses.fields(port):
@@ -85,10 +85,10 @@ def test_the_loops_read_their_knobs():
 
 
 def test_observability_and_pruning_keys_load(caplog):
-    """The quality and tracing keys and the pruning knobs load with their
-    JAX names and defaults, as does the forensics section's spine ring;
-    the observability and forensics sections' other keys (telemetry, the
-    SLO burn monitors, incident capture) warn and are dropped."""
+    """The quality, tracing, telemetry and SLO burn keys and the pruning
+    knobs load with their JAX names and defaults, as do the forensics
+    section (the spine ring and the incident capture) and the top-level
+    ``metrics_port`` / ``metrics_host``; nothing warns."""
     raw = {"queues": [{}],
            "engine": {"prune_window_blocks": 6, "prune_chunk": 128,
                       "band_spec": "gaussian:1500:300"},
@@ -99,15 +99,30 @@ def test_observability_and_pruning_keys_load(caplog):
                              "slo_target_ms": 50.0,
                              "trace_sample_n": 4,
                              "stage_buckets": [0.01, 0.001],
-                             "snapshot_interval_s": 2.0},
-           "forensics": {"spine_ring": 128, "capture": False}}
+                             "snapshot_interval_s": 2.0,
+                             "telemetry_ring": 64,
+                             "slo_objective": 0.95,
+                             "slo_fast_window_s": 5.0,
+                             "slo_slow_window_s": 30.0,
+                             "slo_burn_threshold": 2.0,
+                             "profile_dir": "prof"},
+           "forensics": {"spine_ring": 128, "capture": False,
+                         "incident_dir": "inc", "min_interval_s": 1.0},
+           "metrics_port": 9100, "metrics_host": "0.0.0.0"}
     with caplog.at_level(logging.WARNING, logger=config.__name__):
         cfg = config.Config.from_dict(raw, backend="gpu")
-    assert [r.getMessage() for r in caplog.records] == [
-        "config: ignoring observability.snapshot_interval_s (not carried by "
-        "the port)",
-        "config: ignoring forensics.capture (not carried by the port)"]
+    assert [r.getMessage() for r in caplog.records] == []
     want = jax_config.Config.from_dict(raw)
+    for f in dataclasses.fields(config.ObservabilityConfig):
+        assert (getattr(cfg.observability, f.name)
+                == getattr(want.observability, f.name)), f.name
+    for f in dataclasses.fields(config.ForensicsConfig):
+        assert (getattr(cfg.forensics, f.name)
+                == getattr(want.forensics, f.name)), f.name
+    assert (cfg.metrics_port, cfg.metrics_host) == (
+        want.metrics_port, want.metrics_host) == (9100, "0.0.0.0")
+    assert cfg.observability.snapshot_interval_s == 2.0
+    assert not cfg.forensics.enabled() and not want.forensics.enabled()
     for key in ("prune_window_blocks", "prune_chunk", "band_spec"):
         assert getattr(cfg.engine, key) == getattr(want.engine, key), key
     for key in ("quality_rating_edges", "quality_buckets",
@@ -128,6 +143,11 @@ def test_observability_and_pruning_keys_load(caplog):
                 == getattr(jdefault.observability, key)), key
     assert default.observability.trace is True
     assert default.forensics.spine_ring == jdefault.forensics.spine_ring
+    # The sampler and the capture are on by default, as in the JAX app.
+    assert default.observability.snapshot_interval_s == 1.0
+    assert default.forensics.enabled() and jdefault.forensics.enabled()
+    assert (default.metrics_port, default.metrics_host) == (
+        jdefault.metrics_port, jdefault.metrics_host) == (0, "127.0.0.1")
     assert cfg.observability.quality_rating_edges == (1200.0, 1800.0)
 
 
@@ -212,7 +232,11 @@ def test_from_env_reads_the_mm_variables_like_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("MM_OVERLOAD_DRAIN_CHECKPOINT_DIR", "/tmp/d")
     monkeypatch.setenv("MM_AUTH_MODE", "static")
     monkeypatch.setenv("MM_BATCHER_MAX_WAIT_MS", "2.5")
+    monkeypatch.setenv("MM_METRICS_PORT", "9123")
+    monkeypatch.setenv("MM_METRICS_HOST", "0.0.0.0")
     cfg, jcfg = config.Config.from_env(), jax_config.Config.from_env()
+    assert (cfg.metrics_port, cfg.metrics_host) == (
+        jcfg.metrics_port, jcfg.metrics_host) == (9123, "0.0.0.0")
     assert cfg.engine.backend == "gpu" and jcfg.engine.backend == "tpu"
     for section in ("durability", "overload", "auth", "batcher"):
         assert dataclasses.asdict(getattr(cfg, section)) == {

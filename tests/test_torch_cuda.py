@@ -1501,3 +1501,113 @@ def test_capture_survives_a_collection_of_older_graphs(cuda):
     (_, out), = eng.flush()
     assert out.n_matches > 0 and eng.device_error is None
     assert eng.graph_report()["captures"] == len(eng.graph_report()["graphs"])
+
+
+def test_telemetry_scrape_and_capture_do_not_sync(cuda):
+    """Config #1's service at full width on the card with 100k waiting and
+    two windows of 1,024 in flight (dispatched on the runtime's engine,
+    not collected): under sync debug mode a telemetry tick
+    (``sample_telemetry``, the burn monitors included), a ``/metrics``
+    report (``build_report``, which reads ``util_report``,
+    ``quality_report`` and ``formation_report``), its Prometheus text and
+    an incident capture (a ``breaker_trip`` stamped on the spine) read no
+    device memory."""
+    import asyncio
+
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.observability import (
+        _flatten_prom,
+        build_report,
+    )
+
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        observability=ObservabilityConfig(slo_target_ms=100.0))
+
+    async def run():
+        app = MatchmakingApp(cfg, device=cuda)
+        await app.start()
+        try:
+            rt = app.runtime(cfg.queues[0].name)
+            eng = rt.engine
+            rng = np.random.default_rng(71)
+            eng.restore_columns(interned(eng, named_columns(
+                rng, 100_000, 0, 100.0, False)), 100.0)
+            windows = [interned(eng, named_columns(
+                rng, 1024, 1_000_000 + 2048 * k, 101.0 + k, False))
+                for k in range(2)]
+            app.sample_telemetry(now=1.0)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for k, w in enumerate(windows):
+                    eng.search_columns_async(w, 101.0 + k)
+                assert eng.inflight() == 2
+                vals = app.sample_telemetry(now=2.0)
+                report = build_report(app)
+                text = _flatten_prom(report)
+                app.events.append("breaker_trip", rt.queue_cfg.name,
+                                  "fixture trip")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            outs = eng.flush()
+        finally:
+            await app.stop()
+        return app, vals, report, text, outs
+
+    app, vals, report, text, outs = asyncio.run(run())
+    q = cfg.queues[0].name
+    assert len(outs) == 2 and all(o.n_matches > 0 for _, o in outs)
+    assert vals[f"pool_size[{q}]"] > 100_000
+    assert report["pools"][q] == vals[f"pool_size[{q}]"]
+    assert f'matchmaking_pool_size{{queue="{q}"}}' in text
+    assert app.incidents.by_class == {"breaker_trip": 1}
+
+
+def test_a_graph_captured_under_the_profiler_replays_bit_equal(cuda):
+    """A window step whose CUDA graph is captured while torch.profiler
+    traces the card (CPU and CUDA activities, as ``/debug/profile`` runs
+    it) replays bit-equal to the eager step: config #1 at full width, 100k
+    waiting, the first window of each of two buckets captured inside the
+    profile, then three more windows of those buckets replayed after it
+    (every window filtered: one variant); the profile names the step's
+    kernels."""
+    import torch.profiler as tp
+
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    queue = cfg.queues[0]
+    graphed = GpuEngine(cfg, queue, device=cuda)
+    eager = GpuEngine(cfg, queue, device=cuda)
+    eager._graphs = None
+    rng = np.random.default_rng(81)
+    fill = named_columns(rng, 100_000, 0, 100.0, False)
+    for eng in (graphed, eager):
+        eng.restore_columns(interned(eng, fill), 100.0)
+    plan = [(1024, True), (64, True), (1024, False), (64, False),
+            (1024, False)]  # (window size, inside the profile)
+    t, start = 101.0, 1_000_000
+    prof = tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                  tp.ProfilerActivity.CUDA])
+    prof.start()
+    for n, profiled in plan:
+        if not profiled and prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
+            names = {e.key for e in prof.key_averages()}
+            prof = None
+        window = named_columns(rng, n, start, t, True)
+        start += n
+        outs = []
+        for eng in (graphed, eager):
+            eng.search_columns_async(interned(eng, window), t)
+            (_, out), = eng.flush()
+            outs.append(out)
+        assert_same_columnar(*outs)
+        assert_same_engines(graphed, eager)
+        t += 0.5
+    assert graphed.graph_report()["captures"] == 2
+    for kernel in ("prep_kernel", "block_best_kernel", "quality_accum_kernel"):
+        assert any(kernel in name for name in names), kernel

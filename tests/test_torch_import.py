@@ -61,11 +61,13 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.service.breaker",
                  "matchmaking_tpu_torch.service.batcher",
                  "matchmaking_tpu_torch.service.attribution",
+                 "matchmaking_tpu_torch.service.observability",
                  "matchmaking_tpu_torch.utils.chaos",
                  "matchmaking_tpu_torch.utils.checkpoint",
                  "matchmaking_tpu_torch.utils.forensics",
                  "matchmaking_tpu_torch.utils.journal",
                  "matchmaking_tpu_torch.utils.metrics",
+                 "matchmaking_tpu_torch.utils.timeseries",
                  "matchmaking_tpu_torch.utils.trace"):
         assert must in mods
 
