@@ -235,8 +235,36 @@ Phases, each of which raises (exit code != 0) when it fails:
 time over each of phase 4's two soaks and phase 9's three beside the
 output file.
 
+11. resilience: config #1's service at full width with 100k restored.
+   11a: 16,384 requests in bursts of 512 under seeded broker chaos on the
+   request queue (1 % drops and duplicates, seq 0's first attempt
+   dropped, seq 1 delivered 9 times, a partition from publish seq 4,096
+   to 4,608) with ``debug_invariants``, twice, then without chaos on the
+   burst path and with ``consume_batch`` off (the per-delivery path that
+   consume faults force): the two chaos runs' fault stats and fault
+   events equal, no invariant violated, every request answered, nothing
+   dead-lettered; requests/s and latency p50/p99 of each. 11b: the
+   journal on (fsync "none"), the 100k recovered from a journal at each
+   start; replication off and on in turns, two rounds each (an
+   in-process hub, a standby pumped every 20 ms): requests/s, latency,
+   the lag in records (p50/p99 over the pumps), the tap's host µs a
+   record, a pump's host ms, the baseline's bytes and host ms at 100k
+   waiting; the shadow equals the pool, and no tap, send or pump failed.
+   11c: a second stream crashed after its 4th window; the standby takes
+   over at a scripted time (epoch 2); a successor on the card adopts the
+   shadow (RTO and its split: restore, heartbeat, compaction), which is
+   the primary's mirror at the crash; the fenced ex-primary's append
+   raises and its publish is refused and counted; 512 matched players'
+   redeliveries replay their bodies; 1,024 new requests under
+   torch.profiler launch block_best and quality_accum, as often as the
+   device ran them; nobody matched by both apps; a valid ``failover``
+   bundle. 11d: 8,192 requests with a scripted drop, duplicate, delay and
+   partition on the replication link: the lag during the partition, the
+   peak ``unacked_admit_players`` (the loss bound), and the shadow equal
+   to the pool after the heal.
+
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-10, the
+JSON summary of phases 3-11, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -4874,6 +4902,547 @@ async def service_observability(np, ck, mods, path, *, waiting, requests,
     return res
 
 
+# ---- phase 11: resilience: broker chaos, replication, failover --------------
+
+#: 11a's broker chaos (the request queue only): seeded 1 % drops and
+#: duplicates, seq 0's first attempt dropped, seq 1 delivered 1 + 8 times,
+#: a partition from publish seq 4,096 to 4,608.
+RESILIENCE_CHAOS = dict(seed=7, drop_prob=0.01, dup_prob=0.01, drop_seqs=(0,),
+                        dup_seqs=((1, 8),), partitions=((4096, 4608),))
+#: The replication hub's lease (s) and the primary's pump cadence.
+LEASE_S, PUMP_S = 0.5, 0.02
+FAULT_STATS = ("dropped", "duplicated", "delayed", "partitions",
+               "dead_lettered")
+FAULT_KINDS = ("chaos_drop", "chaos_dup", "partition_pause",
+               "partition_resume", "dead_letter")
+
+
+def resilience_cfg(Config, path, *, journal_dir=None, chaos=None,
+                   consume_batch=True, replication=False, owner="primary"):
+    """Config #1 with phase 11's knobs: the journal with fsync "none"
+    (the disk stays out of it), ``chaos`` on the request queue with
+    ``debug_invariants``, replication as primary ``owner``."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.config import ChaosConfig, ReplicationConfig
+
+    cfg = durable_cfg(Config, path, journal_dir=journal_dir, fsync="none")
+    queue = cfg.queues[0].name
+    return dataclasses.replace(
+        cfg, broker=dataclasses.replace(cfg.broker, consume_batch=consume_batch),
+        chaos=(ChaosConfig(queues=(queue,), **chaos) if chaos
+               else ChaosConfig()),
+        debug_invariants=chaos is not None,
+        replication=(ReplicationConfig(role="primary", owner=owner,
+                                       pump_interval_s=PUMP_S)
+                     if replication else ReplicationConfig()))
+
+
+def check_answers(replies, pids, what):
+    """Every request answered (queued and/or matched), and nobody in two
+    matches."""
+    for pid in pids:
+        if set(replies.statuses(pid)) - {"queued", "matched"} or not (
+                replies.statuses(pid)):
+            raise AssertionError(f"{what}: {pid} answered "
+                                 f"{replies.statuses(pid)}")
+    twice = [p for p, ids in replies.matched().items() if len(ids) > 1]
+    if twice:
+        raise AssertionError(f"{what}: {len(twice)} players in two matches")
+
+
+async def service_chaos(np, ck, mods, path, *, waiting, requests, burst,
+                        seed):
+    """11a. Config #1's service at full width, ``waiting`` restored, then
+    ``requests`` in bursts of ``burst``: twice with ``RESILIENCE_CHAOS``
+    and ``debug_invariants`` (the fault stats and fault events of both
+    runs equal, no invariant violated, every request answered, nothing
+    dead-lettered), then without chaos on the burst path and on the
+    per-delivery path (``consume_batch`` off: the path consume faults
+    force). Requests/s and latency p50/p99 of each."""
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=False)
+    reply = "chaos.replies"
+    runs = {}
+    for name, chaos, batch in (("chaos_1", RESILIENCE_CHAOS, True),
+                               ("chaos_2", RESILIENCE_CHAOS, True),
+                               ("off", None, True),
+                               ("off_per_delivery", None, False)):
+        cfg = resilience_cfg(Config, path, chaos=chaos, consume_batch=batch)
+        app = MatchmakingApp(cfg, device="cuda")
+        await app.start()
+        replies = Replies(app, reply)
+        fill = pop.columns(RequestColumns, app.engine, 0, waiting, t0, reply)
+        app.restore_columns(fill, pop.region[:waiting], pop.mode[:waiting], t0)
+        rt = app.runtime(cfg.queues[0].name)
+        reset_counts(ck)
+        soak_s, t_pub = await publish_and_wait(
+            app, request_bodies(pop, waiting, waiting + requests), burst,
+            reply, replies)
+        await settle(app)
+        launches = dict(ck.LAUNCHES)
+        p50, p99 = latency_ms(replies, t_pub)
+        check_answers(replies, t_pub, f"11a {name}")
+        check_faults(app, f"11a {name}")
+        stats = app.broker.stats
+        kinds = [e["kind"] for e in app.events.snapshot()]
+        runs[name] = {
+            "requests_per_s": requests / soak_s, "soak_s": soak_s,
+            "latency_ms_p50": p50, "latency_ms_p99": p99,
+            "windows": rt.counters["windows"],
+            "deduped_replays": rt.counters["deduped_replays"],
+            "fault_stats": {k: stats[k] for k in FAULT_STATS},
+            "fault_events": {k: kinds.count(k) for k in FAULT_KINDS},
+            "launches": launches}
+        await app.stop()
+        if launches["block_best"] == 0 or (launches["quality_accum"]
+                                           != launches["block_best"]):
+            raise AssertionError(f"11a {name}: launches {launches}")
+    a, b = runs["chaos_1"], runs["chaos_2"]
+    if (a["fault_stats"] != b["fault_stats"]
+            or a["fault_events"] != b["fault_events"]):
+        raise AssertionError(f"11a: the chaos runs differ: {a['fault_stats']} "
+                             f"{a['fault_events']} vs {b['fault_stats']} "
+                             f"{b['fault_events']}")
+    fs = a["fault_stats"]
+    if (fs["dead_lettered"] or fs["partitions"] != 1 or fs["dropped"] < 1
+            or fs["duplicated"] < 8):
+        raise AssertionError(f"11a: fault stats {fs}")
+    log("11a broker chaos: " + ", ".join(
+        f"{n} {r['requests_per_s']:.0f} requests/s p50 "
+        f"{r['latency_ms_p50']:.2f} ms p99 {r['latency_ms_p99']:.2f} ms"
+        for n, r in runs.items()) + f"; faults {fs}, events "
+        f"{a['fault_events']} (equal in both chaos runs)")
+    return runs
+
+
+class StandbyPump:
+    """A standby pumped every ``interval`` s on the loop, beside the
+    primary's own pump task: the lag in records at each pump, the tap's,
+    the primary pump's and the standby's apply host time (their calls
+    wrapped; the in-process standby applies on the service's own loop),
+    and, while a link partition holds, the lag and
+    ``unacked_admit_players``."""
+
+    def __init__(self, rt, standby, interval=PUMP_S, track_unacked=False):
+        self.rt, self.standby = rt, standby
+        self.lags, self.partition_lags = [], []
+        self.tap_s = self.pump_s = self.apply_s = 0.0
+        self.taps = self.pumps = 0
+        self.peak_unacked = 0
+        self.track_unacked = track_unacked
+        real_tap, repl = rt.journal.tap, rt.replication
+        real_pump = repl.pump
+
+        def tap(seq, rtype, payload):
+            t = time.perf_counter()
+            real_tap(seq, rtype, payload)
+            self.tap_s += time.perf_counter() - t
+            self.taps += 1
+
+        def pump(now):
+            t = time.perf_counter()
+            real_pump(now)
+            self.pump_s += time.perf_counter() - t
+            self.pumps += 1
+        rt.journal.tap, repl.pump = tap, pump
+        self.task = asyncio.ensure_future(self._run(interval))
+
+    async def _run(self, interval):
+        repl = self.rt.replication
+        while True:
+            await asyncio.sleep(interval)
+            t = time.perf_counter()
+            self.standby.pump()
+            self.apply_s += time.perf_counter() - t
+            self.lags.append(repl.lag())
+            if self.standby.link._partitioned:
+                self.partition_lags.append(repl.lag())
+                if self.track_unacked:
+                    self.peak_unacked = max(self.peak_unacked,
+                                            repl.unacked_admit_players())
+
+    async def quiesce(self, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not self.rt.replication.quiescent:
+            if time.monotonic() > end:
+                raise AssertionError("replication did not quiesce")
+            await asyncio.sleep(0.01)
+
+    def stop(self):
+        self.task.cancel()
+
+    def summary(self):
+        lags = sorted(self.lags) or [0]
+        return {"lag_records_p50": statistics.median(lags),
+                "lag_records_p99": pct(lags, 0.99),
+                "lag_records_max": lags[-1], "pumps_seen": len(self.lags),
+                "tap_us_per_record": self.tap_s / max(1, self.taps) * 1e6,
+                "records": self.taps,
+                "pump_ms": self.pump_s / max(1, self.pumps) * 1e3,
+                "primary_pumps": self.pumps,
+                "standby_apply_ms_total": self.apply_s * 1e3}
+
+
+def check_replication(app, rt, standby, what):
+    """The shadow is the pool, and nothing on the replication path failed
+    (a tap or a send that raised, a pump error)."""
+    errors = (rt.journal.tap_errors, rt.replication.send_errors,
+              rt.counters["replication_pump_errors"])
+    if any(errors):
+        raise AssertionError(f"{what}: tap/send/pump errors {errors}")
+    pool = set(rt.engine.pool._slot_of)
+    shadow = set(standby.shadow.waiting)
+    if pool != shadow:
+        raise AssertionError(f"{what}: the shadow differs from the pool in "
+                             f"{len(pool ^ shadow)} players")
+    if standby.applied_seq != rt.journal.seq:
+        raise AssertionError(f"{what}: applied {standby.applied_seq}, "
+                             f"journal at {rt.journal.seq}")
+    check_faults(app, what)
+
+
+async def service_replication(np, torch, ck, mods, path, *, waiting,
+                              requests, burst, seed):
+    """11b-11d. Config #1's service at full width with the journal on
+    (fsync "none"). The 100k waiting come from a journal: one app restores
+    and anchors them, then crashes; each leg recovers a copy of that
+    directory at its start. 11b: replication off and on in turns, two
+    rounds each (on: an in-process hub, a standby pumped every
+    ``PUMP_S``): requests/s and latency of ``requests`` in bursts of
+    ``burst``; on: the lag in records (p50/p99 over the pumps), the tap's
+    host µs a record, a pump's host ms, the baseline's bytes and host ms
+    at 100k waiting, and the shadow equal to the pool. 11c, on the last
+    on leg: a second stream crashed after its 4th window; the standby
+    takes over at a scripted time; a successor on the card adopts the
+    shadow (RTO and its split); the adopted pool is the shadow's and the
+    primary's mirror at the crash; the fenced ex-primary's append raises
+    and its publish is refused and counted; matched players' redeliveries
+    replay their bodies; 1,024 new requests under torch.profiler launch
+    block_best and quality_accum (the device's count equals the launch
+    count); nobody is matched by both apps. 11d: a soak of 8,192 with
+    ``repl_*`` link faults (a drop, a duplicate, a delay, one partition)
+    relative to the baseline's seq: the lag during the partition, the
+    peak ``unacked_admit_players``, and the shadow equal to the pool
+    after the heal."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from matchmaking_tpu_torch.config import ChaosConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.replication import ReplicationHub
+    from matchmaking_tpu_torch.utils.journal import FencedError
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    second, fresh_n, faults_n = 8_192, 1_024, 8_192
+    pop = Population(np, rng, waiting + requests + second + fresh_n
+                     + 512 + faults_n, t0, filters=False, glicko2=False)
+    work = tempfile.mkdtemp(prefix="mm_repl_")
+    seed_dir = os.path.join(work, "seed")
+    reply = "repl.replies"
+    res: dict = {"legs": []}
+    try:
+        # The 100k in a journal: restored, anchored, crashed.
+        cfg0 = resilience_cfg(Config, path, journal_dir=seed_dir)
+        queue = cfg0.queues[0].name
+        app0 = MatchmakingApp(cfg0, device="cuda")
+        await app0.start()
+        fill = pop.columns(RequestColumns, app0.engine, 0, waiting, t0, reply)
+        app0.restore_columns(fill, pop.region[:waiting], pop.mode[:waiting],
+                             t0)
+        await app0.runtime(queue).compact_journal()
+        await app0.crash()
+        del app0
+
+        def leg_app(name, on, hub=None, owner="hostA"):
+            jdir = os.path.join(work, name)
+            if os.path.exists(seed_dir) and name.startswith("leg"):
+                shutil.copytree(seed_dir, jdir)
+            return MatchmakingApp(
+                resilience_cfg(Config, path, journal_dir=jdir, replication=on,
+                               owner=owner),
+                device="cuda", replication_hub=hub)
+
+        # ---- 11b: off and on in turns ---------------------------------
+        keep = None
+        for i, on in enumerate((False, True, False, True)):
+            hub = ReplicationHub(lease_s=LEASE_S) if on else None
+            app = leg_app(f"leg{i}", on, hub)
+            t = time.perf_counter()
+            await app.start()
+            start_ms = (time.perf_counter() - t) * 1e3
+            rt = app.runtime(queue)
+            rec = rt.last_recovery
+            if rec is None or rec["snapshot_players"] != waiting:
+                raise AssertionError(f"11b leg {i}: recovered {rec}")
+            meter = standby = None
+            baseline_apply_ms = None
+            if on:
+                standby = hub.standby(queue, owner="hostB")
+                # The baseline applied before the soak (a standby that
+                # attached before the traffic).
+                t = time.perf_counter()
+                standby.pump()
+                baseline_apply_ms = (time.perf_counter() - t) * 1e3
+                meter = StandbyPump(rt, standby)
+            replies = Replies(app, reply)
+            reset_counts(ck)
+            soak_s, t_pub = await publish_and_wait(
+                app, request_bodies(pop, waiting, waiting + requests), burst,
+                reply, replies)
+            await settle(app)
+            launches = dict(ck.LAUNCHES)
+            p50, p99 = latency_ms(replies, t_pub)
+            check_answers(replies, t_pub, f"11b leg {i}")
+            leg = {"replication": on, "requests_per_s": requests / soak_s,
+                   "latency_ms_p50": p50, "latency_ms_p99": p99,
+                   "start_ms": start_ms, "recovery_rto_ms": rec["rto_ms"],
+                   "windows": rt.counters["windows"], "launches": launches}
+            if on:
+                await meter.quiesce()
+                standby.pump()
+                check_replication(app, rt, standby, f"11b leg {i}")
+                leg.update(meter.summary())
+                leg["baseline"] = dict(rt.last_baseline,
+                                       standby_apply_ms=baseline_apply_ms)
+                if rt.last_baseline["players"] != waiting:
+                    raise AssertionError(f"11b: baseline {rt.last_baseline}")
+            else:
+                check_faults(app, f"11b leg {i}")
+            res["legs"].append(leg)
+            if i < 3:
+                if meter is not None:
+                    meter.stop()
+                await app.stop()
+                if on:
+                    standby.pump()
+                    if not standby.shadow.clean:
+                        raise AssertionError("11b: no CLEAN on the stream")
+            else:
+                keep = (app, rt, hub, standby, meter, replies)
+        offs = [leg for leg in res["legs"] if not leg["replication"]]
+        ons = [leg for leg in res["legs"] if leg["replication"]]
+        log("11b replication off/on in turns: " + ", ".join(
+            f"{'on' if leg['replication'] else 'off'} "
+            f"{leg['requests_per_s']:.0f}/s p50 {leg['latency_ms_p50']:.2f} "
+            f"p99 {leg['latency_ms_p99']:.2f} ms" for leg in res["legs"])
+            + f"; lag p50/p99 {[(o['lag_records_p50'], o['lag_records_p99']) for o in ons]} "
+            f"records, tap {[round(o['tap_us_per_record'], 2) for o in ons]} "
+            f"µs a record, pump {[round(o['pump_ms'], 4) for o in ons]} ms, "
+            f"standby apply {[round(o['standby_apply_ms_total'], 1) for o in ons]} "
+            f"ms a soak (on the service's loop), "
+            f"baseline {ons[0]['baseline']}")
+        del offs
+
+        # ---- 11c: failover ----------------------------------------------
+        app, rt, hub, standby, meter, replies = keep
+        lo = waiting + requests
+        rows = request_bodies(pop, lo, lo + second)
+        state: dict = {}
+        real_admit = rt._journal_admit_cols
+
+        def admit_then_crash(cols):
+            real_admit(cols)
+            state["windows"] = state.get("windows", 0) + 1
+            if state["windows"] == 4:
+                state["in_flight"] = app.engine.inflight()
+                state["mirror"] = set(rt.engine.pool._slot_of)
+                crash = app.crash()
+                try:
+                    crash.send(None)
+                except StopIteration:
+                    pass
+                raise Crashed()
+        rt._journal_admit_cols = admit_then_crash
+        sent = []
+        from matchmaking_tpu_torch.service.broker import Properties
+        for b in range(0, second, burst):
+            for pid, body in rows[b:b + burst]:
+                sent.append((pid, body))
+                app.broker.publish(queue, body, Properties(
+                    reply_to=reply, correlation_id=pid))
+            await asyncio.sleep(0.004)
+            if "in_flight" in state:
+                break
+        if not state.get("in_flight"):
+            raise AssertionError(f"11c: no window in flight at the crash "
+                                 f"({state})")
+        flusher = rt._batcher._task
+        await asyncio.sleep(0.01)
+        if flusher.done() and not flusher.cancelled():
+            flusher.exception()  # the Crashed it ended with, retrieved
+        meter.stop()
+        matched_before = replies.matched()
+        answered_before = sum(len(v) for v in replies.got.values())
+        t = time.perf_counter()
+        epoch = standby.takeover(time.monotonic() + LEASE_S + 0.05)
+        takeover_ms = (time.perf_counter() - t) * 1e3
+        shadow = set(standby.shadow.waiting)
+        if epoch != 2 or not rt.replication.superseded():
+            raise AssertionError(f"11c: epoch {epoch}")
+        try:
+            rt.journal.append_admits([["zz", 1500.0, 350.0, "*", "*", None,
+                                       t0, reply, "zz", 0, 0.0]])
+            raise AssertionError("11c: the fenced primary appended")
+        except FencedError:
+            pass
+        rt._publish(reply, "zz", b"{}")
+        refused = rt.counters["fenced_publish_refused"]
+        if (refused != 1 or rt.replication.role != "fenced"
+                or sum(len(v) for v in replies.got.values())
+                != answered_before):
+            raise AssertionError(f"11c: the fenced primary published "
+                                 f"({refused} refused)")
+        if shadow != state["mirror"] or shadow & set(matched_before):
+            raise AssertionError(
+                f"11c: the shadow ({len(shadow)}) differs from the mirror at "
+                f"the crash ({len(state['mirror'])}) in "
+                f"{len(shadow ^ state['mirror'])} players")
+        app2 = leg_app("successor", True, hub, owner="hostB")
+        t = time.perf_counter()
+        await app2.start()
+        start2_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        drain_ms = (time.perf_counter() - t) * 1e3
+        rt2 = app2.runtime(queue)
+        rec = rt2.last_recovery
+        adopted = set(rt2.engine.pool._slot_of)
+        active = int(rt2.engine.dev_pool["active"].sum())
+        if (rec is None or rec.get("source") != "replica" or adopted != shadow
+                or active != len(adopted)):
+            raise AssertionError(f"11c: adopted {len(adopted)} ({active} "
+                                 f"active), shadow {len(shadow)}, {rec}")
+        replies2 = Replies(app2, reply)
+        # The matched players' redeliveries replay their bodies.
+        again = [(pid, body) for pid, body in sent if pid in matched_before]
+        again = again[:512]
+        for pid, body in again:
+            app2.broker.publish(queue, body, Properties(reply_to=reply,
+                                                        correlation_id=pid))
+        end = time.monotonic() + 60.0
+        while (not all(p in replies2.got for p, _ in again)
+               and time.monotonic() < end):
+            await asyncio.sleep(0.01)
+        for pid, _ in again:
+            first = [bd for _, bd in replies.got[pid]
+                     if json.loads(bd)["status"] == "matched"][0]
+            if replies2.got.get(pid, [(0, b"")])[0][1] != first:
+                raise AssertionError(f"11c: {pid}'s replay differs")
+        await settle(app2)
+        # 1,024 new requests on the successor, under the profiler.
+        lo2 = lo + second
+        fresh = request_bodies(pop, lo2, lo2 + fresh_n)
+        reset_counts(ck)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            await publish_and_wait(app2, fresh, fresh_n, reply, replies2)
+            await settle(app2)
+            torch.cuda.synchronize()
+        launches2 = dict(ck.LAUNCHES)
+        own = {name: 0 for name in OWN_KERNELS}
+        for e in prof.key_averages():
+            for name in OWN_KERNELS:
+                if name in e.key:
+                    own[name] += e.count
+        if (launches2["block_best"] == 0
+                or launches2["quality_accum"] != launches2["block_best"]
+                or own["block_best_kernel"] != launches2["block_best"]
+                or own["quality_accum_kernel"] != launches2["quality_accum"]):
+            raise AssertionError(f"11c: successor launches {launches2}, the "
+                                 f"device ran {own}")
+        check_answers(replies2, [p for p, _ in fresh], "11c successor")
+        both = {p: set(v) for p, v in matched_before.items()}
+        for p, ids in replies2.matched().items():
+            both.setdefault(p, set()).update(ids)
+        twice = [p for p, ids in both.items() if len(ids) > 1]
+        if twice:
+            raise AssertionError(f"11c: {len(twice)} players matched by both "
+                                 f"apps")
+        check_faults(app2, "11c successor")
+        (bundle,) = check_bundles(app2, "failover", "11c successor")
+        await app2.stop()
+        res["failover"] = {
+            "in_flight_at_crash": state["in_flight"],
+            "sent_before_crash": len(sent),
+            "matched_before_crash": len(matched_before),
+            "takeover_ms": takeover_ms, "epoch": epoch,
+            "shadow_players": len(shadow), "adopted_players": len(adopted),
+            "rto_ms": rec["rto_ms"], "split_ms": rec["split_ms"],
+            "successor_start_ms": start2_ms,
+            "device_drain_after_start_ms": drain_ms,
+            "dedup_entries": rec["dedup_entries"],
+            "replays_checked": len(again),
+            "fenced_publish_refused": refused,
+            "incident_capture_ms": bundle["capture_ms"],
+            "launches": launches2, "device_kernels": own}
+        log(f"11c failover: crash with {state['in_flight']} windows in "
+            f"flight; takeover {takeover_ms:.2f} ms (epoch {epoch}); the "
+            f"successor adopted {len(adopted)} (= the shadow = the mirror), "
+            f"rto {rec['rto_ms']:.1f} ms {rec['split_ms']}, {len(again)} "
+            f"replays equal, fenced publish refused, successor launches "
+            f"{launches2} = device {own}")
+
+        # ---- 11d: link faults ---------------------------------------------
+        base = ons[0]["baseline"]["seq"]
+        script = ChaosConfig(
+            queues=(queue,), repl_drop_seqs=(base + 3,),
+            repl_dup_seqs=(base + 5,), repl_delay_seqs=((base + 7, 2),),
+            repl_partitions=((base + 8, base + 16),))
+        hub = ReplicationHub(lease_s=LEASE_S, chaos=script)
+        app = leg_app("leg_faults", True, hub)
+        await app.start()
+        rt = app.runtime(queue)
+        if rt.last_baseline["seq"] != base:
+            raise AssertionError(f"11d: baseline seq {rt.last_baseline}, "
+                                 f"11b's {base}")
+        standby = hub.standby(queue, owner="hostB")
+        standby.pump()  # the baseline, before the traffic
+        meter = StandbyPump(rt, standby, track_unacked=True)
+        replies = Replies(app, reply)
+        lo3 = lo2 + fresh_n + 512
+        reset_counts(ck)
+        soak_s, t_pub = await publish_and_wait(
+            app, request_bodies(pop, lo3, lo3 + faults_n), burst, reply,
+            replies)
+        await settle(app)
+        launches3 = dict(ck.LAUNCHES)
+        check_answers(replies, t_pub, "11d")
+        await meter.quiesce()
+        standby.pump()
+        meter.stop()
+        check_replication(app, rt, standby, "11d")
+        link = dict(standby.link.counters)
+        if not (link.get("dropped") and link.get("dup") and link.get("delayed")
+                and link.get("partitions") == 1 and link.get("retransmits")):
+            raise AssertionError(f"11d: link counters {link}")
+        plags = sorted(meter.partition_lags) or [0]
+        res["link_faults"] = {
+            "requests_per_s": faults_n / soak_s, "link": link,
+            "partition_lag_records_max": plags[-1],
+            "partition_lag_records_p50": statistics.median(plags),
+            "peak_unacked_admit_players": meter.peak_unacked,
+            "applier": dict(standby.counters), "launches": launches3,
+            **{k: v for k, v in meter.summary().items()
+               if k.startswith("lag_")}}
+        await app.stop()
+        log(f"11d link faults: {link}; lag during the partition up to "
+            f"{plags[-1]} records, peak unacked_admit_players "
+            f"{meter.peak_unacked}; the shadow converged to the pool")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -5141,6 +5710,30 @@ def main(argv) -> int:
         launches["service_observability_" + name] = (
             run["launches"]["block_best"])
     phase_s["10"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 11. resilience at full width: config #1's service under seeded
+    #     broker chaos with the invariant checker (twice, then without),
+    #     replication off and on in turns, a failover onto a successor on
+    #     the card, and replication-link faults
+    chaos_runs = asyncio.run(service_chaos(
+        np, ck, mods, elo, waiting=100_000, requests=16_384, burst=512,
+        seed=23))
+    replication = asyncio.run(service_replication(
+        np, torch, ck, mods, elo, waiting=100_000, requests=16_384,
+        burst=512, seed=24))
+    phase11 = {"service_" + name: run["launches"]
+               for name, run in chaos_runs.items()}
+    phase11.update({f"service_replication_{i}_"
+                    f"{'on' if leg['replication'] else 'off'}": leg["launches"]
+                    for i, leg in enumerate(replication["legs"])})
+    phase11["service_failover_successor"] = (
+        replication["failover"]["launches"])
+    phase11["service_replication_link_faults"] = (
+        replication["link_faults"]["launches"])
+    for name, counts in phase11.items():
+        launches[name] = counts["block_best"]
+    phase_s["11"] = time.perf_counter() - t_phase
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -5166,7 +5759,8 @@ def main(argv) -> int:
                      + sum(r["launches"]["block_best"]
                            for r in tracing.values())
                      + sum(r["launches"]["block_best"]
-                           for r in observed.values()))
+                           for r in observed.values())
+                     + sum(c["block_best"] for c in phase11.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -5176,7 +5770,8 @@ def main(argv) -> int:
                   + sum(r["launches"]["quality_accum"]
                         for r in tracing.values())
                   + sum(r["launches"]["quality_accum"]
-                        for r in observed.values()))
+                        for r in observed.values())
+                  + sum(c["quality_accum"] for c in phase11.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -5224,7 +5819,8 @@ def main(argv) -> int:
             **{"service_trace_" + mode: run["launches"]["quality_accum"]
                for mode, run in tracing.items()},
             **{"service_observability_" + name: run["launches"]["quality_accum"]
-               for name, run in observed.items()}},
+               for name, run in observed.items()},
+            **{name: c["quality_accum"] for name, c in phase11.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -5328,6 +5924,16 @@ def main(argv) -> int:
         "observability": {name: {k: v for k, v in run.items()
                                  if k not in ("launches", "route_statuses")}
                           for name, run in observed.items()},
+        "chaos": {name: {k: v for k, v in run.items() if k != "launches"}
+                  for name, run in chaos_runs.items()},
+        "replication": {
+            "legs": [{k: v for k, v in leg.items() if k != "launches"}
+                     for leg in replication["legs"]],
+            "failover": {k: v for k, v in replication["failover"].items()
+                         if k not in ("launches", "device_kernels")},
+            "link_faults": {k: v for k, v in
+                            replication["link_faults"].items()
+                            if k != "launches"}},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -5363,6 +5969,7 @@ def main(argv) -> int:
                        "auth": auth_run, "tracing": tracing,
                        "observability": observed,
                        "cpu_route_statuses": cpu_statuses,
+                       "chaos": chaos_runs, "replication": replication,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

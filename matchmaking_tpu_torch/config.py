@@ -7,12 +7,11 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
 JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
-Sections and keys the port does not carry yet (replication, placement,
-autotune, the broker and network faults of chaos, ...) are ignored with a
-warning; a few values
-that need a module the port does not have yet are refused, with the module
-named: a ``replication`` section with a role at load, the multi-GPU chaos
-faults at construction.
+Sections and keys the port does not carry yet (placement, autotune, the
+network transport and its chaos faults, ``workers``, ...) are ignored with
+a warning; a value that needs a module the port does not have yet is
+refused, with the module named: the multi-GPU chaos faults at
+construction.
 """
 
 from __future__ import annotations
@@ -200,6 +199,14 @@ class BrokerConfig:
     #: the terminal-replay cache is split into N dicts by player id. 1 =
     #: one slice, decoded inline.
     ingress_shards: int = 1
+    #: Probabilistic faults (one ``random.Random(Config.seed)`` stream, so
+    #: their order follows the event loop's): a delivery dropped before
+    #: its handler runs (requeued), a publish delivered twice, and a delay
+    #: before each delivery is handled. ``ChaosConfig`` has the seeded,
+    #: replayable twins of the first two.
+    drop_prob: float = 0.0
+    dup_prob: float = 0.0
+    delay_ms: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -330,14 +337,39 @@ class DurabilityConfig:
 
 @dataclass(frozen=True)
 class ChaosConfig:
-    """Scripted engine faults (utils/chaos.py): device search-step indices
-    and breaker probes that raise, per queue, counted outside the engine so
-    the indices survive revives. The JAX package's broker, replication and
-    network faults are not carried (ignored with a warning)."""
+    """The fault script (utils/chaos.py). Every decision is a pure function
+    of an index or of a hash of one, so a run replays identically under
+    any interleaving of the event loop:
+
+    - broker faults, per queue publish sequence number (``drop_seqs``,
+      ``dup_seqs``, ``partitions``) or decided by ``hash01(seed, ...)`` of
+      the message's identity (``drop_prob``, ``dup_prob``);
+    - engine faults, per device search-step index and breaker probe,
+      counted outside the engine so the indices survive revives;
+    - replication-link faults, per stream record seq (the ``repl_*``
+      keys, read by ``service/replication.py``).
+
+    The JAX package's network faults (``net_*``) are not carried (ignored
+    with a warning)."""
 
     seed: int = 0
-    #: Queues the faults apply to; () = every queue.
+    #: Queues the broker faults apply to; () = every queue, reply queues
+    #: included.
     queues: tuple[str, ...] = ()
+    #: Consume-side drop probability, decided per (queue, seq, attempt):
+    #: the delivery is requeued before its handler runs.
+    drop_prob: float = 0.0
+    #: Publish-side duplicate probability, decided per (queue, seq).
+    dup_prob: float = 0.0
+    #: Publish seqs whose FIRST delivery attempt is dropped.
+    drop_seqs: tuple[int, ...] = ()
+    #: (seq, extra copies): that publish is delivered 1 + extra times.
+    dup_seqs: tuple[tuple[int, int], ...] = ()
+    #: [pause seq, resume seq): the queue's consumers pause when the pause
+    #: seq is published and resume when the resume seq is.
+    partitions: tuple[tuple[int, int], ...] = ()
+    #: A paused queue resumes after this many seconds in any case.
+    partition_max_s: float = 5.0
     #: Device search-step indices that raise ``ChaosInjectedError``.
     fail_steps: tuple[int, ...] = ()
     #: The same, as [start, stop) ranges.
@@ -347,6 +379,21 @@ class ChaosConfig:
     #: Device-loss steps: they need the multi-GPU engine (ROADMAP Queue 1
     #: item 6) and are refused.
     device_lost_steps: tuple[int, ...] = ()
+    #: Replication stream record seqs whose first transmission is dropped.
+    repl_drop_seqs: tuple[int, ...] = ()
+    #: Stream record seqs delivered twice.
+    repl_dup_seqs: tuple[int, ...] = ()
+    #: (seq, hold): the record is held until ``hold`` further first
+    #: transmissions pass, then delivered late.
+    repl_delay_seqs: tuple[tuple[int, int], ...] = ()
+    #: [pause seq, resume seq): the link holds what it sends from the pause
+    #: record's first transmission until any transmission reaches the
+    #: resume seq.
+    repl_partitions: tuple[tuple[int, int], ...] = ()
+    #: Seeded stream drop probability, decided per (queue, seq).
+    repl_drop_prob: float = 0.0
+    #: Lease-renewal call indices the lease authority refuses.
+    repl_fail_renewals: tuple[int, ...] = ()
 
     def __post_init__(self) -> None:
         if self.device_lost_steps:
@@ -355,8 +402,53 @@ class ChaosConfig:
                 "(ROADMAP Queue 1 item 6), which the port does not carry yet")
 
     def enabled(self) -> bool:
-        return bool(self.fail_steps or self.fail_step_ranges
-                    or self.fail_probes)
+        return bool(
+            self.drop_prob > 0 or self.dup_prob > 0 or self.drop_seqs
+            or self.dup_seqs or self.partitions or self.fail_steps
+            or self.fail_step_ranges or self.fail_probes)
+
+    def consume_faults(self) -> bool:
+        """A consume-side broker fault is scripted."""
+        return bool(self.drop_prob > 0 or self.drop_seqs)
+
+    def publish_faults(self) -> bool:
+        """A publish-side broker fault is scripted."""
+        return bool(self.dup_prob > 0 or self.dup_seqs or self.partitions)
+
+    def replication_faults(self) -> bool:
+        """A replication-link fault is scripted."""
+        return bool(
+            self.repl_drop_seqs or self.repl_dup_seqs or self.repl_delay_seqs
+            or self.repl_partitions or self.repl_drop_prob > 0
+            or self.repl_fail_renewals)
+
+
+@dataclass(frozen=True)
+class ReplicationConfig:
+    """Hot-standby replication with fenced failover
+    (service/replication.py): the primary streams its write-ahead journal
+    to a standby under a lease and an epoch. Needs durability (the journal
+    is the stream) and a ``ReplicationHub`` passed to
+    ``MatchmakingApp(replication_hub=...)``."""
+
+    #: "" = off (no journal tap, no fence checks, no pump); "primary" =
+    #: this app streams and serves. The standby is the hub's
+    #: ``StandbyApplier``, not an app role.
+    role: str = ""
+    #: This host's lease identity; a failover successor boots with the
+    #: owner that took the queue over.
+    owner: str = "primary"
+    #: The sender's pump cadence (seconds): acks, retransmission of a
+    #: stalled tail, lease renewal, the lag gauges.
+    pump_interval_s: float = 0.02
+
+    def enabled(self) -> bool:
+        if self.role and self.role != "primary":
+            raise ValueError(
+                f"unknown replication role {self.role!r} (\"\" or "
+                f"\"primary\"; the standby is a hub-side StandbyApplier, "
+                f"not an app role)")
+        return bool(self.role)
 
 
 @dataclass(frozen=True)
@@ -472,12 +564,13 @@ _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "batcher": BatcherConfig, "auth": AuthConfig,
              "overload": OverloadConfig, "chaos": ChaosConfig,
              "observability": ObservabilityConfig,
-             "durability": DurabilityConfig, "forensics": ForensicsConfig}
+             "durability": DurabilityConfig, "replication": ReplicationConfig,
+             "forensics": ForensicsConfig}
 
 
-#: Top-level scalar keys the port carries (the JAX package's
-#: ``workers``, ``seed`` and ``debug_invariants`` are not carried).
-_SCALARS = ("metrics_port", "metrics_host")
+#: Top-level scalar keys the port carries (the JAX package's ``workers``
+#: is not carried).
+_SCALARS = ("seed", "debug_invariants", "metrics_port", "metrics_host")
 
 
 def _tuples(v):
@@ -509,7 +602,10 @@ class Config:
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     #: Write-ahead journal and crash recovery (off by default).
     durability: DurabilityConfig = field(default_factory=DurabilityConfig)
-    #: Scripted engine faults (empty: no chaos hook on any engine).
+    #: Hot-standby replication and fenced failover (off by default;
+    #: needs durability).
+    replication: ReplicationConfig = field(default_factory=ReplicationConfig)
+    #: The fault script (empty: no broker fault, no engine hook).
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig)
@@ -520,16 +616,18 @@ class Config:
     metrics_port: int = 0
     #: Its bind host (containers set ``0.0.0.0``).
     metrics_host: str = "127.0.0.1"
+    #: Seeds the broker's probabilistic faults (``BrokerConfig.drop_prob``
+    #: and ``dup_prob``).
+    seed: int = 0
+    #: Online invariant checking (utils/invariants.py): no player in two
+    #: matches without a re-queue between, well-formed teams. One dict op
+    #: per matched player.
+    debug_invariants: bool = False
 
     @staticmethod
     def from_dict(d: Mapping[str, Any], *, backend: str | None = None) -> "Config":
         """Build a Config; ``backend`` overrides ``engine.backend``."""
         kw: dict[str, Any] = {}
-        if (d.get("replication") or {}).get("role"):
-            raise ValueError(
-                "replication.role needs the replication module "
-                "(service/replication.py and net/), which the port does not "
-                "carry yet (ROADMAP Queue 1 item 5); remove the role")
         if "queues" in d:
             kw["queues"] = tuple(QueueConfig(**_known(QueueConfig, "queues", q))
                                  for q in d["queues"])
@@ -563,8 +661,8 @@ class Config:
         parsed as JSON where they parse; ``MM_CONFIG_JSON=<path>`` loads a
         whole tree first (the variables win over it) and
         ``MM_QUEUE_NAMES=a,b`` keeps only the named queues;
-        ``MM_METRICS_PORT`` / ``MM_METRICS_HOST`` set the top-level
-        ``metrics_port`` / ``metrics_host``. The engine
+        ``MM_SEED``, ``MM_DEBUG_INVARIANTS``, ``MM_METRICS_PORT`` and
+        ``MM_METRICS_HOST`` set the top-level scalars. The engine
         backend is ``backend`` unless ``MM_ENGINE_BACKEND`` names one: the
         files say the JAX package's ``"tpu"``."""
         env = {k[len(prefix):].lower(): v for k, v in os.environ.items()

@@ -139,13 +139,34 @@ recovery) is stamped. With ``Config.metrics_port`` the app serves
 ``/healthz``, ``/metrics`` and ``/debug/*`` (service/observability.py) on
 its own loop. A tick, a capture and a scrape read host state only.
 
+Chaos and invariants: ``Config.chaos`` scripts the broker's faults as well
+(drops, duplicate storms, partitions: the app hands its ``ChaosState`` and
+``Config.seed`` to the broker, service/broker.py); with
+``Config.debug_invariants`` each runtime feeds every window's outcome,
+columnar or object, and every rescan tick's to an ``InvariantChecker``
+(utils/invariants.py), which raises at a double match.
+
+Replication (``ReplicationConfig``, service/replication.py): with a role
+and a ``ReplicationHub`` (``MatchmakingApp(replication_hub=...)``), each
+queue's journal streams to a standby. ``start_replication`` runs after the
+journal's recovery and before the consumer: it adopts a standby's shadow
+the hub holds for this queue (``recover_from_replica``: a failover
+successor), takes the lease, and, under ``_pool_lock`` with no window in
+flight, installs the journal's tap and fence and sends the baseline, so
+the stream is gapless from the baseline's seq. A pump task collects acks,
+retransmits a stalled tail and renews the lease. A fenced ex-primary's
+appends raise and its publishes are refused and counted
+(``fenced_publish_refused``); ``stop`` streams the clean marker and
+releases the lease.
+
 This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the object flush, the health timer, burst consume and
 decode, the speculation loop and cut, overload control and the circuit
-breaker, durability, the drain, auth, tracing, the metrics and the event
-log, telemetry and the SLO burn monitors, incident capture and the HTTP
-surfaces), without replication, placement, the autotuner, the AMQP
-transport and the dispatch arbiter.
+breaker, broker chaos and the invariant checker, durability, in-process
+replication and failover, the drain, auth, tracing, the metrics and the
+event log, telemetry and the SLO burn monitors, incident capture and the
+HTTP surfaces), without the socket replication transport, placement, the
+autotuner, the AMQP transport and the dispatch arbiter.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -167,7 +188,7 @@ import logging
 import math
 import os
 import time
-from typing import Any, Sequence
+from typing import Any, Iterable, Sequence
 
 import numpy as np
 
@@ -216,9 +237,14 @@ from matchmaking_tpu_torch.service.overload import (
     deadline_of,
 )
 from matchmaking_tpu_torch.service.quality import QualityLedger
+from matchmaking_tpu_torch.service.replication import (
+    QueueReplication,
+    baseline_payload,
+)
 from matchmaking_tpu_torch.utils import checkpoint
 from matchmaking_tpu_torch.utils.chaos import ChaosState
 from matchmaking_tpu_torch.utils.forensics import EventSpine, IncidentRecorder
+from matchmaking_tpu_torch.utils.invariants import InvariantChecker
 from matchmaking_tpu_torch.utils.journal import PoolJournal, row_to_request
 from matchmaking_tpu_torch.utils.metrics import Metrics
 from matchmaking_tpu_torch.utils.timeseries import SloMonitor, TelemetryRing
@@ -242,7 +268,35 @@ _MIN_DECODE_BURST = 16
 #: window is nacked and the engine revived, a failed tick retried).
 FAULT_COUNTERS = ("engine_failures", "revives", "outcome_errors",
                   "collector_errors", "rescan_skipped", "health_tick_errors",
-                  "spec_errors", "flush_errors")
+                  "spec_errors", "flush_errors", "replication_pump_errors")
+
+
+def _admit_rows(cols: RequestColumns, regions, modes) -> list[tuple]:
+    """ADMIT rows of ``cols`` (the journal's portable row: region and mode
+    by name, ``regions`` / ``modes``), value for value the JAX package's
+    (the same dtypes, read in the same order; tuples, not lists: the same
+    JSON with no list built per row)."""
+    k = len(cols)
+    tiers = cols.tier.tolist() if cols.tier is not None else [0] * k
+    dls = cols.deadline.tolist() if cols.deadline is not None else [0.0] * k
+    thr = cols.threshold.astype(object)  # Python floats
+    thr[np.isnan(cols.threshold)] = None
+    return list(zip(
+        cols.ids.tolist(), cols.rating.tolist(), cols.rd.tolist(),
+        list(regions), list(modes), thr.tolist(), cols.enqueued_at.tolist(),
+        cols.reply_to.tolist(), cols.correlation_id.tolist(), tiers, dls))
+
+
+def _admit_rows_of(requests: Iterable[SearchRequest]) -> list[list]:
+    """ADMIT rows of request objects (the object path and the object
+    baseline): the JAX package's row, field for field."""
+    return [
+        [r.id, float(r.rating), float(r.rating_deviation), r.region,
+         r.game_mode,
+         (None if r.rating_threshold is None else float(r.rating_threshold)),
+         float(r.enqueued_at), r.reply_to, r.correlation_id,
+         int(r.tier), float(r.deadline_at)]
+        for r in requests]
 
 
 class _QueueRuntime:
@@ -296,7 +350,8 @@ class _QueueRuntime:
             "breaker_degraded_revives": 0, "breaker_probes": 0,
             "breaker_probe_failures": 0, "breaker_closes": 0,
             "journal_compactions": 0, "journal_compact_errors": 0,
-            "crash_recoveries": 0}
+            "crash_recoveries": 0, "failover_takeovers": 0,
+            "replication_pump_errors": 0, "fenced_publish_refused": 0}
         #: Overload control (None: no OverloadConfig knob set, and the
         #: ingress pays nothing for it). Its counters (``shed_requests``,
         #: ``expired_requests``, and per tier) land in ``counters``.
@@ -321,6 +376,11 @@ class _QueueRuntime:
         self._chaos_hook = (app.chaos.engine_hook(queue_cfg.name)
                             if app.chaos is not None
                             and app.chaos.applies(queue_cfg.name) else None)
+        #: Online invariant checking (``Config.debug_invariants``; None:
+        #: off): fed every outcome this queue publishes.
+        self._invariants: InvariantChecker | None = (
+            InvariantChecker(queue_cfg.team_size)
+            if self.cfg.debug_invariants else None)
         #: The last half-open probe that passed: host ms of the engine
         #: build (``build_ms``), of its ``probe()`` (``probe_ms``) and of
         #: the pool's move (``move_ms``), and the players moved.
@@ -379,8 +439,17 @@ class _QueueRuntime:
                               "admit_records": 0, "terminals_ms": 0.0,
                               "terminal_records": 0, "commit_thread_ms": 0.0,
                               "commit_wait_ms": 0.0, "commits": 0}
-        #: The last hard-crash recovery (None: a clean or fresh boot).
+        #: The last hard-crash recovery or failover adoption (None: a clean
+        #: or fresh boot).
         self.last_recovery: dict[str, Any] | None = None
+        #: Hot-standby replication (service/replication.py; None: off, and
+        #: the journal has no tap and no fence). Set by
+        #: ``start_replication``; the publish seams consult its role.
+        self.replication: QueueReplication | None = None
+        self._repl_task: asyncio.Task | None = None
+        #: The baseline sent at attach: its journal seq, players, bytes
+        #: and host ms under ``_pool_lock``.
+        self.last_baseline: dict[str, Any] | None = None
         #: The compaction timer (armed after recovery).
         self._durability: asyncio.Task | None = None
         #: ``start`` got past the recovery: only then may ``stop`` mark the
@@ -409,6 +478,9 @@ class _QueueRuntime:
         # before any consumer or timer exists.
         await self.recover_from_journal()
         self._recovered = True
+        # After the recovery (the baseline is the recovered pool), before
+        # the consumer (an adopted pool is in place before any traffic).
+        await self.start_replication()
         ov = self.cfg.overload
         self._batcher = Batcher(
             self.cfg.batcher, self._flush,
@@ -471,6 +543,11 @@ class _QueueRuntime:
             # Its presence tells the next boot to skip recovery.
             self.journal.mark_clean()
             self.journal.close()
+        if self.replication is not None:
+            # The clean marker just streamed through the tap: a last pump
+            # sweeps the acks and releases the lease, so a standby may
+            # promote at once.
+            self.replication.shutdown(time.monotonic())
 
     def abandon(self) -> None:
         """A hard crash's teardown: every task cancelled, the answers
@@ -778,6 +855,176 @@ class _QueueRuntime:
             "transcript": rec.transcript(),
         }
         return self.last_recovery
+
+    # ---- hot-standby replication (service/replication.py) -----------------
+
+    async def start_replication(self) -> None:
+        """Attach this queue to the replication hub as its primary: adopt
+        the shadow a standby's takeover left for this queue (a failover
+        successor), take the lease (``LeaseHeldError`` while another
+        owner's is live: two primaries cannot coexist), then, under
+        ``_pool_lock`` with every window in flight collected, install the
+        journal's tap and fence and send the baseline. Nothing appends
+        between the tap's install and the baseline's capture (every append
+        runs on the event loop under the lock, or in a compaction that
+        holds it), so the standby's stream is gapless from the baseline's
+        seq. Then the pump task starts."""
+        hub = self.app.replication_hub
+        rcfg = self.app.cfg.replication
+        if hub is None or not rcfg.enabled():
+            return
+        j = self.journal
+        if j is None:
+            raise ValueError(
+                "replication requires durability (journal_dir): the "
+                "journal is the replication stream")
+        q = self.queue_cfg.name
+        adopted = hub.adopted.pop(q, None)
+        if adopted is not None:
+            await self.recover_from_replica(adopted)
+        owner = rcfg.owner or "primary"
+        epoch = hub.authority.acquire(q, owner, time.monotonic())
+        repl = QueueReplication(q, owner, epoch, hub.authority, hub.link(q),
+                                metrics=self.metrics, events=self.events)
+        async with self._pool_lock:
+            now = time.time()
+            if self._async_api and self.engine.inflight() > 0:
+                self._drain_engine(now)
+            t0 = time.perf_counter()
+            self.replication = repl
+            j.tap = repl.on_record
+            j.fence = repl.may_write
+            players, payload = self._baseline_payload(now)
+            repl.send_baseline(j.seq, payload)
+            self.last_baseline = {
+                "seq": j.seq, "players": players, "bytes": len(payload),
+                "ms": round((time.perf_counter() - t0) * 1e3, 3)}
+        self._repl_task = asyncio.create_task(self._replication_loop())
+        self._loops.append(self._repl_task)
+        self.events.append(
+            "replication_attached", q,
+            f"owner {owner!r} epoch {epoch}, baseline seq {j.seq}",
+            component="replication", refs={"epoch": epoch, "records": j.seq})
+
+    def _baseline_payload(self, now: float) -> tuple[int, bytes]:
+        """The baseline (under ``_pool_lock``): the waiting pool as ADMIT
+        rows in ``waiting()`` order (read from the mirror's columns on a
+        columnar engine), the unexpired replay entries and the admission
+        checkpoint. Returns (players, payload)."""
+        if not self._objects:
+            cols, regions, modes = self.engine.waiting_columns()
+            rows = _admit_rows(cols, regions.tolist(), modes.tolist())
+        else:
+            rows = _admit_rows_of(self.engine.waiting())
+        recent = [(pid, body, exp)
+                  for pid, (body, exp) in self._recent.items() if exp > now]
+        adm = (self.admission.checkpoint()
+               if self.admission is not None else None)
+        return len(rows), baseline_payload(rows, recent, adm)
+
+    async def recover_from_replica(self, adopted: dict[str, Any]) -> dict:
+        """A failover successor adopts the standby's shadow (waiting pool,
+        replay cache, admission checkpoint: everything the stream
+        delivered before the takeover) through the engine's admission
+        path, ``heartbeat`` (a bucketed queue's index rebuilt exactly),
+        then re-anchors its own journal with a compaction. The span is the
+        failover RTO (``failover_rto_ms``), split by step in ``split_ms``
+        (host ms); the takeover's chain of events (``lease_expired``,
+        ``epoch_bump``, ``replay_window``, ``failover_takeover``) is
+        stamped in cause order."""
+        rec = adopted["state"]
+        q = self.queue_cfg.name
+        t0 = time.perf_counter()
+        now = time.time()
+        split: dict[str, float] = {}
+        epoch = int(adopted["epoch"])
+        self.events.append(
+            "lease_expired", q,
+            f"predecessor's lease lapsed; standby {adopted['owner']!r} "
+            f"claimed the queue", component="replication",
+            refs={"epoch": epoch - 1})
+        self.events.append(
+            "epoch_bump", q, f"takeover fenced epoch {epoch - 1} -> {epoch}",
+            component="replication",
+            refs={"epoch": epoch, "prev_epoch": epoch - 1})
+        async with self._pool_lock:
+            # The adopted pool replaces the empty boot pool a speculation
+            # would be against.
+            self._spec_invalidate_audited("replica adoption")
+            t = time.perf_counter()
+            tail = [row_to_request(rec.waiting[pid])
+                    for pid in sorted(rec.waiting)]
+            if tail:
+                self.engine.restore(tail, now)
+            split["restore_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            if hasattr(self.engine, "heartbeat"):
+                self.engine.heartbeat(now)
+            split["heartbeat_ms"] = (time.perf_counter() - t) * 1e3
+            for pid, (body, exp) in rec.recent.items():
+                if exp > now:
+                    self._recent.set(pid, (body, exp))
+            if rec.admission is not None and self.admission is not None:
+                self.admission.restore_state(rec.admission)
+        t = time.perf_counter()
+        if self.journal is not None:
+            # The adopted pool in this host's own journal at once: a crash
+            # right after the takeover recovers from the local disk.
+            await self.compact_journal()
+        split["compact_ms"] = (time.perf_counter() - t) * 1e3
+        rto_ms = (time.perf_counter() - t0) * 1e3
+        n_tail = len(tail)
+        self.events.append(
+            "replay_window", q,
+            f"standby shadow applied: {n_tail} waiting players, "
+            f"{len(rec.recent)} dedup entries (applied seq "
+            f"{adopted.get('applied_seq', 0)})", component="replication",
+            refs={"epoch": epoch, "players": n_tail,
+                  "records": int(adopted.get("applied_seq", 0))})
+        self.counters["failover_takeovers"] += 1
+        self.metrics.set_gauge(f"failover_rto_ms[{q}]", round(rto_ms, 3))
+        self.metrics.counters.inc("failover_takeovers")
+        self.events.append(
+            "failover_takeover", q,
+            f"epoch {adopted['epoch']}: {n_tail} waiting players adopted, "
+            f"{len(rec.recent)} dedup entries, rto {rto_ms:.1f} ms",
+            component="replication",
+            refs={"epoch": epoch, "players": n_tail,
+                  "rto_ms": round(rto_ms, 3)})
+        log.warning("queue %r: failover takeover (epoch %s): %d waiting "
+                    "players adopted, %d replay entries, rto %.1f ms", q,
+                    adopted["epoch"], n_tail, len(rec.recent), rto_ms)
+        self.last_recovery = {
+            "rto_ms": round(rto_ms, 3),
+            "split_ms": {k: round(v, 3) for k, v in split.items()},
+            "snapshot_players": 0,
+            "tail_players": n_tail,
+            "dedup_entries": len(rec.recent),
+            "fallback": False,
+            "corrupt": [],
+            "transcript": rec.transcript(),
+            "source": "replica",
+            "epoch": adopted["epoch"],
+        }
+        return self.last_recovery
+
+    async def _replication_loop(self) -> None:
+        """The sender's pump every ``pump_interval_s``: acks, retransmission
+        of a stalled tail, lease renewal, the lag gauges. A failed pump is
+        logged and counted (``replication_pump_errors``), and retried."""
+        interval = self.app.cfg.replication.pump_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                r = self.replication
+                if r is not None:
+                    r.pump(time.monotonic())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("replication pump failed; retrying")
+                self.counters["replication_pump_errors"] += 1
+                self.metrics.counters.inc("replication_pump_errors")
 
     # ---- ingress ----------------------------------------------------------
 
@@ -1782,7 +2029,10 @@ class _QueueRuntime:
         the encoder flags re-encode in Python), remembered for terminal
         replay. Each matched player's wait (``match_wait`` latency and the
         ``e2e`` stage) goes to the metrics, and a traced player's trace
-        gets its quality, wait and "encode" mark."""
+        gets its quality, wait and "encode" mark. The invariant checker
+        sees every columnar outcome here (windows and rescan ticks)."""
+        if self._invariants is not None:
+            self._invariants.observe_outcome(out)
         n = out.n_matches
         if n == 0:
             return []
@@ -1860,6 +2110,8 @@ class _QueueRuntime:
         columnar path gives: a player queued by one chunk (or, on the host
         oracle, at its own arrival) can be matched later in the same
         window."""
+        if self._invariants is not None:
+            self._invariants.observe_outcome(out)
         trace_ids, traces = self._trace_maps(deliveries)
         rows: list[Row] = []
         if self.queue_cfg.send_queued_ack:
@@ -1939,6 +2191,8 @@ class _QueueRuntime:
         """Publish a rescan tick's matches. Its unmatched players were
         already waiting, and are never acked again."""
         if isinstance(out, SearchOutcome):
+            if self._invariants is not None:
+                self._invariants.observe_outcome(out)
             self._publish_batch(self._build_object_rows(out, now))
             n = len(out.matches)
         else:
@@ -2419,19 +2673,9 @@ class _QueueRuntime:
         if j is None or not len(cols):
             return
         t0 = time.perf_counter()
-        k = len(cols)
-        tiers = cols.tier.tolist() if cols.tier is not None else [0] * k
-        dls = (cols.deadline.tolist() if cols.deadline is not None
-               else [0.0] * k)
-        thr = cols.threshold.astype(object)  # Python floats
-        thr[np.isnan(cols.threshold)] = None
-        # Tuples, not lists: the same JSON, with no list built per row.
-        rows = list(zip(
-            cols.ids.tolist(), cols.rating.tolist(), cols.rd.tolist(),
-            self.engine.pool.regions.names()[cols.region].tolist(),
-            self.engine.pool.modes.names()[cols.mode].tolist(),
-            thr.tolist(), cols.enqueued_at.tolist(), cols.reply_to.tolist(),
-            cols.correlation_id.tolist(), tiers, dls))
+        rows = _admit_rows(
+            cols, self.engine.pool.regions.names()[cols.region].tolist(),
+            self.engine.pool.modes.names()[cols.mode].tolist())
         t1 = time.perf_counter()
         j.append_admits(rows)
         j.flush_buffer()
@@ -2446,15 +2690,7 @@ class _QueueRuntime:
         j = self.journal
         if j is None or not requests:
             return
-        j.append_admits([
-            [r.id, float(r.rating), float(r.rating_deviation), r.region,
-             r.game_mode,
-             (None if r.rating_threshold is None
-              else float(r.rating_threshold)),
-             float(r.enqueued_at), r.reply_to, r.correlation_id,
-             int(r.tier), float(r.deadline_at)]
-            for r in requests
-        ])
+        j.append_admits(_admit_rows_of(requests))
         j.flush_buffer()
         self.journal_stats["admit_records"] += 1
 
@@ -2471,13 +2707,17 @@ class _QueueRuntime:
                   if reply_to and tr is not None]
 
         def publish() -> None:
+            # The fence is read as the batch leaves: a window held for its
+            # commit may be superseded while the commit runs.
+            if not self._may_publish(len(items)):
+                return
             if traces:
                 t = time.time()
                 for tr in traces:
                     tr.mark("respond", t)
             self.broker.publish_batch(items)
+            self.counters["publish_batches"] += 1
         self._effect(publish, hold=True)
-        self.counters["publish_batches"] += 1
 
     def _publish(self, reply_to: str, correlation_id: str, body: bytes,
                  trace: TraceContext | None = None) -> None:
@@ -2486,14 +2726,26 @@ class _QueueRuntime:
         if not reply_to:
             return
         props = Properties(correlation_id=correlation_id)
-        if trace is None:
-            self._effect(lambda: self.broker.publish(reply_to, body, props))
-            return
 
         def publish() -> None:
-            trace.mark("respond")
+            if not self._may_publish(1):
+                return
+            if trace is not None:
+                trace.mark("respond")
             self.broker.publish(reply_to, body, props)
         self._effect(publish)
+
+    def _may_publish(self, n: int) -> bool:
+        """The epoch fence of both publish seams, read as the publish
+        leaves (after its commit): a superseded ex-primary makes no answer
+        visible (the successor owns these players now); its ``n`` refused
+        publishes are counted."""
+        r = self.replication
+        if r is None or r.may_publish():
+            return True
+        self.counters["fenced_publish_refused"] += n
+        self.metrics.counters.inc("fenced_publish_refused", n)
+        return False
 
     def _replay(self, delivery: Delivery, body: bytes) -> None:
         """Answer a redelivered request with its cached terminal body."""
@@ -2590,9 +2842,13 @@ class MatchmakingApp:
     since a recovery at ``start`` stamps ``crash_recovered``)."""
 
     def __init__(self, cfg: Config, broker: InProcBroker | None = None,
-                 device=None):
+                 device=None, replication_hub=None):
         self.cfg = cfg
         self.device = device
+        #: The replication fabric (service/replication.ReplicationHub; None:
+        #: none), shared by a primary app, its standbys and a failover
+        #: successor; never closed here.
+        self.replication_hub = replication_hub
         obs = cfg.observability
         #: The causal spine every lifecycle event is stamped onto (one per
         #: app: each run's seq starts at 1).
@@ -2629,11 +2885,12 @@ class MatchmakingApp:
         #: ``queue#quality``), built at ``start`` after the recovery.
         self._slo_monitors: dict[str, SloMonitor] = {}
         self._telemetry_task: asyncio.Task | None = None
-        #: Scripted engine faults (None: no chaos configured); each queue
-        #: runtime takes its hook from here.
+        #: The fault script's state (None: no chaos configured): the
+        #: broker's fault decisions, and each queue runtime's engine hook.
         self.chaos = (ChaosState(cfg.chaos, events=self.events)
                       if cfg.chaos.enabled() else None)
-        self.broker = broker or InProcBroker(cfg.broker)
+        self.broker = broker or InProcBroker(cfg.broker, cfg.seed,
+                                             chaos=self.chaos)
         self.broker.events = self.events
         self.broker.trace_enabled = self.trace_enabled
         self.broker.trace_sample_n = self.trace_sample_n
@@ -2655,6 +2912,19 @@ class MatchmakingApp:
         the telemetry sampler and, with ``metrics_port``, the HTTP
         server."""
         codec.load()  # a codec that cannot build raises here
+        if self.cfg.replication.enabled():
+            # Every queue boots as its primary: a hub is the fabric its
+            # standby attaches through, and the journal is the stream.
+            if self.replication_hub is None:
+                raise ValueError(
+                    "cfg.replication.role is set but no ReplicationHub was "
+                    "passed to MatchmakingApp(replication_hub=...): the hub "
+                    "is the shared fabric (links and lease authority) a "
+                    "standby attaches through")
+            if not self.cfg.durability.enabled():
+                raise ValueError(
+                    "replication requires durability (journal_dir): the "
+                    "journal is the replication stream")
         for rt in self._runtimes.values():
             await rt.start()
         obs = self.cfg.observability

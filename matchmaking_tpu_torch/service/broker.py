@@ -12,16 +12,33 @@ queue: the auth middleware's round trip), and the drain's handoff
 ``handlers_idle`` say when nothing is left on the way). A request
 publish (one with ``reply_to``) is stamped with a trace context
 (``utils/trace.py``), every ``trace_sample_n``-th one when sampling; a
-dead letter lands in ``events`` (the app's event log). Fault injection is
-not carried, so the JAX broker's fall-back to per-delivery handling while
-consume faults are armed has nothing to guard here. All methods are called
-from one event loop.
+dead letter lands in ``events`` (the app's event log).
+
+Fault injection, the JAX broker's:
+
+- the app's ``ChaosState`` (utils/chaos.py) numbers each publish to a
+  queue the script covers (``Delivery.seq``) and decides from it: a
+  dropped first attempt or a seeded drop (the delivery is requeued before
+  its handler runs), a storm of extra copies with seqs of their own (a
+  copy is never duplicated again), and partitions (the queue's consumers
+  wait at its gate from the pause publish to the resume publish, or for
+  ``partition_max_s`` at most);
+- ``BrokerConfig``'s probabilistic ``drop_prob``, ``dup_prob`` and
+  ``delay_ms``, drawn from ``random.Random(seed)``.
+
+While a consume-side fault is armed, a burst consumer hands each delivery
+to the per-delivery handler, so a fault's identity does not depend on how
+deliveries were batched. Faults are counted in ``stats`` (``dropped``,
+``duplicated``, ``delayed``, ``partitions``) and logged in ``events``
+(``chaos_drop``, ``chaos_dup``, ``partition_pause``,
+``partition_resume``). All methods are called from one event loop.
 """
 
 from __future__ import annotations
 
 import asyncio
 import itertools
+import random
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
@@ -47,6 +64,10 @@ class Delivery:
     delivery_tag: int
     redelivered: bool = False
     redelivery_count: int = 0
+    #: The queue's publish sequence number, the identity every chaos
+    #: decision is a function of; -1 where no chaos script covers the
+    #: queue (nothing is counted).
+    seq: int = -1
     #: The QoS tier (service/overload.py), read from the ``x-tier`` header
     #: at admission and cached here for the EDF key and the flush; 0 is
     #: the most latency-critical tier and the untiered default.
@@ -76,6 +97,13 @@ class _Queue:
         self.name = name
         self.messages: asyncio.Queue[Delivery] = asyncio.Queue()
         self.consumers: list["_Consumer"] = []
+        #: The partition gate: set, consumers take deliveries; cleared,
+        #: they wait (a chaos partition).
+        self.gate = asyncio.Event()
+        self.gate.set()
+        #: The failsafe resume of the current partition (cancelled by the
+        #: scripted resume, so it cannot fire into a later partition).
+        self.gate_timer: asyncio.TimerHandle | None = None
 
 
 class _BatchState:
@@ -100,7 +128,8 @@ class _Consumer:
     the queue drain into ONE handler task per sweep (up to
     ``consume_batch_max``), run one after another; with ``batch_callback``
     such a burst goes to the app as ONE ``batch_callback(burst)`` call
-    instead of a callback per delivery."""
+    instead of a callback per delivery, unless a consume-side fault is
+    armed: then each delivery of the burst goes through ``_handle``."""
 
     def __init__(self, broker: "InProcBroker", queue: _Queue,
                  callback: Callable[[Delivery], Awaitable[None]],
@@ -143,6 +172,9 @@ class _Consumer:
 
     async def _run(self) -> None:
         while not self.cancelled:
+            if not self.queue.gate.is_set():
+                # A partition: deliveries buffer until the gate reopens.
+                await self.queue.gate.wait()
             await self._acquire()
             try:
                 delivery = await self.queue.messages.get()
@@ -164,7 +196,9 @@ class _Consumer:
             # deliveries even if the task is cancelled before it runs.
             state = _BatchState(batch)
             self._batch_states.add(state)
-            handler = (self._handle_burst if self.batch_callback is not None
+            handler = (self._handle_burst
+                       if (self.batch_callback is not None
+                           and not self.broker.consume_faults_enabled)
                        else self._handle_batch)
             task = asyncio.create_task(handler(state))
             self._handlers.add(task)
@@ -225,6 +259,31 @@ class _Consumer:
                     self.nack(delivery.delivery_tag, requeue=True)
 
     async def _handle(self, delivery: Delivery) -> None:
+        broker = self.broker
+        if broker.consume_faults_enabled:
+            # The one consume-side fault gate: the delay, the chaos drop
+            # and the seeded drop (a broker without faults skips it).
+            if broker.cfg.delay_ms > 0:
+                broker.stats["delayed"] += 1
+                await asyncio.sleep(broker.cfg.delay_ms / 1000.0)
+            chaos = broker.chaos
+            if ((chaos is not None
+                 and chaos.should_drop(delivery.queue, delivery.seq,
+                                       delivery.redelivery_count))
+                    or broker._should_drop()):
+                # The consumer "crashed" before the handler ran: requeued,
+                # as a channel close would.
+                broker.stats["dropped"] += 1
+                if delivery.trace is not None:
+                    delivery.trace.mark("chaos_drop")
+                if broker.events is not None:
+                    broker.events.append(
+                        "chaos_drop", delivery.queue,
+                        f"seq {delivery.seq} attempt "
+                        f"{delivery.redelivery_count}")
+                self._release()
+                broker._requeue(self.queue, delivery)
+                return
         self.unacked[delivery.delivery_tag] = delivery
         try:
             await self.callback(delivery)
@@ -268,15 +327,32 @@ class _Consumer:
 
 
 class InProcBroker:
-    """The broker. All methods are called from one event loop."""
+    """The broker. All methods are called from one event loop. ``seed``
+    seeds the ``BrokerConfig`` faults; ``chaos`` is the app's
+    ``ChaosState`` (or None)."""
 
-    def __init__(self, cfg: BrokerConfig | None = None):
+    def __init__(self, cfg: BrokerConfig | None = None, seed: int = 0,
+                 chaos: Any = None):
         self.cfg = cfg or BrokerConfig()
+        self.chaos = chaos
+        #: A consume-side fault is armed: every delivery passes the fault
+        #: gate of ``_Consumer._handle`` (and bursts take that path).
+        self.consume_faults_enabled = (
+            self.cfg.delay_ms > 0 or self.cfg.drop_prob > 0
+            or (chaos is not None and chaos.consume_faults()))
+        #: A publish-side fault is armed (duplicates, storms, partitions).
+        self.publish_faults_enabled = (
+            self.cfg.dup_prob > 0
+            or (chaos is not None and chaos.publish_faults()))
+        self._rng = random.Random(seed)
+        #: Publish sequence numbers of the queues the chaos script covers.
+        self._pub_seq: dict[str, int] = {}
         self._queues: dict[str, _Queue] = {}
         self._tags = itertools.count(1)
         self._consumers: dict[str, _Consumer] = {}
-        self.stats = {"published": 0, "acked": 0, "dead_lettered": 0,
-                      "consumer_errors": 0, "unroutable": 0}
+        self.stats = {"published": 0, "acked": 0, "dropped": 0,
+                      "duplicated": 0, "delayed": 0, "dead_lettered": 0,
+                      "consumer_errors": 0, "unroutable": 0, "partitions": 0}
         #: The app's event log (utils/trace.EventLog), attached by the app:
         #: dead letters land there.
         self.events: Any = None
@@ -325,6 +401,11 @@ class InProcBroker:
         if q is None:
             self.stats["unroutable"] += 1
             return
+        chaos = self.chaos
+        seq = -1
+        if chaos is not None and chaos.applies(queue):
+            seq = self._pub_seq.get(queue, 0)
+            self._pub_seq[queue] = seq + 1
         props = properties or Properties()
         # Only a request (reply_to set) gets a trace: a response is read by
         # a client, never settled by a runtime.
@@ -333,16 +414,51 @@ class InProcBroker:
             # Counted over stampable publishes: a uniform sample of requests.
             self._trace_count += 1
             stamp = self._trace_count % self.trace_sample_n == 1
+        body = bytes(body)
         self.stats["published"] += 1
         q.messages.put_nowait(Delivery(
-            body=bytes(body), properties=props, queue=queue,
-            delivery_tag=next(self._tags),
+            body=body, properties=props, queue=queue,
+            delivery_tag=next(self._tags), seq=seq,
             trace=TraceContext(queue, props.correlation_id) if stamp else None))
+        if not self.publish_faults_enabled:
+            return
+        if self.cfg.dup_prob > 0 and self._rng.random() < self.cfg.dup_prob:
+            # A duplicate delivery (no seq of its own).
+            self.stats["duplicated"] += 1
+            q.messages.put_nowait(Delivery(
+                body=body, properties=props, queue=queue,
+                delivery_tag=next(self._tags), redelivered=True,
+                trace=(TraceContext(queue, props.correlation_id,
+                                    redelivered=True) if stamp else None)))
+        if chaos is None or seq < 0:
+            return
+        # A storm: each copy takes a seq of its own (a delivery of its own
+        # for the drop decisions) and is never duplicated again.
+        n_copies = chaos.dup_copies(queue, seq)
+        if n_copies and self.events is not None:
+            self.events.append("chaos_dup", queue,
+                               f"seq {seq} +{n_copies} copies")
+        for _ in range(n_copies):
+            cseq = self._pub_seq[queue]
+            self._pub_seq[queue] = cseq + 1
+            self.stats["duplicated"] += 1
+            q.messages.put_nowait(Delivery(
+                body=body, properties=props, queue=queue,
+                delivery_tag=next(self._tags), redelivered=True, seq=cseq,
+                trace=(TraceContext(queue, props.correlation_id,
+                                    redelivered=True) if stamp else None)))
+        action = chaos.partition_action(queue, seq)
+        if action == "pause":
+            self._pause(q)
+        elif action == "resume":
+            self._resume(q)
 
     def publish_batch(self, items) -> None:
         """Publish a window of messages in one call (the service's one
         response publish per window). ``items``: (queue, body,
-        Properties or None); each is routed exactly as ``publish`` would."""
+        Properties or None); each goes through ``publish``, so a queue the
+        chaos script covers, or an armed publish fault, sees every item as
+        a publish of its own."""
         for queue, body, properties in items:
             self.publish(queue, body, properties)
 
@@ -419,6 +535,39 @@ class InProcBroker:
     def close(self) -> None:
         for tag in list(self._consumers):
             self.basic_cancel(tag)
+
+    # ---- fault injection --------------------------------------------------
+
+    def _should_drop(self) -> bool:
+        return (self.cfg.drop_prob > 0
+                and self._rng.random() < self.cfg.drop_prob)
+
+    def _pause(self, q: _Queue) -> None:
+        """A partition: the queue's consumers wait at its gate until the
+        scripted resume publish, or ``partition_max_s`` later at most (a
+        resume seq that never comes must not wedge a drain)."""
+        if not q.gate.is_set():
+            return
+        q.gate.clear()
+        self.stats["partitions"] += 1
+        if self.events is not None:
+            self.events.append("partition_pause", q.name)
+        max_s = self.chaos.cfg.partition_max_s if self.chaos else 0.0
+        if max_s > 0:
+            try:
+                q.gate_timer = asyncio.get_running_loop().call_later(
+                    max_s, lambda: self._resume(q))
+            except RuntimeError:  # no running loop
+                pass
+
+    def _resume(self, q: _Queue) -> None:
+        if q.gate_timer is not None:
+            q.gate_timer.cancel()
+            q.gate_timer = None
+        if not q.gate.is_set():
+            q.gate.set()
+            if self.events is not None:
+                self.events.append("partition_resume", q.name)
 
     def _requeue(self, queue: _Queue, delivery: Delivery) -> None:
         if delivery.redelivery_count >= self.cfg.max_redelivery:

@@ -133,12 +133,11 @@ def build_report(app) -> dict[str, Any]:
     }
     if durability:
         report["durability"] = durability
-    # Hot-standby replication: per-queue role/epoch/watermark block (no
-    # runtime of the port has one yet).
+    # Hot-standby replication: per-queue role/epoch/watermark block.
     replication = {
         name: rt.replication.snapshot()
         for name, rt in app._runtimes.items()
-        if getattr(rt, "replication", None) is not None
+        if rt.replication is not None
     }
     if replication:
         report["replication"] = replication
@@ -234,8 +233,12 @@ def _flatten_prom(report: dict[str, Any]) -> str:
             fams.add(f"matchmaking_breaker_{stat}", "counter",
                      {"queue": queue}, snap[stat])
     for series, summary in report.get("latency", {}).items():
+        # A series named "x[queue]" (the replication ack lag) is the
+        # family x_<stat> with a queue label, as a gauge's name is.
+        base, _, queue = series.partition("[")
+        labels = {"queue": queue.rstrip("]")} if queue else {}
         for stat, value in summary.items():
-            fams.add(f"matchmaking_{series}_{stat}", "gauge", {}, value)
+            fams.add(f"matchmaking_{base}_{stat}", "gauge", labels, value)
     for queue, depth in report.get("pools", {}).items():
         fams.add("matchmaking_pool_size", "gauge", {"queue": queue}, depth)
     for queue, size in report.get("dedup_cache", {}).items():
@@ -402,6 +405,19 @@ class ObservabilityServer:
             q_mon = monitors.get(name + "#quality")
             if q_mon is not None:
                 entry["slo_quality"] = q_mon.snapshot()
+            # The replication role and lag: a fenced queue is degraded (a
+            # load balancer stops routing here: its successor owns it).
+            repl = rt.replication
+            if repl is not None:
+                entry["replication"] = {
+                    "role": repl.role,
+                    "epoch": repl.epoch,
+                    "lag": repl.lag(),
+                    "acked_seq": repl.acked_seq,
+                    "sent_seq": repl.sent_seq,
+                }
+                if repl.role == "fenced":
+                    degraded.append(name)
             queues[name] = entry
         burning = [key for key, mon in monitors.items() if mon.burning]
         body = {

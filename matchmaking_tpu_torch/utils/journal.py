@@ -35,8 +35,9 @@ same records, so either package recovers the other's journal directory.
   (waiting, removed, recent, admission) state, and whether the shutdown
   was clean. The service applies that state to its engine.
 
-``tap`` and ``fence`` are the replication hooks (the replication stream
-and the epoch fence), left at None: the port carries no replication yet.
+``tap`` and ``fence`` are the replication hooks (service/replication.py):
+the stream of every sealed record, and the epoch fence checked at the top
+of every append. Both are None while replication is off.
 """
 
 from __future__ import annotations
@@ -290,6 +291,8 @@ class PoolJournal:
         #: Replication stream (None: off): ``tap(seq, rtype, payload)`` for
         #: every sealed record, appends and compaction carries alike.
         self.tap = None
+        #: Records whose tap raised (logged; the append itself stands).
+        self.tap_errors = 0
         #: Epoch fence (None: unfenced): a ``() -> bool`` check at the top
         #: of every append; False raises ``FencedError``.
         self.fence = None
@@ -454,6 +457,7 @@ class PoolJournal:
                 try:
                     self.tap(seq, rtype, payload)
                 except Exception:
+                    self.tap_errors += 1
                     log.exception("journal tap failed for %r seq %d",
                                   self.queue, seq)
             return seq
@@ -593,6 +597,7 @@ class PoolJournal:
                     try:
                         self.tap(seq, rtype, payload)
                     except Exception:
+                        self.tap_errors += 1
                         log.exception("journal tap failed for %r seq %d",
                                       self.queue, seq)
             data = b"".join(frames)

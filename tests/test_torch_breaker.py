@@ -599,7 +599,10 @@ def test_breaker_overload_and_chaos_keys_load_like_jax(caplog):
         assert getattr(cfg.engine, name) == getattr(jcfg.engine, name)
     assert cfg.queues[0].default_tier == 2
     ignored = " ".join(r.getMessage() for r in caplog.records)
-    assert "chaos.drop_seqs" in ignored and "chaos.net_drop_prob" in ignored
+    # The broker faults are carried (utils/chaos.py); the network ones not.
+    assert cfg.chaos.drop_seqs == jcfg.chaos.drop_seqs == (1, 2)
+    assert "chaos.drop_seqs" not in ignored
+    assert "chaos.net_drop_prob" in ignored
     drain = {"overload": {"drain_checkpoint_dir": "/tmp/x"}}
     assert Config.from_dict(drain).overload == OverloadConfig(
         **vars(JaxConfig.from_dict(drain).overload))

@@ -43,7 +43,8 @@ def test_config_file_loads_without_dropping_a_key(name, caplog):
                                      "BrokerConfig", "BatcherConfig",
                                      "AuthConfig", "OverloadConfig",
                                      "ObservabilityConfig",
-                                     "DurabilityConfig", "ForensicsConfig"])
+                                     "DurabilityConfig", "ForensicsConfig",
+                                     "ChaosConfig", "ReplicationConfig"])
 def test_port_fields_have_the_jax_names_and_defaults(section):
     port, jax = getattr(config, section)(), getattr(jax_config, section)()
     for f in dataclasses.fields(port):
@@ -212,11 +213,100 @@ def test_durability_auth_and_drain_keys_load_like_jax():
 
 
 def test_a_replication_role_is_refused_naming_the_module(caplog):
-    with pytest.raises(ValueError, match="service/replication.py"):
-        config.Config.from_dict({"replication": {"role": "primary"}})
+    """``replication.role`` loads now that service/replication.py is
+    ported; an unknown role is refused by ``enabled()``, as in the JAX
+    package, naming the roles there are."""
     with caplog.at_level(logging.WARNING, logger=config.__name__):
-        config.Config.from_dict({"replication": {"role": "", "owner": "a"}})
-    assert "replication" in " ".join(r.getMessage() for r in caplog.records)
+        cfg = config.Config.from_dict({"replication": {
+            "role": "primary", "owner": "hostA", "pump_interval_s": 0.05}})
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    want = jax_config.Config.from_dict({"replication": {
+        "role": "primary", "owner": "hostA", "pump_interval_s": 0.05}})
+    assert dataclasses.asdict(cfg.replication) == dataclasses.asdict(
+        want.replication)
+    assert cfg.replication.enabled() and want.replication.enabled()
+    assert not config.ReplicationConfig().enabled()
+    for mod in (config, jax_config):
+        with pytest.raises(ValueError, match="unknown replication role"):
+            mod.Config.from_dict(
+                {"replication": {"role": "standby"}}).replication.enabled()
+
+
+#: Every broker fault key of ``chaos``, every ``repl_*`` key, the
+#: ``broker`` faults and the top-level scalars, with values that are not
+#: their defaults.
+FAULT_KEYS = {
+    "chaos": {"seed": 4, "queues": ["q"], "drop_prob": 0.1, "dup_prob": 0.2,
+              "drop_seqs": [0, 5], "dup_seqs": [[1, 2]],
+              "partitions": [[6, 9]], "partition_max_s": 2.5,
+              "repl_drop_seqs": [3], "repl_dup_seqs": [4],
+              "repl_delay_seqs": [[5, 2]], "repl_partitions": [[7, 9]],
+              "repl_drop_prob": 0.05, "repl_fail_renewals": [0, 2]},
+    "broker": {"drop_prob": 0.01, "dup_prob": 0.02, "delay_ms": 1.5},
+    "replication": {"role": "primary", "owner": "h", "pump_interval_s": 0.1},
+}
+
+
+def test_fault_and_replication_keys_load_like_jax_from_json(tmp_path,
+                                                            caplog):
+    raw = {**FAULT_KEYS, "seed": 11, "debug_invariants": True,
+           "queues": [{"name": "q"}]}
+    path = tmp_path / "faults.json"
+    path.write_text(json.dumps(raw))
+    with caplog.at_level(logging.WARNING, logger=config.__name__):
+        cfg = config.Config.from_json(str(path), backend="gpu")
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    want = jax_config.Config.from_json(str(path))
+    for section in FAULT_KEYS:
+        for key in FAULT_KEYS[section]:
+            assert (getattr(getattr(cfg, section), key)
+                    == getattr(getattr(want, section), key)), (section, key)
+    assert (cfg.seed, cfg.debug_invariants) == (
+        want.seed, want.debug_invariants) == (11, True)
+    assert cfg.chaos.dup_seqs == ((1, 2),) and cfg.chaos.repl_delay_seqs == (
+        (5, 2),)
+    for gate in ("enabled", "consume_faults", "publish_faults",
+                 "replication_faults"):
+        assert getattr(cfg.chaos, gate)() == getattr(want.chaos, gate)(), gate
+    default, jdefault = config.Config(), jax_config.Config()
+    assert (default.seed, default.debug_invariants) == (
+        jdefault.seed, jdefault.debug_invariants) == (0, False)
+    only_repl = config.ChaosConfig(repl_drop_seqs=(1,))
+    assert only_repl.replication_faults() and not only_repl.enabled()
+
+
+def test_fault_and_replication_keys_load_like_jax_from_env(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("MM_"):
+            monkeypatch.delenv(k)
+    for section, keys in FAULT_KEYS.items():
+        for key, value in keys.items():
+            monkeypatch.setenv(f"MM_{section.upper()}_{key.upper()}",
+                               json.dumps(value))
+    monkeypatch.setenv("MM_SEED", "9")
+    monkeypatch.setenv("MM_DEBUG_INVARIANTS", "true")
+    cfg, want = config.Config.from_env(), jax_config.Config.from_env()
+    for section in FAULT_KEYS:
+        for key in FAULT_KEYS[section]:
+            assert (getattr(getattr(cfg, section), key)
+                    == getattr(getattr(want, section), key)), (section, key)
+    assert (cfg.seed, cfg.debug_invariants) == (9, True) == (
+        want.seed, want.debug_invariants)
+
+
+def test_net_keys_still_warn_and_device_loss_is_still_refused(caplog):
+    with caplog.at_level(logging.WARNING, logger=config.__name__):
+        cfg = config.Config.from_dict({
+            "chaos": {"net_drop_prob": 0.5, "net_deaf_flows": ["lease:"],
+                      "drop_seqs": [1]},
+            "net": {"transport": "socket"}, "workers": 4})
+    said = " ".join(r.getMessage() for r in caplog.records)
+    for key in ("chaos.net_drop_prob", "chaos.net_deaf_flows", "'net'",
+                "'workers'"):
+        assert key in said, key
+    assert cfg.chaos.drop_seqs == (1,)
+    with pytest.raises(ValueError, match="multi-GPU"):
+        config.Config.from_dict({"chaos": {"device_lost_steps": [2]}})
 
 
 def test_from_env_reads_the_mm_variables_like_jax(tmp_path, monkeypatch):

@@ -1611,3 +1611,106 @@ def test_a_graph_captured_under_the_profiler_replays_bit_equal(cuda):
     assert graphed.graph_report()["captures"] == 2
     for kernel in ("prep_kernel", "block_best_kernel", "quality_accum_kernel"):
         assert any(kernel in name for name in names), kernel
+
+
+def test_replication_attach_with_windows_in_flight_at_full_width(cuda,
+                                                                  tmp_path):
+    """Config #1's service at full width on the card (100k waiting, the
+    journal on) with two windows of 1,024 in flight when replication
+    attaches (``start_replication`` on the live queue): under
+    ``_pool_lock`` the windows are collected before the baseline, so the
+    baseline is the pool at its seq, the stream after it has no gap, and
+    once later traffic is collected the standby's shadow equals the
+    pool."""
+    import asyncio
+    import json
+
+    from matchmaking_tpu_torch.config import (
+        DurabilityConfig,
+        ReplicationConfig,
+    )
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.replication import (
+        RT_REPL_SNAPSHOT,
+        ReplicationHub,
+    )
+
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    # A third pipeline slot: two windows held in flight leave the batcher
+    # (and _pool_lock) free.
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True,
+                                        pipeline_depth=3),
+        durability=DurabilityConfig(journal_dir=str(tmp_path / "j")),
+        replication=ReplicationConfig(role="primary"))
+    q = cfg.queues[0].name
+    rng = np.random.default_rng(73)
+    bodies = [json.dumps({"id": f"w{i}", "rating": float(r)}).encode()
+              for i, r in enumerate(rng.normal(1500.0, 300.0, 4096))]
+
+    async def publish(app, lo, hi):
+        for i in range(lo, hi):
+            app.broker.publish(q, bodies[i], Properties(
+                reply_to="r", correlation_id=f"w{i}"))
+        await asyncio.sleep(0.02)
+
+    async def run():
+        hub = ReplicationHub(lease_s=60.0)
+        app = MatchmakingApp(dataclasses.replace(
+            cfg, replication=ReplicationConfig()), device=cuda,
+            replication_hub=hub)
+        await app.start()
+        app.broker.declare_queue("r")
+        rt = app.runtime(q)
+        eng = rt.engine
+        try:
+            eng.restore_columns(interned(eng, named_columns(
+                rng, 100_000, 0, 100.0, False)), 100.0)
+            link, sent = hub.link(q), {}
+            real_send = link.send
+
+            def send(seq, rtype, payload):
+                sent.setdefault(seq, rtype)
+                real_send(seq, rtype, payload)
+            link.send = send
+            real = eng.collect_ready
+            eng.collect_ready = lambda: []  # hold the windows in flight
+            await publish(app, 0, 1024)
+            await publish(app, 1024, 2048)
+            for _ in range(500):
+                if eng.inflight() == 2:
+                    break
+                await asyncio.sleep(0.01)
+            assert eng.inflight() == 2
+            app.cfg = cfg  # replication on, mid-life
+            await rt.start_replication()
+            eng.collect_ready = real
+            assert eng.inflight() == 0
+            base = min(sent)
+            assert sent[base] == RT_REPL_SNAPSHOT
+            # The baseline is the pool after the held windows' matches.
+            assert rt.last_baseline["players"] == eng.pool_size() > 90_000
+            standby = hub.standby(q)
+            await publish(app, 2048, 4096)
+            for _ in range(1000):
+                standby.pump()
+                if (rt.replication.quiescent and eng.inflight() == 0
+                        and rt._batcher.depth == 0
+                        and app.broker.queue_depth(q) == 0
+                        and not rt._pool_lock.locked()):
+                    break
+                await asyncio.sleep(0.01)
+            standby.pump()
+            return (sorted(sent), base, standby.applied_seq, rt.journal.seq,
+                    set(standby.shadow.waiting), set(eng.pool._slot_of),
+                    app.faults())
+        finally:
+            await app.stop()
+
+    seqs, base, applied, jseq, shadow, pool, faults = asyncio.run(run())
+    assert faults == {}
+    assert seqs == list(range(base, base + len(seqs)))
+    assert applied == jseq == seqs[-1]
+    assert shadow == pool and len(pool) > 90_000

@@ -62,9 +62,11 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.service.batcher",
                  "matchmaking_tpu_torch.service.attribution",
                  "matchmaking_tpu_torch.service.observability",
+                 "matchmaking_tpu_torch.service.replication",
                  "matchmaking_tpu_torch.utils.chaos",
                  "matchmaking_tpu_torch.utils.checkpoint",
                  "matchmaking_tpu_torch.utils.forensics",
+                 "matchmaking_tpu_torch.utils.invariants",
                  "matchmaking_tpu_torch.utils.journal",
                  "matchmaking_tpu_torch.utils.metrics",
                  "matchmaking_tpu_torch.utils.timeseries",
