@@ -263,8 +263,35 @@ output file.
    peak ``unacked_admit_players`` (the loss bound), and the shadow equal
    to the pool after the heal.
 
+12. network: config #1's service at full width with the journal on
+   (fsync "none"), the 100k recovered from a journal at each start, its
+   lease at a ``python -m matchmaking_tpu_torch.net.failover_proc lease``
+   child and its standby a ``failover_proc host`` child on the card, over
+   UDS sockets with 32 MiB frame and send buffer limits on both sides.
+   12a: replication off and over the socket in turns, two rounds each:
+   requests/s, latency, the lag in records, the tap's µs a record, the IO
+   thread's ms and bytes of the 100k baseline frame, send → the child's
+   applied baseline, the link's frames, reconnects, drops and liveness
+   losses, the loop's longest stall after the start; the child's shadow
+   equals the pool, and no send, frame, liveness, lease-request or fence
+   error. 12b: the
+   JAX soak's cycle-0 script on the fwd flow (a drop, a duplicate, a
+   delay, a reset, relative to the baseline's seq): one reconnect, the
+   baseline re-sent, every record applied once, the shadow the pool; then
+   a crash after the 4th window of a second stream, the child's takeover
+   after the real lease expiry, both fences of the ex-primary refused,
+   the child serving config #1 on the card adopting its shadow (RTO and
+   split, the takeover's epoch), 1,024 requests through the child
+   launching block_best and quality_accum there (counted by the child),
+   both kernels against their plain versions on the child's pool, nobody
+   matched by both. 12c: ``failover_proc.soak`` at JAX's geometry with
+   its hosts on the card, ``NET_SOAK_RUNS`` times: no double match, loss
+   within the unacked-tail bound, both fences refused after the
+   asymmetric partition, reconnects, no heartbeat false positive, equal
+   takeover-transcript digests.
+
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-11, the
+JSON summary of phases 3-12, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -5443,6 +5470,604 @@ async def service_replication(np, torch, ck, mods, path, *, waiting,
     return res
 
 
+# ---- phase 12: the socket transport under replication and the lease ---------
+
+#: Phase 12's lease (s): a renewal is confirmed every pump (20 ms), so only
+#: a stall of the primary's loop longer than the budgeted lease (lease_s -
+#: lease_rtt_budget_s) fences it. The stalls phase 11 measured: the 100k
+#: baseline, 223-412 ms; an adoption, 1.6-1.9 s (before the successor's
+#: acquire, so not inside a lease).
+NET_LEASE_S = 3.0
+#: Phase 12's frame and send buffer limits, on both sides: the 100k
+#: baseline's frame is ~13 MB (9.6 MB of JSON in base64), past the
+#: defaults (1 MiB a frame, 4 MiB of send buffer), which drop it.
+NET_LIMITS = dict(max_frame_bytes=32 << 20, send_buffer_bytes=32 << 20)
+#: Runs of 12c's soak (JAX's geometry: pool 4,096, 3 cycles, 6 pairs + 3
+#: singles + 2 late singles a cycle, seed 29). Once: two runs took phase
+#: 12 to 114 s; the CPU test holds the two-run digest identity.
+NET_SOAK_RUNS = 1
+#: The IO thread's name (net/transport.py).
+NET_IO_THREAD = "mm-torch-net-io"
+
+
+async def arpc(child, cmd, timeout=120.0, **kw):
+    """A child's command from the event loop, without blocking it (the
+    primary's pump and renewals run on that loop)."""
+    return await asyncio.to_thread(child.rpc, cmd, timeout, **kw)
+
+
+class LoopStalls:
+    """The longest stall of the event loop: a task that sleeps 5 ms and
+    records how much later than that it wakes."""
+
+    def __init__(self, tick=0.005):
+        self.tick, self.max_ms = tick, 0.0
+        self.task = asyncio.ensure_future(self._run())
+
+    async def _run(self):
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(self.tick)
+            late = (time.perf_counter() - t - self.tick) * 1e3
+            self.max_ms = max(self.max_ms, late)
+
+    def stop(self):
+        self.task.cancel()
+        return self.max_ms
+
+
+class FrameClock:
+    """Host time spent on frames of at least ``min_bytes`` (the baseline's):
+    base64 and ``pack_msg`` in net/link.py, ``encode_frame`` in
+    net/transport.py, wrapped while the clock is open; each entry is
+    (step, thread, ms, bytes)."""
+
+    def __init__(self, link_mod, transport_mod, min_bytes=1 << 20):
+        import base64
+        import threading
+        import types
+
+        self.entries = []
+        self._mods = (link_mod, transport_mod)
+        self._saved = (link_mod.pack_msg, link_mod.base64,
+                       transport_mod.encode_frame)
+
+        def timed(step, fn, size):
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                n = size(a, out)
+                if n >= min_bytes:
+                    self.entries.append(
+                        (step, threading.current_thread().name,
+                         (time.perf_counter() - t) * 1e3, n))
+                return out
+            return wrapper
+
+        link_mod.pack_msg = timed("pack_msg", link_mod.pack_msg,
+                                  lambda a, out: len(out))
+        link_mod.base64 = types.SimpleNamespace(
+            b64encode=timed("b64encode", base64.b64encode,
+                            lambda a, out: len(a[0])),
+            b64decode=base64.b64decode)
+        transport_mod.encode_frame = timed(
+            "encode_frame", transport_mod.encode_frame,
+            lambda a, out: len(out))
+
+    def close(self):
+        link_mod, transport_mod = self._mods
+        (link_mod.pack_msg, link_mod.base64,
+         transport_mod.encode_frame) = self._saved
+
+    def frames(self):
+        """(the IO thread's ms, frame bytes, thread) of each large frame
+        written to a connection, in send order: its base64, pack and
+        encode (a frame drained with no connection up has no encode)."""
+        out, cur = [], None
+        for step, thread, ms, n in self.entries:
+            if step == "b64encode":
+                cur = [0.0, 0, thread]
+                out.append(cur)
+            if cur is not None:
+                cur[0] += ms
+                if step == "encode_frame":
+                    cur[1] = n
+        return [tuple(f) for f in out if f[1]]
+
+
+class SocketMeter:
+    """The primary's side of a socket-replicated soak: the lag in records
+    every 20 ms and the tap's host time a record (the journal's tap
+    wrapped)."""
+
+    def __init__(self, rt, interval=PUMP_S):
+        self.rt, self.lags = rt, []
+        self.tap_s, self.taps = 0.0, 0
+        real_tap = rt.journal.tap
+
+        def tap(seq, rtype, payload):
+            t = time.perf_counter()
+            real_tap(seq, rtype, payload)
+            self.tap_s += time.perf_counter() - t
+            self.taps += 1
+        rt.journal.tap = tap
+        self.task = asyncio.ensure_future(self._run(interval))
+
+    async def _run(self, interval):
+        while True:
+            await asyncio.sleep(interval)
+            self.lags.append(self.rt.replication.lag())
+
+    async def quiesce(self, timeout=60.0):
+        end = time.monotonic() + timeout
+        while not self.rt.replication.quiescent:
+            if time.monotonic() > end:
+                raise AssertionError(
+                    f"replication did not quiesce: sent "
+                    f"{self.rt.replication.sent_seq}, acked "
+                    f"{self.rt.replication.acked_seq}")
+            await asyncio.sleep(0.01)
+
+    def stop(self):
+        self.task.cancel()
+
+    def summary(self):
+        lags = sorted(self.lags) or [0]
+        return {"lag_records_p50": statistics.median(lags),
+                "lag_records_p99": pct(lags, 0.99),
+                "lag_records_max": lags[-1], "pumps_seen": len(self.lags),
+                "tap_us_per_record": self.tap_s / max(1, self.taps) * 1e6,
+                "records": self.taps}
+
+
+def check_socket_turn(app, rt, hub, rep, what):
+    """A clean turn: the child's shadow is the pool at the journal's seq,
+    and nothing on the replication path or the wire failed (tap, send,
+    pump, frame, liveness, lease request, fence)."""
+    from matchmaking_tpu_torch.net.failover_proc import _digest
+
+    pool = set(rt.engine.pool._slot_of)
+    if (rep.get("shadow_digest") != _digest(pool)
+            or rep.get("shadow_n") != len(pool)):
+        raise AssertionError(f"{what}: the child's shadow ({rep.get('shadow_n')}"
+                             f") differs from the pool ({len(pool)})")
+    if rep.get("applied_seq") != rt.journal.seq:
+        raise AssertionError(f"{what}: the child applied "
+                             f"{rep.get('applied_seq')}, journal at "
+                             f"{rt.journal.seq}")
+    link = dict(rt.replication.link.counters)
+    slink = rep.get("standby_link", {})
+    bad = {
+        "tap_errors": rt.journal.tap_errors,
+        "send_errors": rt.replication.send_errors,
+        "replication_pump_errors": rt.counters["replication_pump_errors"],
+        "link_send_errors": link.get("send_errors", 0),
+        "frame_errors": link.get("frame_errors", 0)
+        + slink.get("frame_errors", 0),
+        "liveness_lost": link.get("liveness_lost", 0)
+        + slink.get("liveness_lost", 0),
+        "rpc_timeouts": hub.authority.counters.get("rpc_timeouts", 0),
+        "replication_fenced": app.metrics.counters.get("replication_fenced"),
+    }
+    if any(bad.values()):
+        raise AssertionError(f"{what}: {bad}")
+    check_faults(app, what)
+    return link, slink
+
+
+async def wait_baseline(child, seq, sent_at, what, timeout=60.0):
+    """Poll the child (every 10 ms) until it applied the baseline of
+    ``seq``; the ms since ``sent_at`` (monotonic, one clock for both
+    processes)."""
+    end = time.monotonic() + timeout
+    while True:
+        rep = await arpc(child, "report")
+        if (rep.get("applied_seq", 0) >= seq
+                and rep.get("applier", {}).get("snapshots")):
+            return (time.monotonic() - sent_at) * 1e3, rep
+        if time.monotonic() > end:
+            raise AssertionError(f"{what}: the baseline never applied: {rep}")
+        await asyncio.sleep(0.01)
+
+
+async def service_network(np, torch, ck, mods, path, *, waiting, requests,
+                          burst, seed, soak_runs):
+    """12a-12c. Config #1's service at full width with the journal on
+    (fsync "none"), the 100k recovered from a journal at each start, its
+    lease held at a ``failover_proc lease`` child and its standby a
+    ``failover_proc host`` child on the card (``--device cuda``), both
+    over UDS, frame and send buffer limits ``NET_LIMITS`` on both sides.
+    12a: replication off and over the socket in turns, two rounds each
+    (``requests`` in bursts of ``burst``): requests/s, p50/p99, the lag
+    in records, the tap's µs a record, the IO thread's ms for the
+    baseline frame and its bytes, send → the child's applied baseline,
+    the link's counters and the loop's longest stall after the start (the
+    baseline's own, inside the start, is ``last_baseline["ms"]``); the
+    child's shadow is the pool, and no error, liveness loss, lease timeout
+    or fence.
+    12b: the JAX soak's cycle-0 script on the fwd flow (seqs relative to
+    the baseline's): the link reconnects, re-sends the baseline and
+    converges, every record applied once; then a crash after the 4th
+    window of a second stream, the child's takeover after the real lease
+    expiry, the fenced ex-primary refused at both seams, the child serving
+    config #1 on the card adopting its shadow (RTO and split; the epoch
+    the takeover's), 1,024 requests through the child launching both
+    kernels there (its counts), the kernels against their plain versions
+    on the child's pool, and nobody matched by both. 12c: the
+    cross-process soak (``failover_proc.soak``, JAX's geometry) with its
+    hosts on the card, ``soak_runs`` times: JAX's gates, one digest."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from matchmaking_tpu_torch.config import ChaosConfig, NetConfig
+    from matchmaking_tpu_torch.net import failover_proc
+    from matchmaking_tpu_torch.net import link as net_link
+    from matchmaking_tpu_torch.net import transport as net_transport
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.replication import QueueReplication
+    from matchmaking_tpu_torch.utils.journal import FencedError
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    faults_n, second, fresh_n = 4_096, 8_192, 1_024
+    pop = Population(np, rng, waiting + requests + faults_n + second
+                     + fresh_n, t0, filters=False, glicko2=False)
+    # A short base: UDS paths stay far under 108 bytes.
+    work = tempfile.mkdtemp(prefix="mmnet")
+    seed_dir = os.path.join(work, "seed")
+    reply = "net.replies"
+    lease_addr = f"unix:{work}/lease.sock"
+    net = NetConfig(transport="socket", lease_addr=lease_addr, **NET_LIMITS)
+    children = []
+    res: dict = {"legs": [], "lease_s": NET_LEASE_S, "limits": NET_LIMITS}
+
+    def spawn(name, argv):
+        c = failover_proc.Child(name, argv)
+        children.append(c)
+        return c
+
+    try:
+        cfg0 = resilience_cfg(Config, path, journal_dir=seed_dir)
+        queue = cfg0.queues[0].name
+        # The lease service and the three standbys start beside the seed.
+        lease = spawn("lease", ["lease", "--lease-addr", lease_addr,
+                                "--lease-s", str(NET_LEASE_S)])
+        hosts = {name: spawn(name, failover_proc.host_argv(
+            name, queue=queue, lease_addr=lease_addr, lease_s=NET_LEASE_S,
+            seed=seed, device="cuda", net=net))
+            for name in ("standby1", "standby3", "successor")}
+        app0 = MatchmakingApp(cfg0, device="cuda")
+        await app0.start()
+        fill = pop.columns(RequestColumns, app0.engine, 0, waiting, t0, reply)
+        app0.restore_columns(fill, pop.region[:waiting], pop.mode[:waiting],
+                             t0)
+        await app0.runtime(queue).compact_journal()
+        await app0.crash()
+        del app0
+        for c in children:
+            await asyncio.to_thread(c.wait_ev, "ready", 120.0)
+
+        def leg_cfg(name, on, target=None, chaos=None, owner="hostA"):
+            jdir = os.path.join(work, name)
+            shutil.copytree(seed_dir, jdir)
+            cfg = resilience_cfg(Config, path, journal_dir=jdir,
+                                 replication=on, owner=owner)
+            if on:
+                cfg = dataclasses.replace(
+                    cfg, net=dataclasses.replace(net, repl_target=target),
+                    chaos=chaos or ChaosConfig())
+            return cfg
+
+        sent_at = []
+        real_send_baseline = QueueReplication.send_baseline
+
+        def send_baseline(self, seq, payload):
+            sent_at.append(time.monotonic())
+            real_send_baseline(self, seq, payload)
+        QueueReplication.send_baseline = send_baseline
+
+        # ---- 12a: off and over the socket in turns ---------------------
+        for i, on in enumerate((False, True, False, True)):
+            child = hosts.get(f"standby{i}")
+            listen = f"unix:{work}/s{i}.sock"
+            if on:
+                await arpc(child, "standby", listen=listen)
+            app = MatchmakingApp(leg_cfg(f"leg{i}", on, target=listen),
+                                 device="cuda")
+            clock = FrameClock(net_link, net_transport) if on else None
+            sent_at.clear()
+            t = time.perf_counter()
+            await app.start()
+            start_ms = (time.perf_counter() - t) * 1e3
+            stalls = LoopStalls()
+            rt = app.runtime(queue)
+            rec = rt.last_recovery
+            if rec is None or rec["snapshot_players"] != waiting:
+                raise AssertionError(f"12a leg {i}: recovered {rec}")
+            leg = {"replication": on, "start_ms": start_ms}
+            if on:
+                hub = app.replication_hub
+                cross_ms, _ = await wait_baseline(
+                    child, rt.last_baseline["seq"], sent_at[0],
+                    f"12a leg {i}")
+                meter = SocketMeter(rt)
+            replies = Replies(app, reply)
+            reset_counts(ck)
+            soak_s, t_pub = await publish_and_wait(
+                app, request_bodies(pop, waiting, waiting + requests), burst,
+                reply, replies)
+            await settle(app)
+            launches = dict(ck.LAUNCHES)
+            p50, p99 = latency_ms(replies, t_pub)
+            check_answers(replies, t_pub, f"12a leg {i}")
+            leg.update(requests_per_s=requests / soak_s, latency_ms_p50=p50,
+                       latency_ms_p99=p99, windows=rt.counters["windows"],
+                       launches=launches)
+            if on:
+                await meter.quiesce()
+                meter.stop()
+                rep = await arpc(child, "report")
+                link, slink = check_socket_turn(app, rt, hub, rep,
+                                                f"12a leg {i}")
+                frames = clock.frames()
+                clock.close()
+                leg.update(meter.summary())
+                leg["baseline"] = dict(
+                    rt.last_baseline, frame_bytes=frames[0][1],
+                    io_thread_ms=frames[0][0], io_thread=frames[0][2],
+                    send_to_applied_ms=cross_ms)
+                leg["link"] = {k: link.get(k, 0) for k in (
+                    "frames_tx", "frames_rx", "connects", "reconnects",
+                    "backpressure_dropped", "liveness_lost", "sent")}
+                leg["standby_link"] = {k: slink.get(k, 0) for k in (
+                    "frames_tx", "frames_rx", "accepts", "liveness_lost",
+                    "delivered")}
+                leg["lease"] = {k: v for k, v in hub.authority.counters.items()
+                                if k in ("rpc_timeouts", "connects",
+                                         "reconnects", "frames_tx")}
+                if (frames[0][2] != NET_IO_THREAD
+                        or rt.last_baseline["players"] != waiting):
+                    raise AssertionError(f"12a leg {i}: baseline {frames} "
+                                         f"{rt.last_baseline}")
+            else:
+                check_faults(app, f"12a leg {i}")
+            leg["loop_stall_ms_max"] = stalls.stop()
+            await app.stop()
+            if on:
+                if app.replication_hub is not None:
+                    raise AssertionError("12a: the owned hub stayed open")
+                await arpc(child, "stop")
+            res["legs"].append(leg)
+        ons = [leg for leg in res["legs"] if leg["replication"]]
+        log("12a socket replication off/on in turns: " + ", ".join(
+            f"{'on' if leg['replication'] else 'off'} "
+            f"{leg['requests_per_s']:.0f}/s p50 {leg['latency_ms_p50']:.2f} "
+            f"p99 {leg['latency_ms_p99']:.2f} ms" for leg in res["legs"])
+            + f"; lag p50/p99 {[(o['lag_records_p50'], o['lag_records_p99']) for o in ons]}"
+            f" records, tap {[round(o['tap_us_per_record'], 2) for o in ons]}"
+            f" µs a record, baseline {[o['baseline'] for o in ons]}, link "
+            f"{[o['link'] for o in ons]}, loop stall max "
+            f"{[round(leg['loop_stall_ms_max'], 1) for leg in res['legs']]} ms")
+
+        # ---- 12b: faults on the fwd flow, then a host loss ----------------
+        base = ons[0]["baseline"]["seq"]
+        fwd = f"repl:{queue}:fwd"
+        script = ChaosConfig(
+            seed=seed, queues=(queue,), net_drop_frames=((fwd, base + 2),),
+            net_dup_frames=((fwd, base + 3),),
+            net_delay_frames=((fwd, base + 4, 2),),
+            net_reset_frames=((fwd, base + 6),))
+        succ = hosts["successor"]
+        listen = f"unix:{work}/sb.sock"
+        await arpc(succ, "standby", listen=listen)
+        app = MatchmakingApp(leg_cfg("leg_faults", True, target=listen,
+                                     chaos=script), device="cuda")
+        clock = FrameClock(net_link, net_transport)
+        sent_at.clear()
+        await app.start()
+        stalls = LoopStalls()
+        rt = app.runtime(queue)
+        hub = app.replication_hub
+        if rt.last_baseline["seq"] != base:
+            raise AssertionError(f"12b: baseline seq {rt.last_baseline}, "
+                                 f"12a's {base}")
+        await wait_baseline(succ, base, sent_at[0], "12b")
+        meter = SocketMeter(rt)
+        replies = Replies(app, reply)
+        lo = waiting + requests
+        reset_counts(ck)
+        soak_s, t_pub = await publish_and_wait(
+            app, request_bodies(pop, lo, lo + faults_n), burst, reply,
+            replies)
+        await settle(app)
+        launches_f = dict(ck.LAUNCHES)
+        check_answers(replies, t_pub, "12b faults")
+        await meter.quiesce()
+        rep = await arpc(succ, "report")
+        link, slink = dict(rt.replication.link.counters), rep["standby_link"]
+        applier = rep["applier"]
+        frames = clock.frames()
+        clock.close()
+        if rep.get("shadow_digest") != failover_proc._digest(
+                rt.engine.pool._slot_of) or rep["applied_seq"] != rt.journal.seq:
+            raise AssertionError(f"12b: the shadow did not converge: {rep}")
+        want = {"nemesis_dropped": 1, "nemesis_dup": 1, "nemesis_delayed": 1,
+                "nemesis_resets": 1}
+        if ({k: link.get(k, 0) for k in want} != want
+                or link.get("reconnects", 0) < 1 or len(frames) < 2
+                or applier.get("applied") != rt.journal.seq - base + 1
+                or applier.get("snapshots") != 1):
+            raise AssertionError(f"12b: link {link}, applier {applier}, "
+                                 f"{len(frames)} baseline frames")
+        faults = {"requests_per_s": faults_n / soak_s, "link": link,
+                  "standby_link": slink, "applier": applier,
+                  "baseline_frames": len(frames), "launches": launches_f,
+                  **meter.summary()}
+        meter.stop()
+        # The host loss: a second stream, crashed after its 4th window.
+        rows = request_bodies(pop, lo + faults_n, lo + faults_n + second)
+        state: dict = {}
+        real_admit = rt._journal_admit_cols
+
+        def admit_then_crash(cols):
+            real_admit(cols)
+            state["windows"] = state.get("windows", 0) + 1
+            if state["windows"] == 4:
+                state["in_flight"] = app.engine.inflight()
+                state["mirror"] = set(rt.engine.pool._slot_of)
+                state["kill_bound"] = rt.replication.unacked_admit_players()
+                state["lag"] = rt.replication.lag()
+                crash = app.crash()
+                try:
+                    crash.send(None)
+                except StopIteration:
+                    pass
+                raise Crashed()
+        rt._journal_admit_cols = admit_then_crash
+        reset_counts(ck)
+        for b in range(0, second, burst):
+            for pid, body in rows[b:b + burst]:
+                app.broker.publish(queue, body, Properties(
+                    reply_to=reply, correlation_id=pid))
+            await asyncio.sleep(0.004)
+            if "in_flight" in state:
+                break
+        if "mirror" not in state:
+            raise AssertionError(f"12b: no crash ({state})")
+        flusher = rt._batcher._task
+        await asyncio.sleep(0.01)
+        if flusher.done() and not flusher.cancelled():
+            flusher.exception()  # the Crashed it ended with, retrieved
+        launches_crash = dict(ck.LAUNCHES)
+        stall_b = stalls.stop()
+        matched_before = replies.matched()
+        t = time.perf_counter()
+        to = await arpc(succ, "takeover", timeout_s=4 * NET_LEASE_S + 30.0,
+                        timeout=4 * NET_LEASE_S + 60.0)
+        takeover_ms = (time.perf_counter() - t) * 1e3
+        if not rt.replication.superseded():
+            raise AssertionError("12b: the ex-primary is not superseded")
+        try:
+            rt.journal.append_admits([["zz", 1500.0, 350.0, "*", "*", None,
+                                       t0, reply, "zz", 0, 0.0]])
+            raise AssertionError("12b: the fenced primary appended")
+        except FencedError:
+            pass
+        answered = sum(len(v) for v in replies.got.values())
+        rt._publish(reply, "zz", b"{}")
+        refused = rt.counters["fenced_publish_refused"]
+        if (refused != 1 or rt.replication.role != "fenced"
+                or sum(len(v) for v in replies.got.values()) != answered):
+            raise AssertionError(f"12b: the fenced primary published "
+                                 f"({refused} refused)")
+        rep = await arpc(succ, "report", shadow=True)
+        shadow = set(rep["shadow"])
+        lost = state["mirror"] - shadow
+        if len(lost) > state["kill_bound"] or shadow & set(matched_before):
+            raise AssertionError(
+                f"12b: {len(lost)} lost (bound {state['kill_bound']}), "
+                f"{len(shadow & set(matched_before))} matched players in "
+                f"the shadow")
+        sv = await arpc(succ, "serve", target=f"unix:{work}/deadend.sock",
+                        jdir=os.path.join(work, "successor_j"),
+                        config=os.path.join(HERE, path), fsync="none",
+                        digest=True, timeout=300.0)
+        if (sv["epoch"] != to["epoch"] or sv["recovered_n"] != len(shadow)
+                or sv["recovered_digest"] != failover_proc._digest(shadow)):
+            raise AssertionError(f"12b: served epoch {sv['epoch']} after "
+                                 f"takeover {to['epoch']}, adopted "
+                                 f"{sv['recovered_n']} of {len(shadow)}")
+        before = await arpc(succ, "report", digest=True)
+        lo2 = lo + faults_n + second
+        fresh = [[pop.ids[k], float(pop.rating[k])]
+                 for k in range(lo2, lo2 + fresh_n)]
+        t = time.perf_counter()
+        await arpc(succ, "publish", rows=fresh, rate=1e7)
+        q = await arpc(succ, "quiesce", replication=False, timeout_s=60.0,
+                       timeout=90.0)
+        fresh_s = time.perf_counter() - t
+        after = await arpc(succ, "report", digest=True)
+        launches_s = {k: after["launches"][k] - before["launches"][k]
+                      for k in after["launches"]}
+        if (not q["ok"] or launches_s["block_best"] == 0
+                or launches_s["quality_accum"] != launches_s["block_best"]
+                or after["faults"] or any(after["errors"].values())):
+            raise AssertionError(f"12b: the successor: quiesced {q}, "
+                                 f"launches {launches_s}, faults "
+                                 f"{after['faults']}, {after['errors']}")
+        kern = await arpc(succ, "kernels", rows=FULL_B)
+        both = set(after["match_of"]) & set(matched_before)
+        if both:
+            raise AssertionError(f"12b: {len(both)} players matched by both "
+                                 f"the primary and the child")
+        await arpc(succ, "stop", timeout=120.0)
+        res["faults"] = faults
+        res["failover"] = {
+            "in_flight_at_crash": state["in_flight"],
+            "kill_bound": state["kill_bound"], "lag_at_crash": state["lag"],
+            "lost": len(lost), "matched_before_crash": len(matched_before),
+            "takeover_ms_real_expiry": takeover_ms, "epoch": to["epoch"],
+            "served_epoch": sv["epoch"], "shadow_players": len(shadow),
+            "rto_ms": sv["rto_ms"], "split_ms": sv["split_ms"],
+            "loop_stall_ms_max": stall_b, "fresh_s": fresh_s,
+            "fenced_publish_refused": refused,
+            "launches_before_crash": launches_crash,
+            "launches": launches_s, "kernel_check": kern,
+            "matched_by_child": len(after["match_of"])}
+        log(f"12b faults: link {link}, applier {applier}, "
+            f"{len(frames)} baseline frames; host loss with "
+            f"{state['in_flight']} windows in flight, lag "
+            f"{state['lag']} records, lost {len(lost)} (bound "
+            f"{state['kill_bound']}); takeover after the real expiry "
+            f"{takeover_ms:.0f} ms (epoch {to['epoch']}), the child adopted "
+            f"{len(shadow)} on the card, rto {sv['rto_ms']} ms "
+            f"{sv['split_ms']}, its {fresh_n} requests launched "
+            f"{launches_s}, kernels vs plain {kern}")
+        QueueReplication.send_baseline = real_send_baseline
+
+        # ---- 12c: the cross-process soak, hosts on the card ---------------
+        t = time.perf_counter()
+        soak = await asyncio.to_thread(
+            failover_proc.soak, runs=soak_runs, cycles=3, device="cuda",
+            log_fn=log)
+        soak["seconds"] = time.perf_counter() - t
+        gates = {
+            "dup": soak["socket_failover_dup"] == 0,
+            "lost_over_bound": soak["socket_failover_lost_over_bound"] == 0,
+            "fenced_probes": soak["socket_fenced_probe_failures"] == 0,
+            "reconnects": soak["socket_link_reconnects"] >= soak_runs,
+            "heartbeat_false_positives":
+                soak["heartbeat_false_positive_count"] == 0,
+            "recoveries": soak["socket_failover_recoveries"] == 3 * soak_runs,
+            "identical": soak_runs < 2
+            or soak["socket_failover_transcript_identical"] is True,
+            "epochs": all(a == b for run in soak["socket_failover_epochs"]
+                          for a, b in run),
+            "launches": soak["launches"]["block_best"] > 0
+            and soak["launches"]["quality_accum"]
+            == soak["launches"]["block_best"]}
+        if not all(gates.values()):
+            raise AssertionError(f"12c: gates {gates}: {soak}")
+        res["soak"] = soak
+        log(f"12c cross-process soak ({soak_runs} run(s), 3 cycles, hosts on "
+            f"the card): lost {soak['socket_failover_lost']} of bound "
+            f"{soak['socket_failover_lost_bound']}, dup "
+            f"{soak['socket_failover_dup']}, reconnects "
+            f"{soak['socket_link_reconnects']}, heartbeat false positives "
+            f"{soak['heartbeat_false_positive_count']}, rto max "
+            f"{soak['socket_failover_rto_ms']} ms, digests "
+            f"{soak['failover_transcript_digests']}, launches "
+            f"{soak['launches']}, {soak['seconds']:.1f} s")
+    finally:
+        for c in children:
+            c.reap()
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -5734,6 +6359,34 @@ def main(argv) -> int:
     for name, counts in phase11.items():
         launches[name] = counts["block_best"]
     phase_s["11"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 12. the socket transport at full width: config #1's service
+    #     replicating to a standby in a child process over UDS, its lease
+    #     at a lease child; faults on the wire and a host loss onto the
+    #     child; the cross-process failover soak with its hosts on the card
+    network = asyncio.run(service_network(
+        np, torch, ck, mods, elo, waiting=100_000, requests=16_384,
+        burst=512, seed=25, soak_runs=NET_SOAK_RUNS))
+    ons11 = [leg for leg in replication["legs"] if leg["replication"]]
+    ons12 = [leg for leg in network["legs"] if leg["replication"]]
+    log("12a against 11b (on legs, requests/s; p50 / p99 ms): socket "
+        + ", ".join(f"{o['requests_per_s']:.0f}; {o['latency_ms_p50']:.1f} / "
+                    f"{o['latency_ms_p99']:.1f}" for o in ons12)
+        + " · in-process " + ", ".join(
+            f"{o['requests_per_s']:.0f}; {o['latency_ms_p50']:.1f} / "
+            f"{o['latency_ms_p99']:.1f}" for o in ons11))
+    phase12 = {f"service_network_{i}_"
+               f"{'on' if leg['replication'] else 'off'}": leg["launches"]
+               for i, leg in enumerate(network["legs"])}
+    phase12["service_network_faults"] = network["faults"]["launches"]
+    phase12["service_network_before_host_loss"] = (
+        network["failover"]["launches_before_crash"])
+    phase12["child_successor"] = network["failover"]["launches"]
+    phase12["child_soak_hosts"] = network["soak"]["launches"]
+    for name, counts in phase12.items():
+        launches[name] = counts["block_best"]
+    phase_s["12"] = time.perf_counter() - t_phase
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -5760,7 +6413,8 @@ def main(argv) -> int:
                            for r in tracing.values())
                      + sum(r["launches"]["block_best"]
                            for r in observed.values())
-                     + sum(c["block_best"] for c in phase11.values()))
+                     + sum(c["block_best"] for c in phase11.values())
+                     + sum(c["block_best"] for c in phase12.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -5771,7 +6425,8 @@ def main(argv) -> int:
                         for r in tracing.values())
                   + sum(r["launches"]["quality_accum"]
                         for r in observed.values())
-                  + sum(c["quality_accum"] for c in phase11.values()))
+                  + sum(c["quality_accum"] for c in phase11.values())
+                  + sum(c["quality_accum"] for c in phase12.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -5820,7 +6475,8 @@ def main(argv) -> int:
                for mode, run in tracing.items()},
             **{"service_observability_" + name: run["launches"]["quality_accum"]
                for name, run in observed.items()},
-            **{name: c["quality_accum"] for name, c in phase11.items()}},
+            **{name: c["quality_accum"] for name, c in phase11.items()},
+            **{name: c["quality_accum"] for name, c in phase12.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -5934,6 +6590,15 @@ def main(argv) -> int:
             "link_faults": {k: v for k, v in
                             replication["link_faults"].items()
                             if k != "launches"}},
+        "network": {
+            "legs": [{k: v for k, v in leg.items() if k != "launches"}
+                     for leg in network["legs"]],
+            "faults": {k: v for k, v in network["faults"].items()
+                       if k != "launches"},
+            "failover": {k: v for k, v in network["failover"].items()
+                         if not k.startswith("launches")},
+            "soak": {k: v for k, v in network["soak"].items()
+                     if k not in ("launches", "socket_failover_epochs")}},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -5970,6 +6635,7 @@ def main(argv) -> int:
                        "observability": observed,
                        "cpu_route_statuses": cpu_statuses,
                        "chaos": chaos_runs, "replication": replication,
+                       "network": network,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

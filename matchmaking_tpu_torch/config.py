@@ -7,11 +7,10 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
 JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
-Sections and keys the port does not carry yet (placement, autotune, the
-network transport and its chaos faults, ``workers``, ...) are ignored with
-a warning; a value that needs a module the port does not have yet is
-refused, with the module named: the multi-GPU chaos faults at
-construction.
+Sections and keys the port does not carry yet (placement, autotune,
+``workers``, ...) are ignored with a warning; a value that needs a module
+the port does not have yet is refused, with the module named: the
+multi-GPU chaos faults at construction.
 """
 
 from __future__ import annotations
@@ -347,10 +346,12 @@ class ChaosConfig:
     - engine faults, per device search-step index and breaker probe,
       counted outside the engine so the indices survive revives;
     - replication-link faults, per stream record seq (the ``repl_*``
-      keys, read by ``service/replication.py``).
-
-    The JAX package's network faults (``net_*``) are not carried (ignored
-    with a warning)."""
+      keys, read by ``service/replication.py``);
+    - socket-transport faults (the ``net_*`` keys, read by
+      ``net/nemesis.py``), per flow and frame seq. A flow is named by a
+      substring of its id (``repl:<queue>:fwd``, ``repl:<queue>:ack``,
+      ``lease:<owner>``); the seq is the record seq on a replication flow
+      and a per-flow frame counter elsewhere."""
 
     seed: int = 0
     #: Queues the broker faults apply to; () = every queue, reply queues
@@ -394,6 +395,27 @@ class ChaosConfig:
     repl_drop_prob: float = 0.0
     #: Lease-renewal call indices the lease authority refuses.
     repl_fail_renewals: tuple[int, ...] = ()
+    #: (flow, frame seq): the first transmission is dropped.
+    net_drop_frames: tuple[tuple[str, int], ...] = ()
+    #: (flow, frame seq): the first transmission is sent twice.
+    net_dup_frames: tuple[tuple[str, int], ...] = ()
+    #: (flow, seq, hold): the frame is held until ``hold`` further first
+    #: transmissions pass, then sent late.
+    net_delay_frames: tuple[tuple[str, int, int], ...] = ()
+    #: (flow, seq): the sender closes the connection abruptly instead of
+    #: sending the frame (a reconnect and the retransmitted tail carry it).
+    net_reset_frames: tuple[tuple[str, int], ...] = ()
+    #: (flow, pause seq, resume seq): frames are held at the sender from
+    #: the pause seq's first transmission until any transmission reaches
+    #: the resume seq.
+    net_partitions: tuple[tuple[str, int, int], ...] = ()
+    #: Flows whose inbound frames this process drops from the start (an
+    #: asymmetric partition; heartbeats are dropped too).
+    net_deaf_flows: tuple[str, ...] = ()
+    #: Seeded frame-drop probability, decided per (seed, "net", flow, seq).
+    net_drop_prob: float = 0.0
+    #: (flow, bytes per second): the sender paces frames to this rate.
+    net_bandwidth_caps: tuple[tuple[str, int], ...] = ()
 
     def __post_init__(self) -> None:
         if self.device_lost_steps:
@@ -422,14 +444,24 @@ class ChaosConfig:
             or self.repl_partitions or self.repl_drop_prob > 0
             or self.repl_fail_renewals)
 
+    def net_faults(self) -> bool:
+        """A socket-transport fault is scripted."""
+        return bool(
+            self.net_drop_frames or self.net_dup_frames
+            or self.net_delay_frames or self.net_reset_frames
+            or self.net_partitions or self.net_deaf_flows
+            or self.net_drop_prob > 0 or self.net_bandwidth_caps)
+
 
 @dataclass(frozen=True)
 class ReplicationConfig:
     """Hot-standby replication with fenced failover
     (service/replication.py): the primary streams its write-ahead journal
     to a standby under a lease and an epoch. Needs durability (the journal
-    is the stream) and a ``ReplicationHub`` passed to
-    ``MatchmakingApp(replication_hub=...)``."""
+    is the stream) and a hub: a ``ReplicationHub`` or a
+    ``SocketReplicationHub`` passed to
+    ``MatchmakingApp(replication_hub=...)``, or ``NetConfig.transport``
+    ``"socket"``, with which the app builds and owns its own."""
 
     #: "" = off (no journal tap, no fence checks, no pump); "primary" =
     #: this app streams and serves. The standby is the hub's
@@ -449,6 +481,58 @@ class ReplicationConfig:
                 f"\"primary\"; the standby is a hub-side StandbyApplier, "
                 f"not an app role)")
         return bool(self.role)
+
+
+@dataclass(frozen=True)
+class NetConfig:
+    """The socket transport under replication and the lease (net/):
+    length-prefixed, CRC-framed messages over Unix-domain or TCP sockets,
+    heartbeats with a deadline-based liveness verdict, seeded reconnect
+    backoff and bounded send buffers. Addresses are ``"unix:/path.sock"``
+    or ``"tcp:host:port"``. ``lease_rtt_budget_s`` is taken off every
+    lease grant the remote client caches, so a renewal still in flight
+    when the budgeted deadline passes does not count."""
+
+    #: "inproc" (the in-process fabric, no sockets) or "socket" (an app
+    #: with replication on and no hub passed builds a
+    #: ``SocketReplicationHub`` from the addresses below).
+    transport: str = "inproc"
+    #: The lease service's address ("": an embedded loopback service).
+    lease_addr: str = ""
+    #: Where this primary streams its records (the standby's listen
+    #: address); "" with a ``lease_addr``: the hub needs ``set_target``
+    #: before a queue attaches (``link()`` raises without one).
+    repl_target: str = ""
+    #: Dial timeout of one connect attempt (seconds).
+    connect_timeout_s: float = 1.0
+    #: Timeout of a blocking lease request (acquire, takeover, expired,
+    #: release, the re-confirm of a lapsed lease).
+    request_timeout_s: float = 1.0
+    #: Heartbeat cadence per connection.
+    heartbeat_interval_s: float = 0.1
+    #: No inbound frame for this long: the peer is dead (counted as
+    #: ``liveness_lost``; the connection closes and redials).
+    heartbeat_timeout_s: float = 0.6
+    #: Reconnect backoff: min(cap, base · 2^attempt), scaled into
+    #: [0.5, 1] by ``hash01(seed, "backoff", conn, attempt)``.
+    reconnect_base_s: float = 0.02
+    reconnect_cap_s: float = 1.0
+    #: A frame larger than this is refused at encode and a header that
+    #: announces more is a ``FrameError`` (the connection dies).
+    max_frame_bytes: int = 1 << 20
+    #: Bounded send buffer per link: past it a send is dropped and counted
+    #: (``backpressure_dropped``).
+    send_buffer_bytes: int = 4 << 20
+    #: Taken off every cached lease grant: a grant sent at t is valid
+    #: until t + lease_s − this.
+    lease_rtt_budget_s: float = 0.05
+
+    def enabled(self) -> bool:
+        if self.transport not in ("", "inproc", "socket"):
+            raise ValueError(
+                f"unknown net transport {self.transport!r} "
+                f"(\"inproc\" or \"socket\")")
+        return self.transport == "socket"
 
 
 @dataclass(frozen=True)
@@ -565,7 +649,7 @@ _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "overload": OverloadConfig, "chaos": ChaosConfig,
              "observability": ObservabilityConfig,
              "durability": DurabilityConfig, "replication": ReplicationConfig,
-             "forensics": ForensicsConfig}
+             "net": NetConfig, "forensics": ForensicsConfig}
 
 
 #: Top-level scalar keys the port carries (the JAX package's ``workers``
@@ -605,6 +689,9 @@ class Config:
     #: Hot-standby replication and fenced failover (off by default;
     #: needs durability).
     replication: ReplicationConfig = field(default_factory=ReplicationConfig)
+    #: The socket transport under replication and the lease ("inproc" by
+    #: default: no sockets).
+    net: NetConfig = field(default_factory=NetConfig)
     #: The fault script (empty: no broker fault, no engine hook).
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     observability: ObservabilityConfig = field(

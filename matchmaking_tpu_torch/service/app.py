@@ -147,8 +147,11 @@ columnar or object, and every rescan tick's to an ``InvariantChecker``
 (utils/invariants.py), which raises at a double match.
 
 Replication (``ReplicationConfig``, service/replication.py): with a role
-and a ``ReplicationHub`` (``MatchmakingApp(replication_hub=...)``), each
-queue's journal streams to a standby. ``start_replication`` runs after the
+and a hub (``MatchmakingApp(replication_hub=...)``: a ``ReplicationHub``
+in this process, or a ``SocketReplicationHub``, net/link.py; with
+``NetConfig.transport`` "socket" and no hub passed the app builds and owns
+a socket hub from ``cfg.net``), each queue's journal streams to a standby,
+in this process or another. ``start_replication`` runs after the
 journal's recovery and before the consumer: it adopts a standby's shadow
 the hub holds for this queue (``recover_from_replica``: a failover
 successor), takes the lease, and, under ``_pool_lock`` with no window in
@@ -163,10 +166,10 @@ This is the JAX package's ``MatchmakingApp`` and ``_QueueRuntime`` (their
 columnar path, the object flush, the health timer, burst consume and
 decode, the speculation loop and cut, overload control and the circuit
 breaker, broker chaos and the invariant checker, durability, in-process
-replication and failover, the drain, auth, tracing, the metrics and the
-event log, telemetry and the SLO burn monitors, incident capture and the
-HTTP surfaces), without the socket replication transport, placement, the
-autotuner, the AMQP transport and the dispatch arbiter.
+replication and failover over the in-process or the socket fabric, the
+drain, auth, tracing, the metrics and the event log, telemetry and the SLO
+burn monitors, incident capture and the HTTP surfaces), without
+placement, the autotuner, the AMQP transport and the dispatch arbiter.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -2845,10 +2848,13 @@ class MatchmakingApp:
                  device=None, replication_hub=None):
         self.cfg = cfg
         self.device = device
-        #: The replication fabric (service/replication.ReplicationHub; None:
-        #: none), shared by a primary app, its standbys and a failover
-        #: successor; never closed here.
+        #: The replication fabric (service/replication.ReplicationHub or
+        #: net/link.SocketReplicationHub; None: none), shared by a primary
+        #: app, its standbys and a failover successor. A hub passed in is
+        #: never closed here; one built from ``cfg.net`` at ``start`` is
+        #: owned, and closed by ``stop``, ``crash`` and ``drain``.
         self.replication_hub = replication_hub
+        self._owns_net_hub = False
         obs = cfg.observability
         #: The causal spine every lifecycle event is stamped onto (one per
         #: app: each run's seq starts at 1).
@@ -2915,16 +2921,29 @@ class MatchmakingApp:
         if self.cfg.replication.enabled():
             # Every queue boots as its primary: a hub is the fabric its
             # standby attaches through, and the journal is the stream.
+            if not self.cfg.durability.enabled():
+                raise ValueError(
+                    "replication requires durability (journal_dir): the "
+                    "journal is the replication stream")
+            if self.replication_hub is None and self.cfg.net.enabled():
+                # cfg.net names a lease service and a replication target:
+                # across processes no in-process hub can be shared, so
+                # this app builds, and owns, its socket fabric.
+                from matchmaking_tpu_torch.net.link import (
+                    SocketReplicationHub,
+                )
+
+                self.replication_hub = SocketReplicationHub(
+                    net=self.cfg.net, chaos=self.cfg.chaos,
+                    seed=self.cfg.chaos.seed,
+                    owner=self.cfg.replication.owner or "primary")
+                self._owns_net_hub = True
             if self.replication_hub is None:
                 raise ValueError(
                     "cfg.replication.role is set but no ReplicationHub was "
                     "passed to MatchmakingApp(replication_hub=...): the hub "
                     "is the shared fabric (links and lease authority) a "
                     "standby attaches through")
-            if not self.cfg.durability.enabled():
-                raise ValueError(
-                    "replication requires durability (journal_dir): the "
-                    "journal is the replication stream")
         for rt in self._runtimes.values():
             await rt.start()
         obs = self.cfg.observability
@@ -2976,6 +2995,20 @@ class MatchmakingApp:
         await self._stop_observability()
         for rt in self._runtimes.values():
             await rt.stop()
+        self._close_owned_net_hub()
+
+    def _close_owned_net_hub(self) -> None:
+        """Close a socket fabric this app built from ``cfg.net`` (its
+        sockets and IO tasks end with the host); a hub passed in is left
+        alone."""
+        hub = self.replication_hub
+        if self._owns_net_hub and hub is not None:
+            try:
+                hub.close()
+            except Exception:
+                log.exception("socket replication hub close failed")
+            self.replication_hub = None
+            self._owns_net_hub = False
 
     async def crash(self) -> None:
         """A hard crash, for tests and the smoke: no drain, no checkpoint,
@@ -2989,6 +3022,7 @@ class MatchmakingApp:
         for rt in self._runtimes.values():
             rt.abandon()
         self.broker.close()
+        self._close_owned_net_hub()
 
     async def drain(self, checkpoint_dir: str | None = None) -> dict[str, int]:
         """The graceful drain (SIGTERM, see ``serve``): admission stops on
@@ -3036,6 +3070,7 @@ class MatchmakingApp:
         # Only now: /healthz says "draining" for the whole drain.
         await self._stop_observability()
         self.broker.close()
+        self._close_owned_net_hub()
         return counts
 
     # ---- telemetry (utils/timeseries.py) and the HTTP server ------------
@@ -3318,9 +3353,11 @@ async def serve(stop: asyncio.Event | None = None, device=None) -> None:
     predecessor's drain saved there, and the shutdown is a drain into it
     (``/healthz`` answers ``draining`` until it completes);
     with ``MM_DURABILITY_JOURNAL_DIR`` a crashed predecessor's journal is
-    recovered at start. An ``amqp://`` broker URL is refused: the AMQP
-    transport (``service/amqp_transport.py``) is not carried by the
-    port."""
+    recovered at start; with ``MM_REPLICATION_ROLE=primary`` and
+    ``MM_NET_TRANSPORT=socket`` each queue streams its journal to
+    ``MM_NET_REPL_TARGET`` under a lease held at ``MM_NET_LEASE_ADDR``.
+    An ``amqp://`` broker URL is refused: the AMQP transport
+    (``service/amqp_transport.py``) is not carried by the port."""
     import signal
 
     cfg = Config.from_env()

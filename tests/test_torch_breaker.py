@@ -599,10 +599,12 @@ def test_breaker_overload_and_chaos_keys_load_like_jax(caplog):
         assert getattr(cfg.engine, name) == getattr(jcfg.engine, name)
     assert cfg.queues[0].default_tier == 2
     ignored = " ".join(r.getMessage() for r in caplog.records)
-    # The broker faults are carried (utils/chaos.py); the network ones not.
+    # The broker faults are carried (utils/chaos.py), and so are the
+    # network ones (net/nemesis.py).
     assert cfg.chaos.drop_seqs == jcfg.chaos.drop_seqs == (1, 2)
+    assert cfg.chaos.net_drop_prob == jcfg.chaos.net_drop_prob == 0.5
     assert "chaos.drop_seqs" not in ignored
-    assert "chaos.net_drop_prob" in ignored
+    assert "chaos.net_drop_prob" not in ignored
     drain = {"overload": {"drain_checkpoint_dir": "/tmp/x"}}
     assert Config.from_dict(drain).overload == OverloadConfig(
         **vars(JaxConfig.from_dict(drain).overload))

@@ -44,7 +44,8 @@ def test_config_file_loads_without_dropping_a_key(name, caplog):
                                      "AuthConfig", "OverloadConfig",
                                      "ObservabilityConfig",
                                      "DurabilityConfig", "ForensicsConfig",
-                                     "ChaosConfig", "ReplicationConfig"])
+                                     "ChaosConfig", "ReplicationConfig",
+                                     "NetConfig"])
 def test_port_fields_have_the_jax_names_and_defaults(section):
     port, jax = getattr(config, section)(), getattr(jax_config, section)()
     for f in dataclasses.fields(port):
@@ -295,18 +296,101 @@ def test_fault_and_replication_keys_load_like_jax_from_env(monkeypatch):
 
 
 def test_net_keys_still_warn_and_device_loss_is_still_refused(caplog):
+    """The ``net`` section and the ``net_*`` chaos keys load now that
+    net/ is ported; ``workers`` still warns, and the multi-GPU chaos key
+    is still refused."""
     with caplog.at_level(logging.WARNING, logger=config.__name__):
         cfg = config.Config.from_dict({
             "chaos": {"net_drop_prob": 0.5, "net_deaf_flows": ["lease:"],
                       "drop_seqs": [1]},
             "net": {"transport": "socket"}, "workers": 4})
     said = " ".join(r.getMessage() for r in caplog.records)
-    for key in ("chaos.net_drop_prob", "chaos.net_deaf_flows", "'net'",
-                "'workers'"):
-        assert key in said, key
+    assert "'workers'" in said
+    for key in ("net_drop_prob", "net_deaf_flows", "'net'"):
+        assert key not in said, key
     assert cfg.chaos.drop_seqs == (1,)
+    assert cfg.chaos.net_deaf_flows == ("lease:",)
+    assert cfg.net.enabled()
     with pytest.raises(ValueError, match="multi-GPU"):
         config.Config.from_dict({"chaos": {"device_lost_steps": [2]}})
+
+
+#: Every ``net`` key and every ``net_*`` chaos key, with values that are
+#: not their defaults.
+NET_KEYS = {
+    "net": {"transport": "socket", "lease_addr": "unix:/tmp/l.sock",
+            "repl_target": "tcp:10.0.0.2:7001", "connect_timeout_s": 2.5,
+            "request_timeout_s": 0.75, "heartbeat_interval_s": 0.05,
+            "heartbeat_timeout_s": 0.9, "reconnect_base_s": 0.01,
+            "reconnect_cap_s": 2.0, "max_frame_bytes": 33554432,
+            "send_buffer_bytes": 16777216, "lease_rtt_budget_s": 0.2},
+    "chaos": {"net_drop_frames": [["fwd", 2]],
+              "net_dup_frames": [["fwd", 3], ["ack", 1]],
+              "net_delay_frames": [["fwd", 4, 2]],
+              "net_reset_frames": [["repl:q:fwd", 6]],
+              "net_partitions": [["fwd", 8, 12]],
+              "net_deaf_flows": ["lease:", "repl:q:ack"],
+              "net_drop_prob": 0.05,
+              "net_bandwidth_caps": [["fwd", 1048576]]},
+}
+
+
+def _net_equal(cfg, want):
+    for section, keys in NET_KEYS.items():
+        for key in keys:
+            mine = getattr(getattr(cfg, section), key)
+            theirs = getattr(getattr(want, section), key)
+            assert mine == theirs or tuple(map(tuple, mine)) == tuple(
+                map(tuple, theirs)), (section, key, mine, theirs)
+
+
+@pytest.mark.parametrize("source", ["json", "env"])
+def test_net_keys_load_like_jax(source, tmp_path, monkeypatch, caplog):
+    """Every ``net`` key and ``net_*`` chaos key from a JSON file and from
+    ``MM_NET_*`` / ``MM_CHAOS_NET_*``, equal to the JAX package's;
+    ``net_faults()`` equals JAX's on each key alone, and ``enabled()``
+    counts none of them, as in JAX."""
+    for k in list(os.environ):
+        if k.startswith("MM_"):
+            monkeypatch.delenv(k)
+    if source == "json":
+        path = tmp_path / "net.json"
+        path.write_text(json.dumps({**NET_KEYS, "queues": [{"name": "q"}]}))
+        with caplog.at_level(logging.WARNING, logger=config.__name__):
+            cfg = config.Config.from_json(str(path), backend="gpu")
+        assert not caplog.records, [r.getMessage() for r in caplog.records]
+        want = jax_config.Config.from_json(str(path))
+    else:
+        for section, keys in NET_KEYS.items():
+            for key, value in keys.items():
+                monkeypatch.setenv(f"MM_{section.upper()}_{key.upper()}",
+                                   json.dumps(value))
+        cfg, want = config.Config.from_env(), jax_config.Config.from_env()
+    _net_equal(cfg, want)
+    assert cfg.net.enabled() and want.net.enabled()
+    assert cfg.chaos.net_faults() and want.chaos.net_faults()
+    assert not cfg.chaos.enabled() and not want.chaos.enabled()
+    for key, value in NET_KEYS["chaos"].items():
+        one = config.Config.from_dict({"chaos": {key: value}}).chaos
+        jone = jax_config.Config.from_dict({"chaos": {key: value}}).chaos
+        assert one.net_faults() == jone.net_faults() is True, key
+        assert one.enabled() == jone.enabled() is False, key
+    assert (config.ChaosConfig().net_faults()
+            == jax_config.ChaosConfig().net_faults() is False)
+
+
+def test_net_defaults_and_unknown_transport_like_jax():
+    port, jax = config.Config().net, jax_config.Config().net
+    assert dataclasses.asdict(port) == dataclasses.asdict(jax)
+    assert (port.heartbeat_interval_s, port.heartbeat_timeout_s,
+            port.max_frame_bytes, port.send_buffer_bytes,
+            port.lease_rtt_budget_s) == (0.1, 0.6, 1 << 20, 4 << 20, 0.05)
+    assert not port.enabled() and not jax.enabled()
+    for t in ("", "inproc"):
+        assert not config.NetConfig(transport=t).enabled()
+    for mod in (config, jax_config):
+        with pytest.raises(ValueError, match="unknown net transport"):
+            mod.NetConfig(transport="tcp").enabled()
 
 
 def test_from_env_reads_the_mm_variables_like_jax(tmp_path, monkeypatch):

@@ -1714,3 +1714,99 @@ def test_replication_attach_with_windows_in_flight_at_full_width(cuda,
     assert seqs == list(range(base, base + len(seqs)))
     assert applied == jseq == seqs[-1]
     assert shadow == pool and len(pool) > 90_000
+
+
+@pytest.mark.parametrize("raised", [True, False])
+def test_socket_baseline_of_100k_at_full_width(cuda, tmp_path, raised):
+    """Config #1's service at full width on the card: 100k waiting, then
+    replication attaches over a UDS socket pair (a loopback
+    ``SocketReplicationHub``). The baseline's frame is ~13 MB: with the
+    frame and send buffer limits raised to 32 MiB it crosses and the
+    standby's shadow equals the pool; with the defaults (4 MiB) it is
+    dropped and counted (``backpressure_dropped``), every retransmission
+    again, and the standby never rebases or acks."""
+    import asyncio
+    import json
+    import shutil
+    import tempfile
+    import time
+
+    from matchmaking_tpu_torch.config import (
+        DurabilityConfig,
+        NetConfig,
+        ReplicationConfig,
+    )
+    from matchmaking_tpu_torch.net.link import SocketReplicationHub
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        durability=DurabilityConfig(journal_dir=str(tmp_path / "j")),
+        replication=ReplicationConfig(role="primary"))
+    q = cfg.queues[0].name
+    net = (NetConfig(transport="socket", max_frame_bytes=32 << 20,
+                     send_buffer_bytes=32 << 20) if raised
+           else NetConfig(transport="socket"))
+    rng = np.random.default_rng(74)
+    base_dir = tempfile.mkdtemp(prefix="mmn")
+
+    async def run():
+        hub = SocketReplicationHub(net=net, lease_s=60.0, base_dir=base_dir)
+        app = MatchmakingApp(dataclasses.replace(
+            cfg, replication=ReplicationConfig()), device=cuda,
+            replication_hub=hub)
+        await app.start()
+        rt = app.runtime(q)
+        eng = rt.engine
+        try:
+            eng.restore_columns(interned(eng, named_columns(
+                rng, 100_000, 0, 100.0, False)), 100.0)
+            # Two far-apart arrivals: the journal has records (the baseline
+            # summarizes a seq > 0) and the pool holds 100,002.
+            app.broker.declare_queue("r")
+            for pid, rating in (("far0", 9000.0), ("far1", 20000.0)):
+                app.broker.publish(q, json.dumps(
+                    {"id": pid, "rating": rating}).encode(),
+                    Properties(reply_to="r", correlation_id=pid))
+            end = time.monotonic() + 30.0
+            while not (eng.pool_size() == 100_002 and eng.inflight() == 0
+                       and rt.journal.seq > 0) and time.monotonic() < end:
+                await asyncio.sleep(0.02)
+            standby = hub.standby(q)
+            app.cfg = cfg  # replication on: the baseline goes out
+            await rt.start_replication()
+            end = time.monotonic() + (60.0 if raised else 3.0)
+            while time.monotonic() < end:
+                standby.pump()
+                if raised and rt.replication.quiescent:
+                    break
+                await asyncio.sleep(0.02)
+            standby.pump()
+            link = dict(hub.link(q).counters)
+            return (rt.last_baseline, standby.applied_seq, rt.journal.seq,
+                    rt.replication.acked_seq, set(standby.shadow.waiting),
+                    set(eng.pool._slot_of), link, app.faults())
+        finally:
+            await app.stop()
+            hub.close()
+
+    try:
+        base, applied, jseq, acked, shadow, pool, link, faults = asyncio.run(
+            run())
+    finally:
+        shutil.rmtree(base_dir, ignore_errors=True)
+    said = (base, applied, jseq, acked, len(shadow), link)
+    assert faults == {}, faults
+    assert base["players"] == len(pool) == 100_002, said
+    assert base["bytes"] > NetConfig().send_buffer_bytes, said
+    assert link.get("send_errors", 0) == link.get("frame_errors", 0) == 0, said
+    if raised:
+        assert applied == jseq == acked, said
+        assert shadow == pool, said
+        assert link.get("liveness_lost", 0) == 0, said
+    else:
+        assert link["backpressure_dropped"] >= 2, said
+        assert applied == acked == 0 and shadow == set(), said

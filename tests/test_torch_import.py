@@ -52,6 +52,13 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.engine.teams",
                  "matchmaking_tpu_torch.native",
                  "matchmaking_tpu_torch.native.codec",
+                 "matchmaking_tpu_torch.net",
+                 "matchmaking_tpu_torch.net.transport",
+                 "matchmaking_tpu_torch.net.nemesis",
+                 "matchmaking_tpu_torch.net.lease",
+                 "matchmaking_tpu_torch.net.link",
+                 "matchmaking_tpu_torch.net.failover_proc",
+                 "matchmaking_tpu_torch.testing.drain",
                  "matchmaking_tpu_torch.service.app",
                  "matchmaking_tpu_torch.service.broker",
                  "matchmaking_tpu_torch.service.contract",

@@ -43,6 +43,7 @@ from matchmaking_tpu.service.contract import PartyMember as JaxMember
 from matchmaking_tpu.service.contract import RequestColumns as JaxColumns
 from matchmaking_tpu.service.contract import SearchRequest as JaxRequest
 from matchmaking_tpu_torch.config import (
+    BatcherConfig,
     Config,
     EngineConfig,
     ObservabilityConfig,
@@ -654,12 +655,20 @@ async def test_service_ledger_counts_every_matched_player_across_a_revive():
 async def test_service_ledger_counts_every_team_member():
     """A 5v5 queue's object path: the ledger gets one sample per member of
     every published match (one observe per window), and the engine's host
-    accumulator holds the same samples."""
+    accumulator holds the same samples.
+
+    The 40 requests are one window, cut by count (``max_batch`` 40, no
+    time cut), so the grouping of the sums does not depend on timing. The
+    qualities still do (the threshold widens with the wait), and both
+    sides round their mean to 6 decimals, so two means a few 1e-8 apart
+    can round 1e-6 apart: the means are compared unrounded, from the
+    ledger's sum and the accumulator's."""
     cfg = Config.from_json(os.path.join(ROOT, "configs/team_5v5.json"),
                            backend="gpu")
     cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
         cfg.engine, pool_capacity=256, batch_buckets=(16, 64),
-        team_max_matches=32))
+        team_max_matches=32),
+        batcher=BatcherConfig(max_batch=40, max_wait_ms=600_000.0))
     app = MatchmakingApp(cfg, device="cpu")
     await app.start()
     try:
@@ -667,12 +676,17 @@ async def test_service_ledger_counts_every_team_member():
             publish(app, "rq.team", {"id": f"t{i}", "rating": 1500 + 3 * i,
                                      "region": "eu", "game_mode": "ranked"})
         await wait_for(lambda: app.counters["players_matched"] == 40)
+        assert app.counters["windows"] == 1
         snap = app.quality.snapshot()["queues"][app.queue_cfg.name]
         assert snap["matched_players"] == 40
         assert sum(t["count"] for t in snap["tiers"].values()) == 40
         rep = app.engine.quality_report()
         assert rep["samples"] == 40
-        assert snap["tiers"]["0"]["quality_mean"] == pytest.approx(
-            rep["quality_mean"], abs=1e-6)
+        tier = snap["tiers"]["0"]
+        assert tier["quality_mean"] is not None and rep["quality_mean"]
+        accum = app.engine.quality_checkpoint()
+        assert tier["quality_sum"] / tier["count"] == pytest.approx(
+            float(accum["q_sum"].sum()) / int(accum["count"].sum()),
+            abs=1e-6)
     finally:
         await app.stop()

@@ -65,6 +65,9 @@ from matchmaking_tpu_torch.service import replication as repl_mod
 from matchmaking_tpu_torch.service.app import MatchmakingApp
 from matchmaking_tpu_torch.service.broker import Properties
 from matchmaking_tpu_torch.service.observability import build_report
+from matchmaking_tpu_torch.testing.drain import (
+    fully_drained as port_fully_drained,
+)
 from matchmaking_tpu_torch.utils import journal as jr
 from test_torch_observability import (
     PROM_DIFFERENCES,
@@ -383,15 +386,8 @@ def _collect(app, reply, sink):
 
 
 def _drained(pkg, app, rt, matched, replication=True):
-    if pkg == "jax":
-        return fully_drained(app, rt, Q, matched, replication=replication)
-    repl = rt.replication
-    return (_counter(app, "players_matched") >= matched
-            and app.broker.queue_depth(Q) == 0
-            and app.broker.handlers_idle() and rt._batcher.depth == 0
-            and not rt._pool_lock.locked() and rt._settler is None
-            and rt.engine.inflight() == 0
-            and (not replication or repl is None or repl.quiescent))
+    drained = fully_drained if pkg == "jax" else port_fully_drained
+    return drained(app, rt, Q, matched, replication=replication)
 
 
 async def _quiesce(pkg, app, rt, *, matched=0, standby=None,
