@@ -317,9 +317,51 @@ output file.
    the moves; every move in range, one a tick at most, the ratchets one
    way, the recorded views replayed through a fresh tuner give the same
    moves, equal arrival digests, no graph capture after the start.
+14. the sharded pool and the multi-host runtime, run right after phase
+   3d (after phases 4-13 torch.profiler leaves out the first ~27 kernels
+   of every session, which 14a counts; ``scripts/torch_profiler_records.py``
+   found no form of capture, idle time or live graphs that does it
+   alone). 14a: config #1 with
+   100k restored; a dense engine takes 48 windows of 1,024, each flushed
+   before the next, and a sharded engine on ``(cuda:0,) × D`` (one card
+   standing in for D: D = 1, 2, 4, 8 with the all-gather merge, D = 4
+   with the ring; D = 1 is a stand-in no configuration reaches, whose
+   launches stay out of the main path's total) takes the same restore and windows, its steps replayed
+   from CUDA graphs, in lockstep with a twin running the same steps
+   eagerly: every window's pairs, distances (bit for bit) and queued ids,
+   and the concatenated pools, equal the dense engine's; D ``block_best``
+   launches a window and no ``quality_accum`` (a sharded pool's quality is
+   the host fold, its report's counts equal the dense one's); each
+   shard's launch bit-equal to its plain version on its slice (window
+   slots below 0 and past the slice included), and timed; the merge's
+   device ms. Then each engine (the dense one too) takes 16 more windows
+   at depth 2 (dispatch and turnaround ms) and 8 under torch.profiler
+   (device ms and kernels a window; the sharded ones count D
+   ``prep_kernel``, D ``block_best_kernel`` and 0
+   ``quality_accum_kernel`` a window, the dense one 1 of each; a session
+   that torch.profiler leaves short is taken again on fresh windows, at
+   most ``PROFILE_TRIES`` in all). 14b: config #1 bucketed
+   (gaussian:1500:300) sharded 4 ways with its frontier ladder beside a
+   twin without the ladder (the dense sharded step, the same allocator):
+   1,500 restored, 8 windows of 256, then 3,000 more (past the ceiling of
+   128) and 8 more windows, in lockstep; every window and the pools equal
+   the twin's,
+   frontier steps, ladder moves and fallbacks counted, each engine's
+   ``block_best`` launches counted on its own (the twin's stay out of the
+   main path's total), the frontier
+   launch at k = 8-128 bit-equal to its plain version and timed. 14c:
+   configs #3 (50k) and #5 (12k) sharded 4 ways: the replicated fallback,
+   and the ring (linear and tournament merges) within ``team_ring_k``,
+   each step's result and pool bit-equal to the single-device step's, the
+   device ms of each, ``comms_accounting()``. 14d: a process group of one
+   over NCCL from ``MM_DCN_*`` (``init_distributed``): the process mesh's
+   step (all-gather and ring) at full width equal to the dense step over
+   4 windows, each step's launches counted across its own calls (one a
+   window); then ``serve`` under the same ``MM_DCN_*`` over ``amqp://``
+   (fake pika) answers 1,024 requests.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-13, the
+JSON summary of phases 3-14, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -1339,6 +1381,41 @@ def check_own_kernels(prof, want, what):
     if prof["own_kernels"] != {name: want for name in OWN_KERNELS}:
         raise AssertionError(f"{what}: the device ran {prof['own_kernels']} "
                              f"of the hand kernels, expected {want} of each")
+
+
+#: Profiled sessions a gate on the kernels' counts may take.
+#: torch.profiler lost up to a window's records at random in 3 of 128
+#: sessions on an H100 (``scripts/torch_profiler_records.py``). A kernel
+#: that ran another number of times shows it in every session; a lost
+#: record never adds one.
+PROFILE_TRIES = 3
+
+
+def device_busy_exact(torch, ck, run_of, want, what):
+    """``device_busy(torch, run_of(i))`` for sessions i = 0, 1, ... until
+    one counts exactly ``want`` hand kernels by name, at most
+    ``PROFILE_TRIES``: that session's numbers, with ``short_sessions``
+    (each short session's counts, its kernels a window and the host's
+    launches in it). Raises when every session is short, when one counts
+    more than ``want``, or when the host launched another number than
+    ``want`` (``ck.LAUNCHES``: then no drop explains it)."""
+    short = []
+    for i in range(PROFILE_TRIES):
+        before = dict(ck.LAUNCHES)
+        prof = device_busy(torch, run_of(i))
+        own = prof["own_kernels"]
+        host = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+        if own == want:
+            prof["short_sessions"] = short
+            return prof
+        short.append({"own": own, "host_launches": host,
+                      "kernels_per_window": prof["kernels_per_window"],
+                      "top_kernels": [(k["name"][:60], k["count"])
+                                      for k in prof["top_kernels"]]})
+        if (any(own[name] > want[name] for name in want)
+                or host["block_best"] != want["block_best_kernel"]):
+            break
+    raise AssertionError(f"{what}: the device ran {short}, expected {want}")
 
 
 #: Runtime API calls that queue work on the card: kernel launches, graph
@@ -6881,6 +6958,732 @@ async def service_autotune(np, ck, mods, path, *, waiting, seed):
     return {"runs": runs, "flash": FLASH, "tune": TUNE}
 
 
+# ---- phase 14: the sharded pool and the multi-host runtime ----------------
+
+#: Phase 14a's meshes: (shards, ring merge), every shard on the one card.
+SHARD_RUNS = ((1, False), (2, False), (4, False), (8, False), (4, True))
+
+
+def sharded_engine(mods, cfg, d, ring, devices=None):
+    """A ``GpuEngine`` whose pool is sharded ``d`` ways over ``devices``
+    (default: the one card, ``d`` times). ``mesh_pool_axis`` 1 takes the
+    dense step, as in the JAX engine, so D = 1 is built through a subclass
+    whose kernel set is the sharded one of one shard (a smoke-only
+    stand-in, as ``_graphs = None`` is)."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.engine import sharded
+
+    _, GpuEngine, _, _ = mods
+    devices = devices or ("cuda:0",) * d
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, mesh_pool_axis=d, ring_merge=ring))
+    if d > 1:
+        return GpuEngine(cfg, cfg.queues[0], device="cuda", devices=devices)
+
+    class OneShard(GpuEngine):
+        def _kernel_set(self, queue):
+            self._sharded = True
+            ec = self.cfg.engine
+            return sharded.sharded_kernel_set(
+                capacity=ec.pool_capacity, top_k=ec.top_k,
+                pool_block=ec.pool_block, glicko2=queue.glicko2,
+                widen_per_sec=queue.widen_per_sec,
+                max_threshold=queue.max_threshold, n_shards=1, ring=ring,
+                pair_rounds=ec.pair_rounds, device_ids=self.devices,
+                device="cuda")
+
+    return OneShard(cfg, cfg.queues[0], device="cuda", devices=devices)
+
+
+def same_columnar(np, got, want, what):
+    """Two ColumnarOutcomes: pairs, queued ids, distances bit for bit."""
+    if (got.m_id_a.tolist() != want.m_id_a.tolist()
+            or got.m_id_b.tolist() != want.m_id_b.tolist()
+            or got.q_ids.tolist() != want.q_ids.tolist()
+            or not np.array_equal(got.m_dist.view(np.int32),
+                                  want.m_dist.view(np.int32))):
+        raise AssertionError(f"{what}: the outcome differs")
+
+
+def drive_columnar(torch, eng, stream, now_of, depth, timed=False):
+    """``stream``'s windows through ``eng`` at ``depth`` (each collected
+    only after the next is dispatched), dispatch under no sync: the
+    outcomes by window, and (``timed``) dispatch and turnaround ms. A
+    window may be collected early when its step is done, so the slots the
+    next window takes depend on the device's timing: engines are compared
+    in lockstep (``lockstep``), not through this."""
+    outs, t_disp, token_window = {}, {}, {}
+    dispatch_ms, turnaround_ms = [], []
+    for w, cols in enumerate(stream):
+        t = time.perf_counter()
+        with no_sync(torch):
+            tok = eng.search_columns_async(cols, now_of[w])
+        dispatch_ms.append((time.perf_counter() - t) * 1e3)
+        t_disp[tok], token_window[tok] = t, w
+        while eng.inflight() >= depth:
+            for tok_c, out in eng.collect_ready():
+                turnaround_ms.append((time.perf_counter() - t_disp[tok_c])
+                                     * 1e3)
+                outs[token_window[tok_c]] = out
+    for tok_c, out in eng.flush():
+        turnaround_ms.append((time.perf_counter() - t_disp[tok_c]) * 1e3)
+        outs[token_window[tok_c]] = out
+    if timed:
+        return outs, dispatch_ms, turnaround_ms
+    return outs
+
+
+def lockstep(ck, engines, cols_of, now_of, n):
+    """Window w (``cols_of(engine, w)``) through every engine, each
+    dispatched and flushed before the next window, so every engine's
+    mirror allocates the same slots: the outcomes by engine and window,
+    and each engine's ``block_best`` and ``quality_accum`` launches."""
+    outs = [[] for _ in engines]
+    launches = [{"block_best": 0, "quality_accum": 0} for _ in engines]
+    for w in range(n):
+        for i, e in enumerate(engines):
+            before = dict(ck.LAUNCHES)
+            e.search_columns_async(cols_of(e, w), now_of[w])
+            (_, out), = e.flush()
+            outs[i].append(out)
+            for k in launches[i]:
+                launches[i][k] += ck.LAUNCHES[k] - before[k]
+    return outs, launches
+
+
+def snapshot_pool(eng):
+    return {name: col.clone() for name, col in eng.dev_pool.items()}
+
+
+def same_pool(torch, eng, want, what):
+    torch.cuda.synchronize()
+    for name, col in want.items():
+        if not torch.equal(eng.dev_pool[name], col):
+            raise AssertionError(f"{what}: pool column {name} differs")
+
+
+def same_quality(np, got, want, what):
+    """A sharded engine's report (the host fold) against the dense
+    engine's (``quality_accum`` on the card): the samples and every rating
+    bucket's count equal, the means within 1e-5 relative (the host's f64
+    waits and qualities may fall in a neighbouring histogram bucket:
+    PERF.md, the quality kept difference)."""
+    if (got["samples"] != want["samples"]
+            or [b["count"] for b in got["buckets"]]
+            != [b["count"] for b in want["buckets"]]):
+        raise AssertionError(f"{what}: quality counts {got['samples']} != "
+                             f"{want['samples']}")
+    for key in ("quality_mean", "wait_mean_s", "spread_mean"):
+        a, b = got[key], want[key]
+        if (a is None) != (b is None) or (
+                a is not None and abs(a - b) > 1e-5 * max(1.0, abs(b))):
+            raise AssertionError(f"{what}: {key} {a} != {b}")
+
+
+def shard_launch_check(torch, np, ck, scoring, eng, d, seed):
+    """Each shard's ``block_best`` on its slice of ``eng``'s pool, for one
+    window of 1,024 rows whose global slots span every shard (so each
+    launch sees ids below 0 and past its slice): bit-equal to the plain
+    version; the launch timed (device ms, CUDA events). Returns (the
+    largest |difference|, ms a launch)."""
+    ks = eng.kernels
+    lc = ks.local_capacity
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = FULL_B
+    batch = {
+        "slot": torch.randint(0, ks.capacity + 1, (rows,), generator=g,
+                              dtype=torch.int32).cuda(),
+        "rating": (torch.randn(rows, generator=g) * 300 + 1500).cuda(),
+        "rd": torch.full((rows,), 350.0).cuda(),
+        "region": torch.zeros(rows, dtype=torch.int32).cuda(),
+        "mode": torch.zeros(rows, dtype=torch.int32).cuda(),
+        "valid": torch.ones(rows, dtype=torch.bool).cuda(),
+    }
+    q_thr = torch.full((rows,), float(eng.queue.rating_threshold)).cuda()
+    now = torch.tensor([2.0], dtype=torch.float32).cuda()
+    kw = dict(pool_block=ks.pool_block, glicko2=False, filters=False,
+              widen_per_sec=ks.widen_per_sec, max_threshold=ks.max_threshold,
+              g_coeff=scoring.G_COEFF_F32)
+    err, ms = 0.0, []
+    for s, part in enumerate(eng.dev_pool.shards):
+        shifted = dict(batch, slot=batch["slot"] - s * lc)
+        got = ck.block_best(part, shifted, q_thr, now, **kw)
+        want = ck.block_best_reference(part, shifted, q_thr, now, **kw)
+        err = max(err, compare(torch, got, want, f"14a D={d} shard {s}"))
+        own = shifted["slot"][:, None]
+        if bool(((got[1] == own) & (got[1] < lc)).any()):
+            raise AssertionError(f"14a D={d} shard {s}: a row took its own "
+                                 f"slot")
+        if s == 0:
+            ms.append(time_ms(torch, lambda: ck.block_best(
+                part, shifted, q_thr, now, **kw)))
+    return err, ms[0]
+
+
+def merge_ms(torch, eng):
+    """The mesh's merge of one window's candidate lists (f32 and i32
+    [1,024, local blocks] a shard), as the step runs it, eagerly: (ms
+    between CUDA events, which includes the gaps between its launches;
+    the kernels' and copies' device ms under torch.profiler)."""
+    ks = eng.kernels
+    parts = [(torch.zeros(FULL_B, ks.local_blocks, device="cuda"),
+              torch.zeros(FULL_B, ks.local_blocks, dtype=torch.int32,
+                          device="cuda")) for _ in range(ks.n_shards)]
+
+    def run():
+        for _ in range(10):
+            ks.mesh.gather(parts, ring=ks.ring)
+        return 10
+    return (time_ms(torch, lambda: ks.mesh.gather(parts, ring=ks.ring)),
+            device_busy(torch, run)["device_ms_per_window"])
+
+
+def run_sharded(torch, np, ck, scoring, mods, path, *, waiting, windows,
+                timed_windows, profile_windows, seed):
+    """14a. Config #1 at P = 131,072 with ``waiting`` restored. A dense
+    engine takes ``windows`` windows of 1,024, each flushed before the
+    next; for each of ``SHARD_RUNS`` a sharded engine on ``(cuda:0,) × D``
+    (its steps replayed from graphs) and a twin running the same steps
+    eagerly take the same restore and windows in lockstep. Every window's
+    pairs, distances (bit for bit) and queued ids, and the concatenated
+    pools at the end, equal the dense engine's; D ``block_best`` launches
+    a window and no ``quality_accum``; the quality report equal to the
+    dense engine's (``same_quality``); each shard's launch bit-equal to its
+    plain version on its slice. Then ``timed_windows`` more at depth 2
+    (dispatch and turnaround ms) and ``profile_windows`` under
+    torch.profiler, which count D ``prep_kernel``, D
+    ``block_best_kernel`` and 0 ``quality_accum_kernel`` a window on the
+    device."""
+    Config, GpuEngine, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    queue, depth = cfg.queues[0], cfg.engine.pipeline_depth
+    rng = np.random.default_rng(seed)
+    t0 = 1_700_000_000.0
+    total = windows + timed_windows + PROFILE_TRIES * profile_windows
+    pop = Population(np, rng, waiting + total * FULL_B, t0, filters=False,
+                     glicko2=False)
+    now_of = [t0 + 1.0 + 0.05 * w for w in range(total)]
+
+    def cols_of(eng, w):
+        return pop.columns(RequestColumns, eng, waiting + w * FULL_B,
+                           waiting + (w + 1) * FULL_B, now_of[w])
+
+    def restored(eng):
+        eng.warmup()
+        with no_sync(torch):
+            eng.restore_columns(pop.columns(RequestColumns, eng, 0, waiting,
+                                            t0), t0)
+        return eng
+
+    def timed(eng, want_own, label):
+        """The pipelined windows' dispatch and turnaround ms, then the
+        profiled windows' device numbers (``device_busy_exact``: the hand
+        kernels counted by name must be ``want_own``)."""
+        lo, hi = windows, windows + timed_windows
+        _, disp, turn = drive_columnar(
+            torch, eng, [cols_of(eng, w) for w in range(lo, hi)],
+            now_of[lo:hi], depth, timed=True)
+
+        def run_of(i):
+            lo_p = hi + i * profile_windows
+            hi_p = lo_p + profile_windows
+            stream = [cols_of(eng, w) for w in range(lo_p, hi_p)]
+
+            def run():
+                drive_columnar(torch, eng, stream, now_of[lo_p:hi_p], depth)
+                return profile_windows
+            return run
+        prof = device_busy_exact(torch, ck, run_of, want_own, f"14a {label}")
+        return {"dispatch_ms_p50": statistics.median(disp),
+                "dispatch_ms_p99": pct(disp, 0.99),
+                "turnaround_ms_p50": statistics.median(turn),
+                "turnaround_ms_p99": pct(turn, 0.99),
+                "device_ms_per_window": prof["device_ms_per_window"],
+                "kernels_per_window": prof["kernels_per_window"],
+                "queued_per_window": prof["queued_per_window"],
+                "own_kernels": prof["own_kernels"],
+                "own_kernel_ms_per_window": prof["own_kernel_ms_per_window"],
+                "short_profile_sessions": prof["short_sessions"],
+                "top_kernels": prof["top_kernels"][:5]}
+
+    dense = restored(GpuEngine(cfg, queue, device="cuda"))
+    (want,), _ = lockstep(ck, [dense], cols_of, now_of, windows)
+    want_pool = snapshot_pool(dense)
+    dense_quality = dense.quality_report()
+    res = {"dense": timed(dense, dict.fromkeys(OWN_KERNELS, profile_windows),
+                          "dense"), "runs": {}}
+    res["dense"]["matches"] = sum(o.n_matches for o in want)
+    log(f"14a dense: {res['dense']['matches']} matches, device "
+        f"{res['dense']['device_ms_per_window']:.3f} ms and "
+        f"{res['dense']['kernels_per_window']:.1f} kernels a window")
+    dense.close()
+    launches = {}
+    for d, ring in SHARD_RUNS:
+        label = f"D={d}" + (" ring" if ring else "")
+        eng = restored(sharded_engine(mods, cfg, d, ring))
+        eager = restored(sharded_engine(mods, cfg, d, ring))
+        eager._graphs = None
+        graphs = graph_summary(eng.graph_report())
+        (outs, e_outs), (counts, _) = lockstep(ck, [eng, eager], cols_of,
+                                               now_of, windows)
+        if counts["block_best"] != d * windows or counts["quality_accum"]:
+            raise AssertionError(f"14a {label}: launches {counts} for "
+                                 f"{windows} windows")
+        for w in range(windows):
+            same_columnar(np, outs[w], want[w], f"14a {label} window {w}")
+            same_columnar(np, e_outs[w], want[w],
+                          f"14a {label} eager window {w}")
+        same_pool(torch, eng, want_pool, f"14a {label}")
+        same_pool(torch, eager, want_pool, f"14a {label} eager")
+        same_quality(np, eng.quality_report(), dense_quality,
+                     f"14a {label}")
+        if eng.graph_report()["captures"] != graphs["captures"]:
+            raise AssertionError(f"14a {label}: a window captured again")
+        eager.close()
+        err, launch_ms = shard_launch_check(torch, np, ck, scoring, eng, d,
+                                            seed + d)
+        m_ms, m_dev = merge_ms(torch, eng)
+        run = timed(eng, {"prep_kernel": d * profile_windows,
+                          "block_best_kernel": d * profile_windows,
+                          "quality_accum_kernel": 0}, label)
+        # D = 1 is the smoke's stand-in (``sharded_engine``), which no
+        # configuration reaches: its launches stay out of the main path's.
+        launches[("stand_in_" if d == 1 else "") + f"sharded_d{d}"
+                 + ("_ring" if ring else "")] = counts["block_best"]
+        run.update({"shards": d, "ring": ring,
+                    "block_best_ms_a_launch": launch_ms, "merge_ms": m_ms,
+                    "merge_device_ms": m_dev,
+                    "max_abs_err": err, "launches": counts["block_best"],
+                    "graphs": {k: v for k, v in graphs.items()
+                               if k != "by_graph"},
+                    "eager_windows_equal": windows})
+        res["runs"][label] = run
+        log(f"14a {label}: {windows} windows = dense and = eager, pools "
+            f"equal; device {run['device_ms_per_window']:.3f} ms, "
+            f"{run['kernels_per_window']:.1f} kernels a window; dispatch "
+            f"p50 {run['dispatch_ms_p50']:.3f} ms, turnaround p50 "
+            f"{run['turnaround_ms_p50']:.2f} ms; block_best "
+            f"{launch_ms:.5f} ms a launch (x{d}), merge {m_ms:.5f} ms "
+            f"({m_dev:.5f} device); "
+            f"{graphs['captures']} graphs")
+        eng.close()
+    res["launches"] = launches
+    return res
+
+
+def run_bucket_frontier(torch, np, ck, scoring, mods, path, *, waiting,
+                        grow, windows, seed):
+    """14b. Config #1 bucketed (bands gaussian:1500:300), sharded 4 ways
+    on the card: the bucket frontier with its ladder, beside a twin with
+    the ladder taken away (every window on the dense sharded step, the
+    same allocator). ``waiting`` restored (at most 128 a global bucket),
+    ``windows`` windows of 256; then ``grow`` more restored (past the
+    ceiling) and ``windows`` more. Every window and the pools equal the
+    twin's; frontier steps, ladder moves and fallbacks counted; the
+    frontier launch at every ladder width bit-equal to its plain version
+    and timed."""
+    import dataclasses
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, bucketed=True, band_spec="gaussian:1500:300"))
+    rng = np.random.default_rng(seed)
+    t0 = 1_700_000_000.0
+    b = 256
+    n_all = waiting + grow + 2 * windows * b
+    pop = Population(np, rng, n_all, t0, filters=False, glicko2=False)
+    eng = sharded_engine(mods, cfg, 4, False)
+    twin = sharded_engine(mods, cfg, 4, False)
+    twin._frontier_ladder = ()
+    for e in (eng, twin):
+        e.warmup()
+        e.restore_columns(pop.columns(RequestColumns, e, 0, waiting, t0), t0)
+    peak0 = eng.pool.segment_max()
+    res = {"ladder": list(eng._frontier_ladder), "waiting": waiting,
+           "peak_bucket_at_start": peak0}
+    frontier_launch = {}
+    ks = eng.kernels
+    for k in eng._frontier_ladder:
+        fpool, gslot = ks.frontier_pool(eng.dev_pool, k)
+        slot = torch.from_numpy(eng.pool.waiting_slots()[:b].astype(
+            np.int32)).cuda()
+        rows = slot.shape[0]
+        batch = {"slot": ks.frontier_rows(gslot, slot, k),
+                 "rating": torch.from_numpy(pop.rating[:rows].copy()).cuda(),
+                 "rd": torch.full((rows,), 350.0, device="cuda"),
+                 "region": torch.zeros(rows, dtype=torch.int32,
+                                       device="cuda"),
+                 "mode": torch.zeros(rows, dtype=torch.int32, device="cuda"),
+                 "valid": torch.ones(rows, dtype=torch.bool, device="cuda")}
+        q_thr = torch.full((rows,), 100.0, device="cuda")
+        now = torch.tensor([1.0], device="cuda")
+        kw = dict(pool_block=k, glicko2=False, filters=True,
+                  widen_per_sec=ks.widen_per_sec,
+                  max_threshold=ks.max_threshold,
+                  g_coeff=scoring.G_COEFF_F32)
+        compare(torch, ck.block_best(fpool, batch, q_thr, now, **kw),
+                ck.block_best_reference(fpool, batch, q_thr, now, **kw),
+                f"14b frontier k={k}")
+        f_rows = fpool["rating"].shape[0]
+        frontier_launch[k] = bound(ck, rows, False, True,
+                                   pairs=rows * f_rows, pool_slots=f_rows)
+        frontier_launch[k].update(rows=rows, frontier_rows=f_rows, ms=time_ms(
+            torch, lambda: ck.block_best(fpool, batch, q_thr, now, **kw)))
+    res["frontier_launch"] = frontier_launch
+    seen, counts = 0, [{"block_best": 0, "quality_accum": 0} for _ in range(2)]
+    for stage, (lo_rows, now0) in enumerate(((waiting, t0 + 1.0),
+                                             (waiting + grow + windows * b,
+                                              t0 + 10.0))):
+        if stage == 1:
+            for e in (eng, twin):
+                e.restore_columns(pop.columns(
+                    RequestColumns, e, waiting + windows * b,
+                    waiting + windows * b + grow, t0 + 5.0), t0 + 5.0)
+            res["peak_bucket_after_growth"] = eng.pool.segment_max()
+        now_of = [now0 + 0.05 * w for w in range(windows)]
+        outs, stage_counts = lockstep(ck, [eng, twin], lambda e, w: pop.columns(
+            RequestColumns, e, lo_rows + w * b, lo_rows + (w + 1) * b,
+            now_of[w]), now_of, windows)
+        for total, part in zip(counts, stage_counts):
+            for k in total:
+                total[k] += part[k]
+        for w in range(windows):
+            same_columnar(np, outs[0][w], outs[1][w],
+                          f"14b stage {stage} window {w}")
+            seen += outs[0][w].n_matches
+        same_pool(torch, eng, snapshot_pool(twin), f"14b stage {stage}")
+    c = eng.counters
+    res.update({k: c.get(k, 0) for k in ("bucket_frontier_steps",
+                                         "bucket_frontier_fallback",
+                                         "frontier_k_moves")})
+    res["frontier_moves"] = [{k: v for k, v in m.items() if k != "t"}
+                             for m in eng.frontier_moves]
+    res["matches"] = seen
+    res["formation"] = {k: v for k, v in eng.formation_report().items()
+                        if k not in ("bucket_occupancy", "bands",
+                                     "frontier_moves")}
+    if not (res["bucket_frontier_steps"] and res["bucket_frontier_fallback"]
+            and res["frontier_k_moves"]):
+        raise AssertionError(f"14b: the ladder never moved, or never ran, "
+                             f"or never fell back: {res}")
+    # The frontier engine's windows launch once (the merged frontier), its
+    # fallbacks once a shard; the twin (the comparison, which no user runs:
+    # its launches stay out of the main path's) once a shard every window.
+    res["launches"] = counts[0]["block_best"]
+    res["twin_launches"] = counts[1]["block_best"]
+    want = (res["bucket_frontier_steps"] + 4 * res["bucket_frontier_fallback"],
+            4 * 2 * windows)
+    if ((res["launches"], res["twin_launches"]) != want
+            or counts[0]["quality_accum"] or counts[1]["quality_accum"]):
+        raise AssertionError(f"14b: launches {counts} (engine, twin), "
+                             f"expected {want} block_best and no "
+                             f"quality_accum")
+    log(f"14b: {2 * windows} windows of {b} = the dense sharded step; "
+        f"ladder {res['ladder']}, moves {res['frontier_moves']}; "
+        f"{res['bucket_frontier_steps']} frontier steps, "
+        f"{res['bucket_frontier_fallback']} fallbacks (peak bucket "
+        f"{peak0} → {res['peak_bucket_after_growth']}); frontier launch ms "
+        + ", ".join(f"k={k} {v['ms']:.5f}" for k, v in
+                    frontier_launch.items()))
+    for e in (eng, twin):
+        e.close()
+    return res
+
+
+def team_arrays(np, rng, capacity, waiting, roles):
+    """A team/role pool of ``capacity`` slots with ``waiting`` players in
+    random slots (three regions, two modes, pinned), and their role masks
+    for a role queue."""
+    arrays = {
+        "rating": rng.normal(1500, 300, capacity).astype(np.float32),
+        "rd": np.zeros(capacity, np.float32),
+        "region": rng.integers(1, 4, capacity).astype(np.int32),
+        "mode": rng.integers(1, 3, capacity).astype(np.int32),
+        "threshold": np.full(capacity, 150.0, np.float32),
+        "enqueue_t": rng.uniform(0, 30, capacity).astype(np.float32),
+        "active": np.zeros(capacity, bool),
+    }
+    arrays["active"][rng.choice(capacity, waiting, replace=False)] = True
+    if roles:
+        arrays["role_mask"] = rng.integers(1, 8, capacity).astype(np.int32)
+    return arrays
+
+
+def team_window(np, rng, ks, arrays, n):
+    """A packed window of ``n`` arrivals into free slots."""
+    free = np.nonzero(~arrays["active"])[0]
+    packed = np.zeros((ks.pack_rows, FULL_B), np.float32)
+    packed[0] = ks.capacity
+    packed[0, :n] = free[:n]
+    packed[1, :n] = rng.normal(1500, 300, n)
+    packed[3, :n] = rng.integers(1, 4, n)
+    packed[4, :n] = rng.integers(1, 3, n)
+    packed[5, :n] = 150.0
+    packed[6, :n] = 30.0
+    packed[7, :n] = 1.0
+    if ks.is_role:
+        packed[8, :n] = rng.integers(1, 8, n)
+    packed[-1] = 35.0
+    return packed
+
+
+def run_sharded_teams(torch, np, mods, *, seed):
+    """14c. Configs #3 (P = 65,536) and #5 (P = 16,384), sharded 4 ways on
+    the card: the replicated fallback with the config's waiting
+    population, and the ring (``team_ring_k`` 4,096 / 2,048) with the
+    linear and the tournament merge on a population within it. Each step's
+    packed result and pool bit-equal to the single-device step's on the
+    card; device ms a step (torch.profiler over steps on fresh copies) and
+    ``comms_accounting()``."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.engine import sharded
+    from matchmaking_tpu_torch.engine.kernels import pool_from_reference
+    from matchmaking_tpu_torch.engine.role_kernels import ShardedRoleKernelSet
+    from matchmaking_tpu_torch.engine.teams import ShardedTeamKernelSet
+
+    Config, GpuEngine, _, _ = mods
+    rng = np.random.default_rng(seed)
+    res = {}
+    for name, path, waiting, ring_k in (
+            ("team_5v5", "configs/team_5v5.json", 50_000, 4096),
+            ("role_party", "configs/role_party.json", 12_000, 2048)):
+        cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+        single = GpuEngine(cfg, cfg.queues[0], device="cuda").kernels
+        roles = single.is_role
+        q = cfg.queues[0]
+        kw = dict(capacity=single.capacity, team_size=q.team_size,
+                  widen_per_sec=q.widen_per_sec,
+                  max_threshold=q.max_threshold,
+                  max_matches=cfg.engine.team_max_matches,
+                  rounds=cfg.engine.team_rounds,
+                  mesh=sharded.pool_mesh(4, [0] * 4), frontier_k=ring_k)
+        if roles:
+            kw["role_slots"] = tuple(q.role_slots)
+        cls = ShardedRoleKernelSet if roles else ShardedTeamKernelSet
+        sets = {merge: cls(frontier_merge=merge, **kw)
+                for merge in ("linear", "tournament")}
+        out = {"comms_accounting": sets["linear"].comms_accounting()}
+        for case, n_wait, n_in in (("fallback", waiting, FULL_B),
+                                   ("ring", ring_k - FULL_B - 8, FULL_B)):
+            arrays = team_arrays(np, rng, single.capacity, n_wait, roles)
+            packed = torch.from_numpy(team_window(np, rng, single, arrays,
+                                                  n_in)).cuda()
+            ref = pool_from_reference(arrays, "cuda",
+                                      single.extra_pool_fields)
+            want = single.search_step_packed(ref, packed)
+            want_pool = {k: v.clone() for k, v in ref.items()}
+            steps = {"fallback": (sets["linear"], "search_step_packed")}
+            if case == "ring":
+                steps = {f"ring_{m}": (s, "search_step_packed_ring")
+                         for m, s in sets.items()}
+                steps["fallback"] = (sets["linear"], "search_step_packed")
+            timing = {"single": (single, "search_step_packed", ref)}
+            for label, (ks, fn) in steps.items():
+                spool = ks.place_pool(arrays)
+                got = getattr(ks, fn)(spool, packed)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"14c {name} {case} {label}: the "
+                                         f"result differs from the single "
+                                         f"step's")
+                for col, v in want_pool.items():
+                    if not torch.equal(spool[col], v):
+                        raise AssertionError(f"14c {name} {case} {label}: "
+                                             f"pool column {col} differs")
+                timing[label] = (ks, fn, None)
+            ms = {}
+            for label, (ks, fn, _) in timing.items():
+                pools = [pool_from_reference(arrays, "cuda",
+                                             single.extra_pool_fields)
+                         if ks is single else ks.place_pool(arrays)
+                         for _ in range(5)]
+                getattr(ks, fn)(pools[0], packed)
+
+                def run(ks=ks, fn=fn, pools=pools):
+                    for p in pools[1:]:
+                        getattr(ks, fn)(p, packed)
+                    return len(pools) - 1
+                prof = device_busy(torch, run)
+                ms[label] = {"device_ms": prof["device_ms_per_window"],
+                             "kernels": prof["kernels_per_window"]}
+            out[case] = {"waiting": n_wait, "arrivals": n_in,
+                         "matches": int((want[0] < single.capacity).sum()),
+                         "steps": ms}
+            log(f"14c {name} {case} ({n_wait} waiting): "
+                + ", ".join(f"{k} = single" for k in steps)
+                + "; device ms " + ", ".join(
+                    f"{k} {v['device_ms']:.3f} ({v['kernels']:.0f} kernels)"
+                    for k, v in ms.items()))
+        log(f"14c {name} comms_accounting: {out['comms_accounting']}")
+        res[name] = out
+    return res
+
+
+async def run_process_mesh(torch, np, ck, mods, path, *, waiting, windows,
+                           seed):
+    """14d. ``init_distributed`` joins a group of one over NCCL (the
+    ``MM_DCN_*`` variables naming it); the process mesh's sharded step
+    (all-gather: ``all_gather_into_tensor``; ring: no hop at one rank) at
+    P = 131,072 with ``waiting`` active against the dense step, ``windows``
+    windows of 1,024: results and pools bit-equal. Then ``serve`` with the
+    same ``MM_DCN_*`` (it joins the group already joined) over ``amqp://``
+    (the port's fake pika) answers 1,024 requests: each once, matched or
+    queued."""
+    import socket
+    import uuid
+
+    from matchmaking_tpu_torch.engine import distributed, sharded
+    from matchmaking_tpu_torch.engine.kernels import (
+        KernelSet,
+        pool_from_reference,
+    )
+    from matchmaking_tpu_torch.service import amqp_transport
+    from matchmaking_tpu_torch.testing import fake_pika
+
+    Config, _, _, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    q, ec = cfg.queues[0], cfg.engine
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dcn = {"MM_DCN_COORDINATOR": f"127.0.0.1:{port}",
+           "MM_DCN_NUM_PROCESSES": "1", "MM_DCN_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in dcn}
+    os.environ.update(dcn)
+    res = {}
+    try:
+        t = time.perf_counter()
+        rank, world = distributed.init_distributed()
+        res["init_ms"] = (time.perf_counter() - t) * 1e3
+        res["backend"] = torch.distributed.get_backend()
+        if (rank, world) != (0, 1) or res["backend"] != "nccl":
+            raise AssertionError(f"14d: joined {rank}/{world} over "
+                                 f"{res['backend']}")
+        rng = np.random.default_rng(seed)
+        geo = dict(capacity=FULL_P, top_k=ec.top_k, pool_block=ec.pool_block,
+                   glicko2=False, widen_per_sec=q.widen_per_sec,
+                   max_threshold=q.max_threshold)
+        pool, _, _ = kernel_inputs(torch, seed, FULL_P, waiting, FULL_B,
+                                   False, "cuda")
+        arrays = {k: v.cpu().numpy() for k, v in pool.items()}
+        free = np.nonzero(~arrays["active"])[0]
+        dense = KernelSet(**geo)
+        dpool = pool_from_reference(arrays, "cuda")
+        sets = {ring: sharded.ShardedKernelSet(
+            mesh=distributed.global_pool_mesh("cuda"), ring=ring, **geo)
+            for ring in (False, True)}
+        spools = {ring: ks.place_pool(arrays) for ring, ks in sets.items()}
+        names = {False: "process_mesh_all_gather", True: "process_mesh_ring"}
+        counts = {name: 0 for name in ("dense", *names.values())}
+
+        def counted(name, step, *args):
+            """``step(*args)``, its ``block_best`` launches added to
+            ``counts[name]`` (the difference across the call)."""
+            before = ck.LAUNCHES["block_best"]
+            out = step(*args)
+            counts[name] += ck.LAUNCHES["block_best"] - before
+            return out
+        for w in range(windows):
+            packed = np.zeros((9, FULL_B), np.float32)
+            packed[0] = free[w * FULL_B:(w + 1) * FULL_B]
+            packed[1] = rng.normal(1500, 300, FULL_B)
+            packed[2] = 350.0
+            packed[5] = q.rating_threshold
+            packed[7] = 1.0
+            packed[8] = 1.0 + w
+            pk = torch.from_numpy(packed).cuda()
+            want = counted("dense", dense.search_step_packed, dpool, pk)
+            for ring, ks in sets.items():
+                got = counted(names[ring], ks.search_step_packed,
+                              spools[ring], pk)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"14d window {w} (ring {ring}): "
+                                         f"the process mesh's step differs")
+        for ring, sp in spools.items():
+            for col, v in dpool.items():
+                if not torch.equal(sp[col], v):
+                    raise AssertionError(f"14d (ring {ring}): pool column "
+                                         f"{col} differs")
+        # A group of one holds one shard: one launch a window each.
+        if any(n != windows for n in counts.values()):
+            raise AssertionError(f"14d: block_best launches {counts} for "
+                                 f"{windows} windows")
+        # The dense step is what the mesh is compared with: its launches
+        # stay out of the process mesh's.
+        res["dense_launches"] = counts.pop("dense")
+        res["launches"] = counts
+        res["windows"] = windows
+        # serve under MM_DCN_*: its process joins (already joined) and
+        # serves config #1 over the fake AMQP.
+        url = f"amqp://dcn-{uuid.uuid4().hex[:8]}"
+        handle = ServeHandle({**dcn, "MM_BROKER_URL": url,
+                              "MM_CONFIG_JSON": os.path.join(HERE, path)},
+                             fake_pika)
+        app = await handle.start()
+        client = amqp_transport.AmqpBroker(url, pika_module=fake_pika,
+                                           reconnect_base_s=0.01)
+        clog = ClientLog(client, "dcn.replies")
+        pop = Population(np, rng, 1024, time.time(), filters=False,
+                         glicko2=False)
+        reset_counts(ck)
+        soak_s, p50, p99, _ = await client_soak(
+            client, app.queue_cfg.name, request_bodies(pop, 0, 1024), 256,
+            clog, "14d serve")
+        statuses = {}
+        for pid, got in clog.got.items():
+            status = json.loads(got[0][1])["status"]
+            statuses[status] = statuses.get(status, 0) + 1
+            if status not in ("matched", "queued"):
+                raise AssertionError(f"14d serve: {pid} answered {status}")
+        check_faults(app, "14d serve")
+        res["serve"] = {"requests": 1024, "seconds": soak_s,
+                        "latency_ms_p50": p50, "latency_ms_p99": p99,
+                        "statuses": statuses,
+                        "launches": ck.LAUNCHES["block_best"],
+                        "process_group_joined":
+                            distributed.process_group_active()}
+        client.close()
+        await handle.finish()
+    finally:
+        distributed.shutdown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"14d: NCCL group of one joined in {res['init_ms']:.1f} ms; the "
+        f"process mesh's step = dense over {windows} windows (all-gather "
+        f"and ring); serve under MM_DCN_* answered 1,024 requests "
+        f"({res['serve']['statuses']}), p50 {res['serve']['latency_ms_p50']:.1f}"
+        f" ms")
+    return res
+
+
+def phase_sharded(torch, np, ck, scoring, mods, phase_s):
+    """Phase 14's four parts, each's seconds into ``phase_s``."""
+    elo = "configs/elo_1v1.json"
+    parts = {
+        "14a": lambda: run_sharded(torch, np, ck, scoring, mods, elo,
+                                   waiting=100_000, windows=48,
+                                   timed_windows=16, profile_windows=8,
+                                   seed=28),
+        "14b": lambda: run_bucket_frontier(torch, np, ck, scoring, mods, elo,
+                                           waiting=1_500, grow=3_000,
+                                           windows=8, seed=29),
+        "14c": lambda: run_sharded_teams(torch, np, mods, seed=30),
+        "14d": lambda: asyncio.run(run_process_mesh(
+            torch, np, ck, mods, elo, waiting=100_000, windows=4, seed=31)),
+    }
+    res = {}
+    for name, run in parts.items():
+        t = time.perf_counter()
+        res[name] = run()
+        phase_s[name] = time.perf_counter() - t
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -6938,7 +7741,6 @@ def main(argv) -> int:
     sass = sass_inner_loop(so, out_dir)
     log(f"SASS, ELO scorer's inner loop: {sass}")
     baseline = load_baseline(baseline_tree) if baseline_tree else None
-
     # 2. kernels vs plain: block_best (dense, then the span launch) and
     #    quality_accum
     kernel, max_err = phase_kernel(torch, ck, scoring, device, baseline)
@@ -7018,6 +7820,19 @@ def main(argv) -> int:
     for name, run in speculation.items():
         launches["speculation_" + name] = run["speculate_launches"]
     phase_s["3d"] = time.perf_counter() - t_phase
+
+    # 14. the sharded pool and the multi-host runtime: config #1 sharded
+    #     D = 1, 2, 4, 8 ways (and the ring at 4) on the one card against
+    #     the dense engine; the bucket frontier at D = 4; configs #3 and #5
+    #     sharded 4 ways; a process group of one over NCCL and serve under
+    #     MM_DCN_*. It runs here, before phase 4: after phases 4-13 in
+    #     this process torch.profiler leaves out the same ~27 kernels of
+    #     every session (the host launched them), and 14a counts kernels by
+    #     name in profiled windows; no form of capture, idle time or live
+    #     graphs alone does it (scripts/torch_profiler_records.py).
+    p14 = phase_sharded(torch, np, ck, scoring, mods, phase_s)
+    shard_run, frontier_run = p14["14a"], p14["14b"]
+    shard_teams, process_run = p14["14c"], p14["14d"]
     t_phase = time.perf_counter()
 
     # 4. the service on the card: the demo, the full-width soak, and
@@ -7233,6 +8048,16 @@ def main(argv) -> int:
                 f"{'tuned' if run['tuned'] else 'static'}"] = run["launches"]
     for name, counts in phase13.items():
         launches[name] = counts["block_best"]
+
+    phase14 = {k: v for k, v in shard_run["launches"].items()
+               if not k.startswith("stand_in_")}
+    phase14["bucket_frontier"] = frontier_run["launches"]
+    phase14.update(process_run["launches"])
+    phase14["serve_dcn"] = process_run["serve"]["launches"]
+    launches.update(phase14)
+    # Listed by path, left out of the main path's total (and of phase14).
+    launches.update({k: v for k, v in shard_run["launches"].items()
+                     if k.startswith("stand_in_")})
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))
     if launches["team_and_role_paths"]:
@@ -7261,7 +8086,8 @@ def main(argv) -> int:
                            for r in observed.values())
                      + sum(c["block_best"] for c in phase11.values())
                      + sum(c["block_best"] for c in phase12.values())
-                     + sum(c["block_best"] for c in phase13.values()))
+                     + sum(c["block_best"] for c in phase13.values())
+                     + sum(phase14.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -7291,6 +8117,13 @@ def main(argv) -> int:
         "ms_by_bucket": main_k["ms_by_bucket"],
         "host_us": main_k["host_us_by_bucket"][FULL_B],
         "span_launch": span,
+        "sharded": {
+            "block_best_ms_a_launch": {
+                label: run["block_best_ms_a_launch"]
+                for label, run in shard_run["runs"].items()},
+            "max_abs_err": max(run["max_abs_err"]
+                               for run in shard_run["runs"].values()),
+            "frontier_launch": frontier_run["frontier_launch"]},
     }, {
         "name": "quality_accum",
         "route": "cuda",
@@ -7456,6 +8289,17 @@ def main(argv) -> int:
             "flash_crowd": [{k: v for k, v in run.items()
                              if k not in ("launches", "digest")}
                             for run in tuning["runs"]]},
+        "sharded": {
+            "dense": shard_run["dense"],
+            "runs": {label: {k: v for k, v in run.items()
+                             if k not in ("top_kernels", "graphs")}
+                     for label, run in shard_run["runs"].items()},
+            "bucket_frontier": {k: v for k, v in frontier_run.items()
+                                if k not in ("frontier_launch",
+                                             "formation")},
+            "teams": {name: {case: run[case] for case in ("fallback", "ring")}
+                      for name, run in shard_teams.items()},
+            "process_mesh": process_run},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -7495,6 +8339,9 @@ def main(argv) -> int:
                        "network": network,
                        "transports": transports, "processes": processes,
                        "autotune": tuning,
+                       "sharded": shard_run, "bucket_frontier": frontier_run,
+                       "sharded_teams": shard_teams,
+                       "process_mesh": process_run,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

@@ -9,7 +9,7 @@ so the loader takes the port's backend as an explicit override
 JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
 Sections and keys the port does not carry yet (placement, ...) are
 ignored with a warning; a value that needs a module the port does not have
-yet is refused, with the module named: the multi-GPU chaos faults at
+yet is refused, with the module named: the device-loss chaos faults at
 construction. ``Config.to_dict`` writes the tree back as JSON (the
 process supervisor's snapshot), which ``from_env`` reads through
 ``MM_CONFIG_JSON`` to an equal Config.
@@ -86,6 +86,15 @@ class EngineConfig:
     #: Request-window batch buckets (windows pad to the smallest bucket ≥
     #: their size; larger windows split into chunks of the largest).
     batch_buckets: tuple[int, ...] = (16, 64, 256, 1024)
+    #: Shards of the pool (1: one device). > 1: the pool's slots are cut
+    #: into this many slices over a mesh of devices (engine/sharded.py:
+    #: the first this many cards, an explicit ``GpuEngine(devices=...)``
+    #: list, or one shard per rank of a joined process group) and each
+    #: window's candidate lists are merged across them.
+    mesh_pool_axis: int = 1
+    #: Merge the sharded candidate lists with a ring of neighbour hops
+    #: instead of one all-gather (the same lists either way).
+    ring_merge: bool = False
     #: Pool block width: candidates are the best slot per block.
     pool_block: int = 8192
     #: Proposal rounds of the parallel greedy pairing.
@@ -95,6 +104,16 @@ class EngineConfig:
     team_max_matches: int = 1024
     #: Team/role queues: rounds of the parallel greedy window selection.
     team_rounds: int = 16
+    #: Sharded team/role queues: 0 forms windows on every shard's gathered
+    #: columns (O(P) a step); N > 0 lets each shard send only its first N
+    #: (group, rating)-sorted rows around the ring, and forms windows on
+    #: the merged frontier while the waiting players fit N (bit-equal to
+    #: the fallback; above it the engine takes the fallback and counts
+    #: ``team_ring_fallback``).
+    team_ring_k: int = 0
+    #: How the ring's frontiers merge: "linear" (all D·N rows) or
+    #: "tournament" (a pairwise tree keeping the top N rows).
+    frontier_merge: str = "linear"
     #: Dispatched-but-uncollected windows the service keeps in flight on
     #: the columnar path (1: dispatch, then wait, per window).
     pipeline_depth: int = 2
@@ -151,9 +170,12 @@ class EngineConfig:
     #: whole-window dense fallback. Exact either way. The health timer's
     #: heartbeat re-tightens the bounds.
     bucketed: bool = False
-    #: The sharded frontier exchange of bucketed formation (multi-device):
-    #: carried so that a file naming it loads, and refused by ``GpuEngine``
-    #: when > 0 (not ported).
+    #: Sharded 1v1 queues: the ceiling of the bucket-frontier ladder (0:
+    #: off; a ``bucketed`` sharded queue takes 128). Each shard sends only
+    #: its blocks' first K active rows around the ring and the window is
+    #: scored against the merged frontiers; the engine picks K per window
+    #: (powers of two from 8 up to the ceiling) as the smallest that holds
+    #: the mirror's fullest bucket, and the dense sharded step above it.
     bucket_frontier_k: int = 0
     #: Speculative formation: between windows the engine runs up to
     #: ``spec_max_steps`` no-admission rescan passes over the resident
@@ -195,6 +217,10 @@ class BrokerConfig:
     consume_batch: bool = True
     #: Deliveries per consume burst (the burst callback's most rows).
     consume_batch_max: int = 256
+    #: Window-granular egress: a window's answers leave in one broker
+    #: ``publish_batch`` call (when the broker has one). False = one
+    #: ``publish`` per answer, byte for byte the same answers.
+    batch_publish: bool = True
     #: Ingress shard workers per queue: a burst's rows that the native
     #: decoder leaves to Python are consistent-hashed (crc32 of the
     #: correlation id) into N slices, each decoded on a worker thread, and
@@ -380,8 +406,8 @@ class ChaosConfig:
     fail_step_ranges: tuple[tuple[int, int], ...] = ()
     #: The first N half-open breaker probes raise.
     fail_probes: int = 0
-    #: Device-loss steps: they need the multi-GPU engine (ROADMAP Queue 1
-    #: item 6) and are refused.
+    #: Device-loss steps: they need device-loss failover (the D → D − 1
+    #: demotion, ROADMAP Queue 1 item 6c) and are refused.
     device_lost_steps: tuple[int, ...] = ()
     #: Replication stream record seqs whose first transmission is dropped.
     repl_drop_seqs: tuple[int, ...] = ()
@@ -423,8 +449,9 @@ class ChaosConfig:
     def __post_init__(self) -> None:
         if self.device_lost_steps:
             raise ValueError(
-                "chaos.device_lost_steps needs the sharded multi-GPU engine "
-                "(ROADMAP Queue 1 item 6), which the port does not carry yet")
+                "chaos.device_lost_steps needs device-loss failover of the "
+                "multi-GPU engine (the D → D - 1 demotion, ROADMAP Queue 1 "
+                "item 6c), which the port does not carry yet")
 
     def enabled(self) -> bool:
         return bool(
@@ -801,7 +828,9 @@ class Config:
         whole tree first (the variables win over it) and
         ``MM_QUEUE_NAMES=a,b`` keeps only the named queues;
         ``MM_SEED``, ``MM_DEBUG_INVARIANTS``, ``MM_METRICS_PORT`` and
-        ``MM_METRICS_HOST`` set the top-level scalars (and ``MM_WORKERS``).
+        ``MM_METRICS_HOST`` set the top-level scalars (and ``MM_WORKERS``);
+        ``MM_LOADGEN_*`` and ``MM_DCN_*`` belong to the load worker and the
+        multi-host runtime and are skipped.
         The engine backend is ``backend`` unless ``MM_ENGINE_BACKEND``
         names one, or the tree does in the port's names (``"gpu"``,
         ``"cpu"``: a snapshot of ``to_dict``); the files say the JAX
@@ -814,8 +843,10 @@ class Config:
                 d = json.load(f)
         queue_names = env.pop("queue_names", None)
         for key, raw in env.items():
-            if key.startswith("loadgen_"):
-                continue  # the load worker's own variables (loadgen.py)
+            if key.startswith(("loadgen_", "dcn_")):
+                # The load worker's own variables (loadgen.py) and the
+                # multi-host runtime's (engine/distributed.py).
+                continue
             try:
                 val: Any = json.loads(raw)
             except ValueError:

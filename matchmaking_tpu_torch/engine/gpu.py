@@ -138,7 +138,7 @@ from matchmaking_tpu_torch.core.pool import (
     band_edges_from_spec,
     pack_batch,
 )
-from matchmaking_tpu_torch.engine import kernels, scoring
+from matchmaking_tpu_torch.engine import kernels, scoring, sharded
 from matchmaking_tpu_torch.engine.cpu import CpuEngine
 from matchmaking_tpu_torch.engine.graphs import StepGraphs, uncounted
 from matchmaking_tpu_torch.engine.interface import (
@@ -155,8 +155,14 @@ from matchmaking_tpu_torch.engine.quality import (
     build_report,
     empty_arrays,
 )
-from matchmaking_tpu_torch.engine.role_kernels import role_kernel_set
-from matchmaking_tpu_torch.engine.teams import team_kernel_set
+from matchmaking_tpu_torch.engine.role_kernels import (
+    role_kernel_set,
+    sharded_role_kernel_set,
+)
+from matchmaking_tpu_torch.engine.teams import (
+    sharded_team_kernel_set,
+    team_kernel_set,
+)
 from matchmaking_tpu_torch.service.contract import (
     RequestColumns,
     SearchRequest,
@@ -270,59 +276,73 @@ class GpuEngine(Engine):
     #: of alternating traffic (each move rebuilds the pool).
     TEAM_REPROMOTE_QUIET_S = 5.0
 
-    def __init__(self, cfg: Config, queue: QueueConfig, device=None):
+    def __init__(self, cfg: Config, queue: QueueConfig, device=None,
+                 devices: Sequence | None = None):
         super().__init__(cfg, queue)
-        self.device = resolve_device(device)
-        #: Host buffers are pinned for the card only (pinning needs CUDA).
-        self._pinned = self.device.type == "cuda"
         ec = cfg.engine
-        if ec.bucket_frontier_k > 0:
-            raise ValueError("the sharded bucket frontier (bucket_frontier_k "
-                             "> 0) is not supported by GpuEngine; bucketed "
-                             "formation on one device is")
+        #: The devices the pool lives on (the JAX engine's ``devices``):
+        #: a sharded queue's mesh, one entry per shard (ints are card
+        #: indices; an entry may repeat: one card standing in for
+        #: several); a single entry places an unsharded pool. None: the
+        #: first ``mesh_pool_axis`` visible cards (``sharded.pool_mesh``).
+        self.devices = tuple(devices) if devices else None
+        #: The pool sharded over a mesh (``mesh_pool_axis`` > 1).
+        self._sharded = ec.mesh_pool_axis > 1
+        if self.devices is not None and not self._sharded:
+            if len(self.devices) != 1:
+                raise ValueError(f"devices {self.devices} name more than one "
+                                 f"device for an unsharded pool")
+            device = sharded.mesh_device(self.devices[0], device)
+        self.device = resolve_device(device)
         #: Team-family queues: role queues (config #5) run the solo role
         #: step, plain team queues (config #3) the team step.
         self._role_device = queue.team_size > 1 and bool(queue.role_slots)
         self._team_device = queue.team_size > 1
-        #: Bucketed formation: 1v1 queues only (team and role steps form
-        #: windows pool-wide).
-        self._bucketed = bool(ec.bucketed) and not self._team_device
-        if self._role_device:
-            self.kernels = role_kernel_set(
-                capacity=ec.pool_capacity, team_size=queue.team_size,
-                role_slots=tuple(queue.role_slots),
-                widen_per_sec=queue.widen_per_sec,
-                max_threshold=queue.max_threshold,
-                max_matches=ec.team_max_matches, rounds=ec.team_rounds)
-        elif self._team_device:
-            self.kernels = team_kernel_set(
-                capacity=ec.pool_capacity, team_size=queue.team_size,
-                widen_per_sec=queue.widen_per_sec,
-                max_threshold=queue.max_threshold,
-                max_matches=ec.team_max_matches, rounds=ec.team_rounds)
-        elif queue.role_slots:
-            raise ValueError("role_slots need team_size > 1")
-        else:
-            self.kernels = kernels.KernelSet(
-                capacity=ec.pool_capacity,
-                top_k=ec.top_k,
-                pool_block=min(ec.pool_block, ec.pool_capacity),
-                glicko2=queue.glicko2,
-                widen_per_sec=queue.widen_per_sec,
-                max_threshold=queue.max_threshold,
-                pair_rounds=ec.pair_rounds,
-                prune_window_blocks=ec.prune_window_blocks,
-                prune_chunk=ec.prune_chunk,
-                bucketed=self._bucketed,
-            )
+        #: Bucketed formation on one device: 1v1 queues only (team and
+        #: role steps form windows pool-wide; a sharded 1v1 queue's
+        #: bucketed formation is the bucket frontier below).
+        self._bucketed = (bool(ec.bucketed) and not self._team_device
+                          and not self._sharded)
+        self.kernels = self._kernel_set(queue)
+        if self._sharded:
+            # The engine's device is the mesh's home: windows are staged
+            # there and the merged lists paired there.
+            self.device = self.kernels.mesh.home
+        #: Host buffers are pinned for the card only (pinning needs CUDA).
+        self._pinned = self.device.type == "cuda"
+        #: The sharded 1v1 bucket frontier's ladder: frontier widths, powers
+        #: of two from 8 up to the ceiling (``bucket_frontier_k``, or 128
+        #: for a bucketed queue); the per-window pick is the smallest that
+        #: holds the mirror's fullest bucket (none: the dense sharded step).
+        bfk = getattr(self.kernels, "bucket_frontier_k", 0)
+        rungs = {bfk} if bfk else set()
+        k = bfk // 2
+        while bfk and k >= 8:
+            rungs.add(k)
+            k //= 2
+        self._frontier_ladder: tuple[int, ...] = tuple(sorted(rungs))
+        self._frontier_k_active = 0
+        #: The ladder's moves, newest last (at most 64).
+        self.frontier_moves: list[dict] = []
         #: Rating bands of the slot allocator, one per pool block of a 1v1
         #: queue (``band_spec``; None: off). They keep each block's live
-        #: rating interval narrow, which the pruned step needs.
-        self._band_edges = band_edges_from_spec(
-            ec.band_spec, 0 if self._team_device else self.kernels.n_blocks)
-        #: The mirror's segments: one per device block of a bucketed queue
-        #: (its bucket occupancy), else none.
-        self._segments = self.kernels.n_blocks if self._bucketed else 0
+        #: rating interval narrow, which the pruned step and the bucket
+        #: frontier need. A plain sharded queue takes none (as the JAX
+        #: engine: no allocator switch without a bucketed step).
+        if self._team_device:
+            band_blocks = 0
+        elif self._sharded:
+            band_blocks = (self.kernels.global_blocks
+                           if ec.bucketed or ec.bucket_frontier_k else 0)
+        else:
+            band_blocks = self.kernels.n_blocks
+        self._band_edges = band_edges_from_spec(ec.band_spec, band_blocks)
+        #: The mirror's segments: one per device block of a bucketed queue,
+        #: or per global block of a bucket-frontier queue (its bucket
+        #: occupancy, which gates the frontier), else none.
+        self._segments = (self.kernels.n_blocks if self._bucketed
+                          else self.kernels.global_blocks
+                          if self._frontier_ladder else 0)
         self.pool = self._new_pool()
         #: Bucketed formation: pool slots the steps scored and the flat
         #: step's equivalent, summed at finalize from result row 3.
@@ -336,9 +356,15 @@ class GpuEngine(Engine):
         self._spec: _Speculation | None = None
         self._spec_validated_seq: int | None = None
         self._spec_pool: kernels.DevicePool | None = None
-        #: The captured window steps (the card only; None on the CPU).
+        #: The captured window steps (the card only; None on the CPU). A
+        #: sharded step is captured when every shard sits on the one card;
+        #: a step over a process group, or over several cards, runs eagerly.
+        mesh = getattr(self.kernels, "mesh", None)
         self._graphs = (StepGraphs(self.kernels, self.device)
-                        if self.device.type == "cuda" else None)
+                        if self.device.type == "cuda"
+                        and (mesh is None or (mesh.single_device
+                                              and not mesh.process))
+                        else None)
         self.dev_pool = self._fresh_device_pool()
         #: A delegated team/role queue's device pool, kept for its return.
         self._parked_pool: kernels.DevicePool | None = None
@@ -397,12 +423,13 @@ class GpuEngine(Engine):
                      "lanes_valid": 0, "lanes_padded": 0}
         self._util_mark = time.perf_counter()
         #: Match-quality accounting: the device accumulator of 1v1 queues
-        #: (None for team and role queues, whose matches go to the host
-        #: accumulator at finalize) and its state on the card.
+        #: (None for team and role queues and for sharded pools, whose
+        #: matches go to the host accumulator at finalize, as the JAX
+        #: engine's do) and its state on the card.
         self._q_spec = QualitySpec.from_config(cfg.observability)
         self._quality: kernels.QualityAccumKernel | None = None
         self._q_dev: kernels.QualityState | None = None
-        if not self._team_device:
+        if not self._team_device and not self._sharded:
             self._quality = kernels.QualityAccumKernel(
                 capacity=self.kernels.capacity,
                 widen_per_sec=queue.widen_per_sec,
@@ -421,6 +448,54 @@ class GpuEngine(Engine):
         #: Scripted faults (utils/chaos.py ``EngineChaosHook``; None: none),
         #: set by the service on every engine it builds for the queue.
         self.chaos_hook = None
+
+    def _kernel_set(self, queue: QueueConfig):
+        """The window step of this queue, chosen as the JAX engine chooses
+        it: the role, team or 1v1 set, each sharded over a mesh when
+        ``mesh_pool_axis`` > 1. A sharded 1v1 queue that is ``bucketed``
+        takes the bucket frontier with a ceiling of 128 (an explicit
+        ``bucket_frontier_k`` wins)."""
+        ec = self.cfg.engine
+        n = ec.mesh_pool_axis
+        mesh_kw = dict(n_shards=n, device_ids=self.devices,
+                       device=str(self.device))
+        team_kw = dict(capacity=ec.pool_capacity, team_size=queue.team_size,
+                       widen_per_sec=queue.widen_per_sec,
+                       max_threshold=queue.max_threshold,
+                       max_matches=ec.team_max_matches, rounds=ec.team_rounds)
+        ring_kw = dict(frontier_k=ec.team_ring_k,
+                       frontier_merge=ec.frontier_merge)
+        if self._role_device:
+            if self._sharded:
+                return sharded_role_kernel_set(
+                    role_slots=tuple(queue.role_slots), **team_kw, **ring_kw,
+                    **mesh_kw)
+            return role_kernel_set(role_slots=tuple(queue.role_slots),
+                                   **team_kw)
+        if self._team_device:
+            if self._sharded:
+                return sharded_team_kernel_set(**team_kw, **ring_kw,
+                                               **mesh_kw)
+            return team_kernel_set(**team_kw)
+        if queue.role_slots:
+            raise ValueError("role_slots need team_size > 1")
+        if self._sharded:
+            return sharded.sharded_kernel_set(
+                capacity=ec.pool_capacity, top_k=ec.top_k,
+                pool_block=ec.pool_block, glicko2=queue.glicko2,
+                widen_per_sec=queue.widen_per_sec,
+                max_threshold=queue.max_threshold, ring=ec.ring_merge,
+                pair_rounds=ec.pair_rounds,
+                bucket_frontier_k=(ec.bucket_frontier_k
+                                   or (128 if ec.bucketed else 0)),
+                **mesh_kw)
+        return kernels.KernelSet(
+            capacity=ec.pool_capacity, top_k=ec.top_k,
+            pool_block=min(ec.pool_block, ec.pool_capacity),
+            glicko2=queue.glicko2, widen_per_sec=queue.widen_per_sec,
+            max_threshold=queue.max_threshold, pair_rounds=ec.pair_rounds,
+            prune_window_blocks=ec.prune_window_blocks,
+            prune_chunk=ec.prune_chunk, bucketed=self._bucketed)
 
     # ---- Engine API -------------------------------------------------------
 
@@ -889,7 +964,8 @@ class GpuEngine(Engine):
         pending = _Pending(token=self._next_token, created=time.perf_counter())
         self._next_token += 1
         batch = self.pool.batch_arrays([], [], self.buckets[0])
-        out = self._launch(self._variants()[0], batch, now, pending.staging)
+        out = self._launch(self._step_for(batch), batch, now,
+                           pending.staging)
         pending.chunks.append(([], out, now))
         self._submit(pending)
         return pending.token
@@ -987,16 +1063,19 @@ class GpuEngine(Engine):
         return {"windows": ks.pruned_steps, "span_windows": span}
 
     def formation_report(self) -> dict | None:
-        """Bucketed formation: the buckets (device blocks), the windows and
-        pool slots their steps scored against the flat step's (every lane
-        the whole pool), the touched fraction, each bucket's waiting
-        players (the mirror's segment counts) and the bands. None when not
-        bucketed. Host counters only: no device read."""
-        if not self._bucketed:
+        """Bucketed formation (or a sharded queue's bucket frontier): the
+        buckets (device blocks, global blocks for the frontier), the
+        windows and pool slots their steps scored against the flat step's
+        (every lane the whole pool), the touched fraction, each bucket's
+        waiting players (the mirror's segment counts), the frontier ladder
+        (its widths, the width in use, its moves, frontier steps and
+        fallbacks) and the bands. None when neither. Host counters only:
+        no device read."""
+        if not self._bucketed and not self._frontier_ladder:
             return None
         total = self.formation["total_slots"]
         rep: dict = {
-            "mode": "bucketed",
+            "mode": "bucketed" if self._bucketed else "bucket_frontier",
             "buckets": self._segments,
             "windows": self.formation["windows"],
             "touched_slots": self.formation["touched_slots"],
@@ -1009,10 +1088,27 @@ class GpuEngine(Engine):
         if seg is not None:
             rep["bucket_occupancy"] = seg.tolist()
             rep["peak_bucket_occupancy"] = self.pool.segment_max()
+        if self._frontier_ladder:
+            rep["frontier_ladder"] = list(self._frontier_ladder)
+            rep["frontier_k"] = self._frontier_k_active
+            rep["frontier_moves"] = list(self.frontier_moves)
+            rep["frontier_steps"] = self.counters.get(
+                "bucket_frontier_steps", 0)
+            rep["frontier_fallbacks"] = self.counters.get(
+                "bucket_frontier_fallback", 0)
         band = self.pool.band_report()
         if band is not None:
             rep["bands"] = band
         return rep
+
+    def frontier_snapshot(self) -> dict | None:
+        """The frontier ladder for the telemetry sampler: the width in use
+        and the monotone move count (the move list is bounded, so a
+        trajectory needs the count). None without a ladder."""
+        if not self._frontier_ladder:
+            return None
+        return {"frontier_k": self._frontier_k_active,
+                "frontier_k_moves": self.counters.get("frontier_k_moves", 0)}
 
     def _formation_observe(self, result: np.ndarray) -> None:
         """Fold a collected chunk's touched row (row 3 of a bucketed
@@ -1041,7 +1137,10 @@ class GpuEngine(Engine):
         self.counters[name] = self.counters.get(name, 0) + n
 
     def _speculates(self) -> bool:
-        return bool(self.cfg.engine.spec_formation) and not self._team_device
+        """Speculation needs the single-device 1v1 rescan step (the JAX
+        sharded sets ship no speculative twin either)."""
+        return (bool(self.cfg.engine.spec_formation)
+                and not self._team_device and not self._sharded)
 
     def _spec_device_pool(self) -> kernels.DevicePool:
         """The spare pool speculation runs on (made once: the ``spec``
@@ -1281,15 +1380,24 @@ class GpuEngine(Engine):
 
     def _variants(self) -> tuple[str, ...]:
         """The step variants of this queue (one graph each per bucket):
-        the team or role step; for 1v1 queues the traffic step with and
-        without filters (dense, pruned with ``prune_window_blocks``, or
-        bucketed) and the rescan step (dense, or bucketed). A speculating
-        queue has one more, ``spec``: the rescan step on the spare pool,
-        with no quality fold."""
+        the team or role step (and its ring step, ``_ring``, on a sharded
+        pool with ``team_ring_k``); for 1v1 queues the traffic step with
+        and without filters (dense, pruned with ``prune_window_blocks``,
+        bucketed, or sharded) and the rescan step (dense, bucketed or
+        sharded), and a sharded queue's bucket-frontier steps, one per
+        ladder width (``frontier<k>``). A speculating queue has one more,
+        ``spec``: the rescan step on the spare pool, with no quality
+        fold."""
         if self._team_device:
-            return ("role",) if self._role_device else ("team",)
+            base = "role" if self._role_device else "team"
+            if getattr(self.kernels, "frontier_k", 0):
+                return base, base + "_ring"
+            return (base,)
         if self._bucketed:
             return "bucketed", "bucketed_nofilter", "bucketed_rescan"
+        if self._sharded:
+            return ("dense", "dense_nofilter", "rescan",
+                    *(f"frontier{k}" for k in self._frontier_ladder))
         base = "pruned" if self.kernels.prune_window_blocks else "dense"
         return base, base + "_nofilter", "rescan"
 
@@ -1303,6 +1411,10 @@ class GpuEngine(Engine):
         ks = self.kernels
         if variant in ("rescan", "bucketed_rescan", "spec"):
             step = ks.search_step_packed_rescan
+        elif variant.startswith("frontier"):
+            step = ks.bucket_step(int(variant[len("frontier"):]))
+        elif variant.endswith("_ring"):
+            step = ks.search_step_packed_ring
         elif self._team_device:
             step = ks.search_step_packed
         else:
@@ -1378,7 +1490,7 @@ class GpuEngine(Engine):
             out = self._step_fn(variant)(self._pool_for(variant), packed)
         if marks is not None:
             marks.append(("formation_bucketed"
-                          if variant.startswith("bucketed")
+                          if variant.startswith(("bucketed", "frontier"))
                           else "device_step", time.time()))
         if keep is not None:
             out = out.clone()
@@ -1388,11 +1500,45 @@ class GpuEngine(Engine):
         return readback
 
     def _step_for(self, batch: BatchArrays) -> str:
-        """The variant of a traffic window. The all-ANY variant drops the
-        region/mode tests: exact when no lane carries a filter (padding
-        lanes hold code 0). Team and role steps have one variant."""
+        """The variant of a traffic window (and of a team rescan), picked
+        as the JAX engine picks it, with its counters:
+
+        - a sharded team or role queue with ``team_ring_k`` takes the ring
+          step while the mirror's waiting players (an upper bound on every
+          shard's active rows: slots are released only at finalize) fit
+          the frontier, which is when it equals the fallback
+          (``team_ring_steps`` / ``team_ring_fallback``);
+        - a sharded 1v1 queue with a frontier ladder takes the smallest
+          width that holds the mirror's fullest bucket (a move is counted
+          in ``frontier_k_moves`` and kept in ``frontier_moves``), or, above
+          the ceiling, the dense sharded step (``bucket_frontier_steps`` /
+          ``bucket_frontier_fallback``);
+        - otherwise the all-ANY variant drops the region/mode tests, exact
+          when no lane carries a filter (padding lanes hold code 0).
+        Team and role steps have no such variant."""
         base = self._variants()[0]
-        if self._team_device or batch.region.any() or batch.mode.any():
+        if self._team_device:
+            if getattr(self.kernels, "frontier_k", 0):
+                if len(self.pool) <= self.kernels.frontier_k:
+                    self._count("team_ring_steps")
+                    return base + "_ring"
+                self._count("team_ring_fallback")
+            return base
+        if self._frontier_ladder:
+            occ = self.pool.segment_max()
+            k = next((r for r in self._frontier_ladder if r >= occ), None)
+            if k is not None:
+                if k != self._frontier_k_active:
+                    self._count("frontier_k_moves")
+                    self.frontier_moves.append({
+                        "t": time.time(), "from": self._frontier_k_active,
+                        "to": k, "peak_bucket_occupancy": occ})
+                    del self.frontier_moves[:-64]
+                    self._frontier_k_active = k
+                self._count("bucket_frontier_steps")
+                return f"frontier{k}"
+            self._count("bucket_frontier_fallback")
+        if batch.region.any() or batch.mode.any():
             return base
         return base + "_nofilter"
 
@@ -1530,7 +1676,12 @@ class GpuEngine(Engine):
         self.spans["finalize_s"] += time.perf_counter() - _t
 
     def _finalize_objects(self, pending: _Pending) -> None:
+        """Object finalize. Without a device accumulator (a sharded pool)
+        each matched player is one host quality sample, match by match,
+        folded once per window, as the JAX engine folds them."""
         out = pending.outcome
+        acc: list[tuple[float, float, float, float]] | None = (
+            [] if self._quality is None else None)
         for (window, _, now), result in zip(pending.chunks, pending.raw or ()):
             self._formation_observe(result)
             q_slot = result[0].astype(np.int32)
@@ -1551,12 +1702,21 @@ class GpuEngine(Engine):
                     out.matches.append(Match(match_id=new_match_id(),
                                              teams=((req_q,), (req_c,)),
                                              quality=qual))
+                    if acc is not None:
+                        for r in (req_q, req_c):
+                            w = (max(0.0, now - r.enqueued_at)
+                                 if r.enqueued_at else 0.0)
+                            acc.append((r.rating, qual, w, d))
                 self._pool_mutated()
                 self.pool.release(qs_l)
                 self.pool.release(cs_l)
             for req in window:
                 if req.id not in matched_ids:
                     out.queued.append(req)
+        if acc:
+            self._q_host_accum.observe(
+                rating=[a[0] for a in acc], quality=[a[1] for a in acc],
+                wait_s=[a[2] for a in acc], spread=[a[3] for a in acc])
         self.spans["matches"] += len(out.matches)
 
     def _eff_vec(self, thr: np.ndarray, enqueued: np.ndarray,
@@ -1610,6 +1770,15 @@ class GpuEngine(Engine):
                         ("m_tier_a", pool.m_tier[qs]),
                         ("m_tier_b", pool.m_tier[cs])):
                     setattr(out, name, np.concatenate([getattr(out, name), col]))
+                if self._quality is None:
+                    # No device accumulator (a sharded pool): the host
+                    # twin of the fold, over the same mirror columns.
+                    self._q_host_accum.observe(
+                        rating=np.concatenate([pool.m_rating[qs],
+                                               pool.m_rating[cs]]),
+                        quality=np.concatenate([quality, quality]),
+                        wait_s=np.concatenate([wait_a, wait_b]),
+                        spread=np.concatenate([d, d]))
                 matched = np.concatenate([qs, cs])
                 self._pool_mutated()
                 pool.release(matched)
@@ -1690,6 +1859,8 @@ class GpuEngine(Engine):
         the role step's ``role_mask``, a bucketed set's index, written
         empty): at start, as the scratch pool of a team or role step's
         warm-up, and as the spare pool of speculation."""
+        if self._sharded:
+            return self.kernels.fresh_pool()
         pool = kernels.fresh_pool(self.kernels.capacity, self.device,
                                   self.kernels.extra_pool_fields)
         if self._bucketed:
@@ -1785,8 +1956,11 @@ class GpuEngine(Engine):
         self._delegate_last_wc = float("-inf")
         self.pool = self._new_pool()
         pool, self._parked_pool = self._parked_pool, None
-        for col in pool.full.values():
-            col.zero_()  # as fresh: every slot inactive
+        if self._sharded:
+            pool.zero_()  # as fresh: every slot inactive
+        else:
+            for col in pool.full.values():
+                col.zero_()
         self._dev_pool = pool
         if waiting:
             self.restore(waiting, now)
@@ -1826,8 +2000,5 @@ class GpuEngine(Engine):
         staging = torch.empty(len(slots), dtype=torch.int32,
                               pin_memory=self._pinned)
         staging.numpy()[:] = slots
-        t = staging.to(self.device, non_blocking=True)
-        if self._team_device:
-            kernels.evict(self.dev_pool, t)
-        else:
-            self.kernels.evict(self.dev_pool, t)
+        self.kernels.evict(self.dev_pool,
+                           staging.to(self.device, non_blocking=True))

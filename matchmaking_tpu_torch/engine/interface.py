@@ -250,6 +250,11 @@ class Engine(abc.ABC):
         """Speculation counts, or None without a speculation path."""
         return None
 
+    def frontier_snapshot(self) -> dict | None:
+        """The bucket frontier's width in use and move count, or None
+        without a frontier ladder."""
+        return None
+
     def effective_threshold(self, req: SearchRequest, now: float) -> float:
         """The request's ``rating_threshold`` (or the queue default) plus
         config-gated widening by wait time."""

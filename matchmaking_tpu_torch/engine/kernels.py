@@ -73,22 +73,27 @@ _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.bool_): torch.bool}
 
 
-def effective_pool_block(capacity: int, pool_block: int, top_k: int) -> int:
+def effective_pool_block(capacity: int, pool_block: int, top_k: int,
+                         *, min_blocks: bool = True) -> int:
     """The block width actually used for a pool geometry (identical to the
     JAX engine's, so both build the same candidate lists):
 
     - it must divide ``capacity`` — rounded down by halving;
     - candidate lists are best-per-block, so small pools split into at
       least ``min(top_k, capacity // 128)`` blocks (each halving re-checks
-      divisibility)."""
+      divisibility). A shard's local set passes ``min_blocks=False``: its
+      block width comes from the global capacity
+      (``sharded.ShardedKernelSet``), and a local re-derivation would
+      shrink it and part the sharded and dense candidate lists."""
     pool_block = max(1, min(pool_block, capacity))
     while capacity % pool_block != 0:
         pool_block //= 2
-    need = min(top_k, max(1, capacity // 128))
-    while capacity // pool_block < need and pool_block > 1:
-        pool_block //= 2
-        while capacity % pool_block != 0:
+    if min_blocks:
+        need = min(top_k, max(1, capacity // 128))
+        while capacity // pool_block < need and pool_block > 1:
             pool_block //= 2
+            while capacity % pool_block != 0:
+                pool_block //= 2
     return pool_block
 
 
@@ -291,7 +296,11 @@ class KernelSet:
     rescan step scores spans too, from the index alone. The packed steps
     return f32[4, B]: the flat step's three rows, then the pool slots each
     lane scored (``W · pool_block`` on the span path, ``capacity`` on the
-    fallback). W defaults to a quarter of the blocks (at least 2)."""
+    fallback). W defaults to a quarter of the blocks (at least 2).
+
+    ``exact_block`` takes ``pool_block`` as it is (only rounded down to a
+    divisor of the capacity): a shard's local set, whose width the global
+    geometry fixed."""
 
     is_role = False
     #: Device pool columns beyond ``POOL_FIELDS`` (a bucketed set's index).
@@ -302,8 +311,10 @@ class KernelSet:
     def __init__(self, *, capacity: int, top_k: int, pool_block: int,
                  glicko2: bool, widen_per_sec: float, max_threshold: float,
                  pair_rounds: int = 8, prune_window_blocks: int = 0,
-                 prune_chunk: int = 128, bucketed: bool = False):
-        pool_block = effective_pool_block(capacity, pool_block, top_k)
+                 prune_chunk: int = 128, bucketed: bool = False,
+                 exact_block: bool = False):
+        pool_block = effective_pool_block(capacity, pool_block, top_k,
+                                          min_blocks=not exact_block)
         self.capacity = capacity
         self.pool_block = pool_block
         self.n_blocks = capacity // pool_block

@@ -28,6 +28,11 @@ member's eligibility per role subset is a lookup in a constant
 split's teams, and a sum compares with the demand vector; the first split
 that passes (by the oracle's priority) is an ``argmin``. At P = 16,384,
 k = 5 and three distinct roles the gathered tensor is ~30 MB of int8.
+
+``ShardedRoleKernelSet`` is the step over a sharded pool, with the team
+family's two paths (teams.py): the replicated fallback and, with
+``frontier_k``, the ring over per-shard frontiers; ``role_mask`` rides in
+both.
 """
 
 from __future__ import annotations
@@ -38,17 +43,13 @@ import numpy as np
 import torch
 
 from matchmaking_tpu_torch.core.pool import PACKED_ROWS
-from matchmaking_tpu_torch.engine.kernels import (
-    ADMIT_FIELDS,
-    admit,
-    evict,
-    packed_now,
-    unpack_batch,
-)
+from matchmaking_tpu_torch.engine.kernels import ADMIT_FIELDS, unpack_batch
+from matchmaking_tpu_torch.engine.sharded import resolve_mesh
 from matchmaking_tpu_torch.engine.teams import (
     BIG_I32,
     INF,
     TeamKernelSet,
+    _ShardedTeamFamily,
     extract_windows,
     sorted_group_order,
 )
@@ -169,25 +170,19 @@ class RoleKernelSet(TeamKernelSet):
         cover_ok, split = self._cover_split(member_masks)
         return valid & cover_ok, spread, win_thr, split
 
-    def search_step(self, pool, batch: dict[str, torch.Tensor],
-                    now: torch.Tensor):
-        admit(pool, batch, self.admit_fields)
-        order, group = sorted_group_order(pool)
+    def form(self, cols: dict[str, torch.Tensor], now: torch.Tensor,
+             capacity: int):
+        """Role formation (leftmost window first): the team step's result
+        rows and the split row (i32[M])."""
+        order, group = sorted_group_order(cols)
         valid, spread, win_thr, split = self._windows_roles(
-            pool, order, group, now)
-        won = self._select_windows(valid)  # leftmost first
+            cols, order, group, now)
+        won = self._select_windows(valid)
         slots, is_match, w = extract_windows(won, self.need, self.max_matches,
-                                             order, self.capacity)
-        evict(pool, slots.reshape(-1))
-        return (slots, torch.where(is_match, spread[w], INF),
-                torch.where(is_match, win_thr[w], 0.0),
-                torch.where(is_match, split[w], 0))
-
-    def search_step_packed(self, pool, packed: torch.Tensor):
-        slots, spread, limit, split = self.search_step(
-            pool, self.unpack(packed), packed_now(packed))
-        return torch.cat([slots.T.to(torch.float32), spread[None, :],
-                          limit[None, :], split.to(torch.float32)[None, :]])
+                                             order, capacity)
+        return slots, [torch.where(is_match, spread[w], INF),
+                       torch.where(is_match, win_thr[w], 0.0),
+                       torch.where(is_match, split[w], 0)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,3 +194,57 @@ def role_kernel_set(capacity: int, team_size: int,
                          role_slots=role_slots, widen_per_sec=widen_per_sec,
                          max_threshold=max_threshold,
                          max_matches=max_matches, rounds=rounds)
+
+
+class ShardedRoleKernelSet(_ShardedTeamFamily):
+    """The solo role step over a sharded pool (config #5 with
+    ``mesh_pool_axis`` > 1): ``RoleKernelSet``'s packed surface over a
+    ``sharded.ShardedPool``, the team family's fallback and ring paths
+    with ``role_mask`` added to the gathered columns and the frontier
+    rows, and the split row in the result."""
+
+    is_role = True
+    extra_pool_fields = RoleKernelSet.extra_pool_fields
+    pack_rows = RoleKernelSet.pack_rows
+    admit_fields = RoleKernelSet.admit_fields
+    _GATHER = ("rating", "region", "mode", "threshold", "enqueue_t",
+               "active", "role_mask")
+    _extra_rows = 1
+
+    def __init__(self, *, capacity: int, team_size: int,
+                 role_slots: tuple[str, ...], widen_per_sec: float,
+                 max_threshold: float, mesh, max_matches: int = 1024,
+                 rounds: int = 16, frontier_k: int = 0,
+                 frontier_merge: str = "linear"):
+        def make(rows, matches):
+            return RoleKernelSet(
+                capacity=rows, team_size=team_size, role_slots=role_slots,
+                widen_per_sec=widen_per_sec, max_threshold=max_threshold,
+                max_matches=max_matches if matches is None else matches,
+                rounds=rounds)
+
+        self._family(capacity=capacity, team_size=team_size, mesh=mesh,
+                     frontier_k=frontier_k, frontier_merge=frontier_merge,
+                     make=make)
+
+    def mask_of(self, roles: tuple[str, ...]) -> int:
+        return self._global.mask_of(roles)
+
+    def unpack(self, packed: torch.Tensor) -> dict[str, torch.Tensor]:
+        return self._global.unpack(packed)
+
+
+def sharded_role_kernel_set(capacity: int, team_size: int,
+                            role_slots: tuple[str, ...],
+                            widen_per_sec: float, max_threshold: float,
+                            n_shards: int, max_matches: int = 1024,
+                            rounds: int = 16, frontier_k: int = 0,
+                            frontier_merge: str = "linear",
+                            device_ids: tuple | None = None,
+                            device="cuda") -> ShardedRoleKernelSet:
+    return ShardedRoleKernelSet(
+        capacity=capacity, team_size=team_size, role_slots=role_slots,
+        widen_per_sec=widen_per_sec, max_threshold=max_threshold,
+        mesh=resolve_mesh(n_shards, device_ids, device),
+        max_matches=max_matches, rounds=rounds, frontier_k=frontier_k,
+        frontier_merge=frontier_merge)

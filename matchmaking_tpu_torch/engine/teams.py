@@ -28,6 +28,16 @@ match other wildcards, where the oracle expands it into every concrete
 group. ``GpuEngine`` therefore hands the queue to the host oracle the
 moment a wildcard arrives (``_maybe_delegate_team``), so this step only
 ever sees pools where the two rules agree.
+
+The sharded half (``ShardedTeamKernelSet``, over an engine/sharded.py
+mesh): window formation needs the global (group, rating) order, so the
+replicated fallback gathers the formation columns of every shard and
+forms windows once on the whole pool; with ``frontier_k`` each shard
+sends only its first ``frontier_k`` (group, rating)-sorted rows
+(``pack_frontier``) around the ring, and formation runs on the merged
+frontier (``merge_frontiers``: all D·K rows, or a tournament-tree top K).
+While no shard holds more than ``frontier_k`` waiting players the two
+paths are bit-equal; the engine checks the mirror per window.
 """
 
 from __future__ import annotations
@@ -35,9 +45,10 @@ from __future__ import annotations
 import functools
 from typing import Any
 
+import numpy as np
 import torch
 
-from matchmaking_tpu_torch.core.pool import PACKED_ROWS
+from matchmaking_tpu_torch.core.pool import PACKED_ROWS, POOL_FIELDS
 from matchmaking_tpu_torch.engine.cuda_kernels import effective_threshold
 from matchmaking_tpu_torch.engine.kernels import (
     ADMIT_FIELDS,
@@ -45,6 +56,11 @@ from matchmaking_tpu_torch.engine.kernels import (
     evict,
     packed_now,
     unpack_batch,
+)
+from matchmaking_tpu_torch.engine.sharded import (
+    _ShardedBase,
+    resolve_mesh,
+    tournament_merge_topk,
 )
 
 BIG_I32 = 1 << 30
@@ -116,6 +132,9 @@ class TeamKernelSet:
     def admit_packed(self, pool, packed: torch.Tensor) -> None:
         admit(pool, self.unpack(packed), self.admit_fields)
 
+    def evict(self, pool, slots: torch.Tensor) -> None:
+        evict(pool, slots)
+
     # ---- the step -----------------------------------------------------------
 
     def _windows(self, pool, order, group, now: torch.Tensor):
@@ -185,30 +204,39 @@ class TeamKernelSet:
             won |= win
         return won
 
+    def form(self, cols: dict[str, torch.Tensor], now: torch.Tensor,
+             capacity: int):
+        """Window formation over ``cols`` (the pool's columns, or a
+        sharded set's gathered columns or merged frontier): (member slots
+        i32[M, need], the rows of ``cols``, ``capacity`` in padding rows;
+        the result rows after them: spread f32[M], limit f32[M])."""
+        order, group = sorted_group_order(cols)
+        valid, spread, win_thr = self._windows(cols, order, group, now)
+        won = self._select_windows(valid, spread)
+        slots, is_match, w = extract_windows(won, self.need, self.max_matches,
+                                             order, capacity)
+        return slots, [torch.where(is_match, spread[w], INF),
+                       torch.where(is_match, win_thr[w], 0.0)]
+
     def search_step(self, pool, batch: dict[str, torch.Tensor],
                     now: torch.Tensor):
         """One team window: admit → form → evict, the pool updated in
         place, at the window's time ``now`` (a one-element f32 tensor on
         the pool's device). Returns (slots i32[M, need], spread f32[M],
-        limit f32[M])."""
+        limit f32[M]) (and, for the role step, split i32[M])."""
         admit(pool, batch, self.admit_fields)
-        order, group = sorted_group_order(pool)
-        valid, spread, win_thr = self._windows(pool, order, group, now)
-        won = self._select_windows(valid, spread)
-        slots, is_match, w = extract_windows(won, self.need, self.max_matches,
-                                             order, self.capacity)
+        slots, rows = self.form(pool, now, self.capacity)
         evict(pool, slots.reshape(-1))
-        return (slots, torch.where(is_match, spread[w], INF),
-                torch.where(is_match, win_thr[w], 0.0))
+        return (slots, *rows)
 
     def search_step_packed(self, pool, packed: torch.Tensor):
         """Packed step: f32[pack_rows, B] in (``now`` read on the device from
         its last row: ``packed_now``), f32[need + 2, M] out: member slots
-        (f32-exact), spread, limit."""
-        slots, spread, limit = self.search_step(pool, self.unpack(packed),
-                                                packed_now(packed))
-        return torch.cat([slots.T.to(torch.float32), spread[None, :],
-                          limit[None, :]])
+        (f32-exact), spread, limit (and the role step's split)."""
+        slots, *rows = self.search_step(pool, self.unpack(packed),
+                                        packed_now(packed))
+        return torch.cat([slots.T.to(torch.float32)]
+                         + [r.to(torch.float32)[None, :] for r in rows])
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,3 +247,228 @@ def team_kernel_set(capacity: int, team_size: int, widen_per_sec: float,
                          widen_per_sec=widen_per_sec,
                          max_threshold=max_threshold,
                          max_matches=max_matches, rounds=rounds)
+
+
+# ---- the sharded half -------------------------------------------------------
+
+
+def pack_frontier(pool, fields: tuple[str, ...], k: int, offset: int,
+                  capacity: int) -> torch.Tensor:
+    """One shard's first ``k`` rows in (group, rating) order, as one
+    f32[len(fields) + 1, k] buffer: ``fields`` rows, then the row's GLOBAL
+    slot (``capacity`` for inactive padding). Active rows sort first, so a
+    shard holding at most ``k`` active rows sends all of them, in the order
+    the global sort gives them. Every value is f32-exact (codes < 2^15,
+    role masks < 2^5, slot ids < 2^24: checked at the kernel set's
+    build)."""
+    order, _ = sorted_group_order(pool)
+    top = order[:k]
+    act = pool["active"][top]
+    rows = [pool[f][top].to(torch.float32) for f in fields]
+    gslot = torch.where(act, top + offset, capacity).to(torch.float32)
+    return torch.stack(rows + [gslot])
+
+
+def unpack_frontier(buf: torch.Tensor, fields: tuple[str, ...]):
+    """Gathered frontiers f32[n, len(fields) + 1, k] → formation columns
+    of n·k rows in canonical shard order, and the global slot column."""
+    n, c, k = buf.shape
+    flat = buf.transpose(0, 1).reshape(c, n * k)
+    cols: dict[str, torch.Tensor] = {}
+    for i, f in enumerate(fields):
+        if f == "active":
+            cols[f] = flat[i] > 0.5
+        elif f in ("region", "mode", "role_mask"):
+            cols[f] = flat[i].to(torch.int32)
+        else:
+            cols[f] = flat[i]
+    return cols, flat[len(fields)].to(torch.int32)
+
+
+def merge_frontiers(buf: torch.Tensor, fields: tuple[str, ...],
+                    n_shards: int, merge: str):
+    """Gathered frontiers → formation columns, by either merge:
+    ``"linear"`` keeps all D·K rows in canonical shard order
+    (``unpack_frontier``); ``"tournament"`` merges the D sorted K-row
+    frontiers up a pairwise tree keeping the top K
+    (``sharded.tournament_merge_topk``), bit-equal to the linear merge
+    whenever the whole pool's active rows fit in K. Returns (columns,
+    global slot i32) of D·K or K rows."""
+    if merge != "tournament" or n_shards <= 1:
+        return unpack_frontier(buf, fields)
+    ridx, midx = fields.index("region"), fields.index("mode")
+    aidx, slot_row = fields.index("active"), len(fields)
+
+    def key_fn(fb):
+        group = torch.where(fb[aidx] > 0.5,
+                            fb[ridx].to(torch.int32) * (1 << 15)
+                            + fb[midx].to(torch.int32), BIG_I32)
+        return group, fb[0], fb[slot_row].to(torch.int32)
+
+    merged = tournament_merge_topk([buf[i] for i in range(n_shards)], key_fn)
+    return unpack_frontier(merged[None], fields)
+
+
+def pad_match_columns(out: torch.Tensor, pad: int, need: int, capacity: int,
+                      extra_zero_rows: int = 0) -> torch.Tensor:
+    """A packed (need + 2 + extra, M) match result widened to M + pad
+    columns of the non-match sentinels (slots ``capacity``, spread +inf,
+    limit and any extra rows 0): the ring step's result then has the
+    fallback's shape and padding, byte for byte."""
+    if pad <= 0:
+        return out
+    col = torch.cat([
+        torch.full((need, pad), float(capacity), dtype=torch.float32,
+                   device=out.device),
+        torch.full((1, pad), INF, dtype=torch.float32, device=out.device),
+        torch.zeros((1 + extra_zero_rows, pad), dtype=torch.float32,
+                    device=out.device)])
+    return torch.cat([out, col], dim=1)
+
+
+def shard_comms_accounting(ks) -> dict:
+    """Per-device bytes received and formation rows of one step of a
+    sharded team or role set, from the buffers its steps move: the
+    fallback gathers the ``_GATHER`` columns at their pool dtypes (active
+    one byte, the rest four) from every other shard, O(P) whatever D; the
+    ring ships one (len(_GATHER) + 1, K) f32 frontier per hop for D − 1
+    hops, O(K·D), and forms windows over P/D local and D·K merged rows."""
+    cols = len(ks._GATHER)
+    dtypes = dict(POOL_FIELDS)
+    dtypes.update(getattr(ks, "extra_pool_fields", {}))
+    row_bytes = sum(np.dtype(dtypes[f]).itemsize for f in ks._GATHER)
+    acct = {
+        "n_shards": ks.n_shards,
+        "capacity": ks.capacity,
+        "gather_cols": cols,
+        "allgather": {
+            "ici_recv_bytes": (ks.capacity - ks.local_capacity) * row_bytes,
+            "formation_rows": ks.capacity,
+        },
+    }
+    if ks.frontier_k:
+        k = ks.frontier_k
+        acct["ring"] = {
+            "frontier_k": k,
+            "ici_recv_bytes": (ks.n_shards - 1) * (cols + 1) * k * 4,
+            "formation_rows": ks.local_capacity + ks.n_shards * k,
+        }
+    return acct
+
+
+class _ShardedTeamFamily(_ShardedBase):
+    """The sharded team-family step (team and role sets): per-shard
+    admission, formation on gathered columns (``search_step_packed``) or
+    on merged frontiers (``search_step_packed_ring``, with
+    ``frontier_k``), and each shard evicting its part of the matches."""
+
+    #: Formation columns (gathered whole by the fallback, frontier rows in
+    #: the ring; the frontier adds the global-slot row).
+    _GATHER: tuple[str, ...] = ("rating", "region", "mode", "threshold",
+                                "enqueue_t", "active")
+    #: Rows of the packed result past the member slots, spread and limit.
+    _extra_rows = 0
+
+    def _family(self, *, capacity: int, team_size: int, mesh,
+                frontier_k: int, frontier_merge: str, make) -> None:
+        capacity = self._geometry(capacity, mesh)
+        if capacity >= (1 << 24):
+            raise ValueError(
+                f"capacity {capacity} >= 2**24: slot ids must stay f32-exact")
+        self.team_size = team_size
+        self.need = 2 * team_size
+        self._global = make(capacity, None)
+        self.max_matches = self._global.max_matches
+        self.frontier_k = (min(max(frontier_k, self.need),
+                               self.local_capacity)
+                           if frontier_k > 0 else 0)
+        if frontier_merge not in ("linear", "tournament"):
+            raise ValueError(f"unknown frontier_merge {frontier_merge!r} "
+                             f"(expected 'linear' or 'tournament')")
+        self.frontier_merge = frontier_merge
+        self._ring_form = None
+        if self.frontier_k:
+            rows = (self.frontier_k if frontier_merge == "tournament"
+                    else self.n_shards * self.frontier_k)
+            self._ring_form = make(rows, self.max_matches)
+
+    def _finish(self, pool, slots: torch.Tensor, rows) -> torch.Tensor:
+        self.evict(pool, slots)
+        return torch.cat([slots.T.to(torch.float32)]
+                         + [r.to(torch.float32)[None, :] for r in rows])
+
+    def search_step_packed(self, pool, packed: torch.Tensor) -> torch.Tensor:
+        """The replicated fallback: every shard admits its slice, the
+        formation columns of all shards are gathered (O(P)), windows are
+        formed once on the whole pool, and each shard evicts its part."""
+        self.admit_packed(pool, packed)
+        parts = [tuple(lp[f] for f in self._GATHER) for lp in pool.shards]
+        gathered = self.mesh.all_gather(parts)
+        cols = {f: t.reshape(-1) for f, t in zip(self._GATHER, gathered)}
+        slots, rows = self._global.form(cols, packed_now(packed),
+                                        self.capacity)
+        return self._finish(pool, slots, rows)
+
+    def search_step_packed_ring(self, pool, packed: torch.Tensor
+                                ) -> torch.Tensor:
+        """The ring step: each shard's (group, rating)-sorted frontier of
+        ``frontier_k`` rows, the ring (D − 1 hops of one frontier each),
+        formation on the merged frontier, the rows mapped back to global
+        slots. Bit-equal to the fallback while no shard holds more than
+        ``frontier_k`` active rows (the engine's gate)."""
+        self.admit_packed(pool, packed)
+        parts = [(pack_frontier(lp, self._GATHER, self.frontier_k, off,
+                                self.capacity),)
+                 for lp, off, _ in self._locals(pool)]
+        (buf,) = self.mesh.ring_all_gather(parts)
+        cols, gslot = merge_frontiers(buf, self._GATHER, self.n_shards,
+                                      self.frontier_merge)
+        g = self._ring_form
+        slots_b, rows = g.form(cols, packed_now(packed), g.capacity)
+        gs = torch.cat([gslot, gslot.new_full((1,), self.capacity)])
+        slots = gs[slots_b.long()]
+        out = self._finish(pool, slots, rows)
+        return pad_match_columns(out, self.max_matches - g.max_matches,
+                                 self.need, self.capacity, self._extra_rows)
+
+    def comms_accounting(self) -> dict:
+        return shard_comms_accounting(self)
+
+
+class ShardedTeamKernelSet(_ShardedTeamFamily):
+    """The team step over a sharded pool (config #3 with
+    ``mesh_pool_axis`` > 1): ``TeamKernelSet``'s packed surface
+    (``search_step_packed``, ``admit_packed``, ``evict``) over a
+    ``sharded.ShardedPool``, plus ``search_step_packed_ring`` when
+    ``frontier_k`` > 0 (the engine picks it per window while the waiting
+    players fit the frontier)."""
+
+    def __init__(self, *, capacity: int, team_size: int,
+                 widen_per_sec: float, max_threshold: float, mesh,
+                 max_matches: int = 1024, rounds: int = 16,
+                 frontier_k: int = 0, frontier_merge: str = "linear"):
+        def make(rows, matches):
+            return TeamKernelSet(
+                capacity=rows, team_size=team_size,
+                widen_per_sec=widen_per_sec, max_threshold=max_threshold,
+                max_matches=max_matches if matches is None else matches,
+                rounds=rounds)
+
+        self._family(capacity=capacity, team_size=team_size, mesh=mesh,
+                     frontier_k=frontier_k, frontier_merge=frontier_merge,
+                     make=make)
+
+
+def sharded_team_kernel_set(capacity: int, team_size: int,
+                            widen_per_sec: float, max_threshold: float,
+                            n_shards: int, max_matches: int = 1024,
+                            rounds: int = 16, frontier_k: int = 0,
+                            frontier_merge: str = "linear",
+                            device_ids: tuple | None = None,
+                            device="cuda") -> ShardedTeamKernelSet:
+    return ShardedTeamKernelSet(
+        capacity=capacity, team_size=team_size, widen_per_sec=widen_per_sec,
+        max_threshold=max_threshold,
+        mesh=resolve_mesh(n_shards, device_ids, device),
+        max_matches=max_matches, rounds=rounds, frontier_k=frontier_k,
+        frontier_merge=frontier_merge)

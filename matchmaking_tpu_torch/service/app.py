@@ -327,6 +327,12 @@ class _QueueRuntime:
         self.cfg = app.cfg
         self.queue_cfg = queue_cfg
         self.broker = app.broker
+        #: Window-granular egress (``BrokerConfig.batch_publish``), the JAX
+        #: rule: on when configured and the broker has ``publish_batch``
+        #: (an injected broker may not); off, a window's answers leave one
+        #: ``publish`` each, in the same order.
+        self._batch_publish = (self.cfg.broker.batch_publish
+                               and hasattr(self.broker, "publish_batch"))
         self.device = app.device
         #: The app's metrics (counters under the JAX package's names,
         #: gauges, stage histograms) and event log.
@@ -2734,7 +2740,9 @@ class _QueueRuntime:
         """One broker ``publish_batch`` call for a window's responses
         (rows without a reply queue are dropped), after the commit that
         covers them; each traced row's trace gets its "respond" mark as
-        the batch leaves."""
+        the batch leaves. Without ``_batch_publish`` the same answers leave
+        one ``publish`` each, in row order, under the same fence and
+        marks."""
         items = [(reply_to, body, Properties(correlation_id=corr))
                  for reply_to, corr, body, _ in rows if reply_to]
         if not items:
@@ -2751,8 +2759,12 @@ class _QueueRuntime:
                 t = time.time()
                 for tr in traces:
                     tr.mark("respond", t)
-            self.broker.publish_batch(items)
-            self.counters["publish_batches"] += 1
+            if self._batch_publish:
+                self.broker.publish_batch(items)
+                self.counters["publish_batches"] += 1
+            else:
+                for reply_to, body, props in items:
+                    self.broker.publish(reply_to, body, props)
         self._effect(publish, hold=True)
 
     def _publish(self, reply_to: str, correlation_id: str, body: bytes,
@@ -3140,7 +3152,8 @@ class MatchmakingApp:
         monitors. ``_telemetry_loop`` calls it every
         ``snapshot_interval_s``; tests call it with explicit ``now``
         values. Reads host state only (pool sizes, gauges, monotone
-        counters, ``util_report`` and ``spec_report``: no device read)."""
+        counters, ``util_report``, ``spec_report`` and
+        ``frontier_snapshot``: no device read)."""
         now = time.time() if now is None else now
         prev = self.telemetry.latest()
         prev_vals = prev["values"] if prev is not None else {}
@@ -3208,6 +3221,13 @@ class MatchmakingApp:
                 for k in ("spec_hit", "spec_miss", "spec_wasted"):
                     vals[f"{k}[{name}]"] = float(sr[k])
                 vals[f"spec_hit_rate[{name}]"] = sr["spec_hit_rate"]
+            fs = rt.engine.frontier_snapshot()
+            if fs is not None:
+                # The bucket frontier's width in use and its monotone
+                # move count, as trajectories.
+                vals[f"frontier_k[{name}]"] = float(fs["frontier_k"])
+                vals[f"frontier_k_moves[{name}]"] = float(
+                    fs["frontier_k_moves"])
         self.telemetry.append(now, vals)
         for mon in self._slo_monitors.values():
             mon.evaluate(self.telemetry, now)
@@ -3422,18 +3442,23 @@ async def serve(stop: asyncio.Event | None = None, pika_module=None,
     ``MM_NET_TRANSPORT=socket`` each queue streams its journal to
     ``MM_NET_REPL_TARGET`` under a lease held at ``MM_NET_LEASE_ADDR``;
     with ``MM_AUTOTUNE_INTERVAL_S`` the autotuner steers the queues.
-    ``device`` None is the card. A multi-host topology (``MM_DCN_*``) is
-    refused: it needs engine/distributed.py, which the port does not
-    carry yet."""
+    ``device`` None is the card. When ``MM_DCN_*`` names a multi-host
+    topology the process joins its group first
+    (``engine/distributed.init_distributed``: NCCL on the card, gloo on
+    the CPU), so that a queue with ``mesh_pool_axis`` equal to the world
+    size shards its pool one slice per rank; ``MM_DCN_AUTO`` (TPU pods)
+    is refused."""
     import signal
 
-    auto = os.environ.get("MM_DCN_AUTO", "").strip().lower()
-    if os.environ.get("MM_DCN_COORDINATOR") or auto in ("1", "true", "yes",
-                                                         "on"):
-        raise ValueError(
-            "MM_DCN_* names a multi-host topology, which needs the "
-            "multi-host runtime (engine/distributed.py) that the port does "
-            "not carry yet")
+    from matchmaking_tpu_torch.engine.distributed import (
+        dcn_configured,
+        init_distributed,
+    )
+
+    if dcn_configured():
+        rank, world = init_distributed(device="cuda" if device is None
+                                       else device)
+        log.info("joined the process group: rank %d of %d", rank, world)
     cfg = Config.from_env()
     broker = None
     url = cfg.broker.url

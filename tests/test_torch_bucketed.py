@@ -588,8 +588,11 @@ def test_engine_formation_report_equals_jax():
 
 
 def test_engine_refuses_the_frontier_and_serves_bucketed():
-    with pytest.raises(ValueError, match="bucket_frontier_k"):
-        engines(bucketed=True, bucket_frontier_k=64)
+    # On one device the bucket frontier (a sharded step) is no ladder, as
+    # in the JAX engine; bucketed formation serves the queue.
+    jeng, teng = engines(bucketed=True, bucket_frontier_k=64)
+    assert teng._frontier_ladder == jeng._frontier_ladder == ()
+    assert teng.formation_report() == jeng.formation_report()
     _, teng = engines(bucketed=True)
     assert teng.kernels.bucketed
     teng.warmup()  # every variant; no window counted

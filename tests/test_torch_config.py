@@ -156,16 +156,24 @@ def test_observability_and_pruning_keys_load(caplog):
 @pytest.mark.parametrize("knob", [{"bucketed": True, "bucket_frontier_k": 4},
                                   {"bucket_frontier_k": 4}])
 def test_gpu_engine_refuses_the_bucketed_step(knob):
-    """The sharded bucket frontier (``bucket_frontier_k`` > 0) is not
-    ported: a config that asks for it, with bucketed formation or
-    without, is refused, not run some other way. (Bucketed formation on
-    one device is served: tests/test_torch_bucketed.py.)"""
+    """``bucket_frontier_k`` > 0 on one device is served as the JAX engine
+    serves it: the bucket frontier is a sharded step (``mesh_pool_axis``
+    > 1, tests/test_torch_sharded_frontier.py), so an unsharded queue gets
+    no frontier ladder, and bucketed formation when it asks for it. (Until
+    the sharded half was ported this config was refused.)"""
+    from matchmaking_tpu.engine.tpu import TpuEngine
     from matchmaking_tpu_torch.engine.gpu import GpuEngine
 
-    cfg = config.Config(engine=config.EngineConfig(pool_capacity=1024,
-                                                   pool_block=256, **knob))
-    with pytest.raises(ValueError, match="bucket_frontier_k"):
-        GpuEngine(cfg, cfg.queues[0], device="cpu")
+    geo = dict(pool_capacity=1024, pool_block=256, **knob)
+    cfg = config.Config(engine=config.EngineConfig(**geo))
+    jcfg = jax_config.Config(engine=jax_config.EngineConfig(backend="tpu",
+                                                            **geo))
+    eng = GpuEngine(cfg, cfg.queues[0], device="cpu")
+    jeng = TpuEngine(jcfg, jcfg.queues[0])
+    assert eng._frontier_ladder == jeng._frontier_ladder == ()
+    assert eng.frontier_snapshot() is None is jeng.frontier_snapshot()
+    assert eng.kernels.bucketed == knob.get("bucketed", False)
+    assert eng.formation_report() == jeng.formation_report()
 
 
 def test_bucketed_and_spec_keys_load_with_the_jax_names_and_defaults():

@@ -1958,3 +1958,283 @@ def test_serve_over_fake_amqp_at_full_width_matches_a_burst(cuda,
     assert matches and all(len(v) == 2 for v in matches.values())
     assert launches["block_best"] > 0
     assert launches["quality_accum"] == launches["block_best"]
+
+
+# ---- the sharded pool (engine/sharded.py) on one card ----------------------
+#
+# A mesh may repeat a device: (cuda:0,) * D stands in for D cards, every
+# shard's launches queuing on the one card.
+
+
+def test_pool_mesh_refuses_too_few_distinct_cards(cuda):
+    """With no explicit list a mesh takes distinct visible cards and
+    refuses more shards than there are (the JAX ``pool_mesh`` rule); an
+    explicit list may repeat one card."""
+    from matchmaking_tpu_torch.engine import sharded
+
+    n = torch.cuda.device_count()
+    assert sharded.pool_mesh(n).devices == tuple(
+        torch.device("cuda", i) for i in range(n))
+    with pytest.raises(ValueError, match="CUDA devices visible"):
+        sharded.pool_mesh(n + 1)
+    mesh = sharded.pool_mesh(n + 1, [0] * (n + 1))
+    assert mesh.single_device and mesh.n_shards == n + 1
+
+
+class OneShardEngine(GpuEngine):
+    """A sharded engine of one shard: ``mesh_pool_axis`` 1 takes the dense
+    step (as in the JAX engine), so only this stand-in measures the
+    sharded step at D = 1."""
+
+    def _kernel_set(self, queue):
+        from matchmaking_tpu_torch.engine import sharded
+
+        self._sharded = True
+        ec = self.cfg.engine
+        return sharded.sharded_kernel_set(
+            capacity=ec.pool_capacity, top_k=ec.top_k,
+            pool_block=ec.pool_block, glicko2=queue.glicko2,
+            widen_per_sec=queue.widen_per_sec,
+            max_threshold=queue.max_threshold, n_shards=1,
+            ring=ec.ring_merge, pair_rounds=ec.pair_rounds,
+            device_ids=self.devices, device=str(self.device))
+
+
+def sharded_columns(rng, n, start, now):
+    ids = np.array([f"p{start + i}" for i in range(n)], object)
+    return RequestColumns(
+        ids=ids, rating=rng.normal(1500, 300, n).astype(np.float32),
+        rd=np.full(n, 350.0, np.float32), region=np.zeros(n, np.int32),
+        mode=np.zeros(n, np.int32), threshold=np.full(n, np.nan, np.float32),
+        enqueued_at=now - rng.uniform(0, 20, n),
+        reply_to=np.array([f"rq.{i}" for i in ids], object),
+        correlation_id=ids.copy())
+
+
+@pytest.mark.parametrize("d,ring", [(1, False), (2, False), (4, True),
+                                    (8, False)])
+def test_sharded_engine_on_one_card_equals_dense(cuda, d, ring):
+    """Config #1's geometry (P = 131,072, blocks of 8,192) with 20k
+    waiting, sharded D ways on the one card: its captured steps, the same
+    steps eagerly and the dense engine take the same windows (and a rescan
+    tick) in lockstep; pairs, distances (bit for bit), queued ids and the
+    concatenated pools are equal, and each window launches block_best D
+    times and quality_accum never."""
+    from matchmaking_tpu_torch.engine import cuda_kernels as ck
+
+    def make(sharded=False):
+        cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                               backend="gpu")
+        if not sharded:
+            return GpuEngine(cfg, cfg.queues[0], device=cuda)
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, mesh_pool_axis=d, ring_merge=ring))
+        cls = OneShardEngine if d == 1 else GpuEngine
+        return cls(cfg, cfg.queues[0], device=cuda, devices=("cuda:0",) * d)
+
+    dense = make()
+    graphed = make(sharded=True)
+    eager = make(sharded=True)
+    eager._graphs = None
+    assert graphed._graphs is not None and graphed._quality is None
+    rng = np.random.default_rng(60 + d)
+    fill = sharded_columns(rng, 20_000, 0, 100.0)
+    for e in (dense, graphed, eager):
+        e.warmup()
+        e.restore_columns(fill, 100.0)
+    for w in range(4):
+        window = sharded_columns(rng, 1024, 100_000 + 1024 * w, 101.0 + w)
+        outs = []
+        for e in (dense, graphed, eager):
+            before = ck.LAUNCHES["block_best"], ck.LAUNCHES["quality_accum"]
+            e.search_columns_async(window, 101.0 + w)
+            (_, out), = e.flush()
+            outs.append(out)
+            if e is not dense:
+                assert ck.LAUNCHES["block_best"] - before[0] == d
+                assert ck.LAUNCHES["quality_accum"] == before[1]
+        for out in outs[1:]:
+            assert_same_columnar(out, outs[0])
+        ticks = []
+        for e in (dense, graphed, eager):
+            e.rescan_async(1024, 101.5 + w)
+            (_, out), = e.flush()
+            ticks.append(out)
+        for out in ticks[1:]:
+            assert_same_columnar(out, ticks[0])
+    torch.cuda.synchronize()
+    for name, col in dense.dev_pool.items():
+        for e in (graphed, eager):
+            assert torch.equal(e.dev_pool[name], col), name
+    assert graphed.quality_report() == eager.quality_report()
+
+
+def test_shard_block_best_with_shifted_slots_equals_plain(cuda):
+    """Each shard's launch takes the window's global slots minus its
+    offset: ids below 0 and past the slice must never self-mask. Bit-equal
+    to the plain version at ragged shapes and at config #1's shard slices
+    (D = 2, 4, 8 of 131,072)."""
+    for capacity, block, d, rows in ((16384, 4096, 4, 100),
+                                     (256, 64, 4, 16), (3072, 1536, 2, 33),
+                                     (131072, 8192, 2, 1024),
+                                     (131072, 8192, 4, 1024),
+                                     (131072, 8192, 8, 1024)):
+        lc = capacity // d
+        pool, batch, q_thr = inputs(3, capacity, rows, 0.7, True, cuda)
+        # Window slots anywhere in the pool (every shard's and none).
+        g = torch.Generator(device="cpu").manual_seed(capacity + d)
+        batch["slot"] = torch.randint(0, capacity + 1, (rows,), generator=g,
+                                      dtype=torch.int32).to(cuda)
+        kw = dict(pool_block=min(block, lc), glicko2=True, filters=True,
+                  widen_per_sec=5.0, max_threshold=250.0,
+                  g_coeff=scoring.G_COEFF_F32)
+        for s in range(d):
+            part = {k: v[s * lc:(s + 1) * lc].contiguous()
+                    for k, v in pool.items()}
+            shifted = dict(batch, slot=batch["slot"] - s * lc)
+            now = now_on(cuda, 10.0)
+            got = cuda_kernels.block_best(part, shifted, q_thr, now, **kw)
+            want = cuda_kernels.block_best_reference(part, shifted, q_thr,
+                                                     now, **kw)
+            assert_bit_equal(got, want)
+            own = shifted["slot"][:, None]
+            assert not ((got[1] == own) & (got[1] < lc)).any()
+
+
+@pytest.mark.parametrize("k", [8, 16, 32, 64, 128])
+def test_frontier_launch_equals_plain_below_the_tile(cuda, k):
+    """The bucket frontier's launch: ``block_best`` over the merged
+    frontier in blocks of k (below the kernel's 512-slot tile), bit-equal
+    to its plain version, on config #1's geometry sharded 4 ways."""
+    from matchmaking_tpu_torch.engine import sharded
+
+    ks = sharded.ShardedKernelSet(
+        capacity=131072, top_k=8, pool_block=8192, glicko2=False,
+        widen_per_sec=0.0, max_threshold=400.0,
+        mesh=sharded.pool_mesh(4, [0] * 4), bucket_frontier_k=128)
+    pool, batch, q_thr = inputs(5, 131072, 256, 0.001, True, cuda)
+    arrays = {n: v.cpu().numpy() for n, v in pool.items()}
+    spool = ks.place_pool(arrays)
+    fpool, gslot = ks.frontier_pool(spool, k)
+    assert fpool["rating"].shape[0] == 16 * k
+    batch["slot"] = torch.where(pool["active"])[0][:256].to(torch.int32)
+    rows = batch["slot"].shape[0]
+    batch = {n: v[:rows].contiguous() for n, v in batch.items()}
+    fbatch = dict(batch, slot=ks.frontier_rows(gslot, batch["slot"], k))
+    kw = dict(pool_block=k, glicko2=False, filters=True, widen_per_sec=0.0,
+              max_threshold=400.0, g_coeff=scoring.G_COEFF_F32)
+    now = now_on(cuda, 3.0)
+    got = cuda_kernels.block_best(fpool, fbatch, q_thr[:rows], now, **kw)
+    want = cuda_kernels.block_best_reference(fpool, fbatch, q_thr[:rows],
+                                             now, **kw)
+    assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["team", "role"])
+def test_sharded_team_and_role_steps_on_card_equal_single(cuda, kind):
+    """The sharded fallback and ring steps (both merges) on a 4-way mesh of
+    the one card against the single-device step on the card: packed
+    results and pools bit-equal (the ring with the waiting players within
+    the frontier)."""
+    from matchmaking_tpu_torch.engine import sharded
+    from matchmaking_tpu_torch.engine.kernels import pool_to_numpy
+    from matchmaking_tpu_torch.engine.role_kernels import ShardedRoleKernelSet
+    from matchmaking_tpu_torch.engine.teams import ShardedTeamKernelSet
+
+    single = team_step(kind, 4096, 256)
+    pool, packed = team_inputs(single, 2, 64, cuda)
+    active = pool["active"].clone()
+    keep = torch.nonzero(active)[:, 0][:400]
+    pool["active"].zero_()
+    pool["active"][keep] = True  # 400 waiting: within a 512-row frontier
+    arrays = pool_to_numpy(pool)
+    want_out = single.search_step_packed(pool, packed)
+    want_pool = pool_to_numpy(pool)
+    kw = dict(capacity=4096, team_size=5, widen_per_sec=single.widen_per_sec,
+              max_threshold=single.max_threshold, max_matches=256,
+              mesh=sharded.pool_mesh(4, [0] * 4), frontier_k=512)
+    for merge in ("linear", "tournament"):
+        ks = (ShardedRoleKernelSet(role_slots=SLOTS5, frontier_merge=merge,
+                                   **kw) if kind == "role"
+              else ShardedTeamKernelSet(frontier_merge=merge, **kw))
+        for fn in ("search_step_packed", "search_step_packed_ring"):
+            spool = ks.place_pool(arrays)
+            out = getattr(ks, fn)(spool, packed)
+            assert torch.equal(out, want_out), (merge, fn)
+            for name, col in want_pool.items():
+                assert np.array_equal(spool[name].cpu().numpy(), col), name
+    assert (want_out[0] < 4096).sum() > 0
+
+
+def test_sharded_steps_do_not_sync(cuda):
+    """The sharded traffic step (both merges), its rescan and the bucket
+    frontier on a 4-way mesh of the one card run without a device→host
+    synchronisation."""
+    from matchmaking_tpu_torch.engine import sharded
+
+    pool, batch, q_thr = inputs(7, 16384, 256, 0.02, False, cuda)
+    arrays = {n: v.cpu().numpy() for n, v in pool.items()}
+    packed = torch.zeros((9, 256), dtype=torch.float32, device=cuda)
+    free = torch.nonzero(~pool["active"])[:, 0][:200]
+    packed[0] = 16384
+    packed[0, :200] = free.to(torch.float32)
+    packed[1, :200] = batch["rating"][:200]
+    packed[5, :200] = 100.0
+    packed[7, :200] = 1.0
+    packed[8] = 4.0
+    for ring in (False, True):
+        ks = sharded.ShardedKernelSet(
+            capacity=16384, top_k=8, pool_block=4096, glicko2=False,
+            widen_per_sec=2.0, max_threshold=250.0,
+            mesh=sharded.pool_mesh(4, [0] * 4), ring=ring,
+            bucket_frontier_k=64)
+        for step in (ks.search_step_packed, ks.search_step_packed_rescan,
+                     ks.bucket_step(64)):
+            spool = ks.place_pool(arrays)
+            step(spool, packed)  # builds and warms
+            spool = ks.place_pool(arrays)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step(spool, packed)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+
+def test_process_mesh_of_one_over_nccl_equals_dense(cuda):
+    """``init_distributed`` joins a group of one over NCCL; the process
+    mesh's sharded step (its merge an ``all_gather_into_tensor``) equals
+    the dense step on the same pool and window, bit for bit."""
+    import socket
+
+    from matchmaking_tpu_torch.engine import distributed, sharded
+    from matchmaking_tpu_torch.engine.kernels import pool_from_reference
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert distributed.init_distributed(f"127.0.0.1:{port}", 1, 0) == (0, 1)
+    try:
+        pool, batch, _ = inputs(8, 16384, 256, 0.5, False, cuda)
+        arrays = {n: v.cpu().numpy() for n, v in pool.items()}
+        packed = torch.zeros((9, 256), dtype=torch.float32, device=cuda)
+        free = torch.nonzero(~pool["active"])[:, 0][:256]
+        packed[0] = free.to(torch.float32)
+        packed[1] = batch["rating"]
+        packed[5] = 100.0
+        packed[7] = 1.0
+        packed[8] = 2.0
+        geo = dict(capacity=16384, top_k=8, pool_block=4096, glicko2=False,
+                   widen_per_sec=0.0, max_threshold=250.0)
+        dense = KernelSet(**geo)
+        dpool = pool_from_reference(arrays, cuda)
+        want = dense.search_step_packed(dpool, packed)
+        for ring in (False, True):
+            ks = sharded.ShardedKernelSet(
+                mesh=distributed.global_pool_mesh(cuda), ring=ring, **geo)
+            spool = ks.place_pool(arrays)
+            assert torch.equal(ks.search_step_packed(spool, packed), want)
+            for name, col in dpool.items():
+                assert torch.equal(spool[name], col), name
+    finally:
+        distributed.shutdown_distributed()

@@ -25,7 +25,8 @@ def _modules():
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_service_ab.py")]
+           os.path.join(ROOT, "scripts", "torch_service_ab.py"),
+           os.path.join(ROOT, "scripts", "torch_profiler_records.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -45,6 +46,8 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.engine.kernels",
                  "matchmaking_tpu_torch.engine.quality",
                  "matchmaking_tpu_torch.engine.cuda_kernels",
+                 "matchmaking_tpu_torch.engine.sharded",
+                 "matchmaking_tpu_torch.engine.distributed",
                  "matchmaking_tpu_torch.engine.cpu",
                  "matchmaking_tpu_torch.engine.roles",
                  "matchmaking_tpu_torch.engine.role_kernels",
@@ -130,3 +133,23 @@ def test_gpu_backend_raises_without_cuda(monkeypatch):
         make_engine(cfg, cfg.queues[0])
     with pytest.raises(RuntimeError, match="CUDA"):
         make_engine(cfg, cfg.queues[0], device="cuda")
+
+
+@pytest.mark.parametrize("module", ["matchmaking_tpu_torch.engine.sharded",
+                                    "matchmaking_tpu_torch.engine.distributed"])
+def test_the_sharded_modules_import_no_jax(module):
+    """The sharded pool and the multi-host runtime import neither jax nor
+    the JAX package (whose twins of them are jax's ``shard_map`` and
+    ``jax.distributed``), in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'matchmaking_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr

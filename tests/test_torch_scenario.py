@@ -218,7 +218,7 @@ def test_unknown_and_device_loss_incidents_are_refused():
     with pytest.raises(ValueError, match="unknown incident kind"):
         Scenario(name="bad", incidents=(Incident(kind="nope"),)
                  ).chaos_config("q")
-    with pytest.raises(ValueError, match="engine/distributed.py"):
+    with pytest.raises(ValueError, match="device-loss failover"):
         Scenario(name="dl", incidents=(Incident(kind="device_lost"),)
                  ).chaos_config("q")
 

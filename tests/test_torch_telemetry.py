@@ -12,9 +12,9 @@ against the JAX package's.
   gauges equal the JAX monitor's.
 - Config #1's seeded soak through both apps on the CPU, with three tiers,
   an SLO target and a quality target, sampled at explicit ``now`` values
-  after every burst: the key sets equal (the JAX app's ``frontier_k``
-  series aside: the port has no frontier ladder), the count-valued keys
-  equal, and the burn monitors' events and gauges equal.
+  after every burst: the key sets equal, the count-valued keys equal,
+  and the burn monitors' events and gauges equal (the ``frontier_k``
+  series of a bucket-frontier queue: tests/test_torch_sharded_frontier.py).
 - The telemetry reset across an engine revive: every delta across it is
   non-negative and flagged.
 - The sampler runs by default every second, counts a failed tick
@@ -239,9 +239,6 @@ def test_quality_slo_burns_and_clears_from_the_ledger():
 
 # ---- the service's sampler -----------------------------------------------------
 
-#: Keys of the JAX sampler that have no source in the port (the frontier
-#: ladder is not carried).
-JAX_ONLY_KEYS = ("frontier_k", "frontier_k_moves")
 #: Keys whose values are measured times or ratios of them.
 TIMED_KEYS = ("stage_total_p99_ms", "work_s", "wait_s", "device_busy_s",
               "device_idle_s", "idle_frac")
@@ -303,7 +300,7 @@ def test_sample_telemetry_equals_jax_app():
     assert app.faults() == {}
     assert len(mine) == len(theirs) == 4
     for a, b in zip(mine, theirs):
-        jax_keys = {k for k in b if k.split("[")[0] not in JAX_ONLY_KEYS}
+        jax_keys = set(b)
         assert set(a) == jax_keys
         for k in jax_keys:
             if k.split("[")[0] not in TIMED_KEYS:
