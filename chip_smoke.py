@@ -359,9 +359,36 @@ output file.
    4 windows, each step's launches counted across its own calls (one a
    window); then ``serve`` under the same ``MM_DCN_*`` over ``amqp://``
    (fake pika) answers 1,024 requests.
+15. placement and device-loss failover, run last; launches counted with
+   ``cuda_kernels.LAUNCHES`` (the host's counts), never torch.profiler.
+   15a: config #1 sharded two ways on the app's logical device inventory
+   ``("cuda:0",) × 2``, 100k restored, phase 4's soak (16,384 requests in
+   bursts of 512) with the 8th device step lost
+   (``chaos.device_lost_steps``): the queue demotes to (0,) once
+   (``device_failovers`` 1, the failover audit's ``restored`` the pool at
+   the loss), two ``block_best`` launches and no ``quality_accum`` a
+   window before the loss, one of each after (less the warm run of each
+   first-use capture), the quality counters carried across the rebuild,
+   the old engine freed; every request answered once, nobody in two
+   matches, lost 0. The blackout is split into the engine build, the
+   column restore and the rest; memory allocated and reserved before and
+   after. 15b: "soak.hot" at config #1's width (100k restored) and
+   "soak.cold" on ``("cuda:0",) × 4`` with the placement controller on;
+   seeded load on the hot queue while ``PlacementController.force``
+   migrates it (0) → (1), promotes to (1, 2), demotes to (1) and migrates
+   it back to (0): every decision applied, lost 0 and duplicated 0 (the
+   JAX placement soak's count), ``block_best`` a window 1, 2, 1, 1 at the
+   four bindings, each old engine freed, each action's blackout, players
+   moved and memory; then one ``step()`` on the live signal view. 15c:
+   config #2's two queues both bound to logical device 0, 20k restored
+   and 2,048 requests with tiers 0-2 each, the dispatch arbiter on and off
+   in turns (on, off, off, on): every answer within its queue's threshold
+   and filters, the arbiter engaged with grants (off: none), a contended
+   grant always to the least (tier, deadline) then waiting; requests/s
+   and p50/p99 by tier.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-14, the
+JSON summary of phases 3-15, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -7684,6 +7711,616 @@ def phase_sharded(torch, np, ck, scoring, mods, phase_s):
     return res
 
 
+# ---- phase 15: placement and device-loss failover ---------------------------
+
+
+def card_memory(torch):
+    """(allocated, reserved) MiB after a collection and an emptied cache:
+    what the engines alive hold."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_allocated() / 2**20,
+            torch.cuda.memory_reserved() / 2**20)
+
+
+def captures_of(eng):
+    rep = eng.graph_report()
+    return rep["captures"] if rep else 0
+
+
+class Segment:
+    """The ``block_best`` and ``quality_accum`` launches of one engine's
+    windows: from ``open`` to ``close``, the launches less the warm run
+    each first-use capture makes (D ``block_best`` on a sharded engine),
+    over the windows it finalized."""
+
+    def __init__(self, ck, eng, d):
+        self.ck, self.eng, self.d = ck, eng, d
+        self.launches0 = dict(ck.LAUNCHES)
+        self.windows0 = eng.spans["windows"]
+        self.captures0 = captures_of(eng)
+
+    def close(self):
+        """The segment's counts; the engine is no longer held."""
+        ck, eng, d = self.ck, self.eng, self.d
+        self.eng = None
+        windows = eng.spans["windows"] - self.windows0
+        warm = captures_of(eng) - self.captures0
+        bb = ck.LAUNCHES["block_best"] - self.launches0["block_best"]
+        qa = ck.LAUNCHES["quality_accum"] - self.launches0["quality_accum"]
+        return {"d": d, "windows": windows, "warm_runs": warm,
+                "block_best": bb, "quality_accum": qa,
+                "block_best_a_window": (bb - d * warm) / max(1, windows),
+                "quality_accum_a_window": (
+                    (qa - (warm if d == 1 else 0)) / max(1, windows))}
+
+
+def check_segment(seg, what):
+    """One a window on one device, D a window and no quality_accum
+    sharded; a segment with no window checks nothing."""
+    d = seg["d"]
+    if not seg["windows"]:
+        raise AssertionError(f"{what}: no window ran on D = {d}")
+    want = (float(d), 0.0 if d > 1 else 1.0)
+    got = (seg["block_best_a_window"], seg["quality_accum_a_window"])
+    if got != want:
+        raise AssertionError(f"{what}: block_best, quality_accum a window "
+                             f"{got} on D = {d}, expected {want}: {seg}")
+
+
+def matched_of(answers, published, what):
+    """Every published request answered from its window once (queued or
+    matched), a restored player only matched, partners agree. Returns
+    (player → match, players matched more than once)."""
+    matched, dup = {}, 0
+    for pid, rs in answers.items():
+        seq = [r.status for r in rs]
+        ok = ((["matched"], ["queued"], ["queued", "matched"])
+              if pid in published else (["matched"],))
+        if seq not in ok:
+            raise AssertionError(f"{what}: {pid} answered {seq}")
+        for r in rs:
+            if r.status == "matched":
+                dup += pid in matched
+                matched[pid] = r.match
+    for pid, m in matched.items():
+        other = next(p for p in m.players if p != pid)
+        if other not in matched or matched[other].match_id != m.match_id:
+            raise AssertionError(f"{what}: {pid}'s partner disagrees")
+    missing = published - set(answers)
+    if missing:
+        raise AssertionError(f"{what}: {len(missing)} requests never "
+                             f"answered")
+    return matched, dup
+
+
+def account_answers(app, answers, restored, published, what):
+    """``matched_of``, and every restored or published player matched or
+    still waiting, never both. Returns (matched, lost, duplicated) as the
+    JAX package's placement soak counts them."""
+    matched, dup = matched_of(answers, published, what)
+    waiting = set()
+    for rt in app._runtimes.values():
+        waiting |= {str(p) for p in rt.engine.waiting_columns()[0].ids}
+    both = waiting & set(matched)
+    if both:
+        raise AssertionError(f"{what}: {len(both)} players matched and "
+                             f"still waiting")
+    lost = len((restored | published) - set(matched) - waiting)
+    return matched, lost, dup
+
+
+async def publish_soak(app, queue, pop, lo, hi, burst, reply, t_pub,
+                       between=None, tier_of=None, rng=None):
+    """Publish rows [lo, hi) of ``pop`` to ``queue`` in bursts; after each
+    burst ``between(k)`` (k = the burst's index) may act. With ``tier_of``
+    (a dict), each request gets an ``x-tier`` header drawn from 0-2, which
+    ``tier_of`` records."""
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    for k, b in enumerate(range(lo, hi, burst)):
+        for j in range(b, min(b + burst, hi)):
+            pid = pop.ids[j]
+            body = {"id": pid, "rating": float(pop.rating[j])}
+            if pop.region[j] != "*":
+                body["region"] = pop.region[j]
+            if pop.mode[j] != "*":
+                body["game_mode"] = pop.mode[j]
+            headers = {}
+            if tier_of is not None:
+                tier_of[pid] = int(rng.integers(0, 3))
+                headers["x-tier"] = str(tier_of[pid])
+            t_pub[pid] = time.perf_counter()
+            app.broker.publish(queue, json.dumps(body).encode(), Properties(
+                reply_to=reply, correlation_id=pid, headers=headers))
+        await asyncio.sleep(0.005)
+        if between is not None:
+            await between(k)
+
+
+async def wait_answered(app, alog, want, timeout=120.0):
+    """Until every id of ``want`` has an answer (``alog``: an AnswerLog)
+    and no window is in flight; then every answer, cid → responses."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if (want <= alog.times.keys() and not any(
+                rt.engine.inflight() for rt in app._runtimes.values()
+                if hasattr(rt.engine, "inflight"))):
+            break
+        await asyncio.sleep(0.01)
+    await asyncio.sleep(0.05)
+    return await alog.read()
+
+
+async def service_failover(np, torch, ck, mods, path, *, waiting, requests,
+                           burst, seed, lost_step):
+    """15a: config #1 sharded two ways on the inventory ``("cuda:0",) ×
+    2`` (the app's logical devices 0 and 1 on the one card), ``waiting``
+    restored, then phase 4's soak with the ``lost_step``-th device step
+    lost. The queue demotes to (0,) once: ``device_failovers`` 1, the
+    failover audit's ``restored`` the pool before the loss, two
+    ``block_best`` launches a window and no ``quality_accum`` before the
+    loss, one of each a window after it, the quality counters carried
+    across the rebuild, the old engine freed. Every request answered once,
+    nobody in two matches. The blackout is split into the engine's build,
+    the column restore and the rest."""
+    import dataclasses
+    import weakref
+
+    from matchmaking_tpu_torch.config import ChaosConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    name = cfg.queues[0].name
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True,
+                                        mesh_pool_axis=2),
+        chaos=ChaosConfig(queues=(name,), device_lost_steps=(lost_step,)))
+    if cfg.batcher.max_batch > max(cfg.engine.batch_buckets):
+        raise AssertionError("15a: a window would take several chunks")
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=False)
+    app = MatchmakingApp(cfg, device="cuda", devices=("cuda:0",) * 2)
+    await app.start()
+    rt = app.runtime(name)
+    reply = "fo.replies"
+    app.broker.declare_queue(reply)
+    loss: dict = {}
+    try:
+        if rt.placement is not None or len(rt.engine.kernels.mesh.devices) != 2:
+            raise AssertionError("15a: the queue is not sharded two ways")
+        app.restore_columns(pop.columns(RequestColumns, app.engine, 0,
+                                        waiting, t0, reply),
+                            pop.region[:waiting], pop.mode[:waiting], t0)
+        reset_counts(ck)
+        before = Segment(ck, rt.engine, 2)
+        real_revive, real_make = rt._revive, rt._make_engine
+        real_restore = rt._restore_into
+        split = {}
+
+        def make():
+            t = time.perf_counter()
+            eng = real_make()
+            split["build_ms"] = (time.perf_counter() - t) * 1e3
+            return eng
+
+        def restore(engine, *a):
+            t = time.perf_counter()
+            real_restore(engine, *a)
+            split["restore_ms"] = (time.perf_counter() - t) * 1e3
+
+        def revive(now):
+            if rt._lost_device is None or loss:
+                return real_revive(now)
+            old = rt.engine
+            loss.update(segment=before.close(), pool=old.pool_size(),
+                        quality=old.quality_checkpoint(),
+                        memory_before=card_memory(torch))
+            ref = weakref.ref(old)
+            del old
+            t = time.perf_counter()
+            real_revive(now)
+            loss["revive_ms"] = (time.perf_counter() - t) * 1e3
+            loss["split"] = dict(split)
+            loss["after"] = Segment(ck, rt.engine, 1)
+            quality = rt.engine.quality_checkpoint()
+            loss["quality_carried"] = all(
+                np.array_equal(quality[k], loss["quality"][k])
+                for k in quality)
+            # The failed dispatch's traceback still holds the old engine
+            # here: it is checked once the soak is over.
+            loss["old_engine"] = ref
+
+        rt._revive, rt._make_engine, rt._restore_into = revive, make, restore
+        alog = AnswerLog(app, reply)
+        t_pub: dict = {}
+        t_soak = time.perf_counter()
+        await publish_soak(app, name, pop, waiting, waiting + requests,
+                           burst, reply, t_pub)
+        answers = await wait_answered(app, alog, set(t_pub))
+        soak_s = time.perf_counter() - t_soak
+        after = loss["after"].close() if loss else None
+        if loss:
+            # The demoted engine's first-use captures (warm run and
+            # capture), paid by its first windows after the blackout.
+            rep = rt.engine.graph_report() or {"graphs": {}}
+            loss["captures_ms_after"] = sum(
+                g["warm_ms"] + g["capture_ms"] for g in rep["graphs"].values())
+            loss["memory_after"] = card_memory(torch)
+            loss["old_engine_freed"] = loss.pop("old_engine")() is None
+        audit = [dict(e) for e in rt.failover_log]
+        placement = rt.placement
+        quality_samples = int(rt.engine.quality_checkpoint()["count"].sum())
+    finally:
+        rt._revive = real_revive
+        await app.stop()
+    if not loss:
+        raise AssertionError("15a: no device was lost")
+    launches = dict(ck.LAUNCHES)
+    matched, lost, dup = account_answers(
+        app, answers, set(pop.ids[:waiting].tolist()), set(t_pub), "15a")
+    failovers = app.metrics.counters.get("device_failovers")
+    if failovers != 1 or placement != (0,) or len(audit) != 1:
+        raise AssertionError(f"15a: {failovers} failovers, placement "
+                             f"{placement}, audit {audit}")
+    entry = audit[0]
+    if (entry["from_devices"], entry["to_devices"], entry["restored"]) != (
+            [0, 1], [0], loss["pool"]):
+        raise AssertionError(f"15a: audit {entry}, pool at the loss "
+                             f"{loss['pool']}")
+    check_segment(loss["segment"], "15a before the loss")
+    check_segment(after, "15a after the loss")
+    if not loss["quality_carried"] or not loss["old_engine_freed"]:
+        raise AssertionError(f"15a: quality carried "
+                             f"{loss['quality_carried']}, old engine freed "
+                             f"{loss['old_engine_freed']}")
+    ledger = app.quality.snapshot()["queues"][name]["matched_players"]
+    if lost or dup or ledger != len(matched) or quality_samples != len(matched):
+        raise AssertionError(f"15a: lost {lost}, duplicated {dup}, ledger "
+                             f"{ledger}, engine {quality_samples} for "
+                             f"{len(matched)} matched")
+    faults = app.faults()
+    if faults != {"engine_failures": 1, "revives": 1}:
+        raise AssertionError(f"15a: faults {faults}")
+    blackout = entry["blackout_ms"]
+    split = loss["split"]
+    split["rest_ms"] = blackout - split["build_ms"] - split["restore_ms"]
+    lat = [(alog.times[p][0] - t_pub[p]) * 1e3 for p in t_pub]
+    res = {"config": path, "waiting": waiting, "requests": requests,
+           "lost_step": lost_step, "blackout_ms": blackout,
+           "blackout_split_ms": split, "revive_host_ms": loss["revive_ms"],
+           "restored": entry["restored"],
+           "before": loss["segment"], "after": after,
+           "first_captures_after": after["warm_runs"],
+           "first_captures_ms_after": loss["captures_ms_after"],
+           "memory_mib_before": loss["memory_before"],
+           "memory_mib_after": loss["memory_after"],
+           "players_matched": len(matched), "lost": lost, "duplicated": dup,
+           "soak_s": soak_s, "requests_per_s": requests / soak_s,
+           "latency_ms_p50": statistics.median(lat),
+           "latency_ms_p99": pct(lat, 0.99),
+           "launches": {k: launches[k] for k in ("block_best",
+                                                 "quality_accum")}}
+    log(f"15a failover: D=2 -> D=1 at step {lost_step}, {entry['restored']} "
+        f"players restored, blackout {blackout:.1f} ms (build "
+        f"{split['build_ms']:.1f}, restore {split['restore_ms']:.1f}, rest "
+        f"{split['rest_ms']:.1f}); block_best a window "
+        f"{loss['segment']['block_best_a_window']} before, "
+        f"{after['block_best_a_window']} after ({after['warm_runs']} first "
+        f"captures, {loss['captures_ms_after']:.1f} ms); memory MiB allocated, reserved {loss['memory_before']}"
+        f" -> {loss['memory_after']}; {res['requests_per_s']:.0f} "
+        f"requests/s, p50 {res['latency_ms_p50']:.1f} ms p99 "
+        f"{res['latency_ms_p99']:.1f} ms")
+    return res
+
+
+#: The scripted placement cycle (the JAX bench's placement soak): each
+#: action at a fraction of the soak's bursts, and its binding's shard
+#: degree.
+CYCLE = ((0.2, "migrate", (1,)), (0.4, "promote", (1, 2)),
+         (0.6, "demote", (1,)), (0.8, "migrate", (0,)))
+
+
+async def service_placement_cycle(np, torch, ck, mods, path, *, waiting,
+                                  requests, burst, seed):
+    """15b: "soak.hot" at config #1's width (``waiting`` restored) and
+    "soak.cold" on the inventory ``("cuda:0",) × 4``, the controller on
+    (``interval_s`` 3600, four devices, ``max_shard`` 2, no cooldown);
+    seeded load on the hot queue the whole time while ``CYCLE`` runs
+    through ``PlacementController.force``: migrate (0) → (1), promote →
+    (1, 2), demote → (1), migrate back → (0). Lost 0 and duplicated 0 (the
+    JAX soak's count: every player matched or still waiting, no player
+    matched twice), every decision applied, the final binding (0,),
+    ``block_best`` launches a window of 1, 2, 1 and 1 at the four
+    bindings, each old engine freed. Then one ``step()`` on the live
+    signal view."""
+    import dataclasses
+    import weakref
+
+    from matchmaking_tpu_torch.config import PlacementConfig
+    from matchmaking_tpu_torch.service import app as app_module
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    base = cfg.queues[0]
+    cfg = dataclasses.replace(
+        cfg, queues=(dataclasses.replace(base, name="soak.hot"),
+                     dataclasses.replace(base, name="soak.cold")),
+        engine=dataclasses.replace(cfg.engine, warm_start=True),
+        placement=PlacementConfig(interval_s=3600.0, devices=4, max_shard=2,
+                                  cooldown_s=0.0))
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=False)
+    app = MatchmakingApp(cfg, device="cuda", devices=("cuda:0",) * 4)
+    await app.start()
+    ctrl, rt = app.placement, app.runtime("soak.hot")
+    reply = "cycle.replies"
+    app.broker.declare_queue(reply)
+    segments, actions = [], []
+    real_rebuild = app_module.rebuild_engine
+    try:
+        boot = {q: app.runtime(q).placement for q in ("soak.hot",
+                                                      "soak.cold")}
+        if boot != {"soak.hot": (0,), "soak.cold": (1,)}:
+            raise AssertionError(f"15b: boot placements {boot}")
+        app.restore_columns(pop.columns(RequestColumns, rt.engine, 0, waiting,
+                                        t0, reply),
+                            pop.region[:waiting], pop.mode[:waiting], t0,
+                            queue="soak.hot")
+        reset_counts(ck)
+        seg = [Segment(ck, rt.engine, 1)]
+
+        def rebuild(old, make, **kw):
+            # Under the pool lock, after the drain: the old binding's
+            # windows are all in.
+            segments.append(seg[0].close())
+            return real_rebuild(old, make, **kw)
+
+        app_module.rebuild_engine = rebuild
+        n_bursts = -(-requests // burst)
+        at = {int(frac * n_bursts): (kind, devs)
+              for frac, kind, devs in CYCLE}
+
+        async def between(k):
+            if k not in at:
+                return
+            kind, devs = at[k]
+            mem0 = card_memory(torch)
+            ref = weakref.ref(rt.engine)
+            dec = await ctrl.force(kind, "soak.hot", devs,
+                                   reason=f"smoke cycle {kind}")
+            mem1 = card_memory(torch)
+            seg[0] = Segment(ck, rt.engine, len(devs))
+            actions.append({"kind": kind, "to": list(devs),
+                            "status": dec["status"],
+                            "blackout_ms": dec["blackout_ms"],
+                            "transferred": dec["transferred"],
+                            "memory_mib_before": mem0,
+                            "memory_mib_after": mem1,
+                            "old_engine_freed": ref() is None})
+
+        alog = AnswerLog(app, reply)
+        t_pub: dict = {}
+        t_soak = time.perf_counter()
+        await publish_soak(app, "soak.hot", pop, waiting, waiting + requests,
+                           burst, reply, t_pub, between=between)
+        answers = await wait_answered(app, alog, set(t_pub))
+        soak_s = time.perf_counter() - t_soak
+        segments.append(seg[0].close())
+        final = rt.placement
+        snap = ctrl.snapshot()
+        # One control tick on the live signal view: what the policy reads
+        # and what it chooses after the cycle.
+        app.sample_telemetry()
+        view = ctrl.signal_view(time.time())
+        chosen = await ctrl.step(view=view)
+        tick = {"view": {q: s.to_dict() for q, s in view.queues.items()},
+                "decision": chosen}
+    finally:
+        app_module.rebuild_engine = real_rebuild
+        await app.stop()
+    launches = dict(ck.LAUNCHES)
+    matched, lost, dup = account_answers(
+        app, answers, set(pop.ids[:waiting].tolist()), set(t_pub), "15b")
+    applied = [d for d in snap["decisions"] if d["status"] == "applied"]
+    if (lost or dup or final != (0,) or len(actions) != len(CYCLE)
+            or len(applied) != len(CYCLE)
+            or any(not a["old_engine_freed"] for a in actions)):
+        raise AssertionError(f"15b: lost {lost}, duplicated {dup}, final "
+                             f"{final}, actions {actions}")
+    if [s["d"] for s in segments] != [1, 1, 2, 1, 1]:
+        raise AssertionError(f"15b: segments {segments}")
+    for s in segments:
+        check_segment(s, "15b")
+    check_faults(app, "15b")
+    lat = [(alog.times[p][0] - t_pub[p]) * 1e3 for p in t_pub]
+    res = {"config": path, "waiting": waiting, "requests": requests,
+           "actions": actions, "segments": segments,
+           "block_best_a_window": [s["block_best_a_window"]
+                                   for s in segments[1:]],
+           "players_matched": len(matched), "lost": lost, "duplicated": dup,
+           "final_binding": list(final), "soak_s": soak_s,
+           "requests_per_s": requests / soak_s,
+           "latency_ms_p50": statistics.median(lat),
+           "latency_ms_p99": pct(lat, 0.99), "tick": tick,
+           "launches": {k: launches[k] for k in ("block_best",
+                                                 "quality_accum")}}
+    log("15b placement cycle: " + "; ".join(
+        f"{a['kind']} -> {a['to']} {a['blackout_ms']:.1f} ms, "
+        f"{a['transferred']} players, MiB {a['memory_mib_before']} -> "
+        f"{a['memory_mib_after']}" for a in actions)
+        + f"; block_best a window {res['block_best_a_window']}; lost {lost}"
+        f", duplicated {dup}; {res['requests_per_s']:.0f} requests/s, p50 "
+        f"{res['latency_ms_p50']:.1f} ms p99 {res['latency_ms_p99']:.1f} ms;"
+        f" live tick: view {tick['view']}, chose {tick['decision']}")
+    return res
+
+
+async def service_arbiter(np, ck, mods, path, *, waiting, requests, burst,
+                          seed, arbiter):
+    """15c, one leg: config #2's two queues both bound to logical device 0
+    (``PlacementConfig(interval_s=3600, devices=1)``: the boot packs both
+    on (0,), so the dispatch arbiter engages), each with ``waiting``
+    restored and ``requests`` published with tiers 0-2, the arbiter on or
+    off. Every answer within its queue's threshold and filters; with the
+    arbiter on it is engaged and granted every window's dispatch, and a
+    contended grant (a window that waited) always went to the least
+    (tier, deadline) key then waiting. Requests/s and p50/p99 by tier."""
+    import dataclasses
+
+    from matchmaking_tpu_torch.config import OverloadConfig, PlacementConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    Config, _, RequestColumns, _ = mods
+    cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    names = [q.name for q in cfg.queues]
+    thr = {q.name: q.rating_threshold for q in cfg.queues}
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        overload=OverloadConfig(tiers=3, edf=True, max_inflight=8_192,
+                                batch_admission=True),
+        placement=PlacementConfig(interval_s=3600.0, devices=1,
+                                  arbiter=arbiter))
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    app = MatchmakingApp(cfg, device="cuda", devices=("cuda:0",))
+    await app.start()
+    ctrl = app.placement
+    pops, logs, t_pub = {}, {}, {}
+    out_of_order = []
+    try:
+        bound = {n: app.runtime(n).placement for n in names}
+        if set(bound.values()) != {(0,)} or not ctrl.arbiter.engaged(0):
+            raise AssertionError(f"15c: bindings {bound}, shared "
+                                 f"{ctrl.arbiter.snapshot()}")
+        arb = ctrl.arbiter
+        real_release = arb._release
+
+        def release(device):
+            # The waiter granted next must hold the least key waiting.
+            heap = arb._waiting.get(device)
+            if heap and heap[0][0] != min(e[0] for e in heap):
+                out_of_order.append(heap[0][0])
+            real_release(device)
+
+        arb._release = release
+        for name, prefix in zip(names, "rc"):
+            pop = pops[name] = Population(np, rng, waiting + requests, t0,
+                                          filters=True, glicko2=False)
+            pop.ids = np.char.add(prefix, np.arange(waiting + requests)
+                                  .astype(str)).astype(object)
+            reply = f"arb.{prefix}.replies"
+            app.broker.declare_queue(reply)
+            logs[name] = AnswerLog(app, reply)
+            app.restore_columns(pop.columns(RequestColumns,
+                                            app.runtime(name).engine, 0,
+                                            waiting, t0, reply),
+                                pop.region[:waiting], pop.mode[:waiting], t0,
+                                queue=name)
+        reset_counts(ck)
+        tier_of: dict = {}
+        t_soak = time.perf_counter()
+        await asyncio.gather(*(
+            publish_soak(app, name, pops[name], waiting, waiting + requests,
+                         burst, f"arb.{p}.replies", t_pub, tier_of=tier_of,
+                         rng=np.random.default_rng(seed + i))
+            for i, (name, p) in enumerate(zip(names, "rc"))))
+        answers = {name: await wait_answered(
+            app, logs[name], set(pops[name].ids[waiting:].tolist()))
+            for name in names}
+        soak_s = time.perf_counter() - t_soak
+        snap = arb.snapshot()
+    finally:
+        await app.stop()
+    check_faults(app, "15c")
+    windows = sum(app.runtime(n).counters["windows"] for n in names)
+    # Every window's dispatch takes the slot once while it is engaged.
+    if arbiter and (snap["grants"] != windows or out_of_order):
+        raise AssertionError(f"15c: arbiter {snap} for {windows} windows, "
+                             f"out of order {out_of_order}")
+    if not arbiter and snap["grants"]:
+        raise AssertionError(f"15c: the arbiter off granted {snap}")
+    res = {"arbiter": arbiter, "requests": 2 * requests, "windows": windows,
+           "soak_s": soak_s,
+           "requests_per_s": 2 * requests / soak_s,
+           "arbiter_snapshot": snap, "latency_ms_by_tier": {},
+           "players_matched": {}, "launches": {
+               k: ck.LAUNCHES[k] for k in ("block_best", "quality_accum")}}
+    lat_tier: dict = {}
+    for name in names:
+        pop, got = pops[name], answers[name]
+        published = set(pop.ids[waiting:].tolist())
+        rating = {pid: float(r) for pid, r in zip(pop.ids.tolist(),
+                                                  pop.rating.tolist())}
+        row = {pid: k for k, pid in enumerate(pop.ids.tolist())}
+        matched, dup = matched_of(got, published, f"15c {name}")
+        if dup:
+            raise AssertionError(f"15c {name}: {dup} players matched twice")
+        for pid, m in matched.items():
+            other = next(p for p in m.players if p != pid)
+            if other not in rating:
+                raise AssertionError(f"15c {name}: {pid} matched {other}, "
+                                     f"who is not on this queue")
+            if abs(rating[pid] - rating[other]) > thr[name]:
+                raise AssertionError(f"15c {name}: {pid} and {other} "
+                                     f"{abs(rating[pid] - rating[other])} "
+                                     f"apart, threshold {thr[name]}")
+            a, b = row[pid], row[other]
+            for col in (pop.region, pop.mode):
+                if "*" not in (col[a], col[b]) and col[a] != col[b]:
+                    raise AssertionError(f"15c {name}: {pid} and {other} "
+                                         f"fail a filter")
+        res["players_matched"][name] = len(matched)
+        for pid in published:
+            lat_tier.setdefault(tier_of[pid], []).append(
+                (logs[name].times[pid][0] - t_pub[pid]) * 1e3)
+    res["latency_ms_by_tier"] = {
+        t: {"p50": statistics.median(v), "p99": pct(v, 0.99), "n": len(v)}
+        for t, v in sorted(lat_tier.items())}
+    log(f"15c arbiter {'on' if arbiter else 'off'}: {windows} windows, "
+        f"{res['requests_per_s']:.0f} requests/s, by tier "
+        + ", ".join(f"t{t} p50 {v['p50']:.1f} p99 {v['p99']:.1f} ms"
+                    for t, v in res["latency_ms_by_tier"].items())
+        + f"; arbiter {snap}")
+    return res
+
+
+def phase_placement(np, torch, ck, mods, phase_s):
+    """Phase 15's three parts, each's seconds into ``phase_s``: 15a the
+    failover, 15b the placement cycle, 15c the arbiter on and off in turns
+    (on, off, off, on)."""
+    elo = "configs/elo_1v1.json"
+    res = {}
+    t = time.perf_counter()
+    res["15a"] = asyncio.run(service_failover(
+        np, torch, ck, mods, elo, waiting=100_000, requests=16_384,
+        burst=512, seed=32, lost_step=8))
+    phase_s["15a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["15b"] = asyncio.run(service_placement_cycle(
+        np, torch, ck, mods, elo, waiting=100_000, requests=16_384,
+        burst=512, seed=33))
+    phase_s["15b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    legs = []
+    for i, on in enumerate((True, False, False, True)):
+        legs.append(asyncio.run(service_arbiter(
+            np, ck, mods, "configs/multiqueue_filters.json", waiting=20_000,
+            requests=2_048, burst=512, seed=34 + i, arbiter=on)))
+    res["15c"] = legs
+    phase_s["15c"] = time.perf_counter() - t
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -8049,6 +8686,19 @@ def main(argv) -> int:
     for name, counts in phase13.items():
         launches[name] = counts["block_best"]
 
+    # 15. placement and device-loss failover: config #1 sharded two ways
+    #     on the inventory ("cuda:0",) × 2 loses a device mid-soak and
+    #     demotes to one (15a); the scripted placement cycle through the
+    #     controller at config #1's width (15b); config #2's two queues
+    #     bound to one device with the dispatch arbiter on and off (15c)
+    p15 = phase_placement(np, torch, ck, mods, phase_s)
+    phase15 = {"failover": p15["15a"]["launches"],
+               "placement_cycle": p15["15b"]["launches"],
+               "arbiter": {k: sum(leg["launches"][k] for leg in p15["15c"])
+                           for k in ("block_best", "quality_accum")}}
+    for name, counts in phase15.items():
+        launches[name] = counts["block_best"]
+
     phase14 = {k: v for k, v in shard_run["launches"].items()
                if not k.startswith("stand_in_")}
     phase14["bucket_frontier"] = frontier_run["launches"]
@@ -8087,7 +8737,8 @@ def main(argv) -> int:
                      + sum(c["block_best"] for c in phase11.values())
                      + sum(c["block_best"] for c in phase12.values())
                      + sum(c["block_best"] for c in phase13.values())
-                     + sum(phase14.values()))
+                     + sum(phase14.values())
+                     + sum(c["block_best"] for c in phase15.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -8100,7 +8751,8 @@ def main(argv) -> int:
                         for r in observed.values())
                   + sum(c["quality_accum"] for c in phase11.values())
                   + sum(c["quality_accum"] for c in phase12.values())
-                  + sum(c["quality_accum"] for c in phase13.values()))
+                  + sum(c["quality_accum"] for c in phase13.values())
+                  + sum(c["quality_accum"] for c in phase15.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -8158,7 +8810,8 @@ def main(argv) -> int:
                for name, run in observed.items()},
             **{name: c["quality_accum"] for name, c in phase11.items()},
             **{name: c["quality_accum"] for name, c in phase12.items()},
-            **{name: c["quality_accum"] for name, c in phase13.items()}},
+            **{name: c["quality_accum"] for name, c in phase13.items()},
+            **{name: c["quality_accum"] for name, c in phase15.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -8300,6 +8953,13 @@ def main(argv) -> int:
             "teams": {name: {case: run[case] for case in ("fallback", "ring")}
                       for name, run in shard_teams.items()},
             "process_mesh": process_run},
+        "placement": {
+            "failover": {k: v for k, v in p15["15a"].items()
+                         if k != "launches"},
+            "cycle": {k: v for k, v in p15["15b"].items()
+                      if k != "launches"},
+            "arbiter": [{k: v for k, v in leg.items() if k != "launches"}
+                        for leg in p15["15c"]]},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -8342,6 +9002,7 @@ def main(argv) -> int:
                        "sharded": shard_run, "bucket_frontier": frontier_run,
                        "sharded_teams": shard_teams,
                        "process_mesh": process_run,
+                       "placement": p15,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

@@ -7,10 +7,8 @@ package's names and defaults. ``Config.from_json`` reads the repository's
 so the loader takes the port's backend as an explicit override
 (``Config.from_json(path, backend="gpu")``) instead of reinterpreting the
 JAX name (``Config.from_env`` does the same for the ``MM_*`` variables).
-Sections and keys the port does not carry yet (placement, ...) are
-ignored with a warning; a value that needs a module the port does not have
-yet is refused, with the module named: the device-loss chaos faults at
-construction. ``Config.to_dict`` writes the tree back as JSON (the
+Sections and keys the port does not carry are ignored with a warning.
+``Config.to_dict`` writes the tree back as JSON (the
 process supervisor's snapshot), which ``from_env`` reads through
 ``MM_CONFIG_JSON`` to an equal Config.
 """
@@ -406,9 +404,19 @@ class ChaosConfig:
     fail_step_ranges: tuple[tuple[int, int], ...] = ()
     #: The first N half-open breaker probes raise.
     fail_probes: int = 0
-    #: Device-loss steps: they need device-loss failover (the D → D − 1
-    #: demotion, ROADMAP Queue 1 item 6c) and are refused.
+    #: Device-loss fault: device search-step indices at which the engine
+    #: raises ``ChaosDeviceLostError`` (a mesh participant dying
+    #: mid-serve, which a plain revive from the mirror cannot fix: the
+    #: rebuilt engine would bind the same dead card). Shares the per-queue
+    #: step counter with ``fail_steps``. The queue runtime counts it as an
+    #: engine crash and fails over: an elastic-shardable sharded queue
+    #: demotes to its surviving devices (D → D - 1, the mirror as the
+    #: pool's source), audited at ``/debug/placement`` with the measured
+    #: blackout.
     device_lost_steps: tuple[int, ...] = ()
+    #: Which logical device of the queue's binding is lost (-1: the last
+    #: one, losing the highest shard).
+    device_lost_device: int = -1
     #: Replication stream record seqs whose first transmission is dropped.
     repl_drop_seqs: tuple[int, ...] = ()
     #: Stream record seqs delivered twice.
@@ -446,18 +454,12 @@ class ChaosConfig:
     #: (flow, bytes per second): the sender paces frames to this rate.
     net_bandwidth_caps: tuple[tuple[str, int], ...] = ()
 
-    def __post_init__(self) -> None:
-        if self.device_lost_steps:
-            raise ValueError(
-                "chaos.device_lost_steps needs device-loss failover of the "
-                "multi-GPU engine (the D → D - 1 demotion, ROADMAP Queue 1 "
-                "item 6c), which the port does not carry yet")
-
     def enabled(self) -> bool:
         return bool(
             self.drop_prob > 0 or self.dup_prob > 0 or self.drop_seqs
             or self.dup_seqs or self.partitions or self.fail_steps
-            or self.fail_step_ranges or self.fail_probes)
+            or self.fail_step_ranges or self.fail_probes
+            or self.device_lost_steps)
 
     def consume_faults(self) -> bool:
         """A consume-side broker fault is scripted."""
@@ -675,6 +677,57 @@ class ForensicsConfig:
 
 
 @dataclass(frozen=True)
+class PlacementConfig:
+    """The elastic placement control plane (control/): a controller that
+    reads the telemetry ring (each queue's SLO burn, device idle fraction,
+    effective occupancy and stage p99) and moves queues between logical
+    devices by rebuilding their engines from the mirror, promoting a hot
+    1v1 queue from one device to D > 1 and demoting it back as load
+    recedes. The greedy burn-to-idle policy (control/policy.py) decides;
+    every decision is a pure function of the tick's signal view (``now``
+    is data), so the seeded simulation (control/simulate.py) replays
+    decision traces bit for bit without devices."""
+
+    #: Controller tick interval (seconds; 0 disables the control plane:
+    #: no task, no arbiter, nothing on the hot path).
+    interval_s: float = 0.0
+    #: Logical device inventory the controller places queues onto. 0:
+    #: the app's inventory (``MatchmakingApp(devices=...)``, by default
+    #: the visible cards); N > 0: a fixed logical inventory of N devices.
+    devices: int = 0
+    #: A queue is hot (a migration source) while its SLO burns or its
+    #: device idle fraction over the last telemetry window is below this.
+    hot_idle_below: float = 0.15
+    #: A device is a migration target only above this idle fraction (and
+    #: with no hot queue bound to it).
+    cold_idle_above: float = 0.5
+    #: Least idle-fraction gap between target and source devices for a
+    #: migration to be worth its blackout.
+    min_idle_gain: float = 0.2
+    #: Per-queue seconds between placement actions (against the tick's
+    #: ``now``): bounds migrate/promote thrash.
+    cooldown_s: float = 10.0
+    #: Elastic sharding cap of 1v1 device queues: a hot queue alone on its
+    #: device may be promoted up to this many devices (D > 1,
+    #: engine/sharded.py) and is demoted as load recedes. 1: no elastic
+    #: sharding.
+    max_shard: int = 1
+    #: Promote only while effective occupancy (valid / padded lanes) is
+    #: above this: an idle but burning queue gains nothing from devices.
+    promote_occupancy: float = 0.5
+    #: Demote a sharded queue once its idle fraction is above this.
+    demote_idle_above: float = 0.8
+    #: Placement decisions kept in the audit ring (/debug/placement).
+    decision_ring: int = 256
+    #: Cross-queue (tier, deadline) dispatch arbitration for queues bound
+    #: to one device: engaged only while two or more queues share it.
+    arbiter: bool = True
+
+    def enabled(self) -> bool:
+        return self.interval_s > 0
+
+
+@dataclass(frozen=True)
 class AutotuneConfig:
     """The online autotuner (control/autotune.py): a tick loop that reads
     the telemetry ring (stage p99, batch fill, idle fraction, shed deltas)
@@ -719,7 +772,7 @@ _SECTIONS = {"engine": EngineConfig, "broker": BrokerConfig,
              "observability": ObservabilityConfig,
              "durability": DurabilityConfig, "replication": ReplicationConfig,
              "net": NetConfig, "forensics": ForensicsConfig,
-             "autotune": AutotuneConfig}
+             "placement": PlacementConfig, "autotune": AutotuneConfig}
 
 
 #: Top-level scalar keys the port carries.
@@ -772,6 +825,8 @@ class Config:
         default_factory=ObservabilityConfig)
     #: The event spine's ring and the incident capture.
     forensics: ForensicsConfig = field(default_factory=ForensicsConfig)
+    #: The elastic placement control plane (off by default).
+    placement: PlacementConfig = field(default_factory=PlacementConfig)
     #: The online autotuner (off by default).
     autotune: AutotuneConfig = field(default_factory=AutotuneConfig)
     #: The JAX package's search-worker count: carried so that the process

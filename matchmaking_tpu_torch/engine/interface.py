@@ -267,12 +267,14 @@ class Engine(abc.ABC):
                    base + self.queue.widen_per_sec * waited)
 
 
-def make_engine(cfg: Config, queue: QueueConfig, device=None) -> Engine:
+def make_engine(cfg: Config, queue: QueueConfig, device=None,
+                devices=None) -> Engine:
     """Engine factory. ``backend="gpu"`` builds a ``GpuEngine`` on
     ``device`` (default ``"cuda"``; raises when CUDA is absent — pass
-    ``device="cpu"`` explicitly to run the plain versions on the CPU);
-    ``backend="cpu"`` builds the host oracle ``CpuEngine`` (``device`` is
-    not read)."""
+    ``device="cpu"`` explicitly to run the plain versions on the CPU),
+    its pool on ``devices`` where given (one entry per shard, or one
+    device for an unsharded pool); ``backend="cpu"`` builds the host
+    oracle ``CpuEngine`` (``device`` and ``devices`` are not read)."""
     if cfg.engine.backend == "cpu":
         from matchmaking_tpu_torch.engine.cpu import CpuEngine
 
@@ -280,7 +282,7 @@ def make_engine(cfg: Config, queue: QueueConfig, device=None) -> Engine:
     if cfg.engine.backend == "gpu":
         from matchmaking_tpu_torch.engine.gpu import GpuEngine
 
-        return GpuEngine(cfg, queue, device=device)
+        return GpuEngine(cfg, queue, device=device, devices=devices)
     raise ValueError(
         f"unknown engine backend {cfg.engine.backend!r} (this package serves "
         f"'gpu' and 'cpu'; load the repository's configs with "

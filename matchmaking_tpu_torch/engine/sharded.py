@@ -31,8 +31,9 @@ On the card it is the first D of the visible cards and raises when fewer
 are visible; with ``device="cpu"`` it is D entries of the CPU (the tests'
 stand-in for the JAX package's 8 virtual CPU devices). An explicit device
 list may name one device more than once: ``(cuda:0,) * 4`` on one card
-stands in for four, every shard's work then queuing on that card. The
-mesh over processes, one shard per rank, is
+stands in for four, every shard's work then queuing on that card; a
+service's ``DeviceInventory`` resolves a queue's logical device ids to
+such entries. The mesh over processes, one shard per rank, is
 ``distributed.global_pool_mesh``; its merges ride ``torch.distributed``
 collectives.
 
@@ -79,6 +80,42 @@ def mesh_device(d, base=None) -> torch.device:
             return torch.device("cpu")
         return torch.device("cuda", d)
     return torch.device(d)
+
+
+class DeviceInventory:
+    """The logical devices a service binds queues to (the JAX package's
+    ``jax.devices()``): logical id ``i`` is entry ``i``. ``devices`` None:
+    the visible cards (``cuda:<i>``), or the CPU for every id when
+    ``base`` is the CPU; an explicit list is taken as it is and may repeat
+    an entry, ``("cuda:0",) * 4`` on one card standing in for four. An id
+    past the inventory raises ``IndexError``, as ``jax.devices()[i]``
+    does."""
+
+    def __init__(self, devices: Sequence | None = None, base=None):
+        self.base = torch.device("cuda" if base is None else base)
+        #: The explicit entries (None: the default inventory).
+        self.explicit = tuple(devices) if devices is not None else None
+
+    def __len__(self) -> int:
+        if self.explicit is not None:
+            return len(self.explicit)
+        if self.base.type == "cpu":
+            return 1
+        return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+    def __getitem__(self, i: int) -> torch.device:
+        i = int(i)
+        if self.explicit is None and self.base.type == "cpu" and i >= 0:
+            return torch.device("cpu")
+        if not 0 <= i < len(self):
+            raise IndexError(f"logical device {i} is outside the inventory "
+                             f"of {len(self)}")
+        if self.explicit is None:
+            return torch.device("cuda", i)
+        return mesh_device(self.explicit[i], self.base)
+
+    def resolve(self, ids: Sequence[int]) -> tuple[torch.device, ...]:
+        return tuple(self[i] for i in ids)
 
 
 class PoolMesh:

@@ -303,12 +303,6 @@ class Scenario:
                 steps.append((inc.at, inc.at + inc.count))
             elif inc.kind == "probe_fail":
                 probes = max(probes, inc.count)
-            elif inc.kind == "device_lost":
-                raise ValueError(
-                    "a device_lost incident needs chaos.device_lost_steps "
-                    "and device-loss failover (the D → D - 1 demotion of a "
-                    "sharded engine, ROADMAP Queue 1 item 6c), which the "
-                    "port does not carry yet")
             else:
                 raise ValueError(f"unknown incident kind {inc.kind!r}")
         return ChaosConfig(seed=seed, queues=(queue,),

@@ -169,14 +169,26 @@ breaker, broker chaos and the invariant checker, durability, in-process
 replication and failover over the in-process or the socket fabric, the
 drain, auth, tracing, the metrics and the event log, telemetry and the SLO
 burn monitors, incident capture and the HTTP surfaces, the online
-autotuner and foreign transports such as the AMQP one), without placement
-and the dispatch arbiter. An injected broker gets the event log, the
+autotuner, elastic placement with the dispatch arbiter, device-loss
+failover, and foreign transports such as the AMQP one). An injected broker gets the event log, the
 trace stamping and the fault script where it has attributes for them, and
 the drain hands over a backlog only where the broker keeps one
 (``drain_backlog``). The autotuner (``cfg.autotune``, control/autotune.py)
 writes its knobs through ``Batcher.max_wait_ms``, ``set_edf``,
 ``pipeline_depth`` (the in-flight cap; the flush's pipelined form is the
 configured depth's) and the admission controller's ``set_fraction``.
+
+Placement and device-loss failover: ``MatchmakingApp(devices=...)`` is
+the logical device inventory (by default the visible cards; an explicit
+list may repeat one card, ``("cuda:0",) * N``), and each runtime's
+``placement`` binds its engine to logical ids in it. With
+``cfg.placement`` on, the controller (control/controller.py) binds every
+queue at start and moves queues between devices (``migrate``: the engine
+rebuilt from its mirror under ``_pool_lock``, on the event loop), and the
+dispatch arbiter orders the windows of queues bound to one device by
+(tier, deadline). A ``ChaosDeviceLostError`` makes the next ``_revive``
+demote a sharded 1v1 queue to its surviving devices (D → D − 1), audited
+in ``failover_log``; ``/debug/placement`` serves both audits.
 
     python -m matchmaking_tpu_torch.service.app --demo [--device cpu]
                                                 [--config PATH]
@@ -204,6 +216,11 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 
 from matchmaking_tpu_torch.config import Config, EngineConfig, QueueConfig
+from matchmaking_tpu_torch.control.arbiter import NOOP_SLOT, window_key
+from matchmaking_tpu_torch.control.executor import (
+    rebuild_engine,
+    restore_columns as restore_checkpoint_columns,
+)
 from matchmaking_tpu_torch.engine.cpu import CpuEngine
 from matchmaking_tpu_torch.engine.interface import (
     ColumnarOutcome,
@@ -211,6 +228,7 @@ from matchmaking_tpu_torch.engine.interface import (
     make_engine,
 )
 from matchmaking_tpu_torch.engine.quality import QualitySpec
+from matchmaking_tpu_torch.engine.sharded import DeviceInventory
 from matchmaking_tpu_torch.native import codec
 from matchmaking_tpu_torch.service.attribution import Attribution
 from matchmaking_tpu_torch.service.batcher import Batcher
@@ -253,7 +271,7 @@ from matchmaking_tpu_torch.service.replication import (
     baseline_payload,
 )
 from matchmaking_tpu_torch.utils import checkpoint
-from matchmaking_tpu_torch.utils.chaos import ChaosState
+from matchmaking_tpu_torch.utils.chaos import ChaosDeviceLostError, ChaosState
 from matchmaking_tpu_torch.utils.forensics import EventSpine, IncidentRecorder
 from matchmaking_tpu_torch.utils.invariants import InvariantChecker
 from matchmaking_tpu_torch.utils.journal import PoolJournal, row_to_request
@@ -334,6 +352,21 @@ class _QueueRuntime:
         self._batch_publish = (self.cfg.broker.batch_publish
                                and hasattr(self.broker, "publish_batch"))
         self.device = app.device
+        #: The placement binding: the logical device ids this queue's
+        #: engine runs on (the shard degree is their count), resolved
+        #: through the app's inventory at every engine build (revive,
+        #: breaker probe, migration: a revive must not undo a migration).
+        #: None: the default (the app's device; a sharded queue the
+        #: inventory's leading ``mesh_pool_axis`` entries). Set by the app
+        #: before ``start`` when the control plane is on.
+        self.placement: tuple[int, ...] | None = None
+        #: Device-loss failover: the logical device a
+        #: ``ChaosDeviceLostError`` named, consumed by the next ``_revive``
+        #: (a sharded queue demotes to its surviving devices), and the
+        #: audit of past demotions (at most 64), served at
+        #: ``/debug/placement``.
+        self._lost_device: int | None = None
+        self.failover_log: list[dict] = []
         #: The app's metrics (counters under the JAX package's names,
         #: gauges, stage histograms) and event log.
         self.metrics: Metrics = app.metrics
@@ -620,8 +653,45 @@ class _QueueRuntime:
             return CpuEngine(self.cfg, self.queue_cfg)
         return self._device_engine()
 
+    def elastic_shardable(self) -> bool:
+        """Elastic sharding (D = 1 ↔ D > 1) is available for this queue:
+        the device 1v1 path only; the controller moves team and role
+        queues whole-device or not at all."""
+        return (self.queue_cfg.team_size == 1
+                and not self.queue_cfg.role_slots
+                and self.cfg.engine.backend == "gpu")
+
+    def _engine_cfg(self) -> Config:
+        """The engine's config under the current binding: an
+        elastic-shardable queue's mesh axis follows the binding's device
+        count (a promotion to D = 2 rebuilds onto the sharded kernel set,
+        a demotion comes back); anything else passes through."""
+        cfg = self.cfg
+        if (self.placement is not None and self.elastic_shardable()
+                and len(self.placement) != cfg.engine.mesh_pool_axis):
+            cfg = dataclasses.replace(
+                cfg, engine=dataclasses.replace(
+                    cfg.engine, mesh_pool_axis=len(self.placement)))
+        return cfg
+
+    def _engine_devices(self):
+        """The binding's devices through the app's inventory; without a
+        binding, a sharded queue on an explicit inventory takes its
+        leading ``mesh_pool_axis`` entries, and anything else None (the
+        engine's default: the app's device, or the first visible cards).
+        An id past the inventory raises ``IndexError``."""
+        inventory = self.app.inventory
+        if self.placement is not None:
+            return inventory.resolve(self.placement)
+        axis = self.cfg.engine.mesh_pool_axis
+        if axis > 1 and inventory.explicit is not None:
+            return inventory.resolve(range(axis))
+        return None
+
     def _device_engine(self):
-        engine = make_engine(self.cfg, self.queue_cfg, device=self.device)
+        engine = make_engine(self._engine_cfg(), self.queue_cfg,
+                             device=self.device,
+                             devices=self._engine_devices())
         if self._chaos_hook is not None and hasattr(engine, "chaos_hook"):
             engine.chaos_hook = self._chaos_hook
         return engine
@@ -656,10 +726,23 @@ class _QueueRuntime:
             self._collector.cancel()
             self._collector = None
 
-    def _record_engine_crash(self, now: float) -> None:
-        """Count one engine crash and feed the breaker: when this crash
-        trips it, the engine rebuild that follows every crash is the host
+    def _note_failure(self, err: BaseException | None) -> None:
+        """Classify an engine failure before the revive: a device loss
+        names the dead mesh participant, and the next ``_revive`` demotes
+        an elastic-shardable queue to its surviving devices instead of
+        rebuilding an engine bound to the dead card."""
+        if isinstance(err, ChaosDeviceLostError):
+            self._lost_device = err.device
+            self.events.append("device_lost", self.queue_cfg.name,
+                               f"logical device {err.device}")
+
+    def _record_engine_crash(self, now: float,
+                             err: BaseException | None = None) -> None:
+        """Count one engine crash (``err``, where known, classified first
+        by ``_note_failure``) and feed the breaker: when this crash trips
+        it, the engine rebuild that follows every crash is the host
         oracle."""
+        self._note_failure(err)
         self.counters["engine_failures"] += 1
         self.counters["engine_crashes"] += 1
         self.metrics.counters.inc("engine_crashes")
@@ -705,12 +788,9 @@ class _QueueRuntime:
         ``cols`` are ignored)."""
         self._restore_into(self.engine, cols, regions, modes, now)
 
-    @staticmethod
-    def _restore_into(engine, cols: RequestColumns, regions, modes,
-                      now: float) -> None:
-        reg, mode = engine.intern_columns(list(regions), list(modes))
-        engine.restore_columns(dataclasses.replace(cols, region=reg, mode=mode),
-                               now)
+    #: A ``waiting_columns()`` checkpoint into an engine (its names
+    #: interned there first); the revive's and ``restore_columns``' path.
+    _restore_into = staticmethod(restore_checkpoint_columns)
 
     # ---- durability: compaction and crash recovery ------------------------
 
@@ -1651,7 +1731,8 @@ class _QueueRuntime:
         if not fresh:
             return
         if not self._async_api:
-            self._search_sync(fresh, now)
+            async with self._arbiter_slot([d for _, d in fresh]):
+                self._search_sync(fresh, now)
             return
         requests = [r for r, _ in fresh]
 
@@ -1692,10 +1773,10 @@ class _QueueRuntime:
             # are journaled first, so the replay order holds either way.
             self._journal_admit_reqs(requests)
             outcome = self.engine.search(requests, now)
-        except Exception:
+        except Exception as e:
             log.exception("engine step crashed; reviving the engine from "
                           "its waiting players")
-            self._record_engine_crash(now)
+            self._record_engine_crash(now, e)
             self._revive(now)
             for _, d in fresh:
                 self._nack(d)
@@ -1915,17 +1996,21 @@ class _QueueRuntime:
             # (then [commit; window] equals [rescan at its time; window]),
             # and is otherwise discarded by the window's admission.
             self._spec_cut(now)
-            tok = dispatch(stale)
+            # Held across the dispatch only: while the controller binds
+            # several queues to this device, the window takes its (tier,
+            # deadline) turn among their waiting windows.
+            async with self._arbiter_slot(deliveries_in):
+                tok = dispatch(stale)
             self._inflight_meta[tok] = (dict(pairs), deliveries_in)
             recorded = True
             if self._pipelined:
                 self._collect_ready(time.time())
             else:
                 self._drain_engine(now)
-        except Exception:
+        except Exception as e:
             log.exception("window dispatch failed; reviving the engine "
                           "from its mirror")
-            self._record_engine_crash(now)
+            self._record_engine_crash(now, e)
             self._revive_after_failure(
                 now, extra_nack=None if recorded else deliveries_in)
             return
@@ -1977,7 +2062,7 @@ class _QueueRuntime:
                     self.engine.failed_tokens.discard(tok)
                     log.error("rescan window %d failed on the device; "
                               "revive scheduled", tok)
-                    self._record_engine_crash(now)
+                    self._record_engine_crash(now, self.engine.device_error)
                     self._needs_revive = True
                     return
                 self._publish_rescan_outcome(out, now)
@@ -1988,7 +2073,7 @@ class _QueueRuntime:
             self.engine.failed_tokens.discard(tok)
             log.error("window %d failed on the device; nack + revive "
                       "scheduled", tok)
-            self._record_engine_crash(now)
+            self._record_engine_crash(now, self.engine.device_error)
             self.events.append("window_failed", self.queue_cfg.name,
                                f"token {tok}, {len(deliveries)} nacked")
             for d in deliveries:
@@ -2282,8 +2367,33 @@ class _QueueRuntime:
         the host oracle). The quality counters are carried across and the
         old engine is closed. Every window still tracked is nacked (the
         new engine numbers its tokens from 0); nothing is in flight on the
-        old engine, or what is will never be collected."""
+        old engine, or what is will never be collected.
+
+        Device-loss failover: when the crash named a dead mesh participant
+        (``_note_failure`` set ``_lost_device``), an elastic-shardable
+        queue bound to D >= 2 devices demotes to its surviving devices
+        before the rebuild (a plain revive would bind the dead card
+        again); the binding sticks for every later rebuild. The whole
+        rebuild is the measured blackout, audited in ``failover_log``."""
+        t0 = time.perf_counter()
         self._needs_revive = False
+        lost, self._lost_device = self._lost_device, None
+        demoted = None
+        if lost is not None:
+            binding = (self.placement if self.placement is not None
+                       else tuple(range(self.cfg.engine.mesh_pool_axis)))
+            if self.elastic_shardable() and len(binding) > 1:
+                idx = lost if 0 <= lost < len(binding) else len(binding) - 1
+                survivors = tuple(d for i, d in enumerate(binding)
+                                  if i != idx)
+                self.placement = survivors
+                demoted = (binding, survivors, idx)
+            else:
+                log.error(
+                    "queue %r: device %d lost but no demotion possible "
+                    "(D=1 or non-elastic) — plain revive; a persistent "
+                    "loss trips the breaker into the host oracle",
+                    self.queue_cfg.name, lost)
         old = self.engine
         self._spec_invalidate_audited("revive")
         for tok, (_, deliveries) in list(self._inflight_meta.items()):
@@ -2313,6 +2423,33 @@ class _QueueRuntime:
                            f"{n} players restored from mirror")
         log.warning("engine revived (%s): %d waiting players restored",
                     type(engine).__name__, n)
+        if demoted is not None:
+            self._audit_failover(*demoted, n, now, t0)
+
+    def _audit_failover(self, was: tuple[int, ...],
+                        survivors: tuple[int, ...], idx: int, restored: int,
+                        now: float, t0: float) -> None:
+        """A D → D − 1 demotion landed: its ``failover_log`` entry (the
+        blackout is the whole rebuild since ``t0``), the
+        ``device_failovers`` counter, the ``failover_blackout_ms[q]`` gauge
+        and the ``device_failover`` event."""
+        q = self.queue_cfg.name
+        blackout_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        self.failover_log.append({
+            "queue": q, "at": now, "from_devices": list(was),
+            "to_devices": list(survivors), "lost_device": idx,
+            "blackout_ms": blackout_ms, "restored": restored})
+        del self.failover_log[:-64]
+        self.metrics.counters.inc("device_failovers")
+        self.metrics.set_gauge(f"failover_blackout_ms[{q}]", blackout_ms)
+        self.events.append(
+            "device_failover", q,
+            f"D={len(was)} -> D={len(survivors)} after losing device "
+            f"{idx}: {restored} players, {blackout_ms:.1f} ms blackout")
+        log.error("queue %r: device-loss failover — demoted %s -> %s (lost "
+                  "logical device %d), %d players restored, %.1f ms "
+                  "blackout", q, list(was), list(survivors), idx, restored,
+                  blackout_ms)
 
     async def _collector_loop(self) -> None:
         """Collect landed windows when no flush is running (traffic stops:
@@ -2393,11 +2530,11 @@ class _QueueRuntime:
                     self.metrics.counters.inc("rescan_deadline_overruns")
                     self.events.append("rescan_overrun", self.queue_cfg.name,
                                        f"token {tok}")
-            except Exception:
+            except Exception as e:
                 log.exception("rescan failed; reviving the engine from its "
                               "mirror")
                 async with self._pool_lock:
-                    self._record_engine_crash(now)
+                    self._record_engine_crash(now, e)
                     self._revive(now)
 
     async def _sweep_loop(self) -> None:
@@ -2435,10 +2572,10 @@ class _QueueRuntime:
             expired = (self.engine.expire(now, timeout)
                        if timeout is not None else [])
             dl_expired = self.engine.expire_deadlines(now) if run_dl else []
-        except Exception:
+        except Exception as e:
             log.exception("expiry sweep failed; reviving the engine from "
                           "its mirror")
-            self._record_engine_crash(now)
+            self._record_engine_crash(now, e)
             self._revive(now)
             return
         for removed in expired:
@@ -2579,6 +2716,73 @@ class _QueueRuntime:
         log.warning("queue %r: half-open probe failed (%s); next probe in "
                     "%.2f s", self.queue_cfg.name, why,
                     self.breaker.probe_delay_s)
+
+    # ---- elastic placement: live migration, the dispatch arbiter ---------
+
+    async def migrate(self, devices: tuple[int, ...]) -> dict[str, Any]:
+        """Live-migrate this queue's engine onto the logical ``devices``
+        (the shard degree is their count): under ``_pool_lock``, collect
+        every window in flight (their answers publish and ack through the
+        normal paths), snapshot the waiting pool and the quality state,
+        build the engine on the target devices and restore
+        (control/executor.py ``rebuild_engine``: columns for a 1v1 queue).
+        Admission credits and deadline caches live in this runtime and
+        survive by construction; deliveries in the batcher or waiting for
+        the lock dispatch to the successor once the lock frees.
+
+        The rebuild runs on the event loop, as ``_revive`` does: a CUDA
+        graph capture of another queue on the same card never overlaps
+        this engine's restore copies. The lock-held span is the blackout,
+        measured and returned. Refused while the breaker is open (the host
+        oracle serves the queue, so a device binding would move nothing).
+        On any build or restore failure the old engine keeps serving, the
+        binding reverts and the candidate is closed."""
+        if self.breaker is not None and self.breaker.state != CLOSED:
+            raise RuntimeError(
+                f"queue {self.queue_cfg.name!r} is degraded (breaker "
+                f"{self.breaker.state}) — the host oracle serves it, so a "
+                f"device re-binding would migrate nothing")
+        devices = tuple(int(d) for d in devices)
+        async with self._pool_lock:
+            t0 = time.perf_counter()
+            now = time.time()
+            self._drain_engine(now)
+            old = self.engine
+            prev = self.placement
+            self.placement = devices
+            try:
+                candidate, stats = rebuild_engine(
+                    old, self._make_engine, now=now, columns=not self._team)
+            except BaseException:
+                self.placement = prev
+                raise
+            self._bind_engine(candidate)
+            try:
+                old.close()
+            except Exception:
+                log.exception("migrated-away engine close failed")
+            blackout_s = time.perf_counter() - t0
+        self.metrics.counters.inc("queue_migrations")
+        self.events.append(
+            "queue_migrated", self.queue_cfg.name,
+            f"{list(prev) if prev else 'default'} -> {list(devices)}: "
+            f"{stats['transferred']} players, "
+            f"{blackout_s * 1e3:.1f} ms blackout")
+        return {"blackout_s": blackout_s,
+                "transferred": stats["transferred"],
+                "devices": devices}
+
+    def _arbiter_slot(self, deliveries: list[Delivery]):
+        """The cross-queue (tier, deadline) dispatch gate: a no-op context
+        unless the placement controller is live, the arbiter is on, and
+        this queue shares its first device with another queue."""
+        ctrl = self.app.placement
+        if ctrl is None or not self.cfg.placement.arbiter:
+            return NOOP_SLOT
+        dev = self.placement[0] if self.placement else None
+        if not ctrl.arbiter.engaged(dev):
+            return NOOP_SLOT
+        return ctrl.arbiter.slot(dev, window_key(deliveries))
 
     def _spec_cut(self, now: float) -> bool:
         """Commit the held speculation at a cut if it is still valid (no
@@ -2890,9 +3094,15 @@ class MatchmakingApp:
     since a recovery at ``start`` stamps ``crash_recovered``)."""
 
     def __init__(self, cfg: Config, broker: InProcBroker | None = None,
-                 device=None, replication_hub=None):
+                 device=None, replication_hub=None, devices=None):
         self.cfg = cfg
         self.device = device
+        #: The logical device inventory (the JAX package's
+        #: ``jax.devices()``): a queue's placement binding names ids into
+        #: it. ``devices`` None: the visible cards, or the CPU for every id
+        #: when ``device`` is the CPU; an explicit list may repeat a card,
+        #: ``("cuda:0",) * N`` standing in for N devices on one card.
+        self.inventory = DeviceInventory(devices, device)
         #: The replication fabric (service/replication.ReplicationHub or
         #: net/link.SocketReplicationHub; None: none), shared by a primary
         #: app, its standbys and a failover successor. A hub passed in is
@@ -2964,6 +3174,9 @@ class MatchmakingApp:
         self.incidents = IncidentRecorder(self, cfg.forensics)
         #: The HTTP server (``metrics_port``), from ``start`` on.
         self._observability = None
+        #: The elastic placement controller (control/controller.py; None:
+        #: off), built by ``start`` when ``cfg.placement.enabled()``.
+        self.placement = None
         #: The online autotuner (control/autotune.py), built and started
         #: by ``start`` when ``cfg.autotune.enabled()``.
         self.autotune = None
@@ -3001,6 +3214,12 @@ class MatchmakingApp:
                     "passed to MatchmakingApp(replication_hub=...): the hub "
                     "is the shared fabric (links and lease authority) a "
                     "standby attaches through")
+        if self.cfg.placement.enabled():
+            from matchmaking_tpu_torch.control import PlacementController
+
+            self.placement = PlacementController(self, self.cfg.placement)
+            for i, rt in enumerate(self._runtimes.values()):
+                rt.placement = self._boot_placement(i)
         for rt in self._runtimes.values():
             await rt.start()
         obs = self.cfg.observability
@@ -3038,6 +3257,9 @@ class MatchmakingApp:
                 "the telemetry sampler — SLO burn monitors will never "
                 "evaluate (call sample_telemetry() manually, or set an "
                 "interval)")
+        if self.placement is not None:
+            self.placement.bind_boot_placements()
+            self.placement.start()
         if self.cfg.autotune.enabled():
             from matchmaking_tpu_torch.control.autotune import AutoTuner
 
@@ -3052,7 +3274,20 @@ class MatchmakingApp:
                 self, host=self.cfg.metrics_host, port=self.cfg.metrics_port)
             await self._observability.start()
 
+    def _boot_placement(self, index: int) -> tuple[int, ...]:
+        """A queue's boot binding under the control plane: a sharded
+        queue spans the inventory's leading ``mesh_pool_axis`` devices,
+        a single-device queue is packed round-robin over the inventory
+        (the static layout, explicit so the first tick starts from it)."""
+        axis = self.cfg.engine.mesh_pool_axis
+        if axis > 1:
+            return tuple(range(axis))
+        return (index % self.placement.state.n_devices,)
+
     async def stop(self) -> None:
+        if self.placement is not None:
+            # No migration may be mid-flight while the queues close.
+            await self.placement.stop()
         if self.autotune is not None:
             await self.autotune.stop()
         await self._stop_telemetry()
@@ -3079,8 +3314,10 @@ class MatchmakingApp:
         no clean marker; windows in flight and answers waiting for their
         commit are dropped and the broker's consumers die. A successor on
         the same ``journal_dir`` must recover what is on disk. Without an
-        HTTP server it never yields: one ``send(None)`` runs it to its
-        end."""
+        HTTP server or a placement controller it never yields: one
+        ``send(None)`` runs it to its end."""
+        if self.placement is not None:
+            await self.placement.stop()
         if self.autotune is not None:
             self.autotune.cancel()
         self._cancel_telemetry()
@@ -3101,6 +3338,11 @@ class MatchmakingApp:
         players saved per queue ({} without a directory)."""
         directory = (checkpoint_dir if checkpoint_dir is not None
                      else self.cfg.overload.drain_checkpoint_dir)
+        if self.placement is not None:
+            # Placement stops first (its tick cancelled and awaited): a
+            # migration racing the drain would rebuild an engine the
+            # checkpoint below is about to read.
+            await self.placement.stop()
         if self.autotune is not None:
             # Knob writes stop before the queues close.
             await self.autotune.stop()

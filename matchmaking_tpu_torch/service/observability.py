@@ -20,9 +20,11 @@ completes, so ``/healthz`` answers ``draining`` for the whole drain.
   ``/debug/quality`` (``?queue=``), ``/debug/telemetry`` (``?n=``,
   ``?key=``), ``/debug/events`` (``?queue=``, ``?n=``),
   ``/debug/incidents`` (``?id=``, ``?bundles=1``).
-- ``/debug/placement``: each bucketed queue's ``formation_report()``; the
-  placement controller is not carried, so without a bucketed queue it
-  answers the JAX package's 404 body. ``/debug/autotune``: the
+- ``/debug/placement`` (``?n=``): the placement controller's snapshot
+  (bindings, decision ring, blackouts, the arbiter, each queue's live
+  binding and engine class), each bucketed queue's
+  ``formation_report()`` and the device-loss failover audit; the JAX
+  package's 404 body when all three are empty. ``/debug/autotune``: the
   autotuner's target, ranges, knobs and decision ring (``?n=``), or the
   JAX package's 404 body without one.
 - ``/debug/profile?secs=N`` (0.05-30 s): a ``torch.profiler`` capture of
@@ -537,9 +539,16 @@ class ObservabilityServer:
         return web.json_response(body)
 
     async def _debug_placement(self, request) -> "web.Response":
-        """Formation state (each bucketed queue's ``formation_report()``:
-        bucket occupancy, the touched-slot fraction). The placement
-        controller and the failover audit are not carried."""
+        """The elastic placement control plane: each queue's binding
+        (shard degree, generation, typestate), the decision audit ring
+        (each record with the signals that drove it and the measured
+        blackout), per-queue blackout stats and the dispatch arbiter's
+        state; ``?n=`` caps the decision history (default: the whole
+        ring). Beside it, whether or not the controller runs: formation
+        state (each bucketed queue's ``formation_report()``) and the
+        device-loss failover audit (each queue's live binding and its
+        D → D − 1 demotions). 404 when all three are empty."""
+        ctrl = getattr(self.app, "placement", None)
         formation = {
             name: rep
             for name, rt in self.app._runtimes.items()
@@ -547,11 +556,34 @@ class ObservabilityServer:
                         if hasattr(rt.engine, "formation_report")
                         else None)) is not None
         }
+        failover = {
+            name: {"binding": (list(rt.placement)
+                               if rt.placement is not None else None),
+                   "demotions": list(rt.failover_log)}
+            for name, rt in self.app._runtimes.items()
+            if rt.failover_log
+        }
+        if ctrl is None:
+            if formation or failover:
+                body = {}
+                if formation:
+                    body["formation"] = formation
+                if failover:
+                    body["failover"] = failover
+                return web.json_response(body)
+            return web.json_response(
+                {"error": "placement control plane disabled "
+                          "(set placement.interval_s)"}, status=404)
+        try:
+            history = max(0, int(request.query.get("n", "0")))
+        except ValueError:
+            history = 0
+        body = ctrl.snapshot(history=history)
         if formation:
-            return web.json_response({"formation": formation})
-        return web.json_response(
-            {"error": "placement control plane disabled "
-                      "(set placement.interval_s)"}, status=404)
+            body["formation"] = formation
+        if failover:
+            body["failover"] = failover
+        return web.json_response(body)
 
     async def _debug_autotune(self, request) -> "web.Response":
         """The online autotuner (control/autotune.py): the steering target,

@@ -10,10 +10,11 @@ under any interleaving of the event loop:
   the JAX package's for the same keys.
 - ``EngineChaosHook``, one per queue: a device search-step counter and a
   breaker-probe counter, each raising ``ChaosInjectedError`` at the
-  scripted indices. The queue runtime owns it and hands it to every engine
-  it builds, so the indices keep advancing across revives: a schedule
-  that fails steps 0-2 trips the breaker instead of failing step 0 of
-  every fresh engine forever.
+  scripted indices (``ChaosDeviceLostError`` at a device-loss step).
+  The queue runtime owns it and hands it to every engine it builds, so
+  the indices keep advancing across revives: a schedule that fails steps
+  0-2 trips the breaker instead of failing step 0 of every fresh engine
+  forever.
 - ``ChaosState``, one per app: which queues the script covers, the
   broker's drop, duplicate and partition decisions, and the engine hooks.
 
@@ -40,6 +41,20 @@ class ChaosInjectedError(RuntimeError):
     """Raised at a scripted fault point (a device step or a probe)."""
 
 
+class ChaosDeviceLostError(ChaosInjectedError):
+    """A scripted device loss: a mesh participant dies mid-serve. A plain
+    revive from the mirror cannot fix it (the rebuilt engine would bind
+    the same dead card), so the queue runtime counts it as an engine
+    crash and demotes a sharded queue to its surviving devices.
+
+    ``device`` is the logical index within the queue's binding that died
+    (-1: the last device, the schedule's default)."""
+
+    def __init__(self, message: str, device: int = -1):
+        super().__init__(message)
+        self.device = device
+
+
 def _mix(h: int) -> int:
     """The splitmix64 finalizer (full 64-bit avalanche)."""
     h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & _MASK
@@ -63,7 +78,7 @@ class EngineChaosHook:
     the next index of their own stream and raise at a scripted one."""
 
     __slots__ = ("cfg", "queue", "events", "steps", "probes", "_fail",
-                 "_ranges")
+                 "_ranges", "_lost")
 
     def __init__(self, cfg: ChaosConfig, queue: str = "", events=None):
         self.cfg = cfg
@@ -74,12 +89,22 @@ class EngineChaosHook:
         self.probes = 0
         self._fail = frozenset(cfg.fail_steps)
         self._ranges = tuple(cfg.fail_step_ranges)
+        self._lost = frozenset(cfg.device_lost_steps)
 
     def on_step(self) -> None:
         """A device search step is about to be dispatched: the engine calls
         this before it changes any state for the chunk."""
         idx = self.steps
         self.steps += 1
+        if idx in self._lost:
+            # Before the plain step faults: a schedule naming one index in
+            # both means the stronger fault, the one failover absorbs.
+            if self.events is not None:
+                self.events.append("chaos_device_lost", self.queue,
+                                   f"step {idx}")
+            raise ChaosDeviceLostError(
+                f"chaos: scripted device loss at step index {idx}",
+                device=self.cfg.device_lost_device)
         if idx in self._fail or any(a <= idx < b for a, b in self._ranges):
             if self.events is not None:
                 self.events.append("chaos_step_fault", self.queue,

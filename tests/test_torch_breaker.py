@@ -608,7 +608,14 @@ def test_breaker_overload_and_chaos_keys_load_like_jax(caplog):
     drain = {"overload": {"drain_checkpoint_dir": "/tmp/x"}}
     assert Config.from_dict(drain).overload == OverloadConfig(
         **vars(JaxConfig.from_dict(drain).overload))
-    with pytest.raises(ValueError, match="multi-GPU"):
-        ChaosConfig(device_lost_steps=(3,))
+    # The device-loss keys are carried as the JAX package carries them:
+    # a schedule of lost steps enables the script, the lost device too.
+    lost = ChaosConfig(device_lost_steps=(3,), device_lost_device=0)
+    jlost = JaxChaosConfig(device_lost_steps=(3,), device_lost_device=0)
+    assert (lost.device_lost_steps, lost.device_lost_device) == (
+        jlost.device_lost_steps, jlost.device_lost_device) == ((3,), 0)
+    assert lost.enabled() == jlost.enabled() is True
+    assert ChaosConfig().device_lost_device == JaxChaosConfig(
+        ).device_lost_device == -1
     with pytest.raises(ValueError, match="shed_policy"):
         OverloadConfig(shed_policy="newest")

@@ -305,9 +305,9 @@ def test_fault_and_replication_keys_load_like_jax_from_env(monkeypatch):
 
 def test_net_keys_still_warn_and_device_loss_is_still_refused(caplog):
     """The ``net`` section and the ``net_*`` chaos keys load now that
-    net/ is ported, and so do ``workers`` and ``autotune``; a section the
-    port still drops (``placement``) warns, and the multi-GPU chaos key is
-    still refused."""
+    net/ is ported, and so do ``workers``, ``autotune`` and ``placement``
+    (no warning for any), and the device-loss chaos keys load like the
+    JAX package's."""
     with caplog.at_level(logging.WARNING, logger=config.__name__):
         cfg = config.Config.from_dict({
             "chaos": {"net_drop_prob": 0.5, "net_deaf_flows": ["lease:"],
@@ -316,16 +316,23 @@ def test_net_keys_still_warn_and_device_loss_is_still_refused(caplog):
             "autotune": {"interval_s": 0.5},
             "placement": {"interval_s": 1.0}})
     said = " ".join(r.getMessage() for r in caplog.records)
-    assert "'placement'" in said
     for key in ("net_drop_prob", "net_deaf_flows", "'net'", "'workers'",
-                "'autotune'", "autotune."):
+                "'autotune'", "autotune.", "'placement'", "placement."):
         assert key not in said, key
+    assert cfg.placement == config.PlacementConfig(
+        **vars(jax_config.Config.from_dict(
+            {"placement": {"interval_s": 1.0}}).placement))
+    assert cfg.placement.enabled()
     assert cfg.workers == 4 and cfg.autotune.interval_s == 0.5
     assert cfg.chaos.drop_seqs == (1,)
     assert cfg.chaos.net_deaf_flows == ("lease:",)
     assert cfg.net.enabled()
-    with pytest.raises(ValueError, match="multi-GPU"):
-        config.Config.from_dict({"chaos": {"device_lost_steps": [2]}})
+    d = {"chaos": {"device_lost_steps": [2], "device_lost_device": 0}}
+    mine, theirs = config.Config.from_dict(d).chaos, jax_config.Config.from_dict(
+        d).chaos
+    assert (mine.device_lost_steps, mine.device_lost_device) == (
+        theirs.device_lost_steps, theirs.device_lost_device) == ((2,), 0)
+    assert mine.enabled() == theirs.enabled() is True
 
 
 #: Every ``net`` key and every ``net_*`` chaos key, with values that are
@@ -502,7 +509,7 @@ def test_workers_and_to_dict_round_trip(tmp_path, monkeypatch):
     assert config.Config().workers == jax_config.Config().workers
     jax_keys = set(jax_config.Config().to_dict())
     assert set(d) <= jax_keys
-    assert jax_keys - set(d) == {"placement"}
+    assert jax_keys - set(d) == set()
     cpu = dataclasses.replace(cfg, engine=dataclasses.replace(
         cfg.engine, backend="cpu"))
     path.write_text(json.dumps(cpu.to_dict()))

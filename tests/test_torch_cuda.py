@@ -2238,3 +2238,208 @@ def test_process_mesh_of_one_over_nccl_equals_dense(cuda):
                 assert torch.equal(spool[name], col), name
     finally:
         distributed.shutdown_distributed()
+
+
+# ---- placement and device-loss failover on the card -------------------------
+
+
+def elo_cfg(**engine):
+    """Config #1 at its full width (P = 131,072), engine keys replaced."""
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    return dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, **engine))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def test_migration_beside_a_capturing_queue_equals_twins(cuda):
+    """Queue A is rebuilt onto another logical device of the one card
+    (``rebuild_engine``, the migration's mechanism: its restore queues
+    20k players' copies) while queue B on the same card has a window in
+    flight, or is about to capture the graph of a bucket it has not used
+    yet. B's windows equal those of a twin that never saw a migration
+    beside it, and A's those of a twin rebuilt at the same points with no
+    queue beside it, bit for bit; B captured every bucket it used."""
+    from matchmaking_tpu_torch.control.executor import rebuild_engine
+
+    cfg = elo_cfg()
+
+    def make():
+        return GpuEngine(cfg, cfg.queues[0], device=cuda,
+                         devices=(cuda,))
+
+    a, b, twin_a, twin_b = make(), make(), make(), make()
+    rng = np.random.default_rng(70)
+    fill_a = sharded_columns(rng, 20_000, 0, 100.0)
+    fill_b = sharded_columns(rng, 20_000, 50_000, 100.0)
+    for e, fill in ((a, fill_a), (twin_a, fill_a), (b, fill_b),
+                    (twin_b, fill_b)):
+        e.restore_columns(fill, 100.0)
+    # B's window sizes: each new bucket's first use captures its graph.
+    sizes = (1024, 16, 256, 64, 1024, 8)
+    for w, n in enumerate(sizes):
+        now = 101.0 + w
+        win_a = sharded_columns(rng, 512, 200_000 + 1024 * w, now)
+        win_b = sharded_columns(rng, n, 400_000 + 1024 * w, now)
+        if w % 2 == 0:
+            b.search_columns_async(win_b, now)  # in flight during the move
+        old = a
+        a, _ = rebuild_engine(old, make, now=now, columns=True)
+        old.close()
+        if w % 2 == 1:
+            b.search_columns_async(win_b, now)  # captures after the restore
+        old = twin_a
+        twin_a, _ = rebuild_engine(old, make, now=now, columns=True)
+        old.close()
+        a.search_columns_async(win_a, now)
+        twin_a.search_columns_async(win_a, now)
+        twin_b.search_columns_async(win_b, now)
+        for got, want in ((a, twin_a), (b, twin_b)):
+            (_, out), = got.flush()
+            (_, ref), = want.flush()
+            assert_same_columnar(out, ref)
+            assert_same_engines(got, want)
+    report = b.graph_report()
+    if report is not None:
+        buckets = {int(name.split("/")[1]) for name in report["graphs"]}
+        assert buckets >= {16, 64, 256, 1024}, sorted(report["graphs"])
+
+
+def test_failover_demotion_on_one_card_equals_a_dense_engine(cuda):
+    """Config #1 sharded two ways on ``(cuda:0,) × 2`` through the app's
+    runtime: a ``ChaosDeviceLostError`` at a window's dispatch, then the
+    runtime's own ``_revive`` demotes the queue to (0,); its windows after
+    the loss (the lost one again, then three more) equal those of a dense
+    engine restored from the same mirror, bit for bit, with one
+    ``block_best`` and one ``quality_accum`` launch a window (besides the
+    eager run before a first-use capture), and the quality counters
+    carried across the rebuild."""
+    import asyncio
+
+    from matchmaking_tpu_torch.config import ChaosConfig
+    from matchmaking_tpu_torch.engine import cuda_kernels as ck
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.utils.chaos import ChaosDeviceLostError
+
+    cfg = dataclasses.replace(
+        elo_cfg(mesh_pool_axis=2),
+        chaos=ChaosConfig(device_lost_steps=(3,)))
+    app = MatchmakingApp(cfg, device=cuda, devices=(cuda,) * 2)
+    from matchmaking_tpu_torch.control.executor import restore_columns
+
+    async def run():
+        await app.start()
+        try:
+            lost_window(app.runtime(cfg.queues[0].name))
+        finally:
+            await app.stop()
+
+    def lost_window(rt):
+        # Every step below runs on the loop without yielding, so the
+        # runtime's collector never takes a window.
+        assert type(rt.engine.kernels).__name__ == "ShardedKernelSet"
+        rng = np.random.default_rng(71)
+        rt.engine.restore_columns(sharded_columns(rng, 20_000, 0, 100.0),
+                                  100.0)
+        windows = [sharded_columns(rng, 1024, 100_000 + 1024 * w, 101.0 + w)
+                   for w in range(7)]
+        for w in range(3):
+            rt.engine.search_columns_async(windows[w], 101.0 + w)
+            rt.engine.flush()
+        with pytest.raises(ChaosDeviceLostError) as lost:
+            rt.engine.search_columns_async(windows[3], 104.0)
+        mirror = rt.engine.waiting_columns()
+        quality = rt.engine.quality_checkpoint()
+        rt._record_engine_crash(104.0, lost.value)
+        rt._revive(104.0)
+        assert rt.placement == (0,)
+        assert type(rt.engine.kernels).__name__ == "KernelSet"
+        assert [e["to_devices"] for e in rt.failover_log] == [[0]]
+        assert rt.failover_log[0]["restored"] == len(mirror[0])
+        dense = GpuEngine(elo_cfg(), cfg.queues[0], device=cuda)
+        restore_columns(dense, *mirror, 104.0)
+        dense.quality_restore(quality)
+        assert_same_engines(rt.engine, dense)
+        for w in range(3, 7):
+            before = dict(ck.LAUNCHES)
+            captures = rt.engine.graph_report()["captures"] \
+                if cuda.type == "cuda" else 0
+            rt.engine.search_columns_async(windows[w], 101.0 + w)
+            (_, out), = rt.engine.flush()
+            if cuda.type == "cuda":
+                # A first-use capture runs the step once eagerly first.
+                warm = rt.engine.graph_report()["captures"] - captures
+                assert {k: ck.LAUNCHES[k] - before[k] - warm
+                        for k in before} == {"block_best": 1,
+                                             "quality_accum": 1}
+            dense.search_columns_async(windows[w], 101.0 + w)
+            (_, ref), = dense.flush()
+            assert_same_columnar(out, ref)
+        assert_same_engines(rt.engine, dense)
+        assert rt.engine.quality_report() == dense.quality_report()
+        assert rt.engine.quality_report()["samples"] > 0
+
+    asyncio.run(run())
+
+
+def test_each_placement_action_returns_the_old_engines_memory(cuda):
+    """Through the controller's audited path on ``("cuda:0",) × 4``:
+    migrate (0) → (1), promote to (1, 2), demote to (1), migrate back to
+    (0), config #1 at full width with 20k waiting. After each action the
+    old engine is freed (no reference survives its ``close()``), and once
+    back on one device the allocated bytes equal the boot's within 5 %
+    and the reserved bytes, cache emptied, are no more than the boot's
+    plus 5 %."""
+    import asyncio
+    import gc
+    import weakref
+
+    from matchmaking_tpu_torch.config import PlacementConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+
+    cfg = dataclasses.replace(elo_cfg(), placement=PlacementConfig(
+        interval_s=3600.0, devices=4, max_shard=2, cooldown_s=0.0))
+    app = MatchmakingApp(cfg, device=cuda, devices=(cuda,) * 4)
+    q = cfg.queues[0].name
+
+    def measure():
+        gc.collect()
+        _sync(cuda)
+        if cuda.type != "cuda":
+            return 0, 0
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    async def run():
+        await app.start()
+        try:
+            rt = app.runtime(q)
+            rng = np.random.default_rng(72)
+            rt.engine.restore_columns(sharded_columns(rng, 20_000, 0, 100.0),
+                                      100.0)
+            rt.engine.search_columns_async(
+                sharded_columns(rng, 1024, 100_000, 101.0), 101.0)
+            rt.engine.flush()
+            boot = measure()
+            steps = []
+            for kind, target in (("migrate", (1,)), ("promote", (1, 2)),
+                                 ("demote", (1,)), ("migrate", (0,))):
+                old = weakref.ref(rt.engine)
+                dec = await app.placement.force(kind, q, target)
+                assert dec["status"] == "applied", dec
+                assert rt.placement == target
+                steps.append(measure())
+                assert old() is None, f"{kind}: the old engine is alive"
+            return boot, steps
+        finally:
+            await app.stop()
+
+    boot, steps = asyncio.run(run())
+    if cuda.type == "cuda":
+        alloc, reserved = steps[-1]
+        assert abs(alloc - boot[0]) <= 0.05 * boot[0], (boot, steps)
+        assert reserved <= 1.05 * boot[1], (boot, steps)

@@ -11,7 +11,8 @@
   legacy RNG order, the curve and population shapes, the spec round trip,
   retry-on-shed and the conflicting-model refusal through the port's app.
 - Incidents build the port's ChaosConfig equal to the JAX one field by
-  field; a device-loss incident is refused with the module named.
+  field; a device-loss incident (a kind the JAX package lacks) raises the
+  JAX package's "unknown incident kind" error.
 - ``offered_load`` of each package through its own app, one seeded load:
   the published requests are equal (bodies, correlation ids, header keys
   and tiers; the ``x-deadline`` value is a wall-clock stamp and only its
@@ -218,9 +219,16 @@ def test_unknown_and_device_loss_incidents_are_refused():
     with pytest.raises(ValueError, match="unknown incident kind"):
         Scenario(name="bad", incidents=(Incident(kind="nope"),)
                  ).chaos_config("q")
-    with pytest.raises(ValueError, match="device-loss failover"):
+    # The JAX package has no device_lost incident kind: the port raises
+    # its error, word for word, on the same scenario.
+    with pytest.raises(ValueError) as theirs:
+        jax_scenario.Scenario(
+            name="dl", incidents=(jax_scenario.Incident(kind="device_lost"),)
+        ).chaos_config("q")
+    with pytest.raises(ValueError, match="unknown incident kind") as mine:
         Scenario(name="dl", incidents=(Incident(kind="device_lost"),)
                  ).chaos_config("q")
+    assert str(mine.value) == str(theirs.value)
 
 
 def test_scenario_spec_roundtrip_and_unknown_key_rejected():
