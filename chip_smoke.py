@@ -386,9 +386,29 @@ output file.
    and filters, the arbiter engaged with grants (off: none), a contended
    grant always to the least (tier, deadline) then waiting; requests/s
    and p50/p99 by tier.
+16. the port's own tools, run after phase 15. 16a: config #1's service
+   at full width with the journal on (phase 8's fsync "window") and an
+   in-process standby (phase 11's), the 100k recovered from a journal at
+   each start, phase 4's soak (16,384 requests in bursts of 512), once
+   under the port's ``testing/sanitizer.AsyncSanitizer`` at a 2.0 s stall
+   threshold and once without: the sanitized leg is clean
+   (``assert_clean``: no lock-order inversion, no await under
+   ``_pool_lock`` but the sanctioned ones, no loop stall, no settlement,
+   journal, replication or speculation finding); both legs answer every
+   request once, lose nobody, put nobody in two matches, launch
+   ``block_best`` and ``quality_accum`` once a window, and leave the
+   standby's shadow equal to the pool. Printed: the 5 slowest lock sites
+   (count, p50, p99, max ms), the longest loop stall, the settles the
+   twin counted, requests/s and p50/p99 of both legs. 16b: phase 4's
+   speculating bucketed service under the sanitizer: clean, and the
+   speculation twin saw at least one commit. 16c: the port's matchlint
+   (``analyze_repo()`` of this checkout: nothing outside its baseline,
+   no warning) and the model checker at the JAX package's single-queue
+   scope (clean, exhaustive; the states explored are printed), on this
+   machine's Python.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-15, the
+JSON summary of phases 3-16, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -3423,6 +3443,7 @@ async def service_overload(np, ck, mods, path, *, waiting, requests, burst,
     from matchmaking_tpu_torch.config import OverloadConfig
     from matchmaking_tpu_torch.service.app import MatchmakingApp
     from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.overload import stamp_deadline
 
     Config, _, RequestColumns, _ = mods
     cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
@@ -3474,8 +3495,9 @@ async def service_overload(np, ck, mods, path, *, waiting, requests, burst,
             for pid, body, tier, budget in traffic[b:b + burst]:
                 headers = {"x-tier": str(tier)}
                 if budget is not None:
-                    deadline_of[pid] = time.time() + budget
-                    headers["x-deadline"] = repr(deadline_of[pid])
+                    now = time.time()
+                    stamp_deadline(headers, now, budget)
+                    deadline_of[pid] = now + budget
                 t_pub[pid] = time.perf_counter()
                 app.broker.publish(cfg.queues[0].name, body, Properties(
                     reply_to=reply, correlation_id=pid, headers=headers))
@@ -8321,6 +8343,239 @@ def phase_placement(np, torch, ck, mods, phase_s):
     return res
 
 
+# ---- phase 16: the port's sanitizer, matchlint and model checker ------------
+
+
+def hold_rows(san, top=5):
+    """The sanitizer's ``top`` slowest lock sites (by max), the site
+    shortened to file:line (function)."""
+    return [dict(stats, site=site.replace(HERE + os.sep, ""))
+            for site, stats in san.hold_report(top=top).items()]
+
+
+async def sanitized_leg(np, ck, cfg, pop, *, waiting, requests, burst, san,
+                        what):
+    """One 16a leg: config #1's service with the journal and an in-process
+    standby, the 100k recovered at start, phase 4's soak. ``san`` is the
+    installed sanitizer or None. Every request answered once, nobody
+    lost or in two matches, one ``block_best`` and one ``quality_accum``
+    a window, the standby's shadow the pool."""
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.replication import ReplicationHub
+
+    queue = cfg.queues[0].name
+    reply = "san.replies"
+    hub = ReplicationHub(lease_s=LEASE_S)
+    app = MatchmakingApp(cfg, device="cuda", replication_hub=hub)
+    await app.start()
+    rt = app.runtime(queue)
+    meter = None
+    try:
+        rec = rt.last_recovery
+        if rec is None or rec["snapshot_players"] != waiting:
+            raise AssertionError(f"{what}: recovered {rec}")
+        standby = hub.standby(queue, owner="hostB")
+        standby.pump()  # the baseline, before the soak
+        meter = StandbyPump(rt, standby)
+        app.broker.declare_queue(reply)
+        alog = AnswerLog(app, reply)
+        reset_counts(ck)
+        seg = Segment(ck, rt.engine, 1)
+        t_pub: dict = {}
+        t_soak = time.perf_counter()
+        await publish_soak(app, queue, pop, waiting, waiting + requests,
+                           burst, reply, t_pub)
+        answers = await wait_answered(app, alog, set(t_pub))
+        soak_s = time.perf_counter() - t_soak
+        await settle(app)
+        await meter.quiesce()
+        standby.pump()
+        check_replication(app, rt, standby, what)
+        segment = seg.close()
+        launches = dict(ck.LAUNCHES)
+        repl = meter.summary()
+    finally:
+        if meter is not None:
+            meter.stop()
+        await app.stop()
+    matched, lost, dup = account_answers(
+        app, answers, set(pop.ids[:waiting].tolist()), set(t_pub), what)
+    if lost or dup:
+        raise AssertionError(f"{what}: lost {lost}, duplicated {dup}")
+    lat = [(alog.times[p][0] - t_pub[p]) * 1e3 for p in t_pub]
+    return {"sanitized": san is not None, "requests": requests,
+            "requests_per_s": requests / soak_s,
+            "latency_ms_p50": statistics.median(lat),
+            "latency_ms_p99": pct(lat, 0.99),
+            "players_matched": len(matched), "lost": lost,
+            "duplicated": dup, "windows": segment["windows"],
+            "segment": segment, "recovery_rto_ms": rec["rto_ms"],
+            "journal_commits": rt.journal_stats["commits"],
+            "replication": repl,
+            "launches": {k: launches[k] for k in ("block_best",
+                                                  "quality_accum")}}
+
+
+async def service_sanitized(np, ck, mods, path, *, waiting, requests, burst,
+                            seed):
+    """16a: config #1's service at full width with the journal on (phase
+    8's fsync "window") and an in-process standby (phase 11's), the 100k
+    recovered from a journal at each start, phase 4's soak: once under
+    the port's ``AsyncSanitizer(stall_threshold_s=2.0)``, then once
+    without. The sanitized leg must be clean (``assert_clean``); both
+    legs answer every request once, lose nobody and launch ``block_best``
+    and ``quality_accum`` once a window. Reports the 5 slowest lock sites,
+    the longest loop stall, the settles the twin counted, and requests/s
+    and p50/p99 of both legs."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from matchmaking_tpu_torch.config import ReplicationConfig
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.testing.sanitizer import AsyncSanitizer
+
+    Config, _, RequestColumns, _ = mods
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    pop = Population(np, rng, waiting + requests, t0, filters=False,
+                     glicko2=False)
+    work = tempfile.mkdtemp(prefix="mm_san_")
+    seed_dir = os.path.join(work, "seed")
+    res: dict = {"legs": []}
+    try:
+        # The 100k in a journal: restored, anchored, crashed.
+        cfg0 = durable_cfg(Config, path, journal_dir=seed_dir, fsync="none")
+        queue = cfg0.queues[0].name
+        if cfg0.batcher.max_batch > max(cfg0.engine.batch_buckets):
+            raise AssertionError("16a: a window would take several chunks")
+        app0 = MatchmakingApp(cfg0, device="cuda")
+        await app0.start()
+        app0.restore_columns(pop.columns(RequestColumns, app0.engine, 0,
+                                         waiting, t0, "san.replies"),
+                             pop.region[:waiting], pop.mode[:waiting], t0)
+        await app0.runtime(queue).compact_journal()
+        await app0.crash()
+        del app0
+        for i, on in enumerate((True, False)):
+            jdir = os.path.join(work, f"leg{i}")
+            shutil.copytree(seed_dir, jdir)
+            cfg = dataclasses.replace(
+                durable_cfg(Config, path, journal_dir=jdir, fsync="window"),
+                replication=ReplicationConfig(
+                    role="primary", owner="hostA", pump_interval_s=PUMP_S))
+            san = AsyncSanitizer(stall_threshold_s=2.0) if on else None
+            what = f"16a {'sanitized' if on else 'plain'}"
+            with (san.installed() if on else contextlib.nullcontext()):
+                leg = await sanitized_leg(
+                    np, ck, cfg, pop, waiting=waiting, requests=requests,
+                    burst=burst, san=san, what=what)
+            check_segment(leg["segment"], what)
+            if on:
+                san.assert_clean()
+                report = san.settlement_report()
+                leg.update(
+                    findings=len(san.findings),
+                    hold_sites=hold_rows(san),
+                    longest_stall_ms=san.longest_stall_s * 1e3,
+                    settles=report["settled"],
+                    open_credits=len(report["open_credits"]))
+                if not report["settled"]:
+                    raise AssertionError("16a: the twin saw no settle")
+            res["legs"].append(leg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    on, off = res["legs"]
+    res["requests_per_s_ratio"] = on["requests_per_s"] / off["requests_per_s"]
+    log(f"16a sanitized soak: {on['findings']} findings, "
+        f"{on['settles']} settles counted by the twin, longest loop stall "
+        f"{on['longest_stall_ms']:.1f} ms; sanitized "
+        f"{on['requests_per_s']:.0f} requests/s p50 "
+        f"{on['latency_ms_p50']:.1f} p99 {on['latency_ms_p99']:.1f} ms, "
+        f"plain {off['requests_per_s']:.0f} requests/s p50 "
+        f"{off['latency_ms_p50']:.1f} p99 {off['latency_ms_p99']:.1f} ms; "
+        f"{on['windows']} / {off['windows']} windows, lost 0")
+    for row in on["hold_sites"]:
+        log(f"16a hold site {row['site']}: count {row['count']}, p50 "
+            f"{row['p50_ms']} p99 {row['p99_ms']} max {row['max_ms']} ms")
+    return res
+
+
+async def service_sanitized_spec(ck, mods, path):
+    """16b: phase 4's speculating service (config #1 bucketed, the
+    speculation loop alone matches two far players) under the port's
+    sanitizer: clean, and its speculation twin saw at least one commit."""
+    from matchmaking_tpu_torch.testing.sanitizer import AsyncSanitizer
+
+    san = AsyncSanitizer(stall_threshold_s=2.0)
+    with san.installed():
+        run = await service_spec(ck, mods, path)
+    san.assert_clean()
+    if san.spec_commits < 1:
+        raise AssertionError("16b: the speculation twin saw no commit")
+    run.update(spec_commits_seen=san.spec_commits,
+               longest_stall_ms=san.longest_stall_s * 1e3,
+               hold_sites=hold_rows(san, top=3))
+    log(f"16b sanitized speculation: clean, {san.spec_commits} commits seen "
+        f"by the twin, launches {run['launches']} / "
+        f"{run['quality_launches']}")
+    return run
+
+
+def lint_and_modelcheck():
+    """16c: the port's matchlint over this checkout (nothing outside its
+    baseline, no warnings) and the model checker at the JAX package's
+    single-queue scope (clean and exhaustive), on this machine's
+    Python."""
+    from matchmaking_tpu_torch.analysis.engine import analyze_repo
+    from matchmaking_tpu_torch.analysis.modelcheck import (
+        ModelCheckConfig,
+        run_modelcheck,
+    )
+
+    t = time.perf_counter()
+    new, accepted, warnings = analyze_repo(HERE, use_cache=False)
+    lint_s = time.perf_counter() - t
+    if new or warnings:
+        raise AssertionError("16c matchlint: " + "; ".join(
+            [f.render() for f in new] + warnings))
+    rep = run_modelcheck(ModelCheckConfig(
+        queues=1, depth=4, admits=2, settles=1, faults=("expire", "drop"),
+        fault_budget=2))
+    if rep["modelcheck_violations"] or not rep["modelcheck_exhaustive"]:
+        raise AssertionError(f"16c model checker: {rep}")
+    res = {"python": sys.version.split()[0], "lint_s": lint_s,
+           "lint_baselined": len(accepted),
+           "modelcheck_states_explored": rep["modelcheck_states_explored"],
+           "modelcheck_nodes": rep["modelcheck_nodes"],
+           "modelcheck_s": rep["modelcheck_elapsed_s"]}
+    log(f"16c matchlint clean in {lint_s:.1f} s ({len(accepted)} "
+        f"baselined); model checker clean, "
+        f"{res['modelcheck_states_explored']} states explored "
+        f"({res['modelcheck_nodes']} schedules) in "
+        f"{res['modelcheck_s']:.2f} s on Python {res['python']}")
+    return res
+
+
+def phase_sanitized(np, ck, mods, phase_s):
+    """Phase 16's three parts, each's seconds into ``phase_s``."""
+    elo = "configs/elo_1v1.json"
+    res = {}
+    t = time.perf_counter()
+    res["16a"] = asyncio.run(service_sanitized(
+        np, ck, mods, elo, waiting=100_000, requests=16_384, burst=512,
+        seed=36))
+    phase_s["16a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["16b"] = asyncio.run(service_sanitized_spec(ck, mods, elo))
+    phase_s["16b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["16c"] = lint_and_modelcheck()
+    phase_s["16c"] = time.perf_counter() - t
+    return res
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -8699,6 +8954,20 @@ def main(argv) -> int:
     for name, counts in phase15.items():
         launches[name] = counts["block_best"]
 
+    # 16. the port's tools on the card: config #1's journaled, replicated
+    #     soak under the port's sanitizer and without (16a), the
+    #     speculating bucketed service under it (16b), the port's matchlint
+    #     and model checker on this machine's Python (16c)
+    p16 = phase_sanitized(np, ck, mods, phase_s)
+    on16, off16 = p16["16a"]["legs"]
+    phase16 = {"sanitized": on16["launches"],
+               "sanitized_off": off16["launches"],
+               "sanitized_spec": {
+                   "block_best": p16["16b"]["launches"],
+                   "quality_accum": p16["16b"]["quality_launches"]}}
+    for name, counts in phase16.items():
+        launches[name] = counts["block_best"]
+
     phase14 = {k: v for k, v in shard_run["launches"].items()
                if not k.startswith("stand_in_")}
     phase14["bucket_frontier"] = frontier_run["launches"]
@@ -8738,7 +9007,8 @@ def main(argv) -> int:
                      + sum(c["block_best"] for c in phase12.values())
                      + sum(c["block_best"] for c in phase13.values())
                      + sum(phase14.values())
-                     + sum(c["block_best"] for c in phase15.values()))
+                     + sum(c["block_best"] for c in phase15.values())
+                     + sum(c["block_best"] for c in phase16.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -8752,7 +9022,8 @@ def main(argv) -> int:
                   + sum(c["quality_accum"] for c in phase11.values())
                   + sum(c["quality_accum"] for c in phase12.values())
                   + sum(c["quality_accum"] for c in phase13.values())
-                  + sum(c["quality_accum"] for c in phase15.values()))
+                  + sum(c["quality_accum"] for c in phase15.values())
+                  + sum(c["quality_accum"] for c in phase16.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -8811,7 +9082,8 @@ def main(argv) -> int:
             **{name: c["quality_accum"] for name, c in phase11.items()},
             **{name: c["quality_accum"] for name, c in phase12.items()},
             **{name: c["quality_accum"] for name, c in phase13.items()},
-            **{name: c["quality_accum"] for name, c in phase15.items()}},
+            **{name: c["quality_accum"] for name, c in phase15.items()},
+            **{name: c["quality_accum"] for name, c in phase16.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -8960,6 +9232,12 @@ def main(argv) -> int:
                       if k != "launches"},
             "arbiter": [{k: v for k, v in leg.items() if k != "launches"}
                         for leg in p15["15c"]]},
+        "sanitized": {
+            "soak": [{k: v for k, v in leg.items()
+                      if k not in ("launches", "segment", "replication")}
+                     for leg in (on16, off16)],
+            "spec_commits_seen": p16["16b"]["spec_commits_seen"],
+            "lint_and_modelcheck": p16["16c"]},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -9002,7 +9280,7 @@ def main(argv) -> int:
                        "sharded": shard_run, "bucket_frontier": frontier_run,
                        "sharded_teams": shard_teams,
                        "process_mesh": process_run,
-                       "placement": p15,
+                       "placement": p15, "sanitized": p16,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

@@ -41,6 +41,10 @@ from matchmaking_tpu_torch.service.contract import (
 )
 
 
+# The same contract as GpuEngine's (the service binds either behind the
+# same _pool_lock): the host oracle's tables are just as unsynchronized.
+# externally-serialized-by: _pool_lock
+# lock-free: pool_size, inflight, pool_tier_counts, deadline_count, util_report, span_report, quality_report
 class CpuEngine(Engine):
     def __init__(self, cfg: Config, queue: QueueConfig):
         super().__init__(cfg, queue)

@@ -269,6 +269,13 @@ class _Pending:
     marks: list[tuple[str, float]] = field(default_factory=list)
 
 
+# The concurrency contract, machine-checkable: this engine has NO internal
+# locks — every public entry runs on the event loop with the owning queue
+# runtime's _pool_lock held. The lock-free list names the safe point reads
+# (attribute and len reads, no mirror mutation) the service makes off the
+# lock: admission occupancy, backpressure polling, /metrics scrapes.
+# externally-serialized-by: _pool_lock
+# lock-free: pool_size, inflight, pool_tier_counts, deadline_count, util_report, span_report, quality_report, formation_report, spec_report
 class GpuEngine(Engine):
     #: Seconds (in the callers' ``now``) a delegated team/role queue must
     #: go without a device-blocking arrival, with none left waiting,
@@ -1692,8 +1699,9 @@ class GpuEngine(Engine):
                 qs_l = q_slot[hit].tolist()
                 cs_l = c_slot[hit].tolist()
                 for qs, cs, d in zip(qs_l, cs_l, result[2][hit].tolist()):
+                    # matchlint: ignore[perf] object 1v1 path — per-match materialization is its contract; the columnar hot path is scan-free
                     req_q = self.pool.request_at(qs)
-                    req_c = self.pool.request_at(cs)
+                    req_c = self.pool.request_at(cs)  # matchlint: ignore[perf] same object-path pair
                     matched_ids.add(req_q.id)
                     matched_ids.add(req_c.id)
                     qual = scoring.quality(
@@ -1757,18 +1765,19 @@ class GpuEngine(Engine):
                 # enqueue stamp (0 where unstamped).
                 wait_a = np.where(enq_a != 0.0, np.maximum(0.0, now - enq_a), 0.0)
                 wait_b = np.where(enq_b != 0.0, np.maximum(0.0, now - enq_b), 0.0)
-                for name, col in (
-                        ("m_id_a", pool.m_id[qs]), ("m_id_b", pool.m_id[cs]),
-                        ("m_match_id", new_match_ids(qs.size)),
-                        ("m_dist", d), ("m_quality", quality),
-                        ("m_reply_a", pool.m_reply[qs]),
-                        ("m_reply_b", pool.m_reply[cs]),
-                        ("m_corr_a", pool.m_corr[qs]),
-                        ("m_corr_b", pool.m_corr[cs]),
-                        ("m_enq_a", enq_a), ("m_enq_b", enq_b),
-                        ("m_wait_a", wait_a), ("m_wait_b", wait_b),
-                        ("m_tier_a", pool.m_tier[qs]),
-                        ("m_tier_b", pool.m_tier[cs])):
+                chunk = {
+                    "m_id_a": pool.m_id[qs], "m_id_b": pool.m_id[cs],
+                    "m_match_id": new_match_ids(qs.size),
+                    "m_dist": d, "m_quality": quality,
+                    "m_reply_a": pool.m_reply[qs],
+                    "m_reply_b": pool.m_reply[cs],
+                    "m_corr_a": pool.m_corr[qs],
+                    "m_corr_b": pool.m_corr[cs],
+                    "m_enq_a": enq_a, "m_enq_b": enq_b,
+                    "m_wait_a": wait_a, "m_wait_b": wait_b,
+                    "m_tier_a": pool.m_tier[qs],
+                    "m_tier_b": pool.m_tier[cs]}
+                for name, col in chunk.items():
                     setattr(out, name, np.concatenate([getattr(out, name), col]))
                 if self._quality is None:
                     # No device accumulator (a sharded pool): the host
@@ -1821,6 +1830,7 @@ class GpuEngine(Engine):
             matched_ids: set[str] = set()
             for k, m in enumerate(hit.tolist()):
                 row = slots[m].tolist()
+                # matchlint: ignore[perf] device team path — O(team) member materialization per formed match is its contract
                 members = [self.pool.request_at(s) for s in row]
                 matched_ids.update(r.id for r in members)
                 if is_role:

@@ -186,6 +186,7 @@ class IngressShards:
         burst = DecodedBurst.empty(n)
         rejects_i: list[tuple[int, str, str]] = []
         fallback: list[int] = []
+        # matchlint: ignore[blocking-call] the native codec's numpy status column: host memory, no device tensor
         for i, st in enumerate(status_n.tolist()):
             if st == codec.OK:
                 burst.ok[i] = True
@@ -216,6 +217,7 @@ class IngressShards:
                 rejects_i.extend(self._fallback_slice(burst, deliveries,
                                                       fallback))
         kept: list[Delivery] = []
+        # matchlint: ignore[blocking-call] the burst's numpy ok mask: host memory, no device tensor
         for i, (d, good) in enumerate(zip(deliveries, burst.ok.tolist())):
             if good:
                 d.row = (burst, i)

@@ -132,6 +132,7 @@ async def offered_load(app, queue: str, *, rate: float, duration: float,
     per_tier: dict[int, dict] = {}
     tier_keys: "tuple[int, ...]" = tuple(tier_mix or ())
     if arrivals is not None and arrivals.stamp_tiers:
+        # matchlint: ignore[blocking-call] the scenario's numpy tier column: host memory, no device tensor
         tier_keys = tuple(sorted(set(arrivals.tier.tolist())))
     if tier_keys:
         per_tier = {t: {**{name: 0 for name, _ in _STATUS_PROBES},

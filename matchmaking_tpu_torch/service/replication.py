@@ -98,6 +98,7 @@ def baseline_payload(rows: list[list[Any]],
     return ('{"rows":[' + ",".join(chunks) + "]," + tail[1:]).encode("utf-8")
 
 
+# protocol-monotone: epoch
 class _Lease:
     __slots__ = ("owner", "epoch", "deadline")
 
@@ -207,6 +208,7 @@ class LeaseAuthority:
             return 0 if lease is None else lease.epoch
 
 
+# protocol-monotone: max_delivered, _acked
 class InProcReplicationLink:
     """The in-process stream transport: at-least-once and not in order
     (a record can be dropped, duplicated, delayed or held by a partition),
@@ -326,6 +328,7 @@ class InProcReplicationLink:
         return self._acked
 
 
+# protocol-monotone: applied_seq, last_seq
 class StandbyApplier:
     """The standby of one queue: applies the stream into a shadow
     ``RecoveredQueue`` in seq order and acks the highest seq applied
@@ -349,6 +352,7 @@ class StandbyApplier:
         self._ahead: dict[int, tuple[int, int, bytes]] = {}
         self.counters = collections.Counter()
 
+    # protocol-effect: standby_ack bounded-by applied_seq
     def pump(self) -> int:
         """Drain the link, apply in order, ack the watermark; returns the
         records applied."""
@@ -422,6 +426,7 @@ class StandbyApplier:
             sh.clean = False
             sh.admission = json.loads(payload.decode("utf-8"))
         sh.last_seq = max(sh.last_seq, seq)
+        # protocol-rebase: callers admit only the contiguous next seq or a re-basing snapshot
         self.applied_seq = seq
         self.counters["applied"] += 1
 
@@ -442,6 +447,8 @@ class StandbyApplier:
         return new_epoch
 
 
+# protocol-role: primary -> fenced
+# protocol-monotone: sent_seq, acked_seq
 class QueueReplication:
     """The primary's side of one queue (``_QueueRuntime.replication``):
     keeps the unacked tail for retransmission, the sent and acked
@@ -464,11 +471,12 @@ class QueueReplication:
         self.metrics = metrics
         self.events = events
         self.role = "primary"
-        #: seq → (record type, payload), guarded by ``_lock``.
+        #: seq → (record type, payload).
+        # guarded-by: _lock
         self._unacked: collections.OrderedDict[int, tuple[int, bytes]] = (
             collections.OrderedDict())
-        #: seq → send time (the ack-lag histogram), guarded by ``_lock``.
-        self._send_t: dict[int, float] = {}
+        #: seq → send time (the ack-lag histogram).
+        self._send_t: dict[int, float] = {}  # guarded-by: _lock
         self.sent_seq = 0
         self.acked_seq = 0
         #: Sends that raised (logged; the record stays in the tail).
@@ -550,6 +558,7 @@ class QueueReplication:
 
     # ---- the pump ----------------------------------------------------------
 
+    # protocol-effect: lease_renewal requires-check renew
     def pump(self, now: float) -> None:
         """One sender tick (``now``: ``time.monotonic()``): take the
         standby's ack, retransmit the unacked tail after two pumps without

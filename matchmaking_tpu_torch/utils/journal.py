@@ -243,6 +243,7 @@ def _verify_snapshot(path: str) -> bool:
         return False
 
 
+# protocol-monotone: seq, synced_seq, last_seq
 class PoolJournal:
     """One queue's write-ahead journal. Every mutation runs under an
     internal ``threading.Lock``: appends come from the event loop, commits
@@ -270,24 +271,24 @@ class PoolJournal:
         self.compact_bytes = max(1, compact_bytes)
         self.keep_snapshots = max(1, keep_snapshots)
         self._lock = threading.Lock()
-        self._buf: list[bytes] = []
-        self._closed = False
+        self._buf: list[bytes] = []  # guarded-by: _lock
+        self._closed = False  # guarded-by: _lock
         #: Bytes written out but not yet fsynced: what a policy commit
         #: still owes.
-        self._unsynced = False
-        self._last_fsync = time.monotonic()
+        self._unsynced = False  # guarded-by: _lock
+        self._last_fsync = time.monotonic()  # guarded-by: _lock
         #: Monotone record sequence (the replay order).
-        self.seq = 0
+        self.seq = 0  # guarded-by: _lock
         #: Highest seq covered by an fsync (seq - synced_seq records could
         #: still be lost to a host loss).
-        self.synced_seq = 0
+        self.synced_seq = 0  # guarded-by: _lock
         #: Live-segment size (the compaction trigger).
-        self.segment_records = 0
-        self.segment_bytes = 0
+        self.segment_records = 0  # guarded-by: _lock
+        self.segment_bytes = 0  # guarded-by: _lock
         #: Lifetime file bytes written and logical payload bytes.
-        self.bytes_written = 0
-        self.payload_bytes = 0
-        self._fd: int | None = None
+        self.bytes_written = 0  # guarded-by: _lock
+        self.payload_bytes = 0  # guarded-by: _lock
+        self._fd: int | None = None  # guarded-by: _lock
         #: Replication stream (None: off): ``tap(seq, rtype, payload)`` for
         #: every sealed record, appends and compaction carries alike.
         self.tap = None
@@ -424,6 +425,7 @@ class PoolJournal:
         self.segment_bytes = len(frame)
         self.bytes_written += len(frame)
 
+    # protocol-effect: journal_append requires-fence fence
     def _append(self, rtype: int, payload: bytes, logical: int,
                 writeout: bool = False) -> int:
         """Assign the next seq, frame the record and buffer it; with
@@ -483,6 +485,7 @@ class PoolJournal:
     def dirty(self) -> bool:
         return bool(self._buf)
 
+    # holds-lock: _lock
     def _writeout_locked(self) -> None:
         """Write the frame buffer in one os.write (the caller holds
         ``_lock``)."""
@@ -550,6 +553,7 @@ class PoolJournal:
             return self.seq, snapshot_path(self.directory, self.queue,
                                            self.seq)
 
+    # protocol-effect: journal_append requires-fence fence
     def compact_finish(self, anchor_seq: int, snap_path: str,
                        carry_terminals: list[tuple[str, bytes, float]] = (),
                        admission: dict[str, Any] | None = None) -> None:

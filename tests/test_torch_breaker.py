@@ -259,10 +259,15 @@ async def _crash_storm(app, props, count):
 
 
 def test_crash_storm_transcript_equals_jax_app():
+    from test_torch_sanitizer import port_sanitized
+
     port_cfg, jax_cfg = _storm_cfgs()
-    app = MatchmakingApp(port_cfg, device="cpu")
-    mine = asyncio.run(_crash_storm(app, Properties,
-                                    lambda k: app.counters.get(k, 0)))
+    # The port's storm under the port's sanitizer, every check on, as the
+    # JAX twin (tests/test_chaos.py) runs under JAX's.
+    with port_sanitized():
+        app = MatchmakingApp(port_cfg, device="cpu")
+        mine = asyncio.run(_crash_storm(app, Properties,
+                                        lambda k: app.counters.get(k, 0)))
     japp = JaxApp(jax_cfg)
     theirs = asyncio.run(_crash_storm(
         japp, JaxProperties, lambda k: japp.metrics.counters.get(k) or 0))

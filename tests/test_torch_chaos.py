@@ -230,8 +230,14 @@ async def _scripted(pkg):
 
 
 def test_scripted_broker_faults_equal_jax_app_and_replay():
-    first = asyncio.run(_scripted("port"))
-    second = asyncio.run(_scripted("port"))
+    from test_torch_sanitizer import port_sanitized
+
+    # The port's runs under the port's sanitizer, every check on, as the
+    # JAX twin (tests/test_chaos.py) runs under JAX's.
+    with port_sanitized():
+        first = asyncio.run(_scripted("port"))
+    with port_sanitized():
+        second = asyncio.run(_scripted("port"))
     theirs = asyncio.run(_scripted("jax"))
     assert first == second
     assert first == theirs

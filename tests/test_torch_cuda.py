@@ -2443,3 +2443,91 @@ def test_each_placement_action_returns_the_old_engines_memory(cuda):
         alloc, reserved = steps[-1]
         assert abs(alloc - boot[0]) <= 0.05 * boot[0], (boot, steps)
         assert reserved <= 1.05 * boot[1], (boot, steps)
+
+
+def test_sanitized_columnar_soak_is_clean_on_the_card(cuda, tmp_path):
+    """A short config #1 soak on the card (full pool width, the journal on
+    with fsync "window", an in-process standby) under the port's async
+    sanitizer, every check on, at the JAX fixture's 2.0 s stall threshold:
+    no finding (lock order, awaits under ``_pool_lock`` other than the
+    sanctioned backpressure wait, loop stalls, the settlement, journal,
+    replication and speculation twins), every request answered, nobody
+    in two matches, the standby's shadow the pool, one ``block_best`` and
+    one ``quality_accum`` launch a window."""
+    import asyncio
+    import json
+
+    from matchmaking_tpu_torch.config import (
+        DurabilityConfig,
+        ReplicationConfig,
+    )
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+    from matchmaking_tpu_torch.service.replication import ReplicationHub
+    from matchmaking_tpu_torch.testing.sanitizer import AsyncSanitizer
+
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    cfg = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
+        durability=DurabilityConfig(journal_dir=str(tmp_path / "j"),
+                                    fsync="window"),
+        replication=ReplicationConfig(role="primary", owner="hostA",
+                                      pump_interval_s=0.02))
+    q = cfg.queues[0].name
+    n, burst = 4096, 512
+    rng = np.random.default_rng(74)
+    bodies = [json.dumps({"id": f"s{i}", "rating": float(r)}).encode()
+              for i, r in enumerate(rng.normal(1500.0, 300.0, n))]
+
+    async def run():
+        hub = ReplicationHub(lease_s=60.0)
+        app = MatchmakingApp(cfg, device=cuda, replication_hub=hub)
+        await app.start()
+        app.broker.declare_queue("r")
+        rt = app.runtime(q)
+        standby = hub.standby(q, owner="hostB")
+        try:
+            cuda_kernels.LAUNCHES.update(block_best=0, quality_accum=0)
+            windows0 = rt.engine.spans["windows"]
+            for b in range(0, n, burst):
+                for i in range(b, b + burst):
+                    app.broker.publish(q, bodies[i], Properties(
+                        reply_to="r", correlation_id=f"s{i}"))
+                await asyncio.sleep(0.005)
+                standby.pump()
+            answers: dict = {}
+            for _ in range(3000):
+                while (d := await app.broker.get("r", timeout=0.001)):
+                    answers.setdefault(d.properties.correlation_id,
+                                       []).append(json.loads(d.body))
+                standby.pump()
+                if (len(answers) == n and rt.engine.inflight() == 0
+                        and rt._settler is None and rt.replication.quiescent):
+                    break
+                await asyncio.sleep(0.01)
+            standby.pump()
+            return (answers, rt.engine.spans["windows"] - windows0,
+                    dict(cuda_kernels.LAUNCHES), set(standby.shadow.waiting),
+                    set(rt.engine.pool._slot_of), app.faults())
+        finally:
+            await app.stop()
+
+    san = AsyncSanitizer(stall_threshold_s=2.0)
+    with san.installed():
+        answers, windows, launches, shadow, pool, faults = asyncio.run(run())
+    san.assert_clean()
+    assert faults == {}
+    assert len(answers) == n
+    matched: dict = {}
+    for cid, rs in answers.items():
+        assert [r["status"] for r in rs] in (
+            ["queued"], ["matched"], ["queued", "matched"]), (cid, rs)
+        for r in rs:
+            if r["status"] == "matched":
+                assert r["player_id"] not in matched
+                matched[r["player_id"]] = r["match"]["match_id"]
+    assert matched and shadow == pool
+    assert windows > 0
+    assert launches == {"block_best": windows, "quality_accum": windows}
+    assert san.settlement_report()["settled"] >= n

@@ -37,6 +37,27 @@ def _forbidden(name: str) -> bool:
             or name == "matchmaking_tpu" or name.startswith("matchmaking_tpu."))
 
 
+#: The port's own analyzer, sanitizer and model checker: tools that check
+#: the port, importing neither jax nor anything of the JAX package.
+NEW_TOOL_MODULES = (
+    "matchmaking_tpu_torch.analysis",
+    "matchmaking_tpu_torch.analysis.__main__",
+    "matchmaking_tpu_torch.analysis.blocking",
+    "matchmaking_tpu_torch.analysis.core",
+    "matchmaking_tpu_torch.analysis.dataflow",
+    "matchmaking_tpu_torch.analysis.determinism",
+    "matchmaking_tpu_torch.analysis.engine",
+    "matchmaking_tpu_torch.analysis.lifecycle",
+    "matchmaking_tpu_torch.analysis.locks",
+    "matchmaking_tpu_torch.analysis.modelcheck",
+    "matchmaking_tpu_torch.analysis.perf",
+    "matchmaking_tpu_torch.analysis.protocol",
+    "matchmaking_tpu_torch.analysis.speculation",
+    "matchmaking_tpu_torch.testing.sanitizer",
+    "matchmaking_tpu_torch.testing.scheduler",
+)
+
+
 def test_every_submodule_is_listed():
     mods = _modules()
     for must in ("matchmaking_tpu_torch.config",
@@ -63,6 +84,7 @@ def test_every_submodule_is_listed():
                  "matchmaking_tpu_torch.net.failover_proc",
                  "matchmaking_tpu_torch.testing.drain",
                  "matchmaking_tpu_torch.testing.fake_pika",
+                 *NEW_TOOL_MODULES,
                  "matchmaking_tpu_torch.scenario",
                  "matchmaking_tpu_torch.control",
                  "matchmaking_tpu_torch.control.autotune",
@@ -141,6 +163,25 @@ def test_the_sharded_modules_import_no_jax(module):
     """The sharded pool and the multi-host runtime import neither jax nor
     the JAX package (whose twins of them are jax's ``shard_map`` and
     ``jax.distributed``), in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'matchmaking_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", NEW_TOOL_MODULES)
+def test_the_tool_modules_import_no_jax(module):
+    """Each of the port's tools alone, in a fresh interpreter, loads
+    neither jax nor the JAX package (the sanitizer's twins patch the
+    port's own classes; the model checker drives the port's objects)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -445,9 +445,14 @@ def test_service_answers_equal_jax_app_under_overload(batch):
     the same requests are shed (by the credit cap, the waiting cap and
     the debt, with their tiers), expired (at receive and by the sweep),
     queued and matched, to the same partners."""
+    from test_torch_sanitizer import port_sanitized
+
     bursts = _bursts()
-    app = _port_app(batch)
-    port = asyncio.run(_serve(app, Properties, bursts))
+    # The port's soak under the port's sanitizer, every check on, as the
+    # JAX twin (tests/test_overload.py) runs under JAX's.
+    with port_sanitized():
+        app = _port_app(batch)
+        port = asyncio.run(_serve(app, Properties, bursts))
     rt = app.runtime(QUEUE)
     assert rt.admission.inflight() == 0
     assert app.faults() == {}

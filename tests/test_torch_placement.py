@@ -20,11 +20,12 @@ compared where both give one.
   (bindings, counters, decision kinds and statuses, snapshot keys), and
   each app is held to the script's own invariants (every player matched
   or waiting, nobody answered twice).
-- Four scripts run under the JAX package's async sanitizer. Its lock-order
-  and loop-stall checks see the port's ``asyncio.Lock``s; its settlement
-  hooks patch the JAX package's own broker and admission classes, so for
-  the port the settlement is asserted directly: no delivery settled twice,
-  nothing left unacked, no admission credit held.
+- Four scripts run under each package's own async sanitizer, every check
+  on: the port's app under the port's (its settlement twin patches the
+  port's broker and admission classes, its await-under-lock check sees the
+  port's ``_pool_lock``), the JAX app under JAX's. For the port the
+  settlement is also asserted directly: nothing left unacked, no admission
+  credit held.
 """
 
 import asyncio
@@ -56,6 +57,8 @@ from matchmaking_tpu_torch.engine.interface import make_engine
 from matchmaking_tpu_torch.service.app import MatchmakingApp
 from matchmaking_tpu_torch.service.client import MatchmakingClient
 from matchmaking_tpu_torch.service.contract import SearchRequest
+from matchmaking_tpu_torch.testing.sanitizer import \
+    AsyncSanitizer as PortSanitizer
 
 torch.set_num_threads(1)
 
@@ -104,85 +107,40 @@ def _decisions(rows):
 # ---- the sanitizer and the settlement, per package ---------------------------
 
 
-class Settlement:
-    """The port's settlement, checked directly (the JAX sanitizer's rule):
-    a settle of a delivery the consumer holds unacked is its one settle; a
-    settle of a delivery already settled, with no redelivery in between,
-    is a double settle. After the script: nothing left unacked on any
-    queue's consumer, and no admission credit held."""
-
-    def __init__(self, app):
-        self.app = app
-        self.settles = 0
-        self.doubles: list = []
-        self._settled: set = set()
-        broker = app.broker
-        real_ack, real_nack = broker.ack, broker.nack
-
-        def ack(tag, dtag):
-            self._count(tag, dtag)
-            real_ack(tag, dtag)
-
-        def nack(tag, dtag, requeue=True):
-            self._count(tag, dtag)
-            real_nack(tag, dtag, requeue)
-
-        broker.ack, broker.nack = ack, nack
-
-    def _count(self, tag, dtag):
-        consumer = self.app.broker._consumers.get(tag)
-        if consumer is None:
-            return  # a late settle after the cancel: a no-op
-        if dtag in consumer.unacked:
-            self.settles += 1
-            self._settled.add((tag, dtag))
-        elif (tag, dtag) in self._settled:
-            self.doubles.append((tag, dtag))
-
-    def check(self):
-        assert not self.doubles, f"deliveries settled twice: {self.doubles}"
-        assert self.settles, "no delivery was settled"
-        for rt in self.app._runtimes.values():
-            consumer = self.app.broker._consumers.get(rt._tag)
-            assert consumer is not None and not consumer.unacked, (
-                rt.queue_cfg.name, sorted(consumer.unacked)
-                if consumer is not None else None)
-            if rt.admission is not None:
-                assert rt.admission.inflight() == 0
-
-
 @contextlib.contextmanager
 def sanitized(pkg):
-    """The JAX package's sanitizer around one app's script: every check
-    for the JAX app; for the port's app its lock-order and loop-stall
-    checks (they instrument the port's ``asyncio.Lock``s)."""
-    san = AsyncSanitizer(stall_threshold_s=2.0)
+    """Each package's own sanitizer around its app's script, every check
+    on (lock order, await under a lock, loop stalls, the settlement,
+    journal, replication and speculation twins), asserted clean."""
+    cls = AsyncSanitizer if pkg == "jax" else PortSanitizer
+    san = cls(stall_threshold_s=2.0)
     with san.installed():
         yield san
-    if pkg == "jax":
-        san.assert_clean()
-    else:
-        found = [f for f in san.findings
-                 if f.kind in ("lock-order-inversion", "loop-stall")]
-        assert not found, found
+    san.assert_clean()
 
 
 async def _settle_check(pkg, app, san):
-    """The settlement after a script drained: the sanitizer's report for
-    the JAX app, the direct check for the port's."""
+    """The settlement after a script drained: no admission credit open in
+    the sanitizer's ledger; for the port also that deliveries were settled
+    at all, nothing is left unacked on any queue's consumer and every
+    admission controller is back to zero in flight (a double settle is
+    the twin's finding, raised by ``assert_clean``)."""
     if pkg == "jax":
         assert san.settlement_report()["open_credits"] == []
-    else:
-        for _ in range(200):
-            if app.broker.handlers_idle():
-                break
-            await asyncio.sleep(0.01)
-        app._settlement.check()
-
-
-def _track(pkg, app):
-    if pkg == "port":
-        app._settlement = Settlement(app)
+        return
+    for _ in range(200):
+        if app.broker.handlers_idle():
+            break
+        await asyncio.sleep(0.01)
+    report = san.settlement_report()
+    assert report["open_credits"] == [] and report["settled"] > 0, report
+    for rt in app._runtimes.values():
+        consumer = app.broker._consumers.get(rt._tag)
+        assert consumer is not None and not consumer.unacked, (
+            rt.queue_cfg.name, sorted(consumer.unacked)
+            if consumer is not None else None)
+        if rt.admission is not None:
+            assert rt.admission.inflight() == 0
 
 
 # ---- state model -----------------------------------------------------------
@@ -501,7 +459,6 @@ async def _live_migration(pkg):
     app = _app(pkg, _MIG)
     with sanitized(pkg) as san:
         await app.start()
-        _track(pkg, app)
         try:
             rt = app.runtime("mig.q")
             assert rt.placement == (0,)
@@ -565,7 +522,6 @@ async def _promote_demote(pkg):
     app = _app(pkg, _EL)
     with sanitized(pkg) as san:
         await app.start()
-        _track(pkg, app)
         try:
             rt = app.runtime("el.q")
             S, V = m["policy"].QueueSignals, m["policy"].SignalView
@@ -661,7 +617,6 @@ async def _chaos_migration(pkg):
     app = _app(pkg, _CX)
     with sanitized(pkg) as san:
         await app.start()
-        _track(pkg, app)
         try:
             rt = app.runtime("cx.q")
             client = PKGS[pkg]["Client"](app.broker, "cx.q")
@@ -813,7 +768,6 @@ async def _colocated(pkg):
     app = _app(pkg, _AR)
     with sanitized(pkg) as san:
         await app.start()
-        _track(pkg, app)
         try:
             ctrl = app.placement
             boot = {q: app.runtime(q).placement for q in ("ar.a", "ar.b")}

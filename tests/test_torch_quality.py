@@ -604,6 +604,15 @@ async def wait_for(cond, seconds=10.0):
 
 
 async def test_service_ledger_counts_every_matched_player_across_a_revive():
+    """Under the port's sanitizer, every check on, as the JAX twin
+    (tests/test_quality.py's chaos crash revive) runs under JAX's."""
+    from test_torch_sanitizer import port_sanitized
+
+    with port_sanitized():
+        await _ledger_across_a_revive()
+
+
+async def _ledger_across_a_revive():
     cfg = Config(engine=EngineConfig(pool_capacity=1024, pool_block=256,
                                      batch_buckets=(16, 64)),
                  queues=(QueueConfig(),),
