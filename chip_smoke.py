@@ -405,10 +405,33 @@ output file.
    (``analyze_repo()`` of this checkout: nothing outside its baseline,
    no warning) and the model checker at the JAX package's single-queue
    scope (clean, exhaustive; the states explored are printed), on this
-   machine's Python.
+   machine's Python; the matchlint's trace-time ``recompile`` and
+   ``device`` rules trace the captured steps on the CPU.
+17. the trace gate and the graphs on the card, run after phase 16. 17a:
+   the ``recompile`` and ``device`` trace-time rules with the traces made
+   on the card (``--trace-device cuda``): every captured step family
+   traced twice to equal graph code, with no finding; each card trace's
+   operators equal the CPU trace's, node for node, and hold the kernel
+   operators (``mm_torch::block_best``, ``quality_accum``) the family
+   names. 17b: the captured-graph audit (``GpuEngine.graph_audit``: each
+   graph captured again with its nodes kept and read back as DOT): config
+   #1 at full width warmed up at every bucket, its dense, no-filter and
+   rescan graphs, pruned (PRUNE), bucketed with speculation (BUCKETED:
+   its three and ``spec``), config #3's team graph and config #5's role
+   graph: each graph's ``prep_kernel``, ``block_best_kernel`` and
+   ``quality_accum_kernel`` nodes equal the launches a replay counts, no
+   host node, no copy to the host; each graph's kernel and memset nodes
+   are printed (config #1 dense at B = 1,024 beside phase 3's profiled
+   kernels a window). 17c: ``entry()``'s step captured and replayed, bit-equal
+   to its eager call on the card and to a CPU run; ``dryrun_multichip(n,
+   devices=("cuda:0",) * n)`` for n = 1, 2, 4, 8 prints the line of the
+   CPU run. 17d: the offline operator tools on this run's artifacts:
+   ``scripts/torch_journal_dump.py`` on 16a's plain leg's journal (intact,
+   exit 0; ``--json``), ``scripts/torch_postmortem.py`` on phase 7's
+   ``breaker_trip`` bundle (exit 0; ``--json``, no problem).
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-16, the
+JSON summary of phases 3-17, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -989,6 +1012,13 @@ def phase_quality(torch, np, ck, kernels, spec, device, baseline=None):
         res["matches_by_bucket"][b] = matches
         if b == FULL_B:
             res["plain_ms"] = time_ms(torch, lambda: plain(scratch), reps=20)
+            # The operator's binding lookup alone (a hit), on the arguments
+            # as its CUDA kernel gets them: part of the host µs above.
+            consts = (5.0, 250.0, list(acc.rating_edges), acc.n_quality,
+                      list(acc.wait_edges))
+            res["bind_us"] = host_us(torch, lambda: ck._bind(
+                scratch.flat, pool["rating"], pool["enqueue_t"],
+                pool["threshold"], *consts))
             # Bytes: the result read once, three gathered columns at both
             # sides' slots of every match, the state read and written.
             nbytes = 3 * b * 4 + 2 * matches * 3 * 4 + 2 * acc.size * 4
@@ -1023,7 +1053,8 @@ def phase_quality(torch, np, ck, kernels, spec, device, baseline=None):
         + f"; empty launch ms {res['empty_ms_by_bucket']}, host µs "
         f"{res['empty_host_us_by_bucket']}; 32 edges {res['ms_32_edges']:.5f}"
         f" ms (plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.7f} ms"
-        f" by {res['bound_by']} at B={FULL_B}); matches "
+        f" by {res['bound_by']} at B={FULL_B}); the binding lookup "
+        f"{res['bind_us']:.2f} µs a call; matches "
         f"{res['matches_by_bucket']}; max sum error {max_err}")
     return res, max_err
 
@@ -3606,7 +3637,8 @@ async def service_overload(np, ck, mods, path, *, waiting, requests, burst,
 # ---- phase 7: the circuit breaker ------------------------------------------
 
 
-async def service_breaker(np, ck, mods, path, *, waiting, seed):
+async def service_breaker(np, ck, mods, path, *, waiting, seed,
+                          bundle_to=None):
     """Config #1's service at full width with its breaker on (threshold 2,
     window 30 s, probes 0.25 s, backoff 2, max 60 s, health timer 0.05 s)
     and a chaos script failing device steps 0-1 and the first probe:
@@ -3763,6 +3795,9 @@ async def service_breaker(np, ck, mods, path, *, waiting, seed):
     # The trip froze one incident bundle (the JAX app's breaker_trip
     # trigger), valid by the schema.
     (bundle,) = check_bundles(app, "breaker_trip", "breaker phase")
+    if bundle_to:  # phase 17d reads it with the postmortem tool
+        with open(bundle_to, "w", encoding="utf-8") as f:
+            json.dump(bundle, f)
     answers = await log_.read()
     for pid, resps in answers.items():
         seq = [r.status for r in resps]
@@ -8417,7 +8452,7 @@ async def sanitized_leg(np, ck, cfg, pop, *, waiting, requests, burst, san,
 
 
 async def service_sanitized(np, ck, mods, path, *, waiting, requests, burst,
-                            seed):
+                            seed, keep_journal=None):
     """16a: config #1's service at full width with the journal on (phase
     8's fsync "window") and an in-process standby (phase 11's), the 100k
     recovered from a journal at each start, phase 4's soak: once under
@@ -8484,6 +8519,8 @@ async def service_sanitized(np, ck, mods, path, *, waiting, requests, burst,
                 if not report["settled"]:
                     raise AssertionError("16a: the twin saw no settle")
             res["legs"].append(leg)
+        if keep_journal:  # phase 17d reads the plain leg's journal
+            shutil.copytree(os.path.join(work, "leg1"), keep_journal)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     on, off = res["legs"]
@@ -8558,14 +8595,14 @@ def lint_and_modelcheck():
     return res
 
 
-def phase_sanitized(np, ck, mods, phase_s):
+def phase_sanitized(np, ck, mods, phase_s, keep_journal=None):
     """Phase 16's three parts, each's seconds into ``phase_s``."""
     elo = "configs/elo_1v1.json"
     res = {}
     t = time.perf_counter()
     res["16a"] = asyncio.run(service_sanitized(
         np, ck, mods, elo, waiting=100_000, requests=16_384, burst=512,
-        seed=36))
+        seed=36, keep_journal=keep_journal))
     phase_s["16a"] = time.perf_counter() - t
     t = time.perf_counter()
     res["16b"] = asyncio.run(service_sanitized_spec(ck, mods, elo))
@@ -8573,6 +8610,215 @@ def phase_sanitized(np, ck, mods, phase_s):
     t = time.perf_counter()
     res["16c"] = lint_and_modelcheck()
     phase_s["16c"] = time.perf_counter() - t
+    return res
+
+
+# ---- phase 17: the trace gate and the graphs on the card, entry(), tools ----
+
+
+def call_targets(graph):
+    """The operators a traced graph calls, in order."""
+    return [str(n.target) for n in graph.graph.nodes
+            if n.op == "call_function"]
+
+
+def trace_gate_on_card(ck):
+    """17a: the trace-time rules with the traces made on the card: clean,
+    each family's operators equal its CPU trace's and its kernel operator
+    nodes the family's."""
+    from matchmaking_tpu_torch.analysis import device_audit, recompile
+
+    t = time.perf_counter()
+    cpu = {r.family.name: r for r in recompile.trace_families("cpu")}
+    cpu_s = time.perf_counter() - t
+    reset_counts(ck)
+    t = time.perf_counter()
+    card = recompile.trace_families("cuda", fresh=True)
+    findings = (recompile.check_dynamic(traces=card)
+                + device_audit.check_dynamic(traces=card))
+    card_s = time.perf_counter() - t
+    launches = dict(ck.LAUNCHES)
+    if findings:
+        raise AssertionError("17a: " + "; ".join(f.render()
+                                                 for f in findings))
+    nodes = {}
+    for r in card:
+        name = r.family.name
+        got, want = call_targets(r.graph), call_targets(cpu[name].graph)
+        if got != want:
+            at = next((i for i, (a, b) in enumerate(zip(got, want))
+                       if a != b), min(len(got), len(want)))
+            raise AssertionError(
+                f"17a {name}: the card trace's operators part from the CPU "
+                f"trace's at call {at} of {len(got)} / {len(want)}: "
+                f"{got[at:at + 3]} against {want[at:at + 3]}")
+        k = recompile.kernel_nodes(r.graph)
+        if (k["block_best"], k["quality_accum"]) != (r.family.block_best,
+                                                     r.family.quality_accum):
+            raise AssertionError(f"17a {name}: kernel operator nodes {k}")
+        nodes[name] = {"nodes": len(r.graph.graph.nodes), **k}
+    log(f"17a the trace gate on the card: {len(card)} captured step "
+        f"families traced twice on cuda in {card_s:.1f} s (CPU "
+        f"{cpu_s:.1f} s), graph code stable, operators equal to the CPU "
+        f"traces', no finding; launches {launches}")
+    return {"families": len(card), "card_s": card_s, "cpu_s": cpu_s,
+            "nodes": nodes, "launches": launches}
+
+
+#: 17b's engines: (label, config file, engine overrides).
+AUDITED = (("elo_1v1", "configs/elo_1v1.json", {}),
+           ("elo_1v1_pruned", "configs/elo_1v1.json", PRUNE),
+           ("elo_1v1_bucketed_spec", "configs/elo_1v1.json",
+            dict(BUCKETED, spec_formation=True, spec_max_steps=2)),
+           ("team_5v5", "configs/team_5v5.json", {}),
+           ("role_party", "configs/role_party.json", {}))
+
+
+def captured_graph_audit(torch, ck, mods, profiled_kernels):
+    """17b: every graph of the audited engines, warmed up at every bucket,
+    captured again with its nodes kept and audited (``graphs.audit_dot``).
+    ``profiled_kernels``: phase 3's kernels a window on the device."""
+    import dataclasses
+    import gc
+
+    Config, GpuEngine, _, _ = mods
+    reset_counts(ck)
+    graphs = {}
+    for label, path, over in AUDITED:
+        cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
+        if over:
+            cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+                cfg.engine, **over))
+        eng = GpuEngine(cfg, cfg.queues[0], device="cuda")
+        eng.warmup()
+        variants = eng._variants() + (("spec",) if eng._speculates()
+                                      else ())
+        for variant in variants:
+            for bucket in eng.buckets:
+                rep = eng.graph_audit(variant, bucket)
+                if rep["problems"]:
+                    raise AssertionError(f"17b {label} {variant}/{bucket}: "
+                                         f"{rep['problems']}")
+                graphs[f"{label}/{variant}/{bucket}"] = {
+                    k: rep[k] for k in ("kernel_nodes", "memset_nodes",
+                                        "nodes", "own_kernel_nodes",
+                                        "launches", "copies")}
+        eng.close()
+        del eng
+        gc.collect()
+    launches = dict(ck.LAUNCHES)
+    dense = graphs[f"elo_1v1/dense/{FULL_B}"]
+    for key, g in graphs.items():
+        own = g["own_kernel_nodes"]
+        log(f"17b {key}: {g['kernel_nodes']} kernel nodes, "
+            f"{g['memset_nodes']} memset, {g['nodes']} nodes; prep "
+            f"{own['prep_kernel']}, block_best {own['block_best_kernel']}, "
+            f"quality_accum {own['quality_accum_kernel']} = launches "
+            f"{g['launches']}")
+    log(f"17b config #1 dense at B = {FULL_B}: {dense['kernel_nodes']} "
+        f"kernel nodes in its graph, phase 3's profiler {profiled_kernels} "
+        f"kernels a window (the window's two copies beside the graph); "
+        f"{len(graphs)} graphs audited, none with a host node or a copy "
+        f"to the host; warm-up launches {launches}")
+    return {"graphs": graphs, "launches": launches,
+            "dense_kernel_nodes": dense["kernel_nodes"],
+            "profiled_kernels_per_window": profiled_kernels}
+
+
+def entry_and_dryrun(torch, ck):
+    """17c: ``entry()``'s step captured and replayed against its eager call
+    and a CPU run; the dry run on one card standing in for n against the
+    CPU's line. Launches counted as the engine counts them (the capture's
+    warm run and each replay)."""
+    import io
+
+    from matchmaking_tpu_torch import entry
+
+    reset_counts(ck)
+    graphs, step, rpool = entry.captured_entry("cuda")
+    replayed = graphs.replay(step).clone()
+    fn, (epool, packed) = entry.entry("cuda")
+    eager = fn(epool, packed)
+    fn, (cpool, packed) = entry.entry("cpu")
+    cpu = fn(cpool, packed)
+    if not (torch.equal(replayed.view(torch.int32), eager.view(torch.int32))
+            and torch.equal(replayed.cpu().view(torch.int32),
+                            cpu.view(torch.int32))):
+        raise AssertionError("17c: entry()'s replayed step differs from its "
+                             "eager call or the CPU run")
+    for name in cpool:
+        if not (torch.equal(rpool[name], epool[name])
+                and torch.equal(rpool[name].cpu(), cpool[name])):
+            raise AssertionError(f"17c: entry()'s pool column {name} differs")
+    paired = int((cpu[0] < 8192).sum())
+    lines = {}
+    for n in (1, 2, 4, 8):
+        got = {}
+        for side, kw in (("cpu", dict(device="cpu")),
+                         ("card", dict(devices=("cuda:0",) * n))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                entry.dryrun_multichip(n, **kw)
+            got[side] = buf.getvalue().strip()
+        if got["card"] != got["cpu"]:
+            raise AssertionError(f"17c dryrun_multichip({n}): {got}")
+        lines[n] = got["card"]
+        log(f"17c {got['card']} (= the CPU run's)")
+    launches = dict(ck.LAUNCHES)
+    log(f"17c entry(): the captured step replayed bit-equal to its eager "
+        f"call and the CPU run ({paired} lanes paired of 48); launches "
+        f"{launches}")
+    return {"paired": paired, "dryrun": lines, "launches": launches}
+
+
+def operator_tools(journal_dir, bundle_path):
+    """17d: the port's offline tools, as an operator runs them, on this
+    run's artifacts."""
+    def tool(name, *args):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "scripts", name), *args],
+            capture_output=True, text=True, timeout=120)
+        return proc.returncode, proc.stdout, proc.stderr
+
+    rc, out, err = tool("torch_journal_dump.py", journal_dir)
+    if rc != 0 or "intact: True" not in out:
+        raise AssertionError(f"17d journal dump: exit {rc}\n{out}\n{err}")
+    rc, out, err = tool("torch_journal_dump.py", journal_dir, "--json")
+    reports = json.loads(out)
+    if rc != 0 or not reports or not all(r["intact"]
+                                         for r in reports.values()):
+        raise AssertionError(f"17d journal dump --json: exit {rc}\n{err}")
+    segments = {q: {k: r["segment"][k] for k in ("records", "seq_min",
+                                                 "seq_max", "clean_tail")}
+                for q, r in reports.items() if r["segment"]}
+    rc, out, err = tool("torch_postmortem.py", bundle_path)
+    if rc != 0 or "root chain" not in out:
+        raise AssertionError(f"17d postmortem: exit {rc}\n{out}\n{err}")
+    rc, out, err = tool("torch_postmortem.py", bundle_path, "--json")
+    analysis = json.loads(out)
+    if rc != 0 or analysis["problems"]:
+        raise AssertionError(f"17d postmortem --json: exit {rc}, "
+                             f"{analysis.get('problems')}\n{err}")
+    log(f"17d torch_journal_dump on 16a's journal: intact, exit 0, "
+        f"segments {segments}; torch_postmortem on phase 7's bundle: exit "
+        f"0, root chain {analysis['root_chain_kinds']}")
+    return {"segments": segments,
+            "root_chain_kinds": analysis["root_chain_kinds"]}
+
+
+def phase_graphs(torch, ck, mods, phase_s, *, profiled_kernels, journal_dir,
+                 bundle_path):
+    """Phase 17's four parts, each's seconds into ``phase_s``."""
+    res = {}
+    for key, fn in (("17a", lambda: trace_gate_on_card(ck)),
+                    ("17b", lambda: captured_graph_audit(
+                        torch, ck, mods, profiled_kernels)),
+                    ("17c", lambda: entry_and_dryrun(torch, ck)),
+                    ("17d", lambda: operator_tools(journal_dir,
+                                                   bundle_path))):
+        t = time.perf_counter()
+        res[key] = fn()
+        phase_s[key] = time.perf_counter() - t
     return res
 
 
@@ -8797,8 +9043,16 @@ def main(argv) -> int:
 
     # 7. the circuit breaker at full width: two failed windows demote the
     #    queue to the host oracle, the second probe brings it back
+    import shutil
+    import tempfile
+
+    # Phase 17d's inputs: phase 7's breaker_trip bundle and 16a's journal.
+    work17 = tempfile.mkdtemp(prefix="mm17")
+    bundle17 = os.path.join(work17, "breaker_bundle.json")
+    journal17 = os.path.join(work17, "journal16a")
     breaker_run = asyncio.run(service_breaker(
-        np, ck, mods, "configs/elo_1v1.json", waiting=100_000, seed=17))
+        np, ck, mods, "configs/elo_1v1.json", waiting=100_000, seed=17,
+        bundle_to=bundle17))
     launches["service_breaker_probe"] = (
         breaker_run["probe_launches"]["block_best"])
     launches["service_breaker_after_repromotion"] = (
@@ -8958,7 +9212,7 @@ def main(argv) -> int:
     #     soak under the port's sanitizer and without (16a), the
     #     speculating bucketed service under it (16b), the port's matchlint
     #     and model checker on this machine's Python (16c)
-    p16 = phase_sanitized(np, ck, mods, phase_s)
+    p16 = phase_sanitized(np, ck, mods, phase_s, keep_journal=journal17)
     on16, off16 = p16["16a"]["legs"]
     phase16 = {"sanitized": on16["launches"],
                "sanitized_off": off16["launches"],
@@ -8966,6 +9220,23 @@ def main(argv) -> int:
                    "block_best": p16["16b"]["launches"],
                    "quality_accum": p16["16b"]["quality_launches"]}}
     for name, counts in phase16.items():
+        launches[name] = counts["block_best"]
+
+    # 17. the trace gate and the graphs on the card: the trace-time rules
+    #     with the traces made on the card (17a), every captured graph of
+    #     configs #1 (dense, pruned, bucketed with speculation), #3 and #5
+    #     read back and audited (17b), entry() replayed and the dry run at
+    #     n = 1-8 on one card (17c), the operator tools on this run's
+    #     journal and bundle (17d)
+    p17 = phase_graphs(
+        torch, ck, mods, phase_s,
+        profiled_kernels=main_run["profile"]["step_kernels_per_window"],
+        journal_dir=journal17, bundle_path=bundle17)
+    shutil.rmtree(work17, ignore_errors=True)
+    phase17 = {"trace_gate_cuda": p17["17a"]["launches"],
+               "graph_audit_warm_runs": p17["17b"]["launches"],
+               "entry_and_dryrun": p17["17c"]["launches"]}
+    for name, counts in phase17.items():
         launches[name] = counts["block_best"]
 
     phase14 = {k: v for k, v in shard_run["launches"].items()
@@ -9008,7 +9279,8 @@ def main(argv) -> int:
                      + sum(c["block_best"] for c in phase13.values())
                      + sum(phase14.values())
                      + sum(c["block_best"] for c in phase15.values())
-                     + sum(c["block_best"] for c in phase16.values()))
+                     + sum(c["block_best"] for c in phase16.values())
+                     + sum(c["block_best"] for c in phase17.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -9023,7 +9295,8 @@ def main(argv) -> int:
                   + sum(c["quality_accum"] for c in phase12.values())
                   + sum(c["quality_accum"] for c in phase13.values())
                   + sum(c["quality_accum"] for c in phase15.values())
-                  + sum(c["quality_accum"] for c in phase16.values()))
+                  + sum(c["quality_accum"] for c in phase16.values())
+                  + sum(c["quality_accum"] for c in phase17.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -9083,7 +9356,9 @@ def main(argv) -> int:
             **{name: c["quality_accum"] for name, c in phase12.items()},
             **{name: c["quality_accum"] for name, c in phase13.items()},
             **{name: c["quality_accum"] for name, c in phase15.items()},
-            **{name: c["quality_accum"] for name, c in phase16.items()}},
+            **{name: c["quality_accum"] for name, c in phase16.items()},
+            **{name: c["quality_accum"] for name, c in phase17.items()
+               if name != "entry_and_dryrun"}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -9238,6 +9513,16 @@ def main(argv) -> int:
                      for leg in (on16, off16)],
             "spec_commits_seen": p16["16b"]["spec_commits_seen"],
             "lint_and_modelcheck": p16["16c"]},
+        "graphs": {
+            "trace_gate": {k: p17["17a"][k] for k in ("families", "card_s",
+                                                      "cpu_s")},
+            "audited_graphs": len(p17["17b"]["graphs"]),
+            "dense_kernel_nodes": p17["17b"]["dense_kernel_nodes"],
+            "profiled_kernels_per_window":
+                p17["17b"]["profiled_kernels_per_window"],
+            "entry_paired": p17["17c"]["paired"],
+            "dryrun": p17["17c"]["dryrun"],
+            "tools": p17["17d"]},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -9248,6 +9533,10 @@ def main(argv) -> int:
             ("team_step", team_run, "matchmaking_tpu/engine/teams.py:317"),
             ("role_step", role_run,
              "matchmaking_tpu/engine/role_kernels.py:224"))]}
+    # quality_accum's parameter blocks this process bound (one per engine
+    # state and pool it folded quality for; the oldest goes past the cap).
+    log(f"quality_accum bindings made in this process: {len(ck._BINDINGS)} "
+        f"(at most {ck._MAX_BINDINGS} kept)")
     total_s = time.perf_counter() - t_start
     if out_path:
         with open(out_path, "w") as f:
@@ -9280,7 +9569,7 @@ def main(argv) -> int:
                        "sharded": shard_run, "bucket_frontier": frontier_run,
                        "sharded_teams": shard_teams,
                        "process_mesh": process_run,
-                       "placement": p15, "sanitized": p16,
+                       "placement": p15, "sanitized": p16, "graphs": p17,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

@@ -44,6 +44,8 @@ RULES = (
     "stale-ignore",
     "speculation",
     "protocol",
+    "recompile",
+    "device",
 )
 
 

@@ -33,10 +33,12 @@ import tempfile
 from matchmaking_tpu_torch.analysis import (
     blocking,
     determinism,
+    device_audit,
     lifecycle,
     locks,
     perf,
     protocol,
+    recompile,
     speculation,
 )
 from matchmaking_tpu_torch.analysis.core import (
@@ -54,7 +56,7 @@ from matchmaking_tpu_torch.analysis.core import (
 )
 
 #: Bump to invalidate every cache entry when rule semantics change.
-ANALYZER_VERSION = "torch-1"
+ANALYZER_VERSION = "torch-2"
 
 #: The result cache's file name at the repo root (git-ignored).
 CACHE_NAME = ".matchlint_torch_cache.json"
@@ -62,7 +64,8 @@ CACHE_NAME = ".matchlint_torch_cache.json"
 #: Per-file rule-module checkers (run per SourceFile; locks and protocol
 #: additionally take cross-file registries).
 _PER_FILE_CHECKS = (blocking.check, determinism.check, perf.check,
-                    lifecycle.check, speculation.check)
+                    lifecycle.check, speculation.check,
+                    recompile.check_static, device_audit.check_static)
 
 
 def _check_file(sf: SourceFile, external, vocab=None) -> list[Finding]:
@@ -161,11 +164,44 @@ def _changed_paths(root: str) -> "set[str] | None":
     return changed
 
 
-def analyze_repo(root: str | None = None,
+#: What the dynamic half's results depend on besides the torch build and
+#: the trace device: the engine (every step it traces), the pool layout
+#: and the two rule modules.
+_DYNAMIC_INPUTS = (PACKAGE + "/engine/", PACKAGE + "/core/pool.py",
+                   PACKAGE + "/config.py",
+                   PACKAGE + "/analysis/recompile.py",
+                   PACKAGE + "/analysis/device_audit.py")
+
+
+def _dynamic_key(by_path: dict, trace_device: str) -> str:
+    import torch
+
+    digest = hashlib.sha256()
+    for path in sorted(by_path):
+        if path.startswith(_DYNAMIC_INPUTS):
+            digest.update(path.encode())
+            digest.update(by_path[path].text.encode())
+    return (f"{ANALYZER_VERSION}:{torch.__version__}:{trace_device}:"
+            + digest.hexdigest()[:24])
+
+
+def dynamic_findings(trace_device: str = "cpu") -> list[Finding]:
+    """The trace-time halves of ``recompile`` and ``device``: every
+    captured step traced once (on ``trace_device``) for both."""
+    traces = recompile.trace_families(trace_device)
+    return (recompile.check_dynamic(traces=traces)
+            + device_audit.check_dynamic(traces=traces))
+
+
+def analyze_repo(root: str | None = None, dynamic: bool = True,
                  rules: set[str] | None = None,
                  changed_only: bool = False, use_cache: bool = True,
+                 trace_device: str = "cpu",
                  ) -> tuple[list[Finding], list[Finding], list[str]]:
-    """Returns (new, baselined, warnings) for the repo at ``root``."""
+    """Returns (new, baselined, warnings) for the repo at ``root``.
+    ``dynamic`` runs the trace-time halves of ``recompile`` and ``device``
+    (skipped when ``rules`` names neither), tracing on ``trace_device``
+    and cached as the ``"<dynamic>"`` entry."""
     root = root or repo_root()
     sources = discover(root)
     by_path = {sf.path: sf for sf in sources}
@@ -207,8 +243,22 @@ def analyze_repo(root: str | None = None,
             "key": key,
             "findings": [_finding_to_dict(f) for f in file_findings],
         }
-    # Drop cache entries for files that no longer exist.
-    cache_out = {p: v for p, v in cache_out.items() if p in by_path}
+    # Drop cache entries for files that no longer exist ("<dynamic>" is
+    # the trace-time results' entry, not a file).
+    cache_out = {p: v for p, v in cache_out.items()
+                 if p in by_path or p == "<dynamic>"}
+    if dynamic and (rules is None or rules & {"recompile", "device"}):
+        dyn_key = _dynamic_key(by_path, trace_device)
+        hit = cache.get("<dynamic>")
+        if hit is not None and hit.get("key") == dyn_key:
+            findings.extend(_finding_from_dict(d)
+                            for d in hit.get("findings", []))
+        else:
+            dyn = dynamic_findings(trace_device)
+            findings.extend(dyn)
+            cache_out["<dynamic>"] = {
+                "key": dyn_key,
+                "findings": [_finding_to_dict(f) for f in dyn]}
     if use_cache:
         _save_cache(root, cache_out)
 
@@ -238,11 +288,17 @@ def baseline_path(root: str) -> str:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         prog="matchlint",
-        description="the port's static analyzer: concurrency, lifecycle "
-                    "and protocol rules")
+        description="the port's static analyzer: concurrency, lifecycle, "
+                    "protocol and device rules")
     p.add_argument("--root", default=None, help="repo root (default: auto)")
     p.add_argument("--rules", default="",
                    help="comma-separated rule subset (default: all)")
+    p.add_argument("--static-only", action="store_true",
+                   help="skip the trace-time recompile/device checks")
+    p.add_argument("--trace-device", default="cpu",
+                   help="where the trace-time checks trace the captured "
+                        "steps (default cpu: no kernel is launched; cuda "
+                        "traces the kernels' CUDA operators on the card)")
     p.add_argument("--changed-only", action="store_true",
                    help="scope per-file rules to git-modified files "
                         "(pre-commit mode)")
@@ -260,16 +316,18 @@ def main(argv: list[str] | None = None) -> int:
     root = args.root or repo_root()
     rules = ({r.strip() for r in args.rules.split(",") if r.strip()}
              or None)
-    if args.update_baseline and (rules or args.changed_only):
+    if args.update_baseline and (rules or args.changed_only
+                                 or args.static_only):
         # The in-place rewrite keeps only entries a CURRENT finding
         # matches — run under a narrowed scope it would silently delete
         # every entry whose rule/file wasn't evaluated this run.
         print("matchlint: --update-baseline requires a full run "
-              "(no --rules/--changed-only)", file=sys.stderr)
+              "(no --rules/--changed-only/--static-only)", file=sys.stderr)
         return 2
     new, accepted, warnings = analyze_repo(
-        root, rules=rules,
-        changed_only=args.changed_only, use_cache=not args.no_cache)
+        root, dynamic=not args.static_only, rules=rules,
+        changed_only=args.changed_only, use_cache=not args.no_cache,
+        trace_device=args.trace_device)
     if args.update_baseline:
         kept, dropped = update_baseline(baseline_path(root), new + accepted)
         print(f"baseline updated in place: {kept} kept, {dropped} dropped")

@@ -21,11 +21,15 @@ the window's time from the device (the packed window's ``now`` row).
   holds the kernels to them on the card, and the wrappers take them only
   for tensors that lie on the CPU.
 - ``block_best`` and ``QualityAccum`` are the wrappers: they check
-  devices, dtypes, shapes and contiguity, and for CUDA tensors launch the
-  kernel on the current stream (or raise). ``QualityAccum`` is bound to one
-  state and pool: it checks them and takes their pointers once, and per
-  call checks only the window's result. Each launch adds one to
-  ``LAUNCHES[name]``.
+  devices, dtypes, shapes and contiguity and call the kernel's operator,
+  ``torch.ops.mm_torch.block_best`` (the span launch included) or
+  ``torch.ops.mm_torch.quality_accum`` (which mutates the state): one node
+  in a ``make_fx`` trace on either device. The operator's CUDA kernel
+  launches the kernel on the current stream (or raises), its CPU kernel
+  is the plain version, no other device has one. ``QualityAccum`` is
+  bound to one state and pool: it checks them once, and per call checks
+  only the window's result; the operator's CUDA kernel takes their
+  pointers once (``_bind``). Each launch adds one to ``LAUNCHES[name]``.
 - ``plan_grid`` chooses ``block_best``'s launch from the window: rows per
   CTA and the thread block cluster that splits each pool block's slots. It
   is plain Python so that the CPU tests reach it; the SM count comes from
@@ -47,6 +51,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -354,6 +359,9 @@ def block_best_span_reference(pool: dict, batch: dict, q_thr_eff,
     tile_kw = {k: kw[k] for k in ("pool_block", "glicko2", "filters",
                                   "g_coeff")}
     c = span.chunk_rows
+    # The op's CPU kernel only, where no trace enters: the card kernel
+    # reads span_start on the device.
+    # matchlint: ignore[device] the CPU version's loop bounds
     for ci, start in enumerate(span.span_start.tolist()):
         rows = slice(ci * c, (ci + 1) * c)
         chunk = {k: batch[k][rows] for k in _BATCH_NAMES}
@@ -363,7 +371,10 @@ def block_best_span_reference(pool: dict, batch: dict, q_thr_eff,
     return vals, idxs
 
 
+_POOL_NAMES = tuple(name for name, _ in _POOL_COLS)
 _BATCH_NAMES = tuple(name for name, _ in _BATCH_COLS)
+#: The operator's column arguments: the pool's, then the window's.
+_N_COLS = len(_POOL_NAMES) + len(_BATCH_NAMES)
 
 
 def _check(pool: dict, batch: dict, q_thr_eff, now, pool_block: int):
@@ -416,31 +427,36 @@ def block_best(pool: dict, batch: dict, q_thr_eff, now, *,
     the pool's device (the packed window's now row): the kernel reads it
     there, so a launch captured into a CUDA graph reads each replay's own.
 
-    CUDA tensors launch the ``csrc/block_best.cu`` kernels (record prep,
-    then the scorer, planned by ``plan_grid``) on the current stream; CPU
-    tensors take ``block_best_reference`` (``block_best_span_reference``
-    with ``span``). Nothing falls back: a kernel that cannot build or
-    launch raises. The span launch reads ``span.feasible`` on the device:
-    no host sync."""
+    The call is one operator, ``torch.ops.mm_torch.block_best`` (one node
+    in a trace). CUDA tensors launch the ``csrc/block_best.cu`` kernels
+    (record prep, then the scorer, planned by ``plan_grid``) on the
+    current stream; CPU tensors take ``block_best_reference``
+    (``block_best_span_reference`` with ``span``). Nothing falls back: a
+    kernel that cannot build or launch raises. The span launch reads
+    ``span.feasible`` on the device: no host sync."""
     device, capacity, n_rows = _check(pool, batch, q_thr_eff, now, pool_block)
     n_blocks = capacity // pool_block
     if span is not None:
         _check_span(span, n_rows, n_blocks, device)
-    kw = dict(pool_block=pool_block, glicko2=glicko2, filters=filters,
-              widen_per_sec=widen_per_sec, max_threshold=max_threshold,
-              g_coeff=g_coeff)
-    if device.type == "cpu":
-        if span is not None:
-            return block_best_span_reference(pool, batch, q_thr_eff, now,
-                                             span, **kw)
-        return block_best_reference(pool, batch, q_thr_eff, now, **kw)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"block_best runs on cuda or cpu tensors, not {device}")
-    plan = plan_grid(n_rows, n_blocks, pool_block,
-                     sm_count(device.index if device.index is not None
-                              else torch.cuda.current_device()),
-                     span.chunk_rows if span is not None else 0)
-    return _launch(plan, pool, batch, q_thr_eff, now, span=span, **kw)
+    return ops().block_best(*_op_args(
+        pool, batch, q_thr_eff, now, span, pool_block, glicko2, filters,
+        widen_per_sec, max_threshold, g_coeff))
+
+
+def _op_args(pool: dict, batch: dict, q_thr_eff, now, span: Span | None,
+             *flags) -> tuple:
+    """``block_best``'s arguments in the operator's order: the pool's
+    ``_POOL_COLS``, the window's ``_BATCH_COLS``, the widened thresholds
+    and ``now``, the span launch's (None, None, 0, 0 for the dense
+    launch), then ``flags`` (pool_block, glicko2, filters, widen_per_sec,
+    max_threshold, g_coeff)."""
+    return (*(pool[name] for name in _POOL_NAMES),
+            *(batch[name] for name in _BATCH_NAMES), q_thr_eff, now,
+            *((None, None, 0, 0) if span is None else
+              (span.span_start, span.feasible, span.chunk_rows,
+               span.span_blocks)), *flags)
 
 
 def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now,
@@ -448,11 +464,27 @@ def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now,
             widen_per_sec: float, max_threshold: float, g_coeff: float,
             span: Span | None = None):
     """Launch the kernels with the given plan on inputs that ``_check``
-    passed, all on one CUDA device (``block_best``'s launch; ``chip_smoke.py
-    --plan-sweep`` times every plan through it)."""
+    passed, all on one CUDA device (``chip_smoke.py --plan-sweep`` times
+    every plan through it; the operator's CUDA kernel is
+    ``_launch_cols``)."""
+    args = _op_args(pool, batch, q_thr_eff, now, span, pool_block, glicko2,
+                    filters, widen_per_sec, max_threshold, g_coeff)
+    return _launch_cols(plan, args[:_N_COLS], *args[_N_COLS:])
+
+
+def _launch_cols(plan: GridPlan, cols: tuple, q_thr_eff, now, span_start,
+                 feasible, chunk_rows: int, span_blocks: int,
+                 pool_block: int, glicko2: bool, filters: bool,
+                 widen_per_sec: float, max_threshold: float,
+                 g_coeff: float):
+    """``_launch`` on the operator's arguments as they come (the pool's
+    ``_POOL_COLS`` then the window's ``_BATCH_COLS`` in ``cols``; no span
+    when ``span_start`` is None): no dict is built per call."""
+    (rating, rd, region, mode, threshold, enqueue_t, active,
+     slot, b_rating, b_rd, b_region, b_mode, valid) = cols
     launch = _load("block_best")
-    device = pool["rating"].device
-    capacity, n_rows = pool["rating"].shape[0], batch["rating"].shape[0]
+    device = rating.device
+    capacity, n_rows = rating.shape[0], slot.shape[0]
     n_blocks = capacity // pool_block
     out_v = torch.empty((n_rows, n_blocks), dtype=torch.float32, device=device)
     out_i = torch.empty((n_rows, n_blocks), dtype=torch.int32, device=device)
@@ -464,31 +496,113 @@ def _launch(plan: GridPlan, pool: dict, batch: dict, q_thr_eff, now,
     extra = glicko2 or filters
     rec = torch.empty(n_rec * (24 if extra else 8), dtype=torch.uint8,
                       device=device)
+    spanned = span_start is not None
     with torch.cuda.device(device):  # the launch targets the current device
         rc = launch(
-            pool["rating"].data_ptr(), pool["rd"].data_ptr(),
-            pool["region"].data_ptr(), pool["mode"].data_ptr(),
-            pool["threshold"].data_ptr(), pool["enqueue_t"].data_ptr(),
-            pool["active"].data_ptr(),
-            batch["slot"].data_ptr(), batch["rating"].data_ptr(),
-            batch["rd"].data_ptr(), q_thr_eff.data_ptr(),
-            batch["region"].data_ptr(), batch["mode"].data_ptr(),
-            batch["valid"].data_ptr(),
+            rating.data_ptr(), rd.data_ptr(), region.data_ptr(),
+            mode.data_ptr(), threshold.data_ptr(), enqueue_t.data_ptr(),
+            active.data_ptr(),
+            slot.data_ptr(), b_rating.data_ptr(), b_rd.data_ptr(),
+            q_thr_eff.data_ptr(), b_region.data_ptr(), b_mode.data_ptr(),
+            valid.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), rec.data_ptr(),
             rec.data_ptr() + 8 * n_rec if extra else None,
             n_rows, n_blocks, pool_block, capacity, plan.rows_per_cta,
             plan.cluster, now.data_ptr(),
             int(glicko2), int(filters), _f32(widen_per_sec),
             _f32(max_threshold), _f32(g_coeff),
-            span.span_start.data_ptr() if span is not None else None,
-            span.feasible.data_ptr() if span is not None else None,
-            span.chunk_rows if span is not None else 0,
-            span.span_blocks if span is not None else 0,
+            span_start.data_ptr() if spanned else None,
+            feasible.data_ptr() if spanned else None,
+            chunk_rows if spanned else 0, span_blocks if spanned else 0,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_best launch failed: CUDA error {rc}")
     LAUNCHES["block_best"] += 1
     return out_v, out_i
+
+
+# ---- block_best as an operator ----------------------------------------------
+
+#: The namespace of the kernels' operators, ``torch.ops.mm_torch``. A copy
+#: of this module loaded under another name (``chip_smoke.py
+#: --baseline-tree``, another checkout's module) registers its own, so two
+#: trees' operators live side by side in one process.
+OP_NAMESPACE = (
+    "mm_torch" if __name__ == "matchmaking_tpu_torch.engine.cuda_kernels"
+    else "mm_torch_" + re.sub(r"\W", "_", __name__))
+#: The operators' library (``torch.library``): a registration lives as long
+#: as it. Its kernels are plain Python functions registered per dispatch
+#: key, which the first call does not wrap (``torch.library.custom_op``'s
+#: kernels import the compiler stack, ~2 s, at their first call).
+_LIB = torch.library.Library(OP_NAMESPACE, "DEF")
+#: ``block_best`` as one operator a tracer records as one node: the pool's
+#: ``_POOL_COLS``, the window's ``_BATCH_COLS``, the widened thresholds and
+#: ``now``; the span launch's arguments (None, None, 0, 0 for the dense
+#: launch); the flags. Its CUDA kernel is the launch, its CPU kernel the
+#: plain version; no other device has one.
+_LIB.define(
+    "block_best(Tensor rating, Tensor rd, Tensor region, Tensor mode, "
+    "Tensor threshold, Tensor enqueue_t, Tensor active, Tensor slot, "
+    "Tensor b_rating, Tensor b_rd, Tensor b_region, Tensor b_mode, "
+    "Tensor valid, Tensor q_thr_eff, Tensor now, Tensor? span_start, "
+    "Tensor? feasible, int chunk_rows, int span_blocks, int pool_block, "
+    "bool glicko2, bool filters, float widen_per_sec, float max_threshold, "
+    "float g_coeff) -> (Tensor, Tensor)")
+#: ``quality_accum`` as one operator that mutates ``state``, the flat
+#: buffer of a ``QualityAccum``'s state: its CUDA kernel is the launch
+#: (bound once per state and pool, ``_bind``), its CPU kernel the plain
+#: version; no other device has one.
+_LIB.define(
+    "quality_accum(Tensor(a!) state, Tensor rating, Tensor enqueue_t, "
+    "Tensor threshold, Tensor out, Tensor now, float widen_per_sec, "
+    "float max_threshold, float[] rating_edges, int n_quality, "
+    "float[] wait_edges) -> ()")
+
+
+def ops():
+    """The operators of this module's namespace (``torch.ops.mm_torch``)."""
+    return getattr(torch.ops, OP_NAMESPACE)
+
+
+def _block_best_cpu(*args):
+    cols = args[:_N_COLS]
+    (q_thr_eff, now, span_start, feasible, chunk_rows, span_blocks,
+     pool_block, glicko2, filters, widen_per_sec, max_threshold,
+     g_coeff) = args[_N_COLS:]
+    pool = dict(zip(_POOL_NAMES, cols))
+    batch = dict(zip(_BATCH_NAMES, cols[len(_POOL_NAMES):]))
+    kw = dict(pool_block=pool_block, glicko2=glicko2, filters=filters,
+              widen_per_sec=widen_per_sec, max_threshold=max_threshold,
+              g_coeff=g_coeff)
+    if span_start is not None:
+        return block_best_span_reference(
+            pool, batch, q_thr_eff, now,
+            Span(span_start, chunk_rows, span_blocks, feasible), **kw)
+    return block_best_reference(pool, batch, q_thr_eff, now, **kw)
+
+
+def _block_best_cuda(*args):
+    # The eager path's per-call Python: the arguments go to the launch as
+    # they come (no dict, no Span).
+    cols, rest = args[:_N_COLS], args[_N_COLS:]
+    q_thr_eff, now, span_start, _, chunk_rows, _, pool_block = rest[:7]
+    plan = plan_grid(q_thr_eff.shape[0], cols[0].shape[0] // pool_block,
+                     pool_block, sm_count(now.device.index),
+                     chunk_rows if span_start is not None else 0)
+    return _launch_cols(plan, cols, *rest)
+
+
+def _block_best_fake(*args):
+    q_thr_eff, pool_block = args[_N_COLS], args[_N_COLS + 6]
+    shape = (q_thr_eff.shape[0], args[0].shape[0] // pool_block)
+    return (q_thr_eff.new_empty(shape, dtype=torch.float32),
+            q_thr_eff.new_empty(shape, dtype=torch.int32))
+
+
+_LIB.impl("block_best", _block_best_cpu, "CPU")
+_LIB.impl("block_best", _block_best_cuda, "CUDA")
+torch.library.register_fake(f"{OP_NAMESPACE}::block_best", _block_best_fake,
+                            lib=_LIB)
 
 
 # ---- quality_accum ----------------------------------------------------------
@@ -567,18 +681,21 @@ class QualityAccum:
     (each of ``capacity`` slots).
 
     Construction checks everything that stays fixed (the state's fields and
-    its one flat buffer, the columns, the edges) and, for CUDA tensors,
-    keeps their pointers in the kernel's parameter block. Each call then
-    checks only the window result ``out`` and ``now`` and launches: fold
+    its one flat buffer, the columns, the edges); the operator's CUDA
+    kernel keeps their pointers in the kernel's parameter block at its
+    first call (``_bind``). Each call then checks only the window result
+    ``out`` and ``now`` and launches: fold
     ``out`` (f32[3, B]: q_slot, c_slot, dist) into the state, in place, two
     samples per matched lane, at the window's device time ``now`` (a f32
     tensor whose first element is it: the packed window's ``now`` row).
 
-    CUDA tensors launch ``csrc/quality_accum.cu`` on the current stream
-    (one launch, no host sync, no host time value); CPU tensors take
+    The state is a ``kernels.QualityState``: each call is one operator,
+    ``torch.ops.mm_torch.quality_accum``, mutating its flat buffer. CUDA
+    tensors launch ``csrc/quality_accum.cu`` on the current stream (one
+    launch, no host sync, no host time value); CPU tensors take
     ``quality_accum_reference`` (``now`` may then be a float). A kernel that
     cannot build or launch raises. Rebind (build a new one) when the pool
-    or the state tensors change: the pointers are taken once."""
+    or the state tensors change: the checks run once."""
 
     def __init__(self, state, rating, enqueue_t, threshold, *, capacity: int,
                  widen_per_sec: float, max_threshold: float, rating_edges,
@@ -594,6 +711,11 @@ class QualityAccum:
             _check_tensor(f"state[{name!r}]", state[name], dtype,
                           shapes.get(name, (n_rating,)), device)
         self.state = state
+        #: The state's one flat buffer, which the operator mutates.
+        self.flat = getattr(state, "flat", None)
+        if self.flat is None:
+            raise ValueError("quality_accum needs the state's flat buffer "
+                             "(kernels.QualityState)")
         self.columns = (rating, enqueue_t, threshold)
         self.kw = dict(widen_per_sec=widen_per_sec,
                        max_threshold=max_threshold, rating_edges=rating_edges,
@@ -616,11 +738,8 @@ class QualityAccum:
                              f"{MAX_QUALITY_HIST_BYTES} bytes of shared memory")
         # The kernel writes the flat buffer at offsets it derives from the
         # sizes: the fields must be its views, in QUALITY_FIELDS order.
-        flat = getattr(state, "flat", None)
+        flat = self.flat
         size = n_rating * (n_quality + n_wait + 4)
-        if flat is None:
-            raise ValueError("quality_accum on the card needs the state's "
-                             "flat buffer (kernels.QualityState)")
         _check_tensor("state.flat", flat, torch.int32, (size,), device)
         at = flat.data_ptr()
         for name, _ in QUALITY_FIELDS:
@@ -628,17 +747,6 @@ class QualityAccum:
                 raise ValueError(f"state[{name!r}] is not its view of the "
                                  f"flat buffer")
             at += 4 * state[name].numel()
-        self._params = QualityAccumParams(
-            rating.data_ptr(), enqueue_t.data_ptr(), threshold.data_ptr(),
-            flat.data_ptr(), capacity, n_quality, len(rating_edges),
-            len(wait_edges), _f32(widen_per_sec),
-            _f32(max_threshold),
-            (ctypes.c_float * MAX_QUALITY_EDGES)(*rating_edges),
-            (ctypes.c_float * MAX_QUALITY_EDGES)(*wait_edges))
-        self._params_ref = ctypes.byref(self._params)
-        self._index = (device.index if device.index is not None
-                       else torch.cuda.current_device())
-        self._launch = _load("quality_accum")
 
     def __call__(self, out, now) -> None:
         device = self.device
@@ -649,30 +757,111 @@ class QualityAccum:
                              f"{device}; got {out.dtype} {tuple(out.shape)} "
                              f"on {out.device}")
         if device.type == "cpu":
-            if isinstance(now, torch.Tensor):
-                now = float(now.reshape(-1)[0])
-            quality_accum_reference(self.state, *self.columns, out, now,
-                                    **self.kw)
-            return
-        if not isinstance(now, torch.Tensor) or now.device != device \
+            if not isinstance(now, torch.Tensor):
+                now = torch.full((1,), now, dtype=torch.float32)
+        elif not isinstance(now, torch.Tensor) or now.device != device \
                 or now.dtype != torch.float32:
             raise ValueError(f"now must be a f32 tensor on {device} (the "
                              f"packed window's now row)")
-        self._call(self._launch, out, now)
-        LAUNCHES["quality_accum"] += 1
+        kw = self.kw
+        ops().quality_accum(
+            self.flat, *self.columns, out, now, kw["widen_per_sec"],
+            kw["max_threshold"], kw["rating_edges"], kw["n_quality"],
+            kw["wait_edges"])
 
     def launch_empty(self, out, now) -> None:
         """An empty kernel launched as ``__call__`` launches the kernel (the
         same CTAs and arguments): the launch-latency floor that
         ``chip_smoke.py`` times beside it. Not counted."""
-        self._call(_load("quality_accum", "quality_accum_empty_launch"),
-                   out, now)
+        kw = self.kw
+        _quality_launch("quality_accum_empty_launch", _bind(
+            self.flat, *self.columns, kw["widen_per_sec"],
+            kw["max_threshold"], kw["rating_edges"], kw["n_quality"],
+            kw["wait_edges"]), out, now)
 
-    def _call(self, launch, out, now) -> None:
-        if torch.cuda.current_device() != self._index:
-            with torch.cuda.device(self._index):
-                return self._call(launch, out, now)
-        rc = launch(out.data_ptr(), out.shape[1], now.data_ptr(),
-                    self._params_ref, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"quality_accum launch failed: CUDA error {rc}")
+
+#: The parameter blocks of the bound (state, pool columns) pairs, keyed by
+#: their addresses and constants: the launch's binding, made once per
+#: state and pool by the operator's CUDA kernel and found again by every
+#: later call (and by ``QualityAccum.launch_empty``). It holds no tensor,
+#: so a dropped pool's memory is freed; an address reused by another
+#: tensor of the same role gives the same block. Addresses are unique
+#: across the process's cards (unified addressing). The oldest binding
+#: goes past ``_MAX_BINDINGS``: a process binds one per engine that folds
+#: quality on the card, and again for each new pool or state.
+_BINDINGS: dict[tuple, QualityAccumParams] = {}
+_MAX_BINDINGS = 64
+
+
+def _bind(flat, rating, enqueue_t, threshold, widen_per_sec, max_threshold,
+          rating_edges, n_quality, wait_edges) -> QualityAccumParams:
+    key = (flat.data_ptr(), rating.data_ptr(), enqueue_t.data_ptr(),
+           threshold.data_ptr(), rating.shape[0], widen_per_sec,
+           max_threshold, n_quality, *rating_edges, None, *wait_edges)
+    params = _BINDINGS.get(key)
+    if params is None:
+        while len(_BINDINGS) >= _MAX_BINDINGS:
+            _BINDINGS.pop(next(iter(_BINDINGS)))
+        params = _BINDINGS[key] = QualityAccumParams(
+            rating.data_ptr(), enqueue_t.data_ptr(), threshold.data_ptr(),
+            flat.data_ptr(), rating.shape[0], n_quality, len(rating_edges),
+            len(wait_edges), _f32(widen_per_sec), _f32(max_threshold),
+            (ctypes.c_float * MAX_QUALITY_EDGES)(*rating_edges),
+            (ctypes.c_float * MAX_QUALITY_EDGES)(*wait_edges))
+    return params
+
+
+def _quality_launch(symbol: str, params, out, now) -> None:
+    index = out.device.index
+    if torch.cuda.current_device() != index:
+        with torch.cuda.device(index):
+            return _quality_launch(symbol, params, out, now)
+    rc = _load("quality_accum", symbol)(
+        out.data_ptr(), out.shape[1], now.data_ptr(), ctypes.byref(params),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quality_accum launch failed: CUDA error {rc}")
+
+
+def quality_views(flat, n_rating: int, n_quality: int, n_wait: int) -> dict:
+    """The state's fields as views of its flat i32 buffer, in
+    ``QUALITY_FIELDS`` order (the sums as f32 views of theirs)."""
+    shapes = {"q_hist": (n_rating, n_quality), "w_hist": (n_rating, n_wait)}
+    views, at = {}, 0
+    for name, dtype in QUALITY_FIELDS:
+        shape = shapes.get(name, (n_rating,))
+        n = math.prod(shape)
+        views[name] = flat[at:at + n].view(dtype).view(shape)
+        at += n
+    return views
+
+
+def _quality_accum_cpu(state, rating, enqueue_t, threshold, out, now,
+                       widen_per_sec, max_threshold, rating_edges, n_quality,
+                       wait_edges):
+    views = quality_views(state, len(rating_edges) + 1, n_quality,
+                          len(wait_edges) + 1)
+    quality_accum_reference(
+        views, rating, enqueue_t, threshold, out, float(now.reshape(-1)[0]),
+        widen_per_sec=widen_per_sec, max_threshold=max_threshold,
+        rating_edges=rating_edges, n_quality=n_quality,
+        wait_edges=wait_edges)
+
+
+def _quality_accum_cuda(state, rating, enqueue_t, threshold, out, now,
+                        widen_per_sec, max_threshold, rating_edges, n_quality,
+                        wait_edges):
+    _quality_launch("quality_accum_launch", _bind(
+        state, rating, enqueue_t, threshold, widen_per_sec, max_threshold,
+        rating_edges, n_quality, wait_edges), out, now)
+    LAUNCHES["quality_accum"] += 1
+
+
+def _quality_accum_fake(state, *rest) -> None:
+    return None
+
+
+_LIB.impl("quality_accum", _quality_accum_cpu, "CPU")
+_LIB.impl("quality_accum", _quality_accum_cuda, "CUDA")
+torch.library.register_fake(f"{OP_NAMESPACE}::quality_accum",
+                            _quality_accum_fake, lib=_LIB)

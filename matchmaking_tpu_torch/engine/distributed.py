@@ -149,6 +149,8 @@ class ProcessMesh:
 
     process = True
     single_device = True
+    #: The last ring gather's hops, as ``sharded.PoolMesh.ring_hops``.
+    ring_hops: tuple = ()
 
     def __init__(self, device):
         import torch.distributed as dist
@@ -181,9 +183,14 @@ class ProcessMesh:
         """D − 1 hops: each rank sends the tensors it holds to rank + 1
         and receives rank − 1's (``batch_isend_irecv``), writing each into
         its source's row."""
+        from matchmaking_tpu_torch.engine.sharded import ring_perm
+
         (p,) = parts
         dist = self._dist
         n, r = self.n_shards, self.rank
+        perm = ring_perm(n)
+        to = dict(perm)[r]
+        frm = next(s for s, d in perm if d == r)
         rots = [_gather_dtype(x).contiguous() for x in p]
         outs = []
         for x in rots:
@@ -191,16 +198,25 @@ class ProcessMesh:
                             device=x.device)
             b[r].copy_(x)
             outs.append(b)
-        for h in range(1, n):
+        # origin: the rank whose original tensors this rank now holds
+        # (every rank follows the same permutation, so each can tell).
+        origin = list(range(n))
+        hops = []
+        for _ in range(1, n):
             recv = [torch.empty_like(x) for x in rots]
-            ops = ([dist.P2POp(dist.isend, x, (r + 1) % n) for x in rots]
-                   + [dist.P2POp(dist.irecv, v, (r - 1) % n) for v in recv])
+            ops = ([dist.P2POp(dist.isend, x, to) for x in rots]
+                   + [dist.P2POp(dist.irecv, v, frm) for v in recv])
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
             rots = recv
-            src = (r - h) % n
+            held = list(origin)
+            for s, d in perm:
+                held[d] = origin[s]
+            origin = held
+            hops.append(perm)
             for b, x in zip(outs, rots):
-                b[src].copy_(x)
+                b[origin[r]].copy_(x)
+        self.ring_hops = tuple(hops)
         return tuple(b.to(torch.bool) if x.dtype == torch.bool else b
                      for b, x in zip(outs, p))
 

@@ -140,7 +140,7 @@ from matchmaking_tpu_torch.core.pool import (
 )
 from matchmaking_tpu_torch.engine import kernels, scoring, sharded
 from matchmaking_tpu_torch.engine.cpu import CpuEngine
-from matchmaking_tpu_torch.engine.graphs import StepGraphs, uncounted
+from matchmaking_tpu_torch.engine.graphs import StepGraphs, audit_dot, uncounted
 from matchmaking_tpu_torch.engine.interface import (
     ColumnarOutcome,
     Engine,
@@ -1415,18 +1415,7 @@ class GpuEngine(Engine):
         it reads the window's time from the packed ``now`` row, its last,
         on the device). The ``spec`` step folds nothing: a speculation's
         results are folded at its commit, and a discarded one never."""
-        ks = self.kernels
-        if variant in ("rescan", "bucketed_rescan", "spec"):
-            step = ks.search_step_packed_rescan
-        elif variant.startswith("frontier"):
-            step = ks.bucket_step(int(variant[len("frontier"):]))
-        elif variant.endswith("_ring"):
-            step = ks.search_step_packed_ring
-        elif self._team_device:
-            step = ks.search_step_packed
-        else:
-            step = functools.partial(ks.search_step_packed,
-                                     skip_filters=variant.endswith("nofilter"))
+        step = self._variant_step(variant)
         quality = self._quality
         if quality is None or variant == "spec":
             return step
@@ -1437,6 +1426,21 @@ class GpuEngine(Engine):
             quality.accum(state, pool, out[:3], packed[-1])
             return out
         return run
+
+    def _variant_step(self, variant: str):
+        """The kernel set's step of a variant: (device pool, packed
+        window) → the result."""
+        ks = self.kernels
+        if variant in ("rescan", "bucketed_rescan", "spec"):
+            return ks.search_step_packed_rescan
+        if variant.startswith("frontier"):
+            return ks.bucket_step(int(variant[len("frontier"):]))
+        if variant.endswith("_ring"):
+            return ks.search_step_packed_ring
+        if self._team_device:
+            return ks.search_step_packed
+        return functools.partial(ks.search_step_packed,
+                                 skip_filters=variant.endswith("nofilter"))
 
     def _pool_for(self, variant: str, warm: bool = False) -> kernels.DevicePool:
         """The pool a variant's step runs on: the spare pool for ``spec``,
@@ -1459,6 +1463,21 @@ class GpuEngine(Engine):
                                      self._pool_for(variant), empty,
                                      self._pool_for(variant, warm=True))
         return g
+
+    def graph_audit(self, variant: str, bucket: int) -> dict:
+        """Capture (variant, bucket) once more with its nodes kept and
+        audit what the card replays (``graphs.audit_dot``: kernel and
+        memset nodes, each kernel operator's nodes against the launches a
+        replay counts, no host node, no copy to the host). The engine's
+        own graph stays as it is; the audit's graph is dropped."""
+        if self._graphs is None:
+            raise RuntimeError("the graph audit needs an engine on the card")
+        empty = self._stage(self.pool.batch_arrays([], [], bucket), 0.0)
+        g = self._graphs.capture(variant, bucket, self._step_fn(variant),
+                                 self._pool_for(variant), empty,
+                                 self._pool_for(variant, warm=True),
+                                 debug=True)
+        return audit_dot(g.dot, g.launches)
 
     def _launch(self, variant: str, batch: BatchArrays, now: float,
                 staging_list: list[torch.Tensor],
@@ -1861,6 +1880,11 @@ class GpuEngine(Engine):
     @dev_pool.setter
     def dev_pool(self, pool: kernels.DevicePool | None) -> None:
         self._dev_pool = pool
+        self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        """Drop every captured step (their graphs hold the replaced
+        pool's addresses)."""
         if self._graphs is not None:
             self._graphs.clear()
 
@@ -1934,6 +1958,7 @@ class GpuEngine(Engine):
         # The device pool is parked, not dropped: re-promotion clears and
         # reuses it, so the captured steps, which hold its addresses, stay
         # valid.
+        # matchlint: ignore[device] parked, to come back as these tensors
         self._parked_pool, self._dev_pool = self._dev_pool, None
         self.pool = self._new_pool()
         return True
@@ -1971,6 +1996,7 @@ class GpuEngine(Engine):
         else:
             for col in pool.full.values():
                 col.zero_()
+        # matchlint: ignore[device] the parked pool the graphs hold
         self._dev_pool = pool
         if waiting:
             self.restore(waiting, now)

@@ -45,9 +45,14 @@ static output); ``report()`` gives each graph's capture time and memory.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
+import os
+import re
+import tempfile
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -85,6 +90,8 @@ class StepGraph:
     #: graph's private pool.
     memory_bytes: int
     replays: int = 0
+    #: The graph's nodes as DOT text (a debug capture's; else None).
+    dot: str | None = None
 
 
 @dataclass
@@ -105,11 +112,16 @@ class StepGraphs:
         self.graphs.clear()
 
     def capture(self, variant: str, bucket: int, fn: StepFn, pool: dict,
-                empty: torch.Tensor, warm_pool: dict) -> StepGraph:
+                empty: torch.Tensor, warm_pool: dict,
+                debug: bool = False) -> StepGraph:
         """Capture ``fn(pool, static_in)`` for one (variant, bucket).
         ``empty`` is the bucket's all-padding packed window (a pinned host
         tensor): it fills the static input for one eager run of ``fn`` on
-        ``warm_pool`` before the capture. Raises if the capture fails."""
+        ``warm_pool`` before the capture. Raises if the capture fails.
+        ``debug`` captures for the graph audit (never the main path): the
+        graph's nodes are read back as DOT (``StepGraph.dot``, see
+        ``audit_dot``) and the graph is returned without being kept as the
+        (variant, bucket)'s."""
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -123,7 +135,12 @@ class StepGraphs:
             warm_ms = (time.perf_counter() - t) * 1e3
             launches0 = dict(cuda_kernels.LAUNCHES)
             pruned0 = getattr(ks, "pruned_steps", 0)
-            graph = torch.cuda.CUDAGraph()
+            # A debug capture keeps the graph's nodes (instantiated after
+            # they are read back), so that ``debug_dump`` can print them.
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if debug
+                     else torch.cuda.CUDAGraph())
+            if debug:
+                graph.enable_debug_mode()
             reserved0 = torch.cuda.memory_reserved(dev)
             t = time.perf_counter()
             # No cyclic collection during the capture: one that frees an
@@ -156,6 +173,10 @@ class StepGraphs:
         g = StepGraph(graph, static_in, static_out,
                       {k: n for k, n in launches.items() if n}, pruned,
                       warm_ms, capture_ms, memory)
+        if debug:
+            g.dot = graph_dot(graph)
+            graph.instantiate()
+            return g
         self.graphs[(variant, bucket)] = g
         self.captures += 1
         # The port's compile count (metrics' ``xla_compiles``), outside the
@@ -184,3 +205,80 @@ class StepGraphs:
                          "memory_bytes": g.memory_bytes,
                          "replays": g.replays, "launches": g.launches}
             for (v, b), g in sorted(self.graphs.items())}}
+
+
+# ---- the captured-graph audit ----------------------------------------------
+
+#: Kernel names (substrings of the mangled names) of each kernel
+#: operator's launch: ``block_best`` is a record prep and a scorer.
+KERNEL_SYMBOLS = {"block_best": ("prep_kernel", "block_best_kernel"),
+                  "quality_accum": ("quality_accum_kernel",)}
+
+_NODE = re.compile(r'^"(?P<id>[^"]+)"\[[^\n]*?label="\{\s*(?P<kind>[A-Z_]+)',
+                   re.M)
+_KERNEL_NAME = re.compile(r"\(topoId: \d+\) \| (?P<name>[^|]+?)\\<")
+_COPY_KIND = re.compile(r"\{kind \| (?P<kind>\w+)")
+
+
+def graph_dot(graph: torch.cuda.CUDAGraph) -> str:
+    """The nodes of a graph captured with ``keep_graph=True`` and debug
+    mode on, as the DOT text of ``cudaGraphDebugDotPrint`` (verbose),
+    through ``CUDAGraph.debug_dump``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the dump warns that it dumps
+            graph.debug_dump(path)
+        with open(path, encoding="utf-8") as f:
+            return f.read()
+
+
+def parse_dot(text: str) -> dict:
+    """A graph's DOT text → its node counts: by node kind (KERNEL,
+    MEMSET, MEMCPY, HOST, ...), kernel nodes by mangled name, copies by
+    direction (DtoD, DtoH, HtoD, ...)."""
+    kinds: collections.Counter = collections.Counter()
+    names: collections.Counter = collections.Counter()
+    copies: collections.Counter = collections.Counter()
+    starts = [(m.start(), m.group("kind")) for m in _NODE.finditer(text)]
+    for i, (at, kind) in enumerate(starts):
+        body = text[at:starts[i + 1][0] if i + 1 < len(starts) else None]
+        kinds[kind] += 1
+        if kind == "KERNEL":
+            m = _KERNEL_NAME.search(body)
+            names[m.group("name").strip() if m else "?"] += 1
+        elif kind == "MEMCPY":
+            m = _COPY_KIND.search(body)
+            copies[m.group("kind") if m else "?"] += 1
+    return {"kinds": dict(kinds), "kernel_names": dict(names),
+            "copies": dict(copies)}
+
+
+def audit_dot(text: str, launches: dict[str, int]) -> dict:
+    """The captured-graph audit of one step: what the card replays.
+    Returns its counts (kernel and memset nodes, each kernel operator's
+    nodes by symbol) and ``problems``: a kernel operator whose nodes do
+    not equal ``launches`` (``StepGraph.launches``: the launches a replay
+    counts), a host node, a copy to the host."""
+    parsed = parse_dot(text)
+    kinds, names = parsed["kinds"], parsed["kernel_names"]
+    own = {sym: sum(n for name, n in names.items() if sym in name)
+           for syms in KERNEL_SYMBOLS.values() for sym in syms}
+    problems = []
+    for kernel, syms in KERNEL_SYMBOLS.items():
+        want = launches.get(kernel, 0)
+        for sym in syms:
+            if own[sym] != want:
+                problems.append(f"{own[sym]} {sym} nodes, but {want} "
+                                f"{kernel} launches a replay")
+    if kinds.get("HOST"):
+        problems.append(f"{kinds['HOST']} host nodes")
+    to_host = {k: n for k, n in parsed["copies"].items()
+               if k.endswith("toH")}
+    if to_host:
+        problems.append(f"copies to the host: {to_host}")
+    return {"kernel_nodes": kinds.get("KERNEL", 0),
+            "memset_nodes": kinds.get("MEMSET", 0),
+            "nodes": sum(kinds.values()), "kinds": kinds,
+            "copies": parsed["copies"], "own_kernel_nodes": own,
+            "launches": dict(launches), "problems": problems}

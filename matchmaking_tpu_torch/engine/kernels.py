@@ -143,6 +143,7 @@ def pool_from_reference(arrays: dict[str, np.ndarray], device,
     ``np.asarray``) → the port's device pool."""
     full = {}
     for name, dt, _ in _pool_fields(extra_fields):
+        # matchlint: ignore[device] host arrays in, never a step's tensors
         a = np.asarray(arrays[name], dtype=dt)
         full[name] = torch.zeros(a.shape[0] + 1,
                                  dtype=_TORCH_DTYPE[np.dtype(dt)], device=device)
@@ -152,6 +153,7 @@ def pool_from_reference(arrays: dict[str, np.ndarray], device,
 
 def pool_to_numpy(pool: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Inverse of ``pool_from_reference`` (host numpy, for comparisons)."""
+    # matchlint: ignore[device] a checker's readback, called by no step
     return {name: t.cpu().numpy() for name, t in pool.items()}
 
 

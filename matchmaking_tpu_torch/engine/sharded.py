@@ -118,14 +118,26 @@ class DeviceInventory:
         return tuple(self[i] for i in ids)
 
 
+def ring_perm(n: int) -> tuple[tuple[int, int], ...]:
+    """The ring's hop: (source, destination) shard pairs, each shard
+    sending to its right neighbour (the JAX ``ppermute`` permutation
+    ``[(i, (i + 1) % n)]``). Both meshes take every hop from it."""
+    return tuple((i, (i + 1) % n) for i in range(n))
+
+
 class PoolMesh:
     """``n_shards`` shards driven by this process, shard i on
     ``devices[i]``. Its collectives take, per local shard, a tuple of
     tensors and return each tensor's shards stacked in canonical shard
-    order, ``(n_shards, *shape)``, on ``home`` (shard 0's device)."""
+    order, ``(n_shards, *shape)``, on ``home`` (shard 0's device).
+
+    ``ring_hops`` holds the (source, destination) pairs of each hop of
+    the last ring gather (host data, set when the step's Python runs: a
+    captured graph's replays leave it as its capture left it)."""
 
     #: Merges are collectives of a process group (``ProcessMesh``).
     process = False
+    ring_hops: tuple[tuple[tuple[int, int], ...], ...] = ()
 
     def __init__(self, devices: Sequence):
         self.devices = tuple(torch.device(d) for d in devices)
@@ -165,13 +177,22 @@ class PoolMesh:
                 bufs.append(b)
             outs.append(bufs)
         rots = [tuple(p) for p in parts]
-        for h in range(1, n):
-            rots = [tuple(x.to(self.devices[i], non_blocking=True)
-                          for x in rots[(i - 1) % n]) for i in range(n)]
+        # origin[i]: the shard whose original tensors shard i now holds.
+        origin = list(range(n))
+        perm = ring_perm(n)
+        hops = []
+        for _ in range(1, n):
+            moved, held = list(rots), list(origin)
+            for src, dst in perm:
+                moved[dst] = tuple(x.to(self.devices[dst], non_blocking=True)
+                                   for x in rots[src])
+                held[dst] = origin[src]
+            rots, origin = moved, held
+            hops.append(perm)
             for i in range(n):
-                src = (i - h) % n
                 for b, r in zip(outs[i], rots[i]):
-                    b[src].copy_(r, non_blocking=True)
+                    b[origin[i]].copy_(r, non_blocking=True)
+        self.ring_hops = tuple(hops)
         return tuple(outs[0])
 
     def gather(self, parts, ring: bool = False) -> tuple[torch.Tensor, ...]:
@@ -349,6 +370,7 @@ class _ShardedBase:
         lc, m = self.local_capacity, self.mesh
         shards = []
         for i, s in enumerate(m.local_shards):
+            # matchlint: ignore[device] host arrays in, never a step's tensors
             part = {k: np.asarray(v)[s * lc:(s + 1) * lc]
                     for k, v in arrays.items()}
             shards.append(pool_from_reference(part, m.devices[i],

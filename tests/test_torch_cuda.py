@@ -2531,3 +2531,129 @@ def test_sanitized_columnar_soak_is_clean_on_the_card(cuda, tmp_path):
     assert windows > 0
     assert launches == {"block_best": windows, "quality_accum": windows}
     assert san.settlement_report()["settled"] >= n
+
+
+# ---- the kernels as operators, the captured-graph audit, entry() ----------
+
+
+@pytest.mark.parametrize("span", [False, True], ids=["dense", "span"])
+def test_kernel_operators_on_the_card_equal_the_plain_versions(cuda, span):
+    """``torch.ops.mm_torch.block_best`` and ``quality_accum`` called on
+    CUDA tensors launch the kernels (counted) and equal the plain versions
+    bit for bit (the quality sums within the file's tolerance); a trace of
+    each on the card holds the operator as one node."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from matchmaking_tpu_torch.analysis import recompile
+
+    pool, batch, q_thr = inputs(4, 16384, 64, 0.7, True, cuda)
+    kw = dict(pool_block=4096, glicko2=True, filters=True, widen_per_sec=5.0,
+              max_threshold=250.0, g_coeff=scoring.G_COEFF_F32)
+    now = now_on(cuda, 9.0)
+    sp = (cuda_kernels.Span(torch.tensor([0, 2], dtype=torch.int32,
+                                         device=cuda), 32, 2,
+                            torch.tensor([True], device=cuda))
+          if span else None)
+    args = (*(pool[n] for n in cuda_kernels._POOL_NAMES),
+            *(batch[n] for n in cuda_kernels._BATCH_NAMES), q_thr, now,
+            None if sp is None else sp.span_start,
+            None if sp is None else sp.feasible,
+            0 if sp is None else sp.chunk_rows,
+            0 if sp is None else sp.span_blocks, *kw.values())
+    before = cuda_kernels.LAUNCHES["block_best"]
+    got = torch.ops.mm_torch.block_best(*args)
+    assert cuda_kernels.LAUNCHES["block_best"] == before + 1
+    want = (cuda_kernels.block_best_span_reference(pool, batch, q_thr, now,
+                                                   sp, **kw)
+            if span else cuda_kernels.block_best_reference(pool, batch,
+                                                           q_thr, now, **kw))
+    assert_bit_equal(got, want)
+    gm = make_fx(lambda *a: torch.ops.mm_torch.block_best(*a))(*args)
+    assert recompile.kernel_nodes(gm)["block_best"] == 1
+
+    spec = QualitySpec()
+    qk = QualityAccumKernel(capacity=16384, widen_per_sec=5.0,
+                            max_threshold=250.0,
+                            rating_edges=spec.rating_edges,
+                            n_quality=spec.n_quality,
+                            wait_edges=spec.wait_edges)
+    vals, idx = got
+    hit = idx[:, 0] < 16384
+    out = torch.stack([torch.where(hit, batch["slot"].float(), 16384.0),
+                       idx[:, 0].float(),
+                       torch.where(hit, -vals[:, 0], float("inf"))])
+    state, ref = qk.init_state(cuda), qk.init_state(cuda)
+    qkw = dict(widen_per_sec=5.0, max_threshold=250.0,
+               rating_edges=qk.rating_edges, n_quality=qk.n_quality,
+               wait_edges=qk.wait_edges)
+    before = cuda_kernels.LAUNCHES["quality_accum"]
+    torch.ops.mm_torch.quality_accum(
+        state.flat, pool["rating"], pool["enqueue_t"], pool["threshold"],
+        out, now, *qkw.values())
+    assert cuda_kernels.LAUNCHES["quality_accum"] == before + 1
+    cuda_kernels.quality_accum_reference(
+        ref, pool["rating"], pool["enqueue_t"], pool["threshold"], out, 9.0,
+        **qkw)
+    for name in ("q_hist", "w_hist", "count"):
+        assert torch.equal(state[name], ref[name]), name
+    for name in ("q_sum", "w_sum", "d_sum"):
+        assert bool(((state[name] - ref[name]).abs()
+                     <= 1e-5 * ref[name].abs() + 1e-6).all()), name
+
+
+@pytest.mark.parametrize("engine", [{}, PRUNED, BUCKETED],
+                         ids=["dense", "pruned", "bucketed"])
+def test_captured_graph_debug_dump_counts_equal_launches(cuda, engine):
+    """Each captured step, read back through ``debug_dump``: its
+    ``block_best`` prep and scorer and ``quality_accum`` kernel nodes equal
+    the launches a replay counts (``StepGraph.launches``), and so do the
+    kernel operator nodes of the step's trace on the card; no host node,
+    no copy to the host; the engine's own graphs still replay."""
+    from matchmaking_tpu_torch.analysis import recompile
+
+    cfg = widening_cfg(**engine)
+    eng = GpuEngine(cfg, cfg.queues[0], device=cuda)
+    eng.warmup()
+    for variant in eng._variants():
+        launches = eng._graphs.get(variant, eng.buckets[0]).launches
+        empty = eng._stage(eng.pool.batch_arrays([], [], eng.buckets[0]), 0.0)
+        traced = recompile.trace(eng._step_fn(variant),
+                                 (eng._pool_for(variant), empty.to(cuda)))
+        assert recompile.kernel_nodes(traced) == {
+            "block_best": launches.get("block_best", 0),
+            "quality_accum": launches.get("quality_accum", 0)}
+        for bucket in (eng.buckets[0], eng.buckets[-1]):
+            rep = eng.graph_audit(variant, bucket)
+            assert rep["problems"] == [], (variant, bucket, rep)
+            assert rep["launches"] == {"block_best": 1, "quality_accum": 1}
+            assert rep["own_kernel_nodes"] == {
+                "prep_kernel": 1, "block_best_kernel": 1,
+                "quality_accum_kernel": 1}
+            assert rep["kernel_nodes"] > 3
+    rng = np.random.default_rng(9)
+    eng.restore_columns(columns(rng, eng, 2000, 0, 100.0), 100.0)
+    tok = eng.search_columns_async(columns(rng, eng, 64, 5000, 101.0), 101.0)
+    assert tok is not None
+    eng.flush()
+
+
+def test_entry_replays_bit_equal_to_eager_and_the_cpu(cuda):
+    from matchmaking_tpu_torch import entry
+
+    def run(device):
+        fn, (pool, packed) = entry.entry(device=device)
+        return fn(pool, packed), pool
+
+    graphs, step, rpool = entry.captured_entry(cuda)
+    before = cuda_kernels.LAUNCHES["block_best"]
+    replayed = graphs.replay(step).clone()
+    assert cuda_kernels.LAUNCHES["block_best"] == before + 1
+    eager, epool = run(cuda)
+    cpu, cpool = run("cpu")
+    for got, want in ((replayed, eager), (replayed.cpu(), cpu)):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.cpu().view(torch.int32))
+    for name in cpool:
+        assert torch.equal(rpool[name].cpu(), epool[name].cpu()), name
+        assert torch.equal(rpool[name].cpu(), cpool[name]), name
+    assert int((cpu[0] < 8192).sum()) > 0

@@ -26,7 +26,8 @@ def _modules():
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "torch_service_ab.py"),
-           os.path.join(ROOT, "scripts", "torch_profiler_records.py")]
+           os.path.join(ROOT, "scripts", "torch_profiler_records.py"),
+           *(os.path.join(ROOT, "scripts", f) for f in OPERATOR_TOOLS)]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -37,8 +38,10 @@ def _forbidden(name: str) -> bool:
             or name == "matchmaking_tpu" or name.startswith("matchmaking_tpu."))
 
 
-#: The port's own analyzer, sanitizer and model checker: tools that check
-#: the port, importing neither jax nor anything of the JAX package.
+#: The port's own analyzer (its trace-time recompile and device rules
+#: too), sanitizer and model checker, and its entry points: tools that
+#: check or drive the port, importing neither jax nor anything of the JAX
+#: package.
 NEW_TOOL_MODULES = (
     "matchmaking_tpu_torch.analysis",
     "matchmaking_tpu_torch.analysis.__main__",
@@ -46,16 +49,23 @@ NEW_TOOL_MODULES = (
     "matchmaking_tpu_torch.analysis.core",
     "matchmaking_tpu_torch.analysis.dataflow",
     "matchmaking_tpu_torch.analysis.determinism",
+    "matchmaking_tpu_torch.analysis.device_audit",
     "matchmaking_tpu_torch.analysis.engine",
     "matchmaking_tpu_torch.analysis.lifecycle",
     "matchmaking_tpu_torch.analysis.locks",
     "matchmaking_tpu_torch.analysis.modelcheck",
     "matchmaking_tpu_torch.analysis.perf",
     "matchmaking_tpu_torch.analysis.protocol",
+    "matchmaking_tpu_torch.analysis.recompile",
     "matchmaking_tpu_torch.analysis.speculation",
+    "matchmaking_tpu_torch.entry",
     "matchmaking_tpu_torch.testing.sanitizer",
     "matchmaking_tpu_torch.testing.scheduler",
 )
+
+#: The port's offline operator tools under scripts/.
+OPERATOR_TOOLS = ("torch_journal_dump.py", "torch_postmortem.py",
+                  "torch_trace_dump.py")
 
 
 def test_every_submodule_is_listed():
@@ -185,6 +195,31 @@ def test_the_tool_modules_import_no_jax(module):
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'matchmaking_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("script", OPERATOR_TOOLS)
+def test_the_operator_tools_import_no_jax(script):
+    """Each offline operator tool, loaded as its own module in a fresh
+    interpreter (its lazy imports too: the gap classifier, the postmortem
+    analyzer), loads neither jax nor the JAX package."""
+    code = (
+        "import importlib.util, os, sys\n"
+        f"path = os.path.join('scripts', {script!r})\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "spec = importlib.util.spec_from_file_location('tool', path)\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "import matchmaking_tpu_torch.service.attribution\n"
+        "import torch_postmortem\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'matchmaking_tpu'))\n"
         "assert not bad, bad\n"
