@@ -93,7 +93,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    rescan_async ticks at that time, with pools and quality states equal;
    a second speculation, discarded by an admission, leaves the live pool
    as it was. Prints the counters and the device ms of the spare pool's
-   copy, a speculation and a commit, with their launches.
+   copy, a speculation and a commit, with their launches. 3e: grouped
+   readback (``readback_group`` k) on config #1 with 100k restored:
+   copies of one pool take 48 windows of 1,024 and a two-chunk rescan
+   tick, dispatched and then flushed, at k = 1, 2, 3, 4, dense and
+   bucketed, and 8 windows sharded D = 2 on ("cuda:0",) × 2 at k = 1 and
+   3: pairs, distances, queued ids, pools and quality states bit-equal to
+   k = 1. Then k = 1 against k = 3 (wait 2 ms) at depth 2, collected
+   interleaved: nobody matched twice, matched + waiting = restored +
+   admitted; dispatch p50, turnaround, readback ms a window
+   (``util_report``), the group wait and the transfer from the window
+   marks. The device's memcpys by name over 8 windows at k = 1 and 3
+   (torch.profiler: fewer copies to the host, one device-to-device copy
+   more a window), and the graph audit of the grouped engine's dense step
+   equal to the ungrouped one's. It runs before phase 14, as every count
+   by name does.
 4. service: the in-process service on the card: the 10-player demo; a
    soak with 100k restored players and 16,384 requests published in
    bursts (every request answered once from its window, partners agree,
@@ -429,9 +443,19 @@ output file.
    ``scripts/torch_journal_dump.py`` on 16a's plain leg's journal (intact,
    exit 0; ``--json``), ``scripts/torch_postmortem.py`` on phase 7's
    ``breaker_trip`` bundle (exit 0; ``--json``, no problem).
+18. grouped readback in the service, run last. 18a: config #1's soak
+   (100k restored, 16,384 requests in bursts of 512, the invariant
+   checker armed) with ``readback_group`` 1, 3 (wait 2 ms) and 3 (wait
+   8 ms), twice in turns: every request answered once, partners agree,
+   one launch of each kernel a window; requests/s, p50/p99, attribution's
+   ``readback_group_wait`` and ``readback_transfer`` ms a request. 18b:
+   the JAX package's ``tests/test_soak.py`` traffic at k = 3 on the card
+   (seeded chaos drop 0.1 / dup 0.15, depth 4, a 2 ms wait, rescan ticks
+   every 50 ms): nothing dead lettered, matched + waiting >= 95 %,
+   matched > 50 %, no device error.
 
 Each phase's seconds are logged. The last lines of standard output are a
-JSON summary of phases 3-17, the
+JSON summary of phases 3-18, the
 max SM clock, the ``steps`` line (the team and role steps: plain PyTorch),
 the card (nvidia-smi name and power limit), one JSON line with the
 kernels' numbers (block_best, its span launch inside its entry, and
@@ -2233,12 +2257,237 @@ def check_faults(app, what):
                              f"{app.faults()}")
 
 
+# ---- phase 3e: grouped readback --------------------------------------------
+
+#: Phase 3e's groups, each held to k = 1 (every window read back alone).
+READBACK_GROUPS = (2, 3, 4)
+
+
+def copies_by_kind(torch, run):
+    """torch.profiler over ``run()``: the device's memcpy records by kind
+    ("DtoH", "DtoD", "HtoD") and by name, and what ``run`` returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n = run()
+        torch.cuda.synchronize()
+    kinds = {"DtoH": 0, "DtoD": 0, "HtoD": 0}
+    names = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        for kind in kinds:
+            if f"Memcpy {kind}" in e.key:
+                kinds[kind] += e.count
+                names[e.key] = names.get(e.key, 0) + e.count
+    return n, kinds, names
+
+
+def marks_split(eng, tokens):
+    """Mean ms a window from its last device step to its "readback_seal"
+    mark (waiting for its group) and from the seal to "collect", over
+    ``tokens``' window marks (popped)."""
+    wait, transfer = [], []
+    for tok in tokens:
+        marks = eng.window_marks.pop(tok)
+        t = dict(marks)
+        step = max(s for n, s in marks
+                   if n in ("device_step", "formation_bucketed"))
+        wait.append((t["readback_seal"] - step) * 1e3)
+        transfer.append((t["collect"] - t["readback_seal"]) * 1e3)
+    return statistics.fmean(wait), statistics.fmean(transfer)
+
+
+def run_grouped_readback(torch, np, ck, mods, path, *, waiting, windows,
+                         seed, profile_windows):
+    """Phase 3e: grouped readback (``readback_group`` k) on config #1 at
+    full width with phase 3's seeded population. Copies of one restored
+    pool take ``windows`` windows of 1,024 and a two-chunk rescan tick,
+    all dispatched, then flushed, at k = 1 and each of
+    ``READBACK_GROUPS``, dense and bucketed (the span step and its
+    rescan): pairs, distances, queued ids, pools and quality states
+    bit-equal to k = 1; the same for the sharded step, D = 2 on
+    ``("cuda:0",) × 2``, over 8 windows. Then k = 1 against k = 3 at the
+    config's depth with ``readback_group_wait_ms`` 2, each window collected
+    once the next is dispatched: nobody matched twice, matched + waiting
+    = restored + admitted; dispatch p50, turnaround, readback ms a window
+    (``util_report``) and the marks' group wait and transfer. Then the
+    memcpys the device ran over ``profile_windows`` more windows at k = 1
+    and k = 3 (torch.profiler, by name), and the graph audit of the
+    grouped engine's dense step against the ungrouped one's. Returns the
+    numbers and the launches of the runs (captures left out)."""
+    import dataclasses
+
+    Config, GpuEngine, RequestColumns, _ = mods
+    base = Config.from_json(os.path.join(HERE, path), backend="gpu")
+    rng = np.random.default_rng(seed)
+    t0 = 1_700_000_000.0
+    n_all = waiting + (windows + profile_windows) * FULL_B
+    pop = Population(np, rng, n_all, t0, filters=False, glicko2=False)
+    now_of = [t0 + 1.0 + 0.05 * w for w in range(windows + profile_windows)]
+    launches = {"block_best": 0, "quality_accum": 0}
+
+    def counted(fn):
+        before = dict(ck.LAUNCHES)
+        out = fn()
+        for k in launches:
+            launches[k] += ck.LAUNCHES[k] - before[k]
+        return out
+
+    def engine(k, over=None, d=1):
+        cfg = dataclasses.replace(base, engine=dataclasses.replace(
+            base.engine, readback_group=k, readback_group_wait_ms=2.0,
+            **(over or {})))
+        eng = (sharded_engine(mods, cfg, d, False) if d > 1
+               else GpuEngine(cfg, cfg.queues[0], device="cuda"))
+        eng.warmup()
+        eng.restore_columns(pop.columns(RequestColumns, eng, 0, waiting, t0),
+                            t0)
+        return eng
+
+    def stream(eng, lo, hi):
+        return [pop.columns(RequestColumns, eng, waiting + w * FULL_B,
+                            waiting + (w + 1) * FULL_B, now_of[w])
+                for w in range(lo, hi)]
+
+    def dispatch_all(eng, n, tick=True):
+        cols = stream(eng, 0, n)
+        torch.cuda.synchronize()
+
+        def run():
+            with no_sync(torch):
+                for w in range(n):
+                    eng.search_columns_async(cols[w], now_of[w])
+                if tick:
+                    eng.rescan_async(2 * FULL_B, now_of[n - 1] + 0.5)
+            return [o for _, o in eng.flush()]
+        return counted(run)
+
+    equal = {}
+    for family, over in (("dense", None), ("bucketed", BUCKETED)):
+        ref = engine(1, over)
+        want = dispatch_all(ref, windows)
+        if want[-1].n_matches == 0:
+            raise AssertionError(f"3e {family}: the rescan tick matched "
+                                 f"nobody")
+        for k in READBACK_GROUPS:
+            eng = engine(k, over)
+            got = dispatch_all(eng, windows)
+            same_outcomes(np, got[:-1], want[:-1], f"3e {family} k={k}")
+            same_outcomes(np, got[-1], want[-1], f"3e {family} k={k} tick")
+            same_pools(torch, eng, ref, f"3e {family} k={k}")
+            if eng._rb_open or eng.device_error is not None:
+                raise AssertionError(f"3e {family} k={k}: a group left open "
+                                     f"or a device error")
+            eng.close()
+        equal[family] = {"windows": windows, "k": list(READBACK_GROUPS),
+                         "matches": sum(o.n_matches for o in want[:-1]),
+                         "tick_matches": want[-1].n_matches}
+        ref.close()
+    shard = {}
+    for k in (1, 3):
+        eng = engine(k, d=2)
+        shard[k] = (dispatch_all(eng, 8, tick=False), snapshot_pool(eng))
+        eng.close()
+    same_outcomes(np, shard[3][0], shard[1][0], "3e sharded D=2 k=3")
+    for name, col in shard[1][1].items():
+        if not torch.equal(col, shard[3][1][name]):
+            raise AssertionError(f"3e sharded D=2: pool column {name} "
+                                 f"differs")
+    equal["sharded_d2"] = {"windows": 8, "k": [3],
+                           "matches": sum(o.n_matches for o in shard[1][0])}
+    log(f"3e grouped readback: bit-equal to k = 1: {equal}")
+    timed, engines = {}, {}
+    depth = base.engine.pipeline_depth
+    for k in (1, 3):
+        eng = engines[k] = engine(k)
+        cols = stream(eng, 0, windows)
+        util0, rb0 = eng.util_report(), eng.util["readback_s"]
+        torch.cuda.synchronize()
+        outs, disp, turn = counted(lambda: drive_columnar(
+            torch, eng, cols, now_of, depth, timed=True))
+        wait_ms, transfer_ms = marks_split(eng, sorted(eng.window_marks))
+        seen, matched, admitted = set(), 0, 0
+        for w in range(windows):
+            ids = outs[w].m_id_a.tolist() + outs[w].m_id_b.tolist()
+            if seen & set(ids) or len(set(ids)) != len(ids):
+                raise AssertionError(f"3e k={k}: a player matched twice")
+            seen |= set(ids)
+            matched += len(ids)
+            admitted += len(cols[w]) - len(outs[w].rejected)
+        if matched + eng.pool_size() != waiting + admitted:
+            raise AssertionError(f"3e k={k}: {matched} matched + "
+                                 f"{eng.pool_size()} waiting != {waiting} "
+                                 f"+ {admitted}")
+        util = eng.util_report()
+        timed[k] = {
+            "dispatch_ms_p50": statistics.median(disp),
+            "dispatch_ms_p99": pct(disp, 0.99),
+            "turnaround_ms_p50": statistics.median(turn),
+            "turnaround_ms_p99": pct(turn, 0.99),
+            "readback_ms_per_window":
+                (eng.util["readback_s"] - rb0) * 1e3 / windows,
+            "group_wait_ms_per_window": wait_ms,
+            "transfer_ms_per_window": transfer_ms,
+            "windows": util["windows"] - util0["windows"],
+            "players_matched": matched}
+        log(f"3e k={k} at depth {depth}, wait 2 ms: dispatch p50 "
+            f"{timed[k]['dispatch_ms_p50']:.3f} ms, turnaround p50 "
+            f"{timed[k]['turnaround_ms_p50']:.3f} ms, readback "
+            f"{timed[k]['readback_ms_per_window']:.3f} ms a window (group "
+            f"wait {wait_ms:.3f}, seal -> collect {transfer_ms:.3f}), "
+            f"{matched} matched")
+    # The copies by name over more windows, dispatched and then flushed:
+    # k = 3 reads them back in groups of 3, 3 and 2.
+    copies = {}
+    for k in (1, 3):
+        eng = engines[k]
+        cols = stream(eng, windows, windows + profile_windows)
+
+        def run():
+            for i, c in enumerate(cols):
+                eng.search_columns_async(c, now_of[windows + i])
+            eng.flush()
+            return profile_windows
+        _, kinds, names = counted(lambda: copies_by_kind(torch, run))
+        copies[k] = {"per_window": {kind: n / profile_windows
+                                    for kind, n in kinds.items()},
+                     "by_name": names}
+    if not (copies[3]["per_window"]["DtoH"] < copies[1]["per_window"]["DtoH"]
+            and copies[3]["per_window"]["DtoD"]
+            >= copies[1]["per_window"]["DtoD"] + 1.0):
+        raise AssertionError(f"3e copies: k=1 {copies[1]}, k=3 {copies[3]}")
+    log(f"3e memcpys a window over {profile_windows} windows: k=1 "
+        f"{copies[1]['per_window']}, k=3 {copies[3]['per_window']}; by "
+        f"name k=1 {copies[1]['by_name']}, k=3 {copies[3]['by_name']}")
+    audit = {}
+    for k in (1, 3):
+        rep = engines[k].graph_audit("dense", FULL_B)
+        if rep["problems"]:
+            raise AssertionError(f"3e graph audit k={k}: {rep['problems']}")
+        audit[k] = {key: rep[key] for key in ("kernel_nodes", "memset_nodes",
+                                              "own_kernel_nodes")}
+    if audit[3] != audit[1]:
+        raise AssertionError(f"3e graph audit: k=3 {audit[3]} != k=1 "
+                             f"{audit[1]}")
+    for eng in engines.values():
+        eng.close()
+    log(f"3e graph audit (dense, B = {FULL_B}): {audit[3]} at k = 3 and 1; "
+        f"launches {launches}")
+    return {"config": path, "waiting": waiting, "windows": windows,
+            "equal": equal, "timed": timed, "copies": copies,
+            "graph_audit": audit, "launches": launches}
+
+
 # ---- phase 4: the service ---------------------------------------------------
 
 
 async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
                        seed, consume_batch=True, profile_to=None,
-                       observability=None):
+                       observability=None, engine_over=None,
+                       debug_invariants=False):
     """The service at full width: ``waiting`` players restored, then
     ``requests`` published in bursts of ``burst``. Every request is
     answered from its window once (queued or matched) and matched at most
@@ -2250,7 +2499,10 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     window at the flush. ``profile_to``: a file that gets cProfile's
     functions by own time over the soak (the event loop's thread, which
     runs every part of the service). ``observability``: fields of the
-    config's ``ObservabilityConfig`` to replace (e.g. tracing off)."""
+    config's ``ObservabilityConfig`` to replace (e.g. tracing off).
+    ``engine_over``: engine keys to replace (phase 18's readback groups);
+    ``debug_invariants`` arms the online invariant checker. The result
+    carries attribution's ms a request by category."""
     import dataclasses
 
     from matchmaking_tpu_torch.native import codec
@@ -2260,8 +2512,10 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
     Config, _, RequestColumns, _ = mods
     cfg = Config.from_json(os.path.join(HERE, path), backend="gpu")
     cfg = dataclasses.replace(
-        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True),
-        broker=dataclasses.replace(cfg.broker, consume_batch=consume_batch))
+        cfg, engine=dataclasses.replace(cfg.engine, warm_start=True,
+                                        **(engine_over or {})),
+        broker=dataclasses.replace(cfg.broker, consume_batch=consume_batch),
+        debug_invariants=debug_invariants)
     if observability:
         cfg = dataclasses.replace(cfg, observability=dataclasses.replace(
             cfg.observability, **observability))
@@ -2396,8 +2650,13 @@ async def service_soak(np, ck, mods, path, *, waiting, requests, burst,
                              f"engine {engine_samples} quality samples for "
                              f"{len(matched)} matched players")
     lat = [v * 1e3 for v in first.values()]
+    attr = app.attribution.snapshot()["queues"].get(app.queue_cfg.name, {})
     res = {"config": path, "waiting": waiting, "requests": requests,
            "burst": burst, "consume_batch": consume_batch,
+           "engine_over": engine_over,
+           "attribution_ms_per_request": {
+               name: cat["total_s"] * 1e3 / max(1, attr["spans"])
+               for name, cat in attr.get("categories", {}).items()},
            "gc_ms": gc_clock.total * 1e3,
            "decode_calls": decodes, "windows": windows, "launches": launches,
            "soak_s": soak_s,
@@ -8822,6 +9081,141 @@ def phase_graphs(torch, ck, mods, phase_s, *, profiled_kernels, journal_dir,
     return res
 
 
+# ---- phase 18: grouped readback in the service ------------------------------
+
+#: Phase 18's legs, in turns: (readback_group, readback_group_wait_ms).
+GROUPED_LEGS = ((1, 2.0), (3, 2.0), (3, 8.0), (1, 2.0), (3, 2.0), (3, 8.0))
+
+
+async def service_chaos_grouped(np, ck, mods, *, readback_group, seed=42,
+                                n=400):
+    """The JAX package's ``tests/test_soak.py`` soak traffic on the card:
+    400 requests (ratings N(1500, 120)) in bursts of 50 under seeded
+    broker chaos (drop 0.1, dup 0.15 on the request queue), widening, a
+    multi-chunk rescan tick every 50 ms, depth 4, buckets 16/64/256, a
+    2 ms window and group wait, the invariant checker armed: nothing dead
+    lettered, matched + waiting >= 95 % of the players, matched > 50 %,
+    no device error and no failure caught."""
+    from matchmaking_tpu_torch.config import (
+        BatcherConfig,
+        BrokerConfig,
+        ChaosConfig,
+        EngineConfig,
+        QueueConfig,
+    )
+    from matchmaking_tpu_torch.service.app import MatchmakingApp
+    from matchmaking_tpu_torch.service.broker import Properties
+
+    Config = mods[0]
+    q = QueueConfig(rating_threshold=60.0, widen_per_sec=20.0,
+                    max_threshold=300.0, rescan_interval_s=0.05,
+                    rescan_window=1024)
+    cfg = Config(
+        queues=(q,),
+        engine=EngineConfig(backend="gpu", pool_capacity=1024,
+                            pool_block=256, batch_buckets=(16, 64, 256),
+                            pipeline_depth=4, readback_group=readback_group,
+                            readback_group_wait_ms=2.0),
+        broker=BrokerConfig(max_redelivery=30),
+        chaos=ChaosConfig(seed=seed, queues=(q.name,), drop_prob=0.1,
+                          dup_prob=0.15),
+        batcher=BatcherConfig(max_batch=256, max_wait_ms=2.0),
+        debug_invariants=True)
+    app = MatchmakingApp(cfg, device="cuda")
+    await app.start()
+    rng = np.random.default_rng(seed)
+    reply = "soak.replies"
+    app.broker.declare_queue(reply)
+    reset_counts(ck)
+    t = time.perf_counter()
+    try:
+        for i in range(n):
+            body = (f'{{"id":"p{i}","rating":'
+                    f'{float(rng.normal(1500, 120)):.2f}}}').encode()
+            app.broker.publish(q.name, body, Properties(
+                reply_to=reply, correlation_id=f"c{i}"))
+            if i % 50 == 49:
+                await asyncio.sleep(0.05)
+        for _ in range(400):
+            await asyncio.sleep(0.05)
+            matched = app.metrics.counters.get("players_matched")
+            waiting = app.runtime(q.name).engine.pool_size()
+            if (app.broker.queue_depth(q.name) == 0
+                    and matched + waiting >= n * 0.95 and matched > n * 0.5):
+                break
+        matched = app.metrics.counters.get("players_matched")
+        engine = app.runtime(q.name).engine
+        waiting = engine.pool_size()
+        dead = app.broker.stats["dead_lettered"]
+        error = engine.device_error
+        grouped = engine._rb_k
+    finally:
+        await app.stop()
+    run_s = time.perf_counter() - t
+    check_faults(app, f"18b k={readback_group}")
+    if (dead or matched + waiting < n * 0.95 or matched <= n * 0.5
+            or error is not None or grouped != readback_group):
+        raise AssertionError(f"18b k={readback_group}: dead {dead}, matched "
+                             f"{matched}, waiting {waiting}, error {error}")
+    res = {"readback_group": readback_group, "players": n,
+           "matched": matched, "waiting": waiting, "dead_lettered": dead,
+           "chaos": dict(app.broker.stats), "seconds": run_s,
+           "launches": dict(ck.LAUNCHES)}
+    log(f"18b the JAX soak's traffic at k={readback_group} (chaos, depth "
+        f"4): {matched} matched, {waiting} waiting of {n}, 0 dead lettered, "
+        f"invariants held, {run_s:.1f} s, launches {res['launches']}")
+    return res
+
+
+def phase_grouped_service(np, ck, mods, phase_s):
+    """Phase 18: config #1's service (phase 4's soak: 100k restored,
+    16,384 requests in bursts of 512, the invariant checker armed) at
+    ``GROUPED_LEGS``' readback groups in turns (18a), then the JAX soak's
+    chaos traffic at k = 3 (18b). A full collection runs before each leg,
+    so that no leg pays for the garbage of the phases before it (without
+    it, on an H100 80GB HBM3 at 700 W: a ~1 s collection inside each of
+    the last four legs, k = 1 and 3 alike)."""
+    import gc
+
+    t = time.perf_counter()
+    legs = []
+    for k, wait_ms in GROUPED_LEGS:
+        gc.collect()
+        run = asyncio.run(service_soak(
+            np, ck, mods, "configs/elo_1v1.json", waiting=100_000,
+            requests=16_384, burst=512, seed=6, debug_invariants=True,
+            engine_over={"readback_group": k,
+                         "readback_group_wait_ms": wait_ms}))
+        attr = run["attribution_ms_per_request"]
+        leg = {"readback_group": k, "readback_group_wait_ms": wait_ms,
+               **{key: run[key] for key in (
+                   "requests_per_s", "latency_ms_p50", "latency_ms_p99",
+                   "windows", "players_matched", "gc_ms")},
+               # The soak checks one launch of each kernel a window.
+               "launches": {"block_best": run["launches"],
+                            "quality_accum": run["windows"]},
+               "readback_group_wait_ms_per_request":
+                   attr.get("readback_group_wait", 0.0),
+               "readback_transfer_ms_per_request":
+                   attr.get("readback_transfer", 0.0),
+               "readback_ms_per_window":
+                   run["util_report"]["readback_s"] * 1e3
+                   / max(1, run["util_report"]["windows"])}
+        legs.append(leg)
+        log(f"18a k={k} wait {wait_ms} ms: {leg['requests_per_s']:.0f} "
+            f"requests/s, p50 {leg['latency_ms_p50']:.2f} ms p99 "
+            f"{leg['latency_ms_p99']:.2f} ms, readback_group_wait "
+            f"{leg['readback_group_wait_ms_per_request']:.3f} and "
+            f"readback_transfer "
+            f"{leg['readback_transfer_ms_per_request']:.3f} ms a request, "
+            f"{leg['windows']} windows, GC {leg['gc_ms']:.1f} ms")
+    phase_s["18a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    chaos = asyncio.run(service_chaos_grouped(np, ck, mods, readback_group=3))
+    phase_s["18b"] = time.perf_counter() - t
+    return {"18a": legs, "18b": chaos}
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -8958,6 +9352,15 @@ def main(argv) -> int:
     for name, run in speculation.items():
         launches["speculation_" + name] = run["speculate_launches"]
     phase_s["3d"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # 3e. grouped readback: config #1 dense, bucketed (with the rescan
+    #     tick) and sharded D = 2 at k = 2-4 bit-equal to k = 1; k = 1
+    #     against k = 3 at depth 2; the copies by name (torch.profiler,
+    #     so before phase 4) and the graph audit
+    grouped = run_grouped_readback(torch, np, ck, mods, "configs/elo_1v1.json",
+                                   waiting=100_000, windows=48, seed=1,
+                                   profile_windows=8)
+    phase_s["3e"] = time.perf_counter() - t_phase
 
     # 14. the sharded pool and the multi-host runtime: config #1 sharded
     #     D = 1, 2, 4, 8 ways (and the ring at 4) on the one card against
@@ -9239,6 +9642,18 @@ def main(argv) -> int:
     for name, counts in phase17.items():
         launches[name] = counts["block_best"]
 
+    # 18. grouped readback in the service: config #1's soak at k = 1 and 3
+    #     (wait 2 and 8 ms) in turns with the invariant checker (18a), the
+    #     JAX soak's chaos traffic at k = 3 (18b)
+    p18 = phase_grouped_service(np, ck, mods, phase_s)
+    phase18 = {"grouped_readback": grouped["launches"],
+               "grouped_chaos_soak": p18["18b"]["launches"]}
+    for i, leg in enumerate(p18["18a"]):
+        phase18[f"service_grouped_{i}_k{leg['readback_group']}"] = (
+            leg["launches"])
+    for name, counts in phase18.items():
+        launches[name] = counts["block_best"]
+
     phase14 = {k: v for k, v in shard_run["launches"].items()
                if not k.startswith("stand_in_")}
     phase14["bucket_frontier"] = frontier_run["launches"]
@@ -9280,7 +9695,8 @@ def main(argv) -> int:
                      + sum(phase14.values())
                      + sum(c["block_best"] for c in phase15.values())
                      + sum(c["block_best"] for c in phase16.values())
-                     + sum(c["block_best"] for c in phase17.values()))
+                     + sum(c["block_best"] for c in phase17.values())
+                     + sum(c["block_best"] for c in phase18.values()))
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -9296,7 +9712,8 @@ def main(argv) -> int:
                   + sum(c["quality_accum"] for c in phase13.values())
                   + sum(c["quality_accum"] for c in phase15.values())
                   + sum(c["quality_accum"] for c in phase16.values())
-                  + sum(c["quality_accum"] for c in phase17.values()))
+                  + sum(c["quality_accum"] for c in phase17.values())
+                  + sum(c["quality_accum"] for c in phase18.values()))
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -9358,7 +9775,8 @@ def main(argv) -> int:
             **{name: c["quality_accum"] for name, c in phase15.items()},
             **{name: c["quality_accum"] for name, c in phase16.items()},
             **{name: c["quality_accum"] for name, c in phase17.items()
-               if name != "entry_and_dryrun"}},
+               if name != "entry_and_dryrun"},
+            **{name: c["quality_accum"] for name, c in phase18.items()}},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -9523,6 +9941,15 @@ def main(argv) -> int:
             "entry_paired": p17["17c"]["paired"],
             "dryrun": p17["17c"]["dryrun"],
             "tools": p17["17d"]},
+        "grouped_readback": {
+            "equal": grouped["equal"], "timed": grouped["timed"],
+            "copies_per_window": {k: c["per_window"]
+                                  for k, c in grouped["copies"].items()},
+            "graph_audit": grouped["graph_audit"][3],
+            "service": [{k: v for k, v in leg.items() if k != "launches"}
+                        for leg in p18["18a"]],
+            "chaos_soak": {k: v for k, v in p18["18b"].items()
+                           if k not in ("launches", "chaos")}},
     }
     steps_line = {"steps": [
         dict(name=name, config=run["config"], replaces=src,
@@ -9570,6 +9997,7 @@ def main(argv) -> int:
                        "sharded_teams": shard_teams,
                        "process_mesh": process_run,
                        "placement": p15, "sanitized": p16, "graphs": p17,
+                       "grouped_readback": grouped, "grouped_service": p18,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)

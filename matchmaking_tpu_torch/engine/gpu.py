@@ -57,6 +57,22 @@ The asynchrony is PyTorch's, kept free of implicit host syncs:
   players), its token lands in ``failed_tokens`` and the error in
   ``device_error``.
 
+Grouped readback (``EngineConfig.readback_group`` k > 1; 1v1 queues: a
+team or role queue reads each window back by itself). The results of up
+to k window chunks of one shape travel to the host in one copy
+(``_ReadGroup``): each chunk's result is copied device to device into
+its row of the group's buffer right behind its step, before anything
+else is queued (the next replay of the step's graph overwrites its
+static output; the copy stays outside the captured graphs), and the
+group is sealed (one copy of its filled rows into pinned memory, one
+event) when it is full, at dispatch; at ``collect_ready`` once older
+than ``readback_group_wait_ms``; and at ``flush``, always. A window in a
+group not yet sealed is not ready, on the card and on the CPU alike. A
+device error at the group's read fails every window in the group. A
+grouped window's "readback_seal" mark is the latest seal among its
+chunks' groups, stamped at its finalize; ``util["readback_s"]`` sums
+seal → collection for every k.
+
 Bucketed formation (``EngineConfig.bucketed``, 1v1 queues). The device
 pool carries the bucket index (``kernels.INDEX_FIELDS``): every traffic
 and rescan step, restore and eviction keeps its counts exact and its
@@ -212,6 +228,87 @@ class _Readback:
         return self.host.numpy()
 
 
+class _ReadGroup:
+    """Up to k window chunks' results of one shape, dtype and device on
+    their way to the host in one copy. ``add`` copies a result device to
+    device into the next row of ``dev``, on the current stream (so before
+    the next replay of the step that wrote it); ``seal`` queues one
+    non-blocking copy of the filled rows into pinned memory and records
+    an event behind it (on the CPU the rows are read as they are). A read
+    synchronises the event once; an error there fails every member."""
+
+    __slots__ = ("dev", "n", "created", "sealed_at", "sealed_pc", "host",
+                 "event", "array", "error")
+
+    def __init__(self, k: int, like: torch.Tensor):
+        self.dev = torch.empty((k, *like.shape), dtype=like.dtype,
+                               device=like.device)
+        self.n = 0
+        self.created = time.perf_counter()
+        #: time.time() at the seal: the members' "readback_seal" mark.
+        self.sealed_at = 0.0
+        #: perf_counter at the seal: where the members' readback span starts.
+        self.sealed_pc = 0.0
+        self.host: torch.Tensor | None = None
+        self.event = None
+        self.array: np.ndarray | None = None
+        self.error: Exception | None = None
+
+    def add(self, out: torch.Tensor) -> "_GroupSlot":
+        self.dev[self.n].copy_(out, non_blocking=True)
+        self.n += 1
+        return _GroupSlot(self, self.n - 1)
+
+    def seal(self) -> None:
+        self.sealed_at, self.sealed_pc = time.time(), time.perf_counter()
+        rows = self.dev[:self.n]
+        if rows.device.type == "cuda":
+            self.host = torch.empty(rows.shape, dtype=rows.dtype,
+                                    pin_memory=True)
+            self.host.copy_(rows, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(rows.device))
+        else:
+            self.host = rows
+        # The stream-ordered allocator may hand the rows to a later
+        # allocation on this stream: it runs after the copy.
+        self.dev = None
+
+    def ready(self) -> bool:
+        return self.host is not None and (self.event is None
+                                          or self.event.query())
+
+    def read(self) -> np.ndarray:
+        if self.array is None:
+            if self.error is not None:
+                raise self.error
+            try:
+                if self.event is not None:
+                    self.event.synchronize()  # raises a device error, if any
+            except RuntimeError as e:
+                self.error = e
+                raise
+            self.array = self.host.numpy()
+        return self.array
+
+
+class _GroupSlot:
+    """One window chunk's row of a ``_ReadGroup``: a ``_Readback`` to its
+    window."""
+
+    __slots__ = ("group", "idx")
+
+    def __init__(self, group: _ReadGroup, idx: int):
+        self.group = group
+        self.idx = idx
+
+    def ready(self) -> bool:
+        return self.group.ready()
+
+    def numpy(self) -> np.ndarray:
+        return self.group.read()[self.idx]
+
+
 @dataclass
 class _Speculation:
     """A speculation held off the books: the spare pool holds its result,
@@ -227,7 +324,9 @@ class _Speculation:
     #: ``now`` as the steps read it (f32[1] on the pool's device), for the
     #: quality fold at commit.
     now_dev: torch.Tensor
-    #: ``_Pending``-shaped chunks: ((cols, slots), readback, spec_now).
+    #: ``_Pending``-shaped chunks: ((cols, slots), readback, spec_now);
+    #: with grouped readback the readback is the result's device copy,
+    #: attached to a group at the commit.
     chunks: list[tuple[Any, Any, float]] = field(default_factory=list)
     #: Each chunk's result on the device (a copy taken right after its
     #: step), for the quality fold at commit.
@@ -246,7 +345,8 @@ class _Pending:
     token: int
     #: Per device chunk: (payload, result, now). The payload is the request
     #: list (object path) or (RequestColumns, slots) (columnar path); the
-    #: result is the ``_Readback`` queued behind the chunk's step.
+    #: result is the ``_Readback`` queued behind the chunk's step (a
+    #: ``_GroupSlot`` with grouped readback).
     chunks: list[tuple[Any, Any, float]] = field(default_factory=list)
     #: perf_counter at dispatch, for the turnaround span.
     created: float = 0.0
@@ -259,7 +359,8 @@ class _Pending:
     #: A device failure met by ``_fetch``, parked for ``_finalize``.
     error: Exception | None = None
     #: perf_counter when the result copies were queued (the readback span
-    #: runs from here to the collection).
+    #: runs from here to the collection; grouped: the latest seal among
+    #: the chunks' groups, taken at finalize).
     queued_readback: float = 0.0
     #: Pinned staging buffers of the window's host→device copies, held
     #: until its results are read (the copies have run by then).
@@ -392,13 +493,13 @@ class GpuEngine(Engine):
         self._open = 0
         self._pending: collections.deque[_Pending] = collections.deque()
         self._next_token = 0
-        if ec.readback_group > 1:
-            # The JAX package stacks k windows' results into one transfer to
-            # save a per-copy cost of its device link; a copy here is one
-            # non-blocking pinned f32[3, B] copy, and no measurement shows a
-            # per-copy cost that grouping would remove.
-            raise ValueError("readback_group > 1 is not supported by "
-                             "GpuEngine: each window is read back by itself")
+        #: Grouped readback (``_ReadGroup``): windows a group holds (1: each
+        #: read back by itself; always 1 for a team or role queue), the
+        #: age at which ``collect_ready`` seals a partial group, and the
+        #: open groups by (shape, dtype, device).
+        self._rb_k = 1 if self._team_device else max(1, ec.readback_group)
+        self._rb_wait_s = ec.readback_group_wait_ms / 1e3
+        self._rb_open: dict[tuple, _ReadGroup] = {}
         #: First device failure since the last check; pipelined callers
         #: read it after collect_ready()/flush(), sync search() raises it.
         self.device_error: Exception | None = None
@@ -776,6 +877,7 @@ class GpuEngine(Engine):
         self._spec = None
         self._spec_validated_seq = None
         self._pending.clear()
+        self._rb_open.clear()
         self._done_early = []
         self._open = 0
         self.dev_pool = None  # drops every graph
@@ -982,6 +1084,7 @@ class GpuEngine(Engine):
         blocking, in dispatch order (a ready window behind an unfinished
         one waits its turn); windows finalized out of turn come first."""
         done, self._done_early = self._done_early, []
+        self._rb_seal_stale()
         while self._pending and self._is_ready(self._pending[0]):
             done.append(self._collect(self._pending.popleft()))
         return done
@@ -991,6 +1094,7 @@ class GpuEngine(Engine):
         then read the quality state back (it blocks anyway), so the
         report is exact."""
         done, self._done_early = self._done_early, []
+        self._rb_seal_stale(force=True)
         while self._pending:
             done.append(self._collect(self._pending.popleft()))
         self._quality_force_sync()
@@ -1256,6 +1360,11 @@ class GpuEngine(Engine):
         pending.marks.append(("spec_snapshot", s.wall_t))
         pending.marks.append(("spec_commit", time.time()))
         pending.chunks = s.chunks
+        if self._rb_k > 1:
+            # The held results are device copies of their own: they join
+            # the open groups now, as a rescan tick's would.
+            pending.chunks = [(payload, self._rb_attach(out), t)
+                              for payload, out, t in s.chunks]
         pending.staging = s.staging
         self._next_token += 1
         self.util["lanes_valid"] += s.lanes_valid
@@ -1483,16 +1592,19 @@ class GpuEngine(Engine):
                 staging_list: list[torch.Tensor],
                 requests: Sequence[SearchRequest] = (),
                 keep: list[torch.Tensor] | None = None,
-                marks: list[tuple[str, float]] | None = None) -> _Readback:
+                marks: list[tuple[str, float]] | None = None):
         """Copy one window chunk to the device, queue the ``variant`` step
         on it (on the card, one replay of its graph) and the copy of its
         result to the host right behind it: the next replay of the graph
         (a later chunk of this window) overwrites its static output.
         Returns that ``_Readback`` of the result (1v1: f32[3, B] q_slot,
         c_slot, dist, and a fourth row, the touched slots, when bucketed;
-        team/role: f32[need + 2 (+1), M]). The staging buffer goes to
+        team/role: f32[need + 2 (+1), M]); with grouped readback, the
+        result's ``_GroupSlot`` (its device copy into the open group
+        queued right behind the step instead). The staging buffer goes to
         ``staging_list``; with ``keep``, a device copy of the result,
-        taken before anything else is queued, goes there too. With
+        taken before anything else is queued, goes there too (grouped: it
+        is returned as it is, for the commit to attach). With
         ``marks`` (a traffic window's), the "h2d" and "device_step" (or
         "formation_bucketed") marks are appended once the input copy and
         the step are queued."""
@@ -1521,9 +1633,35 @@ class GpuEngine(Engine):
         if keep is not None:
             out = out.clone()
             keep.append(out)
-        readback = _Readback(out)
+            readback = out if self._rb_k > 1 else _Readback(out)
+        elif self._rb_k > 1:
+            readback = self._rb_attach(out)
+        else:
+            readback = _Readback(out)
         self.spans["step_s"] += time.perf_counter() - _t
         return readback
+
+    # ---- internals: grouped readback ----------------------------------------
+
+    def _rb_attach(self, out: torch.Tensor) -> _GroupSlot:
+        """Copy ``out`` into the open group of its shape (opened now if
+        none is) and seal the group once it holds ``_rb_k`` results."""
+        key = (tuple(out.shape), out.dtype, out.device)
+        g = self._rb_open.get(key)
+        if g is None:
+            g = self._rb_open[key] = _ReadGroup(self._rb_k, out)
+        slot = g.add(out)
+        if g.n >= self._rb_k:
+            self._rb_open.pop(key).seal()
+        return slot
+
+    def _rb_seal_stale(self, force: bool = False) -> None:
+        """Seal the open groups older than ``readback_group_wait_ms`` (all
+        of them with ``force``), so that a lull cannot strand results."""
+        now = time.perf_counter()
+        for key, g in list(self._rb_open.items()):
+            if force or now - g.created >= self._rb_wait_s:
+                self._rb_open.pop(key).seal()
 
     def _step_for(self, batch: BatchArrays) -> str:
         """The variant of a traffic window (and of a team rescan), picked
@@ -1625,8 +1763,9 @@ class GpuEngine(Engine):
 
     def _submit(self, pending: _Pending) -> None:
         """Track the window FIFO (each chunk's result copy is already
-        queued behind its step: the "readback_seal" mark)."""
-        if pending.chunks:
+        queued behind its step: the "readback_seal" mark; a grouped
+        window takes its mark from its groups at finalize)."""
+        if pending.chunks and self._rb_k == 1:
             pending.marks.append(("readback_seal", time.time()))
         pending.queued_readback = time.perf_counter()
         if self._open == 0:
@@ -1677,6 +1816,13 @@ class GpuEngine(Engine):
             self.spans["windows"] += 1
             self.spans["turnaround_s"] += time.perf_counter() - pending.created
         if pending.chunks:
+            if self._rb_k > 1:
+                # The results rode their groups' copies: the latest seal
+                # among them is the window's.
+                last = max((h.group for _, h, _ in pending.chunks),
+                           key=lambda g: g.sealed_pc)
+                pending.marks.append(("readback_seal", last.sealed_at))
+                pending.queued_readback = last.sealed_pc
             self.util["readback_s"] += _t - pending.queued_readback
         pending.marks.append(("collect", time.time()))
         marks = self.window_marks

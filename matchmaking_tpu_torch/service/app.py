@@ -3771,8 +3771,9 @@ async def serve(stop: asyncio.Event | None = None, pika_module=None,
     topology the process joins its group first
     (``engine/distributed.init_distributed``: NCCL on the card, gloo on
     the CPU), so that a queue with ``mesh_pool_axis`` equal to the world
-    size shards its pool one slice per rank; ``MM_DCN_AUTO`` (TPU pods)
-    is refused."""
+    size shards its pool one slice per rank; with ``MM_DCN_AUTO`` and no
+    coordinator the topology comes from an Open MPI or Slurm launcher's
+    environment (``distributed.detect_cluster``)."""
     import signal
 
     from matchmaking_tpu_torch.engine.distributed import (

@@ -636,14 +636,18 @@ async def test_injected_amqp_broker_gets_the_chaos_state(pkg):
 async def test_port_serve_refuses_a_multi_host_topology(monkeypatch):
     """``serve`` joins a topology ``MM_DCN_*`` names
     (tests/test_torch_dcn.py); one named without its size and rank, and
-    the TPU-pod ``MM_DCN_AUTO``, are refused before anything serves."""
+    ``MM_DCN_AUTO`` with neither a Slurm nor an Open MPI launcher's
+    environment, are refused before anything serves."""
     clean_env(monkeypatch)
     monkeypatch.setenv("MM_DCN_COORDINATOR", "localhost:1")
     with pytest.raises(ValueError, match="MM_DCN_NUM_PROCESSES"):
         await port_app.serve(asyncio.Event(), device="cpu")
     clean_env(monkeypatch)
+    for key in list(os.environ):
+        if key.startswith(("SLURM_", "OMPI_")):
+            monkeypatch.delenv(key)
     monkeypatch.setenv("MM_DCN_AUTO", "1")
-    with pytest.raises(ValueError, match="no CUDA counterpart"):
+    with pytest.raises(ValueError, match="no launcher's environment"):
         await port_app.serve(asyncio.Event(), device="cpu")
 
 

@@ -361,36 +361,46 @@ def test_columnar_and_object_paths_form_the_same_pairs(name):
 
 
 def test_readback_groups_and_util_report():
-    """Each window is read back by itself: ``readback_group`` > 1 is
-    refused. On the CPU every window is ready once dispatched, and the span
-    and util reports count every window."""
-    path = os.path.join(ROOT, CONFIGS["elo_1v1"])
-    tcfg = Config.from_json(path, backend="gpu")
-    tcfg = dataclasses.replace(tcfg, engine=dataclasses.replace(
-        tcfg.engine, readback_group=3, **SMALL))
-    with pytest.raises(ValueError, match="readback_group"):
-        GpuEngine(tcfg, tcfg.queues[0], device="cpu")
-    _, eng = engine_pair("elo_1v1", readback_group=1)
+    """``readback_group`` 3 gives the outcomes of 1 on the same stream
+    (every window dispatched, then collected): the same pairs, queued ids
+    and pool, and the same span and util counts. On the CPU an ungrouped
+    window is ready once dispatched; a grouped one once its group is
+    sealed (two full groups of three at dispatch, the seventh window's at
+    the flush)."""
     windows = [(rows[:16], now) for rows, now
                in stream(np.random.default_rng(2), 7, "elo_1v1")]
-    toks = []
-    for rows, now in windows:
-        _, tc = columns_pair(eng, eng, rows)
-        toks.append(eng.search_columns_async(tc, now))
-    assert eng.inflight() == 7
-    got = eng.collect_ready()
-    assert [tok for tok, _ in got] == toks and eng.inflight() == 0
-    assert eng.flush() == []
-    spans, util = eng.span_report(), eng.util_report()
-    assert spans["windows"] == 7
-    assert spans["requests"] == sum(len(rows) for rows, _ in windows)
-    assert util["windows"] == 7 and 0.0 <= util["idle_fraction"] <= 1.0
-    assert util["lanes_valid"] == spans["requests"]
-    assert util["readback_s"] >= 0.0
-    assert eng.heartbeat(T0) is False
-    for key in ("dedupe", "alloc", "pack", "h2d", "step", "finalize",
-                "dispatch", "turnaround"):
-        assert spans[f"{key}_ms_avg"] >= 0.0
+    runs = {}
+    for k in (1, 3):
+        _, eng = engine_pair("elo_1v1", readback_group=k,
+                             readback_group_wait_ms=10_000.0)
+        toks = []
+        for rows, now in windows:
+            _, tc = columns_pair(eng, eng, rows)
+            toks.append(eng.search_columns_async(tc, now))
+        assert eng.inflight() == 7
+        got = eng.collect_ready()
+        assert [tok for tok, _ in got] == (toks if k == 1 else toks[:6])
+        got += eng.flush()
+        assert [tok for tok, _ in got] == toks and eng.inflight() == 0
+        assert eng.flush() == []
+        spans, util = eng.span_report(), eng.util_report()
+        assert spans["windows"] == 7
+        assert spans["requests"] == sum(len(rows) for rows, _ in windows)
+        assert util["windows"] == 7 and 0.0 <= util["idle_fraction"] <= 1.0
+        assert util["lanes_valid"] == spans["requests"]
+        assert util["readback_s"] >= 0.0
+        assert eng.heartbeat(T0) is False
+        for key in ("dedupe", "alloc", "pack", "h2d", "step", "finalize",
+                    "dispatch", "turnaround"):
+            assert spans[f"{key}_ms_avg"] >= 0.0
+        runs[k] = ([(pairs_of(out).keys(), out.q_ids.tolist())
+                    for _, out in got],
+                   sorted(eng.pool._slot_of.items()),
+                   {key: util[key] for key in ("windows", "lanes_valid",
+                                               "lanes_padded")},
+                   {key: spans[key] for key in ("windows", "requests",
+                                                "matches")})
+    assert runs[3] == runs[1]
 
 
 def test_device_failure_is_parked_on_its_window(monkeypatch):

@@ -2657,3 +2657,169 @@ def test_entry_replays_bit_equal_to_eager_and_the_cpu(cuda):
         assert torch.equal(rpool[name].cpu(), epool[name].cpu()), name
         assert torch.equal(rpool[name].cpu(), cpool[name]), name
     assert int((cpu[0] < 8192).sum()) > 0
+
+
+# ---- grouped readback on the card --------------------------------------------
+
+def grouped_pair(cuda, k, engine=None, wait_ms=10_000.0, **cfg_kw):
+    """Config #1 at full width (P = 131,072), one engine reading back each
+    window by itself and one grouping ``k``, both warmed up and restored
+    with the same 100k waiting."""
+    cfg = Config.from_json(os.path.join(CONFIGS, "elo_1v1.json"),
+                           backend="gpu")
+    engines = []
+    for group in (1, k):
+        c = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, readback_group=group,
+            readback_group_wait_ms=wait_ms, **(engine or {})), **cfg_kw)
+        eng = GpuEngine(c, c.queues[0], device=cuda)
+        eng.warmup()
+        engines.append(eng)
+    rng = np.random.default_rng(70)
+    fill = named_columns(rng, 100_000, 0, 100.0, False)
+    for eng in engines:
+        eng.restore_columns(interned(eng, fill), 100.0)
+    return engines
+
+
+@pytest.mark.parametrize("engine", [{}, PRUNE_1, BUCKETED_1],
+                         ids=["dense", "pruned", "bucketed"])
+def test_grouped_readback_equals_ungrouped_at_full_width(cuda, engine):
+    """Config #1 with 100k waiting: 10 windows of 1,024 (two of them
+    filtered, one of 2,048 lanes: two chunks of one graph), then a rescan
+    tick of two chunks, all dispatched before one flush, at k = 1 and
+    k = 3: the same outcomes (pairs, distances and qualities bit for bit,
+    queued ids), pools, quality states and reports. The k = 3 engine
+    queued no synchronisation; its groups of three sealed at dispatch."""
+    ungrouped, grouped = grouped_pair(cuda, 3, engine)
+    rng = np.random.default_rng(71)
+    windows = [named_columns(rng, 2048 if w == 5 else 1024,
+                             1_000_000 + 4096 * w, 101.0 + 0.1 * w,
+                             w in (2, 7)) for w in range(10)]
+    outs = []
+    for eng in (ungrouped, grouped):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for w, window in enumerate(windows):
+                eng.search_columns_async(interned(eng, window),
+                                         101.0 + 0.1 * w)
+            eng.rescan_async(2048, 102.5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs.append([o for _, o in eng.flush()])
+    assert len(outs[0]) == len(outs[1]) == 11
+    for got, want in zip(outs[1], outs[0]):
+        assert_same_columnar(got, want)
+    assert sum(o.n_matches for o in outs[0]) > 0
+    assert_same_engines(grouped, ungrouped)
+    assert grouped.prune_report() == ungrouped.prune_report()
+    assert grouped.formation_report() == ungrouped.formation_report()
+    assert not grouped._rb_open
+
+
+def test_speculation_commit_grouped_equals_ungrouped_on_card(cuda):
+    """A held speculation's results (device copies taken behind each pass)
+    join the open groups at the commit: the committed window equals the
+    ungrouped engine's, bit for bit."""
+    ungrouped, grouped = grouped_pair(
+        cuda, 3, dict(BUCKETED_1, spec_formation=True, spec_max_steps=2))
+    outs = []
+    for eng in (ungrouped, grouped):
+        assert eng.speculate(130.0)
+        tok = eng.spec_validate(130.0)
+        eng.spec_commit(tok, 130.0)
+        (_, out), = eng.flush()
+        outs.append(out)
+    assert_same_columnar(outs[1], outs[0])
+    assert outs[0].n_matches > 0
+    assert_same_engines(grouped, ungrouped)
+
+
+def test_a_groups_rows_are_not_overwritten_by_the_next_replay(cuda):
+    """Two windows of bucket 1,024 in one group of two: the second
+    window's replay of the same graph (which rewrites its static output)
+    is queued before the group is sealed, yet each row read back is its
+    own window's result, equal to the ungrouped engine's."""
+    ungrouped, grouped = grouped_pair(cuda, 2)
+    rng = np.random.default_rng(72)
+    windows = [named_columns(rng, 1024, 1_000_000 + 2048 * w,
+                             101.0 + 0.1 * w, False) for w in range(2)]
+    raws = []
+    for eng in (ungrouped, grouped):
+        for w, window in enumerate(windows):
+            eng.search_columns_async(interned(eng, window), 101.0 + 0.1 * w)
+        pending = list(eng._pending)
+        eng.flush()
+        raws.append([p.raw[0] for p in pending])
+    g = grouped._graphs.get("dense_nofilter", 1024)
+    assert g.replays >= 2
+    for got, want in zip(raws[1], raws[0]):
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.array_equal(raws[1][0], raws[1][1])
+
+
+def test_graph_audit_unchanged_with_grouped_readback(cuda):
+    """The group's device copy stays outside the captured graphs: every
+    variant's graph audits to the same kernel, memset and own-kernel
+    nodes at k = 3 as at k = 1."""
+    ungrouped, grouped = grouped_pair(cuda, 3)
+    for variant in ungrouped._variants():
+        for bucket in (ungrouped.buckets[0], ungrouped.buckets[-1]):
+            want = ungrouped.graph_audit(variant, bucket)
+            got = grouped.graph_audit(variant, bucket)
+            assert got["problems"] == [] == want["problems"]
+            for key in ("kernel_nodes", "memset_nodes", "own_kernel_nodes",
+                        "launches"):
+                assert got[key] == want[key], (variant, bucket, key)
+
+
+class _FailingEvent:
+    """A group's event whose read reports a device fault."""
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+
+def test_a_device_fault_in_a_group_fails_its_windows_and_a_revive_restores(
+        cuda):
+    """Windows 0-2 fill one group, 3-5 the next; the second group's read
+    faults: windows 3-5 are reported queued with their tokens in
+    ``failed_tokens`` (0-2 finalize as usual), and a successor engine
+    rebuilt from the mirror (``control.executor.rebuild_engine``) holds
+    every waiting player and serves a window."""
+    from matchmaking_tpu_torch.control.executor import rebuild_engine
+
+    _, eng = grouped_pair(cuda, 3)
+    rng = np.random.default_rng(73)
+    windows = [interned(eng, named_columns(rng, 1024, 1_000_000 + 1024 * w,
+                                           101.0 + 0.1 * w, False))
+               for w in range(6)]
+    toks = [eng.search_columns_async(c, 101.0 + 0.1 * w)
+            for w, c in enumerate(windows)]
+    group = eng._pending[3].chunks[0][1].group
+    assert [p.chunks[0][1].group is group for p in eng._pending] == (
+        [False] * 3 + [True] * 3)
+    torch.cuda.synchronize()
+    group.event = _FailingEvent()
+    done = dict(eng.flush())
+    assert eng.failed_tokens == set(toks[3:])
+    assert isinstance(eng.device_error, RuntimeError)
+    assert sum(done[t].n_matches for t in toks[:3]) > 0
+    for w in range(3, 6):
+        assert done[toks[w]].q_ids.tolist() == windows[w].ids.tolist()
+        assert all(pid in eng.pool for pid in windows[w].ids.tolist())
+    waiting = eng.pool_size()
+    successor, stats = rebuild_engine(
+        eng, lambda: GpuEngine(eng.cfg, eng.queue, device=cuda), now=103.0,
+        columns=True)
+    eng.close()
+    assert successor.pool_size() == waiting == stats["transferred"]
+    successor.search_columns_async(interned(successor, named_columns(
+        rng, 1024, 2_000_000, 103.5, False)), 103.5)
+    (_, out), = successor.flush()
+    assert out.n_matches > 0 and successor.device_error is None

@@ -11,7 +11,8 @@ Each rank runs, on a seeded pool and window made alike in both:
   gated rescan and the bucket frontier;
 - the team step's replicated fallback and its ring;
 - a ``GpuEngine`` with ``mesh_pool_axis`` 2, whose kernel set takes the
-  process mesh, over a short request stream.
+  process mesh, over a short request stream; and the same stream
+  pipelined (dispatched, then flushed) at ``readback_group`` 1 and 3.
 
 Both ranks' results must be equal, and equal to the same steps over the
 in-process mesh of two CPU entries in this process, and each rank's pool
@@ -21,8 +22,13 @@ CPU devices, on the same inputs (``jax_steps``). The two processes have a time
 limit of their own (``WORKER_TIMEOUT_S``).
 
 Also: ``serve`` joins a group of one when ``MM_DCN_*`` names it and
-answers requests, and the refusals (``MM_DCN_AUTO``, an incomplete
-topology, a mesh that is not one shard per rank).
+answers requests, and the refusals (``MM_DCN_AUTO`` with no launcher's
+environment, an incomplete topology, a mesh that is not one shard per
+rank). ``MM_DCN_AUTO``'s detection (``detect_cluster``) resolves the same
+coordinator, world size, rank and local rank as the installed JAX's
+cluster classes on the same Slurm and Open MPI environments, and two
+processes join one gloo group through a scripted Slurm environment on
+localhost.
 """
 
 import asyncio
@@ -119,10 +125,10 @@ TEAM = dict(capacity=64, team_size=2, widen_per_sec=0.0,
             max_threshold=400.0, max_matches=8)
 
 
-def engine_cfg():
+def engine_cfg(**engine):
     return Config(engine=EngineConfig(backend="gpu", pool_capacity=256,
                                       pool_block=32, batch_buckets=(8, 32),
-                                      mesh_pool_axis=2))
+                                      mesh_pool_axis=2, **engine))
 
 
 def engine_stream():
@@ -169,6 +175,19 @@ def run_steps(mesh):
         outs["engine"].append(sorted(
             sorted(p.id for t in m.teams for p in t) for m in out.matches))
     outs["engine_process_mesh"] = eng.kernels.mesh.process
+    # Pipelined: every window dispatched, then one flush, with each
+    # window read back alone and in groups of three (the group buffer
+    # on the merged result's device): the same matches.
+    for k in (1, 3):
+        eng = GpuEngine(engine_cfg(readback_group=k,
+                                   readback_group_wait_ms=10_000.0),
+                        QueueConfig(rating_threshold=80.0), device="cpu")
+        for rows, now in engine_stream():
+            eng.search_async([SearchRequest(**r) for r in rows], now)
+        outs[f"engine_grouped_{k}"] = [sorted(
+            sorted(p.id for t in m.teams for p in t) for m in out.matches)
+            for _, out in eng.flush()]
+    assert outs["engine_grouped_3"] == outs["engine_grouped_1"]
     return outs, pools
 
 
@@ -293,6 +312,7 @@ def test_two_process_gloo_sharded_steps_equal_the_in_process_mesh():
     assert sum(q < 256 for q in want["all_gather"][0]) >= 10
     assert sum(q < 64 for q in want["team_search_step_packed"][0]) >= 2
     assert sum(len(w) for w in want["engine"]) >= 10
+    assert sum(len(w) for w in want["engine_grouped_1"]) >= 10
 
 
 def test_from_env_leaves_the_topology_to_the_runtime(monkeypatch, caplog):
@@ -312,19 +332,20 @@ def test_from_env_leaves_the_topology_to_the_runtime(monkeypatch, caplog):
 
 
 def test_refusals():
-    """``MM_DCN_AUTO`` (TPU-pod metadata) has no CUDA counterpart; a
-    topology without its size or rank is refused; a sharded set whose
-    mesh is not one shard per rank of the joined group is refused."""
+    """``MM_DCN_AUTO`` with neither a Slurm nor an Open MPI environment is
+    refused; a topology without its size or rank is refused; a sharded set
+    whose mesh is not one shard per rank of the joined group is
+    refused."""
     assert distributed.cpu_collectives_supported()
     assert not distributed.process_group_active()
     env = {"MM_DCN_AUTO": "1"}
     old = {k: os.environ.pop(k, None) for k in
            ("MM_DCN_AUTO", "MM_DCN_COORDINATOR", "MM_DCN_NUM_PROCESSES",
-            "MM_DCN_PROCESS_ID")}
+            "MM_DCN_PROCESS_ID", *LAUNCHER_VARS)}
     try:
         os.environ.update(env)
         assert distributed.dcn_configured()
-        with pytest.raises(ValueError, match="no CUDA counterpart"):
+        with pytest.raises(ValueError, match="no launcher's environment"):
             distributed.init_distributed(device="cpu")
         del os.environ["MM_DCN_AUTO"]
         os.environ["MM_DCN_COORDINATOR"] = "127.0.0.1:1"
@@ -350,6 +371,179 @@ def test_refusals():
                   "MM_DCN_NUM_PROCESSES", "MM_DCN_PROCESS_ID"):
             os.environ.pop(k, None)
         os.environ.update({k: v for k, v in old.items() if v is not None})
+
+
+# ---- MM_DCN_AUTO: the topology from a Slurm or Open MPI launcher ------------
+
+#: Every variable the detection reads (cleared around each case).
+LAUNCHER_VARS = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+                 "SLURM_PROCID", "SLURM_LOCALID", "OMPI_MCA_orte_hnp_uri",
+                 "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
+                 "OMPI_COMM_WORLD_LOCAL_RANK", "JAX_COORDINATOR_PORT")
+
+
+def slurm_env(nodes, job=12345, ntasks=4, procid=2, localid=1):
+    return {"SLURM_JOB_ID": str(job), "SLURM_STEP_NODELIST": nodes,
+            "SLURM_NTASKS": str(ntasks), "SLURM_PROCID": str(procid),
+            "SLURM_LOCALID": str(localid)}
+
+
+def ompi_env(uri, size=8, rank=5, local=3):
+    return {"OMPI_MCA_orte_hnp_uri": uri, "OMPI_COMM_WORLD_SIZE": str(size),
+            "OMPI_COMM_WORLD_RANK": str(rank),
+            "OMPI_COMM_WORLD_LOCAL_RANK": str(local)}
+
+
+CLUSTER_CASES = {
+    "slurm_range": slurm_env("node[001-004]"),
+    "slurm_list": slurm_env("a,b", job=987654),
+    "slurm_one": slurm_env("node001", job=61440),
+    "slurm_mixed": slurm_env("node[001,007-015],host2", job=4095),
+    "slurm_port_override": dict(slurm_env("gpu[17-18]"),
+                                JAX_COORDINATOR_PORT="29500"),
+    "ompi_tcp": ompi_env("1531576320.0;tcp://10.96.0.1,10.148.0.1,"
+                         "10.108.0.1:34911"),
+    "ompi_tcp6": ompi_env("1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:b858,"
+                          "2620:10d:c083:150e::3000:2]:43370"),
+    "ompi_inside_slurm": dict(slurm_env("node[001-004]"),
+                              **ompi_env("4096.0;tcp://192.168.1.7:1000")),
+    "slurm_incomplete": {k: v for k, v in slurm_env("n1").items()
+                         if k != "SLURM_LOCALID"},
+    "neither": {},
+}
+
+
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_detection_equals_jax_cluster_classes(case, monkeypatch):
+    """The port's ``detect_cluster`` against the installed JAX's
+    ``ClusterEnv.auto_detect_unset_distributed_params`` (its Open MPI and
+    Slurm classes, in its order) on the same environment: the same
+    coordinator, world size, rank and local rank (JAX: the local device
+    id), or nothing from either."""
+    from jax._src.clusters import ClusterEnv
+
+    for k in LAUNCHER_VARS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in CLUSTER_CASES[case].items():
+        monkeypatch.setenv(k, v)
+    coord, n, pid, local = ClusterEnv.auto_detect_unset_distributed_params(
+        None, None, None, None, None, None)
+    got = distributed.detect_cluster()
+    if coord is None:
+        assert got is None
+        return
+    assert (got.coordinator, got.num_processes, got.process_id,
+            [got.local_rank]) == (coord, n, pid, list(local))
+    assert got.name == ("ompi" if "OMPI_MCA_orte_hnp_uri" in os.environ
+                        else "slurm")
+
+
+def test_detection_gives_the_topology(monkeypatch):
+    for k in LAUNCHER_VARS:
+        monkeypatch.delenv(k, raising=False)
+    assert distributed.detect_cluster() is None
+    for k, v in slurm_env("node[001-004]", job=4096, ntasks=2, procid=1,
+                          localid=0).items():
+        monkeypatch.setenv(k, v)
+    assert distributed.detect_cluster() == distributed.ClusterTopology(
+        "slurm", "node001:61440", 2, 1, 0)
+
+
+def test_the_launchers_local_rank_picks_the_card(monkeypatch):
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert distributed.local_card(5, 4, 3) == 3
+    with pytest.raises(ValueError, match="launcher's local rank=3"):
+        distributed.local_card(5, 2, 3)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert distributed.local_card(5, 4, 3) == 1
+
+
+def test_auto_refusal_names_both_environments(monkeypatch):
+    for k in LAUNCHER_VARS + ("MM_DCN_COORDINATOR", "MM_DCN_NUM_PROCESSES",
+                              "MM_DCN_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("MM_DCN_AUTO", "1")
+    monkeypatch.setenv("KUBERNETES_SERVICE_HOST", "10.0.0.1")
+    with pytest.raises(ValueError) as err:
+        distributed.init_distributed(device="cpu")
+    msg = str(err.value)
+    for name in ("Open MPI", "OMPI_MCA_orte_hnp_uri", "Slurm",
+                 "SLURM_STEP_NODELIST", "mpi4py", "Kubernetes",
+                 "MM_DCN_COORDINATOR"):
+        assert name in msg, name
+    assert not distributed.process_group_active()
+
+
+def slurm_job_with_a_free_port():
+    """A Slurm job id whose coordinator port (job % 4096 + 61440) is free
+    on localhost now."""
+    for job in range(int(uuid.uuid4().int % 4096), 4096 * 2):
+        port = job % 4096 + 61440
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        return job, port
+    raise RuntimeError("no free port in the Slurm job range")
+
+
+SLURM_WORKER = r"""
+import json, os
+import torch
+import torch.distributed as dist
+from matchmaking_tpu_torch.engine import distributed
+
+assert distributed.dcn_configured()
+found = distributed.detect_cluster()
+rank, world = distributed.init_distributed(device="cpu")
+got = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+dist.all_gather(got, torch.tensor([100 + rank]))
+mesh = distributed.global_pool_mesh("cpu")
+print("SLURM_RESULT " + json.dumps({
+    "rank": rank, "world": world, "found": list(found),
+    "gathered": [int(t) for t in got], "shards": list(mesh.local_shards)}),
+    flush=True)
+distributed.shutdown_distributed()
+"""
+
+
+def test_two_processes_join_through_a_scripted_slurm_environment():
+    """``MM_DCN_AUTO`` and a Slurm step's variables on localhost, no
+    ``MM_DCN_COORDINATOR``: both ranks find the coordinator at the job
+    id's port, join one gloo group, all-gather their ranks and hold one
+    shard each of the process mesh."""
+    job, port = slurm_job_with_a_free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in LAUNCHER_VARS and not k.startswith("MM_DCN_")
+           and k != "LOCAL_RANK"}
+    env.update(MM_DCN_AUTO="1",
+               PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+    procs = []
+    for rank in range(2):
+        penv = dict(env, **slurm_env("localhost", job=job, ntasks=2,
+                                     procid=rank, localid=rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SLURM_WORKER], env=penv, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for rank, p in enumerate(procs):
+            out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            assert p.returncode == 0, f"rank {rank}:\n{err[-3000:]}"
+            line = next(x for x in out.splitlines()
+                        if x.startswith("SLURM_RESULT "))
+            results.append(json.loads(line[len("SLURM_RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, res in enumerate(results):
+        assert res["rank"] == rank and res["world"] == 2
+        assert res["found"] == ["slurm", f"localhost:{port}", 2, rank, rank]
+        assert res["gathered"] == [100, 101]
+        assert res["shards"] == [rank]
 
 
 async def test_serve_joins_a_group_of_one_and_answers(monkeypatch):

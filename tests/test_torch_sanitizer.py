@@ -416,7 +416,7 @@ def _service_cfg():
 
 def test_backpressure_wait_under_pool_lock_is_silent():
     """A live service whose pipeline fills: the live depth is 1 and each
-    window's results land 5 ms after its dispatch (the engine's
+    window's results land 50 ms after its dispatch (the engine's
     ``collect_ready`` holds them back, as a busy card would), so a flush
     behind a window in flight waits in ``_backpressure_wait`` with
     ``_pool_lock`` held — the sanctioned seam. Every request is answered
@@ -448,7 +448,7 @@ def test_backpressure_wait_under_pool_lock_is_silent():
                 return dispatch(*a, **k)
 
             def collect_ready():
-                if time.monotonic() < last[0] + 0.005:
+                if time.monotonic() < last[0] + 0.05:
                     return []
                 return collect()
             eng.search_columns_async = search_columns_async
