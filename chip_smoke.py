@@ -107,7 +107,27 @@ Phases, each of which raises (exit code != 0) when it fails:
    (torch.profiler: fewer copies to the host, one device-to-device copy
    more a window), and the graph audit of the grouped engine's dense step
    equal to the ungrouped one's. It runs before phase 14, as every count
-   by name does.
+   by name does. 3f: the stage profilers (``scripts/torch_profile_step.py``,
+   ``torch_profile_stages.py``, ``torch_profile_engine.py``), imported, at
+   config #1's width (P = 131,072, blocks of 8,192, 100k active, B =
+   1,024, ELO): the stage split (admit, cands, pair at 1/2/4/8 rounds,
+   evict, full with and without filters), each stage a CUDA graph of its
+   own whose first replay must equal its eager call, timed by 30 replays
+   between CUDA events with no host sync among them; exactly one
+   block_best launch (a prep and a scorer node) in the cands and full
+   graphs and none in the others, read back from the graphs; the full
+   graph's kernel nodes plus the quality fold's equal to config #1's
+   engine graph (17b: 400). The same split at B = 4,096 (the JAX tool's
+   default), and the candidate pass against its plain version at B =
+   2,048 and 4,096 (equal slots, bit-equal values). Then the stage modes:
+   the engine's graph replayed back to back, dispatch host ms at depths
+   0-8, window latency at B = 1,024 and depth 2, prunecheck (dense and
+   pruned bit-identical) at W = 6 with chunks of 128 (config #1 pruned:
+   this window takes the dense fallback) and with chunks of 16 (3c's
+   bucketed chunks: this window must take the span path), a reduced
+   rescanstall
+   (one rep, a rescan every 10 windows) and profile_engine's per-window
+   split; one ``stages`` JSON line sums it up.
 4. service: the in-process service on the card: the 10-player demo; a
    soak with 100k restored players and 16,384 requests published in
    bursts (every request answered once from its window, partners agree,
@@ -1520,6 +1540,30 @@ def device_busy_exact(torch, ck, run_of, want, what):
     raise AssertionError(f"{what}: the device ran {short}, expected {want}")
 
 
+#: Kernels of ``profiler_lead_in``: well past the ~27 a session that
+#: torch.profiler leaves out late in this process.
+LEAD_IN_KERNELS = 256
+
+
+def profiler_lead_in(torch):
+    """Open a profiler session with ``LEAD_IN_KERNELS`` tiny kernels of no
+    interest (``torch.cuda._sleep``'s spin kernel, which nothing else
+    launches), waited for. After phases 4-13 torch.profiler leaves out
+    the first ~27 kernels of every session (PERF.md §7); a session whose
+    launches are counted by name and cannot be run again (11c's successor)
+    begins with these, so that what is lost is theirs
+    (``lead_in_seen`` counts what the profiler kept of them)."""
+    for _ in range(LEAD_IN_KERNELS):
+        torch.cuda._sleep(10)
+    torch.cuda.synchronize()
+
+
+def lead_in_seen(prof) -> int:
+    """The lead-in's kernels a finished profiler session counted."""
+    return sum(e.count for e in prof.key_averages()
+               if "spin_kernel" in e.key)
+
+
 #: Runtime API calls that queue work on the card: kernel launches, graph
 #: launches, copies and fills.
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2479,6 +2523,175 @@ def run_grouped_readback(torch, np, ck, mods, path, *, waiting, windows,
     return {"config": path, "waiting": waiting, "windows": windows,
             "equal": equal, "timed": timed, "copies": copies,
             "graph_audit": audit, "launches": launches}
+
+
+# ---- phase 3f: the stage profilers ------------------------------------------
+
+
+def load_script(name):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: Kernel-operator nodes of the stage graphs: one block_best launch (a
+#: prep and a scorer node) where the stage scores, none elsewhere.
+SCORING_STAGES = ("cands", "cands_nofilter", "full", "full_nofilter")
+
+
+def stage_nodes_check(split, what):
+    for name, s in split["stages"].items():
+        own = s["own_kernel_nodes"]
+        want = 1 if name in SCORING_STAGES else 0
+        got = (own["prep_kernel"], own["block_best_kernel"],
+               own["quality_accum_kernel"])
+        if got != (want, want, 0):
+            raise AssertionError(f"3f {what} {name}: prep, block_best and "
+                                 f"quality_accum nodes {got}, want "
+                                 f"({want}, {want}, 0)")
+
+
+def run_stage_profilers(torch, np, ck, mods):
+    """Phase 3f: the three stage profilers at config #1's width, imported
+    and driven as their command lines drive them. Raises on an unequal
+    graph/eager stage, a wrong kernel-operator node count, a full graph
+    that does not account for the engine's, an unequal dense/pruned step,
+    a span-path prunecheck whose window fell back, or a candidate pass
+    unequal to its plain version. ``check_launches`` counts the
+    block_best launches of the candidate-pass comparisons."""
+    import gc
+
+    Config, GpuEngine, _, _ = mods
+    step = load_script("torch_profile_step")
+    stages = load_script("torch_profile_stages")
+    engine_prof = load_script("torch_profile_engine")
+    reset_counts(ck)
+    out = {}
+
+    def say(prefix):
+        return lambda msg: log(f"3f {prefix}{msg}") if msg else None
+
+    # The stage split at B = 1,024, then at the JAX tool's B = 4,096 (its
+    # candidate pass is held to the plain version first).
+    split = step.profile(FULL_P, FULL_BLOCK, FULL_B, FULL_ACTIVE, iters=30,
+                         threshold=100.0, device="cuda", log=say(""))
+    stage_nodes_check(split, f"B={FULL_B}")
+    cfg = Config.from_json(os.path.join(HERE, "configs/elo_1v1.json"),
+                           backend="gpu")
+    eng = GpuEngine(cfg, cfg.queues[0], device="cuda")
+    audit = eng.graph_audit("dense", FULL_B)
+    eng.close()
+    del eng
+    fold = audit["own_kernel_nodes"]["quality_accum_kernel"]
+    full_nodes = split["stages"]["full"]["kernels"]
+    if full_nodes + fold != audit["kernel_nodes"]:
+        raise AssertionError(f"3f full graph {full_nodes} kernel nodes + the "
+                             f"quality fold's {fold} != config #1's dense "
+                             f"graph's {audit['kernel_nodes']}")
+    log(f"3f full graph at B = {FULL_B}: {full_nodes} kernel nodes; config "
+        f"#1's engine graph {audit['kernel_nodes']} (17b: 400) = the step's "
+        f"{full_nodes} + the quality fold's {fold} quality_accum node")
+    out["split"] = split
+    out["engine_dense_kernel_nodes"] = audit["kernel_nodes"]
+    wide = step.profile(FULL_P, FULL_BLOCK, 4096, FULL_ACTIVE, iters=10,
+                        threshold=100.0, device="cuda", log=say("B=4096 "))
+    stage_nodes_check(wide, "B=4096")
+    out["split_4096"] = wide
+    # The candidate pass at B = 2,048 against its plain version.
+    inp = step.make_inputs(FULL_P, 2048, FULL_ACTIVE, 100.0)
+    from matchmaking_tpu_torch.engine.kernels import (
+        packed_now,
+        pool_from_reference,
+        unpack_batch,
+    )
+    packed = torch.from_numpy(inp["packed"]).cuda()
+    batch = unpack_batch(packed)
+    out["candidate_checks"] = [
+        step.check_candidates(step.kernel_set(FULL_P, FULL_BLOCK),
+                              pool_from_reference(inp["arrays"], "cuda"),
+                              batch, batch["threshold"], packed_now(packed)),
+        wide["candidate_check"]]
+    log(f"3f candidate pass vs plain: {out['candidate_checks']}")
+    out["check_launches"] = sum(c["launches"]
+                                for c in out["candidate_checks"])
+    del inp, packed, batch, wide
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def mode(*argv):
+        args = stages.parse_args([*argv, "--window", str(FULL_B),
+                                  "--pool", str(FULL_ACTIVE)])
+        res = stages.run(args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    out["device"] = mode("--mode", "device")
+    out["dispatch"] = mode("--mode", "dispatch")
+    out["window"] = mode("--mode", "window", "--depth", "2")
+    out["prunecheck"] = mode("--mode", "prunecheck", "--prune-window-blocks",
+                             "6", "--prune-chunk", "128")
+    out["prunecheck_span"] = mode("--mode", "prunecheck",
+                                  "--prune-window-blocks", "6",
+                                  "--prune-chunk", "16")
+    if out["prunecheck_span"]["path"] != "span":
+        raise AssertionError("3f prunecheck at chunks of 16: the window took "
+                             "the dense fallback, so dense = pruned did not "
+                             "test the span path")
+    out["rescanstall"] = mode("--mode", "rescanstall", "--reps", "1",
+                              "--rescan-every", "10")
+    out["engine"] = engine_prof.profile(FULL_B, 10, FULL_ACTIVE, FULL_P,
+                                        FULL_BLOCK, "cuda")
+    out["launches"] = dict(ck.LAUNCHES)
+    torch.cuda.synchronize()
+    return out
+
+
+def stages_line(p3f):
+    """Phase 3f's numbers for the ``stages`` line (device ms unless said)."""
+    med = statistics.median
+    split = p3f["split"]
+    st = split["stages"]
+    return {
+        "window": split["window"], "capacity": split["capacity"],
+        "active": split["active"], "iters": split["iters"],
+        "stage_ms": {n: st[n]["ms"] for n in ("admit", "cands",
+                                              "cands_nofilter", "pair",
+                                              "evict", "full",
+                                              "full_nofilter")},
+        "stage_kernels": {n: st[n]["kernels"] for n in st},
+        "stage_host_us": {n: st[n]["host_us"] for n in st},
+        "pair_rounds": {r: {"ms": st[f"pair_r{r}"]["ms"],
+                            "matches": split["matches"][r]}
+                        for r in split["matches"]},
+        "sum_cpe_ms": split["sum_cpe_ms"], "sum_acpe_ms": split["sum_acpe_ms"],
+        "sum_acpe_nofilter_ms": split["sum_acpe_nofilter_ms"],
+        "full_ms": split["full_ms"],
+        "mean_candidates": split["mean_candidates"],
+        "engine_dense_kernel_nodes": p3f["engine_dense_kernel_nodes"],
+        "b4096": {"stage_ms": {n: s["ms"] for n, s in
+                               p3f["split_4096"]["stages"].items()},
+                  "matches": p3f["split_4096"]["matches"]},
+        "engine_step_ms": {v: med(t) for v, t in p3f["device"]["ms"].items()},
+        "dispatch_host_ms": {d: {k: med(v) for k, v in row.items()}
+                             for d, row in p3f["dispatch"]["depths"].items()},
+        "window_b1024_d2": dict(zip(("matches_per_s", "p50_ms", "p99_ms"),
+                                    p3f["window"]["median"])),
+        "prunecheck": {
+            f"W{pc['window_blocks']}_chunk{pc['chunk']}": {
+                "path": pc["path"], "bit_identical": pc["bit_identical"],
+                "ms": {n: med(t) for n, t in pc["ms"].items()}}
+            for pc in (p3f["prunecheck"], p3f["prunecheck_span"])},
+        "rescanstall": p3f["rescanstall"],
+        "engine_ms_per_window": p3f["engine"]["ms_per_window"],
+        "launches": p3f["launches"],
+        "check_launches": p3f["check_launches"],
+    }
 
 
 # ---- phase 4: the service ---------------------------------------------------
@@ -5826,6 +6039,7 @@ async def service_replication(np, torch, ck, mods, path, *, waiting,
         reset_counts(ck)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_lead_in(torch)
             await publish_and_wait(app2, fresh, fresh_n, reply, replies2)
             await settle(app2)
             torch.cuda.synchronize()
@@ -5835,12 +6049,16 @@ async def service_replication(np, torch, ck, mods, path, *, waiting,
             for name in OWN_KERNELS:
                 if name in e.key:
                     own[name] += e.count
+        lead = lead_in_seen(prof)
         if (launches2["block_best"] == 0
                 or launches2["quality_accum"] != launches2["block_best"]
                 or own["block_best_kernel"] != launches2["block_best"]
                 or own["quality_accum_kernel"] != launches2["quality_accum"]):
             raise AssertionError(f"11c: successor launches {launches2}, the "
-                                 f"device ran {own}")
+                                 f"device ran {own} (and {lead} of the "
+                                 f"{LEAD_IN_KERNELS} lead-in kernels)")
+        log(f"11c successor's profiled session: the profiler kept {lead} of "
+            f"the {LEAD_IN_KERNELS} lead-in kernels, every own kernel {own}")
         check_answers(replies2, [p for p, _ in fresh], "11c successor")
         both = {p: set(v) for p, v in matched_before.items()}
         for p, ids in replies2.matched().items():
@@ -9361,6 +9579,17 @@ def main(argv) -> int:
                                    waiting=100_000, windows=48, seed=1,
                                    profile_windows=8)
     phase_s["3e"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # 3f. the stage profilers at config #1's width: the stage split with
+    #     its graphs audited, the candidate pass at B = 2,048 and 4,096,
+    #     the stage modes and the engine's per-window split
+    p3f = run_stage_profilers(torch, np, ck, mods)
+    launches["stage_profilers"] = (p3f["launches"]["block_best"]
+                                   - p3f["check_launches"])
+    # The candidate pass's comparisons with its plain version: a path of
+    # their own in launches_by_path, outside the main paths' sum.
+    launches["stage_profilers_checks"] = p3f["check_launches"]
+    phase_s["3f"] = time.perf_counter() - t_phase
 
     # 14. the sharded pool and the multi-host runtime: config #1 sharded
     #     D = 1, 2, 4, 8 ways (and the ring at 4) on the one card against
@@ -9696,7 +9925,8 @@ def main(argv) -> int:
                      + sum(c["block_best"] for c in phase15.values())
                      + sum(c["block_best"] for c in phase16.values())
                      + sum(c["block_best"] for c in phase17.values())
-                     + sum(c["block_best"] for c in phase18.values()))
+                     + sum(c["block_best"] for c in phase18.values())
+                     + launches["stage_profilers"])
     q_launches = (main_run["quality_launches"]
                   + pruned_run["quality_launches"]
                   + bucketed_run["quality_launches"]
@@ -9713,7 +9943,8 @@ def main(argv) -> int:
                   + sum(c["quality_accum"] for c in phase15.values())
                   + sum(c["quality_accum"] for c in phase16.values())
                   + sum(c["quality_accum"] for c in phase17.values())
-                  + sum(c["quality_accum"] for c in phase18.values()))
+                  + sum(c["quality_accum"] for c in phase18.values())
+                  + p3f["launches"]["quality_accum"])
     line = {"kernels": [{
         "name": "block_best",
         "route": "cuda",
@@ -9776,7 +10007,8 @@ def main(argv) -> int:
             **{name: c["quality_accum"] for name, c in phase16.items()},
             **{name: c["quality_accum"] for name, c in phase17.items()
                if name != "entry_and_dryrun"},
-            **{name: c["quality_accum"] for name, c in phase18.items()}},
+            **{name: c["quality_accum"] for name, c in phase18.items()},
+            "stage_profilers": p3f["launches"]["quality_accum"]},
         "ms_by_bucket": quality["ms_by_bucket"],
         "host_us": quality["host_us"],
         "host_us_by_bucket": quality["host_us_by_bucket"],
@@ -9960,6 +10192,7 @@ def main(argv) -> int:
             ("team_step", team_run, "matchmaking_tpu/engine/teams.py:317"),
             ("role_step", role_run,
              "matchmaking_tpu/engine/role_kernels.py:224"))]}
+    stage_split = {"stages": stages_line(p3f)}
     # quality_accum's parameter blocks this process bound (one per engine
     # state and pool it folded quality for; the oldest goes past the cap).
     log(f"quality_accum bindings made in this process: {len(ck._BINDINGS)} "
@@ -9998,6 +10231,7 @@ def main(argv) -> int:
                        "process_mesh": process_run,
                        "placement": p15, "sanitized": p16, "graphs": p17,
                        "grouped_readback": grouped, "grouped_service": p18,
+                       "stage_profilers": p3f,
                        "total_s": total_s, "summary": summary,
                        "steps_line": steps_line,
                        "kernels_line": line}, f, indent=1)
@@ -10005,6 +10239,7 @@ def main(argv) -> int:
     print(json.dumps(summary))
     print(f"max SM clock: {max_sm_clock}")
     print(json.dumps(steps_line))
+    print(json.dumps(stage_split))
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

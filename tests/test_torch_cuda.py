@@ -2823,3 +2823,43 @@ def test_a_device_fault_in_a_group_fails_its_windows_and_a_revive_restores(
         rng, 1024, 2_000_000, 103.5, False)), 103.5)
     (_, out), = successor.flush()
     assert out.n_matches > 0 and successor.device_error is None
+
+
+def test_stage_profiler_graphs_equal_eager_and_wide_candidate_passes(cuda):
+    """``scripts/torch_profile_step.py`` on the card at config #1's width:
+    every stage graph's first replay equals its eager call at B = 1,024
+    (the script raises otherwise), one block_best launch in the scoring
+    stages' graphs and none elsewhere; the candidate pass equals its plain
+    version at B = 2,048 and 4,096 (equal slots, bit-equal values)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_step", os.path.join(root, "scripts",
+                                           "torch_profile_step.py"))
+    step = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(step)
+    res = step.profile(131_072, 8192, 1024, 100_000, iters=3,
+                       device="cuda", log=lambda _: None)
+    for name, s in res["stages"].items():
+        assert s["graph_equals_eager"], name
+        want = 1 if name in ("cands", "cands_nofilter", "full",
+                             "full_nofilter") else 0
+        assert s["own_kernel_nodes"]["block_best_kernel"] == want, name
+        assert s["own_kernel_nodes"]["prep_kernel"] == want, name
+    assert res["matches"][8] > 0
+    from matchmaking_tpu_torch.engine.kernels import (
+        packed_now,
+        pool_from_reference,
+        unpack_batch as unpack,
+    )
+    ks = step.kernel_set(131_072, 8192)
+    for rows in (2048, 4096):
+        inp = step.make_inputs(131_072, rows, 100_000, 100.0)
+        packed = torch.from_numpy(inp["packed"]).to(cuda)
+        batch = unpack(packed)
+        rep = step.check_candidates(ks, pool_from_reference(inp["arrays"],
+                                                            cuda),
+                                    batch, batch["threshold"],
+                                    packed_now(packed))
+        assert rep["window"] == rows and rep["candidates"] > 0

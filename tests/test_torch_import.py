@@ -27,7 +27,8 @@ def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "torch_service_ab.py"),
            os.path.join(ROOT, "scripts", "torch_profiler_records.py"),
-           *(os.path.join(ROOT, "scripts", f) for f in OPERATOR_TOOLS)]
+           *(os.path.join(ROOT, "scripts", f) for f in OPERATOR_TOOLS),
+           *(os.path.join(ROOT, "scripts", f) for f in PROFILERS)]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -66,6 +67,11 @@ NEW_TOOL_MODULES = (
 #: The port's offline operator tools under scripts/.
 OPERATOR_TOOLS = ("torch_journal_dump.py", "torch_postmortem.py",
                   "torch_trace_dump.py")
+
+#: The port's stage profilers under scripts/ (the JAX ``profile_*.py``'s
+#: counterparts): they import neither jax, the JAX package nor ``bench``.
+PROFILERS = ("torch_profile_step.py", "torch_profile_stages.py",
+             "torch_profile_engine.py")
 
 
 def test_every_submodule_is_listed():
@@ -222,6 +228,41 @@ def test_the_operator_tools_import_no_jax(script):
         "import torch_postmortem\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'matchmaking_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("script", PROFILERS)
+def test_the_profilers_import_no_jax_nor_bench(script):
+    """Each stage profiler, loaded as its own module in a fresh interpreter
+    and driven through its lazy imports (the engine, its kernels, the
+    graphs), loads neither jax, the JAX package nor ``bench.py``; nor
+    does its source name them."""
+    path = os.path.join(ROOT, "scripts", script)
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not [n for n in names if _forbidden(n)
+                        or n.split(".")[0] == "bench"], (script, node.lineno)
+    code = (
+        "import importlib.util, os, sys\n"
+        f"path = os.path.join('scripts', {script!r})\n"
+        "spec = importlib.util.spec_from_file_location('prof', path)\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "import matchmaking_tpu_torch.engine.gpu\n"
+        "import matchmaking_tpu_torch.engine.graphs\n"
+        "import matchmaking_tpu_torch.engine.interface\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'matchmaking_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('OK')\n"
     )

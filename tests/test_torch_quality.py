@@ -150,6 +150,27 @@ def test_host_accum_report_and_disparity_equal_jax(name):
     assert_arrays_equal(merged, tacc.arrays)
 
 
+def test_host_accum_per_match_calls_equal_jax():
+    """The host oracle's pattern: one ``observe`` a match (two members,
+    one quality and spread, per-member waits; now and then a team's five,
+    a negative wait, an empty call), 400 of them: after each, the arrays
+    are JAX's bit for bit, float sums included."""
+    jspec, tspec = spec_pair("default")
+    jacc, tacc = jax_quality.HostQualityAccum(jspec), quality.HostQualityAccum(
+        tspec)
+    rng = np.random.default_rng(11)
+    for k in range(400):
+        size = 5 if k % 37 == 0 else 0 if k % 53 == 0 else 2
+        call = ([float(x) for x in rng.normal(1500.0, 300.0, size)],
+                float(rng.random()),
+                [float(x) for x in rng.uniform(-0.5, 40.0, size)],
+                float(rng.uniform(0.0, 100.0)))
+        jacc.observe(*call)
+        tacc.observe(*call)
+        assert_arrays_equal(tacc.arrays, jacc.arrays)
+    assert int(tacc.arrays["count"].sum()) == int(jacc.arrays["count"].sum())
+
+
 @pytest.mark.parametrize("target", [0.0, 0.6])
 def test_ledger_snapshot_equals_jax(target):
     jspec, tspec = spec_pair("default")
