@@ -1441,6 +1441,17 @@ def pct(xs, p):
     return xs[min(len(xs) - 1, int(p * len(xs)))]
 
 
+def device_work(prof) -> list:
+    """The device's entries of a finished profiler session's
+    ``key_averages()``: kernels, copies and fills. Left out are the
+    device-track twins (gpu_user_annotation) that the card draws of the
+    program's own ``mm.*`` ranges (``GpuEngine``'s host spans): they are
+    no work of the device, as ``mmbench/trace.py`` also holds."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith("mm.")]
+
+
 def device_busy(torch, run):
     """torch.profiler over ``run()``: the device's busy share of the wall
     time, its top kernels, and the host operators that took the most host
@@ -1454,14 +1465,13 @@ def device_busy(torch, run):
         n = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    kernels, host_ops = [], []
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            dev = getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-            kernels.append((dev, e.count, e.key))
-        elif e.key.startswith("aten::") or e.key.startswith("cuda"):
-            host_ops.append((e.self_cpu_time_total, e.count, e.key))
+    kernels = [(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0)),
+                e.count, e.key) for e in device_work(prof)]
+    host_ops = [(e.self_cpu_time_total, e.count, e.key)
+                for e in prof.key_averages()
+                if not str(e.device_type).endswith("CUDA")
+                and (e.key.startswith("aten::") or e.key.startswith("cuda"))]
     kernels.sort(reverse=True)
     host_ops.sort(reverse=True)
     device_us = sum(k[0] for k in kernels)
@@ -1489,7 +1499,12 @@ def device_busy(torch, run):
                             for k in kernels[:10]],
             "top_host_ops": [{"name": k[2], "count": k[1],
                               "host_ms_per_window": k[0] / n / 1e3}
-                             for k in host_ops[:12]]}
+                             for k in host_ops[:12]],
+            # The device-track twins of mm.* ranges that device_work left
+            # out, by name: their count.
+            "ranges_left_out": {e.key: e.count for e in prof.key_averages()
+                                if str(e.device_type).endswith("CUDA")
+                                and e.key.startswith("mm.")}}
 
 
 #: The device kernels of csrc/: block_best.cu's two, quality_accum.cu's.
@@ -1692,8 +1707,7 @@ def greedy_pair_kernels(torch, kernels, capacity, rows, n_blocks, rounds):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         kernels.greedy_pair(vals, idxs, slot, capacity, rounds)
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA"))
+    return sum(e.count for e in device_work(prof))
 
 
 def reset_counts(ck):
@@ -1913,7 +1927,8 @@ def run_columnar(torch, np, ck, scoring, mods, path, *, waiting, windows,
             f"{prof['kernels_per_window']:.2f} kernels per window "
             f"({prof['step_kernels_per_window']:.2f} without the quality "
             f"state's copies), {prof['greedy_pair_kernels_per_call']} in "
-            f"greedy_pair; top {prof['top_kernels'][:4]}")
+            f"greedy_pair; top {prof['top_kernels'][:4]}; device-track "
+            f"twins of mm.* ranges left out {prof['ranges_left_out']}")
     # The same first windows on a CPU columnar engine (windows 0 and 1
     # dispatched before any collection, as on the card).
     cpu = GpuEngine(cfg, queue, device="cpu")
@@ -2319,9 +2334,7 @@ def copies_by_kind(torch, run):
         torch.cuda.synchronize()
     kinds = {"DtoH": 0, "DtoD": 0, "HtoD": 0}
     names = {}
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
+    for e in device_work(prof):
         for kind in kinds:
             if f"Memcpy {kind}" in e.key:
                 kinds[kind] += e.count
@@ -3168,11 +3181,10 @@ def step_profile(torch, np, ks, src_pool, batch, now, reps=10):
             step()
         torch.cuda.synchronize()
     kernels = device_us = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            kernels += e.count
-            device_us += getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
+    for e in device_work(prof):
+        kernels += e.count
+        device_us += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
     ms = time_ms(torch, step, reps=reps - 3)
     t = time.perf_counter()
     for _ in range(3):

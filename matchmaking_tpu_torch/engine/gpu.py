@@ -129,6 +129,29 @@ for the service to merge into the window's traces. ``events`` (the
 service's event log, or None) gets ``team_delegated`` and
 ``team_repromoted``.
 
+Host spans and profiler ranges. ``spans`` sums the host seconds of each
+stage (``span_report``). One helper, ``_span(name)``, times every stage
+but ``turnaround_s``: dispatch (inside it dedupe, alloc, pack and, per
+chunk, h2d and step), finalize (inside it release and match_ids),
+restore (all of ``restore_columns``; inside it restore_admit, the
+``_admit`` calls) and wait (from the ``collect_ready`` that first finds
+the oldest window not ready to the call that finalizes it, and each
+blocking read inside ``flush``). The wait span counts all host time
+between those two polls, whatever the caller does in between: it is the
+host's wait for the device only for a caller that spins on
+``collect_ready`` (as the benchmark does). A caller that dispatches or
+refills between polls (the service's event loop) sees its dispatch and
+restore time counted in ``wait_s`` too, and under a profiler the
+``mm.engine.wait`` range is then the parent of those ranges. While a
+``torch.profiler`` capture runs (``torch._C._autograd._profiler_enabled()``,
+one C call), the helper also opens ``record_function("mm.engine.<name>")``
+around the same code, so the stage lies on the profiler's clock beside the
+kernels it queues. Without a capture no range is made: a span costs the gate and two
+``perf_counter`` reads, and makes no object. Every range name starts with
+``mm.``: the profiler draws user ranges on the device's timeline too, and
+readers of a trace (``mmbench/trace.py``) leave ``mm.*`` out of the
+device's work, so any other name would count as device time.
+
 Runs on ``device`` (default ``"cuda"``, which must exist); ``device="cpu"``
 runs the plain PyTorch versions of the kernels synchronously: every result
 is ready as soon as it is dispatched, and no pinned memory is used.
@@ -307,6 +330,48 @@ class _GroupSlot:
 
     def numpy(self) -> np.ndarray:
         return self.group.read()[self.idx]
+
+
+#: True while a ``torch.profiler`` capture runs, in any form (``with``,
+#: ``start()`` / ``stop()``); one C call.
+_profiling = torch._C._autograd._profiler_enabled
+
+#: The host stage spans that ``GpuEngine._span`` times: each adds to
+#: ``GpuEngine.spans[<name>_s]`` and, under a profiler, is the range
+#: ``mm.engine.<name>``.
+SPAN_NAMES = ("dispatch", "dedupe", "alloc", "pack", "h2d", "step",
+              "finalize", "release", "match_ids", "restore", "restore_admit",
+              "wait")
+
+
+class _Span:
+    """One host stage span, made once per name and reused by every entry:
+    adds the seconds between ``__enter__`` and ``__exit__`` to its key of
+    ``spans``, and opens the range ``mm.engine.<name>`` around the same
+    code while a profiler runs (the gate is read at entry; a range is
+    closed whenever it was opened). Not re-entrant: spans of one name
+    never nest."""
+
+    __slots__ = ("spans", "key", "range", "t0", "rf")
+
+    def __init__(self, spans: dict, name: str):
+        self.spans = spans
+        self.key = name + "_s"
+        self.range = "mm.engine." + name
+        self.t0 = 0.0
+        self.rf = None
+
+    def __enter__(self) -> None:
+        if _profiling():
+            self.rf = torch.profiler.record_function(self.range)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        self.spans[self.key] += time.perf_counter() - self.t0
+        rf, self.rf = self.rf, None
+        if rf is not None:
+            rf.__exit__(None, None, None)
 
 
 @dataclass
@@ -517,13 +582,20 @@ class GpuEngine(Engine):
         #: Chunks one rescan tick may queue ahead of traffic windows.
         self._rescan_chunk_cap = max(1, ec.pipeline_depth)
         #: Host stage spans: cumulative seconds and counts (span_report).
+        #: Every value is a number: readers subtract two reads key by key.
         self.spans = {
             "windows": 0, "requests": 0, "matches": 0,
             "dispatch_s": 0.0,   # search_*_async host time
             "turnaround_s": 0.0, # dispatch → finalized
             "dedupe_s": 0.0, "alloc_s": 0.0, "pack_s": 0.0,
             "h2d_s": 0.0, "step_s": 0.0, "finalize_s": 0.0,
+            "release_s": 0.0, "match_ids_s": 0.0, "restore_s": 0.0,
+            "restore_admit_s": 0.0, "wait_s": 0.0,
         }
+        self._spans_by_name = {n: _Span(self.spans, n) for n in SPAN_NAMES}
+        #: Whether the wait span is open (``collect_ready`` found the
+        #: oldest window not ready, and nothing has finalized it yet).
+        self._waiting = False
         #: Device-utilization counters: busy while >= 1 window is
         #: dispatched but not finalized, idle otherwise, accrued at the
         #: 0 ↔ 1 transitions of the open count.
@@ -755,23 +827,26 @@ class GpuEngine(Engine):
         may repeat a player). Queues the admissions with no host sync.
         1v1 queues only."""
         self._require_columnar("restore_columns()")
-        waiting = self.pool._slot_of
-        seen: set[str] = set()
-        keep = np.empty(len(cols), bool)
-        for j, pid in enumerate(cols.ids.tolist()):
-            keep[j] = pid not in waiting and pid not in seen
-            if keep[j]:
-                seen.add(pid)
-        if not keep.all():
-            cols = cols.take(keep)
-        if len(cols):
-            self._pool_mutated()
-        top = self.buckets[-1]
-        t0 = self._rel_base(now)
-        for start in range(0, len(cols), top):
-            chunk = cols.slice(start, start + top)
-            slots = self.pool.allocate_columns(chunk)
-            self._admit(self.pool.batch_arrays_cols(chunk, slots, top, t0))
+        with self._span("restore"):
+            waiting = self.pool._slot_of
+            seen: set[str] = set()
+            keep = np.empty(len(cols), bool)
+            for j, pid in enumerate(cols.ids.tolist()):
+                keep[j] = pid not in waiting and pid not in seen
+                if keep[j]:
+                    seen.add(pid)
+            if not keep.all():
+                cols = cols.take(keep)
+            if len(cols):
+                self._pool_mutated()
+            top = self.buckets[-1]
+            t0 = self._rel_base(now)
+            for start in range(0, len(cols), top):
+                chunk = cols.slice(start, start + top)
+                slots = self.pool.allocate_columns(chunk)
+                batch = self.pool.batch_arrays_cols(chunk, slots, top, t0)
+                with self._span("restore_admit"):
+                    self._admit(batch)
 
     def intern_columns(self, regions, modes) -> tuple[np.ndarray, np.ndarray]:
         """str sequences → int32 codes in this pool's interners."""
@@ -876,6 +951,7 @@ class GpuEngine(Engine):
         back)."""
         self._spec = None
         self._spec_validated_seq = None
+        self._end_wait()
         self._pending.clear()
         self._rb_open.clear()
         self._done_early = []
@@ -918,28 +994,28 @@ class GpuEngine(Engine):
                 return pending.token, SearchOutcome()
         if self._maybe_delegate_team(requests, now):
             return self.search_async(requests, now)  # through the oracle
-        t_start = time.perf_counter()
-        pending = _Pending(token=self._next_token, created=t_start)
-        pending.marks.append(("dispatch", time.time()))
-        self._next_token += 1
-        fresh: list[SearchRequest] = []
-        seen: set[str] = set()
-        for req in requests:
-            if req.party_size > 1:
-                pending.outcome.rejected.append((req, "party_not_supported"))
-            elif req.id in self.pool or req.id in seen:
-                continue  # idempotent redelivery (waiting, or twice here)
-            else:
-                seen.add(req.id)
-                fresh.append(req)
-        if fresh:
-            self._pool_mutated()
-        top = self.buckets[-1]
-        for start in range(0, len(fresh), top):
-            self._dispatch(fresh[start:start + top], now, pending)
-        self._submit(pending)
-        self.spans["requests"] += len(fresh)
-        self.spans["dispatch_s"] += time.perf_counter() - t_start
+        with self._span("dispatch"):
+            pending = _Pending(token=self._next_token,
+                               created=time.perf_counter())
+            pending.marks.append(("dispatch", time.time()))
+            self._next_token += 1
+            fresh: list[SearchRequest] = []
+            seen: set[str] = set()
+            for req in requests:
+                if req.party_size > 1:
+                    pending.outcome.rejected.append((req, "party_not_supported"))
+                elif req.id in self.pool or req.id in seen:
+                    continue  # idempotent redelivery (waiting, or twice here)
+                else:
+                    seen.add(req.id)
+                    fresh.append(req)
+            if fresh:
+                self._pool_mutated()
+            top = self.buckets[-1]
+            for start in range(0, len(fresh), top):
+                self._dispatch(fresh[start:start + top], now, pending)
+            self._submit(pending)
+            self.spans["requests"] += len(fresh)
         return pending.token, SearchOutcome(
             rejected=list(pending.outcome.rejected))
 
@@ -950,35 +1026,36 @@ class GpuEngine(Engine):
         collect_ready()/flush(). The only per-row Python is the id
         membership probe (redelivery dedupe). 1v1 queues only."""
         self._require_columnar("search_columns_async()")
-        t_start = time.perf_counter()
-        pending = _Pending(token=self._next_token, created=t_start)
-        pending.marks.append(("dispatch", time.time()))
-        pending.columnar = empty_columnar_outcome()
-        self._next_token += 1
-        ids = cols.ids.tolist()
-        waiting = self.pool._slot_of
-        _t = time.perf_counter()
-        if len(set(ids)) == len(ids):  # common case: no duplicate in window
-            keep = np.fromiter((i not in waiting for i in ids), bool, len(ids))
-        else:
-            local: set[str] = set()
-            keep = np.empty(len(ids), bool)
-            for j, pid in enumerate(ids):
-                keep[j] = pid not in waiting and pid not in local
-                if keep[j]:
-                    local.add(pid)
-        if not keep.all():
-            cols = cols.take(keep)
-        self.spans["dedupe_s"] += time.perf_counter() - _t
-        if len(cols):
-            self._pool_mutated()
-        top = self.buckets[-1]
-        for start in range(0, len(cols), top):
-            self._dispatch_cols(cols.slice(start, start + top), now, pending)
-        self._submit(pending)
-        self.spans["requests"] += len(cols)
-        self.spans["dispatch_s"] += time.perf_counter() - t_start
-        return pending.token
+        tok = self._next_token
+        with self._span("dispatch"):
+            pending = _Pending(token=tok, created=time.perf_counter())
+            pending.marks.append(("dispatch", time.time()))
+            pending.columnar = empty_columnar_outcome()
+            self._next_token += 1
+            ids = cols.ids.tolist()
+            waiting = self.pool._slot_of
+            with self._span("dedupe"):
+                if len(set(ids)) == len(ids):  # common case: no duplicate
+                    keep = np.fromiter((i not in waiting for i in ids), bool,
+                                       len(ids))
+                else:
+                    local: set[str] = set()
+                    keep = np.empty(len(ids), bool)
+                    for j, pid in enumerate(ids):
+                        keep[j] = pid not in waiting and pid not in local
+                        if keep[j]:
+                            local.add(pid)
+                if not keep.all():
+                    cols = cols.take(keep)
+            if len(cols):
+                self._pool_mutated()
+            top = self.buckets[-1]
+            for start in range(0, len(cols), top):
+                self._dispatch_cols(cols.slice(start, start + top), now,
+                                    pending)
+            self._submit(pending)
+            self.spans["requests"] += len(cols)
+        return tok
 
     def rescan_async(self, max_window: int, now: float) -> int | None:
         """Re-submit the longest-waiting players as a window, so threshold
@@ -1085,7 +1162,14 @@ class GpuEngine(Engine):
         one waits its turn); windows finalized out of turn come first."""
         done, self._done_early = self._done_early, []
         self._rb_seal_stale()
-        while self._pending and self._is_ready(self._pending[0]):
+        while self._pending:
+            head = self._pending[0]
+            if not self._is_ready(head):
+                if not self._waiting:  # the host starts to wait here
+                    self._waiting = True
+                    self._span("wait").__enter__()
+                break
+            self._end_wait()
             done.append(self._collect(self._pending.popleft()))
         return done
 
@@ -1095,13 +1179,28 @@ class GpuEngine(Engine):
         report is exact."""
         done, self._done_early = self._done_early, []
         self._rb_seal_stale(force=True)
+        self._end_wait()
         while self._pending:
-            done.append(self._collect(self._pending.popleft()))
+            pending = self._pending.popleft()
+            with self._span("wait"):
+                self._fetch(pending)
+            done.append(self._collect(pending))
         self._quality_force_sync()
         return done
 
     def span_report(self) -> dict[str, float]:
-        """Per-window averages of the host stage spans (ms)."""
+        """Per-window averages of the host stage spans (ms): each
+        ``spans`` key ``<name>_s`` as ``<name>_ms_avg``, over every
+        finalized window (rescan ticks count). Nested spans are included
+        in their parents: dedupe, alloc, pack, h2d and step in dispatch;
+        release and match_ids in finalize; restore_admit in restore.
+        ``wait`` is the host time between the poll that finds the oldest
+        window not ready and the one that finalizes it: the host's wait
+        for the device for a caller that spins, and the caller's own work
+        between polls besides for one that does not (see "Host spans and
+        profiler ranges" in the module docstring for that, for the ranges
+        the same spans open under a profiler, and for their ``mm.``
+        names)."""
         w = max(1, self.spans["windows"])
         return {
             "windows": self.spans["windows"],
@@ -1243,6 +1342,17 @@ class GpuEngine(Engine):
         if self._spec is not None:
             self._spec = None
             self._count("spec_wasted")
+
+    def _span(self, name: str) -> _Span:
+        """The host stage span ``name`` (one of ``SPAN_NAMES``), to use as
+        ``with self._span(name):``."""
+        return self._spans_by_name[name]
+
+    def _end_wait(self) -> None:
+        """Close the wait span ``collect_ready`` opened, if one is open."""
+        if self._waiting:
+            self._waiting = False
+            self._spans_by_name["wait"].__exit__(None, None, None)
 
     def _count(self, name: str, n: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
@@ -1610,35 +1720,33 @@ class GpuEngine(Engine):
         the step are queued."""
         t0 = self._rel_base(now)
         now_rel = float(np.float32(now - t0))  # the packed now row's value
-        _t = time.perf_counter()
-        staging = self._stage(batch, now_rel, requests)
-        staging_list.append(staging)
-        if self._graphs is not None:
-            g = self._step_graph(variant, batch.slot.shape[0])
-            g.static_in.copy_(staging, non_blocking=True)
-        else:  # eager (the CPU: no copy)
-            packed = staging.to(self.device, non_blocking=True)
-        self.spans["h2d_s"] += time.perf_counter() - _t
+        with self._span("h2d"):
+            staging = self._stage(batch, now_rel, requests)
+            staging_list.append(staging)
+            if self._graphs is not None:
+                g = self._step_graph(variant, batch.slot.shape[0])
+                g.static_in.copy_(staging, non_blocking=True)
+            else:  # eager (the CPU: no copy)
+                packed = staging.to(self.device, non_blocking=True)
         if marks is not None:
             marks.append(("h2d", time.time()))
-        _t = time.perf_counter()
-        if self._graphs is not None:
-            out = self._graphs.replay(g)
-        else:
-            out = self._step_fn(variant)(self._pool_for(variant), packed)
-        if marks is not None:
-            marks.append(("formation_bucketed"
-                          if variant.startswith(("bucketed", "frontier"))
-                          else "device_step", time.time()))
-        if keep is not None:
-            out = out.clone()
-            keep.append(out)
-            readback = out if self._rb_k > 1 else _Readback(out)
-        elif self._rb_k > 1:
-            readback = self._rb_attach(out)
-        else:
-            readback = _Readback(out)
-        self.spans["step_s"] += time.perf_counter() - _t
+        with self._span("step"):
+            if self._graphs is not None:
+                out = self._graphs.replay(g)
+            else:
+                out = self._step_fn(variant)(self._pool_for(variant), packed)
+            if marks is not None:
+                marks.append(("formation_bucketed"
+                              if variant.startswith(("bucketed", "frontier"))
+                              else "device_step", time.time()))
+            if keep is not None:
+                out = out.clone()
+                keep.append(out)
+                readback = out if self._rb_k > 1 else _Readback(out)
+            elif self._rb_k > 1:
+                readback = self._rb_attach(out)
+            else:
+                readback = _Readback(out)
         return readback
 
     # ---- internals: grouped readback ----------------------------------------
@@ -1719,14 +1827,12 @@ class GpuEngine(Engine):
             window = window[:free]
             if not window:
                 return
-        _t = time.perf_counter()
-        slots = self.pool.allocate(window)
-        self.spans["alloc_s"] += time.perf_counter() - _t
+        with self._span("alloc"):
+            slots = self.pool.allocate(window)
         bucket = self._bucket_for(len(window))
-        _t = time.perf_counter()
-        batch = self.pool.batch_arrays(window, slots, bucket,
-                                       self._rel_base(now))
-        self.spans["pack_s"] += time.perf_counter() - _t
+        with self._span("pack"):
+            batch = self.pool.batch_arrays(window, slots, bucket,
+                                           self._rel_base(now))
         out = self._launch(self._step_for(batch), batch, now,
                            pending.staging, window, marks=pending.marks)
         self.util["lanes_valid"] += len(window)
@@ -1747,14 +1853,12 @@ class GpuEngine(Engine):
             cols = cols.slice(0, free)
             if not len(cols):
                 return
-        _t = time.perf_counter()
-        slots = self.pool.allocate_columns(cols)
-        self.spans["alloc_s"] += time.perf_counter() - _t
+        with self._span("alloc"):
+            slots = self.pool.allocate_columns(cols)
         bucket = self._bucket_for(len(cols))
-        _t = time.perf_counter()
-        batch = self.pool.batch_arrays_cols(cols, slots, bucket,
-                                            self._rel_base(now))
-        self.spans["pack_s"] += time.perf_counter() - _t
+        with self._span("pack"):
+            batch = self.pool.batch_arrays_cols(cols, slots, bucket,
+                                                self._rel_base(now))
         out = self._launch(self._step_for(batch), batch, now,
                            pending.staging, marks=pending.marks)
         self.util["lanes_valid"] += len(cols)
@@ -1783,8 +1887,9 @@ class GpuEngine(Engine):
 
     def _fetch(self, pending: _Pending) -> None:
         """Read the window's results on the host (already copied in the
-        common case); a device failure is parked on the window."""
-        if pending.raw is not None:
+        common case); a device failure is parked on the window. A second
+        call does nothing."""
+        if pending.raw is not None or pending.error is not None:
             return
         try:
             pending.raw = [h.numpy() for _, h, _ in pending.chunks]
@@ -1805,47 +1910,48 @@ class GpuEngine(Engine):
         the mirror still holds them, and a revive restores from the mirror —
         its token goes to ``failed_tokens`` and the error to
         ``device_error``."""
-        _t = time.perf_counter()
-        self._open -= 1
-        if self._open == 0:
-            now_pc = time.perf_counter()
-            self.util["busy_s"] += max(0.0, now_pc - self._util_mark)
-            self._util_mark = now_pc
-        self._quality_sync_finalize()
-        if pending.created:
-            self.spans["windows"] += 1
-            self.spans["turnaround_s"] += time.perf_counter() - pending.created
-        if pending.chunks:
-            if self._rb_k > 1:
-                # The results rode their groups' copies: the latest seal
-                # among them is the window's.
-                last = max((h.group for _, h, _ in pending.chunks),
-                           key=lambda g: g.sealed_pc)
-                pending.marks.append(("readback_seal", last.sealed_at))
-                pending.queued_readback = last.sealed_pc
-            self.util["readback_s"] += _t - pending.queued_readback
-        pending.marks.append(("collect", time.time()))
-        marks = self.window_marks
-        marks[pending.token] = pending.marks
-        while len(marks) > 512:
-            # Unclaimed marks (sync callers, failed windows): oldest first.
-            marks.pop(next(iter(marks)))
-        if pending.error is not None:
-            self.device_error = pending.error
-            self.failed_tokens.add(pending.token)
-            for payload, _, _ in pending.chunks:
-                if pending.columnar is not None:
-                    pending.columnar.q_ids = np.concatenate(
-                        [pending.columnar.q_ids, payload[0].ids])
-                else:
-                    pending.outcome.queued.extend(payload)
-        elif pending.columnar is not None:
-            self._finalize_columnar(pending)
-        elif self._team_device:
-            self._finalize_team(pending)
-        else:
-            self._finalize_objects(pending)
-        self.spans["finalize_s"] += time.perf_counter() - _t
+        with self._span("finalize"):
+            t_fin = time.perf_counter()
+            self._open -= 1
+            if self._open == 0:
+                self.util["busy_s"] += max(0.0, t_fin - self._util_mark)
+                self._util_mark = t_fin
+            self._quality_sync_finalize()
+            if pending.created:
+                self.spans["windows"] += 1
+                self.spans["turnaround_s"] += (time.perf_counter()
+                                               - pending.created)
+            if pending.chunks:
+                if self._rb_k > 1:
+                    # The results rode their groups' copies: the latest
+                    # seal among them is the window's.
+                    last = max((h.group for _, h, _ in pending.chunks),
+                               key=lambda g: g.sealed_pc)
+                    pending.marks.append(("readback_seal", last.sealed_at))
+                    pending.queued_readback = last.sealed_pc
+                self.util["readback_s"] += t_fin - pending.queued_readback
+            pending.marks.append(("collect", time.time()))
+            marks = self.window_marks
+            marks[pending.token] = pending.marks
+            while len(marks) > 512:
+                # Unclaimed marks (sync callers, failed windows): oldest
+                # first.
+                marks.pop(next(iter(marks)))
+            if pending.error is not None:
+                self.device_error = pending.error
+                self.failed_tokens.add(pending.token)
+                for payload, _, _ in pending.chunks:
+                    if pending.columnar is not None:
+                        pending.columnar.q_ids = np.concatenate(
+                            [pending.columnar.q_ids, payload[0].ids])
+                    else:
+                        pending.outcome.queued.extend(payload)
+            elif pending.columnar is not None:
+                self._finalize_columnar(pending)
+            elif self._team_device:
+                self._finalize_team(pending)
+            else:
+                self._finalize_objects(pending)
 
     def _finalize_objects(self, pending: _Pending) -> None:
         """Object finalize. Without a device accumulator (a sharded pool)
@@ -1881,8 +1987,9 @@ class GpuEngine(Engine):
                                  if r.enqueued_at else 0.0)
                             acc.append((r.rating, qual, w, d))
                 self._pool_mutated()
-                self.pool.release(qs_l)
-                self.pool.release(cs_l)
+                with self._span("release"):
+                    self.pool.release(qs_l)
+                    self.pool.release(cs_l)
             for req in window:
                 if req.id not in matched_ids:
                     out.queued.append(req)
@@ -1930,9 +2037,11 @@ class GpuEngine(Engine):
                 # enqueue stamp (0 where unstamped).
                 wait_a = np.where(enq_a != 0.0, np.maximum(0.0, now - enq_a), 0.0)
                 wait_b = np.where(enq_b != 0.0, np.maximum(0.0, now - enq_b), 0.0)
+                with self._span("match_ids"):
+                    match_ids = new_match_ids(qs.size)
                 chunk = {
                     "m_id_a": pool.m_id[qs], "m_id_b": pool.m_id[cs],
-                    "m_match_id": new_match_ids(qs.size),
+                    "m_match_id": match_ids,
                     "m_dist": d, "m_quality": quality,
                     "m_reply_a": pool.m_reply[qs],
                     "m_reply_b": pool.m_reply[cs],
@@ -1955,7 +2064,8 @@ class GpuEngine(Engine):
                         spread=np.concatenate([d, d]))
                 matched = np.concatenate([qs, cs])
                 self._pool_mutated()
-                pool.release(matched)
+                with self._span("release"):
+                    pool.release(matched)
                 queued_ids = cols.ids[~np.isin(slots, matched)]
             else:
                 queued_ids = cols.ids
@@ -2009,7 +2119,8 @@ class GpuEngine(Engine):
                 out.matches.append(Match(match_id=new_match_id(),
                                          teams=(team_a, team_b),
                                          quality=float(quality[k])))
-                self.pool.release(row)
+                with self._span("release"):
+                    self.pool.release(row)
             for req in window:
                 if req.id not in matched_ids:
                     out.queued.append(req)

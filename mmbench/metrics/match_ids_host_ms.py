@@ -1,0 +1,10 @@
+"""``GpuEngine.spans["match_ids_s"]``, ``new_match_ids`` inside the columnar
+finalize, gained over the timed window, divided by the windows it finalized
+in that time (``spans["windows"]``; ms). Nothing where the program has no
+such span."""
+
+
+def read(rec):
+    w = rec.spans.get("windows", 0)
+    s = rec.spans.get("match_ids_s")
+    return s / w * 1e3 if w and s is not None else None

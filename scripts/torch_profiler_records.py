@@ -97,8 +97,7 @@ def main(argv) -> int:
 
     def count(prof, n):
         """``device_busy``'s counts from a finished capture."""
-        kernels = [(e.count, e.key) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")]
+        kernels = [(e.count, e.key) for e in smoke.device_work(prof)]
         return {"kernels_per_window": sum(c for c, _ in kernels) / n,
                 "own_kernels": {name: sum(c for c, k in kernels if name in k)
                                 for name in smoke.OWN_KERNELS}}
